@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke test of the port on one CUDA GPU: builds the kernel, checks it,
-and drives the stream path end to end.
+"""Smoke test of the port on one CUDA GPU: builds the kernels, checks them,
+and drives the stream paths end to end.
 
     python3 chip_smoke.py          # from the repository root; needs one GPU
 
@@ -9,24 +9,37 @@ Phases (each prints its results; any failure raises and exits non-zero):
 1. environment: torch/CUDA versions, the card's name and power limit;
    fails without CUDA;
 2. build: compiles wrp_tpu_torch/csrc with nvcc (first use) and times it;
-3. kernel vs its plain torch version at 3 x 1024 x 512, batch 16 (48
-   channel-sectors), int16 and f32 input, on seeded noise and on an
+3. the radix kernel vs its plain torch version at 3 x 1024 x 512, batch 16
+   (48 channel-sectors), int16 and f32 input, on seeded noise and on an
    adversarial input whose Doppler energy sits in the clipped bins;
    power rel-L2 <= 1e-5 against the plain version and against the fp64
    oracle, zdb/zdr <= 2e-4; CUDA-event timings of both;
-4. the slice: a `cli produce` process (UdpProducer) -> UdpIngest
-   (loopback) -> StreamingExecutor (method="pallas", batch 16) ->
-   UdpEgress + VolumeScan, one elevation cut of 143 sectors at 21.45/s;
-   requires 0 drops, full cut coverage, the kernel's launch count, and
-   zdb/zdr of sampled sectors within 2e-4 of the oracle;
-5. capacity: the same executor fed from memory, unpaced, two cuts.
+4. the wire kernel on the same sectors' wire words, 3- and 2-channel: vs
+   its plain version, vs the radix kernel on the host-decoded planar
+   sectors, and vs the oracle, with the same bounds;
+5. the dense kernel at 3 x 1000 x 512, batch 16 (m does not split into
+   radix branches), and at m = 40 and m = 8: vs plain and oracle;
+6. the host-decode slice: a `cli produce` process (UdpProducer) ->
+   UdpIngest (loopback) -> StreamingExecutor (method="pallas", batch 16)
+   -> UdpEgress + VolumeScan, one elevation cut of 143 sectors at
+   21.45/s; requires 0 drops, full cut coverage, the radix kernel's launch
+   count, and zdb/zdr of sampled sectors within 2e-4 of the oracle;
+7. the device-decode slice: the same with device_decode=True (the wire
+   kernel; the host only views the wire bytes);
+8. capacity: the executor fed from memory, unpaced, host decode and
+   device decode;
+9. the dense path: the executor at m = 1000 from memory, device decode
+   (a decode pass, then the dense kernel) and host decode.
 
-Prints a JSON line of per-kernel results, then as its last line
-{"ok": true, "device": {...}}.  Imports torch, numpy and wrp_tpu_torch only.
+Every launch counter is set to 0 just before each path runs and read just
+after.  Prints a JSON line of per-kernel results (launches, errors, ms,
+plain ms, bound ms), then as its last line {"ok": true, "device": {...}}.
+Imports torch, numpy and wrp_tpu_torch only.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -46,7 +59,7 @@ from wrp_tpu_torch.config import DEFAULT_CONFIG, tiny_config  # noqa: E402
 from wrp_tpu_torch.constants import PipelineConstants, hamming_factors  # noqa: E402
 from wrp_tpu_torch.io import codec, frames  # noqa: E402
 from wrp_tpu_torch.io.udp import UdpEgress, UdpIngest  # noqa: E402
-from wrp_tpu_torch.ops import _build, fullchain  # noqa: E402
+from wrp_tpu_torch.ops import _build, device_codec, fullchain  # noqa: E402
 from wrp_tpu_torch.pipeline import stage09_10_products  # noqa: E402
 from wrp_tpu_torch.runtime import StreamingExecutor, VolumeScan  # noqa: E402
 
@@ -56,6 +69,42 @@ RATE = 21.45              # sectors/s: a real radar's cut rate
 POWER_TOL = 1e-5
 PRODUCT_TOL = 2e-4
 SEED = 2024
+DENSE_M = 1000            # radix_for(1000) == 1: the dense kernel's geometry
+
+# H100 SXM peaks for the bound (NVIDIA data sheet, 700 W): fp32 on the CUDA
+# cores and HBM3 bandwidth
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def bound(flops: float, nbytes: float):
+    """(ms, "operations" | "bytes"): the least time the card could take."""
+    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def chain_flops(m: int, n: int) -> float:
+    """The least fp32 flops of the fused chain for one channel-sector, for
+    the bound: the radix-R DIT form with the largest R <= 8 dividing m
+    (the dense A_half contraction does R/2 times the contraction's work),
+    whatever form the kernel runs: the complex contraction (8 flops per
+    complex multiply-add, m * m/R * n of them), the combine (R per output
+    element) and the Parseval epilogue (26 flops per element of Y [m/2, n]:
+    window 2, mean 2, centring 2, energy 4, four phasor projections 16)."""
+    radix = next(r for r in (8, 4, 2) if m % r == 0)
+    mh = m // 2
+    return (8.0 * (m * (m // radix) * n + mh * radix * n)
+            + 26.0 * mh * n)
+
+
+def reset_counts() -> None:
+    fullchain.LAUNCHES = fullchain.WIRE_LAUNCHES = fullchain.DENSE_LAUNCHES = 0
+
+
+def read_counts() -> dict:
+    return {"radix": fullchain.LAUNCHES, "wire": fullchain.WIRE_LAUNCHES,
+            "dense": fullchain.DENSE_LAUNCHES}
 
 
 class SmokeFailure(RuntimeError):
@@ -95,6 +144,9 @@ def phase_build() -> None:
           f"{_build.library_path().name}", flush=True)
     log = _build.library_path().with_suffix(".log")
     if log.exists():
+        print("build steps (wall s, sources in parallel, then the link): "
+              + ", ".join(ln[3:] for ln in log.read_text().splitlines()
+                          if ln.startswith("== ")), flush=True)
         regs = sorted({ln.split("Used")[1].split(",")[0].strip()
                        for ln in log.read_text().splitlines()
                        if "Used" in ln and "registers" in ln})
@@ -139,48 +191,80 @@ def planar_i16(iq: np.ndarray) -> np.ndarray:
     return np.stack([iq.real, iq.imag], axis=-3).astype(np.int16)
 
 
-def phase_kernel() -> dict:
-    cfg = DEFAULT_CONFIG
-    consts = PipelineConstants.build(cfg)
-    plan = fullchain.build_plan(consts, "cuda")
-    check(plan.radix == 8, f"production geometry takes radix 8 (got "
-                           f"{plan.radix}), tile {fullchain.kernel_tile(plan)}")
-    gain = torch.from_numpy(consts.gain).cuda()
+def timed(fns: dict, order) -> dict:
+    """CUDA-event ms of each named fn, run in `order` (e.g. plain, kernel,
+    kernel, plain); the best of each name's turns."""
+    times = {name: [] for name in fns}
+    for name in order:
+        times[name].append(cuda_ms(fns[name]))
+    print("timings (median of 10 per turn, order " + "/".join(order) + "): "
+          + json.dumps(times), flush=True)
+    return {name: min(v) for name, v in times.items()}
 
-    noise = [oracle.synthetic_iq(cfg, kind="noise", seed=SEED + b)
-             for b in range(BATCH)]
-    adv = adversarial_sector(cfg)
-    inputs = {"noise": (np.stack([planar_i16(s) for s in noise]), noise[:3]),
-              "clip-bin": (np.stack([planar_i16(adv)] * BATCH), [adv])}
-    worst_rel = 0.0
-    max_abs = 0.0
+
+class Oracle:
+    """fp64 oracle power of each input sector, computed once."""
+
+    def __init__(self):
+        self._pow = {}
+
+    def power(self, key, iq, cfg) -> np.ndarray:
+        if key not in self._pow:
+            self._pow[key] = oracle.channel_power(iq, cfg)
+        return self._pow[key][: cfg.num_channels]
+
+
+def check_vs_oracle(what: str, pk: np.ndarray, pow64: np.ndarray, cfg,
+                    gain: torch.Tensor) -> None:
+    """Power [C, m/2] of one sector vs the oracle's; zdb/zdr too."""
+    ep = max(rel(pow64[c], pk[c]) for c in range(cfg.num_channels))
+    zdb64, zdr64 = oracle.stage09_10_products(pow64[0], pow64[1], cfg)
+    pkt = torch.from_numpy(np.ascontiguousarray(pk)).cuda()
+    zdb, zdr = (t.cpu().numpy() for t in stage09_10_products(
+        pkt[0], pkt[1], gain))
+    ezdb, ezdr = rel(zdb64, zdb), rel(zdr64, zdr)
+    check(ep <= POWER_TOL and ezdb <= PRODUCT_TOL and ezdr <= PRODUCT_TOL
+          and zdb[0] == -np.inf,
+          f"{what} vs fp64 oracle: power {ep:.3e}, zdb {ezdb:.3e}, zdr "
+          f"{ezdr:.3e}, zdb[0] {zdb[0]}")
+
+
+def planar_kernel_checks(name, kernel, plan, cfg, inputs, orc, gain):
+    """A planar kernel (radix or dense) vs its plain version and the oracle,
+    int16 and f32 input; returns (worst rel-L2, max abs error) vs plain."""
+    worst_rel = max_abs = 0.0
     for label, (x_np, oracle_sectors) in inputs.items():
         x16 = torch.from_numpy(x_np).cuda().reshape(-1, 2, cfg.m, cfg.n)
         for x in (x16, x16.float()):
-            got = fullchain.fused_chain_power_radix(x, plan)
+            got = kernel(x, plan)
             torch.cuda.synchronize()
             ref = fullchain.fused_chain_power_reference(x, plan)
             g, r = got.cpu().numpy(), ref.cpu().numpy()
             e = rel(r, g)
             worst_rel = max(worst_rel, e)
             max_abs = max(max_abs, float(np.max(np.abs(g - r))))
-            check(e <= POWER_TOL, f"{label} {x.dtype}: kernel vs plain "
+            check(e <= POWER_TOL, f"{name} {label} {x.dtype}: kernel vs plain "
                                   f"power rel-L2 {e:.3e} <= {POWER_TOL}")
             for s, iq in enumerate(oracle_sectors):
-                pow64 = oracle.channel_power(iq, cfg)
-                pk = g.reshape(BATCH, cfg.num_channels, -1)[s]
-                ep = max(rel(pow64[c], pk[c]) for c in range(cfg.num_channels))
-                zdb64, zdr64 = oracle.stage09_10_products(pow64[0], pow64[1],
-                                                          cfg)
-                pkt = torch.from_numpy(pk).cuda()
-                zdb, zdr = (t.cpu().numpy() for t in stage09_10_products(
-                    pkt[0], pkt[1], gain))
-                ezdb, ezdr = rel(zdb64, zdb), rel(zdr64, zdr)
-                check(ep <= POWER_TOL and ezdb <= PRODUCT_TOL
-                      and ezdr <= PRODUCT_TOL and zdb[0] == -np.inf,
-                      f"{label} {x.dtype} sector {s} vs fp64 oracle: power "
-                      f"{ep:.3e}, zdb {ezdb:.3e}, zdr {ezdr:.3e}, "
-                      f"zdb[0] {zdb[0]}")
+                pk = g.reshape(-1, cfg.num_channels, cfg.m // 2)[s]
+                check_vs_oracle(f"{name} {label} {x.dtype} sector {s}", pk,
+                                orc.power((cfg.m, cfg.n, label, s), iq, cfg), cfg,
+                                gain)
+    return worst_rel, max_abs
+
+
+def phase_kernel(orc: Oracle, noise, adv) -> dict:
+    cfg = DEFAULT_CONFIG
+    consts = PipelineConstants.build(cfg)
+    plan = fullchain.build_plan(consts, "cuda")
+    check(plan.radix == 8, f"production geometry takes radix 8 (got "
+                           f"{plan.radix}), tile {fullchain.kernel_tile(plan)}")
+    gain = torch.from_numpy(consts.gain).cuda()
+    inputs = {"noise": (np.stack([planar_i16(s) for s in noise]), noise[:3]),
+              "clip-bin": (np.stack([planar_i16(adv)] * BATCH), [adv])}
+    worst_rel, max_abs = planar_kernel_checks(
+        "radix", fullchain.fused_chain_power_radix, plan, cfg, inputs, orc,
+        gain)
 
     # R = 4 and R = 2 geometries (tiny, correctness only)
     for m, n in ((32, 64), (16, 64)):
@@ -197,17 +281,131 @@ def phase_kernel() -> dict:
 
     x16 = torch.from_numpy(inputs["noise"][0]).cuda().reshape(-1, 2, cfg.m,
                                                                cfg.n)
-    times = {"plain": [], "kernel": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        fn = (fullchain.fused_chain_power_radix if name == "kernel"
-              else fullchain.fused_chain_power_reference)
-        times[name].append(cuda_ms(lambda: fn(x16, plan)))
-    ms, plain_ms = min(times["kernel"]), min(times["plain"])
-    print(f"batch {BATCH} x {cfg.num_channels} x {cfg.m} x {cfg.n} int16: "
-          f"kernel {times['kernel']} ms, plain {times['plain']} ms "
-          f"(median of 10 each, order plain/kernel/kernel/plain)", flush=True)
-    return {"max_abs_err": max_abs, "rel_l2": worst_rel, "ms": ms,
-            "plain_ms": plain_ms}
+    t = timed({"plain": lambda: fullchain.fused_chain_power_reference(x16, plan),
+               "kernel": lambda: fullchain.fused_chain_power_radix(x16, plan)},
+              ("plain", "kernel", "kernel", "plain"))
+    bc = x16.shape[0]
+    bound_ms, bound_by = bound(
+        bc * chain_flops(cfg.m, cfg.n),
+        x16.numel() * 2 + plan.a_kernel.numel() * 4 + bc * cfg.m // 2 * 4)
+    print(f"radix kernel, batch {BATCH} x {cfg.num_channels} x {cfg.m} x "
+          f"{cfg.n} int16: {t['kernel']:.3f} ms, plain {t['plain']:.3f} ms, "
+          f"bound {bound_ms:.3f} ms ({bound_by})", flush=True)
+    return {"max_abs_err": max_abs, "rel_l2": worst_rel, "ms": t["kernel"],
+            "plain_ms": t["plain"], "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def wire_batch(sectors, cfg) -> np.ndarray:
+    return np.stack([np.frombuffer(codec.encode_iq(iq[: cfg.num_channels],
+                                                   cfg), np.uint8)
+                     for iq in sectors])
+
+
+def phase_kernel_wire(orc: Oracle, noise, adv) -> dict:
+    """The wire kernel on wire words of the phase-3
+    sectors, 3- and 2-channel: vs its plain version, vs the radix kernel on
+    the host-decoded planar sectors, and vs the oracle."""
+    worst_rel = max_abs = 0.0
+    out = {}
+    for ch in (3, 2):
+        cfg = dataclasses.replace(DEFAULT_CONFIG, num_channels=ch)
+        consts = PipelineConstants.build(cfg)
+        plan = fullchain.build_plan(consts, "cuda", channels=ch)
+        gain = torch.from_numpy(consts.gain).cuda()
+        for label, sectors, n_oracle in (("noise", noise, 3),
+                                         ("clip-bin", [adv] * BATCH, 1)):
+            wires = wire_batch(sectors, cfg)
+            w32 = device_codec.wire_words_i32(
+                torch.from_numpy(wires).cuda(), cfg).contiguous()
+            planar = torch.from_numpy(np.stack([
+                codec.decode_iq_i16(w.tobytes(), cfg) for w in wires])).cuda()
+            via_radix = fullchain.fused_chain_power_radix(
+                planar.reshape(-1, 2, cfg.m, cfg.n), plan).reshape(
+                    BATCH, ch, -1).cpu().numpy()
+            ref = fullchain.fused_chain_power_wire_reference(
+                w32, plan, ch).cpu().numpy()
+            got = fullchain.fused_chain_power_wire(w32, plan, ch)
+            torch.cuda.synchronize()
+            g = got.cpu().numpy()
+            e, er = rel(ref, g), rel(via_radix, g)
+            check(e <= POWER_TOL and er <= POWER_TOL,
+                  f"wire {ch}ch {label}: kernel vs plain {e:.3e}, vs radix "
+                  f"kernel on host-decoded sectors {er:.3e} (<= {POWER_TOL})")
+            worst_rel = max(worst_rel, e)
+            max_abs = max(max_abs, float(np.max(np.abs(g - ref))))
+            for s in range(n_oracle):
+                check_vs_oracle(
+                    f"wire {ch}ch {label} sector {s}", g[s],
+                    orc.power((cfg.m, cfg.n, label, s), sectors[s],
+                              DEFAULT_CONFIG)[:ch], cfg, gain)
+        if ch == 3:
+            w32 = device_codec.wire_words_i32(
+                torch.from_numpy(wire_batch(noise, cfg)).cuda(),
+                cfg).contiguous()
+            t = timed({
+                "plain": lambda: fullchain.fused_chain_power_wire_reference(
+                    w32, plan, ch),
+                "kernel": lambda: fullchain.fused_chain_power_wire(
+                    w32, plan, ch)},
+                ("plain", "kernel", "kernel", "plain"))
+            bound_ms, bound_by = bound(
+                BATCH * ch * chain_flops(cfg.m, cfg.n),
+                w32.numel() * 4 + plan.a_kernel.numel() * 4
+                + BATCH * ch * cfg.m // 2 * 4)
+            print(f"wire kernel, {BATCH} sectors x {ch} x {cfg.m} x {cfg.n} "
+                  f"words: {t['kernel']:.3f} ms, plain {t['plain']:.3f} ms, "
+                  f"bound {bound_ms:.3f} ms ({bound_by})", flush=True)
+            out = {"ms": t["kernel"], "plain_ms": t["plain"],
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+    return {"max_abs_err": max_abs, "rel_l2": worst_rel, **out}
+
+
+def phase_kernel_dense(orc: Oracle) -> dict:
+    """The dense kernel at m = 1000 (batch 16 x 3 channels) and at m = 40
+    and m = 8: vs its plain version and the oracle."""
+    cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=DENSE_M)
+    consts = PipelineConstants.build(cfg)
+    plan = fullchain.build_plan(consts, "cuda")
+    check(plan.radix == 1, f"m={DENSE_M} takes the dense form (radix "
+                           f"{plan.radix}), tile {fullchain.dense_tile(plan)}")
+    gain = torch.from_numpy(consts.gain).cuda()
+    noise = [oracle.synthetic_iq(cfg, kind="noise", seed=SEED + b)
+             for b in range(BATCH)]
+    adv = adversarial_sector(cfg)
+    inputs = {"noise": (np.stack([planar_i16(s) for s in noise]), noise[:3]),
+              "clip-bin": (np.stack([planar_i16(adv)] * BATCH), [adv])}
+    worst_rel, max_abs = planar_kernel_checks(
+        "dense", fullchain.fused_chain_power_dense, plan, cfg, inputs, orc,
+        gain)
+    for m, n in ((40, 32), (8, 16)):
+        tcfg = tiny_config(m=m, n=n)
+        tconsts = PipelineConstants.build(tcfg)
+        tplan = fullchain.build_plan(tconsts, "cuda")
+        sectors = [oracle.synthetic_iq(tcfg, kind="noise", seed=m + k)
+                   for k in range(3)]
+        tin = {"tiny noise": (np.stack([planar_i16(s) for s in sectors]),
+                              sectors)}
+        e, a = planar_kernel_checks(
+            f"dense m={m} n={n} tile {fullchain.dense_tile(tplan)}",
+            fullchain.fused_chain_power_dense, tplan, tcfg, tin, orc,
+            torch.from_numpy(tconsts.gain).cuda())
+        worst_rel, max_abs = max(worst_rel, e), max(max_abs, a)
+
+    x16 = torch.from_numpy(inputs["noise"][0]).cuda().reshape(-1, 2, cfg.m,
+                                                               cfg.n)
+    t = timed({"plain": lambda: fullchain.fused_chain_power_reference(x16, plan),
+               "kernel": lambda: fullchain.fused_chain_power_dense(x16, plan)},
+              ("plain", "kernel", "kernel", "plain"))
+    bc = x16.shape[0]
+    bound_ms, bound_by = bound(
+        bc * chain_flops(cfg.m, cfg.n),
+        x16.numel() * 2 + plan.a_kernel.numel() * 4 + bc * cfg.m // 2 * 4)
+    print(f"dense kernel, batch {BATCH} x {cfg.num_channels} x {cfg.m} x "
+          f"{cfg.n} int16: {t['kernel']:.3f} ms, plain {t['plain']:.3f} ms, "
+          f"bound {bound_ms:.3f} ms ({bound_by}, the radix-8 form's work; "
+          f"the dense contraction does 4x that)", flush=True)
+    return {"max_abs_err": max_abs, "rel_l2": worst_rel, "ms": t["kernel"],
+            "plain_ms": t["plain"], "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 class _Sink:
@@ -246,14 +444,16 @@ class _Sink:
             s.close()
 
 
-def phase_stream() -> int:
+def phase_stream(device_decode: bool) -> dict:
     """The radar's sender is its own process (`cli produce`, which drives
     UdpProducer), as in deployment.  A producer thread inside this process
     dropped 9 of 143 sectors at the radar's rate on an H100 host: it and
     the Python ingest loop share one interpreter, and a paced 1 MB burst
     overran the 4.2 MB receive buffer while ingest waited for it.  Sector
     k's IQ is produce_sector_iq(cfg, SEED, k % POOL) (`--pool`), so the
-    oracle can recompute any sector."""
+    oracle can recompute any sector.  device_decode=True ships the wire
+    bytes to the device (the wire kernel decodes them)."""
+    tag = "device-decode" if device_decode else "host-decode"
     cfg = DEFAULT_CONFIG
     pool_n = 8
     ingest = UdpIngest(cfg, port=0, timeout_s=2.0)
@@ -271,12 +471,12 @@ def phase_stream() -> int:
         volume=volume, max_sectors=SECTORS, idle_limit=15,
         on_ready=lambda: producer.append(subprocess.Popen(
             cmd, cwd=os.path.dirname(os.path.abspath(__file__)))),
-        device="cuda")
-    fullchain.LAUNCHES = 0
+        device="cuda", device_decode=device_decode)
+    reset_counts()
     try:
         stats = ex.run()
     finally:
-        launches = fullchain.LAUNCHES
+        counts = read_counts()
         for proc in producer:
             try:
                 proc.wait(timeout=60)
@@ -289,15 +489,21 @@ def phase_stream() -> int:
         sink.close()
     check(bool(producer) and producer[0].returncode == 0,
           "producer process exited 0")
-    print("stream stats: " + json.dumps(
+    print(f"{tag} stream stats: " + json.dumps(
         {k: stats[k] for k in ("processed_sectors", "sectors_per_second",
                                "latency_ms", "transport", "device")}),
         flush=True)
     lat = stats["latency_ms"]
-    print(f"stream: {stats['processed_sectors']} sectors, requested "
+    print(f"{tag} stream: {stats['processed_sectors']} sectors, requested "
           f"{RATE}/s, delivered {ex.throughput.active_rate():.2f} sectors/s "
           f"over the active span; latency p50 {lat['p50_ms']} ms p99 "
-          f"{lat['p99_ms']} ms; egress frames {sink.frames}", flush=True)
+          f"{lat['p99_ms']} ms; mean ingest/decode "
+          f"{stats['timers']['ingest/decode']['mean_ms']} ms; egress frames "
+          f"{sink.frames}; launches {counts}", flush=True)
+    samples = ex.latency.samples()
+    worst = sorted(range(len(samples)), key=samples.__getitem__)[-3:]
+    print(f"{tag} stream: worst latencies (arrival index: ms) " + ", ".join(
+        f"{k}: {1e3 * samples[k]:.3f}" for k in reversed(worst)), flush=True)
     tr = stats["transport"]
     check(stats["processed_sectors"] == SECTORS,
           f"{stats['processed_sectors']}/{SECTORS} sectors processed")
@@ -308,11 +514,12 @@ def phase_stream() -> int:
           f"volume covers the cut: {int(volume.coverage[:, 0].sum())}/"
           f"{cfg.num_sectors} sectors of elevation 0")
     need = math.ceil(SECTORS / BATCH)
-    check(launches >= need, f"kernel launched {launches} times during the "
-                            f"run (>= {need})")
+    kernel = "wire" if device_decode else "radix"
+    check(counts[kernel] >= need, f"{kernel} kernel launched {counts[kernel]} "
+                                  f"times during the run (>= {need})")
     check(sink.frames == [SECTORS, SECTORS],
           f"egress delivered {sink.frames} zdb/zdr frames")
-    for k in (0, 37, 101, SECTORS - 1):
+    for k in (0, SECTORS // 4, 5 * SECTORS // 7, SECTORS - 1):
         zdb64, zdr64 = oracle.process_sector(
             oracle.produce_sector_iq(cfg, SEED, k % pool_n), cfg)
         zdb, zdr = volume.data[0, :, k, 0], volume.data[1, :, k, 0]
@@ -321,7 +528,7 @@ def phase_stream() -> int:
               and zdb[0] == -np.inf,
               f"sector {k} vs fp64 oracle: zdb {ezdb:.3e}, zdr {ezdr:.3e}, "
               f"zdb[0] {zdb[0]}")
-    return launches
+    return counts
 
 
 class _MemoryFeed:
@@ -340,47 +547,116 @@ class _MemoryFeed:
                 frames.IngestHeader(k % self.num_sectors, 0, 0))
 
 
-def phase_capacity(count: int = 2 * SECTORS) -> None:
+def phase_capacity(device_decode: bool, count: int = 2 * SECTORS) -> None:
     """Unpaced run of the same executor fed from memory; products must be
     finite.  Reports sectors/s over the active span (first to last batch)."""
     cfg = DEFAULT_CONFIG
+    tag = "device-decode" if device_decode else "host-decode"
     wires = [codec.encode_iq(oracle.produce_sector_iq(cfg, SEED, j), cfg)
              for j in range(4)]
     volume = VolumeScan(cfg)
     ex = StreamingExecutor(cfg, transport=_MemoryFeed(wires, count,
                                                       cfg.num_sectors),
                            batch=BATCH, method="pallas", volume=volume,
-                           max_sectors=count, idle_limit=1, device="cuda")
+                           max_sectors=count, idle_limit=1, device="cuda",
+                           device_decode=device_decode)
+    reset_counts()
     stats = ex.run()
+    counts = read_counts()
     lat = stats["latency_ms"]
     timers = {k: v["mean_ms"] for k, v in stats["timers"].items()}
-    print(f"capacity: {stats['processed_sectors']} sectors unpaced from "
-          f"memory, {ex.throughput.active_rate():.2f} sectors/s over the "
+    print(f"{tag} capacity: {stats['processed_sectors']} sectors unpaced "
+          f"from memory, {ex.throughput.active_rate():.2f} sectors/s over the "
           f"active span; latency p50 {lat['p50_ms']} ms p99 {lat['p99_ms']} "
-          f"ms; mean ms per call {json.dumps(timers)}", flush=True)
+          f"ms; launches {counts}; mean ms per call {json.dumps(timers)}",
+          flush=True)
     check(stats["processed_sectors"] == count,
-          f"capacity run processed {stats['processed_sectors']}/{count}")
+          f"{tag} capacity run processed {stats['processed_sectors']}/{count}")
     check(bool(np.isfinite(volume.data[:, 1:, :, 0]).all()),
-          "capacity run products finite beyond bin 0")
+          f"{tag} capacity run products finite beyond bin 0")
+
+
+def phase_dense_path() -> int:
+    """The executor at m = 1000 (no radix split) from memory: device decode
+    (decode_wire_i16, then the dense kernel) and host decode.  Sampled
+    sectors within 2e-4 of the oracle; returns the dense kernel's launches
+    over both runs."""
+    cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=DENSE_M)
+    count = 2 * BATCH
+    iqs = [oracle.produce_sector_iq(cfg, SEED, j) for j in range(4)]
+    wires = [codec.encode_iq(iq, cfg) for iq in iqs]
+    launches = 0
+    for device_decode in (True, False):
+        tag = "device-decode" if device_decode else "host-decode"
+        volume = VolumeScan(cfg)
+        ex = StreamingExecutor(cfg, transport=_MemoryFeed(wires, count,
+                                                          cfg.num_sectors),
+                               batch=BATCH, method="pallas", volume=volume,
+                               max_sectors=count, idle_limit=1, device="cuda",
+                               device_decode=device_decode)
+        reset_counts()
+        stats = ex.run()
+        counts = read_counts()
+        print(f"dense path m={DENSE_M}, {tag}: {stats['processed_sectors']} "
+              f"sectors, {ex.throughput.active_rate():.2f} sectors/s; "
+              f"launches {counts}", flush=True)
+        check(stats["processed_sectors"] == count
+              and counts["dense"] >= count // BATCH
+              and counts["radix"] == counts["wire"] == 0,
+              f"dense path {tag}: {stats['processed_sectors']}/{count} "
+              f"sectors through the dense kernel only ({counts})")
+        for k in range(4):
+            zdb64, zdr64 = oracle.process_sector(iqs[k], cfg)
+            zdb, zdr = volume.data[0, :, k, 0], volume.data[1, :, k, 0]
+            ezdb, ezdr = rel(zdb64, zdb), rel(zdr64, zdr)
+            check(ezdb <= PRODUCT_TOL and ezdr <= PRODUCT_TOL
+                  and zdb[0] == -np.inf,
+                  f"dense path {tag} sector {k} vs fp64 oracle: zdb "
+                  f"{ezdb:.3e}, zdr {ezdr:.3e}")
+        launches += counts["dense"]
+    return launches
+
+
+def kernel_entry(name, source, replaces, launches, res) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": res["max_abs_err"], "rel_l2": res["rel_l2"],
+            "ms": res["ms"], "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+            # no single PyTorch call computes the fused chain
+            "library_ms": None}
 
 
 def main() -> int:
     phase_environment()
     phase_build()
-    kern = phase_kernel()
-    launches = phase_stream()
-    phase_capacity()
-    print(json.dumps({"kernels": [{
-        "name": "fused_chain_power_radix",
-        "route": "cuda",
-        "source": "wrp_tpu_torch/csrc/fused_chain_radix.cu",
-        "replaces": "wrp_tpu/ops/pallas/fullchain.py:809",
-        "launches": launches,
-        "max_abs_err": kern["max_abs_err"],
-        "rel_l2": kern["rel_l2"],
-        "ms": kern["ms"],
-        "plain_ms": kern["plain_ms"],
-    }]}), flush=True)
+    orc = Oracle()
+    cfg = DEFAULT_CONFIG
+    noise = [oracle.synthetic_iq(cfg, kind="noise", seed=SEED + b)
+             for b in range(BATCH)]
+    adv = adversarial_sector(cfg)
+    radix = phase_kernel(orc, noise, adv)
+    wire = phase_kernel_wire(orc, noise, adv)
+    dense = phase_kernel_dense(orc)
+    host = phase_stream(device_decode=False)
+    dev = phase_stream(device_decode=True)
+    phase_capacity(device_decode=False)
+    phase_capacity(device_decode=True)
+    dense_launches = phase_dense_path()
+    print(json.dumps({"kernels": [
+        kernel_entry("fused_chain_power_radix",
+                     "wrp_tpu_torch/csrc/fused_chain_radix.cu",
+                     "wrp_tpu/ops/pallas/fullchain.py:809", host["radix"],
+                     radix),
+        kernel_entry("fused_chain_power_wire",
+                     "wrp_tpu_torch/csrc/fused_chain_wire.cu",
+                     "wrp_tpu/ops/pallas/fullchain.py:1170", dev["wire"],
+                     wire),
+        kernel_entry("fused_chain_power_dense",
+                     "wrp_tpu_torch/csrc/fused_chain_dense.cu",
+                     "wrp_tpu/ops/pallas/fullchain.py:194", dense_launches,
+                     dense),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

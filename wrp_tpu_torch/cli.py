@@ -174,6 +174,10 @@ def cmd_stream(args):
     device = _device_or_exit(args.device)
     if device is None:
         return 2
+    if args.device_decode and args.method != "pallas":
+        # refuse before binding any socket
+        print("--device-decode requires --method pallas", file=sys.stderr)
+        return 2
 
     # service managers stop daemons with SIGTERM: take the graceful path
     # (only the main thread may install handlers; an embedding thread
@@ -220,7 +224,8 @@ def cmd_stream(args):
         max_sectors=args.max_sectors, idle_limit=args.idle_limit,
         checkpoint_every_s=(None if args.checkpoint_every < 0
                             else args.checkpoint_every),
-        on_ready=_ready_marker(args.ready_file), device=device)
+        on_ready=_ready_marker(args.ready_file), device=device,
+        device_decode=args.device_decode)
     try:
         stats = ex.run()
     finally:
@@ -422,6 +427,13 @@ def main(argv=None):
     p.add_argument("--ready-file", default=None,
                    help="touch this file once warmup is done and ingest is "
                         "listening (harness readiness gate)")
+    p.add_argument("--device-decode", action="store_true",
+                   help="ship raw wire bytes and decode them on the device "
+                        "(needs --method pallas): the wire kernel decodes "
+                        "in registers, or, when m does not split into "
+                        "radix branches, a decode pass feeds the dense "
+                        "kernel.  Rows stay in natural order (no "
+                        "--wire-order)")
     p.set_defaults(fn=cmd_stream)
 
     p = sub.add_parser("produce", help="send sectors onto the UDP wire")

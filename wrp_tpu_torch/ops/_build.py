@@ -2,9 +2,12 @@
 
 The sources in ``wrp_tpu_torch/csrc/`` compile into one shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds, not
-minutes).  The library's file name carries a hash of the sources and flags:
-it is rebuilt when a source changes and reused otherwise.  The build
-directory ``wrp_tpu_torch/_build/`` is listed in .gitignore.
+minutes): one `nvcc -c` per ``.cu`` file, all started together, then one
+link, so a build takes as long as its slowest source rather than their sum
+(each source's time is in the build log; `chip_smoke.py` prints them).
+The library's file name carries a hash of the sources and flags: it is
+rebuilt when a source changes and reused otherwise.  The build directory
+``wrp_tpu_torch/_build/`` is listed in .gitignore.
 
 There is no fallback: if `nvcc` is missing or the build fails, loading
 raises.  Nothing here runs at import time.
@@ -18,6 +21,8 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PACKAGE = Path(__file__).resolve().parent.parent
@@ -27,7 +32,7 @@ BUILD_DIR = PACKAGE / "_build"
 #: sm_90a keeps Hopper-only instructions available to later kernels.  No
 #: --use_fast_math: the Parseval epilogue's subtraction needs IEEE fp32.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -58,18 +63,46 @@ def _nvcc() -> str:
                        "first use and need the CUDA toolkit (set CUDA_HOME)")
 
 
+def _run(cmds: dict) -> str:
+    """Run every command of {label: argv} at once and wait for all; raise
+    on a failure with its command and output, else return a log of each
+    one's output and wall seconds (lines "== label: 1.23 s")."""
+    def one(cmd):
+        t0 = time.perf_counter()
+        done = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        return done, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(cmds)) as pool:
+        results = dict(zip(cmds, pool.map(one, cmds.values())))
+    log = []
+    for label, (done, secs) in results.items():
+        if done.returncode != 0:
+            raise RuntimeError(f"nvcc failed (rc {done.returncode}): "
+                               f"{' '.join(cmds[label])}\n{done.stdout}")
+        log.append(f"== {label}: {secs:.2f} s\n{done.stdout}")
+    return "".join(log)
+
+
 def _compile(so: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = {src: BUILD_DIR / f"{tag}.{src.stem}.o"
+            for src in sorted(CSRC.glob("*.cu"))}
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    try:
+        log = _run({src.name: [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)] for src, obj in objs.items()})
+        log += _run({"link": [nvcc, "-shared", "-gencode",
+                              "arch=compute_90a,code=sm_90a", "-o", str(tmp),
+                              *(str(o) for o in objs.values())]})
+        so.with_suffix(".log").write_text(log)
+        os.replace(tmp, so)     # atomic: a concurrent loader sees all or nothing
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (rc {proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, so)     # atomic: a concurrent loader sees all or nothing
+        for obj in objs.values():
+            obj.unlink(missing_ok=True)
 
 
 def load_library() -> ctypes.CDLL:
@@ -87,6 +120,16 @@ def load_library() -> ctypes.CDLL:
                 i32, i32, i32, i32, i32,             # bc, m, n, radix, tile
                 ptr]                                 # stream
             lib.wrp_fused_chain_radix.restype = i32
+            lib.wrp_fused_chain_wire.argtypes = [
+                ptr, ptr, ptr, ptr, ptr, ptr,        # w, a, fac, wd_il, ph_il, out
+                i32, i32, i32, i32, i32, i32,        # bs, m, n, ch, radix, tile
+                ptr]                                 # stream
+            lib.wrp_fused_chain_wire.restype = i32
+            lib.wrp_fused_chain_dense.argtypes = [
+                ptr, i32, ptr, ptr, ptr, ptr,        # x, x_is_int16, a, wd, ph, out
+                i32, i32, i32, i32,                  # bc, m, n, tile
+                ptr]                                 # stream
+            lib.wrp_fused_chain_dense.restype = i32
             lib.wrp_cuda_error_string.argtypes = [i32]
             lib.wrp_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -9,8 +9,11 @@ Counterpart of ``wrp_tpu/pipeline.py``.  Methods of `SectorProcessor`:
 * ``"parseval"`` — the A matmul in Gauss 3-multiply form plus the
   closed-form Parseval stages 03b-08 (`stage_b_parseval`).
 * ``"pallas"``   — the flagship: the whole of stages 01-08 in one
-  hand-written CUDA kernel (ops/fullchain.py, csrc/fused_chain_radix.cu).
-  The name is kept from ``wrp_tpu`` so flags and tests carry over.
+  hand-written CUDA kernel (ops/fullchain.py: csrc/fused_chain_radix.cu,
+  or csrc/fused_chain_dense.cu when m does not split into radix branches).
+  The name is kept from ``wrp_tpu`` so flags and tests carry over.  With
+  ``wire_input=True`` it takes raw wire bytes and decodes them on the
+  device (`stream --device-decode`).
 * ``"radix"``    — not ported yet (ROADMAP.md).
 
 Numerics policy, stated once here: float32 throughout, and every fp32
@@ -247,6 +250,12 @@ class SectorProcessor:
     CUDA the constructor raises.  Pass device="cpu" to run the plain torch
     versions (the fused method's kernel then takes its plain version).
 
+    With wire_input=True (method "pallas" only) it takes raw wire bytes
+    instead: uint8 [B, nbytes] or [nbytes] (nbytes = cfg.sector_nbytes_wire),
+    or, with wire_decode="fused", the same bytes viewed as int32 words
+    [B, nbytes/4] (`wire_dtype` names the form the processor prefers), and
+    decodes them on its device.
+
     Usage::
 
         proc = SectorProcessor(cfg, method="pallas")
@@ -255,9 +264,19 @@ class SectorProcessor:
 
     def __init__(self, cfg: RadarConfig = DEFAULT_CONFIG, method: str = "mxu",
                  matched_filter: str = "direct", device="cuda",
-                 consts: PipelineConstants | None = None):
+                 consts: PipelineConstants | None = None,
+                 wire_input: bool = False, wire_decode: str | None = None):
         """consts: the chain's constants (default: built from cfg) — e.g.
-        PipelineConstants.from_numpy of the JAX package's."""
+        PipelineConstants.from_numpy of the JAX package's.
+
+        wire_decode (with wire_input): "fused" decodes inside the wire
+        kernel (csrc/fused_chain_wire.cu: the channel deinterleave never
+        happens; needs m that splits into radix branches); "xla" is a
+        standalone decode pass (ops/device_codec.decode_wire_i16) feeding
+        the planar kernel (the name is kept from ``wrp_tpu``).  None picks
+        "fused" when radix_for(m) > 1, else "xla".  Rows stay in natural
+        order, so ``wrp_tpu``'s `layout` and `wire_order` have no
+        counterpart."""
         if matched_filter not in ("direct", "fold", "spectral"):
             raise ValueError(
                 f"unknown matched_filter {matched_filter!r}: use "
@@ -274,16 +293,44 @@ class SectorProcessor:
                 "exactly the direct/fold matched-filter result and the "
                 "spectral variant does not exist there — pass "
                 "matched_filter='direct' (the default)")
+        if wire_input and method != "pallas":
+            raise ValueError("wire_input (on-device decode of raw wire "
+                             "bytes) requires method='pallas'")
+        if wire_decode is not None and not wire_input:
+            raise ValueError("wire_decode applies with wire_input=True")
+        if wire_decode not in (None, "fused", "xla"):
+            raise ValueError(f"unknown wire_decode {wire_decode!r}: use "
+                             "'fused' or 'xla'")
         self.cfg = cfg
         self.method = method
         self.matched_filter = matched_filter
         self.device = resolve_device(device)
+        self.wire_input = wire_input
+        #: the wire form the processor prefers: int32 words for the fused
+        #: decode (the host views its bytes as '<i4', free), else uint8
+        self.wire_dtype = np.uint8
+        self.wire_decode = None
         consts = consts if consts is not None else PipelineConstants.build(cfg)
         self._dc = _DeviceConstants(consts, self.device)
         if method == "pallas":
-            from .ops.fullchain import build_fused_processor
+            from .ops import fullchain
 
-            self._power_fn = build_fused_processor(consts, self.device)
+            if wire_input:
+                fused_ok = fullchain.radix_for(cfg.m) > 1
+                if wire_decode is None:
+                    wire_decode = "fused" if fused_ok else "xla"
+                elif wire_decode == "fused" and not fused_ok:
+                    raise ValueError(
+                        "wire_decode='fused' needs the radix kernel (an m "
+                        f"that splits into radix branches); got m={cfg.m}")
+                self.wire_decode = wire_decode
+            if wire_decode == "fused":
+                self.wire_dtype = np.int32
+                self._wire_plan = fullchain.build_plan(
+                    consts, self.device, channels=cfg.num_channels)
+            else:
+                self._power_fn = fullchain.build_fused_processor(consts,
+                                                                 self.device)
 
     def _planar(self, iq) -> torch.Tensor:
         if (torch.is_tensor(iq) and iq.is_complex()) or (
@@ -308,10 +355,42 @@ class SectorProcessor:
         return channel_power_planar(xf[..., 0, :, :], xf[..., 1, :, :],
                                     self._dc, self.method, self.matched_filter)
 
+    def _wire(self, wire) -> torch.Tensor:
+        """Wire bytes (or, fused, int32 words) [B, ...] or [...] -> on the
+        device, after the input contract of wrp_tpu's wire processor."""
+        x = torch.as_tensor(wire)
+        nb = self.cfg.sector_nbytes_wire
+        ok = x.dim() in (1, 2) and (
+            (x.dtype == torch.uint8 and x.shape[-1] == nb)
+            or (x.dtype == torch.int32 and x.shape[-1] == nb // 4
+                and self.wire_decode == "fused"))
+        if not ok:
+            raise ValueError(
+                f"wire_input processor expects uint8 [..., {nb}] raw wire "
+                "bytes (or, with wire_decode='fused', int32 "
+                f"[..., {nb // 4}] LE-viewed words); got {x.dtype} "
+                f"{tuple(x.shape)}")
+        return x.to(self.device, non_blocking=True)
+
+    def _wire_power(self, x: torch.Tensor) -> torch.Tensor:
+        """Batched wire input on the device -> power [B, C, m/2]."""
+        from .ops import device_codec, fullchain
+
+        if self.wire_decode == "fused":
+            w32 = device_codec.wire_words_i32(x, self.cfg).contiguous()
+            return fullchain.fused_chain_power_wire(w32, self._wire_plan,
+                                                    self.cfg.num_channels)
+        return self._power_fn(device_codec.decode_wire_i16(x, self.cfg))
+
     def __call__(self, iq) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = self._planar(iq)
-        unbatched = x.dim() == 4
-        pw = self._power(x[None] if unbatched else x)
+        if self.wire_input:
+            x = self._wire(iq)
+            unbatched = x.dim() == 1
+            pw = self._wire_power(x[None] if unbatched else x)
+        else:
+            x = self._planar(iq)
+            unbatched = x.dim() == 4
+            pw = self._power(x[None] if unbatched else x)
         zdb, zdr = stage09_10_products(pw[:, 0], pw[:, 1], self._dc.gain)
         if unbatched:
             return zdb[0], zdr[0]

@@ -5,7 +5,9 @@ Counterpart of ``wrp_tpu/runtime/executor.py`` (single-host).  Two threads
 and a two-deep batch pipeline:
 
   ingest thread:  transport recv -> numpy decode (int16 planar, natural row
-                  order) -> queue
+                  order) -> queue; with device_decode, no decode: the wire
+                  bytes are only viewed in the processor's wire dtype
+                  (int32 words or uint8), and the device decodes them
   compute thread: drain batch k+1 -> stage it in a pinned ping-pong buffer
                   -> H2D on the copy stream -> dispatch the chain on the
                   compute stream once the copy's event fires -> only then
@@ -17,7 +19,7 @@ timeouts with drop-and-resync, sector/elevation tracking, volume
 checkpointing, per-stage timers and end-to-end latency.
 
 Left for later (ROADMAP.md): the lock-step multi-host mode with its stall
-watchdog and collective timeout, and the on-device wire decode.
+watchdog and collective timeout.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ from .volume import VolumeScan
 
 @dataclasses.dataclass
 class SectorTask:
-    planar: np.ndarray          # [C, 2, m, n] int16, natural row order
+    planar: np.ndarray          # [C, 2, m, n] int16, natural row order; with
+                                # device_decode the wire view [nbytes / itemsize]
     sector: int
     elevation: int
     feed: int = 0               # which ingest transport produced it
@@ -65,10 +68,19 @@ class StreamingExecutor:
                each feed its own.
     volume:    a VolumeScan, or a list with one per feed.
     processor: override of the batch step, called with the host int16
-               planar batch [batch, C, 2, m, n] (numpy; plus `labels=` rows
-               of (sector, elevation) if it takes them) and returning
-               (zdb, zdr).  It owns its device placement.  Default: a
-               SectorProcessor(method, device) fed through pinned staging.
+               planar batch [batch, C, 2, m, n] (numpy; with device_decode
+               the wire batch [batch, nbytes / itemsize] in the override's
+               `wire_dtype`; plus `labels=` rows of (sector, elevation) if
+               it takes them) and returning (zdb, zdr).  It owns its device
+               placement.  Default: a SectorProcessor(method, device) fed
+               through pinned staging.
+    device_decode: ship raw wire bytes and decode them on the device
+               (SectorProcessor(wire_input=True): the wire kernel, or a
+               decode pass before the dense kernel).  The ingest thread then
+               only views each sector's bytes in the processor's wire dtype,
+               which frees the host decode; H2D bytes are unchanged.
+               Requires method="pallas", or an override whose owner has
+               wire_input=True.
     """
 
     def __init__(
@@ -87,6 +99,7 @@ class StreamingExecutor:
         checkpoint_every_s: Optional[float] = 30.0,
         on_ready: Optional[Callable] = None,
         device="cuda",
+        device_decode: bool = False,
     ):
         """idle_limit: stop after this many consecutive idle receive
         timeouts (None = listen forever, the service default).
@@ -144,6 +157,19 @@ class StreamingExecutor:
         # reference counters (rpv2.cu:46-51, advance() :572-579), per feed
         self._pos = [[0, 0] for _ in range(nfeeds)]
 
+        if device_decode:
+            # the step must take raw wire bytes: the built-in pallas path,
+            # or an override whose owner advertises wire input
+            takes_wire = getattr(getattr(processor, "__self__", processor),
+                                 "wire_input", False)
+            if processor is not None and not takes_wire:
+                raise ValueError(
+                    "device_decode with a processor override requires the "
+                    "override to take wire bytes (wire_input=True)")
+            if processor is None and method != "pallas":
+                raise ValueError("device_decode (on-device wire decode) "
+                                 "requires method='pallas'")
+        self._device_decode = device_decode
         self._proc_takes_labels = False
         if processor is not None:
             self.processor = processor
@@ -154,9 +180,18 @@ class StreamingExecutor:
             except (TypeError, ValueError):
                 pass
         else:
-            self.processor = SectorProcessor(cfg, method=method, device=device)
+            self.processor = SectorProcessor(cfg, method=method, device=device,
+                                             wire_input=device_decode)
             self._device = self.processor.device
         self._cuda = self._device is not None and self._device.type == "cuda"
+        shape = (batch, cfg.num_channels, 2, cfg.m, cfg.n)
+        dtype = torch.int16
+        self._wire_dtype = None
+        if device_decode:
+            owner = getattr(self.processor, "__self__", self.processor)
+            self._wire_dtype = np.dtype(getattr(owner, "wire_dtype", np.uint8))
+            shape = (batch, cfg.sector_nbytes_wire // self._wire_dtype.itemsize)
+            dtype = torch.from_numpy(np.zeros(0, self._wire_dtype)).dtype
 
         # Ping-pong batch staging: two host slots (pinned when the device
         # is a GPU, so the H2D can run asynchronously on the copy stream)
@@ -165,9 +200,9 @@ class StreamingExecutor:
         # pinned host memory AFTER it returns, so before rewriting host
         # slot i the host waits on `_copied[i]`, the event of that slot's
         # last H2D; and the copy into device slot i waits on `_computed[i]`,
-        # the event of the compute that last read it.
-        shape = (batch, cfg.num_channels, 2, cfg.m, cfg.n)
-        self._host = [torch.zeros(shape, dtype=torch.int16,
+        # the event of the compute that last read it.  Slots take the wire
+        # dtype and shape with device_decode.
+        self._host = [torch.zeros(shape, dtype=dtype,
                                   pin_memory=self._cuda) for _ in range(2)]
         self._host_np = [h.numpy() for h in self._host]
         self._stage_rows = [0, 0]
@@ -175,7 +210,7 @@ class StreamingExecutor:
         self._copied: list = [None, None]
         self._computed: list = [None, None]
         if self._cuda:
-            self._dev = [torch.zeros(shape, dtype=torch.int16,
+            self._dev = [torch.zeros(shape, dtype=dtype,
                                      device=self._device) for _ in range(2)]
             self._copy_stream = torch.cuda.Stream(self._device)
             self._compute_stream = torch.cuda.Stream(self._device)
@@ -237,12 +272,17 @@ class StreamingExecutor:
                 else:
                     sector, elevation = self._pos[feed]
                 with self.timers.time("ingest/decode"):
-                    # Natural row order always: the fused kernel reads the
+                    # Natural row order always: the fused kernels read the
                     # radix branches by index arithmetic, so there is no
                     # radix-ordered decode here and no counterpart of
                     # wrp_tpu's executor quietly assuming input_radix=1
                     # for a processor that does not advertise its order.
-                    planar = codec.decode_iq_i16(wire, self.cfg)
+                    if self._device_decode:
+                        # a view, no decode (transports hand over a fresh
+                        # buffer per sector, so the view stays valid)
+                        planar = np.frombuffer(wire, self._wire_dtype)
+                    else:
+                        planar = codec.decode_iq_i16(wire, self.cfg)
                 task = SectorTask(planar, sector, elevation, feed,
                                   t_recv=t_recv)
                 while not self._stop.is_set():
@@ -312,12 +352,13 @@ class StreamingExecutor:
             with self.timers.time("compute/stage_wait"):
                 self._copied[idx].synchronize()
         buf = self._host_np[idx]
-        for i, t in enumerate(tasks):
-            buf[i] = t.planar
-        if self._stage_rows[idx] > len(tasks):
-            # scrub rows a larger batch wrote (the pad rows a processor
-            # override sees stay zeros; their products are discarded)
-            buf[len(tasks):self._stage_rows[idx]] = 0
+        with self.timers.time("compute/stage_copy"):
+            for i, t in enumerate(tasks):
+                buf[i] = t.planar
+            if self._stage_rows[idx] > len(tasks):
+                # scrub rows a larger batch wrote (the pad rows a processor
+                # override sees stay zeros; their products are discarded)
+                buf[len(tasks):self._stage_rows[idx]] = 0
         self._stage_rows[idx] = len(tasks)
         return idx
 
@@ -420,9 +461,9 @@ class StreamingExecutor:
     # ------------------------------------------------------------------
 
     def warmup(self) -> None:
-        """Run the chain once before ingest starts (builds the CUDA kernel
-        library at first use; a first-batch stall would overflow the UDP
-        receive buffer and drop sectors)."""
+        """Run the chain once on zeros of the staging shape before ingest
+        starts (builds the CUDA kernel library at first use; a first-batch
+        stall would overflow the UDP receive buffer and drop sectors)."""
         if self._device is None:
             zdb, _ = self.processor(self._host_np[0])
         elif self._cuda:

@@ -131,6 +131,11 @@ class LatencyStats:
             if len(self._samples) > self.cap:
                 del self._samples[: len(self._samples) - self.cap]
 
+    def samples(self) -> list:
+        """The kept samples in seconds, in arrival order."""
+        with self._lock:
+            return list(self._samples)
+
     def summary(self):
         """Nearest-rank percentile summary in ms (every reported value is a
         latency that actually happened), or None if nothing was recorded."""
