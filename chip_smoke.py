@@ -29,11 +29,31 @@ Phases (each prints its results; any failure raises and exits non-zero):
 8. capacity: the executor fed from memory, unpaced, host decode and
    device decode;
 9. the dense path: the executor at m = 1000 from memory, device decode
-   (a decode pass, then the dense kernel) and host decode.
+   (a decode pass, then the dense kernel) and host decode;
+10. the A-stage kernel (the pulse-sharded path's first half) on the noise
+   and clip-bin sectors, int16 and f32, on every rank's pulse slab of 1, 2
+   and 4 ranks (w = 512, 256, 128): Y vs its plain version (rel-L2 <=
+   1e-5); CUDA-event times of the kernel, the plain version and the library
+   call torch.matmul(A_half, X) in complex64;
+11. the row-epilogue kernel on every row shard of that Y (rows = 512, 256,
+   128): power vs its plain version (<= 1e-5), and its time;
+12. the pallas-seq composition in one process for N = 1, 2 and 4 ranks:
+   A-stage per pulse slab, the all_to_all's row/pulse rearrangement done
+   locally (parallel/sharded.py split_rows/join_pulses), row epilogue per
+   row shard; power vs the fused radix kernel (<= 1e-5) and the fp64
+   oracle, zdb/zdr <= 2e-4;
+13. the pulse-shard lock-step stream: an NCCL group of world size 1,
+   PulseShardedProcessor(method="pallas") as the processor of a lock-step
+   StreamingExecutor (collective timeout 30 s), 143 sectors from `cli
+   produce` at 21.45/s, host decode then device decode; 0 drops, 143/143,
+   the A-stage and row-epilogue launches equal to the steps (batches plus
+   the warmup step), sampled products within 2e-4 of the oracle.
 
 Every launch counter is set to 0 just before each path runs and read just
 after.  Prints a JSON line of per-kernel results (launches, errors, ms,
 plain ms, bound ms), then as its last line {"ok": true, "device": {...}}.
+A bound is the least work of the function (the range DFT as an FFT, or
+the bytes moved); the matrix form the kernels run is printed beside it.
 Imports torch, numpy and wrp_tpu_torch only.
 """
 
@@ -51,6 +71,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -60,6 +81,9 @@ from wrp_tpu_torch.constants import PipelineConstants, hamming_factors  # noqa: 
 from wrp_tpu_torch.io import codec, frames  # noqa: E402
 from wrp_tpu_torch.io.udp import UdpEgress, UdpIngest  # noqa: E402
 from wrp_tpu_torch.ops import _build, device_codec, fullchain  # noqa: E402
+from wrp_tpu_torch.parallel.multihost import (  # noqa: E402
+    PulseShardedProcessor, init_distributed)
+from wrp_tpu_torch.parallel.sharded import join_pulses, split_rows  # noqa: E402
 from wrp_tpu_torch.pipeline import stage09_10_products  # noqa: E402
 from wrp_tpu_torch.runtime import StreamingExecutor, VolumeScan  # noqa: E402
 
@@ -70,6 +94,7 @@ POWER_TOL = 1e-5
 PRODUCT_TOL = 2e-4
 SEED = 2024
 DENSE_M = 1000            # radix_for(1000) == 1: the dense kernel's geometry
+SHARDS = (1, 2, 4)        # ranks of the pulse-sharded path
 
 # H100 SXM peaks for the bound (NVIDIA data sheet, 700 W): fp32 on the CUDA
 # cores and HBM3 bandwidth
@@ -84,27 +109,51 @@ def bound(flops: float, nbytes: float):
                                        else "bytes")
 
 
+def astage_flops(m: int, w: int) -> float:
+    """The least fp32 flops of the windowed half-spectrum range DFT for one
+    channel-sector of w pulses, for the bound: the window (2 per complex
+    sample) and one length-m FFT per pulse column (5 m log2 m, the
+    conventional count; the repo's `fft` method), whatever form the kernel
+    runs."""
+    return w * (2.0 * m + 5.0 * m * math.log2(m))
+
+
 def chain_flops(m: int, n: int) -> float:
     """The least fp32 flops of the fused chain for one channel-sector, for
-    the bound: the radix-R DIT form with the largest R <= 8 dividing m
-    (the dense A_half contraction does R/2 times the contraction's work),
-    whatever form the kernel runs: the complex contraction (8 flops per
-    complex multiply-add, m * m/R * n of them), the combine (R per output
-    element) and the Parseval epilogue (26 flops per element of Y [m/2, n]:
-    window 2, mean 2, centring 2, energy 4, four phasor projections 16)."""
-    radix = next(r for r in (8, 4, 2) if m % r == 0)
-    mh = m // 2
-    return (8.0 * (m * (m // radix) * n + mh * radix * n)
-            + 26.0 * mh * n)
+    the bound: `astage_flops` and the Parseval epilogue (26 flops per
+    element of Y [m/2, n]: window 2, mean 2, centring 2, energy 4, four
+    phasor projections 16)."""
+    return astage_flops(m, n) + 26.0 * (m // 2) * n
+
+
+def algorithm_note(m: int, w: int, bc: int) -> str:
+    """The work of the algorithm the kernels run, as the TPU kernels do (the
+    range DFT as a matrix contraction), beside the bound, never as it: the
+    radix-R DIT form (R = fullchain.radix_for(m); 8 flops per complex
+    multiply-add, m * m/R * w of them, and R per output element in the
+    combine), or the dense A_half contraction when R is 1."""
+    radix = fullchain.radix_for(m)
+    if radix > 1:
+        flops = 8.0 * (m * (m // radix) * w + (m // 2) * radix * w)
+        form = f"radix-{radix} contraction"
+    else:
+        flops = 8.0 * (m // 2) * m * w
+        form = "dense contraction"
+    flops *= bc
+    return (f"the kernel's {form} does {flops / 1e9:.1f} GFLOP, "
+            f"{1e3 * flops / PEAK_FP32:.3f} ms at the fp32 peak")
 
 
 def reset_counts() -> None:
     fullchain.LAUNCHES = fullchain.WIRE_LAUNCHES = fullchain.DENSE_LAUNCHES = 0
+    fullchain.ASTAGE_LAUNCHES = fullchain.PARSEVAL_ROWS_LAUNCHES = 0
 
 
 def read_counts() -> dict:
     return {"radix": fullchain.LAUNCHES, "wire": fullchain.WIRE_LAUNCHES,
-            "dense": fullchain.DENSE_LAUNCHES}
+            "dense": fullchain.DENSE_LAUNCHES,
+            "astage": fullchain.ASTAGE_LAUNCHES,
+            "rows": fullchain.PARSEVAL_ROWS_LAUNCHES}
 
 
 class SmokeFailure(RuntimeError):
@@ -119,6 +168,14 @@ def check(ok: bool, what: str) -> None:
 
 def rel(expected, actual) -> float:
     return oracle.relative_l2(expected, actual)
+
+
+def rel_dev(expected: torch.Tensor, actual: torch.Tensor):
+    """(rel-L2, max abs error) of two tensors on the card, in float64."""
+    d = actual.double() - expected.double()
+    return (float(torch.linalg.vector_norm(d)
+                  / torch.linalg.vector_norm(expected.double())),
+            float(d.abs().max()))
 
 
 def phase_environment() -> str:
@@ -290,7 +347,8 @@ def phase_kernel(orc: Oracle, noise, adv) -> dict:
         x16.numel() * 2 + plan.a_kernel.numel() * 4 + bc * cfg.m // 2 * 4)
     print(f"radix kernel, batch {BATCH} x {cfg.num_channels} x {cfg.m} x "
           f"{cfg.n} int16: {t['kernel']:.3f} ms, plain {t['plain']:.3f} ms, "
-          f"bound {bound_ms:.3f} ms ({bound_by})", flush=True)
+          f"bound {bound_ms:.3f} ms ({bound_by}); "
+          f"{algorithm_note(cfg.m, cfg.n, bc)}", flush=True)
     return {"max_abs_err": max_abs, "rel_l2": worst_rel, "ms": t["kernel"],
             "plain_ms": t["plain"], "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -354,7 +412,8 @@ def phase_kernel_wire(orc: Oracle, noise, adv) -> dict:
                 + BATCH * ch * cfg.m // 2 * 4)
             print(f"wire kernel, {BATCH} sectors x {ch} x {cfg.m} x {cfg.n} "
                   f"words: {t['kernel']:.3f} ms, plain {t['plain']:.3f} ms, "
-                  f"bound {bound_ms:.3f} ms ({bound_by})", flush=True)
+                  f"bound {bound_ms:.3f} ms ({bound_by}); "
+                  f"{algorithm_note(cfg.m, cfg.n, BATCH * ch)}", flush=True)
             out = {"ms": t["kernel"], "plain_ms": t["plain"],
                    "bound_ms": bound_ms, "bound_by": bound_by}
     return {"max_abs_err": max_abs, "rel_l2": worst_rel, **out}
@@ -402,10 +461,261 @@ def phase_kernel_dense(orc: Oracle) -> dict:
         x16.numel() * 2 + plan.a_kernel.numel() * 4 + bc * cfg.m // 2 * 4)
     print(f"dense kernel, batch {BATCH} x {cfg.num_channels} x {cfg.m} x "
           f"{cfg.n} int16: {t['kernel']:.3f} ms, plain {t['plain']:.3f} ms, "
-          f"bound {bound_ms:.3f} ms ({bound_by}, the radix-8 form's work; "
-          f"the dense contraction does 4x that)", flush=True)
+          f"bound {bound_ms:.3f} ms ({bound_by}); "
+          f"{algorithm_note(cfg.m, cfg.n, bc)}", flush=True)
     return {"max_abs_err": max_abs, "rel_l2": worst_rel, "ms": t["kernel"],
             "plain_ms": t["plain"], "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def seq_inputs(noise, adv) -> dict:
+    """The phase-3 sectors as [48, 2, m, n] int16 on the card."""
+    cfg = DEFAULT_CONFIG
+    return {label: torch.from_numpy(np.stack([planar_i16(s) for s in secs]))
+            .cuda().reshape(-1, 2, cfg.m, cfg.n)
+            for label, secs in (("noise", noise), ("clip-bin", [adv] * BATCH))}
+
+
+def phase_kernel_astage(noise, adv) -> dict:
+    """The A-stage kernel on every rank's pulse slab of 1, 2 and 4 ranks,
+    vs its plain version; times of the kernel, plain and library call; the
+    fused radix kernel timed in the same call."""
+    cfg = DEFAULT_CONFIG
+    plan = fullchain.build_plan(PipelineConstants.build(cfg), "cuda")
+    inputs = seq_inputs(noise, adv)
+    worst_rel = max_abs = 0.0
+    for label, x16 in inputs.items():
+        for x in (x16, x16.float()):
+            for shards in SHARDS:
+                w = cfg.n // shards
+                errs = []
+                for k in range(shards):
+                    slab = x[..., k * w:(k + 1) * w].contiguous()
+                    got = fullchain.fused_chain_astage(slab, plan)
+                    torch.cuda.synchronize()
+                    errs.append(rel_dev(
+                        fullchain.fused_chain_astage_reference(slab, plan), got))
+                e, a = max(v[0] for v in errs), max(v[1] for v in errs)
+                worst_rel, max_abs = max(worst_rel, e), max(max_abs, a)
+                check(e <= POWER_TOL,
+                      f"astage {label} {x.dtype} w={w} ({shards} slabs): "
+                      f"kernel vs plain Y rel-L2 {e:.3e} <= {POWER_TOL} "
+                      f"(max abs {a:.3e})")
+
+    consts = PipelineConstants.build(cfg)
+    a_c = torch.complex(*(torch.from_numpy(np.ascontiguousarray(v)).float()
+                          for v in (consts.op_a_half.real,
+                                    consts.op_a_half.imag))).cuda()
+    x16 = inputs["noise"]
+    bc = x16.shape[0]
+    out = {}
+    for shards in SHARDS:
+        w = cfg.n // shards
+        slab = x16[..., :w].contiguous()
+        xc = torch.complex(slab[:, 0].float(), slab[:, 1].float())
+        t = timed({
+            "plain": lambda: fullchain.fused_chain_astage_reference(slab, plan),
+            "kernel": lambda: fullchain.fused_chain_astage(slab, plan),
+            "library": lambda: torch.matmul(a_c, xc)},
+            ("plain", "kernel", "library", "library", "kernel", "plain"))
+        bound_ms, bound_by = bound(
+            bc * astage_flops(cfg.m, w),
+            slab.numel() * 2 + plan.a_kernel.numel() * 4
+            + bc * 2 * (cfg.m // 2) * w * 4)
+        print(f"astage kernel, {bc} channel-sectors x {cfg.m} x w={w} "
+              f"int16: {t['kernel']:.3f} ms, plain {t['plain']:.3f} ms, "
+              f"library (complex64 matmul) {t['library']:.3f} ms, bound "
+              f"{bound_ms:.3f} ms ({bound_by}); "
+              f"{algorithm_note(cfg.m, w, bc)}", flush=True)
+        if shards == 1:
+            out = {"ms": t["kernel"], "plain_ms": t["plain"],
+                   "library_ms": t["library"], "bound_ms": bound_ms,
+                   "bound_by": bound_by}
+    fused = timed({"fused": lambda: fullchain.fused_chain_power_radix(x16, plan)},
+                  ("fused", "fused"))["fused"]
+    out.update(max_abs_err=max_abs, rel_l2=worst_rel, fused_ms=fused)
+    return out
+
+
+def phase_kernel_rows(noise, adv, astage: dict) -> dict:
+    """The row-epilogue kernel on every row shard of the A-stage's Y at
+    rows = 512, 256, 128, vs its plain version; its time at full rows."""
+    cfg = DEFAULT_CONFIG
+    plan = fullchain.build_plan(PipelineConstants.build(cfg), "cuda")
+    mh = cfg.m // 2
+    worst_rel = max_abs = 0.0
+    ys = {label: fullchain.fused_chain_astage(x, plan)
+          for label, x in seq_inputs(noise, adv).items()}
+    for label, y_full in ys.items():
+        for shards in SHARDS:
+            rows = mh // shards
+            errs = []
+            for d in range(shards):
+                y = y_full[:, :, d * rows:(d + 1) * rows].contiguous()
+                got = fullchain.parseval_rows_power(y, plan)
+                torch.cuda.synchronize()
+                errs.append(rel_dev(
+                    fullchain.parseval_rows_power_reference(y, plan), got))
+            e, a = max(v[0] for v in errs), max(v[1] for v in errs)
+            worst_rel, max_abs = max(worst_rel, e), max(max_abs, a)
+            check(e <= POWER_TOL,
+                  f"rows {label} rows={rows} ({shards} shards): kernel vs "
+                  f"plain power rel-L2 {e:.3e} <= {POWER_TOL} (max abs "
+                  f"{a:.3e})")
+    y = ys["noise"]
+    t = timed({"plain": lambda: fullchain.parseval_rows_power_reference(y, plan),
+               "kernel": lambda: fullchain.parseval_rows_power(y, plan)},
+              ("plain", "kernel", "kernel", "plain"))
+    bc = y.shape[0]
+    bound_ms, bound_by = bound(26.0 * bc * mh * cfg.n,
+                               y.numel() * 4 + 5 * cfg.n * 4 + bc * mh * 4)
+    print(f"row-epilogue kernel, Y [{bc}, 2, {mh}, {cfg.n}]: "
+          f"{t['kernel']:.3f} ms, plain {t['plain']:.3f} ms, bound "
+          f"{bound_ms:.3f} ms ({bound_by}); A-stage + rows "
+          f"{astage['ms'] + t['kernel']:.3f} ms vs the fused radix kernel "
+          f"{astage['fused_ms']:.3f} ms in this call "
+          f"({(astage['ms'] + t['kernel']) / astage['fused_ms']:.2f}x)",
+          flush=True)
+    return {"max_abs_err": max_abs, "rel_l2": worst_rel, "ms": t["kernel"],
+            "plain_ms": t["plain"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def phase_seq_composition(orc: Oracle, noise, adv) -> None:
+    """pallas-seq for N = 1, 2, 4 ranks in one process: the A-stage on each
+    pulse slab, the all_to_all's rearrangement done locally with the
+    functions sharded.py feeds to all_to_all_single, the row epilogue on
+    each row shard; vs the fused radix kernel and the fp64 oracle."""
+    cfg = DEFAULT_CONFIG
+    consts = PipelineConstants.build(cfg)
+    plan = fullchain.build_plan(consts, "cuda")
+    gain = torch.from_numpy(consts.gain).cuda()
+    sectors = {"noise": noise[:3], "clip-bin": [adv]}
+    for label, x16 in seq_inputs(noise, adv).items():
+        fused = fullchain.fused_chain_power_radix(x16, plan)
+        for shards in SHARDS:
+            w = cfg.n // shards
+            sends = [split_rows(fullchain.fused_chain_astage(
+                x16[..., k * w:(k + 1) * w].contiguous(), plan), shards)
+                for k in range(shards)]
+            got = torch.cat([fullchain.parseval_rows_power(join_pulses(
+                torch.stack([sends[k][d] for k in range(shards)])).contiguous(),
+                plan) for d in range(shards)], dim=-1)
+            torch.cuda.synchronize()
+            e, a = rel_dev(fused, got)
+            check(e <= POWER_TOL,
+                  f"pallas-seq N={shards} {label}: power vs the fused radix "
+                  f"kernel rel-L2 {e:.3e} <= {POWER_TOL} (max abs {a:.3e})")
+            pk = got.cpu().numpy().reshape(-1, cfg.num_channels, cfg.m // 2)
+            for s, iq in enumerate(sectors[label]):
+                check_vs_oracle(f"pallas-seq N={shards} {label} sector {s}",
+                                pk[s], orc.power((cfg.m, cfg.n, label, s), iq,
+                                                 cfg), cfg, gain)
+
+
+def phase_pulse_shard_stream(device_decode: bool) -> dict:
+    """The pulse-shard lock-step stream at world size 1 (NCCL): the
+    processor override of a lock-step executor, fed by a `cli produce`
+    process at the radar's rate."""
+    tag = "device-decode" if device_decode else "host-decode"
+    cfg = DEFAULT_CONFIG
+    pool_n = 8
+    proc = PulseShardedProcessor.build(cfg, batch=BATCH, method="pallas",
+                                       device_decode=device_decode,
+                                       device="cuda")
+    check(proc.mesh.world == 1 and proc.mesh.seq_group is not None
+          and proc.wire_input == device_decode,
+          f"pulse-shard {tag}: processor on {proc.mesh.device}, mesh "
+          f"{proc.mesh.shape}, backend {dist.get_backend()}")
+    ingest = UdpIngest(cfg, port=0, timeout_s=2.0)
+    sink = _Sink()
+    egress = UdpEgress(cfg, zdb_port=sink.ports[0], zdr_port=sink.ports[1],
+                       extended=True)
+    volume = VolumeScan(cfg)
+    producer: list = []
+    cmd = [sys.executable, "-m", "wrp_tpu_torch.cli", "produce",
+           "--sectors", str(SECTORS), "--rate", str(RATE),
+           "--pool", str(pool_n), "--seed", str(SEED), "--headers",
+           "--ingest-port", str(ingest.local_port)]
+    ex = StreamingExecutor(
+        cfg, transport=ingest, publish=egress, batch=BATCH, volume=volume,
+        max_sectors=SECTORS, idle_limit=15, processor=proc.step_local,
+        lockstep=True, collective_timeout_s=30.0,
+        on_ready=lambda: producer.append(subprocess.Popen(
+            cmd, cwd=os.path.dirname(os.path.abspath(__file__)))),
+        device_decode=device_decode)
+    reset_counts()
+    try:
+        stats = ex.run()
+    finally:
+        counts = read_counts()
+        for p in producer:
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        ingest.close()
+        egress.close()
+        time.sleep(0.5)
+        sink.close()
+    check(bool(producer) and producer[0].returncode == 0,
+          "producer process exited 0")
+    lat = stats["latency_ms"]
+    print(f"pulse-shard {tag} stream: {stats['processed_sectors']} sectors "
+          f"in {stats['batches']} lock-step batches, delivered "
+          f"{ex.throughput.active_rate():.2f} sectors/s over the active span; "
+          f"latency p50 {lat['p50_ms']} ms p99 {lat['p99_ms']} ms (lock-step "
+          f"waits for full batches); stall warnings {stats['stall_warnings']};"
+          f" egress frames {sink.frames}; launches {counts}; mean ms per call "
+          + json.dumps({k: v["mean_ms"] for k, v in stats["timers"].items()}),
+          flush=True)
+    tr = stats["transport"]
+    check(stats["processed_sectors"] == SECTORS,
+          f"pulse-shard {tag}: {stats['processed_sectors']}/{SECTORS} sectors")
+    check(tr["dropped_sectors"] == 0 and tr["dropped_datagrams"] == 0,
+          f"pulse-shard {tag}: 0 drops (dropped sectors "
+          f"{tr['dropped_sectors']}, datagrams {tr['dropped_datagrams']})")
+    check(bool(volume.coverage[:, 0].all()),
+          f"pulse-shard {tag}: volume covers the cut "
+          f"({int(volume.coverage[:, 0].sum())}/{cfg.num_sectors})")
+    check(sink.frames == [SECTORS, SECTORS],
+          f"pulse-shard {tag}: egress delivered {sink.frames} frames")
+    steps = stats["batches"] + 1       # the batches and the warmup step
+    check(stats["batches"] == math.ceil(SECTORS / BATCH)
+          and counts["astage"] == counts["rows"] == steps
+          and counts["radix"] == counts["wire"] == counts["dense"] == 0,
+          f"pulse-shard {tag}: A-stage and row-epilogue launches "
+          f"{counts['astage']}, {counts['rows']} == {stats['batches']} full "
+          f"lock-step batches + 1 warmup step; no other kernel ({counts})")
+    for k in (0, SECTORS // 4, 5 * SECTORS // 7, SECTORS - 1):
+        zdb64, zdr64 = oracle.process_sector(
+            oracle.produce_sector_iq(cfg, SEED, k % pool_n), cfg)
+        zdb, zdr = volume.data[0, :, k, 0], volume.data[1, :, k, 0]
+        ezdb, ezdr = rel(zdb64, zdb), rel(zdr64, zdr)
+        check(ezdb <= PRODUCT_TOL and ezdr <= PRODUCT_TOL
+              and zdb[0] == -np.inf,
+              f"pulse-shard {tag} sector {k} vs fp64 oracle: zdb "
+              f"{ezdb:.3e}, zdr {ezdr:.3e}, zdb[0] {zdb[0]}")
+    return counts
+
+
+def phase_pulse_shard() -> dict:
+    """Both pulse-shard streams inside one NCCL group of world size 1 (one
+    card: NCCL refuses two ranks on one GPU, so the 2-rank path is held on
+    the CPU by tests/test_torch_multihost.py)."""
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    dev = init_distributed(f"127.0.0.1:{port}", 1, 0, "cuda", timeout_s=120)
+    check(dist.get_backend() == "nccl", f"process group on {dev}: "
+          f"{dist.get_backend()}, world {dist.get_world_size()}")
+    try:
+        host = phase_pulse_shard_stream(device_decode=False)
+        phase_pulse_shard_stream(device_decode=True)
+    finally:
+        dist.destroy_process_group()
+    return host
 
 
 class _Sink:
@@ -623,8 +933,9 @@ def kernel_entry(name, source, replaces, launches, res) -> dict:
             "max_abs_err": res["max_abs_err"], "rel_l2": res["rel_l2"],
             "ms": res["ms"], "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
-            # no single PyTorch call computes the fused chain
-            "library_ms": None}
+            # None: no single PyTorch call computes the function (the fused
+            # chains, the row epilogue)
+            "library_ms": res.get("library_ms")}
 
 
 def main() -> int:
@@ -638,11 +949,15 @@ def main() -> int:
     radix = phase_kernel(orc, noise, adv)
     wire = phase_kernel_wire(orc, noise, adv)
     dense = phase_kernel_dense(orc)
+    astage = phase_kernel_astage(noise, adv)
+    rows = phase_kernel_rows(noise, adv, astage)
+    phase_seq_composition(orc, noise, adv)
     host = phase_stream(device_decode=False)
     dev = phase_stream(device_decode=True)
     phase_capacity(device_decode=False)
     phase_capacity(device_decode=True)
     dense_launches = phase_dense_path()
+    shard = phase_pulse_shard()
     print(json.dumps({"kernels": [
         kernel_entry("fused_chain_power_radix",
                      "wrp_tpu_torch/csrc/fused_chain_radix.cu",
@@ -656,6 +971,14 @@ def main() -> int:
                      "wrp_tpu_torch/csrc/fused_chain_dense.cu",
                      "wrp_tpu/ops/pallas/fullchain.py:194", dense_launches,
                      dense),
+        kernel_entry("fused_chain_astage",
+                     "wrp_tpu_torch/csrc/fused_chain_astage.cu",
+                     "wrp_tpu/ops/pallas/fullchain.py:955", shard["astage"],
+                     astage),
+        kernel_entry("parseval_rows_power",
+                     "wrp_tpu_torch/csrc/parseval_rows.cu",
+                     "wrp_tpu/ops/pallas/fullchain.py:998", shard["rows"],
+                     rows),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

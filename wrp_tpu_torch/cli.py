@@ -2,7 +2,9 @@
 
   process  — single-shot: IQ in, zdb/zdr out (reference read.cc).
   stream   — streaming processor on the v1 UDP wire (reference
-             gpu_1fp_streamcasc.cu).
+             gpu_1fp_streamcasc.cu); with --coordinator, one rank of a
+             lock-step multi-rank fleet (--pulse-shard: every rank reads
+             one broadcast wire and computes a pulse slice of each sector).
   produce  — synthesise/replay sectors onto the wire.
   consume  — receive result frames, optionally into a volume checkpoint.
 
@@ -174,9 +176,26 @@ def cmd_stream(args):
     device = _device_or_exit(args.device)
     if device is None:
         return 2
+    # refusals come before any socket is bound or group joined: a refusal
+    # after setup would leave peers blocked in the group's handshake
     if args.device_decode and args.method != "pallas":
-        # refuse before binding any socket
         print("--device-decode requires --method pallas", file=sys.stderr)
+        return 2
+    if args.device_decode and args.coordinator and not args.pulse_shard:
+        # the data-parallel lock-step processor takes planar input; only
+        # the pulse-shard processor has a wire-bytes path
+        print("--device-decode with --coordinator needs --pulse-shard "
+              "(the data-parallel lock-step processor takes planar input)",
+              file=sys.stderr)
+        return 2
+    if args.pulse_shard and not args.coordinator:
+        print("--pulse-shard needs the lock-step fleet (--coordinator)",
+              file=sys.stderr)
+        return 2
+    if args.pulse_shard and args.method not in ("mxu", "fft", "pallas"):
+        print("--pulse-shard supports --method mxu, fft, or pallas (pallas "
+              "runs the seq-sharded fused chain, parallel/sharded.py "
+              "pallas-seq)", file=sys.stderr)
         return 2
 
     # service managers stop daemons with SIGTERM: take the graceful path
@@ -197,12 +216,38 @@ def cmd_stream(args):
         if len(set(args.feed_checkpoint)) != len(args.feed_checkpoint):
             print("duplicate --feed-checkpoint paths", file=sys.stderr)
             return 2
+    processor = None
+    if args.coordinator:
+        # lock-step multi-rank streaming: every rank runs this command with
+        # its own --host-id; one rank per device, cuda:(rank % devices)
+        from .parallel.multihost import (MultiHostProcessor,
+                                         PulseShardedProcessor,
+                                         init_distributed)
+
+        # the group's own timeout must exceed the executor's bound, so that
+        # a dead peer ends in the bounded exit (checkpoint, rc 3)
+        group_timeout = (None if args.collective_timeout is None
+                         else 2.0 * args.collective_timeout + 60.0)
+        device = init_distributed(args.coordinator, args.num_hosts,
+                                  args.host_id, device,
+                                  timeout_s=group_timeout)
+        if args.pulse_shard:
+            processor = PulseShardedProcessor.build(
+                cfg, batch=args.batch, method=args.method,
+                device_decode=args.device_decode, device=device).step_local
+        else:
+            processor = MultiHostProcessor.build(
+                cfg, per_host_batch=args.batch, method=args.method,
+                device=device).step_local
     if feeds:
         transport = [UdpIngest(cfg, port=p, timeout_s=args.timeout)
                      for p in feeds]
     else:
+        # pulse-shard ranks on one host read ONE broadcast port; elsewhere
+        # no sharing (unicast datagrams would be split between the sockets)
         transport = UdpIngest(cfg, port=args.ingest_port,
-                              timeout_s=args.timeout)
+                              timeout_s=args.timeout,
+                              reuse_port=args.pulse_shard)
     publish = UdpEgress(cfg, zdb_port=args.zdb_port, zdr_port=args.zdr_port,
                         extended=args.extended_results)
 
@@ -225,7 +270,12 @@ def cmd_stream(args):
         checkpoint_every_s=(None if args.checkpoint_every < 0
                             else args.checkpoint_every),
         on_ready=_ready_marker(args.ready_file), device=device,
-        device_decode=args.device_decode)
+        device_decode=args.device_decode, processor=processor,
+        lockstep=args.coordinator is not None,
+        # a peer that missed its receive timeout shows in this rank's log
+        # shortly after, not as a silent hang
+        stall_warning_s=max(10.0, 2.0 * (args.timeout or 0.0)),
+        collective_timeout_s=args.collective_timeout)
     try:
         stats = ex.run()
     finally:
@@ -239,7 +289,29 @@ def cmd_stream(args):
         cov = [v.fraction() for v in vols]
         stats["volume_coverage"] = cov if len(cov) > 1 else cov[0]
     print(json.dumps(stats, indent=2))
+    if args.coordinator:
+        _bounded_exit(args.collective_timeout)
     return 0
+
+
+def _bounded_exit(collective_timeout):
+    """Leave the process group and end the process within a bound.  With a
+    dead peer, tearing the group down can block; a hard-exit timer bounds
+    that, while a healthy group leaves in milliseconds.  Never returns."""
+    import os
+    import threading
+
+    import torch.distributed as dist
+
+    sys.stdout.flush()
+    sys.stderr.flush()
+    bound = max(10.0, collective_timeout or 0.0)
+    threading.Timer(bound, lambda: os._exit(0)).start()
+    try:
+        dist.destroy_process_group()
+    except Exception:
+        pass
+    os._exit(0)
 
 
 def cmd_produce(args):
@@ -427,6 +499,24 @@ def main(argv=None):
     p.add_argument("--ready-file", default=None,
                    help="touch this file once warmup is done and ingest is "
                         "listening (harness readiness gate)")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="lock-step multi-rank mode: rank 0's address for "
+                        "torch.distributed (NCCL on CUDA, gloo on the CPU)")
+    p.add_argument("--num-hosts", type=int, default=1,
+                   help="ranks in the fleet (with --coordinator)")
+    p.add_argument("--host-id", type=int, default=0,
+                   help="this rank (with --coordinator); it runs on "
+                        "cuda:(rank %% device count)")
+    p.add_argument("--pulse-shard", action="store_true",
+                   help="every rank reads the same broadcast wire (one "
+                        "port, SO_REUSEPORT) and computes 1/N of each "
+                        "sector's pulses; every rank publishes the full "
+                        "products (needs --coordinator)")
+    p.add_argument("--collective-timeout", type=float, default=None,
+                   metavar="S",
+                   help="lock-step: when a step blocks on a silent peer "
+                        "(or no batch starts or fills) for S seconds, save "
+                        "the checkpoint, print stats to stderr and exit 3")
     p.add_argument("--device-decode", action="store_true",
                    help="ship raw wire bytes and decode them on the device "
                         "(needs --method pallas): the wire kernel decodes "

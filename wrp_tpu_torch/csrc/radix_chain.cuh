@@ -1,7 +1,9 @@
 // The radix-R fused chain kernel, stages 01-08, for NVIDIA Hopper (sm_90a):
 // one kernel body shared by fused_chain_radix.cu (planar IQ) and
 // fused_chain_wire.cu (raw wire words), which differ only in how an
-// element is loaded (the `Src` policies below).
+// element is loaded (the `Src` policies below).  The same body with
+// kAStage = true is the pulse-sharded path's A-stage kernel
+// (fused_chain_astage.cu): steps 1-2 only, Y stored to global memory.
 //
 // Per unit (one channel of one sector) it maps the unit's IQ rows (range
 // rows in NATURAL order) to the matched-filter power pow [m/2]:
@@ -49,6 +51,10 @@
 //   * The wire policy gives each block one channel and reads its words at
 //     stride ch: all channels per block (1,536 lanes at 3 x 512) fits only
 //     T = 4 in shared memory and measured 1.8x slower (PERF.md).
+//   * The A-stage shares the body through a template flag, not a device
+//     function called by two kernels: that factoring compiled the fused
+//     planar kernel 1.34-1.41x slower (2.24-2.36 vs 1.67 ms per 48
+//     channel-sectors, PERF.md), with the same registers and no spills.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -110,7 +116,15 @@ struct WireSource {
 // fac [S, R, 2] float
 // wd, ph: the epilogue constants as the policy describes them
 // out [units, m/2] float
-template <class Src, int S, int T>
+//
+// kAStage: the A-stage of the pulse-sharded path.  n is then the rank's
+// pulse count w, the grid is (M / T, ceil(w / kThreads), units) with one
+// pulse chunk per block, out is Y [units, 2, m/2, w] (wd, ph unused), and
+// Y goes straight to global memory: consecutive threads hold consecutive
+// pulses, so each (s, t) row store coalesces.  The block then holds only
+// its operator slice (8 KB at T = 8, M = 128), so registers, not shared
+// memory, bound the blocks per SM.
+template <class Src, int S, int T, bool kAStage>
 __global__ void __launch_bounds__(kThreads)
 radix_chain_kernel(Src src, const float* __restrict__ a, const float* __restrict__ fac,
                    const float* __restrict__ wd, const float* __restrict__ ph,
@@ -118,7 +132,11 @@ radix_chain_kernel(Src src, const float* __restrict__ a, const float* __restrict
   constexpr int R = 2 * S;
   const int M = m / R;
   const int t0 = blockIdx.x * T;
-  const int u = blockIdx.z * gridDim.y + blockIdx.y;
+  // fused: grid (M / T, channels, sectors), every pulse in each block
+  const int u = kAStage ? static_cast<int>(blockIdx.z)
+                        : static_cast<int>(blockIdx.z * gridDim.y + blockIdx.y);
+  const int j_begin = kAStage ? static_cast<int>(blockIdx.y) * kThreads : 0;
+  const int j_end = kAStage ? j_begin + kThreads : n;
 
   extern __shared__ __align__(16) float smem[];
   float* a_s = smem;                   // [M][T][2]
@@ -127,7 +145,7 @@ radix_chain_kernel(Src src, const float* __restrict__ a, const float* __restrict
 
   const size_t row_step = static_cast<size_t>(R) * src.pitch();
 
-  for (int j0 = 0; j0 < n; j0 += kThreads) {
+  for (int j0 = j_begin; j0 < j_end; j0 += kThreads) {
     const int j = j0 + static_cast<int>(threadIdx.x);
     const bool active = j < n;
 
@@ -175,16 +193,31 @@ radix_chain_kernel(Src src, const float* __restrict__ a, const float* __restrict
     }
 
     if (active) {
+      if constexpr (kAStage) {
+        float* yr_out = out + static_cast<size_t>(u) * m * n + j;
+        float* yi_out = yr_out + static_cast<size_t>(m / 2) * n;
 #pragma unroll
-      for (int s = 0; s < S; ++s) {
+        for (int s = 0; s < S; ++s) {
 #pragma unroll
-        for (int t = 0; t < T; ++t) {
-          ys_r[(s * T + t) * n + j] = yr[s][t];
-          ys_i[(s * T + t) * n + j] = yi[s][t];
+          for (int t = 0; t < T; ++t) {
+            const size_t row = static_cast<size_t>(s) * M + t0 + t;
+            yr_out[row * n] = yr[s][t];
+            yi_out[row * n] = yi[s][t];
+          }
+        }
+      } else {
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+#pragma unroll
+          for (int t = 0; t < T; ++t) {
+            ys_r[(s * T + t) * n + j] = yr[s][t];
+            ys_i[(s * T + t) * n + j] = yi[s][t];
+          }
         }
       }
     }
   }
+  if constexpr (kAStage) return;
   __syncthreads();
 
   // Parseval epilogue: one warp per row of Y.
@@ -210,7 +243,7 @@ cudaError_t launch_instance(const Src& src, const float* a, const float* fac, co
   const int M = m / (2 * S);
   const size_t smem = (static_cast<size_t>(2) * S * T * n + static_cast<size_t>(2) * T * M) *
                       sizeof(float);
-  auto kernel = radix_chain_kernel<Src, S, T>;
+  auto kernel = radix_chain_kernel<Src, S, T, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -247,6 +280,49 @@ cudaError_t launch_radix_chain(int radix, int tile, const Src& src, const float*
     case 8: return launch_radix_chain_tile<Src, 4>(tile, src, a, fac, wd, ph, out, sectors, channels, m, n, stream);
     case 4: return launch_radix_chain_tile<Src, 2>(tile, src, a, fac, wd, ph, out, sectors, channels, m, n, stream);
     case 2: return launch_radix_chain_tile<Src, 1>(tile, src, a, fac, wd, ph, out, sectors, channels, m, n, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <class Src, int S, int T>
+cudaError_t launch_astage_instance(const Src& src, const float* a, const float* fac, float* y,
+                                   int units, int m, int w, cudaStream_t stream) {
+  const int M = m / (2 * S);
+  const size_t smem = static_cast<size_t>(2) * T * M * sizeof(float);
+  auto kernel = radix_chain_kernel<Src, S, T, true>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>(M / T),
+                  static_cast<unsigned>((w + kThreads - 1) / kThreads),
+                  static_cast<unsigned>(units));
+  kernel<<<grid, kThreads, smem, stream>>>(src, a, fac, nullptr, nullptr, y, m, w);
+  return cudaGetLastError();
+}
+
+template <class Src, int S>
+cudaError_t launch_astage_tile(int tile, const Src& src, const float* a, const float* fac,
+                               float* y, int units, int m, int w, cudaStream_t stream) {
+  switch (tile) {
+    case 8: return launch_astage_instance<Src, S, 8>(src, a, fac, y, units, m, w, stream);
+    case 4: return launch_astage_instance<Src, S, 4>(src, a, fac, y, units, m, w, stream);
+    case 2: return launch_astage_instance<Src, S, 2>(src, a, fac, y, units, m, w, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <class Src>
+cudaError_t launch_radix_astage(int radix, int tile, const Src& src, const float* a,
+                                const float* fac, float* y, int units, int m, int w,
+                                cudaStream_t stream) {
+  if (units <= 0 || units > 65535 || w <= 0 || radix <= 1 || m % radix != 0 || tile <= 0 ||
+      (m / radix) % tile != 0) {
+    return cudaErrorInvalidValue;
+  }
+  switch (radix) {
+    case 8: return launch_astage_tile<Src, 4>(tile, src, a, fac, y, units, m, w, stream);
+    case 4: return launch_astage_tile<Src, 2>(tile, src, a, fac, y, units, m, w, stream);
+    case 2: return launch_astage_tile<Src, 1>(tile, src, a, fac, y, units, m, w, stream);
     default: return cudaErrorInvalidValue;
   }
 }

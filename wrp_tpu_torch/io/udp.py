@@ -44,13 +44,22 @@ class UdpIngest:
         host: str = "",
         timeout_s: Optional[float] = None,
         rcvbuf_bytes: int = 1 << 27,
+        reuse_port: bool = False,
     ):
+        """reuse_port: bind with SO_REUSEPORT, so that the N ranks of a
+        pulse-sharded fleet on one host can read ONE broadcast port
+        (broadcast datagrams reach every bound socket).  Off by default:
+        for unicast traffic the kernel routes each sender to one of the
+        bound sockets, so an accidental port collision between two feeds
+        would split them silently."""
         self.cfg = cfg
         self.port = port if port is not None else cfg.udp_ingest_port
         self.stats = IngestStats()
         self._row_bytes = cfg.datagram_nbytes
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        if reuse_port:
+            self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
         try:
             self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF,
                                   rcvbuf_bytes)

@@ -130,6 +130,16 @@ def load_library() -> ctypes.CDLL:
                 i32, i32, i32, i32,                  # bc, m, n, tile
                 ptr]                                 # stream
             lib.wrp_fused_chain_dense.restype = i32
+            lib.wrp_fused_chain_astage.argtypes = [
+                ptr, i32, ptr, ptr, ptr,             # x, x_is_int16, a, fac, y
+                i32, i32, i32, i32, i32,             # bc, m, w, radix, tile
+                ptr]                                 # stream
+            lib.wrp_fused_chain_astage.restype = i32
+            lib.wrp_parseval_rows.argtypes = [
+                ptr, ptr, ptr, ptr,                  # y, wd, ph, out
+                i32, i32, i32,                       # bc, rows, n
+                ptr]                                 # stream
+            lib.wrp_parseval_rows.restype = i32
             lib.wrp_cuda_error_string.argtypes = [i32]
             lib.wrp_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

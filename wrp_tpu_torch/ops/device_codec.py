@@ -22,11 +22,19 @@ import torch
 from ..config import RadarConfig, DEFAULT_CONFIG
 
 
-def decode_wire_i16(wire_u8, cfg: RadarConfig = DEFAULT_CONFIG) -> torch.Tensor:
+def decode_wire_i16(wire_u8, cfg: RadarConfig = DEFAULT_CONFIG,
+                    num_pulses: int | None = None) -> torch.Tensor:
     """uint8 [..., m*n*ch*4] wire bytes -> int16 [..., ch, 2, m, n] on the
     same device, bit-exact with io/codec.decode_iq_i16.  The standalone
-    decode pass of `wire_decode="xla"` (geometries without a radix split)."""
+    decode pass of `wire_decode="xla"` (geometries without a radix split)
+    and of the pulse-sharded wire input.
+
+    num_pulses overrides cfg's pulse count: a pulse-sharded rank holds only
+    its n/N pulse-byte columns of each wire row (the wire interleaves the
+    channels per sample, so a column slice of a row is self-contained)."""
     m, n, ch = cfg.num_range_cells, cfg.num_pulses, cfg.num_channels
+    if num_pulses is not None:
+        n = num_pulses
     nbytes = m * n * cfg.bytes_per_sample
     w = torch.as_tensor(wire_u8)
     if w.dtype != torch.uint8 or w.dim() < 1 or w.shape[-1] != nbytes:

@@ -21,6 +21,18 @@ counter:
   R == 1 branch), `DENSE_LAUNCHES`.  Planar IQ through the dense A_half
   [m/2, m], for m that does not split (`radix_for(m) == 1`).
 
+The pulse-sharded path (parallel/sharded.py "pallas-seq") splits the
+radix chain at its one communication point, with a kernel on each side:
+
+* A-stage, csrc/fused_chain_astage.cu (``wrp_tpu`` `fused_chain_astage`):
+  `fused_chain_astage`, plain `fused_chain_astage_reference`,
+  `ASTAGE_LAUNCHES`.  The radix kernel's contraction on a rank's pulse
+  slab [bc, 2, m, w] -> Y [bc, 2, m/2, w] (the same kernel body).
+* row epilogue, csrc/parseval_rows.cu (``wrp_tpu`` `parseval_rows_power`):
+  `parseval_rows_power`, plain `parseval_rows_power_reference`,
+  `PARSEVAL_ROWS_LAUNCHES`.  The Parseval epilogue on full-pulse rows
+  Y [bc, 2, rows, n] -> pow [bc, rows].
+
 The host plan (`radix_for`, `radix_row_order`, `radix_plan`, `build_plan`)
 holds the branch operators A_p = F_M diag(w_r c)[p::R] diag(T_p), with the
 window row factor and the DIT twiddles folded in, and the combine factors
@@ -51,6 +63,8 @@ from . import _build
 LAUNCHES = 0            # fused_chain_radix.cu
 WIRE_LAUNCHES = 0       # fused_chain_wire.cu
 DENSE_LAUNCHES = 0      # fused_chain_dense.cu
+ASTAGE_LAUNCHES = 0     # fused_chain_astage.cu
+PARSEVAL_ROWS_LAUNCHES = 0   # parseval_rows.cu
 
 RADIX = 8
 
@@ -175,32 +189,36 @@ def build_plan(consts: PipelineConstants, device,
     )
 
 
-def fused_chain_power_reference(x: torch.Tensor, plan: RadixPlan) -> torch.Tensor:
-    """Plain torch version of the radix and dense kernels: x [bc, 2, m, n]
-    int16/f32 in natural row order -> pow [bc, m/2] f32.  Per-branch fp32 matmuls on the
-    strided row views x[..., p::R, :], the generic complex combine, then
-    the Parseval epilogue.  R == 1 contracts the dense A_half."""
+def _contract_reference(x: torch.Tensor, plan: RadixPlan):
+    """The contraction and combine of x [bc, 2, m, w] (any w, natural row
+    order) -> (yr, yi) [bc, m/2, w] f32: per-branch fp32 matmuls on the
+    strided row views x[..., p::R, :] and the generic complex combine;
+    R == 1 contracts the dense A_half."""
     xf = x.to(torch.float32)
     xr, xi = xf[:, 0], xf[:, 1]
     ar, ai = plan.a[:, 0], plan.a[:, 1]
     R = plan.radix
     if R == 1:
-        yr = ar[0] @ xr - ai[0] @ xi
-        yi = ar[0] @ xi + ai[0] @ xr
-    else:
-        S = len(plan.fac)
-        ys_r = [0.0] * S
-        ys_i = [0.0] * S
-        for p in range(R):
-            vr, vi = xr[:, p::R, :], xi[:, p::R, :]
-            gr = ar[p] @ vr - ai[p] @ vi
-            gi = ar[p] @ vi + ai[p] @ vr
-            for s in range(S):
-                f = plan.fac[s][p]
-                ys_r[s] = ys_r[s] + (f.real * gr - f.imag * gi)
-                ys_i[s] = ys_i[s] + (f.real * gi + f.imag * gr)
-        yr = torch.cat(ys_r, dim=-2)
-        yi = torch.cat(ys_i, dim=-2)
+        return ar[0] @ xr - ai[0] @ xi, ar[0] @ xi + ai[0] @ xr
+    S = len(plan.fac)
+    ys_r = [0.0] * S
+    ys_i = [0.0] * S
+    for p in range(R):
+        vr, vi = xr[:, p::R, :], xi[:, p::R, :]
+        gr = ar[p] @ vr - ai[p] @ vi
+        gi = ar[p] @ vi + ai[p] @ vr
+        for s in range(S):
+            f = plan.fac[s][p]
+            ys_r[s] = ys_r[s] + (f.real * gr - f.imag * gi)
+            ys_i[s] = ys_i[s] + (f.real * gi + f.imag * gr)
+    return torch.cat(ys_r, dim=-2), torch.cat(ys_i, dim=-2)
+
+
+def fused_chain_power_reference(x: torch.Tensor, plan: RadixPlan) -> torch.Tensor:
+    """Plain torch version of the radix and dense kernels: x [bc, 2, m, n]
+    int16/f32 in natural row order -> pow [bc, m/2] f32.  The contraction
+    (`_contract_reference`), then the Parseval epilogue."""
+    yr, yi = _contract_reference(x, plan)
     return stage_b_parseval(yr, yi, plan.wd, plan.phasors)
 
 
@@ -381,6 +399,110 @@ def fused_chain_power_wire(w32: torch.Tensor, plan: RadixPlan,
             plan.m, plan.n, ch, plan.radix, kernel_tile(plan), stream)
     _raise_on_error(lib, rc, "fused_chain_wire")
     WIRE_LAUNCHES += 1
+    return out
+
+
+def astage_tile(plan: RadixPlan) -> int:
+    """Tallest tile of the A-stage kernel dividing M = m / R.  The block
+    holds only its operator slice [M, T] (8 KB at T = 8, M = 128), so
+    shared memory never binds; T = 8 measured fastest at 1024 x 512
+    (tools/kernel_ab.py's tile sweep, PERF.md)."""
+    M = plan.m // plan.radix
+    for t in KERNEL_TILES:
+        if M % t == 0:
+            return t
+    raise ValueError(f"no A-stage tile divides M={M}")
+
+
+def fused_chain_astage_reference(x: torch.Tensor, plan: RadixPlan) -> torch.Tensor:
+    """Plain torch version of the A-stage kernel: x [bc, 2, m, w] int16/f32,
+    natural row order, any pulse count w -> Y [bc, 2, m/2, w] f32."""
+    yr, yi = _contract_reference(x, plan)
+    return torch.stack([yr, yi], dim=1)
+
+
+def fused_chain_astage(x: torch.Tensor, plan: RadixPlan) -> torch.Tensor:
+    """x [bc, 2, m, w] int16/f32 (natural row order, w = this rank's pulse
+    lanes) -> Y [bc, 2, m/2, w] f32, the windowed half-spectrum range DFT.
+
+    A CPU tensor takes the plain version.  A CUDA tensor launches
+    csrc/fused_chain_astage.cu on the current stream (`astage_tile` sub-DFT
+    rows per block) or raises.  Needs a plan whose m
+    splits into radix branches, as ``wrp_tpu``'s pallas-seq does."""
+    global ASTAGE_LAUNCHES
+    if plan.radix < 2:
+        raise ValueError(f"the A-stage needs the radix plan (m={plan.m} "
+                         "supports radix 1 only)")
+    if x.dtype not in (torch.int16, torch.float32):
+        raise TypeError(f"fused_chain_astage: x must be int16 or float32, "
+                        f"got {x.dtype}")
+    if x.dim() != 4 or tuple(x.shape[1:3]) != (2, plan.m) or x.shape[3] < 1:
+        raise ValueError(f"fused_chain_astage: x must be [bc, 2, {plan.m}, w], "
+                         f"got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return fused_chain_astage_reference(x, plan)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_chain_astage: unsupported device {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("fused_chain_astage: x must be contiguous")
+    if plan.device != x.device:
+        raise ValueError(f"fused_chain_astage: plan is on {plan.device}, x on "
+                         f"{x.device}")
+    bc, w = x.shape[0], x.shape[3]
+    y = torch.empty((bc, 2, plan.m // 2, w), dtype=torch.float32,
+                    device=x.device)
+    if bc == 0:
+        return y
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.wrp_fused_chain_astage(
+            x.data_ptr(), int(x.dtype == torch.int16), plan.a_kernel.data_ptr(),
+            plan.fac_t.data_ptr(), y.data_ptr(), bc, plan.m, w, plan.radix,
+            astage_tile(plan), stream)
+    _raise_on_error(lib, rc, "fused_chain_astage")
+    ASTAGE_LAUNCHES += 1
+    return y
+
+
+def parseval_rows_power_reference(y: torch.Tensor, plan: RadixPlan) -> torch.Tensor:
+    """Plain torch version of the row-epilogue kernel: Y [bc, 2, rows, n]
+    f32 -> pow [bc, rows] f32 (`pipeline.stage_b_parseval`)."""
+    return stage_b_parseval(y[:, 0], y[:, 1], plan.wd, plan.phasors)
+
+
+def parseval_rows_power(y: torch.Tensor, plan: RadixPlan) -> torch.Tensor:
+    """Y [bc, 2, rows, n] f32 (the full pulse axis, any slice of the m/2
+    range bins) -> pow [bc, rows] f32.  A CPU tensor takes the plain
+    version; a CUDA tensor launches csrc/parseval_rows.cu on the current
+    stream or raises."""
+    global PARSEVAL_ROWS_LAUNCHES
+    if y.dtype != torch.float32:
+        raise TypeError(f"parseval_rows_power: y must be float32, got {y.dtype}")
+    if y.dim() != 4 or y.shape[1] != 2 or y.shape[3] != plan.n:
+        raise ValueError(f"parseval_rows_power: y must be [bc, 2, rows, "
+                         f"{plan.n}], got {tuple(y.shape)}")
+    if y.device.type == "cpu":
+        return parseval_rows_power_reference(y, plan)
+    if y.device.type != "cuda":
+        raise ValueError(f"parseval_rows_power: unsupported device {y.device}")
+    if not y.is_contiguous():
+        raise ValueError("parseval_rows_power: y must be contiguous")
+    if plan.device != y.device:
+        raise ValueError(f"parseval_rows_power: plan is on {plan.device}, y on "
+                         f"{y.device}")
+    bc, rows = y.shape[0], y.shape[2]
+    out = torch.empty((bc, rows), dtype=torch.float32, device=y.device)
+    if bc == 0 or rows == 0:
+        return out
+    lib = _build.load_library()
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        rc = lib.wrp_parseval_rows(
+            y.data_ptr(), plan.wd.data_ptr(), plan.phasors.data_ptr(),
+            out.data_ptr(), bc, rows, plan.n, stream)
+    _raise_on_error(lib, rc, "parseval_rows")
+    PARSEVAL_ROWS_LAUNCHES += 1
     return out
 
 

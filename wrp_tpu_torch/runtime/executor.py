@@ -18,15 +18,22 @@ compute thread stages batch k+1.  Adds what the reference lacked: receive
 timeouts with drop-and-resync, sector/elevation tracking, volume
 checkpointing, per-stage timers and end-to-end latency.
 
-Left for later (ROADMAP.md): the lock-step multi-host mode with its stall
-watchdog and collective timeout.
+Lock-step mode (`lockstep=True`, for the multi-rank processors of
+parallel/multihost.py) waits for full batches, so every rank issues the
+same collective steps, and bounds the wait on a silent peer: a watchdog
+thread around dispatch and fetch warns after `stall_warning_s` and, past
+`collective_timeout_s`, saves every volume checkpoint, writes the stats to
+stderr and exits the process with code 3.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import inspect
+import json
+import os
 import queue
+import sys
 import threading
 import time
 from typing import Callable, Optional
@@ -55,6 +62,64 @@ def _to_host(a) -> np.ndarray:
     return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
 
 
+class _StallWatchdog:
+    """Surfaces a lock-step collective blocked on a silent peer.
+
+    A collective waits for every rank: if one rank never issues its step
+    (its ingest died or went idle), every other rank blocks inside the
+    backend with no error.  This side thread logs a diagnostic every
+    `interval` seconds while the wrapped section blocks and, with
+    `timeout_s`, calls `on_timeout(what, waited)` once the block exceeds
+    it (the blocked thread cannot be unblocked from the host, so
+    on_timeout is expected to checkpoint and end the process)."""
+
+    def __init__(self, what: str, interval: Optional[float],
+                 on_warn: Optional[Callable] = None,
+                 timeout_s: Optional[float] = None,
+                 on_timeout: Optional[Callable] = None):
+        self.what = what
+        self.interval = interval
+        self.on_warn = on_warn
+        self.timeout_s = timeout_s
+        self.on_timeout = on_timeout
+        self._done = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def _watch(self, t0: float):
+        wait = self.interval or self.timeout_s
+        if self.timeout_s:
+            wait = min(wait, self.timeout_s)
+        while not self._done.wait(wait):
+            waited = time.monotonic() - t0
+            if (self.timeout_s is not None and waited >= self.timeout_s
+                    and self.on_timeout is not None):
+                self.on_timeout(self.what, waited)
+                return  # unreachable when on_timeout exits the process
+            log.warning(
+                "lock-step %s blocked for %.1fs: a peer rank is likely "
+                "silent (its ingest idle or dead); this rank is stuck in "
+                "the collective until the peer steps or the run is killed",
+                self.what, waited)
+            if self.on_warn is not None:
+                self.on_warn()
+
+    def __enter__(self):
+        armed = (self.interval is not None and self.interval > 0) or (
+            self.timeout_s is not None and self.timeout_s > 0)
+        if armed:
+            self._thread = threading.Thread(
+                target=self._watch, args=(time.monotonic(),), daemon=True,
+                name="wrp-stall-watchdog")
+            self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        if self._thread is not None:
+            self._done.set()
+            self._thread.join(timeout=1)
+        return False
+
+
 class StreamingExecutor:
     """Pull sectors from a transport, process in batches, publish products.
 
@@ -72,8 +137,10 @@ class StreamingExecutor:
                the wire batch [batch, nbytes / itemsize] in the override's
                `wire_dtype`; plus `labels=` rows of (sector, elevation) if
                it takes them) and returning (zdb, zdr).  It owns its device
-               placement.  Default: a SectorProcessor(method, device) fed
-               through pinned staging.
+               placement (e.g. PulseShardedProcessor.step_local of
+               parallel/multihost.py for lock-step multi-rank streaming).
+               Default: a SectorProcessor(method, device) fed through
+               pinned staging.
     device_decode: ship raw wire bytes and decode them on the device
                (SectorProcessor(wire_input=True): the wire kernel, or a
                decode pass before the dense kernel).  The ingest thread then
@@ -100,6 +167,9 @@ class StreamingExecutor:
         on_ready: Optional[Callable] = None,
         device="cuda",
         device_decode: bool = False,
+        lockstep: bool = False,
+        stall_warning_s: Optional[float] = 10.0,
+        collective_timeout_s: Optional[float] = None,
     ):
         """idle_limit: stop after this many consecutive idle receive
         timeouts (None = listen forever, the service default).
@@ -112,7 +182,24 @@ class StreamingExecutor:
         buffer.
 
         device: where the default processor runs; "cuda" (the default)
-        raises on a host without CUDA rather than running on the CPU."""
+        raises on a host without CUDA rather than running on the CPU.
+
+        lockstep: wait for FULL batches (except at end of stream), so every
+        rank of a multi-rank processor issues the same collective steps for
+        the same sector count.
+
+        stall_warning_s: in lock-step mode, log a diagnostic when a step
+        blocks longer than this (a peer rank is silent); None disables.
+
+        collective_timeout_s: in lock-step mode, bound the wait on a dead
+        peer: when dispatch or fetch blocks (or raises) past this, or no
+        batch can start or fill for this long, save every volume
+        checkpoint, write the stats to stderr and exit the process with
+        code 3 (the blocked thread cannot be freed from the host; a
+        restarted rank resumes from --checkpoint).  None keeps the
+        warn-only watchdog.  Give the process group a larger timeout
+        (parallel/mesh.init_distributed), or the backend's own watchdog
+        may end the process first."""
         self.cfg = cfg
         self.transports = (list(transport)
                            if isinstance(transport, (list, tuple))
@@ -138,6 +225,11 @@ class StreamingExecutor:
         else:
             self.volumes = [volume] * nfeeds
         self.batch = batch
+        self.lockstep = lockstep
+        self.stall_warning_s = stall_warning_s
+        self.collective_timeout_s = collective_timeout_s
+        self.stall_warnings = 0
+        self.batches = 0
         self.debug_sync = debug_sync
         self.max_sectors = max_sectors
         self.idle_limit = idle_limit
@@ -311,9 +403,11 @@ class StreamingExecutor:
     # ------------------------------------------------------------------
 
     def _drain_batch(self):
-        """Collect up to `batch` queued sectors (at least one, else None)."""
+        """Collect up to `batch` queued sectors (at least one, else None);
+        in lock-step mode a full batch unless the stream ended."""
         nfeeds = max(1, len(self.transports))
         item = None
+        waited0 = 0.0
         while item is None:
             try:
                 item = self._queue.get(timeout=0.5)
@@ -324,17 +418,59 @@ class StreamingExecutor:
                 if (ts and all(not t.is_alive() for t in ts)
                         and self._queue.empty()):
                     return None
+                if self.lockstep and self.collective_timeout_s is not None:
+                    # a lock-step rank that makes no progress cannot tell a
+                    # healthy idle fleet from peers blocked on its next
+                    # step; past the timeout it exits with a checkpoint
+                    # (set the timeout above the expected sector gap)
+                    waited0 += 0.5
+                    if waited0 >= self.collective_timeout_s:
+                        self._collective_abort(
+                            "batch start (no local traffic; peers may be "
+                            "blocked on this rank's next step)", waited0)
                 continue
             if item is None:            # one feed reached end-of-stream
                 self._eof_feeds += 1
                 if self._eof_feeds >= nfeeds:
                     return None
         tasks = [item]
+        starved_s = 0.0
+        next_starve_warn = self.stall_warning_s or float("inf")
         while len(tasks) < self.batch:
-            try:
-                item = self._queue.get_nowait()
-            except queue.Empty:
-                break
+            if self.lockstep:
+                try:
+                    item = self._queue.get(timeout=0.5)
+                    # an arrival proves the wire is alive: starvation is
+                    # about CONSECUTIVE idle time
+                    starved_s = 0.0
+                    next_starve_warn = self.stall_warning_s or float("inf")
+                except queue.Empty:
+                    ts = self._ingest_threads
+                    if (ts and all(not t.is_alive() for t in ts)
+                            and self._queue.empty()):
+                        break
+                    starved_s += 0.5
+                    if (self.collective_timeout_s is not None
+                            and starved_s >= self.collective_timeout_s):
+                        # this rank's wire died mid-batch: peers are (or
+                        # will be) blocked on its next step
+                        self._collective_abort(
+                            "batch fill (local ingest idle; peers blocked "
+                            "on this rank's next step)", starved_s)
+                    if starved_s >= next_starve_warn:
+                        log.warning(
+                            "lock-step batch starving: %d/%d sectors after "
+                            "%.1fs of idle ingest; peer ranks are blocked "
+                            "on this rank's next collective step",
+                            len(tasks), self.batch, starved_s)
+                        self.stall_warnings += 1
+                        next_starve_warn += self.stall_warning_s
+                    continue
+            else:
+                try:
+                    item = self._queue.get_nowait()
+                except queue.Empty:
+                    break
             if item is None:
                 self._eof_feeds += 1
                 if self._eof_feeds >= nfeeds:
@@ -371,17 +507,29 @@ class StreamingExecutor:
         idx = self._stage(tasks)
         rows = len(tasks)
         done = None
+        self.batches += 1
         if self._device is None:      # processor override
             t_dispatch = time.perf_counter()
-            with self.timers.time("compute/dispatch"):
-                if self._proc_takes_labels:
-                    labels = np.full((self.batch, 2), -1, np.int32)
-                    for i, t in enumerate(tasks):
-                        labels[i] = (t.sector, t.elevation)
-                    zdb, zdr = self.processor(self._host_np[idx],
-                                              labels=labels)
-                else:
-                    zdb, zdr = self.processor(self._host_np[idx])
+            with self.timers.time("compute/dispatch"), \
+                    self._stall_watch("collective dispatch"):
+                try:
+                    if self._proc_takes_labels:
+                        labels = np.full((self.batch, 2), -1, np.int32)
+                        for i, t in enumerate(tasks):
+                            labels[i] = (t.sector, t.elevation)
+                        zdb, zdr = self.processor(self._host_np[idx],
+                                                  labels=labels)
+                    else:
+                        zdb, zdr = self.processor(self._host_np[idx])
+                except Exception:
+                    # a dead peer may surface as a backend error instead of
+                    # a block: the same bounded exit.  The traceback goes
+                    # first: the error may as well be local.
+                    if self.lockstep and self.collective_timeout_s is not None:
+                        log.exception("collective dispatch raised (a dead "
+                                      "peer OR a local error, see traceback)")
+                        self._collective_abort("dispatch (exception)", 0.0)
+                    raise
         elif self._cuda:
             with self.timers.time("compute/h2d_enqueue"):
                 if self._computed[idx] is not None:
@@ -410,11 +558,19 @@ class StreamingExecutor:
         the host-side epilogue: volume store, egress, throughput,
         periodic checkpoint."""
         tasks, zdb, zdr, t_dispatch, done = pending
-        with self.timers.time("compute/fetch"):
-            if done is not None:
-                done.synchronize()
-            zdb = _to_host(zdb)[: len(tasks)]
-            zdr = _to_host(zdr)[: len(tasks)]
+        with self.timers.time("compute/fetch"), \
+                self._stall_watch("result fetch"):
+            try:
+                if done is not None:
+                    done.synchronize()
+                zdb = _to_host(zdb)[: len(tasks)]
+                zdr = _to_host(zdr)[: len(tasks)]
+            except Exception:
+                if self.lockstep and self.collective_timeout_s is not None:
+                    log.exception("collective result fetch raised (a dead "
+                                  "peer OR a local error, see traceback)")
+                    self._collective_abort("result fetch (exception)", 0.0)
+                raise
         # the device in-flight window: dispatch through the completed fetch
         self.timers.add_interval("compute/in_flight", t_dispatch,
                                  time.perf_counter())
@@ -445,6 +601,49 @@ class StreamingExecutor:
         """Synchronous dispatch + complete (debug_sync / tests)."""
         return self._complete_batch(self._dispatch_batch(tasks))
 
+    def _stall_watch(self, what: str) -> _StallWatchdog:
+        """A watchdog armed only in lock-step mode: a single-rank step
+        cannot block on a peer."""
+        def _count():
+            self.stall_warnings += 1
+
+        return _StallWatchdog(
+            what, self.stall_warning_s if self.lockstep else None,
+            on_warn=_count,
+            timeout_s=self.collective_timeout_s if self.lockstep else None,
+            on_timeout=self._collective_abort)
+
+    def _collective_abort(self, what: str, waited: float):
+        """The bounded exit of collective_timeout_s: save every volume
+        checkpoint, write the stats to stderr, exit code 3.
+
+        Runs on the watchdog thread while the compute thread is blocked
+        inside a collective that nothing on the host can free, so it ends
+        the process itself (os._exit: finally blocks and atexit would need
+        the blocked thread).  Saving is safe: a volume changes only in the
+        epilogue of a completed batch, and the compute thread is stuck
+        before it."""
+        log.error(
+            "lock-step %s blocked/failed for %.1fs (collective timeout "
+            "%.1fs): a peer rank is gone; saving the volume checkpoint and "
+            "exiting 3; restart every rank with --checkpoint to resume this "
+            "volume", what, waited, self.collective_timeout_s or 0.0)
+        try:
+            for vol in self.volumes:
+                if vol is not None and vol.path is not None:
+                    vol.save()
+                    self.checkpoints_written += 1
+                    log.info("volume checkpoint saved to %s (%.1f%% covered)",
+                             vol.path, 100 * vol.fraction())
+        except Exception as e:   # a bad disk must not block the exit
+            log.error("checkpoint save failed during abort: %s", e)
+        try:
+            sys.stderr.write(json.dumps(self.stats(self._processed)) + "\n")
+            sys.stderr.flush()
+        except Exception:
+            pass
+        os._exit(3)
+
     def _maybe_checkpoint(self):
         """Periodic crash-safe volume save (VolumeScan.save is atomic)."""
         vols = [v for v in self.volumes if v is not None and v.path is not None]
@@ -465,7 +664,15 @@ class StreamingExecutor:
         starts (builds the CUDA kernel library at first use; a first-batch
         stall would overflow the UDP receive buffer and drop sectors)."""
         if self._device is None:
-            zdb, _ = self.processor(self._host_np[0])
+            if self._proc_takes_labels:
+                # all-padding labels: a multi-rank processor's alignment
+                # check runs here too, so its first collective (NCCL builds
+                # its communicator there, ~1 s) happens before ingest
+                zdb, _ = self.processor(
+                    self._host_np[0],
+                    labels=np.full((self.batch, 2), -1, np.int32))
+            else:
+                zdb, _ = self.processor(self._host_np[0])
         elif self._cuda:
             zdb, _ = self.processor(self._dev[0])
             torch.cuda.synchronize(self._device)
@@ -507,9 +714,12 @@ class StreamingExecutor:
 
         try:
             while True:
-                if pending is not None and self._queue.empty():
+                can_fill = (self._queue.qsize() >= self.batch
+                            if self.lockstep else not self._queue.empty())
+                if pending is not None and not can_fill:
                     # nothing to overlap with: publish now rather than sit
-                    # on finished results while waiting for the wire
+                    # on finished results while waiting for the wire (in
+                    # lock-step mode, for a full batch)
                     complete_pending()
                 tasks = self._drain_batch()
                 if tasks is None:
@@ -538,6 +748,8 @@ class StreamingExecutor:
         out = {
             "processed_sectors": processed,
             "bad_headers": self.bad_headers,
+            "stall_warnings": self.stall_warnings,
+            "batches": self.batches,
             "checkpoints_written": self.checkpoints_written,
             "sectors_per_second": round(self.throughput.overall(), 2),
             "active_sectors_per_second": round(self.throughput.active_rate(), 2),
