@@ -9,6 +9,28 @@ Phases (each prints its results; any failure raises and exits non-zero):
 1. environment: torch/CUDA versions, the card's name and power limit;
    fails without CUDA;
 2. build: compiles wrp_tpu_torch/csrc with nvcc (first use) and times it;
+   then the benchmark's slice:
+   a. the offset entries on two staged slabs (noise, clip-bin), at batch
+      16 and at the bench's own shapes (batch 128: 384 channel-sectors from
+      offset 384 of a 768-unit array, the wire's 128 sectors from offset
+      128): radix (int16; f32 at batch 16) and wire with salts 0, 7, 95,
+      dense at m = 1000 without: each slab bit-identical to the plain entry
+      on a copy of it, salt 0 bit-identical to unsalted, salted vs the
+      plain salted version <= 5e-7 rel-L2, the salt-7 zdb within the
+      bench's 1e-3 gate of the unsalted zdb (salt 95's is printed), the
+      wire words vs the radix entry on their planar samples, an offset past
+      the array raises; CUDA-event times of the entry (salted), unsalted
+      and plain;
+   b. fused_stage2 on Y [48, 512, 512]: vs plain <= 1e-6, identical for
+      row_block 128/256/512, a bad row_block raises; on its path, the mxu
+      method's range-stage Y of 16 noise sectors vs that method's own
+      power (<= 1e-5) and the oracle; times of the kernel, plain and
+      torch.matmul (complex64 Y @ B);
+   c. `wrp_tpu_torch.bench.run` in process at the defaults: pallas int16,
+      --in-dtype wire (fused and xla decode), m = 1000 (the dense offset
+      entry, 8 repeats), and the mxu, parseval, fft and radix methods at 4
+      repeats; each passes its parity gate with value > 0, and its offset
+      counter equals its launches;
 3. the radix kernel vs its plain torch version at 3 x 1024 x 512, batch 16
    (48 channel-sectors), int16 and f32 input, on seeded noise and on an
    adversarial input whose Doppler energy sits in the clipped bins;
@@ -75,23 +97,30 @@ import torch.distributed as dist
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from wrp_tpu_torch import oracle  # noqa: E402
+from wrp_tpu_torch import bench, oracle  # noqa: E402
 from wrp_tpu_torch.config import DEFAULT_CONFIG, tiny_config  # noqa: E402
 from wrp_tpu_torch.constants import PipelineConstants, hamming_factors  # noqa: E402
 from wrp_tpu_torch.io import codec, frames  # noqa: E402
 from wrp_tpu_torch.io.udp import UdpEgress, UdpIngest  # noqa: E402
-from wrp_tpu_torch.ops import _build, device_codec, fullchain  # noqa: E402
+from wrp_tpu_torch.ops import (  # noqa: E402
+    _build, device_codec, fullchain, postprocess)
 from wrp_tpu_torch.parallel.multihost import (  # noqa: E402
     PulseShardedProcessor, init_distributed)
 from wrp_tpu_torch.parallel.sharded import join_pulses, split_rows  # noqa: E402
-from wrp_tpu_torch.pipeline import stage09_10_products  # noqa: E402
+from wrp_tpu_torch.pipeline import (  # noqa: E402
+    _DeviceConstants, _rmatmul, channel_power_planar, stage09_10_products)
 from wrp_tpu_torch.runtime import StreamingExecutor, VolumeScan  # noqa: E402
 
 BATCH = 16
+BENCH_BATCH = 128         # the bench's default batch (sectors per step)
 SECTORS = 143             # one elevation cut of DEFAULT_CONFIG
 RATE = 21.45              # sectors/s: a real radar's cut rate
 POWER_TOL = 1e-5
 PRODUCT_TOL = 2e-4
+SALTED_TOL = 5e-7         # a salted kernel vs its plain salted version
+STAGE2_TOL = 1e-6         # fused_stage2 vs its plain version (fp32 GEMM orders)
+BENCH_GATE = (1e-4, 1e-3)  # the bench's parity gate: salt 0, salted
+BENCH_SALTS = (7, 95)     # the bench gate's salt; the largest a default run uses
 SEED = 2024
 DENSE_M = 1000            # radix_for(1000) == 1: the dense kernel's geometry
 SHARDS = (1, 2, 4)        # ranks of the pulse-sharded path
@@ -147,13 +176,19 @@ def algorithm_note(m: int, w: int, bc: int) -> str:
 def reset_counts() -> None:
     fullchain.LAUNCHES = fullchain.WIRE_LAUNCHES = fullchain.DENSE_LAUNCHES = 0
     fullchain.ASTAGE_LAUNCHES = fullchain.PARSEVAL_ROWS_LAUNCHES = 0
+    fullchain.RADIX_OFFSET_LAUNCHES = fullchain.WIRE_OFFSET_LAUNCHES = 0
+    fullchain.DENSE_OFFSET_LAUNCHES = postprocess.STAGE2_LAUNCHES = 0
 
 
 def read_counts() -> dict:
     return {"radix": fullchain.LAUNCHES, "wire": fullchain.WIRE_LAUNCHES,
             "dense": fullchain.DENSE_LAUNCHES,
             "astage": fullchain.ASTAGE_LAUNCHES,
-            "rows": fullchain.PARSEVAL_ROWS_LAUNCHES}
+            "rows": fullchain.PARSEVAL_ROWS_LAUNCHES,
+            "radix_offset": fullchain.RADIX_OFFSET_LAUNCHES,
+            "wire_offset": fullchain.WIRE_OFFSET_LAUNCHES,
+            "dense_offset": fullchain.DENSE_OFFSET_LAUNCHES,
+            "stage2": postprocess.STAGE2_LAUNCHES}
 
 
 class SmokeFailure(RuntimeError):
@@ -927,6 +962,311 @@ def phase_dense_path() -> int:
     return launches
 
 
+def offset_entry_checks(name, units, count, call, on_slab, plain, zdb_of,
+                        salts, tol) -> dict:
+    """One offset entry on a staged array of `units` holding two slabs of
+    `count`: call(offset, salt) is the entry, on_slab(offset) the plain
+    entry's kernel on a contiguous copy of the slab, plain(offset, salt) the
+    plain torch version, zdb_of(pow) the products' zdb.  Each slab:
+    bit-identical to on_slab; with salts, salt 0 bit-identical to unsalted,
+    each salt vs plain <= tol and its zdb within the bench's salted gate of
+    the unsalted zdb.  An offset outside the array raises.  Times the entry
+    (salted where it salts), unsalted, and plain on slab 1."""
+    worst = max_abs = 0.0
+    for off in (0, count):
+        got = call(off, None)
+        torch.cuda.synchronize()
+        check(torch.equal(got, on_slab(off)),
+              f"{name} offset {off}: bit-identical to the plain entry's kernel "
+              "on a copy of the slab")
+        for salt in salts:
+            g = call(off, salt)
+            torch.cuda.synchronize()
+            if salt == 0:
+                check(torch.equal(g, got),
+                      f"{name} offset {off} salt 0: bit-identical to unsalted")
+                continue
+            e, a = rel_dev(plain(off, salt), g)
+            ez = rel(zdb_of(got), zdb_of(g))
+            worst, max_abs = max(worst, e), max(max_abs, a)
+            # the gate holds the salt's cancellation residual at its own
+            # salt; a larger salt leaves a larger one (the pulse window makes
+            # the cancellation inexact), printed
+            gated = salt == BENCH_SALTS[0]
+            check(e <= tol and (ez < BENCH_GATE[1] or not gated),
+                  f"{name} offset {off} salt {salt}: vs plain salted rel-L2 "
+                  f"{e:.3e} <= {tol} (max abs {a:.3e}); zdb vs unsalted "
+                  f"{ez:.3e}" + (f" < {BENCH_GATE[1]}" if gated else ""))
+        if not salts:
+            e, a = rel_dev(plain(off, None), got)
+            worst, max_abs = max(worst, e), max(max_abs, a)
+            check(e <= tol, f"{name} offset {off}: vs plain rel-L2 {e:.3e} <= "
+                            f"{tol} (max abs {a:.3e})")
+    for bad in (count + 1, -1):
+        try:
+            call(bad, None)
+            raised = False
+        except ValueError:
+            raised = True
+        check(raised, f"{name}: offset {bad} (slab past the {units} staged "
+                      "units) raises")
+    salt = salts[-1] if salts else None
+    t = timed({"plain": lambda: plain(count, salt),
+               "kernel": lambda: call(count, salt),
+               "unsalted": lambda: call(count, None)},
+              ("plain", "kernel", "unsalted", "unsalted", "kernel", "plain"))
+    print(f"{name}: offset entry {t['kernel']:.3f} ms (salt {salt}), "
+          f"unsalted {t['unsalted']:.3f} ms, plain {t['plain']:.3f} ms",
+          flush=True)
+    return {"max_abs_err": max_abs, "rel_l2": worst, "ms": t["kernel"],
+            "plain_ms": t["plain"], "unsalted_ms": t["unsalted"]}
+
+
+def wire_words_on_card(x: torch.Tensor, cfg) -> torch.Tensor:
+    """Planar int16 [S*C, 2, m, n] on the card -> the wire's int32 words
+    [S, m, C*n]: the bench's `_wire_bytes` (interleaved big-endian int16,
+    io/codec.encode_iq's layout) made on the card, then
+    `device_codec.wire_words_i32`."""
+    c, m, n = cfg.sector_shape
+    s = x.shape[0] // c
+    le = x.reshape(s, c, 2, m, n).permute(0, 3, 4, 1, 2).contiguous()
+    be = le.view(torch.uint8).reshape(*le.shape, 2).flip(-1).contiguous()
+    return device_codec.wire_words_i32(be.reshape(s, -1), cfg).contiguous()
+
+
+def bench_slabs(cfg, seed: int) -> torch.Tensor:
+    """Two slabs at the bench's batch, staged as the bench stages them,
+    [2 * BENCH_BATCH * C, 2, m, n] int16 on the card: seeded uniform noise
+    in the bench's range (made on the card), then the clip-bin sector
+    tiled."""
+    c, m, n = cfg.sector_shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    noise = torch.randint(-8192, 8192, (BENCH_BATCH * c, 2, m, n),
+                          generator=g, dtype=torch.int16, device="cuda")
+    clip = torch.from_numpy(planar_i16(adversarial_sector(cfg))).cuda()
+    return torch.cat([noise, clip.repeat(BENCH_BATCH, 1, 1, 1)])
+
+
+def offset_checks(batch, x_all, d_all, plan, dplan, gain, dgain) -> dict:
+    """The offset entries on two staged slabs of `batch` sectors: radix
+    (int16, and f32 at batch 16) and wire with salts, the wire words being
+    x_all's own, and dense (d_all, m = 1000) without."""
+    cfg = DEFAULT_CONFIG
+    ch, n = cfg.num_channels, cfg.n
+    bc = batch * ch
+
+    def zdb_of(g):
+        def zdb(pw):
+            pw = pw.reshape(batch, ch, -1)
+            return stage09_10_products(pw[:, 0], pw[:, 1], g)[0].cpu().numpy()
+        return zdb
+
+    out = {}
+    for x in ((x_all, x_all.float()) if batch == BATCH else (x_all,)):
+        label = f"radix offset entry {x.dtype}, batch {batch}"
+        res = offset_entry_checks(
+            label, x.shape[0], bc,
+            lambda off, salt: fullchain.fused_chain_power_radix(
+                x, plan, offset=off, bc=bc, salt=salt),
+            lambda off: fullchain.fused_chain_power_radix(
+                x[off:off + bc].contiguous(), plan),
+            lambda off, salt: fullchain.fused_chain_power_reference(
+                x[off:off + bc], plan, salt),
+            zdb_of(gain), (0,) + BENCH_SALTS, SALTED_TOL)
+        if x.dtype == torch.int16:
+            out["radix"] = res
+            bound_ms, bound_by = bound(
+                bc * chain_flops(cfg.m, n),
+                bc * 2 * cfg.m * n * 2 + plan.a_kernel.numel() * 4
+                + bc * cfg.m // 2 * 4)
+            res.update(bound_ms=bound_ms, bound_by=bound_by)
+
+    w32_all = wire_words_on_card(x_all, cfg)
+    label = f"wire offset entry, batch {batch}"
+    res = offset_entry_checks(
+        label, w32_all.shape[0], batch,
+        lambda off, salt: fullchain.fused_chain_power_wire(
+            w32_all, plan, ch, offset=off, bs=batch, salt=salt),
+        lambda off: fullchain.fused_chain_power_wire(
+            w32_all[off:off + batch].contiguous(), plan, ch),
+        lambda off, salt: fullchain.fused_chain_power_wire_reference(
+            w32_all[off:off + batch], plan, ch, salt),
+        zdb_of(gain), (0,) + BENCH_SALTS, SALTED_TOL)
+    e, a = rel_dev(fullchain.fused_chain_power_radix(x_all, plan, offset=bc,
+                                                     bc=bc, salt=BENCH_SALTS[-1]),
+                   fullchain.fused_chain_power_wire(
+                       w32_all, plan, ch, offset=batch, bs=batch,
+                       salt=BENCH_SALTS[-1]).reshape(bc, -1))
+    check(e <= POWER_TOL, f"{label}: slab 1's words, salt {BENCH_SALTS[-1]}, "
+                          f"vs the radix offset entry on its planar samples "
+                          f"rel-L2 {e:.3e} <= {POWER_TOL} (max abs {a:.3e})")
+    bound_ms, bound_by = bound(
+        bc * chain_flops(cfg.m, n),
+        batch * cfg.m * ch * n * 4 + plan.a_kernel.numel() * 4
+        + bc * cfg.m // 2 * 4)
+    out["wire"] = dict(res, bound_ms=bound_ms, bound_by=bound_by)
+    del w32_all
+
+    res = offset_entry_checks(
+        f"dense offset entry m={DENSE_M}, batch {batch}", d_all.shape[0], bc,
+        lambda off, salt: fullchain.fused_chain_power_at(d_all, off, bc, dplan),
+        lambda off: fullchain.fused_chain_power_dense(
+            d_all[off:off + bc].contiguous(), dplan),
+        lambda off, salt: fullchain.fused_chain_power_reference(
+            d_all[off:off + bc], dplan),
+        zdb_of(dgain), (), POWER_TOL)
+    bound_ms, bound_by = bound(
+        bc * chain_flops(DENSE_M, n),
+        bc * 2 * DENSE_M * n * 2 + dplan.a_kernel.numel() * 4
+        + bc * DENSE_M // 2 * 4)
+    out["dense"] = dict(res, bound_ms=bound_ms, bound_by=bound_by)
+    return out
+
+
+def phase_offsets(noise, adv) -> dict:
+    """The benchmark's offset entries on two staged slabs (noise, clip-bin),
+    at batch 16 and at the bench's own shapes (batch 128: 384 channel-sectors
+    from offset 384 of 768, the wire's 128 sectors from offset 128): radix
+    and wire with salts, dense at m = 1000 without.  Returns the bench
+    shapes' results."""
+    cfg = DEFAULT_CONFIG
+    dcfg = dataclasses.replace(cfg, num_range_cells=DENSE_M)
+    consts, dconsts = PipelineConstants.build(cfg), PipelineConstants.build(dcfg)
+    plan = fullchain.build_plan(consts, "cuda", channels=cfg.num_channels)
+    dplan = fullchain.build_plan(dconsts, "cuda")
+    gain = torch.from_numpy(consts.gain).cuda()
+    dgain = torch.from_numpy(dconsts.gain).cuda()
+    dnoise = [oracle.synthetic_iq(dcfg, kind="noise", seed=SEED + b)
+              for b in range(BATCH)]
+    d_small = torch.from_numpy(np.concatenate([
+        np.stack([planar_i16(s) for s in dnoise]),
+        np.stack([planar_i16(adversarial_sector(dcfg))] * BATCH)])).cuda()
+    offset_checks(BATCH, torch.cat(list(seq_inputs(noise, adv).values())),
+                  d_small.reshape(-1, 2, DENSE_M, cfg.n), plan, dplan, gain,
+                  dgain)
+    out = offset_checks(BENCH_BATCH, bench_slabs(cfg, SEED),
+                        bench_slabs(dcfg, SEED + 1), plan, dplan, gain, dgain)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_stage2(orc: Oracle, noise) -> dict:
+    """fused_stage2 on Y [48, 512, 512] of seeded noise vs its plain version
+    and across row blocks; then on its path: the mxu method's range-stage Y
+    of the noise sectors against that method's own matched-filter power and
+    the oracle.  Times of the kernel, plain and torch.matmul (complex64
+    Y @ B, the library yardstick of its product)."""
+    cfg = DEFAULT_CONFIG
+    ch, mh, n = cfg.num_channels, cfg.m // 2, cfg.n
+    consts = PipelineConstants.build(cfg)
+    dc = _DeviceConstants(consts, torch.device("cuda"))
+    gain = torch.from_numpy(consts.gain).cuda()
+    taps = consts.ma_taps
+    rng = np.random.default_rng(SEED)
+    shape = (BATCH * ch, mh, n)
+    yr, yi = (torch.from_numpy((rng.standard_normal(shape) * 1e-3)
+                               .astype(np.float32)).cuda() for _ in range(2))
+    got = postprocess.fused_stage2(yr, yi, dc.br, dc.bi, taps)
+    torch.cuda.synchronize()
+    e, a = rel_dev(postprocess.fused_stage2_reference(yr, yi, dc.br, dc.bi,
+                                                      taps), got)
+    check(e <= STAGE2_TOL, f"fused_stage2 Y {list(shape)}: kernel vs plain "
+                           f"rel-L2 {e:.3e} <= {STAGE2_TOL} (max abs {a:.3e})")
+    for rb in (256, 512):
+        check(torch.equal(postprocess.fused_stage2(yr, yi, dc.br, dc.bi, taps,
+                                                   row_block=rb), got),
+              f"fused_stage2 row_block {rb}: identical to row_block 128")
+    try:
+        postprocess.fused_stage2(yr, yi, dc.br, dc.bi, taps, row_block=100)
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised, "fused_stage2 row_block 100 (rows 512 do not divide): raises")
+
+    x = torch.from_numpy(np.stack([planar_i16(s) for s in noise])).cuda().float()
+    xr, xi = x[:, :, 0], x[:, :, 1]
+    ys = _rmatmul(dc.ar, dc.ai, xr, xi)         # the mxu method's range stage
+    want = channel_power_planar(xr, xi, dc, "mxu", "direct").reshape(-1, mh)
+    reset_counts()
+    pw = postprocess.fused_stage2(*(y.reshape(-1, mh, n).contiguous()
+                                    for y in ys), dc.br, dc.bi, taps)
+    torch.cuda.synchronize()
+    launches = read_counts()["stage2"]
+    e2, a2 = rel_dev(want, pw)
+    check(e2 <= POWER_TOL and launches == 1,
+          f"fused_stage2 on the mxu method's Y of {BATCH} noise sectors: vs "
+          f"the mxu matched-filter power rel-L2 {e2:.3e} <= {POWER_TOL} (max "
+          f"abs {a2:.3e}); {launches} launch")
+    pk = pw.cpu().numpy().reshape(BATCH, ch, mh)
+    for s in range(3):
+        check_vs_oracle(f"fused_stage2 on mxu Y, noise sector {s}", pk[s],
+                        orc.power((cfg.m, cfg.n, "noise", s), noise[s], cfg),
+                        cfg, gain)
+
+    yc, bcx = torch.complex(yr, yi), torch.complex(dc.br, dc.bi)
+    t = timed({"plain": lambda: postprocess.fused_stage2_reference(
+                   yr, yi, dc.br, dc.bi, taps),
+               "kernel": lambda: postprocess.fused_stage2(yr, yi, dc.br, dc.bi,
+                                                          taps),
+               "library": lambda: torch.matmul(yc, bcx)},
+              ("plain", "kernel", "library", "library", "kernel", "plain"))
+    rows = shape[0] * mh
+    # least work: the Doppler transform as an FFT per row, |Z|^2 and the sum
+    bound_ms, bound_by = bound(rows * (5.0 * n * math.log2(n) + 4.0 * n),
+                               2 * yr.numel() * 4 + 2 * n * n * 4 + rows * 4)
+    gemm = 8.0 * rows * n * n
+    print(f"fused_stage2 kernel, Y [{shape[0]}, {mh}, {n}]: {t['kernel']:.3f} "
+          f"ms, plain {t['plain']:.3f} ms, library (complex64 Y @ B) "
+          f"{t['library']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}); the "
+          f"kernel's complex GEMM does {gemm / 1e9:.1f} GFLOP, "
+          f"{1e3 * gemm / PEAK_FP32:.3f} ms at the fp32 peak", flush=True)
+    return {"max_abs_err": a, "rel_l2": e, "ms": t["kernel"],
+            "plain_ms": t["plain"], "library_ms": t["library"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "launches": launches}
+
+
+#: (label, argv, offset counter) of the bench runs; the non-fused methods
+#: at 4 repeats (8 steps) so the whole script stays well inside its limit
+BENCH_RUNS = (
+    ("pallas i16", [], "radix_offset"),
+    ("wire fused", ["--in-dtype", "wire"], "wire_offset"),
+    ("wire xla", ["--in-dtype", "wire", "--wire-decode", "xla"], "radix_offset"),
+    (f"pallas m={DENSE_M}", ["--range-cells", str(DENSE_M), "--repeats", "8"],
+     "dense_offset"),
+) + tuple((m, ["--method", m, "--repeats", "4"], None)
+          for m in ("mxu", "parseval", "fft", "radix"))
+OFFSET_COUNTERS = ("radix_offset", "wire_offset", "dense_offset")
+
+
+def phase_bench() -> dict:
+    """`bench.run` in this process for each of BENCH_RUNS: its parity gate
+    passed, value > 0, and the run's offset counter equal to its launches:
+    (the warm pass and 3 timed passes) x steps + the gate's 2 calls, with
+    the other offset entries unused.  Returns {counter: launches} of the
+    first run of each counter."""
+    launches = {}
+    for label, argv, counter in BENCH_RUNS:
+        reset_counts()
+        r = bench.run(argv)
+        counts = read_counts()
+        torch.cuda.empty_cache()
+        print(f"bench {label}: " + json.dumps(r), flush=True)
+        e0, e1 = r["parity_rel_l2"]
+        check(e0 < BENCH_GATE[0] and e1 < BENCH_GATE[1] and r["value"] > 0,
+              f"bench {label}: parity {e0:.3e}, {e1:.3e} under {BENCH_GATE}; "
+              f"{r['value']} sectors/s, with H2D pipelined "
+              f"{r['sectors_per_second_with_h2d_pipelined']}, calibration "
+              f"{r['calib_tflops']} TFLOP/s")
+        want = (1 + len(r["timed_runs_s"])) * r["steps"] + 2 if counter else 0
+        others = {k: counts[k] for k in OFFSET_COUNTERS if k != counter}
+        check((counter is None or counts[counter] == want)
+              and not any(others.values()),
+              f"bench {label}: offset launches {counts} ({counter} == {want})")
+        if counter:
+            launches.setdefault(counter, counts[counter])
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, res) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -946,6 +1286,9 @@ def main() -> int:
     noise = [oracle.synthetic_iq(cfg, kind="noise", seed=SEED + b)
              for b in range(BATCH)]
     adv = adversarial_sector(cfg)
+    offsets = phase_offsets(noise, adv)
+    stage2 = phase_stage2(orc, noise)
+    bench_launches = phase_bench()
     radix = phase_kernel(orc, noise, adv)
     wire = phase_kernel_wire(orc, noise, adv)
     dense = phase_kernel_dense(orc)
@@ -979,6 +1322,21 @@ def main() -> int:
                      "wrp_tpu_torch/csrc/parseval_rows.cu",
                      "wrp_tpu/ops/pallas/fullchain.py:998", shard["rows"],
                      rows),
+        kernel_entry("fused_chain_power_at",
+                     "wrp_tpu_torch/csrc/fused_chain_dense.cu",
+                     "wrp_tpu/ops/pallas/fullchain.py:271",
+                     bench_launches["dense_offset"], offsets["dense"]),
+        kernel_entry("fused_chain_power_radix (offset, salt)",
+                     "wrp_tpu_torch/csrc/fused_chain_radix_salted.cu",
+                     "wrp_tpu/ops/pallas/fullchain.py:840",
+                     bench_launches["radix_offset"], offsets["radix"]),
+        kernel_entry("fused_chain_power_wire (offset, salt)",
+                     "wrp_tpu_torch/csrc/fused_chain_wire_salted.cu",
+                     "wrp_tpu/ops/pallas/fullchain.py:1210",
+                     bench_launches["wire_offset"], offsets["wire"]),
+        kernel_entry("fused_stage2", "wrp_tpu_torch/csrc/fused_stage2.cu",
+                     "wrp_tpu/ops/pallas/postprocess.py:86",
+                     stage2["launches"], stage2),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

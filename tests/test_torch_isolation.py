@@ -15,7 +15,9 @@ def test_port_imports_without_jax():
 
     code = ("import sys; import wrp_tpu_torch, wrp_tpu_torch.cli, "
             "wrp_tpu_torch.runtime.executor, wrp_tpu_torch.ops.fullchain, "
-            "wrp_tpu_torch.ops._build, wrp_tpu_torch.parallel.multihost; "
+            "wrp_tpu_torch.ops._build, wrp_tpu_torch.parallel.multihost, "
+            "wrp_tpu_torch.bench, wrp_tpu_torch.ops.dft, "
+            "wrp_tpu_torch.ops.postprocess; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'wrp_tpu.')) or m == 'wrp_tpu'); "
             "assert not bad, bad; print('clean')")

@@ -80,8 +80,9 @@ def test_method_option_errors():
     with pytest.raises(ValueError, match="spectral"):
         tpipe.SectorProcessor(cfg, method="pallas", matched_filter="spectral",
                               device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tpipe.SectorProcessor(cfg, method="radix", device="cpu")
+    with pytest.raises(ValueError, match="spectral"):
+        tpipe.SectorProcessor(cfg, method="radix", matched_filter="spectral",
+                              device="cpu")
     with pytest.raises(ValueError, match="unknown method"):
         tpipe.SectorProcessor(cfg, method="bogus", device="cpu")
     with pytest.raises(ValueError, match="matched_filter"):

@@ -112,6 +112,23 @@ struct WireSource {
   __device__ __forceinline__ int const_row() const { return ch * n; }
 };
 
+// The benchmark's salted entries (fused_chain_radix_salted.cu,
+// fused_chain_wire_salted.cu): Src with `salt` added to every I and Q
+// sample after its conversion to f32 and before the contraction, as
+// wrp_tpu's _radix_contract does.  A policy of its own, so the unsalted
+// instantiations of the kernel body compile exactly as they did.
+template <class Src>
+struct Salted : Src {
+  float salt;
+
+  template <typename P>
+  __device__ __forceinline__ void load(const P* p, float& vr, float& vi) const {
+    Src::load(p, vr, vi);
+    vr += salt;
+    vi += salt;
+  }
+};
+
 // a   [R, M(q), M(t), 2] float: A_p[t, q] at ((p M + q) M + t) * 2 + {0: re, 1: im}
 // fac [S, R, 2] float
 // wd, ph: the epilogue constants as the policy describes them
@@ -266,7 +283,8 @@ cudaError_t launch_radix_chain_tile(int tile, const Src& src, const float* a, co
 }
 
 // Launches on `stream` without synchronising over units u = sector *
-// channels + channel; the caller validates shapes and dtypes.  sectors and
+// channels + channel; the caller validates shapes and dtypes (and applies
+// a benchmark slab offset to the source's pointer).  sectors and
 // channels <= 65535 (the grid's z and y extents).
 template <class Src>
 cudaError_t launch_radix_chain(int radix, int tile, const Src& src, const float* a,

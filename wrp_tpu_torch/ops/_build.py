@@ -115,31 +115,37 @@ def load_library() -> ctypes.CDLL:
                 _compile(so)
             lib = ctypes.CDLL(str(so))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.wrp_fused_chain_radix.argtypes = [
-                ptr, i32, ptr, ptr, ptr, ptr, ptr,   # x, x_is_int16, a, fac, wd, ph, out
-                i32, i32, i32, i32, i32,             # bc, m, n, radix, tile
-                ptr]                                 # stream
-            lib.wrp_fused_chain_radix.restype = i32
-            lib.wrp_fused_chain_wire.argtypes = [
-                ptr, ptr, ptr, ptr, ptr, ptr,        # w, a, fac, wd_il, ph_il, out
-                i32, i32, i32, i32, i32, i32,        # bs, m, n, ch, radix, tile
-                ptr]                                 # stream
-            lib.wrp_fused_chain_wire.restype = i32
-            lib.wrp_fused_chain_dense.argtypes = [
-                ptr, i32, ptr, ptr, ptr, ptr,        # x, x_is_int16, a, wd, ph, out
-                i32, i32, i32, i32,                  # bc, m, n, tile
-                ptr]                                 # stream
-            lib.wrp_fused_chain_dense.restype = i32
-            lib.wrp_fused_chain_astage.argtypes = [
-                ptr, i32, ptr, ptr, ptr,             # x, x_is_int16, a, fac, y
-                i32, i32, i32, i32, i32,             # bc, m, w, radix, tile
-                ptr]                                 # stream
-            lib.wrp_fused_chain_astage.restype = i32
-            lib.wrp_parseval_rows.argtypes = [
-                ptr, ptr, ptr, ptr,                  # y, wd, ph, out
-                i32, i32, i32,                       # bc, rows, n
-                ptr]                                 # stream
-            lib.wrp_parseval_rows.restype = i32
+            i64, f32 = ctypes.c_longlong, ctypes.c_float
+            planar = [ptr, i32, ptr, ptr, ptr, ptr, ptr,  # x, x_is_int16, a, fac, wd, ph, out
+                      i32, i32, i32, i32, i32, i64]      # bc, m, n, radix, tile, offset
+            wire = [ptr, ptr, ptr, ptr, ptr, ptr,         # w, a, fac, wd_il, ph_il, out
+                    i32, i32, i32, i32, i32, i32, i64]    # bs, m, n, ch, radix, tile, offset
+            signatures = {
+                "wrp_fused_chain_radix": planar + [ptr],              # stream
+                "wrp_fused_chain_radix_salted": planar + [i32, ptr],  # salt, stream
+                "wrp_fused_chain_wire": wire + [ptr],
+                "wrp_fused_chain_wire_salted": wire + [i32, ptr],
+                "wrp_fused_chain_dense": [
+                    ptr, i32, ptr, ptr, ptr, ptr,     # x, x_is_int16, a, wd, ph, out
+                    i32, i32, i32, i32, i64,          # bc, m, n, tile, offset
+                    ptr],                             # stream
+                "wrp_fused_chain_astage": [
+                    ptr, i32, ptr, ptr, ptr,          # x, x_is_int16, a, fac, y
+                    i32, i32, i32, i32, i32,          # bc, m, w, radix, tile
+                    ptr],                             # stream
+                "wrp_parseval_rows": [
+                    ptr, ptr, ptr, ptr,               # y, wd, ph, out
+                    i32, i32, i32,                    # bc, rows, n
+                    ptr],                             # stream
+                "wrp_fused_stage2": [
+                    ptr, ptr, ptr, ptr, ptr,          # yr, yi, br, bi, out
+                    i64, i32, f32,                    # total_rows, n, tap_sum
+                    ptr],                             # stream
+            }
+            for name, argtypes in signatures.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = i32
             lib.wrp_cuda_error_string.argtypes = [i32]
             lib.wrp_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -21,6 +21,19 @@ counter:
   R == 1 branch), `DENSE_LAUNCHES`.  Planar IQ through the dense A_half
   [m/2, m], for m that does not split (`radix_for(m) == 1`).
 
+The benchmark (wrp_tpu_torch/bench.py) reads each step's slab of a larger
+staged array through the OFFSET entries, one per kernel, each with its own
+counter (counted only when an offset is given): `fused_chain_power_radix`
+and `fused_chain_power_wire` with `offset=`, `bc=`/`bs=` and `salt=`
+(``wrp_tpu``'s `_kernel_radix_offset`, `_kernel_radix_wire_offset`;
+`RADIX_OFFSET_LAUNCHES`, `WIRE_OFFSET_LAUNCHES`; a salt launches
+csrc/fused_chain_{radix,wire}_salted.cu), and `fused_chain_power_at`
+(``wrp_tpu``'s dense offset entry; `DENSE_OFFSET_LAUNCHES`).  The offset
+is applied by the C launcher as pointer arithmetic, so there is no copy;
+one past the staged array raises (``wrp_tpu`` clamps it in interpret mode
+and would read past the buffer compiled).  The salt, an int32, is added to
+every I and Q sample after its conversion to f32.
+
 The pulse-sharded path (parallel/sharded.py "pallas-seq") splits the
 radix chain at its one communication point, with a kernel on each side:
 
@@ -65,6 +78,9 @@ WIRE_LAUNCHES = 0       # fused_chain_wire.cu
 DENSE_LAUNCHES = 0      # fused_chain_dense.cu
 ASTAGE_LAUNCHES = 0     # fused_chain_astage.cu
 PARSEVAL_ROWS_LAUNCHES = 0   # parseval_rows.cu
+RADIX_OFFSET_LAUNCHES = 0    # the radix offset entry (salted: fused_chain_radix_salted.cu)
+WIRE_OFFSET_LAUNCHES = 0     # the wire offset entry (salted: fused_chain_wire_salted.cu)
+DENSE_OFFSET_LAUNCHES = 0    # fused_chain_power_at (fused_chain_dense.cu)
 
 RADIX = 8
 
@@ -214,10 +230,14 @@ def _contract_reference(x: torch.Tensor, plan: RadixPlan):
     return torch.cat(ys_r, dim=-2), torch.cat(ys_i, dim=-2)
 
 
-def fused_chain_power_reference(x: torch.Tensor, plan: RadixPlan) -> torch.Tensor:
+def fused_chain_power_reference(x: torch.Tensor, plan: RadixPlan,
+                                salt: int | None = None) -> torch.Tensor:
     """Plain torch version of the radix and dense kernels: x [bc, 2, m, n]
     int16/f32 in natural row order -> pow [bc, m/2] f32.  The contraction
-    (`_contract_reference`), then the Parseval epilogue."""
+    (`_contract_reference`), then the Parseval epilogue; `salt` is added to
+    every sample after its conversion to f32 (the salted kernels)."""
+    if salt is not None:
+        x = x.to(torch.float32) + float(salt)
     yr, yi = _contract_reference(x, plan)
     return stage_b_parseval(yr, yi, plan.wd, plan.phasors)
 
@@ -265,35 +285,95 @@ def _raise_on_error(lib, rc: int, name: str) -> None:
                            + lib.wrp_cuda_error_string(rc).decode())
 
 
-def fused_chain_power_radix(x: torch.Tensor, plan: RadixPlan) -> torch.Tensor:
+def _slab(units: int, offset, count, salt, name: str, what: str):
+    """(start, count) of the units an entry reads: all `units` without an
+    offset; else `count` from `offset`, which must lie inside the staged
+    array.  `count` and `salt` apply only with an offset."""
+    if offset is None:
+        if count is not None or salt is not None:
+            raise ValueError(f"{name}: {what} and salt apply with an offset")
+        return 0, units
+    if count is None:
+        raise ValueError(f"{name}: an offset needs {what}")
+    start, count = int(offset), int(count)
+    if start < 0 or count < 0 or start + count > units:
+        raise ValueError(f"{name}: units [{start}, {start + count}) lie outside "
+                         f"the {units} staged")
+    if salt is not None and not -2 ** 31 <= int(salt) < 2 ** 31:
+        raise ValueError(f"{name}: salt {salt} is not an int32")
+    return start, count
+
+
+def fused_chain_power_radix(x: torch.Tensor, plan: RadixPlan, offset=None,
+                            bc: int | None = None,
+                            salt: int | None = None) -> torch.Tensor:
     """x [bc, 2, m, n] int16/f32, rows in natural order -> pow [bc, m/2] f32.
+
+    With `offset` (the benchmark's entry), x is a larger staged array and
+    the kernel reads its `bc` channel-sectors from channel-sector `offset`
+    (no copy), with the int32 `salt`, if given, added to every sample.
 
     A CPU tensor takes the plain version.  A CUDA tensor launches the
     kernel on the current stream (no synchronisation) or raises; there is
     no fallback."""
-    global LAUNCHES
+    global LAUNCHES, RADIX_OFFSET_LAUNCHES
+    start, count = _slab(x.shape[0], offset, bc, salt,
+                         "fused_chain_power_radix", "bc")
     if x.device.type == "cpu":
-        return fused_chain_power_reference(x, plan)
+        return fused_chain_power_reference(x[start:start + count], plan, salt)
     if x.device.type != "cuda":
         raise ValueError(f"fused_chain_power_radix: unsupported device {x.device}")
     if plan.radix == 1:
         raise ValueError(f"m={plan.m} does not split into radix branches: "
                          "use fused_chain_power_dense")
     _check_planar(x, plan, "fused_chain_power_radix")
-    bc = x.shape[0]
-    out = torch.empty((bc, plan.m // 2), dtype=torch.float32, device=x.device)
-    if bc == 0:
+    out = torch.empty((count, plan.m // 2), dtype=torch.float32, device=x.device)
+    if count == 0:
+        return out
+    lib = _build.load_library()
+    args = (x.data_ptr(), int(x.dtype == torch.int16), plan.a_kernel.data_ptr(),
+            plan.fac_t.data_ptr(), plan.wd.data_ptr(), plan.phasors.data_ptr(),
+            out.data_ptr(), count, plan.m, plan.n, plan.radix,
+            kernel_tile(plan), start)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if salt is None:
+            rc = lib.wrp_fused_chain_radix(*args, stream)
+        else:
+            rc = lib.wrp_fused_chain_radix_salted(*args, int(salt), stream)
+    _raise_on_error(lib, rc, "fused_chain_radix")
+    if offset is None:
+        LAUNCHES += 1
+    else:
+        RADIX_OFFSET_LAUNCHES += 1
+    return out
+
+
+def _dense(x: torch.Tensor, plan: RadixPlan, start: int, count: int,
+           name: str, counter: str) -> torch.Tensor:
+    """pow of x[start:start + count] through the dense kernel (CUDA, adding
+    one to the module counter named `counter` per launch) or its plain
+    version (CPU)."""
+    if plan.radix != 1:
+        raise ValueError(f"{name} needs a radix-1 plan; m={plan.m} splits "
+                         f"into {plan.radix} branches")
+    if x.device.type == "cpu":
+        return fused_chain_power_reference(x[start:start + count], plan)
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    _check_planar(x, plan, name)
+    out = torch.empty((count, plan.m // 2), dtype=torch.float32, device=x.device)
+    if count == 0:
         return out
     lib = _build.load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.wrp_fused_chain_radix(
+        rc = lib.wrp_fused_chain_dense(
             x.data_ptr(), int(x.dtype == torch.int16), plan.a_kernel.data_ptr(),
-            plan.fac_t.data_ptr(), plan.wd.data_ptr(), plan.phasors.data_ptr(),
-            out.data_ptr(), bc, plan.m, plan.n, plan.radix, kernel_tile(plan),
-            stream)
-    _raise_on_error(lib, rc, "fused_chain_radix")
-    LAUNCHES += 1
+            plan.wd.data_ptr(), plan.phasors.data_ptr(), out.data_ptr(), count,
+            plan.m, plan.n, dense_tile(plan), start, stream)
+    _raise_on_error(lib, rc, "fused_chain_dense")
+    globals()[counter] += 1
     return out
 
 
@@ -302,29 +382,21 @@ def fused_chain_power_dense(x: torch.Tensor, plan: RadixPlan) -> torch.Tensor:
     A_half, for a plan with radix 1.  A CPU tensor takes the plain version
     (the R == 1 branch of `fused_chain_power_reference`); a CUDA tensor
     launches csrc/fused_chain_dense.cu or raises."""
-    global DENSE_LAUNCHES
-    if plan.radix != 1:
-        raise ValueError(f"fused_chain_power_dense needs a radix-1 plan; m="
-                         f"{plan.m} splits into {plan.radix} branches")
-    if x.device.type == "cpu":
-        return fused_chain_power_reference(x, plan)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_chain_power_dense: unsupported device {x.device}")
-    _check_planar(x, plan, "fused_chain_power_dense")
-    bc = x.shape[0]
-    out = torch.empty((bc, plan.m // 2), dtype=torch.float32, device=x.device)
-    if bc == 0:
-        return out
-    lib = _build.load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.wrp_fused_chain_dense(
-            x.data_ptr(), int(x.dtype == torch.int16), plan.a_kernel.data_ptr(),
-            plan.wd.data_ptr(), plan.phasors.data_ptr(), out.data_ptr(), bc,
-            plan.m, plan.n, dense_tile(plan), stream)
-    _raise_on_error(lib, rc, "fused_chain_dense")
-    DENSE_LAUNCHES += 1
-    return out
+    return _dense(x, plan, 0, x.shape[0], "fused_chain_power_dense",
+                  "DENSE_LAUNCHES")
+
+
+def fused_chain_power_at(x_all: torch.Tensor, offset, bc: int,
+                         plan: RadixPlan) -> torch.Tensor:
+    """The dense kernel on `bc` channel-sectors of the staged x_all [BC, 2,
+    m, n] from channel-sector `offset` (no copy; ``wrp_tpu``'s
+    `fused_chain_power_at`, the benchmark's entry for m that does not split)
+    -> pow [bc, m/2] f32.  No salt, as there.  A CPU tensor takes the plain
+    version on the slab; a CUDA tensor launches the kernel or raises."""
+    start, count = _slab(x_all.shape[0], offset, bc, None,
+                         "fused_chain_power_at", "bc")
+    return _dense(x_all, plan, start, count, "fused_chain_power_at",
+                  "DENSE_OFFSET_LAUNCHES")
 
 
 def decode_words_iq(w: torch.Tensor):
@@ -341,32 +413,42 @@ def decode_words_iq(w: torch.Tensor):
 
 
 def fused_chain_power_wire_reference(w32: torch.Tensor, plan: RadixPlan,
-                                     ch: int) -> torch.Tensor:
+                                     ch: int, salt: int | None = None) -> torch.Tensor:
     """Plain torch version of the wire kernel: w32 [bs, m, ch*n] int32 ->
     pow [bs, ch, m/2] f32.  Decode the words, deinterleave the channels,
-    then `fused_chain_power_reference` on the planar sectors."""
+    then `fused_chain_power_reference` on the planar sectors (with `salt`
+    added to every decoded sample, the salted kernel)."""
     bs, m, lanes = w32.shape
     i_, q_ = decode_words_iq(w32)
     planar = torch.stack([i_, q_], dim=1).reshape(bs, 2, m, lanes // ch, ch)
     planar = planar.permute(0, 4, 1, 2, 3).reshape(bs * ch, 2, m, lanes // ch)
-    return fused_chain_power_reference(planar.to(torch.float32),
-                                       plan).reshape(bs, ch, m // 2)
+    return fused_chain_power_reference(planar.to(torch.float32), plan,
+                                       salt).reshape(bs, ch, m // 2)
 
 
-def fused_chain_power_wire(w32: torch.Tensor, plan: RadixPlan,
-                           ch: int) -> torch.Tensor:
+def fused_chain_power_wire(w32: torch.Tensor, plan: RadixPlan, ch: int,
+                           offset=None, bs: int | None = None,
+                           salt: int | None = None) -> torch.Tensor:
     """w32 [bs, m, ch*n] int32 wire words, rows in natural order -> pow
     [bs, ch, m/2] f32 (ops/device_codec.wire_words_i32 builds w32 from wire
     bytes).
 
+    With `offset` (the benchmark's entry), w32 is a larger staged array and
+    the kernel reads its `bs` sectors from SECTOR `offset` (no copy), with
+    the int32 `salt`, if given, added to every decoded sample.
+
     A CPU tensor takes the plain version.  A CUDA tensor launches
-    csrc/fused_chain_wire.cu on the current stream or raises; the plan
-    must carry the channel-tiled constants (build_plan(channels=ch))."""
-    global WIRE_LAUNCHES
+    csrc/fused_chain_wire.cu (salted: csrc/fused_chain_wire_salted.cu) on
+    the current stream or raises; the plan must carry the channel-tiled
+    constants (build_plan(channels=ch))."""
+    global WIRE_LAUNCHES, WIRE_OFFSET_LAUNCHES
+    start, count = _slab(w32.shape[0], offset, bs, salt,
+                         "fused_chain_power_wire", "bs")
     if w32.device.type == "cpu":
         if w32.dtype != torch.int32:
             raise TypeError(f"w32 must be int32 wire words, got {w32.dtype}")
-        return fused_chain_power_wire_reference(w32, plan, ch)
+        return fused_chain_power_wire_reference(w32[start:start + count], plan,
+                                                ch, salt)
     if w32.device.type != "cuda":
         raise ValueError(f"fused_chain_power_wire: unsupported device {w32.device}")
     if plan.radix == 1:
@@ -385,20 +467,25 @@ def fused_chain_power_wire(w32: torch.Tensor, plan: RadixPlan,
     if plan.wd_il is None or plan.wd_il.shape[0] != L:
         raise ValueError(f"plan carries no channel-tiled constants for {ch} "
                          "channels: build it with build_plan(channels=ch)")
-    bs = w32.shape[0]
-    out = torch.empty((bs, ch, plan.m // 2), dtype=torch.float32,
+    out = torch.empty((count, ch, plan.m // 2), dtype=torch.float32,
                       device=w32.device)
-    if bs == 0:
+    if count == 0:
         return out
     lib = _build.load_library()
+    args = (w32.data_ptr(), plan.a_kernel.data_ptr(), plan.fac_t.data_ptr(),
+            plan.wd_il.data_ptr(), plan.ph_il.data_ptr(), out.data_ptr(), count,
+            plan.m, plan.n, ch, plan.radix, kernel_tile(plan), start)
     with torch.cuda.device(w32.device):
         stream = torch.cuda.current_stream(w32.device).cuda_stream
-        rc = lib.wrp_fused_chain_wire(
-            w32.data_ptr(), plan.a_kernel.data_ptr(), plan.fac_t.data_ptr(),
-            plan.wd_il.data_ptr(), plan.ph_il.data_ptr(), out.data_ptr(), bs,
-            plan.m, plan.n, ch, plan.radix, kernel_tile(plan), stream)
+        if salt is None:
+            rc = lib.wrp_fused_chain_wire(*args, stream)
+        else:
+            rc = lib.wrp_fused_chain_wire_salted(*args, int(salt), stream)
     _raise_on_error(lib, rc, "fused_chain_wire")
-    WIRE_LAUNCHES += 1
+    if offset is None:
+        WIRE_LAUNCHES += 1
+    else:
+        WIRE_OFFSET_LAUNCHES += 1
     return out
 
 

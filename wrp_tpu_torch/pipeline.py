@@ -14,7 +14,9 @@ Counterpart of ``wrp_tpu/pipeline.py``.  Methods of `SectorProcessor`:
   The name is kept from ``wrp_tpu`` so flags and tests carry over.  With
   ``wire_input=True`` it takes raw wire bytes and decodes them on the
   device (`stream --device-decode`).
-* ``"radix"``    — not ported yet (ROADMAP.md).
+* ``"radix"``    — the `mxu` chain with Cooley-Tukey split DFTs as torch
+  einsums (ops/dft.py, ~3.8x fewer multiply-adds); falls back to "mxu"
+  (and `proc.method` says so) for a geometry that does not split.
 
 Numerics policy, stated once here: float32 throughout, and every fp32
 matmul and convolution runs in full fp32 — never TF32 — as the JAX
@@ -183,6 +185,8 @@ class _DeviceConstants:
         self.bi = put(consts.op_b.imag)
         self.wd = put(consts.wd)
         self.phasors = put(consts.clip_phasors)
+        #: ops/dft.RadixStageOperators on the device (method "radix")
+        self.radix_ops = None
 
 
 def channel_power_planar(xr: torch.Tensor, xi: torch.Tensor,
@@ -194,6 +198,10 @@ def channel_power_planar(xr: torch.Tensor, xi: torch.Tensor,
         return stage_b_parseval(yr, yi, dc.wd, dc.phasors)
     if method == "mxu":
         p = stage01_04_mxu_planar(xr, xi, (dc.ar, dc.ai), (dc.br, dc.bi))
+    elif method == "radix":
+        from .ops.dft import stage01_04_radix
+
+        p = stage01_04_radix(xr, xi, dc.radix_ops)
     elif method == "fft":
         x = stage01_window(torch.complex(xr, xi), dc.hamming)
         p = stage04_power(stage03_doppler(stage02_range_fft(x)))
@@ -283,10 +291,11 @@ class SectorProcessor:
                 "'direct', 'fold', or 'spectral'")
         if method not in METHODS:
             raise ValueError(f"unknown method {method!r}: use one of {METHODS}")
-        if method == "radix":
-            raise NotImplementedError(
-                "method='radix' (wrp_tpu ops/dft.py) is not yet ported "
-                "(ROADMAP.md); use 'pallas', 'mxu', 'parseval' or 'fft'")
+        if method == "radix" and matched_filter == "spectral":
+            raise ValueError(
+                "method='radix' implements 'direct' and 'fold' matched "
+                "filters; use method='mxu' or 'fft' for the spectral "
+                "parity path")
         if method == "pallas" and matched_filter != "direct":
             raise ValueError(
                 "method='pallas' fuses the whole chain; its output is "
@@ -312,6 +321,14 @@ class SectorProcessor:
         self.wire_decode = None
         consts = consts if consts is not None else PipelineConstants.build(cfg)
         self._dc = _DeviceConstants(consts, self.device)
+        if method == "radix":
+            from .ops.dft import RadixStageOperators
+
+            if RadixStageOperators.supports(cfg):
+                self._dc.radix_ops = RadixStageOperators.build(cfg).to(
+                    self.device)
+            else:
+                self.method = "mxu"     # geometry too small to split
         if method == "pallas":
             from .ops import fullchain
 
