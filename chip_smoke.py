@@ -31,6 +31,20 @@ Phases (each prints its results; any failure raises and exits non-zero):
       entry, 8 repeats), and the mxu, parseval, fft and radix methods at 4
       repeats; each passes its parity gate with value > 0, and its offset
       counter equals its launches;
+   d. the probes (the TPU tools' kernels), each through its entry point in
+      wrp_tpu_torch/tools/: the radix chain's ablations (dots, combine) at
+      batch 16 on the noise and clip-bin slabs vs their plain versions
+      (<= 1e-5), `full` bit-identical to the salted radix offset entry,
+      then `kernel_breakdown.run` at 8 repeats (equal blocks per SM across
+      modes and the A-stage run at the fused kernel's shared memory, dots'
+      SASS keeps the unrolled contraction's FFMAs); the
+      tensor-core probe on identity operands (16 x 16 x 8, exact), at
+      widths 512, 1024, 2048 vs plain (<= 1e-5), then `mxu_occupancy.run`
+      at its defaults; the int16 -> bf16 split dot, both variants, on the
+      14-bit range (vs plain and vs fp32 A @ x <= 1e-6, split exact) and
+      on every int16 value (vs plain, inexact samples printed), then
+      `int_split_repro.run` for both; times of each kernel, its plain
+      version and torch.matmul where one computes the function;
 3. the radix kernel vs its plain torch version at 3 x 1024 x 512, batch 16
    (48 channel-sectors), int16 and f32 input, on seeded noise and on an
    adversarial input whose Doppler energy sits in the clipped bins;
@@ -85,11 +99,13 @@ import dataclasses
 import json
 import math
 import os
+import re
 import socket
 import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -103,13 +119,15 @@ from wrp_tpu_torch.constants import PipelineConstants, hamming_factors  # noqa: 
 from wrp_tpu_torch.io import codec, frames  # noqa: E402
 from wrp_tpu_torch.io.udp import UdpEgress, UdpIngest  # noqa: E402
 from wrp_tpu_torch.ops import (  # noqa: E402
-    _build, device_codec, fullchain, postprocess)
+    _build, device_codec, fullchain, postprocess, probes)
 from wrp_tpu_torch.parallel.multihost import (  # noqa: E402
     PulseShardedProcessor, init_distributed)
 from wrp_tpu_torch.parallel.sharded import join_pulses, split_rows  # noqa: E402
 from wrp_tpu_torch.pipeline import (  # noqa: E402
     _DeviceConstants, _rmatmul, channel_power_planar, stage09_10_products)
 from wrp_tpu_torch.runtime import StreamingExecutor, VolumeScan  # noqa: E402
+from wrp_tpu_torch.tools import (  # noqa: E402
+    int_split_repro, kernel_ab, kernel_breakdown, mxu_occupancy)
 
 BATCH = 16
 BENCH_BATCH = 128         # the bench's default batch (sectors per step)
@@ -125,15 +143,22 @@ SEED = 2024
 DENSE_M = 1000            # radix_for(1000) == 1: the dense kernel's geometry
 SHARDS = (1, 2, 4)        # ranks of the pulse-sharded path
 
+PROBE_TOL = 1e-5          # an ablation or the tensor-core probe vs its plain version
+SPLIT_TOL = 1e-6          # the split dot vs its plain version and vs fp32 A @ x
+PROBE_STEPS = 32          # tensor-core probe steps checked against the plain version
+BREAKDOWN_REPEATS = 8     # kernel_breakdown.run's repeats here (its default: 128)
+
 # H100 SXM peaks for the bound (NVIDIA data sheet, 700 W): fp32 on the CUDA
-# cores and HBM3 bandwidth
+# cores, dense bf16 on the tensor cores and HBM3 bandwidth
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989.4e12
 PEAK_BYTES = 3.35e12
 
 
-def bound(flops: float, nbytes: float):
-    """(ms, "operations" | "bytes"): the least time the card could take."""
-    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32):
+    """(ms, "operations" | "bytes"): the least time the card could take,
+    `flops` at `peak` FLOP/s or `nbytes` at the memory rate."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -178,6 +203,8 @@ def reset_counts() -> None:
     fullchain.ASTAGE_LAUNCHES = fullchain.PARSEVAL_ROWS_LAUNCHES = 0
     fullchain.RADIX_OFFSET_LAUNCHES = fullchain.WIRE_OFFSET_LAUNCHES = 0
     fullchain.DENSE_OFFSET_LAUNCHES = postprocess.STAGE2_LAUNCHES = 0
+    probes.BREAKDOWN_LAUNCHES = probes.TC_PROBE_LAUNCHES = 0
+    probes.INT_SPLIT_LAUNCHES = 0
 
 
 def read_counts() -> dict:
@@ -188,7 +215,10 @@ def read_counts() -> dict:
             "radix_offset": fullchain.RADIX_OFFSET_LAUNCHES,
             "wire_offset": fullchain.WIRE_OFFSET_LAUNCHES,
             "dense_offset": fullchain.DENSE_OFFSET_LAUNCHES,
-            "stage2": postprocess.STAGE2_LAUNCHES}
+            "stage2": postprocess.STAGE2_LAUNCHES,
+            "breakdown": probes.BREAKDOWN_LAUNCHES,
+            "tc_probe": probes.TC_PROBE_LAUNCHES,
+            "int_split": probes.INT_SPLIT_LAUNCHES}
 
 
 class SmokeFailure(RuntimeError):
@@ -1267,15 +1297,256 @@ def phase_bench() -> dict:
     return launches
 
 
-def kernel_entry(name, source, replaces, launches, res) -> dict:
+def print_ptxas(pattern: str) -> None:
+    """The -Xptxas=-v report of the kernels whose names match `pattern`."""
+    rep = kernel_ab.ptxas_report(_build.library_path().with_suffix(".log")
+                                 .read_text(), Path(_build._nvcc()).parent)
+    for name, line in sorted(rep.items()):
+        if re.search(pattern, name):
+            print(f"ptxas: {name}: {line}", flush=True)
+
+
+def probe_breakdown(noise, adv) -> dict:
+    """The radix chain's ablations at batch 16 (48 channel-sectors) on the
+    noise and clip-bin slabs, salted: dots and combine vs their plain
+    versions, full bit-identical to the salted radix offset entry; then
+    `kernel_breakdown.run` (its launches counted) with its attribution, its
+    blocks per SM (equal across modes) and its SASS FFMA counts (dots keeps
+    the unrolled contraction)."""
+    cfg = DEFAULT_CONFIG
+    plan = fullchain.build_plan(PipelineConstants.build(cfg), "cuda")
+    x_all = torch.cat(list(seq_inputs(noise, adv).values()))
+    bc, salt = BATCH * cfg.num_channels, BENCH_SALTS[0]
+    worst = max_abs = 0.0
+    for off, label in ((0, "noise"), (bc, "clip-bin")):
+        for mode in probes.ABLATION_MODES:
+            got = probes.radix_chain_ablation(x_all, plan, mode, off, bc, salt)
+            torch.cuda.synchronize()
+            e, a = rel_dev(probes.radix_chain_ablation_reference(
+                x_all, plan, mode, off, bc, salt), got)
+            if mode == "full":
+                check(torch.equal(got, fullchain.fused_chain_power_radix(
+                    x_all, plan, offset=off, bc=bc, salt=salt)) and e <= POWER_TOL,
+                      f"ablation full {label}: bit-identical to the salted radix "
+                      f"offset entry; vs plain {e:.3e}")
+                continue
+            worst, max_abs = max(worst, e), max(max_abs, a)
+            check(e <= PROBE_TOL, f"ablation {mode} {label} salt {salt}: kernel "
+                                  f"vs plain rel-L2 {e:.3e} <= {PROBE_TOL} "
+                                  f"(max abs {a:.3e})")
+    t = {}
+    for mode in ("dots", "combine"):
+        t[mode] = timed({
+            "plain": lambda: probes.radix_chain_ablation_reference(
+                x_all, plan, mode, 0, bc, salt),
+            "kernel": lambda: probes.radix_chain_ablation(
+                x_all, plan, mode, 0, bc, salt)},
+            ("plain", "kernel", "kernel", "plain"))
+    reset_counts()
+    r = kernel_breakdown.run(["--repeats", str(BREAKDOWN_REPEATS)])
+    launches = read_counts()
+    print("kernel_breakdown (repeats " + str(BREAKDOWN_REPEATS) + "): "
+          + json.dumps(r), flush=True)
+    occ = {mode: r[mode]["blocks_per_sm"] for mode in probes.ABLATION_MODES}
+    ffma = {mode: ops["FFMA"] for mode, ops in r["sass"].items()}
+    T = fullchain.kernel_tile(plan)
+    occ["astage_at_fused_smem"] = r["astage_at_fused_smem"]["blocks_per_sm"]
+    check(len(set(occ.values())) == 1,
+          f"ablations at the production occupancy: blocks per SM {occ}, the "
+          f"A-stage at its own 8 KB {r['astage']['blocks_per_sm']}")
+    check(ffma["dots"] >= 8 * 4 * T and ffma["combine"] > ffma["dots"]
+          and ffma["full"] > ffma["combine"],
+          f"SASS FFMA: dots {ffma['dots']} (>= {8 * 4 * T}, the contraction "
+          f"unrolled by 8), combine {ffma['combine']} (+{ffma['combine'] - ffma['dots']}"
+          f"), full {ffma['full']} (+{ffma['full'] - ffma['combine']}), A-stage "
+          f"{ffma['astage']}")
+    check(launches["breakdown"] == 2 * 4 * r["steps"]
+          and launches["radix_offset"] == launches["astage"] / 2 == 4 * r["steps"],
+          f"kernel_breakdown launches: {launches['breakdown']} ablation "
+          f"(dots, combine), {launches['radix_offset']} salted radix (full), "
+          f"{launches['astage']} A-stage (at its own and at the fused "
+          f"kernel's shared memory); {r['steps']} steps x (warm + 3 spans) each")
+    bound_ms, bound_by = bound(2.0 * bc * 2 * cfg.m * cfg.n,
+                               bc * 2 * cfg.m * cfg.n * 2
+                               + plan.a_kernel.numel() * 4 + bc * cfg.m // 2 * 4)
+    att = r["attribution_us"]
+    print(f"ablations per launch of {bc} channel-sectors: dots "
+          f"{t['dots']['kernel']:.3f} ms (plain {t['dots']['plain']:.3f}), "
+          f"combine {t['combine']['kernel']:.3f} ms (plain "
+          f"{t['combine']['plain']:.3f}), bound {bound_ms:.3f} ms ({bound_by}); "
+          f"the tool: dots {r['dots']['ms_per_launch']}, combine "
+          f"{r['combine']['ms_per_launch']}, full {r['full']['ms_per_launch']}, "
+          f"A-stage {r['astage']['ms_per_launch']} (at the fused kernel's "
+          f"shared memory {r['astage_at_fused_smem']['ms_per_launch']}) ms; "
+          f"attribution (us per channel-step) {json.dumps(att)}; SASS "
+          f"{json.dumps(r['sass'])}", flush=True)
+    return {"max_abs_err": max_abs, "rel_l2": worst, "ms": t["dots"]["kernel"],
+            "plain_ms": t["dots"]["plain"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "launches": launches["breakdown"],
+            "modes": {m: t[m]["kernel"] for m in t}, "tool": r}
+
+
+def probe_tc() -> dict:
+    """The tensor-core probe: identity operands first (a wrong fragment
+    layout fails here), then each width of the tool's defaults at
+    PROBE_STEPS steps vs the plain version, then `mxu_occupancy.run` at its
+    defaults (its launches counted); times of one call at width 512 and 512
+    steps, of the plain version and of torch.matmul per step."""
+    dev = "cuda"
+    bf = torch.bfloat16
+    # A = I (16 x 16), X [16, 8] = 16 k + n: out[m] = rowsum of X's row m
+    xk = (16 * torch.arange(16, device=dev)[:, None]
+          + torch.arange(8, device=dev)[None, :]).float()
+    got = probes.tc_dot_probe(torch.eye(16, device=dev, dtype=bf)[None],
+                              xk.to(bf), 8, 1, 1, 8)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], xk.sum(1)),
+          f"tc probe 16 x 16 x 8, A = I: row sums of X {got[0].tolist()[:4]}... "
+          f"== {xk.sum(1).tolist()[:4]}...")
+    # X = [I8; 0] (16 x 8), A [16, 16] distinct integers: out[m] = sum_{k<8} A[m, k]
+    ak = ((torch.arange(256, device=dev).reshape(16, 16) * 7) % 97 - 48).float()
+    xi = torch.cat([torch.eye(8, device=dev), torch.zeros(8, 8, device=dev)])
+    got = probes.tc_dot_probe(ak.to(bf)[None], xi.to(bf), 8, 1, 1, 8)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], ak[:, :8].sum(1)),
+          "tc probe 16 x 16 x 8, X = [I8; 0]: sums of A's first 8 columns")
+    # the 64-column path, exact: A_d = I (128 x 128), X integers
+    x64 = ((torch.arange(128 * 128, device=dev).reshape(128, 128) * 5) % 61
+           - 30).float()
+    got = probes.tc_dot_probe(torch.eye(128, device=dev, dtype=bf)[None]
+                              .repeat(2, 1, 1).contiguous(), x64.to(bf), 64, 3,
+                              2, 128)
+    torch.cuda.synchronize()
+    want = torch.stack([2 * x64[:, 64 * (b % 2):64 * (b % 2) + 64].sum(1)
+                        for b in range(3)])
+    check(torch.equal(got, want), "tc probe 2 x (128 x 128 identity) x 64 "
+                                  "columns, 3 steps over 2 slabs: exact")
+
+    m, k, lanes, distinct, widths = 128, 384, 24 * 512, 4, (512, 1024, 2048)
+    rng = np.random.default_rng(SEED)
+    a = torch.from_numpy(rng.standard_normal((lanes // min(widths), m, k),
+                                             dtype=np.float32)).to(bf).cuda()
+    x = torch.from_numpy(rng.standard_normal((k, distinct * max(widths)),
+                                             dtype=np.float32)).to(bf).cuda()
+    worst = max_abs = 0.0
+    for w in widths:
+        got = probes.tc_dot_probe(a, x, w, PROBE_STEPS, distinct, lanes)
+        torch.cuda.synchronize()
+        e, ab = rel_dev(probes.tc_dot_probe_reference(a, x, w, PROBE_STEPS,
+                                                      distinct, lanes), got)
+        worst, max_abs = max(worst, e), max(max_abs, ab)
+        check(e <= PROBE_TOL, f"tc probe width {w} ({lanes // w} dots), "
+                              f"{PROBE_STEPS} steps: kernel vs plain rel-L2 "
+                              f"{e:.3e} <= {PROBE_TOL} (max abs {ab:.3e})")
+    reset_counts()
+    r = mxu_occupancy.run([])
+    launches = read_counts()["tc_probe"]
+    print("mxu_occupancy (defaults): " + json.dumps(r), flush=True)
+    check(launches == 4 * len(widths), f"mxu_occupancy launches: {launches} "
+                                       f"(warm + 3 spans per width)")
+    steps, w = 512, 512
+    nd = lanes // w
+    t = timed({"plain": lambda: probes.tc_dot_probe_reference(
+                   a, x, w, steps, distinct, lanes),
+               "kernel": lambda: probes.tc_dot_probe(a, x, w, steps, distinct,
+                                                     lanes),
+               "library": mxu_occupancy.library_steps(a, x, w, steps,
+                                                      distinct, nd)},
+              ("plain", "kernel", "library", "library", "kernel", "plain"))
+    flops = 2.0 * m * k * lanes * steps
+    bound_ms, bound_by = bound(flops, nd * m * k * 2 + x.numel() * 2
+                               + steps * m * 4, PEAK_BF16)
+    print(f"tc probe width {w}, {steps} steps: {t['kernel']:.3f} ms "
+          f"({flops / t['kernel'] / 1e9:.1f} TFLOP/s, "
+          f"{flops / t['kernel'] / 1e-3 / PEAK_BF16:.3f} of {PEAK_BF16 / 1e12} "
+          f"TFLOP/s), plain {t['plain']:.3f} ms, library (torch.matmul bf16 "
+          f"[{nd}, {m}, {k}] @ [{k}, {w}] per step, from a CUDA graph) "
+          f"{t['library']:.3f} ms, "
+          f"bound {bound_ms:.3f} ms ({bound_by})", flush=True)
+    return {"max_abs_err": max_abs, "rel_l2": worst, "ms": t["kernel"],
+            "plain_ms": t["plain"], "library_ms": t["library"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "launches": launches,
+            "tool": r}
+
+
+def probe_split() -> dict:
+    """The int16 -> bf16 split dot, both variants, on the tool's input (the
+    14-bit range) and on every int16 value once ([128, 512]): vs the plain
+    version; on the 14-bit range vs fp32 A @ x (TF32 off) and split exact;
+    the inexact samples of the full range printed.  Then
+    `int_split_repro.run` for both variants (its launches counted); times of
+    the kernel, the plain version and torch.matmul in fp32."""
+    m, n = 128, 512
+    rng = np.random.default_rng(0)            # the tool's inputs
+    x14 = torch.from_numpy(rng.integers(-8192, 8192, (m, n), dtype=np.int16)).cuda()
+    a = torch.from_numpy(rng.standard_normal((m, m)).astype(np.float32)
+                         ).to(torch.bfloat16).cuda()
+    xfull = torch.arange(-32768, 32768, device="cuda").to(torch.int16).reshape(m, n)
+    worst = max_abs = 0.0
+    for label, x in (("14-bit", x14), ("full int16", xfull)):
+        for variant in probes.SPLIT_VARIANTS:
+            got = probes.int_split_dot(x, a, variant)
+            torch.cuda.synchronize()
+            e, ab = rel_dev(probes.int_split_dot_reference(x, a, variant), got)
+            worst, max_abs = max(worst, e), max(max_abs, ab)
+            inexact = probes.split_inexact_count(x, variant)
+            check(e <= SPLIT_TOL, f"int split {variant} {label}: kernel vs plain "
+                                  f"rel-L2 {e:.3e} <= {SPLIT_TOL} (max abs "
+                                  f"{ab:.3e}); inexact samples {inexact} of "
+                                  f"{x.numel()}")
+            if label == "14-bit":
+                e2, _ = rel_dev(torch.matmul(a.float(), x.float()), got)
+                check(e2 <= SPLIT_TOL and inexact == 0,
+                      f"int split {variant} 14-bit: vs fp32 A @ x rel-L2 "
+                      f"{e2:.3e} <= {SPLIT_TOL}; split_exact")
+    reset_counts()
+    runs = {v: int_split_repro.run(["--variant", v])
+            for v in probes.SPLIT_VARIANTS}
+    launches = read_counts()["int_split"]
+    for v, r in runs.items():
+        print(f"int_split_repro --variant {v}: " + json.dumps(r), flush=True)
+        check(r["ok"] and r["split_exact"] and not r["repro"],
+              f"int_split_repro {v}: ok, split_exact, rel-L2 "
+              f"{r['rel_l2_vs_f32_matmul']:.3e}, {r['us_per_call']} us a call")
+    af, xf = a.float(), x14.float()
+    t = timed({"plain": lambda: probes.int_split_dot_reference(x14, a, "int"),
+               "kernel": lambda: probes.int_split_dot(x14, a, "int"),
+               "library": lambda: torch.matmul(af, xf)},
+              ("plain", "kernel", "library", "library", "kernel", "plain"))
+    bound_ms, bound_by = bound(2 * 2.0 * m * m * n,
+                               x14.numel() * 2 + a.numel() * 2 + m * n * 4,
+                               PEAK_BF16)
+    print(f"int split dot (int) [{m}, {n}]: {t['kernel']:.4f} ms, plain "
+          f"{t['plain']:.4f} ms, library (fp32 A @ x) {t['library']:.4f} ms, "
+          f"bound {bound_ms:.5f} ms ({bound_by})", flush=True)
+    return {"max_abs_err": max_abs, "rel_l2": worst, "ms": t["kernel"],
+            "plain_ms": t["plain"], "library_ms": t["library"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "launches": launches}
+
+
+def phase_probes(noise, adv) -> dict:
+    """The three probe kernels and their entry points (the TPU tools'
+    kernels), at production geometry.  fp32 yardsticks with TF32 off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    print_ptxas(r"tc_dot_kernel|int_split_kernel|body[23]>")
+    out = {"breakdown": probe_breakdown(noise, adv), "tc": probe_tc(),
+           "split": probe_split()}
+    torch.cuda.empty_cache()
+    print(f"probes phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def kernel_entry(name, source, replaces, launches, res, **extra) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": res["max_abs_err"], "rel_l2": res["rel_l2"],
             "ms": res["ms"], "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
             # None: no single PyTorch call computes the function (the fused
-            # chains, the row epilogue)
-            "library_ms": res.get("library_ms")}
+            # chains, the row epilogue, the ablations)
+            "library_ms": res.get("library_ms"), **extra}
 
 
 def main() -> int:
@@ -1289,6 +1560,7 @@ def main() -> int:
     offsets = phase_offsets(noise, adv)
     stage2 = phase_stage2(orc, noise)
     bench_launches = phase_bench()
+    probe = phase_probes(noise, adv)
     radix = phase_kernel(orc, noise, adv)
     wire = phase_kernel_wire(orc, noise, adv)
     dense = phase_kernel_dense(orc)
@@ -1337,6 +1609,18 @@ def main() -> int:
         kernel_entry("fused_stage2", "wrp_tpu_torch/csrc/fused_stage2.cu",
                      "wrp_tpu/ops/pallas/postprocess.py:86",
                      stage2["launches"], stage2),
+        kernel_entry("radix_chain_ablation (dots; ms of each mode in 'modes')",
+                     "wrp_tpu_torch/csrc/kernel_breakdown.cu",
+                     "tools/kernel_breakdown.py:158",
+                     probe["breakdown"]["launches"], probe["breakdown"],
+                     modes=probe["breakdown"]["modes"]),
+        kernel_entry("tc_dot_probe (width 512, 512 steps)",
+                     "wrp_tpu_torch/csrc/tc_occupancy.cu",
+                     "tools/mxu_occupancy.py:110",
+                     probe["tc"]["launches"], probe["tc"]),
+        kernel_entry("int_split_dot (int)", "wrp_tpu_torch/csrc/int_split.cu",
+                     "tools/int_split_repro.py:85",
+                     probe["split"]["launches"], probe["split"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

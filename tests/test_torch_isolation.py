@@ -17,7 +17,10 @@ def test_port_imports_without_jax():
             "wrp_tpu_torch.runtime.executor, wrp_tpu_torch.ops.fullchain, "
             "wrp_tpu_torch.ops._build, wrp_tpu_torch.parallel.multihost, "
             "wrp_tpu_torch.bench, wrp_tpu_torch.ops.dft, "
-            "wrp_tpu_torch.ops.postprocess; "
+            "wrp_tpu_torch.ops.postprocess, wrp_tpu_torch.ops.probes, "
+            "wrp_tpu_torch.tools.kernel_breakdown, "
+            "wrp_tpu_torch.tools.mxu_occupancy, "
+            "wrp_tpu_torch.tools.int_split_repro; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'wrp_tpu.')) or m == 'wrp_tpu'); "
             "assert not bad, bad; print('clean')")

@@ -49,4 +49,27 @@ int wrp_fused_chain_astage(const void* x, int x_is_int16, const void* a, const v
   return static_cast<int>(err);
 }
 
+// The int16 A-stage above with at least min_smem bytes of dynamic shared
+// memory requested per block (the kernel uses only its operator slice):
+// the in-kernel time breakdown runs it at the fused kernel's 136 KB, so
+// at the fused kernel's one block per SM.
+int wrp_fused_chain_astage_min_smem(const void* x, const void* a, const void* fac, void* y,
+                                    int bc, int m, int w, int radix, int tile,
+                                    long long min_smem, void* stream) {
+  const cudaError_t err = wrp::launch_radix_astage(
+      radix, tile, wrp::PlanarSource<int16_t>{static_cast<const int16_t*>(x), m, w},
+      static_cast<const float*>(a), static_cast<const float*>(fac), static_cast<float*>(y), bc,
+      m, w, static_cast<cudaStream_t>(stream), static_cast<size_t>(min_smem));
+  return static_cast<int>(err);
+}
+
+// Resident blocks per SM of the int16 A-stage at (radix, tile, m, w) with
+// at least min_smem bytes of dynamic shared memory, for the breakdown.
+int wrp_fused_chain_astage_blocks_per_sm(int radix, int tile, int m, int w,
+                                         long long min_smem, int* blocks) {
+  return static_cast<int>(
+      wrp::radix_chain_blocks_per_sm<wrp::PlanarSource<int16_t>, wrp::Body::kAStage>(
+          radix, tile, m, w, static_cast<size_t>(min_smem), blocks));
+}
+
 }  // extern "C"

@@ -54,4 +54,12 @@ int wrp_fused_chain_radix_salted(const void* x, int x_is_int16, const void* a,
   return static_cast<int>(err);
 }
 
+// Resident blocks per SM of the int16 salted kernel at (radix, tile, m, n),
+// for the in-kernel time breakdown (kernel_breakdown.cu's `full` mode).
+int wrp_fused_chain_radix_salted_blocks_per_sm(int radix, int tile, int m, int n, int* blocks) {
+  return static_cast<int>(
+      wrp::radix_chain_blocks_per_sm<wrp::Salted<wrp::PlanarSource<int16_t>>, wrp::Body::kFused>(
+          radix, tile, m, n, 0, blocks));
+}
+
 }  // extern "C"

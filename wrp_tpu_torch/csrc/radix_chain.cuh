@@ -2,8 +2,10 @@
 // one kernel body shared by fused_chain_radix.cu (planar IQ) and
 // fused_chain_wire.cu (raw wire words), which differ only in how an
 // element is loaded (the `Src` policies below).  The same body with
-// kAStage = true is the pulse-sharded path's A-stage kernel
-// (fused_chain_astage.cu): steps 1-2 only, Y stored to global memory.
+// Body::kAStage is the pulse-sharded path's A-stage kernel
+// (fused_chain_astage.cu): steps 1-2 only, Y stored to global memory; with
+// Body::kDots and Body::kCombine it is the in-kernel time breakdown's
+// ablations (kernel_breakdown.cu).
 //
 // Per unit (one channel of one sector) it maps the unit's IQ rows (range
 // rows in NATURAL order) to the matched-filter power pow [m/2]:
@@ -51,14 +53,16 @@
 //   * The wire policy gives each block one channel and reads its words at
 //     stride ch: all channels per block (1,536 lanes at 3 x 512) fits only
 //     T = 4 in shared memory and measured 1.8x slower (PERF.md).
-//   * The A-stage shares the body through a template flag, not a device
-//     function called by two kernels: that factoring compiled the fused
-//     planar kernel 1.34-1.41x slower (2.24-2.36 vs 1.67 ms per 48
+//   * The A-stage and the ablations share the body through a template
+//     parameter (`Body`, `if constexpr` branches), not a device function
+//     called by several kernels: that factoring compiled the fused planar
+//     kernel 1.34-1.41x slower (2.24-2.36 vs 1.67 ms per 48
 //     channel-sectors, PERF.md), with the same registers and no spills.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
 
@@ -134,18 +138,47 @@ struct Salted : Src {
 // wd, ph: the epilogue constants as the policy describes them
 // out [units, m/2] float
 //
-// kAStage: the A-stage of the pulse-sharded path.  n is then the rank's
-// pulse count w, the grid is (M / T, ceil(w / kThreads), units) with one
-// pulse chunk per block, out is Y [units, 2, m/2, w] (wd, ph unused), and
-// Y goes straight to global memory: consecutive threads hold consecutive
-// pulses, so each (s, t) row store coalesces.  The block then holds only
-// its operator slice (8 KB at T = 8, M = 128), so registers, not shared
-// memory, bound the blocks per SM.
-template <class Src, int S, int T, bool kAStage>
+// Body::kAStage: the A-stage of the pulse-sharded path.  n is then the
+// rank's pulse count w, the grid is (M / T, ceil(w / kThreads), units) with
+// one pulse chunk per block, out is Y [units, 2, m/2, w] (wd, ph unused),
+// and Y goes straight to global memory: consecutive threads hold
+// consecutive pulses, so each (s, t) row store coalesces.  The block then
+// holds only its operator slice (8 KB at T = 8, M = 128), so registers, not
+// shared memory, bound the blocks per SM.
+//
+// Body::kDots and Body::kCombine: the fused kernel with work removed, at
+// its grid and its dynamic shared memory (so at its occupancy), for the
+// in-kernel time breakdown (wd, ph unused; out [units, m/2]):
+//   kCombine  steps 1-2 as in production, Y stored to shared memory as in
+//             production; the epilogue is one warp per row summing
+//             sum_j (Yr + Yi)[row, j].
+//   kDots     step 1 only: branch p's g_p is added, not combined, onto
+//             the register-held Y of block s = p mod S (2 T adds under a
+//             branch uniform across the block, against the combine's
+//             4 S T FMAs), so row s M + t holds (g_s + g_{s+S})[t, :];
+//             then the combine's store and row sum.  combine - dots is
+//             the combine's cost.  Writing g_p into the shared-memory rows
+//             instead ran 1.3x slower than the combine (52 registers, a
+//             different schedule of the contraction's loads); indexing the
+//             registers by the runtime p mod S put them in local memory
+//             (256 bytes of stack) and ran 1.5x slower (PERF.md).
+enum class Body : int { kFused = 0, kAStage = 1, kDots = 2, kCombine = 3 };
+
+// The dynamic shared memory of one block: the operator slice [M][T][2] and,
+// except for the A-stage, Y [2][S T][n].
+template <int S, int T, Body B>
+size_t chain_smem_bytes(int m, int n) {
+  const int M = m / (2 * S);
+  if (B == Body::kAStage) return static_cast<size_t>(2) * T * M * sizeof(float);
+  return (static_cast<size_t>(2) * S * T * n + static_cast<size_t>(2) * T * M) * sizeof(float);
+}
+
+template <class Src, int S, int T, Body B>
 __global__ void __launch_bounds__(kThreads)
 radix_chain_kernel(Src src, const float* __restrict__ a, const float* __restrict__ fac,
                    const float* __restrict__ wd, const float* __restrict__ ph,
                    float* __restrict__ out, int m, int n) {
+  constexpr bool kAStage = B == Body::kAStage;
   constexpr int R = 2 * S;
   const int M = m / R;
   const int t0 = blockIdx.x * T;
@@ -197,14 +230,31 @@ radix_chain_kernel(Src src, const float* __restrict__ a, const float* __restrict
         }
       }
 
+      if constexpr (B == Body::kDots) {
+        // no combine: g_p is added onto the Y registers of block p mod S
+        // (a branch uniform across the block; static indices keep yr, yi
+        // in registers)
+        const int sp = p % S;
 #pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const float fr = fac[(s * R + p) * 2];
-        const float fi = fac[(s * R + p) * 2 + 1];
+        for (int s = 0; s < S; ++s) {
+          if (s == sp) {
 #pragma unroll
-        for (int t = 0; t < T; ++t) {
-          yr[s][t] += fr * gr[t] - fi * gi[t];
-          yi[s][t] += fr * gi[t] + fi * gr[t];
+            for (int t = 0; t < T; ++t) {
+              yr[s][t] += gr[t];
+              yi[s][t] += gi[t];
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const float fr = fac[(s * R + p) * 2];
+          const float fi = fac[(s * R + p) * 2 + 1];
+#pragma unroll
+          for (int t = 0; t < T; ++t) {
+            yr[s][t] += fr * gr[t] - fi * gi[t];
+            yi[s][t] += fr * gi[t] + fi * gr[t];
+          }
         }
       }
     }
@@ -237,30 +287,45 @@ radix_chain_kernel(Src src, const float* __restrict__ a, const float* __restrict
   if constexpr (kAStage) return;
   __syncthreads();
 
-  // Parseval epilogue: one warp per row of Y.
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int co = src.const_offset(u);
-  for (int row = warp; row < S * T; row += kThreads / 32) {
-    const float pw = parseval_row_power(ys_r + static_cast<size_t>(row) * n,
-                                        ys_i + static_cast<size_t>(row) * n, 1, wd + co,
-                                        ph + co, src.const_stride(), src.const_row(), n, lane);
-    if (lane == 0) {
-      const int s = row / T;
-      const int t = row - s * T;
-      out[static_cast<size_t>(u) * (m / 2) + s * M + t0 + t] = pw;
+  if constexpr (B == Body::kFused) {
+    // Parseval epilogue: one warp per row of Y.
+    const int co = src.const_offset(u);
+    for (int row = warp; row < S * T; row += kThreads / 32) {
+      const float pw = parseval_row_power(ys_r + static_cast<size_t>(row) * n,
+                                          ys_i + static_cast<size_t>(row) * n, 1, wd + co,
+                                          ph + co, src.const_stride(), src.const_row(), n, lane);
+      if (lane == 0) {
+        const int s = row / T;
+        const int t = row - s * T;
+        out[static_cast<size_t>(u) * (m / 2) + s * M + t0 + t] = pw;
+      }
+    }
+  } else {
+    // the ablations' epilogue: one warp per row sums Yr + Yi over the pulses
+    for (int row = warp; row < S * T; row += kThreads / 32) {
+      const float* rr = ys_r + static_cast<size_t>(row) * n;
+      const float* ri = ys_i + static_cast<size_t>(row) * n;
+      float v = 0.f;
+      for (int k = lane; k < n; k += 32) v += rr[k] + ri[k];
+      v = warp_sum(v);
+      if (lane == 0) {
+        const int s = row / T;
+        const int t = row - s * T;
+        out[static_cast<size_t>(u) * (m / 2) + s * M + t0 + t] = v;
+      }
     }
   }
 }
 
-template <class Src, int S, int T>
+template <class Src, int S, int T, Body B>
 cudaError_t launch_instance(const Src& src, const float* a, const float* fac, const float* wd,
                             const float* ph, float* out, int sectors, int channels, int m,
                             int n, cudaStream_t stream) {
   const int M = m / (2 * S);
-  const size_t smem = (static_cast<size_t>(2) * S * T * n + static_cast<size_t>(2) * T * M) *
-                      sizeof(float);
-  auto kernel = radix_chain_kernel<Src, S, T, false>;
+  const size_t smem = chain_smem_bytes<S, T, B>(m, n);
+  auto kernel = radix_chain_kernel<Src, S, T, B>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -270,14 +335,14 @@ cudaError_t launch_instance(const Src& src, const float* a, const float* fac, co
   return cudaGetLastError();
 }
 
-template <class Src, int S>
+template <class Src, int S, Body B>
 cudaError_t launch_radix_chain_tile(int tile, const Src& src, const float* a, const float* fac,
                                     const float* wd, const float* ph, float* out, int sectors,
                                     int channels, int m, int n, cudaStream_t stream) {
   switch (tile) {
-    case 8: return launch_instance<Src, S, 8>(src, a, fac, wd, ph, out, sectors, channels, m, n, stream);
-    case 4: return launch_instance<Src, S, 4>(src, a, fac, wd, ph, out, sectors, channels, m, n, stream);
-    case 2: return launch_instance<Src, S, 2>(src, a, fac, wd, ph, out, sectors, channels, m, n, stream);
+    case 8: return launch_instance<Src, S, 8, B>(src, a, fac, wd, ph, out, sectors, channels, m, n, stream);
+    case 4: return launch_instance<Src, S, 4, B>(src, a, fac, wd, ph, out, sectors, channels, m, n, stream);
+    case 2: return launch_instance<Src, S, 2, B>(src, a, fac, wd, ph, out, sectors, channels, m, n, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -285,29 +350,72 @@ cudaError_t launch_radix_chain_tile(int tile, const Src& src, const float* a, co
 // Launches on `stream` without synchronising over units u = sector *
 // channels + channel; the caller validates shapes and dtypes (and applies
 // a benchmark slab offset to the source's pointer).  sectors and
-// channels <= 65535 (the grid's z and y extents).
-template <class Src>
+// channels <= 65535 (the grid's z and y extents).  B is the production
+// chain or one of its ablations (same grid, same shared memory).
+template <class Src, Body B = Body::kFused>
 cudaError_t launch_radix_chain(int radix, int tile, const Src& src, const float* a,
                                const float* fac, const float* wd, const float* ph, float* out,
                                int sectors, int channels, int m, int n, cudaStream_t stream) {
+  static_assert(B != Body::kAStage, "the A-stage launches through launch_radix_astage");
   if (sectors <= 0 || sectors > 65535 || channels <= 0 || channels > 65535 || n <= 0 ||
       radix <= 1 || m % radix != 0 || tile <= 0 || (m / radix) % tile != 0) {
     return cudaErrorInvalidValue;
   }
   switch (radix) {
-    case 8: return launch_radix_chain_tile<Src, 4>(tile, src, a, fac, wd, ph, out, sectors, channels, m, n, stream);
-    case 4: return launch_radix_chain_tile<Src, 2>(tile, src, a, fac, wd, ph, out, sectors, channels, m, n, stream);
-    case 2: return launch_radix_chain_tile<Src, 1>(tile, src, a, fac, wd, ph, out, sectors, channels, m, n, stream);
+    case 8: return launch_radix_chain_tile<Src, 4, B>(tile, src, a, fac, wd, ph, out, sectors, channels, m, n, stream);
+    case 4: return launch_radix_chain_tile<Src, 2, B>(tile, src, a, fac, wd, ph, out, sectors, channels, m, n, stream);
+    case 2: return launch_radix_chain_tile<Src, 1, B>(tile, src, a, fac, wd, ph, out, sectors, channels, m, n, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
+template <class Src, int S, int T, Body B>
+cudaError_t blocks_per_sm_instance(int m, int n, size_t min_smem, int* blocks) {
+  const size_t smem = std::max(chain_smem_bytes<S, T, B>(m, n), min_smem);
+  auto kernel = radix_chain_kernel<Src, S, T, B>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, smem);
+}
+
+template <class Src, int S, Body B>
+cudaError_t blocks_per_sm_tile(int tile, int m, int n, size_t min_smem, int* blocks) {
+  switch (tile) {
+    case 8: return blocks_per_sm_instance<Src, S, 8, B>(m, n, min_smem, blocks);
+    case 4: return blocks_per_sm_instance<Src, S, 4, B>(m, n, min_smem, blocks);
+    case 2: return blocks_per_sm_instance<Src, S, 2, B>(m, n, min_smem, blocks);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of
+// the instantiation a launch of body B at (radix, tile, m, n) runs, at its
+// dynamic shared memory or min_smem bytes, whichever is more; n is the
+// A-stage's pulse count w for kAStage.
+template <class Src, Body B>
+cudaError_t radix_chain_blocks_per_sm(int radix, int tile, int m, int n, size_t min_smem,
+                                      int* blocks) {
+  if (n <= 0 || radix <= 1 || m % radix != 0 || tile <= 0 || (m / radix) % tile != 0) {
+    return cudaErrorInvalidValue;
+  }
+  switch (radix) {
+    case 8: return blocks_per_sm_tile<Src, 4, B>(tile, m, n, min_smem, blocks);
+    case 4: return blocks_per_sm_tile<Src, 2, B>(tile, m, n, min_smem, blocks);
+    case 2: return blocks_per_sm_tile<Src, 1, B>(tile, m, n, min_smem, blocks);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// min_smem: request at least this much dynamic shared memory (unused by the
+// kernel), so the A-stage can be run at the fused kernel's occupancy
 template <class Src, int S, int T>
 cudaError_t launch_astage_instance(const Src& src, const float* a, const float* fac, float* y,
-                                   int units, int m, int w, cudaStream_t stream) {
+                                   int units, int m, int w, size_t min_smem,
+                                   cudaStream_t stream) {
   const int M = m / (2 * S);
-  const size_t smem = static_cast<size_t>(2) * T * M * sizeof(float);
-  auto kernel = radix_chain_kernel<Src, S, T, true>;
+  const size_t smem = std::max(chain_smem_bytes<S, T, Body::kAStage>(m, w), min_smem);
+  auto kernel = radix_chain_kernel<Src, S, T, Body::kAStage>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -320,11 +428,12 @@ cudaError_t launch_astage_instance(const Src& src, const float* a, const float* 
 
 template <class Src, int S>
 cudaError_t launch_astage_tile(int tile, const Src& src, const float* a, const float* fac,
-                               float* y, int units, int m, int w, cudaStream_t stream) {
+                               float* y, int units, int m, int w, size_t min_smem,
+                               cudaStream_t stream) {
   switch (tile) {
-    case 8: return launch_astage_instance<Src, S, 8>(src, a, fac, y, units, m, w, stream);
-    case 4: return launch_astage_instance<Src, S, 4>(src, a, fac, y, units, m, w, stream);
-    case 2: return launch_astage_instance<Src, S, 2>(src, a, fac, y, units, m, w, stream);
+    case 8: return launch_astage_instance<Src, S, 8>(src, a, fac, y, units, m, w, min_smem, stream);
+    case 4: return launch_astage_instance<Src, S, 4>(src, a, fac, y, units, m, w, min_smem, stream);
+    case 2: return launch_astage_instance<Src, S, 2>(src, a, fac, y, units, m, w, min_smem, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -332,15 +441,15 @@ cudaError_t launch_astage_tile(int tile, const Src& src, const float* a, const f
 template <class Src>
 cudaError_t launch_radix_astage(int radix, int tile, const Src& src, const float* a,
                                 const float* fac, float* y, int units, int m, int w,
-                                cudaStream_t stream) {
+                                cudaStream_t stream, size_t min_smem = 0) {
   if (units <= 0 || units > 65535 || w <= 0 || radix <= 1 || m % radix != 0 || tile <= 0 ||
       (m / radix) % tile != 0) {
     return cudaErrorInvalidValue;
   }
   switch (radix) {
-    case 8: return launch_astage_tile<Src, 4>(tile, src, a, fac, y, units, m, w, stream);
-    case 4: return launch_astage_tile<Src, 2>(tile, src, a, fac, y, units, m, w, stream);
-    case 2: return launch_astage_tile<Src, 1>(tile, src, a, fac, y, units, m, w, stream);
+    case 8: return launch_astage_tile<Src, 4>(tile, src, a, fac, y, units, m, w, min_smem, stream);
+    case 4: return launch_astage_tile<Src, 2>(tile, src, a, fac, y, units, m, w, min_smem, stream);
+    case 2: return launch_astage_tile<Src, 1>(tile, src, a, fac, y, units, m, w, min_smem, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -141,6 +141,28 @@ def load_library() -> ctypes.CDLL:
                     ptr, ptr, ptr, ptr, ptr,          # yr, yi, br, bi, out
                     i64, i32, f32,                    # total_rows, n, tap_sum
                     ptr],                             # stream
+                "wrp_radix_chain_ablation": [
+                    ptr, ptr, ptr, ptr,               # x, a, fac, out
+                    i32, i32, i32, i32, i32, i64,     # bc, m, n, radix, tile, offset
+                    i32, i32, ptr],                   # salt, mode, stream
+                # resident blocks per SM (the last argument, int*)
+                "wrp_radix_chain_ablation_blocks_per_sm": [
+                    i32, i32, i32, i32, i32, ptr],    # mode, radix, tile, m, n
+                "wrp_fused_chain_radix_salted_blocks_per_sm": [
+                    i32, i32, i32, i32, ptr],         # radix, tile, m, n
+                "wrp_fused_chain_astage_blocks_per_sm": [
+                    i32, i32, i32, i32, i64, ptr],    # radix, tile, m, w, min_smem
+                "wrp_fused_chain_astage_min_smem": [
+                    ptr, ptr, ptr, ptr,               # x (int16), a, fac, y
+                    i32, i32, i32, i32, i32,          # bc, m, w, radix, tile
+                    i64, ptr],                        # min_smem, stream
+                "wrp_tc_dot_probe": [
+                    ptr, ptr, ptr,                    # a, x, out
+                    i32, i32, i32, i32,               # M, K, width, wmax
+                    i32, i32, i32, ptr],              # distinct, ndots, steps, stream
+                "wrp_int_split_dot": [
+                    ptr, ptr, ptr,                    # x, a, out
+                    i32, i32, i32, ptr],              # m, n, variant, stream
             }
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)

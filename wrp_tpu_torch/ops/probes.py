@@ -1,0 +1,371 @@
+"""The TPU tools' three probe kernels as hand-written CUDA kernels.
+
+Counterparts of the Pallas kernels in ``tools/kernel_breakdown.py``,
+``tools/mxu_occupancy.py`` and ``tools/int_split_repro.py``; their entry
+points are ``wrp_tpu_torch/tools/{kernel_breakdown,mxu_occupancy,
+int_split_repro}.py``.  Each kernel has its wrapper, plain torch version
+and launch counter:
+
+* the in-kernel time breakdown, csrc/kernel_breakdown.cu:
+  `radix_chain_ablation`, plain `radix_chain_ablation_reference`,
+  `BREAKDOWN_LAUNCHES`.  The benchmark's salted radix kernel with work
+  removed (modes "dots" and "combine", the production body in
+  csrc/radix_chain.cuh); mode "full" launches the production kernel itself
+  through `fullchain.fused_chain_power_radix` (its own counter,
+  `fullchain.RADIX_OFFSET_LAUNCHES`); `astage_at_smem` runs the A-stage
+  kernel at the fused kernel's shared memory (counted as the A-stage,
+  `fullchain.ASTAGE_LAUNCHES`).
+* the tensor-core occupancy probe, csrc/tc_occupancy.cu: `tc_dot_probe`,
+  plain `tc_dot_probe_reference`, `TC_PROBE_LAUNCHES`.  bf16 x bf16 ->
+  fp32 on the tensor cores (mma.sync).
+* the int16 -> bf16 split check, csrc/int_split.cu: `int_split_dot`, plain
+  `int_split_dot_reference`, `INT_SPLIT_LAUNCHES`; `split_planes` is the
+  split alone (plain torch, any device).
+
+Each wrapper sends a CPU tensor to the plain version; a CUDA tensor
+launches the kernel on the current stream or raises.  There is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build, fullchain
+
+#: kernel launches, counted where each wrapper launches its CUDA kernel and
+#: nowhere else
+BREAKDOWN_LAUNCHES = 0      # kernel_breakdown.cu (dots, combine)
+TC_PROBE_LAUNCHES = 0       # tc_occupancy.cu
+INT_SPLIT_LAUNCHES = 0      # int_split.cu
+
+ABLATION_MODES = ("dots", "combine", "full")
+#: the ablation bodies' wrp::Body values (csrc/radix_chain.cuh)
+_BODY = {"dots": 2, "combine": 3}
+#: why the TPU tool's `splits` mode has no counterpart
+SPLITS_REFUSAL = ("mode 'splits' has no counterpart in the port: its chain "
+                  "kernel contracts in fp32 and does no bf16 hi/lo operand "
+                  "split (csrc/radix_chain.cuh); the split's cost on the "
+                  "tensor cores is what int_split_dot measures")
+
+#: lanes dotted per step by the tensor-core probe at every width: the
+#: chain kernel's 24 dots x 512 pulses per channel-step
+LANES_TOTAL = 24 * 512
+
+SPLIT_VARIANTS = ("int", "f32")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_cuda(t: torch.Tensor, name: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+
+
+def _check_operands(name: str, *ts: torch.Tensor) -> None:
+    """The mma kernels copy 16-byte chunks: operands on one device,
+    contiguous, 16-byte aligned."""
+    for t in ts:
+        if t.device != ts[0].device:
+            raise ValueError(f"{name}: operands on {ts[0].device} and {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must be contiguous and 16-byte "
+                             "aligned")
+
+
+# ---------------------------------------------------------------------------
+# the in-kernel time breakdown
+# ---------------------------------------------------------------------------
+
+
+def radix_chain_ablation_reference(x_all: torch.Tensor, plan, mode: str,
+                                   offset: int, bc: int, salt: int) -> torch.Tensor:
+    """Plain torch version of `radix_chain_ablation` on the slab x_all[offset:
+    offset + bc] with `salt` added to every sample -> [bc, m/2] f32:
+
+    * full: the fused chain's power (`fullchain.fused_chain_power_reference`);
+    * combine: sum_j (Yr + Yi)[row, j] of the half-spectrum range DFT Y;
+    * dots: row s M + t holds sum_j (Re + Im)(g_s + g_{s+S})[t, j], g_p =
+      A_p x_p the branch contractions, without the combine."""
+    slab = x_all[offset:offset + bc]
+    if mode == "full":
+        return fullchain.fused_chain_power_reference(slab, plan, salt)
+    x = slab.to(torch.float32) + float(salt)
+    if mode == "combine":
+        yr, yi = fullchain._contract_reference(x, plan)
+        return yr.sum(-1) + yi.sum(-1)
+    if mode != "dots":
+        raise ValueError(f"unknown ablation mode {mode!r}")
+    R, S = plan.radix, plan.radix // 2
+    xr, xi = x[:, 0], x[:, 1]
+    ar, ai = plan.a[:, 0], plan.a[:, 1]
+    blocks = [0.0] * S
+    for p in range(R):
+        vr, vi = xr[:, p::R, :], xi[:, p::R, :]
+        gr = ar[p] @ vr - ai[p] @ vi
+        gi = ar[p] @ vi + ai[p] @ vr
+        blocks[p % S] = blocks[p % S] + gr.sum(-1) + gi.sum(-1)
+    return torch.cat(blocks, dim=-1)
+
+
+def radix_chain_ablation(x_all: torch.Tensor, plan, mode: str, offset: int,
+                         bc: int, salt: int) -> torch.Tensor:
+    """One ablation of the benchmark's salted radix kernel on `bc`
+    channel-sectors of the staged x_all [BC, 2, m, n] int16 (natural row
+    order) from channel-sector `offset`, with the int32 `salt` added to every
+    sample -> [bc, m/2] f32 (see `radix_chain_ablation_reference`).
+
+    "full" is `fullchain.fused_chain_power_radix(x_all, plan, offset=,
+    bc=, salt=)` itself.  "dots" and "combine" launch csrc/kernel_breakdown.cu
+    at the production kernel's grid and shared memory.  "splits" (the TPU
+    tool's bf16 hi/lo split) raises: the port's chain kernel has no split.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    or raises."""
+    global BREAKDOWN_LAUNCHES
+    name = f"radix_chain_ablation ({mode})"
+    if mode == "splits":
+        raise ValueError(SPLITS_REFUSAL)
+    if mode not in ABLATION_MODES:
+        raise ValueError(f"unknown ablation mode {mode!r}; modes "
+                         f"{', '.join(ABLATION_MODES)}")
+    if plan.radix < 2:
+        raise ValueError(f"{name} needs the radix plan (m={plan.m} splits "
+                         "into no radix branches)")
+    if mode == "full":
+        return fullchain.fused_chain_power_radix(x_all, plan, offset=offset,
+                                                 bc=bc, salt=salt)
+    start, count = fullchain._slab(x_all.shape[0], offset, bc, salt, name, "bc")
+    if x_all.device.type == "cpu":
+        return radix_chain_ablation_reference(x_all, plan, mode, start, count,
+                                              salt)
+    _check_cuda(x_all, name)
+    if x_all.dtype != torch.int16:
+        raise TypeError(f"{name}: the ablations are built for int16 input, "
+                        f"got {x_all.dtype}")
+    fullchain._check_planar(x_all, plan, name)
+    out = torch.empty((count, plan.m // 2), dtype=torch.float32,
+                      device=x_all.device)
+    if count == 0:
+        return out
+    lib = _build.load_library()
+    with torch.cuda.device(x_all.device):
+        rc = lib.wrp_radix_chain_ablation(
+            x_all.data_ptr(), plan.a_kernel.data_ptr(), plan.fac_t.data_ptr(),
+            out.data_ptr(), count, plan.m, plan.n, plan.radix,
+            fullchain.kernel_tile(plan), start, int(salt), _BODY[mode],
+            _stream(x_all))
+    fullchain._raise_on_error(lib, rc, name)
+    BREAKDOWN_LAUNCHES += 1
+    return out
+
+
+def fused_smem_bytes(plan) -> int:
+    """The fused radix kernel's dynamic shared memory per block: Y [2, S T,
+    n] and the operator slice [M, T, 2] in f32 (136 KB at 1024 x 512)."""
+    S, M, T = plan.radix // 2, plan.m // plan.radix, fullchain.kernel_tile(plan)
+    return (2 * S * T * plan.n + 2 * T * M) * 4
+
+
+def astage_at_smem(x: torch.Tensor, plan, min_smem: int) -> torch.Tensor:
+    """The A-stage kernel (`fullchain.fused_chain_astage`) on x [bc, 2, m, w]
+    int16 with at least `min_smem` bytes of dynamic shared memory requested
+    per block, which it does not use: at `fused_smem_bytes(plan)` it runs at
+    the fused kernel's occupancy, the breakdown's test of whether shared
+    memory sets the fused kernel's pace.  Counted in
+    fullchain.ASTAGE_LAUNCHES.  A CPU tensor takes the A-stage's plain
+    version; a CUDA tensor launches the kernel or raises."""
+    name = "astage_at_smem"
+    if x.device.type == "cpu":
+        return fullchain.fused_chain_astage_reference(x, plan)
+    _check_cuda(x, name)
+    if x.dtype != torch.int16 or x.dim() != 4 or x.shape[1:3] != (2, plan.m):
+        raise ValueError(f"{name}: x must be int16 [bc, 2, {plan.m}, w], got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if plan.radix < 2 or not x.is_contiguous() or plan.device != x.device:
+        raise ValueError(f"{name}: needs a radix plan on {x.device} and a "
+                         "contiguous x")
+    bc, w = x.shape[0], x.shape[3]
+    y = torch.empty((bc, 2, plan.m // 2, w), dtype=torch.float32, device=x.device)
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        rc = lib.wrp_fused_chain_astage_min_smem(
+            x.data_ptr(), plan.a_kernel.data_ptr(), plan.fac_t.data_ptr(),
+            y.data_ptr(), bc, plan.m, w, plan.radix, fullchain.astage_tile(plan),
+            int(min_smem), _stream(x))
+    fullchain._raise_on_error(lib, rc, name)
+    fullchain.ASTAGE_LAUNCHES += 1
+    return y
+
+
+def blocks_per_sm(plan, body: str, min_smem: int = 0) -> int:
+    """Resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+    of the int16 kernel that `body` launches at the plan's geometry: an
+    ablation mode ("dots", "combine", "full": the salted radix kernel) or
+    "astage" (the A-stage on all n pulses, with at least `min_smem` bytes
+    of dynamic shared memory).  Needs CUDA."""
+    lib = _build.load_library()
+    blocks = ctypes.c_int(0)
+    ptr = ctypes.addressof(blocks)
+    if body == "full":
+        rc = lib.wrp_fused_chain_radix_salted_blocks_per_sm(
+            plan.radix, fullchain.kernel_tile(plan), plan.m, plan.n, ptr)
+    elif body == "astage":
+        rc = lib.wrp_fused_chain_astage_blocks_per_sm(
+            plan.radix, fullchain.astage_tile(plan), plan.m, plan.n,
+            int(min_smem), ptr)
+    elif body in _BODY:
+        rc = lib.wrp_radix_chain_ablation_blocks_per_sm(
+            _BODY[body], plan.radix, fullchain.kernel_tile(plan), plan.m,
+            plan.n, ptr)
+    else:
+        raise ValueError(f"unknown body {body!r}")
+    fullchain._raise_on_error(lib, rc, f"blocks_per_sm ({body})")
+    return blocks.value
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core occupancy probe
+# ---------------------------------------------------------------------------
+
+
+def _probe_shape(a: torch.Tensor, x: torch.Tensor, width: int, steps: int,
+                 distinct: int, lanes_total: int):
+    """(ndots, wmax) of a probe call, after checking its arguments."""
+    if a.dtype != torch.bfloat16 or x.dtype != torch.bfloat16:
+        raise TypeError(f"tc_dot_probe: a and x must be bfloat16, got "
+                        f"{a.dtype}, {x.dtype}")
+    if a.dim() != 3 or x.dim() != 2 or x.shape[0] != a.shape[2]:
+        raise ValueError(f"tc_dot_probe: a must be [ndots, M, K] and x [K, "
+                         f"distinct * wmax], got {tuple(a.shape)}, "
+                         f"{tuple(x.shape)}")
+    if distinct < 1 or x.shape[1] % distinct:
+        raise ValueError(f"tc_dot_probe: x's {x.shape[1]} columns do not "
+                         f"split into {distinct} slabs")
+    wmax = x.shape[1] // distinct
+    if width < 1 or lanes_total % width or width > wmax:
+        raise ValueError(f"tc_dot_probe: width {width} must divide "
+                         f"lanes_total {lanes_total} and be <= {wmax}")
+    ndots = lanes_total // width
+    if ndots > a.shape[0]:
+        raise ValueError(f"tc_dot_probe: width {width} needs {ndots} dots, "
+                         f"a holds {a.shape[0]}")
+    if steps < 1:
+        raise ValueError(f"tc_dot_probe: steps {steps} < 1")
+    return ndots, wmax
+
+
+def tc_dot_probe_reference(a: torch.Tensor, x: torch.Tensor, width: int,
+                           steps: int, distinct: int,
+                           lanes_total: int = LANES_TOTAL) -> torch.Tensor:
+    """Plain torch version of `tc_dot_probe`: step b's rowsum(sum_d A_d @
+    X[:, slab(b)]) in fp32 (bf16 values are exact in fp32) -> [steps, M]."""
+    ndots, wmax = _probe_shape(a, x, width, steps, distinct, lanes_total)
+    af, xf = a[:ndots].float(), x.float()
+    out = torch.empty((steps, a.shape[1]), dtype=torch.float32, device=a.device)
+    for b in range(steps):
+        c0 = (b % distinct) * wmax
+        out[b] = (af @ xf[:, c0:c0 + width]).sum(dim=(0, 2))
+    return out
+
+
+def tc_dot_probe(a: torch.Tensor, x: torch.Tensor, width: int, steps: int,
+                 distinct: int, lanes_total: int = LANES_TOTAL) -> torch.Tensor:
+    """The tensor-core occupancy probe: a [ndots_max, M, K] bf16, x [K,
+    distinct * wmax] bf16 -> out [steps, M] f32, step b's
+    rowsum(sum_{d < ndots} A_d @ X[:, slab(b)]) with ndots = lanes_total /
+    width and slab(b) the `width` columns from (b mod distinct) * wmax
+    (``tools/mxu_occupancy.py``'s kernel).
+
+    A CPU tensor takes the plain version.  A CUDA tensor launches
+    csrc/tc_occupancy.cu (bf16 mma.sync, fp32 accumulation; M % 16 == 0 and
+    <= 128, K % 16 == 0, width and wmax % 8 == 0) or raises."""
+    global TC_PROBE_LAUNCHES
+    ndots, wmax = _probe_shape(a, x, width, steps, distinct, lanes_total)
+    if a.device.type == "cpu":
+        return tc_dot_probe_reference(a, x, width, steps, distinct, lanes_total)
+    _check_cuda(a, "tc_dot_probe")
+    _check_operands("tc_dot_probe", a, x)
+    out = torch.zeros((steps, a.shape[1]), dtype=torch.float32, device=a.device)
+    lib = _build.load_library()
+    with torch.cuda.device(a.device):
+        rc = lib.wrp_tc_dot_probe(a.data_ptr(), x.data_ptr(), out.data_ptr(),
+                                  a.shape[1], a.shape[2], width, wmax, distinct,
+                                  ndots, steps, _stream(a))
+    fullchain._raise_on_error(lib, rc, "tc_dot_probe")
+    TC_PROBE_LAUNCHES += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the int16 -> bf16 split check
+# ---------------------------------------------------------------------------
+
+
+def split_planes(x: torch.Tensor, variant: str):
+    """int16 x -> (hi, lo) bf16 planes as the TPU kernel split them, rounding
+    to nearest even: "int" masks (lo = v & 63, hi = v - lo), "f32" casts
+    (h = bf16(float(v)), l = bf16(float(v) - h))."""
+    if x.dtype != torch.int16:
+        raise TypeError(f"split_planes: x must be int16, got {x.dtype}")
+    if variant == "int":
+        lo = x & 63
+        return (x - lo).to(torch.bfloat16), lo.to(torch.bfloat16)
+    if variant == "f32":
+        f = x.to(torch.float32)
+        h = f.to(torch.bfloat16)
+        return h, (f - h.to(torch.float32)).to(torch.bfloat16)
+    raise ValueError(f"unknown split variant {variant!r}; variants "
+                     f"{', '.join(SPLIT_VARIANTS)}")
+
+
+def split_inexact_count(x: torch.Tensor, variant: str) -> int:
+    """How many samples of x the split does not reconstruct: hi + lo != v
+    (evaluated exactly in fp32)."""
+    hi, lo = split_planes(x, variant)
+    return int((hi.float() + lo.float() != x.float()).sum())
+
+
+def int_split_dot_reference(x: torch.Tensor, a: torch.Tensor,
+                            variant: str) -> torch.Tensor:
+    """Plain torch version of `int_split_dot`: the same split, then fp32
+    products A @ hi + A @ lo."""
+    hi, lo = split_planes(x, variant)
+    af = a.to(torch.float32)
+    return af @ hi.to(torch.float32) + af @ lo.to(torch.float32)
+
+
+def int_split_dot(x: torch.Tensor, a: torch.Tensor, variant: str) -> torch.Tensor:
+    """x [m, n] int16, a [m, m] bf16 -> A @ hi + A @ lo [m, n] f32, with the
+    split of `split_planes` (``tools/int_split_repro.py``'s kernel).
+
+    A CPU tensor takes the plain version.  A CUDA tensor launches
+    csrc/int_split.cu (the split in registers, the two dots on the tensor
+    cores; m % 16 == 0 and m <= 128 or a multiple of 128, n % 8 == 0) or
+    raises."""
+    global INT_SPLIT_LAUNCHES
+    if variant not in SPLIT_VARIANTS:
+        raise ValueError(f"unknown split variant {variant!r}; variants "
+                         f"{', '.join(SPLIT_VARIANTS)}")
+    if x.dtype != torch.int16 or a.dtype != torch.bfloat16:
+        raise TypeError(f"int_split_dot: x must be int16 and a bfloat16, got "
+                        f"{x.dtype}, {a.dtype}")
+    if x.dim() != 2 or a.dim() != 2 or a.shape != (x.shape[0], x.shape[0]):
+        raise ValueError(f"int_split_dot: x must be [m, n] and a [m, m], got "
+                         f"{tuple(x.shape)}, {tuple(a.shape)}")
+    if x.device.type == "cpu":
+        return int_split_dot_reference(x, a, variant)
+    _check_cuda(x, "int_split_dot")
+    _check_operands("int_split_dot", x, a)
+    m, n = x.shape
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        rc = lib.wrp_int_split_dot(x.data_ptr(), a.data_ptr(), out.data_ptr(),
+                                   m, n, SPLIT_VARIANTS.index(variant),
+                                   _stream(x))
+    fullchain._raise_on_error(lib, rc, "int_split_dot")
+    INT_SPLIT_LAUNCHES += 1
+    return out

@@ -12,16 +12,113 @@ the radix kernel (int16 and f32 input) and the wire kernel at 16 sectors
 of 3 x 1024 x 512, and, where the tree has them, the A-stage kernel at
 w = 512 and the row-epilogue kernel on its Y, each with its rel-L2 against
 the plain version, and the A-stage at each tile height it is built for
-(the sweep that chose `fullchain.astage_tile`).  Needs CUDA; imports only
-the tree's wrp_tpu_torch.
+(the sweep that chose `fullchain.astage_tile`); the number of kernels and
+of FFMA instructions in its library.  Last, one JSON line holds every
+kernel the trees share whose `-Xptxas=-v` report (registers, stack,
+spills, shared memory) or SASS FFMA count differs from the first tree's
+("ptxas_differs", "ffma_differs": empty when a change left the compiled
+kernels as they were).  Needs CUDA; imports only the tree's wrp_tpu_torch.
+
+`ptxas_report` and `sass_opcode_counts` read a built library's compiler
+log and SASS (cuobjdump, names demangled with cu++filt, both beside nvcc);
+`wrp_tpu_torch/tools/kernel_breakdown.py` uses the latter.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
+from pathlib import Path
+
+
+def kernel_key(name: str) -> str:
+    """A demangled kernel name as a key: no parameter list, no casts on
+    integer template arguments ("(int)8" -> "8", "(bool)1" -> "1"), and the
+    radix body's template argument written the same for the bool flag of
+    earlier trees ((bool)0/1) and the Body enum of later ones
+    ((wrp::Body)0/1): body0, body1, ..."""
+    if name.endswith(")"):          # drop the parameter list
+        depth = 0
+        for i in range(len(name) - 1, -1, -1):
+            depth += {")": 1, "(": -1}.get(name[i], 0)
+            if depth == 0:
+                name = name[:i]
+                break
+    name = re.sub(r"\((?:unsigned |long |short )*(?:int|long|short|char|bool)\)"
+                  r"(-?\d)", r"\1", name)
+    name = re.sub(r"\((?:wrp::)?Body\)(\d)", r"\1", name)
+    if "radix_chain_kernel" in name:
+        name = re.sub(r",\s*(\d+),\s*(\d+),\s*(\d|false|true)>$",
+                      lambda m: f", {m[1]}, {m[2]}, body"
+                      f"{ {'false': '0', 'true': '1'}.get(m[3], m[3]) }>", name)
+    return name
+
+
+def _demangle(names, tool_dir: Path) -> dict:
+    """{mangled: kernel_key of cu++filt's name}."""
+    names = sorted(set(names))
+    done = subprocess.run([str(tool_dir / "cu++filt")], input="\n".join(names),
+                          capture_output=True, text=True, check=True, timeout=120)
+    return {mangled: kernel_key(name)
+            for mangled, name in zip(names, done.stdout.splitlines())}
+
+
+def ptxas_report(log_text: str, tool_dir: Path) -> dict:
+    """{kernel: "R regs, S stack, X/Y spill, Z smem"} of every entry
+    function in a build log written with -Xptxas=-v."""
+    rep, cur = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1)
+            rep.setdefault(cur, {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and not rep[cur].get("stack"):
+            rep[cur].update(stack=m.group(1), spill=f"{m.group(2)}/{m.group(3)}")
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rep[cur].update(regs=m.group(1), smem=smem.group(1) if smem else "0")
+            cur = None
+    keys = _demangle(rep, tool_dir)
+    return {keys[k]: (f"{v.get('regs')} regs, {v.get('stack')} stack, "
+                      f"{v.get('spill')} spill, {v.get('smem')} smem")
+            for k, v in rep.items()}
+
+
+def sass_opcode_counts(so: Path, tool_dir: Path, opcodes=("FFMA",)) -> dict:
+    """{kernel: {opcode: instructions of it in the kernel's SASS}} for every
+    kernel in the built library `so` (cuobjdump --dump-sass); an opcode
+    counts with any modifiers (LDS counts LDS.128), and "all" counts every
+    instruction."""
+    done = subprocess.run([str(tool_dir / "cuobjdump"), "--dump-sass", str(so)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300)
+    counts, cur = {}, None
+    # an instruction line: /*0a10*/  [@!P0] OPCODE.MODIFIERS operands ;
+    instr = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)")
+    for line in done.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            # a template instantiated in two sources is in two cubins: once
+            cur = None if m.group(1) in counts else m.group(1)
+            if cur is not None:
+                counts[cur] = dict.fromkeys(opcodes, 0)
+            continue
+        m = instr.search(line) if cur is not None else None
+        if m:
+            for op in opcodes:
+                if op in ("all", m.group(1)):
+                    counts[cur][op] += 1
+    keys = _demangle(counts, tool_dir)
+    return {keys[k]: v for k, v in counts.items()}
 
 
 def _measure(tree: str) -> dict:
@@ -84,6 +181,11 @@ def _measure(tree: str) -> dict:
         out["rows_rel"] = rel(fullchain.parseval_rows_power_reference(y, plan),
                               fullchain.parseval_rows_power(y, plan))
         out["astage_tiles"] = _astage_tiles(x16, plan, y, ms, rel)
+    so = _build.library_path()
+    tool_dir = Path(_build._nvcc()).parent
+    out["ptxas"] = ptxas_report(so.with_suffix(".log").read_text(), tool_dir)
+    out["ffma"] = {k: v["FFMA"]
+                   for k, v in sass_opcode_counts(so, tool_dir).items()}
     return out
 
 
@@ -123,10 +225,36 @@ def main(argv) -> int:
         print(__doc__, file=sys.stderr)
         return 2
     rc = 0
+    results = []
     for tree in argv[1:]:
         done = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--one", tree], timeout=600)
+                               "--one", tree], stdout=subprocess.PIPE,
+                              text=True, timeout=600)
         rc = rc or done.returncode
+        if done.returncode != 0:
+            continue
+        r = json.loads(done.stdout.strip().splitlines()[-1])
+        results.append(r)
+        print(json.dumps({**{k: v for k, v in r.items()
+                             if k not in ("ptxas", "ffma")},
+                          "kernels": len(r["ptxas"]),
+                          "ffma_total": sum(r["ffma"].values())}), flush=True)
+    if results:
+        first = results[0]
+        summary = []
+        for r in results[1:]:
+            diff = {}
+            for key in ("ptxas", "ffma"):
+                common = sorted(set(first[key]) & set(r[key]))
+                diff[key] = {"shared": len(common), "differs": {
+                    k: [first[key][k], r[key][k]] for k in common
+                    if first[key][k] != r[key][k]}}
+            summary.append({"tree": r["tree"], "vs": first["tree"],
+                            "ptxas_shared": diff["ptxas"]["shared"],
+                            "ptxas_differs": diff["ptxas"]["differs"],
+                            "ffma_shared": diff["ffma"]["shared"],
+                            "ffma_differs": diff["ffma"]["differs"]})
+        print(json.dumps({"compiled_vs_first_tree": summary}), flush=True)
     return rc
 
 
