@@ -102,16 +102,14 @@ def test_wire_input_validation():
 
 @pytest.mark.parametrize("channels", [3, 2])
 def test_wire_lane_consts_equal_jax(channels):
+    """The wire kernel reads the plan's planar window and phasors for every
+    channel: lane ch*j + c is channel c, pulse j, so tiling them per channel
+    gives wrp_tpu's channel-tiled lane constants bit for bit."""
     cfg = tiny_config(m=M, n=N, channels=channels)
-    wd_il, ph_il = tfull.wire_lane_consts(PipelineConstants.build(cfg),
-                                          channels)
     jwd, jph = jfull.wire_lane_consts(JConsts.build(jtiny(m=M, n=N)),
                                       channels)
-    assert wd_il.dtype == ph_il.dtype == np.float32
-    np.testing.assert_array_equal(wd_il, jwd)
-    np.testing.assert_array_equal(ph_il, jph)
-    plan = tfull.build_plan(PipelineConstants.build(cfg), "cpu",
-                            channels=channels)
-    np.testing.assert_array_equal(plan.wd_il.numpy(), jwd)
-    np.testing.assert_array_equal(plan.ph_il.numpy(), jph)
-    assert tfull.build_plan(PipelineConstants.build(cfg), "cpu").wd_il is None
+    plan = tfull.build_plan(PipelineConstants.build(cfg), "cpu")
+    assert plan.wd.dtype == plan.phasors.dtype == torch.float32
+    np.testing.assert_array_equal(np.repeat(plan.wd.numpy(), channels), jwd)
+    np.testing.assert_array_equal(
+        np.repeat(plan.phasors.numpy(), channels, axis=1), jph)

@@ -121,7 +121,7 @@ def test_wrapper_on_cpu_takes_the_plain_version():
         -8192, 8192, (3, 2, 64, 32)).astype(np.int16))
     before = tfull.LAUNCHES
     assert torch.equal(tfull.fused_chain_power_radix(x, plan),
-                       tfull.fused_chain_power_reference(x, plan))
+                       tfull.fft_chain_power_reference(x, plan))
     assert tfull.LAUNCHES == before
     with pytest.raises(ValueError, match="unsupported device"):
         tfull.fused_chain_power_radix(x.to("meta"), plan)

@@ -66,8 +66,10 @@ def test_full_is_the_salted_radix_entry_and_matches_jax(slab, salt):
     assert (probes.BREAKDOWN_LAUNCHES,
             fullchain.RADIX_OFFSET_LAUNCHES) == before   # the CPU launches nothing
     assert got.shape == (BC, M // 2)
-    assert np.array_equal(got, fullchain.fused_chain_power_radix(
-        torch.from_numpy(x), plan, offset=slab * BC, bc=BC, salt=salt).numpy())
+    # the matrix-form chain of the salted radix entry (the port's first
+    # production body, which the breakdown ablates)
+    assert np.array_equal(got, fullchain.fused_chain_power_reference(
+        torch.from_numpy(x[slab * BC:(slab + 1) * BC]), plan, salt).numpy())
     consts = JConsts.build(jtiny(m=M, n=N))
     radix = jfull.radix_for(M)
     a_np, fac = jfull.radix_plan_host(consts, radix)

@@ -109,8 +109,7 @@ def test_wire_offset_in_sectors_matches_jax(salt, channels):
     cfg = tiny_config(m=128, n=64, channels=channels)
     jcfg = jtiny(m=128, n=64, channels=channels)
     wires = _wire_staged(cfg)
-    plan = tfull.build_plan(PipelineConstants.build(cfg), "cpu",
-                            channels=channels)
+    plan = tfull.build_plan(PipelineConstants.build(cfg), "cpu")
     w32 = tdc.wire_words_i32(torch.from_numpy(wires), cfg)
     before = tfull.WIRE_OFFSET_LAUNCHES
     got = tfull.fused_chain_power_wire(w32, plan, channels, offset=SECTORS,
@@ -193,7 +192,7 @@ def test_offset_out_of_range_and_misuse_raise():
         radix(x, plan, offset=0, bc=bc, salt=2 ** 31)
 
     cfg = tiny_config(m=128, n=64)
-    wplan = tfull.build_plan(PipelineConstants.build(cfg), "cpu", channels=3)
+    wplan = tfull.build_plan(PipelineConstants.build(cfg), "cpu")
     w32 = tdc.wire_words_i32(torch.from_numpy(_wire_staged(cfg)), cfg)
     with pytest.raises(ValueError, match="outside"):
         tfull.fused_chain_power_wire(w32, wplan, 3, offset=SLABS * SECTORS - 1,

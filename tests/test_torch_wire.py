@@ -68,8 +68,7 @@ def test_wire_reference_vs_jax_kernel_and_oracle(channels, kind):
     jcfg = _jcfg(cfg)
     iqs = [_sector(cfg, kind, seed=s) for s in (4, 5)]
     wires = _wires(cfg, iqs)
-    plan = tfull.build_plan(PipelineConstants.build(cfg), "cpu",
-                            channels=channels)
+    plan = tfull.build_plan(PipelineConstants.build(cfg), "cpu")
     w32 = tdc.wire_words_i32(torch.from_numpy(wires), cfg)
     got = tfull.fused_chain_power_wire(w32, plan, channels).numpy()
     assert got.shape == (2, channels, 64)
@@ -178,7 +177,7 @@ def test_wire_and_dense_wrappers_on_cpu():
     devices and mismatched plans raise; the fused processor takes the
     dense form for a radix-1 geometry instead of raising."""
     cfg = tiny_config(m=64, n=32)
-    plan = tfull.build_plan(PipelineConstants.build(cfg), "cpu", channels=3)
+    plan = tfull.build_plan(PipelineConstants.build(cfg), "cpu")
     w32 = tdc.wire_words_i32(_wires(cfg, [_sector(cfg, "noise", 2)]), cfg)
     before = (tfull.LAUNCHES, tfull.WIRE_LAUNCHES, tfull.DENSE_LAUNCHES)
     assert torch.equal(tfull.fused_chain_power_wire(w32, plan, 3),

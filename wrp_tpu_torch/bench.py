@@ -240,7 +240,7 @@ def run(argv=None) -> dict:
         return stage09_10_products(pw[:, 0], pw[:, 1], gain)
 
     if args.method == "pallas":
-        plan = fullchain.build_plan(consts, dev, channels=c)
+        plan = fullchain.build_plan(consts, dev)
         if plan.radix > 1:
             def power_at(x_all, off, salt):
                 return fullchain.fused_chain_power_radix(

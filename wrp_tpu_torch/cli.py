@@ -27,7 +27,7 @@ import numpy as np
 
 def _add_common(p):
     p.add_argument("--method", default="mxu",
-                   choices=["mxu", "parseval", "pallas", "fft"])
+                   choices=["mxu", "parseval", "pallas", "radix", "fft"])
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' (default) fails without CUDA, "
                         "'cpu' runs the plain torch versions")

@@ -1,7 +1,8 @@
-// Pieces shared by the fused-chain kernels (radix_chain.cuh, behind
-// fused_chain_radix.cu and fused_chain_wire.cu, and fused_chain_dense.cu):
-// the block size, a warp sum, the in-register wire-word decode, the
-// Parseval epilogue of one row, operator staging and the complex MAC.
+// Pieces shared by the chain kernels (fft_chain.cuh, behind the radix,
+// wire and A-stage entries; radix_chain.cuh, the matrix form behind
+// kernel_breakdown.cu; fused_chain_dense.cu; parseval_rows.cu): the block
+// size, a warp sum, the in-register wire-word decode, the Parseval
+// epilogue of one row, operator staging and the complex MAC.
 #pragma once
 
 #include <cuda_runtime.h>

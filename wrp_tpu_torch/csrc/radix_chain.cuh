@@ -1,11 +1,11 @@
-// The radix-R fused chain kernel, stages 01-08, for NVIDIA Hopper (sm_90a):
-// one kernel body shared by fused_chain_radix.cu (planar IQ) and
-// fused_chain_wire.cu (raw wire words), which differ only in how an
-// element is loaded (the `Src` policies below).  The same body with
-// Body::kAStage is the pulse-sharded path's A-stage kernel
-// (fused_chain_astage.cu): steps 1-2 only, Y stored to global memory; with
-// Body::kDots and Body::kCombine it is the in-kernel time breakdown's
-// ablations (kernel_breakdown.cu).
+// The radix-R fused chain kernel in the TPU algorithm's matrix form,
+// stages 01-08, for NVIDIA Hopper (sm_90a).  The port's production chain
+// runs the FFT form (fft_chain.cuh); this body stays as the one that the
+// in-kernel time breakdown ablates (kernel_breakdown.cu): Body::kFused the
+// whole chain, Body::kDots and Body::kCombine with work removed,
+// Body::kAStage steps 1-2 with Y stored to global memory.  The `Src`
+// policies below say how an element is loaded (planar IQ or raw wire
+// words, and the breakdown's salted planar source).
 //
 // Per unit (one channel of one sector) it maps the unit's IQ rows (range
 // rows in NATURAL order) to the matched-filter power pow [m/2]:

@@ -116,23 +116,29 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(so))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             i64, f32 = ctypes.c_longlong, ctypes.c_float
-            planar = [ptr, i32, ptr, ptr, ptr, ptr, ptr,  # x, x_is_int16, a, fac, wd, ph, out
-                      i32, i32, i32, i32, i32, i64]      # bc, m, n, radix, tile, offset
-            wire = [ptr, ptr, ptr, ptr, ptr, ptr,         # w, a, fac, wd_il, ph_il, out
-                    i32, i32, i32, i32, i32, i32, i64]    # bs, m, n, ch, radix, tile, offset
+            planar = [ptr, i32, ptr, ptr, ptr, ptr, ptr,  # x, x_is_int16, tab, phi, wd, ph, out
+                      i32, i32, i32, i32, i32, i64]      # bc, m, n, cols, blocks, offset
+            wire = [ptr, ptr, ptr, ptr, ptr, ptr,         # w, tab, phi, wd, ph, out
+                    i32, i32, i32, i32, i32, i32, i64]    # bs, m, n, ch, cols, blocks, offset
+            # resident blocks per SM and clusters (the last two, int*)
+            occupancy = [i32, i32, i32, ptr, ptr]         # m, cols, blocks
             signatures = {
                 "wrp_fused_chain_radix": planar + [ptr],              # stream
                 "wrp_fused_chain_radix_salted": planar + [i32, ptr],  # salt, stream
                 "wrp_fused_chain_wire": wire + [ptr],
                 "wrp_fused_chain_wire_salted": wire + [i32, ptr],
+                "wrp_fused_chain_radix_occupancy": occupancy,
+                "wrp_fused_chain_wire_occupancy": occupancy,
                 "wrp_fused_chain_dense": [
                     ptr, i32, ptr, ptr, ptr, ptr,     # x, x_is_int16, a, wd, ph, out
                     i32, i32, i32, i32, i64,          # bc, m, n, tile, offset
                     ptr],                             # stream
                 "wrp_fused_chain_astage": [
-                    ptr, i32, ptr, ptr, ptr,          # x, x_is_int16, a, fac, y
-                    i32, i32, i32, i32, i32,          # bc, m, w, radix, tile
+                    ptr, i32, ptr, ptr,               # x, x_is_int16, tab, y
+                    i32, i32, i32, i32, i32,          # bc, m, w, cols, blocks
                     ptr],                             # stream
+                "wrp_fused_chain_astage_occupancy": [
+                    i32, i32, ptr],                   # m, cols, int* blocks per SM
                 "wrp_parseval_rows": [
                     ptr, ptr, ptr, ptr,               # y, wd, ph, out
                     i32, i32, i32,                    # bc, rows, n
@@ -142,20 +148,17 @@ def load_library() -> ctypes.CDLL:
                     i64, i32, f32,                    # total_rows, n, tap_sum
                     ptr],                             # stream
                 "wrp_radix_chain_ablation": [
-                    ptr, ptr, ptr, ptr,               # x, a, fac, out
+                    ptr, ptr, ptr, ptr, ptr, ptr,     # x, a, fac, wd, ph, out
                     i32, i32, i32, i32, i32, i64,     # bc, m, n, radix, tile, offset
                     i32, i32, ptr],                   # salt, mode, stream
-                # resident blocks per SM (the last argument, int*)
-                "wrp_radix_chain_ablation_blocks_per_sm": [
-                    i32, i32, i32, i32, i32, ptr],    # mode, radix, tile, m, n
-                "wrp_fused_chain_radix_salted_blocks_per_sm": [
-                    i32, i32, i32, i32, ptr],         # radix, tile, m, n
-                "wrp_fused_chain_astage_blocks_per_sm": [
-                    i32, i32, i32, i32, i64, ptr],    # radix, tile, m, w, min_smem
-                "wrp_fused_chain_astage_min_smem": [
+                "wrp_radix_chain_astage": [
                     ptr, ptr, ptr, ptr,               # x (int16), a, fac, y
                     i32, i32, i32, i32, i32,          # bc, m, w, radix, tile
                     i64, ptr],                        # min_smem, stream
+                # resident blocks per SM (the last argument, int*)
+                "wrp_radix_chain_ablation_blocks_per_sm": [
+                    i32, i32, i32, i32, i32, i64,     # mode, radix, tile, m, n, min_smem
+                    ptr],
                 "wrp_tc_dot_probe": [
                     ptr, ptr, ptr,                    # a, x, out
                     i32, i32, i32, i32,               # M, K, width, wmax

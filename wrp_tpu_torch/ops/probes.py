@@ -7,14 +7,13 @@ int_split_repro}.py``.  Each kernel has its wrapper, plain torch version
 and launch counter:
 
 * the in-kernel time breakdown, csrc/kernel_breakdown.cu:
-  `radix_chain_ablation`, plain `radix_chain_ablation_reference`,
-  `BREAKDOWN_LAUNCHES`.  The benchmark's salted radix kernel with work
-  removed (modes "dots" and "combine", the production body in
-  csrc/radix_chain.cuh); mode "full" launches the production kernel itself
-  through `fullchain.fused_chain_power_radix` (its own counter,
-  `fullchain.RADIX_OFFSET_LAUNCHES`); `astage_at_smem` runs the A-stage
-  kernel at the fused kernel's shared memory (counted as the A-stage,
-  `fullchain.ASTAGE_LAUNCHES`).
+  `radix_chain_ablation`, plain `radix_chain_ablation_reference`, and
+  `radix_chain_astage`, plain `radix_chain_astage_reference`, all counted
+  in `BREAKDOWN_LAUNCHES`.  The TPU algorithm's matrix-form salted radix
+  chain (csrc/radix_chain.cuh, the port's first production body; production
+  now runs the FFT form, csrc/fft_chain.cuh) whole ("full") and with work
+  removed ("dots", "combine"), and its A-stage at its own or the full
+  body's shared memory: every mode ablates that one body.
 * the tensor-core occupancy probe, csrc/tc_occupancy.cu: `tc_dot_probe`,
   plain `tc_dot_probe_reference`, `TC_PROBE_LAUNCHES`.  bf16 x bf16 ->
   fp32 on the tensor cores (mma.sync).
@@ -36,13 +35,13 @@ from . import _build, fullchain
 
 #: kernel launches, counted where each wrapper launches its CUDA kernel and
 #: nowhere else
-BREAKDOWN_LAUNCHES = 0      # kernel_breakdown.cu (dots, combine)
+BREAKDOWN_LAUNCHES = 0      # kernel_breakdown.cu (every mode, the A-stage)
 TC_PROBE_LAUNCHES = 0       # tc_occupancy.cu
 INT_SPLIT_LAUNCHES = 0      # int_split.cu
 
 ABLATION_MODES = ("dots", "combine", "full")
-#: the ablation bodies' wrp::Body values (csrc/radix_chain.cuh)
-_BODY = {"dots": 2, "combine": 3}
+#: the matrix-form bodies' wrp::Body values (csrc/radix_chain.cuh)
+_BODY = {"full": 0, "astage": 1, "dots": 2, "combine": 3}
 #: why the TPU tool's `splits` mode has no counterpart
 SPLITS_REFUSAL = ("mode 'splits' has no counterpart in the port: its chain "
                   "kernel contracts in fp32 and does no bf16 hi/lo operand "
@@ -86,7 +85,7 @@ def radix_chain_ablation_reference(x_all: torch.Tensor, plan, mode: str,
     """Plain torch version of `radix_chain_ablation` on the slab x_all[offset:
     offset + bc] with `salt` added to every sample -> [bc, m/2] f32:
 
-    * full: the fused chain's power (`fullchain.fused_chain_power_reference`);
+    * full: the matrix-form chain's power (`fullchain.fused_chain_power_reference`);
     * combine: sum_j (Yr + Yi)[row, j] of the half-spectrum range DFT Y;
     * dots: row s M + t holds sum_j (Re + Im)(g_s + g_{s+S})[t, j], g_p =
       A_p x_p the branch contractions, without the combine."""
@@ -113,17 +112,15 @@ def radix_chain_ablation_reference(x_all: torch.Tensor, plan, mode: str,
 
 def radix_chain_ablation(x_all: torch.Tensor, plan, mode: str, offset: int,
                          bc: int, salt: int) -> torch.Tensor:
-    """One ablation of the benchmark's salted radix kernel on `bc`
-    channel-sectors of the staged x_all [BC, 2, m, n] int16 (natural row
-    order) from channel-sector `offset`, with the int32 `salt` added to every
-    sample -> [bc, m/2] f32 (see `radix_chain_ablation_reference`).
-
-    "full" is `fullchain.fused_chain_power_radix(x_all, plan, offset=,
-    bc=, salt=)` itself.  "dots" and "combine" launch csrc/kernel_breakdown.cu
-    at the production kernel's grid and shared memory.  "splits" (the TPU
-    tool's bf16 hi/lo split) raises: the port's chain kernel has no split.
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises."""
+    """One mode of the TPU algorithm's matrix-form salted radix chain on
+    `bc` channel-sectors of the staged x_all [BC, 2, m, n] int16 (natural
+    row order) from channel-sector `offset`, with the int32 `salt` added to
+    every sample -> [bc, m/2] f32 (see `radix_chain_ablation_reference`):
+    "full" the whole chain, "dots" and "combine" with work removed, each
+    launched from csrc/kernel_breakdown.cu at the full body's grid and
+    shared memory.  "splits" (the TPU tool's bf16 hi/lo split) raises: the
+    port's chain has no split.  A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel or raises."""
     global BREAKDOWN_LAUNCHES
     name = f"radix_chain_ablation ({mode})"
     if mode == "splits":
@@ -134,9 +131,6 @@ def radix_chain_ablation(x_all: torch.Tensor, plan, mode: str, offset: int,
     if plan.radix < 2:
         raise ValueError(f"{name} needs the radix plan (m={plan.m} splits "
                          "into no radix branches)")
-    if mode == "full":
-        return fullchain.fused_chain_power_radix(x_all, plan, offset=offset,
-                                                 bc=bc, salt=salt)
     start, count = fullchain._slab(x_all.shape[0], offset, bc, salt, name, "bc")
     if x_all.device.type == "cpu":
         return radix_chain_ablation_reference(x_all, plan, mode, start, count,
@@ -154,32 +148,41 @@ def radix_chain_ablation(x_all: torch.Tensor, plan, mode: str, offset: int,
     with torch.cuda.device(x_all.device):
         rc = lib.wrp_radix_chain_ablation(
             x_all.data_ptr(), plan.a_kernel.data_ptr(), plan.fac_t.data_ptr(),
-            out.data_ptr(), count, plan.m, plan.n, plan.radix,
-            fullchain.kernel_tile(plan), start, int(salt), _BODY[mode],
-            _stream(x_all))
+            plan.wd.data_ptr(), plan.phasors.data_ptr(), out.data_ptr(), count,
+            plan.m, plan.n, plan.radix, fullchain.kernel_tile(plan), start,
+            int(salt), _BODY[mode], _stream(x_all))
     fullchain._raise_on_error(lib, rc, name)
     BREAKDOWN_LAUNCHES += 1
     return out
 
 
 def fused_smem_bytes(plan) -> int:
-    """The fused radix kernel's dynamic shared memory per block: Y [2, S T,
-    n] and the operator slice [M, T, 2] in f32 (136 KB at 1024 x 512)."""
+    """The matrix-form fused kernel's dynamic shared memory per block: Y
+    [2, S T, n] and the operator slice [M, T, 2] in f32 (136 KB at
+    1024 x 512)."""
     S, M, T = plan.radix // 2, plan.m // plan.radix, fullchain.kernel_tile(plan)
     return (2 * S * T * plan.n + 2 * T * M) * 4
 
 
-def astage_at_smem(x: torch.Tensor, plan, min_smem: int) -> torch.Tensor:
-    """The A-stage kernel (`fullchain.fused_chain_astage`) on x [bc, 2, m, w]
-    int16 with at least `min_smem` bytes of dynamic shared memory requested
-    per block, which it does not use: at `fused_smem_bytes(plan)` it runs at
-    the fused kernel's occupancy, the breakdown's test of whether shared
-    memory sets the fused kernel's pace.  Counted in
-    fullchain.ASTAGE_LAUNCHES.  A CPU tensor takes the A-stage's plain
+def radix_chain_astage_reference(x: torch.Tensor, plan) -> torch.Tensor:
+    """Plain torch version of `radix_chain_astage`: the matrix form's
+    contraction and combine, Y [bc, 2, m/2, w] f32."""
+    yr, yi = fullchain._contract_reference(x, plan)
+    return torch.stack([yr, yi], dim=1)
+
+
+def radix_chain_astage(x: torch.Tensor, plan, min_smem: int = 0) -> torch.Tensor:
+    """The matrix-form A-stage (csrc/kernel_breakdown.cu, Body::kAStage of
+    csrc/radix_chain.cuh) on x [bc, 2, m, w] int16 -> Y [bc, 2, m/2, w] f32,
+    with at least `min_smem` bytes of dynamic shared memory requested per
+    block, which it does not use: at `fused_smem_bytes(plan)` it runs at
+    the full matrix body's occupancy, the breakdown's test of whether
+    shared memory sets that body's pace.  A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel or raises."""
-    name = "astage_at_smem"
+    global BREAKDOWN_LAUNCHES
+    name = "radix_chain_astage"
     if x.device.type == "cpu":
-        return fullchain.fused_chain_astage_reference(x, plan)
+        return radix_chain_astage_reference(x, plan)
     _check_cuda(x, name)
     if x.dtype != torch.int16 or x.dim() != 4 or x.shape[1:3] != (2, plan.m):
         raise ValueError(f"{name}: x must be int16 [bc, 2, {plan.m}, w], got "
@@ -191,37 +194,30 @@ def astage_at_smem(x: torch.Tensor, plan, min_smem: int) -> torch.Tensor:
     y = torch.empty((bc, 2, plan.m // 2, w), dtype=torch.float32, device=x.device)
     lib = _build.load_library()
     with torch.cuda.device(x.device):
-        rc = lib.wrp_fused_chain_astage_min_smem(
+        rc = lib.wrp_radix_chain_astage(
             x.data_ptr(), plan.a_kernel.data_ptr(), plan.fac_t.data_ptr(),
             y.data_ptr(), bc, plan.m, w, plan.radix, fullchain.astage_tile(plan),
             int(min_smem), _stream(x))
     fullchain._raise_on_error(lib, rc, name)
-    fullchain.ASTAGE_LAUNCHES += 1
+    BREAKDOWN_LAUNCHES += 1
     return y
 
 
 def blocks_per_sm(plan, body: str, min_smem: int = 0) -> int:
     """Resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
-    of the int16 kernel that `body` launches at the plan's geometry: an
-    ablation mode ("dots", "combine", "full": the salted radix kernel) or
-    "astage" (the A-stage on all n pulses, with at least `min_smem` bytes
-    of dynamic shared memory).  Needs CUDA."""
+    of the matrix-form int16 body `body` at the plan's geometry: a mode
+    ("full", "dots", "combine": salted) or "astage" (the A-stage on all n
+    pulses), at least `min_smem` bytes of dynamic shared memory.  Needs
+    CUDA."""
+    if body not in _BODY:
+        raise ValueError(f"unknown body {body!r}")
+    tile = (fullchain.astage_tile(plan) if body == "astage"
+            else fullchain.kernel_tile(plan))
     lib = _build.load_library()
     blocks = ctypes.c_int(0)
-    ptr = ctypes.addressof(blocks)
-    if body == "full":
-        rc = lib.wrp_fused_chain_radix_salted_blocks_per_sm(
-            plan.radix, fullchain.kernel_tile(plan), plan.m, plan.n, ptr)
-    elif body == "astage":
-        rc = lib.wrp_fused_chain_astage_blocks_per_sm(
-            plan.radix, fullchain.astage_tile(plan), plan.m, plan.n,
-            int(min_smem), ptr)
-    elif body in _BODY:
-        rc = lib.wrp_radix_chain_ablation_blocks_per_sm(
-            _BODY[body], plan.radix, fullchain.kernel_tile(plan), plan.m,
-            plan.n, ptr)
-    else:
-        raise ValueError(f"unknown body {body!r}")
+    rc = lib.wrp_radix_chain_ablation_blocks_per_sm(
+        _BODY[body], plan.radix, tile, plan.m, plan.n, int(min_smem),
+        ctypes.addressof(blocks))
     fullchain._raise_on_error(lib, rc, f"blocks_per_sm ({body})")
     return blocks.value
 

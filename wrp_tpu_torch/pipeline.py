@@ -343,8 +343,7 @@ class SectorProcessor:
                 self.wire_decode = wire_decode
             if wire_decode == "fused":
                 self.wire_dtype = np.int32
-                self._wire_plan = fullchain.build_plan(
-                    consts, self.device, channels=cfg.num_channels)
+                self._wire_plan = fullchain.build_plan(consts, self.device)
             else:
                 self._power_fn = fullchain.build_fused_processor(consts,
                                                                  self.device)

@@ -9,15 +9,17 @@ in the order given, so list them in turns (parent, change, change, parent)
 to separate a code change from drift.  For each it builds the tree's kernel
 library and prints one JSON line: the card, the CUDA-event ms per call of
 the radix kernel (int16 and f32 input) and the wire kernel at 16 sectors
-of 3 x 1024 x 512, and, where the tree has them, the A-stage kernel at
+of 3 x 1024 x 512, the salted radix offset entry at the bench's 384
+channel-sectors, and, where the tree has them, the A-stage kernel at
 w = 512 and the row-epilogue kernel on its Y, each with its rel-L2 against
-the plain version, and the A-stage at each tile height it is built for
-(the sweep that chose `fullchain.astage_tile`); the number of kernels and
-of FFMA instructions in its library.  Last, one JSON line holds every
-kernel the trees share whose `-Xptxas=-v` report (registers, stack,
+the tree's own plain version, and the FFT-form kernels' blocks per SM and
+resident clusters where the tree has them; the number of kernels and of
+FFMA instructions in its library.  Last, one JSON line holds every kernel
+the trees share by name whose `-Xptxas=-v` report (registers, stack,
 spills, shared memory) or SASS FFMA count differs from the first tree's
-("ptxas_differs", "ffma_differs": empty when a change left the compiled
-kernels as they were).  Needs CUDA; imports only the tree's wrp_tpu_torch.
+("ptxas_differs", "ffma_differs"; kernels that are not in both trees, as
+the FFT-form body against the matrix-form one, are not compared).  Needs
+CUDA; imports only the tree's wrp_tpu_torch.
 
 `ptxas_report` and `sass_opcode_counts` read a built library's compiler
 log and SASS (cuobjdump, names demangled with cu++filt, both beside nvcc);
@@ -160,12 +162,24 @@ def _measure(tree: str) -> dict:
         return float((got.double() - ref.double()).norm() / ref.double().norm())
 
     out = {"tree": tree, "device": torch.cuda.get_device_name(0)}
+    # the tree's plain version of the radix and wire kernels
+    plain = getattr(fullchain, "fft_chain_power_reference",
+                    fullchain.fused_chain_power_reference)
     out["radix_ms"] = ms(lambda: fullchain.fused_chain_power_radix(x16, plan))
     xf = x16.float()
     out["radix_f32_ms"] = ms(lambda: fullchain.fused_chain_power_radix(xf, plan))
-    out["radix_rel"] = rel(fullchain.fused_chain_power_reference(x16, plan),
+    out["radix_rel"] = rel(plain(x16, plan),
                            fullchain.fused_chain_power_radix(x16, plan))
-    wplan = fullchain.build_plan(consts, "cuda", channels=cfg.num_channels)
+    x384 = x16.repeat(8, 1, 1, 1).contiguous()
+    out["radix_salted_384_ms"] = ms(lambda: fullchain.fused_chain_power_radix(
+        x384, plan, offset=0, bc=384, salt=7))
+    del x384
+    # trees before the FFT form built the wire kernel's channel-tiled
+    # constants only on request
+    try:
+        wplan = fullchain.build_plan(consts, "cuda", channels=cfg.num_channels)
+    except TypeError:
+        wplan = plan
     wires = np.stack([np.frombuffer(codec.encode_iq(s, cfg), np.uint8)
                       for s in noise])
     w32 = device_codec.wire_words_i32(torch.from_numpy(wires).cuda(),
@@ -180,40 +194,14 @@ def _measure(tree: str) -> dict:
         out["rows_ms"] = ms(lambda: fullchain.parseval_rows_power(y, plan))
         out["rows_rel"] = rel(fullchain.parseval_rows_power_reference(y, plan),
                               fullchain.parseval_rows_power(y, plan))
-        out["astage_tiles"] = _astage_tiles(x16, plan, y, ms, rel)
+    if hasattr(fullchain, "fft_occupancy"):
+        out["occupancy"] = {body: fullchain.fft_occupancy(plan, body)
+                            for body in ("radix", "wire", "astage")}
     so = _build.library_path()
     tool_dir = Path(_build._nvcc()).parent
     out["ptxas"] = ptxas_report(so.with_suffix(".log").read_text(), tool_dir)
     out["ffma"] = {k: v["FFMA"]
                    for k, v in sass_opcode_counts(so, tool_dir).items()}
-    return out
-
-
-def _astage_tiles(x16, plan, y_default, ms, rel) -> dict:
-    """The A-stage kernel at every instantiated tile height T, through the
-    library's entry (the wrapper always takes `astage_tile`): {"T=t":
-    [ms, rel-L2 vs the default tile's Y]}."""
-    import torch
-
-    from wrp_tpu_torch.ops import _build, fullchain
-
-    lib = _build.load_library()
-    bc, w = x16.shape[0], x16.shape[3]
-    y = torch.empty_like(y_default)
-
-    def launch(tile):
-        rc = lib.wrp_fused_chain_astage(
-            x16.data_ptr(), 1, plan.a_kernel.data_ptr(), plan.fac_t.data_ptr(),
-            y.data_ptr(), bc, plan.m, w, plan.radix, tile,
-            torch.cuda.current_stream().cuda_stream)
-        fullchain._raise_on_error(lib, rc, "fused_chain_astage")
-
-    out = {}
-    for tile in fullchain.KERNEL_TILES:
-        if (plan.m // plan.radix) % tile == 0:
-            launch(tile)
-            err = rel(y_default, y)
-            out[f"T={tile}"] = [ms(lambda: launch(tile)), err]
     return out
 
 

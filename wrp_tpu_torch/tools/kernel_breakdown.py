@@ -14,20 +14,22 @@ salt i, and that drop successive parts of the work:
            p mod S (g_s + g_{s+S} per row, no combine), stored to shared
            memory, and a warp sums each row
   combine  + the radix combine, with the same store and row sum
-  full     + the Parseval epilogue: the production kernel itself (the
-           benchmark's salted radix offset entry)
+  full     + the Parseval epilogue: the whole matrix-form chain
 
-All three are the production kernel body (csrc/radix_chain.cuh) on its
-grid with its dynamic shared memory, so at its occupancy (`blocks_per_sm`
-from cudaOccupancyMaxActiveBlocksPerMultiprocessor).  The deltas attribute
-the time per channel-step: `dots_floor` (loads, conversion and the
+All three are ONE body, the TPU algorithm's matrix form of the salted
+radix chain (csrc/radix_chain.cuh, the port's first production kernel; the
+production chain now runs in FFT form, csrc/fft_chain.cuh), launched from
+csrc/kernel_breakdown.cu on its grid with its dynamic shared memory, so at
+its occupancy (`blocks_per_sm` from
+cudaOccupancyMaxActiveBlocksPerMultiprocessor).  The deltas attribute the
+time per channel-step: `dots_floor` (loads, conversion and the
 contraction), `butterfly_combine` = combine - dots, `epilogue` = full -
-combine.  Beside them `astage` times the A-stage kernel on the same slabs
+combine.  Beside them `astage` times that body's A-stage on the same slabs
 (unsalted): the same contraction and combine with Y stored to device
 memory and 8 KB of shared memory per block; `astage_at_fused_smem` times
-it again requesting the fused kernel's dynamic shared memory
-(`fused_smem_bytes`), so at the fused kernel's blocks per SM: the direct
-test of whether shared memory sets the fused kernel's pace.  On the card
+it again requesting the full body's dynamic shared memory
+(`fused_smem_bytes`), so at the full body's blocks per SM: the direct
+test of whether shared memory sets that body's pace.  On the card
 the line also holds `sass`, each body's SASS instruction counts (FFMA and
 the others of SASS_OPCODES), which show that no mode's contraction was
 compiled away.
@@ -154,12 +156,9 @@ def run(argv=None) -> dict:
                                       if on_card else None)
         print(f"{mode}: {out[mode]}", file=sys.stderr)
     smem = probes.fused_smem_bytes(plan)
-    for key, astage, min_smem in (
-            ("astage", fullchain.fused_chain_astage, 0),
-            ("astage_at_fused_smem",
-             lambda x, p: probes.astage_at_smem(x, p, smem), smem)):
-        out[key] = measure(lambda i, astage=astage: astage(
-            x_all[(i % D) * bcn:(i % D + 1) * bcn], plan))
+    for key, min_smem in (("astage", 0), ("astage_at_fused_smem", smem)):
+        out[key] = measure(lambda i, min_smem=min_smem: probes.radix_chain_astage(
+            x_all[(i % D) * bcn:(i % D + 1) * bcn], plan, min_smem))
         out[key]["blocks_per_sm"] = (probes.blocks_per_sm(plan, "astage", min_smem)
                                      if on_card else None)
         print(f"{key}: {out[key]}", file=sys.stderr)
