@@ -21,11 +21,14 @@ Phases (each prints its results; any failure raises and exits non-zero):
       wire words vs the radix entry on their planar samples, an offset past
       the array raises; CUDA-event times of the entry (salted), unsalted
       and plain;
-   b. fused_stage2 on Y [48, 512, 512]: vs plain <= 1e-6, identical for
-      row_block 128/256/512, a bad row_block raises; on its path, the mxu
-      method's range-stage Y of 16 noise sectors vs that method's own
-      power (<= 1e-5) and the oracle; times of the kernel, plain and
-      torch.matmul (complex64 Y @ B);
+   b. fused_stage2 (split-TF32 wgmma) on Y [48, 512, 512]: vs plain
+      <= 1e-6 (and vs the torch emulation of its 3 x TF32 arithmetic,
+      printed), identical for row_block 128/256/512, a bad row_block
+      raises; on its path, the mxu method's range-stage Y of 16 noise
+      sectors vs that method's own power (<= 1e-5) and the oracle, in one
+      launch of the GEMM after one of the operator's real form; times
+      of the kernel, plain and torch.matmul (complex64 Y @ B); the
+      3 x TF32 floor beside the bound;
    c. `wrp_tpu_torch.bench.run` in process at the defaults: pallas int16,
       --in-dtype wire (fused and xla decode), m = 1000 (the dense offset
       entry, 8 repeats), and the mxu, parseval, fft and radix methods at 4
@@ -44,7 +47,9 @@ Phases (each prints its results; any failure raises and exits non-zero):
       14-bit range (vs plain and vs fp32 A @ x <= 1e-6, split exact) and
       on every int16 value (vs plain, inexact samples printed), then
       `int_split_repro.run` for both; times of each kernel, its plain
-      version and torch.matmul where one computes the function;
+      version and torch.matmul where one computes the function (the split
+      dot's and torch.matmul's also as device time per call, from a CUDA
+      graph of 100 calls replayed);
 3. the radix kernel (the FFT form, csrc/fft_chain.cuh) vs its plain torch
    version at 3 x 1024 x 512, batch 16 (48 channel-sectors), int16 and f32
    input, on seeded noise and on an adversarial input whose Doppler energy
@@ -56,8 +61,16 @@ Phases (each prints its results; any failure raises and exits non-zero):
 4. the wire kernel on the same sectors' wire words, 3- and 2-channel: vs
    its plain version (<= 1e-6), vs the radix kernel on the host-decoded
    planar sectors, and vs the oracle, with the same bounds;
-5. the dense kernel at 3 x 1000 x 512, batch 16 (m does not split into
-   radix branches), and at m = 40 and m = 8: vs plain and oracle;
+5. the dense entries (m does not split into radix branches), which pick
+   their body from m alone: at 3 x 1000 x 512, batch 16, the FFT-form
+   body (P = 8, a 5 x 5 x 5 leaf) vs its plain version (noise, clip-bin:
+   rel-L2 <= 1e-6; strong-DC <= 1e-5) and the oracle (the strong-DC
+   sector's power error against the oracle printed for the kernel and
+   both plain versions), and at m = 40 (P = 8, L = 5) and m = 8; the
+   matrix kernel at m = 1100 (> 1024) on noise and clip-bin vs its plain
+   version (<= 1e-5) and the oracle, and its offset entry on two slabs;
+   the body of every launch from the counters; times of the kernel, the
+   FFT-form and the matrix-form plain versions;
 6. the host-decode slice: a `cli produce` process (UdpProducer) ->
    UdpIngest (loopback) -> StreamingExecutor (method="pallas", batch 16)
    -> UdpEgress + VolumeScan, one elevation cut of 143 sectors at
@@ -68,7 +81,8 @@ Phases (each prints its results; any failure raises and exits non-zero):
 8. capacity: the executor fed from memory, unpaced, host decode and
    device decode;
 9. the dense path: the executor at m = 1000 from memory, device decode
-   (a decode pass, then the dense kernel) and host decode;
+   (a decode pass, then the dense entry) and host decode, every launch on
+   the FFT-form body;
 10. the A-stage kernel (the pulse-sharded path's first half) on the noise
    and clip-bin sectors, int16 and f32, on every rank's pulse slab of 1, 2
    and 4 ranks (w = 512, 256, 128): Y vs its plain version (rel-L2 <=
@@ -93,8 +107,9 @@ Every launch counter is set to 0 just before each path runs and read just
 after.  Prints a JSON line of per-kernel results (launches, errors, ms,
 plain ms, bound ms), then as its last line {"ok": true, "device": {...}}.
 A bound is the least work of the function (the range DFT as an FFT, or
-the bytes moved); where a kernel runs the TPU's matrix form (dense,
-fused_stage2, the breakdown) its work is printed beside the bound.
+the bytes moved); where a kernel runs a matrix form (the dense entries'
+matrix kernel, fused_stage2's GEMM, the breakdown) its work is printed
+beside the bound.
 Imports torch, numpy and wrp_tpu_torch only.
 """
 
@@ -146,7 +161,8 @@ STAGE2_TOL = 1e-6         # fused_stage2 vs its plain version (fp32 GEMM orders)
 BENCH_GATE = (1e-4, 1e-3)  # the bench's parity gate: salt 0, salted
 BENCH_SALTS = (7, 95)     # the bench gate's salt; the largest a default run uses
 SEED = 2024
-DENSE_M = 1000            # radix_for(1000) == 1: the dense kernel's geometry
+DENSE_M = 1000            # radix_for(1000) == 1: the dense entries' geometry (FFT body)
+MATRIX_M = 1100           # m > 1024: the dense entries' matrix kernel
 LEAF_M = 960              # 64 x 15: the FFT-form kernels' L = 15 leaf
 SHARDS = (1, 2, 4)        # ranks of the pulse-sharded path
 
@@ -156,9 +172,10 @@ PROBE_STEPS = 32          # tensor-core probe steps checked against the plain ve
 BREAKDOWN_REPEATS = 8     # kernel_breakdown.run's repeats here (its default: 128)
 
 # H100 SXM peaks for the bound (NVIDIA data sheet, 700 W): fp32 on the CUDA
-# cores, dense bf16 on the tensor cores and HBM3 bandwidth
+# cores, dense bf16 and TF32 on the tensor cores and HBM3 bandwidth
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989.4e12
+PEAK_TF32 = 494.7e12
 PEAK_BYTES = 3.35e12
 
 
@@ -189,19 +206,26 @@ def chain_flops(m: int, n: int) -> float:
 
 def algorithm_note(m: int, w: int, bc: int) -> str:
     """The work of the algorithm a kernel runs, beside the bound, never as
-    it: radix geometries run the FFT form (csrc/fft_chain.cuh: radix-2
-    register DFTs, the bound's flops up to the butterflies' constant); the
-    dense kernel the TPU's A_half contraction (8 flops per complex
-    multiply-add)."""
-    if fullchain.radix_for(m) > 1:
+    it: every even m <= 1024 runs the FFT form (csrc/fft_chain.cuh: radix-2
+    register DFTs and the leaf's radix-5/3/7 passes, the bound's flops up
+    to the butterflies' constant); the dense matrix kernel (m > 1024) the
+    TPU's A_half contraction (8 flops per complex multiply-add)."""
+    R = fullchain.radix_for(m)
+    tpu = bc * 8.0 * (m * (m // R) * w if R > 1 else (m // 2) * m * w)
+    form = f"radix-{R} matrix form" if R > 1 else "dense A_half form"
+    if fullchain.fft_takes(m):
         g = fullchain.fft_geometry(m, w)
+        passes, rem = [], g.L
+        while rem > 1:
+            passes.append(fullchain.leaf_radix(rem))
+            rem //= passes[-1]
+        leaf = (f", leaf passes {' x '.join(map(str, passes))}" if passes
+                else "")
         return (f"the kernel runs the FFT form (P = {g.P} = {g.P1} x {g.P2}, "
-                f"L = {g.L}; {g.cols} columns a round, {g.blocks} blocks a "
-                f"unit); the TPU's radix-{fullchain.radix_for(m)} matrix form "
-                f"would do {bc * 8.0 * (m * (m // fullchain.radix_for(m)) * w) / 1e9:.1f} GFLOP")
-    flops = 8.0 * (m // 2) * m * w * bc
-    return (f"the kernel's dense contraction does {flops / 1e9:.1f} GFLOP, "
-            f"{1e3 * flops / PEAK_FP32:.3f} ms at the fp32 peak")
+                f"L = {g.L}{leaf}; {g.cols} columns a round, {g.blocks} blocks "
+                f"a unit); the TPU's {form} would do {tpu / 1e9:.1f} GFLOP")
+    return (f"the kernel's dense contraction does {tpu / 1e9:.1f} GFLOP, "
+            f"{1e3 * tpu / PEAK_FP32:.3f} ms at the fp32 peak")
 
 
 def reset_counts() -> None:
@@ -209,6 +233,8 @@ def reset_counts() -> None:
     fullchain.ASTAGE_LAUNCHES = fullchain.PARSEVAL_ROWS_LAUNCHES = 0
     fullchain.RADIX_OFFSET_LAUNCHES = fullchain.WIRE_OFFSET_LAUNCHES = 0
     fullchain.DENSE_OFFSET_LAUNCHES = postprocess.STAGE2_LAUNCHES = 0
+    postprocess.STAGE2_OPERATOR_LAUNCHES = 0
+    fullchain.DENSE_FFT_LAUNCHES = fullchain.DENSE_MATRIX_LAUNCHES = 0
     probes.BREAKDOWN_LAUNCHES = probes.TC_PROBE_LAUNCHES = 0
     probes.INT_SPLIT_LAUNCHES = 0
 
@@ -221,7 +247,10 @@ def read_counts() -> dict:
             "radix_offset": fullchain.RADIX_OFFSET_LAUNCHES,
             "wire_offset": fullchain.WIRE_OFFSET_LAUNCHES,
             "dense_offset": fullchain.DENSE_OFFSET_LAUNCHES,
+            "dense_fft": fullchain.DENSE_FFT_LAUNCHES,
+            "dense_matrix": fullchain.DENSE_MATRIX_LAUNCHES,
             "stage2": postprocess.STAGE2_LAUNCHES,
+            "stage2_operator": postprocess.STAGE2_OPERATOR_LAUNCHES,
             "breakdown": probes.BREAKDOWN_LAUNCHES,
             "tc_probe": probes.TC_PROBE_LAUNCHES,
             "int_split": probes.INT_SPLIT_LAUNCHES}
@@ -280,6 +309,22 @@ def phase_build() -> None:
                        if "Used" in ln and "registers" in ln})
         print(f"ptxas registers per thread across instantiations: {regs}",
               flush=True)
+
+
+def graph_ms(fn, calls: int = 100) -> float:
+    """Device ms per call of `fn`: `calls` calls captured once in a CUDA
+    graph (warmed on a side stream first), the replay timed by `cuda_ms`.
+    The host's work per call (Python, ctypes) is not in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay) / calls
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
@@ -413,13 +458,19 @@ def phase_fft_build() -> dict:
     plan = fullchain.build_plan(PipelineConstants.build(DEFAULT_CONFIG), "cuda")
     occ = {body: fullchain.fft_occupancy(plan, body)
            for body in ("radix", "wire", "astage")}
+    dplan = fullchain.build_plan(PipelineConstants.build(dataclasses.replace(
+        DEFAULT_CONFIG, num_range_cells=DENSE_M)), "cuda")
+    occ["dense"] = fullchain.fft_occupancy(dplan, "radix")
     print(f"FFT-form kernels at {DEFAULT_CONFIG.m} x {DEFAULT_CONFIG.n}: "
-          f"{plan.fft}; occupancy {json.dumps(occ)}", flush=True)
+          f"{plan.fft}; at m = {DENSE_M} (the dense entries): {dplan.fft}; "
+          f"occupancy {json.dumps(occ)}", flush=True)
     check(all(v["blocks_per_sm"] >= 2 for v in occ.values())
-          and occ["radix"]["clusters"] > 0 and occ["wire"]["clusters"] > 0,
+          and occ["radix"]["clusters"] > 0 and occ["wire"]["clusters"] > 0
+          and occ["dense"]["clusters"] > 0,
           f"FFT-form kernels resident at >= 2 blocks per SM, clusters of "
           f"{plan.fft.blocks}: {occ['radix']['clusters']} (radix), "
-          f"{occ['wire']['clusters']} (wire)")
+          f"{occ['wire']['clusters']} (wire), {occ['dense']['clusters']} "
+          f"(dense, m = {DENSE_M})")
     return occ
 
 
@@ -550,23 +601,67 @@ def phase_kernel_wire(orc: Oracle, noise, adv) -> dict:
     return {"max_abs_err": max_abs, "rel_l2": worst_rel, **out}
 
 
+def dense_plain(x: torch.Tensor, plan) -> torch.Tensor:
+    """The plain version of the body the dense entries take at plan.m."""
+    if fullchain.dense_body(plan.m) == "fft":
+        return fullchain.fft_chain_power_reference(x, plan)
+    return fullchain.fused_chain_power_reference(x, plan)
+
+
 def phase_kernel_dense(orc: Oracle) -> dict:
-    """The dense kernel at m = 1000 (batch 16 x 3 channels) and at m = 40
-    and m = 8: vs its plain version and the oracle."""
+    """The dense entries, whose body m alone picks: the FFT-form body at
+    m = 1000 (batch 16 x 3 channels) vs its plain version (noise, clip-bin
+    <= KERNEL_TOL; strong-DC <= POWER_TOL, as the radix kernel's) and the
+    oracle, and at m = 40 (P = 8, L = 5) and m = 8; the matrix kernel at
+    m = 1100 vs its plain version (<= POWER_TOL) and the oracle.  The
+    counters show each launch's body."""
     cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=DENSE_M)
     consts = PipelineConstants.build(cfg)
     plan = fullchain.build_plan(consts, "cuda")
-    check(plan.radix == 1, f"m={DENSE_M} takes the dense form (radix "
-                           f"{plan.radix}), tile {fullchain.dense_tile(plan)}")
+    g = plan.fft
+    check(plan.radix == 1 and fullchain.dense_body(DENSE_M) == "fft"
+          and (g.P, g.L, g.cols) == (8, 125, 4),
+          f"m={DENSE_M} takes the dense entries' FFT-form body (radix "
+          f"{plan.radix}): {g}")
     gain = torch.from_numpy(consts.gain).cuda()
     noise = [oracle.synthetic_iq(cfg, kind="noise", seed=SEED + b)
              for b in range(BATCH)]
     adv = adversarial_sector(cfg)
+    dc = strong_dc_sector(cfg)
     inputs = {"noise": (np.stack([planar_i16(s) for s in noise]), noise[:3]),
-              "clip-bin": (np.stack([planar_i16(adv)] * BATCH), [adv])}
+              "clip-bin": (np.stack([planar_i16(adv)] * BATCH), [adv]),
+              "strong-dc": (np.stack([planar_i16(dc)] * BATCH), [dc])}
+    reset_counts()
+    # strong-DC: POWER_TOL, as the radix kernel's (q = Y w_d rounds in
+    # float32 near 3e4 counts, in another order in the plain version)
     worst_rel, max_abs = planar_kernel_checks(
-        "dense", fullchain.fused_chain_power_dense,
-        fullchain.fused_chain_power_reference, plan, cfg, inputs, orc, gain)
+        f"dense m={DENSE_M} (FFT body)", fullchain.fused_chain_power_dense,
+        dense_plain, plan, cfg, inputs, orc, gain,
+        {"noise": KERNEL_TOL, "clip-bin": KERNEL_TOL})
+    counts = read_counts()
+    check(counts["dense"] == counts["dense_fft"] == 2 * len(inputs)
+          and counts["dense_matrix"] == 0,
+          f"dense m={DENSE_M}: every launch on the FFT-form body (dense "
+          f"{counts['dense']}, FFT body {counts['dense_fft']}, matrix "
+          f"{counts['dense_matrix']})")
+    # which of kernel and plain lies further from fp64 on the strong-DC
+    # sector, where the kernel is held to its plain version at POWER_TOL
+    xdc = torch.from_numpy(inputs["strong-dc"][0]).cuda().reshape(
+        -1, 2, cfg.m, cfg.n)
+    pow64 = orc.power((cfg.m, cfg.n, "strong-dc", 0), dc, cfg)
+    errs = {}
+    for what, fn in (("kernel", fullchain.fused_chain_power_dense),
+                     ("FFT-form plain", fullchain.fft_chain_power_reference),
+                     ("matrix-form plain",
+                      fullchain.fused_chain_power_reference)):
+        pk = fn(xdc, plan).cpu().numpy().reshape(-1, cfg.num_channels,
+                                                 cfg.m // 2)[0]
+        errs[what] = max(rel(pow64[c], pk[c])
+                         for c in range(cfg.num_channels))
+    print(f"dense m={DENSE_M} strong-DC sector, int16, power vs the fp64 "
+          "oracle: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; further from fp64 than the kernel: "
+          f"{[k for k, v in errs.items() if v > errs['kernel']]}", flush=True)
     for m, n in ((40, 32), (8, 16)):
         tcfg = tiny_config(m=m, n=n)
         tconsts = PipelineConstants.build(tcfg)
@@ -575,28 +670,88 @@ def phase_kernel_dense(orc: Oracle) -> dict:
                    for k in range(3)]
         tin = {"tiny noise": (np.stack([planar_i16(s) for s in sectors]),
                               sectors)}
+        reset_counts()
         e, a = planar_kernel_checks(
-            f"dense m={m} n={n} tile {fullchain.dense_tile(tplan)}",
-            fullchain.fused_chain_power_dense,
-            fullchain.fused_chain_power_reference, tplan, tcfg, tin, orc,
-            torch.from_numpy(tconsts.gain).cuda())
+            f"dense m={m} n={n} ({fullchain.dense_body(m)} body, {tplan.fft})",
+            fullchain.fused_chain_power_dense, dense_plain, tplan, tcfg, tin,
+            orc, torch.from_numpy(tconsts.gain).cuda(),
+            {"tiny noise": KERNEL_TOL})
+        counts = read_counts()
+        check(counts["dense_fft"] == 2 and counts["dense_matrix"] == 0,
+              f"dense m={m}: launches on the FFT-form body {counts['dense_fft']}"
+              f", matrix {counts['dense_matrix']}")
         worst_rel, max_abs = max(worst_rel, e), max(max_abs, a)
+
+    # m > 1024: the matrix kernel, the TPU kernel's own algorithm
+    mcfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=MATRIX_M)
+    mconsts = PipelineConstants.build(mcfg)
+    mplan = fullchain.build_plan(mconsts, "cuda")
+    check(mplan.radix == 1 and fullchain.dense_body(MATRIX_M) == "matrix"
+          and mplan.fft_t is None,
+          f"m={MATRIX_M} takes the matrix kernel (tile "
+          f"{fullchain.dense_tile(mplan)})")
+    msec = [oracle.synthetic_iq(mcfg, kind="noise", seed=SEED + b)
+            for b in range(2)]
+    madv = adversarial_sector(mcfg)
+    mgain = torch.from_numpy(mconsts.gain).cuda()
+    minputs = {"noise": (np.stack([planar_i16(s) for s in msec]), msec),
+               "clip-bin": (np.stack([planar_i16(madv)] * 2), [madv])}
+    reset_counts()
+    e, a = planar_kernel_checks(
+        f"dense m={MATRIX_M} (matrix kernel)", fullchain.fused_chain_power_dense,
+        dense_plain, mplan, mcfg, minputs, orc, mgain)
+    counts = read_counts()
+    check(counts["dense_matrix"] == 2 * len(minputs)
+          and counts["dense_fft"] == 0,
+          f"dense m={MATRIX_M}: launches on the matrix kernel "
+          f"{counts['dense_matrix']}, FFT body {counts['dense_fft']}")
+    worst_rel, max_abs = max(worst_rel, e), max(max_abs, a)
+    # the offset entry on the matrix kernel: two slabs (noise, clip-bin)
+    mall = torch.from_numpy(np.concatenate(
+        [v[0] for v in minputs.values()])).cuda().reshape(-1, 2, MATRIX_M,
+                                                          mcfg.n)
+    mbc = 2 * mcfg.num_channels
+
+    def mzdb(pw):
+        pw = pw.reshape(2, mcfg.num_channels, -1)
+        return stage09_10_products(pw[:, 0], pw[:, 1], mgain)[0].cpu().numpy()
+
+    reset_counts()
+    offset_entry_checks(
+        f"dense offset entry m={MATRIX_M} (matrix kernel)", mall.shape[0], mbc,
+        lambda off, salt: fullchain.fused_chain_power_at(mall, off, mbc, mplan),
+        lambda off: fullchain.fused_chain_power_dense(
+            mall[off:off + mbc].contiguous(), mplan),
+        lambda off, salt: dense_plain(mall[off:off + mbc], mplan),
+        mzdb, (), POWER_TOL)
+    counts = read_counts()
+    check(counts["dense_offset"] > 0 and counts["dense_fft"] == 0
+          and counts["dense_matrix"] == counts["dense"]
+          + counts["dense_offset"],
+          f"dense offset entry m={MATRIX_M}: {counts['dense_offset']} "
+          f"launches, all on the matrix kernel ({counts['dense_matrix']} "
+          f"matrix, {counts['dense_fft']} FFT body)")
 
     x16 = torch.from_numpy(inputs["noise"][0]).cuda().reshape(-1, 2, cfg.m,
                                                                cfg.n)
-    t = timed({"plain": lambda: fullchain.fused_chain_power_reference(x16, plan),
-               "kernel": lambda: fullchain.fused_chain_power_dense(x16, plan)},
-              ("plain", "kernel", "kernel", "plain"))
+    t = timed({"plain": lambda: fullchain.fft_chain_power_reference(x16, plan),
+               "kernel": lambda: fullchain.fused_chain_power_dense(x16, plan),
+               "matrix_plain": lambda: fullchain.fused_chain_power_reference(
+                   x16, plan)},
+              ("plain", "matrix_plain", "kernel", "kernel", "matrix_plain",
+               "plain"))
     bc = x16.shape[0]
     bound_ms, bound_by = bound(
         bc * chain_flops(cfg.m, cfg.n),
-        x16.numel() * 2 + plan.a_kernel.numel() * 4 + bc * cfg.m // 2 * 4)
-    print(f"dense kernel, batch {BATCH} x {cfg.num_channels} x {cfg.m} x "
-          f"{cfg.n} int16: {t['kernel']:.3f} ms, plain {t['plain']:.3f} ms, "
-          f"bound {bound_ms:.3f} ms ({bound_by}); "
+        x16.numel() * 2 + plan.fft_t.numel() * 4 + bc * cfg.m // 2 * 4)
+    print(f"dense entry (FFT body), batch {BATCH} x {cfg.num_channels} x "
+          f"{cfg.m} x {cfg.n} int16: {t['kernel']:.3f} ms, plain (FFT form) "
+          f"{t['plain']:.3f} ms, plain (matrix form: cuBLAS and the epilogue) "
+          f"{t['matrix_plain']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}); "
           f"{algorithm_note(cfg.m, cfg.n, bc)}", flush=True)
     return {"max_abs_err": max_abs, "rel_l2": worst_rel, "ms": t["kernel"],
-            "plain_ms": t["plain"], "bound_ms": bound_ms, "bound_by": bound_by}
+            "plain_ms": t["plain"], "matrix_plain_ms": t["matrix_plain"],
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def seq_inputs(noise, adv) -> dict:
@@ -1030,16 +1185,17 @@ def phase_capacity(device_decode: bool, count: int = 2 * SECTORS) -> None:
           f"{tag} capacity run products finite beyond bin 0")
 
 
-def phase_dense_path() -> int:
+def phase_dense_path() -> dict:
     """The executor at m = 1000 (no radix split) from memory: device decode
-    (decode_wire_i16, then the dense kernel) and host decode.  Sampled
-    sectors within 2e-4 of the oracle; returns the dense kernel's launches
-    over both runs."""
+    (decode_wire_i16, then the dense entry) and host decode, every launch
+    on the FFT-form body.  Sampled sectors within 2e-4 of the oracle;
+    returns the dense entry's launches and the FFT body's over both
+    runs."""
     cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=DENSE_M)
     count = 2 * BATCH
     iqs = [oracle.produce_sector_iq(cfg, SEED, j) for j in range(4)]
     wires = [codec.encode_iq(iq, cfg) for iq in iqs]
-    launches = 0
+    launches = {"dense": 0, "dense_fft": 0}
     for device_decode in (True, False):
         tag = "device-decode" if device_decode else "host-decode"
         volume = VolumeScan(cfg)
@@ -1056,9 +1212,12 @@ def phase_dense_path() -> int:
               f"launches {counts}", flush=True)
         check(stats["processed_sectors"] == count
               and counts["dense"] >= count // BATCH
+              and counts["dense_fft"] == counts["dense"]
+              and counts["dense_matrix"] == 0
               and counts["radix"] == counts["wire"] == 0,
               f"dense path {tag}: {stats['processed_sectors']}/{count} "
-              f"sectors through the dense kernel only ({counts})")
+              f"sectors through the dense entry only, every launch on the "
+              f"FFT-form body ({counts})")
         for k in range(4):
             zdb64, zdr64 = oracle.process_sector(iqs[k], cfg)
             zdb, zdr = volume.data[0, :, k, 0], volume.data[1, :, k, 0]
@@ -1067,7 +1226,8 @@ def phase_dense_path() -> int:
                   and zdb[0] == -np.inf,
                   f"dense path {tag} sector {k} vs fp64 oracle: zdb "
                   f"{ezdb:.3e}, zdr {ezdr:.3e}")
-        launches += counts["dense"]
+        for k in launches:
+            launches[k] += counts[k]
     return launches
 
 
@@ -1159,7 +1319,8 @@ def bench_slabs(cfg, seed: int) -> torch.Tensor:
 def offset_checks(batch, x_all, d_all, plan, dplan, gain, dgain) -> dict:
     """The offset entries on two staged slabs of `batch` sectors: radix
     (int16, and f32 at batch 16) and wire with salts, the wire words being
-    x_all's own, and dense (d_all, m = 1000) without."""
+    x_all's own, and dense (d_all, m = 1000: the FFT-form body, held
+    against its plain version at KERNEL_TOL) without."""
     cfg = DEFAULT_CONFIG
     ch, n = cfg.num_channels, cfg.n
     bc = batch * ch
@@ -1221,12 +1382,11 @@ def offset_checks(batch, x_all, d_all, plan, dplan, gain, dgain) -> dict:
         lambda off, salt: fullchain.fused_chain_power_at(d_all, off, bc, dplan),
         lambda off: fullchain.fused_chain_power_dense(
             d_all[off:off + bc].contiguous(), dplan),
-        lambda off, salt: fullchain.fused_chain_power_reference(
-            d_all[off:off + bc], dplan),
-        zdb_of(dgain), (), POWER_TOL)
+        lambda off, salt: dense_plain(d_all[off:off + bc], dplan),
+        zdb_of(dgain), (), KERNEL_TOL)
     bound_ms, bound_by = bound(
         bc * chain_flops(DENSE_M, n),
-        bc * 2 * DENSE_M * n * 2 + dplan.a_kernel.numel() * 4
+        bc * 2 * DENSE_M * n * 2 + dplan.fft_t.numel() * 4
         + bc * DENSE_M // 2 * 4)
     out["dense"] = dict(res, bound_ms=bound_ms, bound_by=bound_by)
     return out
@@ -1281,6 +1441,10 @@ def phase_stage2(orc: Oracle, noise) -> dict:
                                                       taps), got)
     check(e <= STAGE2_TOL, f"fused_stage2 Y {list(shape)}: kernel vs plain "
                            f"rel-L2 {e:.3e} <= {STAGE2_TOL} (max abs {a:.3e})")
+    e3, _ = rel_dev(postprocess.tf32x3_power_reference(yr, yi, dc.br, dc.bi,
+                                                        taps), got)
+    print(f"fused_stage2: kernel vs the torch emulation of its 3 x TF32 "
+          f"arithmetic rel-L2 {e3:.3e}", flush=True)
     for rb in (256, 512):
         check(torch.equal(postprocess.fused_stage2(yr, yi, dc.br, dc.bi, taps,
                                                    row_block=rb), got),
@@ -1300,12 +1464,14 @@ def phase_stage2(orc: Oracle, noise) -> dict:
     pw = postprocess.fused_stage2(*(y.reshape(-1, mh, n).contiguous()
                                     for y in ys), dc.br, dc.bi, taps)
     torch.cuda.synchronize()
-    launches = read_counts()["stage2"]
+    counts = read_counts()
+    launches, op_launches = counts["stage2"], counts["stage2_operator"]
     e2, a2 = rel_dev(want, pw)
-    check(e2 <= POWER_TOL and launches == 1,
+    check(e2 <= POWER_TOL and launches == op_launches == 1,
           f"fused_stage2 on the mxu method's Y of {BATCH} noise sectors: vs "
           f"the mxu matched-filter power rel-L2 {e2:.3e} <= {POWER_TOL} (max "
-          f"abs {a2:.3e}); {launches} launch")
+          f"abs {a2:.3e}); {launches} GEMM launch after {op_launches} of the "
+          "operator's real form")
     pk = pw.cpu().numpy().reshape(BATCH, ch, mh)
     for s in range(3):
         check_vs_oracle(f"fused_stage2 on mxu Y, noise sector {s}", pk[s],
@@ -1327,11 +1493,15 @@ def phase_stage2(orc: Oracle, noise) -> dict:
     print(f"fused_stage2 kernel, Y [{shape[0]}, {mh}, {n}]: {t['kernel']:.3f} "
           f"ms, plain {t['plain']:.3f} ms, library (complex64 Y @ B) "
           f"{t['library']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}); the "
-          f"kernel's complex GEMM does {gemm / 1e9:.1f} GFLOP, "
-          f"{1e3 * gemm / PEAK_FP32:.3f} ms at the fp32 peak", flush=True)
+          f"kernel's GEMM (the real form of Y @ B, {gemm / 1e9:.1f} GFLOP) "
+          f"runs three TF32 products: {3 * gemm / 1e9:.1f} GFLOP, "
+          f"{1e3 * 3 * gemm / PEAK_TF32:.3f} ms at the TF32 peak "
+          f"({1e3 * gemm / PEAK_FP32:.3f} ms for one on the fp32 cores)",
+          flush=True)
     return {"max_abs_err": a, "rel_l2": e, "ms": t["kernel"],
             "plain_ms": t["plain"], "library_ms": t["library"],
-            "bound_ms": bound_ms, "bound_by": bound_by, "launches": launches}
+            "bound_ms": bound_ms, "bound_by": bound_by, "launches": launches,
+            "operator_launches": op_launches}
 
 
 #: (label, argv, offset counter) of the bench runs; the non-fused methods
@@ -1368,9 +1538,14 @@ def phase_bench() -> dict:
               f"{r['calib_tflops']} TFLOP/s")
         want = (1 + len(r["timed_runs_s"])) * r["steps"] + 2 if counter else 0
         others = {k: counts[k] for k in OFFSET_COUNTERS if k != counter}
+        # the dense entry's launches all take the FFT-form body at m = 1000
+        body = counts["dense_fft"] == counts["dense_offset"] + counts["dense"]
         check((counter is None or counts[counter] == want)
-              and not any(others.values()),
-              f"bench {label}: offset launches {counts} ({counter} == {want})")
+              and not any(others.values()) and body
+              and counts["dense_matrix"] == 0,
+              f"bench {label}: offset launches {counts} ({counter} == {want}"
+              f"; dense launches on the FFT-form body "
+              f"{counts['dense_fft']})")
         if counter:
             launches.setdefault(counter, counts[counter])
     return launches
@@ -1599,12 +1774,25 @@ def probe_split() -> dict:
     bound_ms, bound_by = bound(2 * 2.0 * m * m * n,
                                x14.numel() * 2 + a.numel() * 2 + m * n * 4,
                                PEAK_BF16)
-    print(f"int split dot (int) [{m}, {n}]: {t['kernel']:.4f} ms, plain "
-          f"{t['plain']:.4f} ms, library (fp32 A @ x) {t['library']:.4f} ms, "
-          f"bound {bound_ms:.5f} ms ({bound_by})", flush=True)
+    # device time per call, the wrapper's host work left out: 100 calls in
+    # a CUDA graph, replayed (after the counted run: a capture counts its
+    # calls)
+    dev = {name: [] for name in ("kernel", "library")}
+    for name in ("kernel", "library", "library", "kernel"):
+        dev[name].append(graph_ms(
+            (lambda: probes.int_split_dot(x14, a, "int")) if name == "kernel"
+            else (lambda: torch.matmul(af, xf))))
+    print(f"int split dot (int) [{m}, {n}]: {t['kernel']:.4f} ms a call from "
+          f"Python, plain {t['plain']:.4f} ms, library (fp32 A @ x) "
+          f"{t['library']:.4f} ms; device time per call from a CUDA graph "
+          f"(turns kernel/library/library/kernel): kernel {dev['kernel']}, "
+          f"library {dev['library']} ms; bound {bound_ms:.5f} ms ({bound_by})",
+          flush=True)
     return {"max_abs_err": max_abs, "rel_l2": worst, "ms": t["kernel"],
             "plain_ms": t["plain"], "library_ms": t["library"],
-            "bound_ms": bound_ms, "bound_by": bound_by, "launches": launches}
+            "bound_ms": bound_ms, "bound_by": bound_by, "launches": launches,
+            "graph_ms": min(dev["kernel"]),
+            "library_graph_ms": min(dev["library"])}
 
 
 def phase_probes(noise, adv) -> dict:
@@ -1668,8 +1856,11 @@ def main() -> int:
                      wire, **occ["wire"]),
         kernel_entry("fused_chain_power_dense",
                      "wrp_tpu_torch/csrc/fused_chain_dense.cu",
-                     "wrp_tpu/ops/pallas/fullchain.py:194", dense_launches,
-                     dense),
+                     "wrp_tpu/ops/pallas/fullchain.py:194",
+                     dense_launches["dense"], dense,
+                     body=fullchain.dense_body(DENSE_M),
+                     fft_body_launches=dense_launches["dense_fft"],
+                     matrix_plain_ms=dense["matrix_plain_ms"], **occ["dense"]),
         kernel_entry("fused_chain_astage",
                      "wrp_tpu_torch/csrc/fused_chain_astage.cu",
                      "wrp_tpu/ops/pallas/fullchain.py:955", shard["astage"],
@@ -1682,7 +1873,8 @@ def main() -> int:
         kernel_entry("fused_chain_power_at",
                      "wrp_tpu_torch/csrc/fused_chain_dense.cu",
                      "wrp_tpu/ops/pallas/fullchain.py:271",
-                     bench_launches["dense_offset"], offsets["dense"]),
+                     bench_launches["dense_offset"], offsets["dense"],
+                     body=fullchain.dense_body(DENSE_M)),
         kernel_entry("fused_chain_power_radix (offset, salt)",
                      "wrp_tpu_torch/csrc/fused_chain_radix_salted.cu",
                      "wrp_tpu/ops/pallas/fullchain.py:840",
@@ -1693,7 +1885,8 @@ def main() -> int:
                      bench_launches["wire_offset"], offsets["wire"]),
         kernel_entry("fused_stage2", "wrp_tpu_torch/csrc/fused_stage2.cu",
                      "wrp_tpu/ops/pallas/postprocess.py:86",
-                     stage2["launches"], stage2),
+                     stage2["launches"], stage2, form="3xTF32 wgmma",
+                     operator_launches=stage2["operator_launches"]),
         kernel_entry("radix_chain_ablation (dots; ms of each mode in 'modes')",
                      "wrp_tpu_torch/csrc/kernel_breakdown.cu",
                      "tools/kernel_breakdown.py:158",
@@ -1705,7 +1898,9 @@ def main() -> int:
                      probe["tc"]["launches"], probe["tc"]),
         kernel_entry("int_split_dot (int)", "wrp_tpu_torch/csrc/int_split.cu",
                      "tools/int_split_repro.py:85",
-                     probe["split"]["launches"], probe["split"]),
+                     probe["split"]["launches"], probe["split"],
+                     graph_ms=probe["split"]["graph_ms"],
+                     library_graph_ms=probe["split"]["library_graph_ms"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -243,7 +243,11 @@ def test_geometry_and_tables():
     plan = _plan(96, 64)
     tw = plan.fft_t[96:96 + 64].reshape(32, 2)
     assert tw[0].tolist() == [1.0, 0.0] and tw[8].tolist() == [0.0, -1.0]
+    # a radix-1 m takes the FFT form through the dense entries (P = 8,
+    # L = 5 at m = 40); m > 1024 has no FFT tables
     assert tfull.build_plan(PipelineConstants.build(tiny_config(m=40)),
+                            "cpu").fft.L == 5
+    assert tfull.build_plan(PipelineConstants.build(tiny_config(m=1100)),
                             "cpu").fft_t is None
 
 

@@ -193,12 +193,13 @@ def test_wire_and_dense_wrappers_on_cpu():
     dplan = tfull.build_plan(PipelineConstants.build(dcfg), "cpu")
     x = torch.from_numpy(np.random.default_rng(3).integers(
         -8192, 8192, (2, 3, 2, 40, 32)).astype(np.int16))
+    # m = 40 takes the FFT-form body: its plain version on the CPU
     assert torch.equal(tfull.fused_chain_power_dense(x[0], dplan),
-                       tfull.fused_chain_power_reference(x[0], dplan))
+                       tfull.fft_chain_power_reference(x[0], dplan))
     with pytest.raises(ValueError, match="unsupported device"):
         tfull.fused_chain_power_dense(x[0].to("meta"), dplan)
     fn = tfull.build_fused_processor(PipelineConstants.build(dcfg), "cpu")
-    assert torch.equal(fn(x)[1], tfull.fused_chain_power_reference(x[1], dplan))
+    assert torch.equal(fn(x)[1], tfull.fft_chain_power_reference(x[1], dplan))
     assert (tfull.LAUNCHES, tfull.WIRE_LAUNCHES,
             tfull.DENSE_LAUNCHES) == before
     assert tfull.dense_tile(dplan) == 10

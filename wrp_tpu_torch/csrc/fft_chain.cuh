@@ -1,5 +1,6 @@
 // The fused chain, stages 01-08, in FFT form for NVIDIA Hopper (sm_90a):
-// one kernel body behind fused_chain_radix{,_salted}.cu (planar IQ),
+// one kernel body behind fused_chain_radix{,_salted}.cu (planar IQ; also
+// the dense entries of fused_chain_dense.cu for every even m <= 1024),
 // fused_chain_wire{,_salted}.cu (raw wire words) and, storing Y instead of
 // running the epilogue, fused_chain_astage.cu (the pulse-sharded path's
 // A-stage).
@@ -21,15 +22,23 @@
 // TFLOP/s over 3.35 TB/s = 20), so the kernel is bound by bytes, once per
 // sample, and tensor cores would buy nothing.
 //
-// The FFT (m = P L, P the largest power of two dividing m, L odd):
+// The FFT (m = P L, P the largest power of two dividing m, 2 <= P <= 1024,
+// L odd):
 //   pass 1  per (column, r2, n2): a P1-point DFT in registers of rows
 //           L (P2 n1 + n2) + r2, n1 < P1, loaded, converted to f32,
 //           salted and windowed; the twiddle W_P^(k1 n2); to shared
-//           memory (slot layout [r2][k1][n2][column], rows padded);
+//           memory (slot layout [r2][k1][n2][column], rows padded; for
+//           P2 = 1 and L > 1 straight to the leaf's layout, as pass 2);
 //   pass 2  per (column, r2, k1): a P2-point DFT in registers over n2,
-//           X_r2[k1 + P1 k2];
-//   pass 3  (L > 1) per (column, k): the leaf's twiddle W_m^(k r2) and an
-//           L-point DFT in matrix form, Y[k + P k2].
+//           X_r2[k1 + P1 k2]; for L > 1 times the leaf's twiddle
+//           W_m^(k r2), to the leaf's layout [k][r2][column];
+//   leaf    (L > 1) per (column, k): the L-point DFT over r2 as a
+//           mixed-radix Stockham FFT in shared memory, one pass per
+//           factor of L (radix 5, 3 and 7 unrolled in registers; any
+//           other factor in one pass of its own size), its twiddles from
+//           the table's L roots W_L^t; the last pass writes Y[k + P k2].
+//           At m = 1000 = 8 x 125 the leaf is three radix-5 passes: about
+//           a tenth of the matrix form's 125 x 125 complex MACs a column.
 // P1 = min(32, P), P2 = P / P1 <= 32; the register DFTs are radix-2
 // butterflies, fully unrolled.  Every twiddle comes from the plan's table
 // (fp64 on the host, cast once: ops/fullchain.fft_tables); none is
@@ -41,7 +50,8 @@
 // r blocks + b, so the cluster's blocks read the adjacent 16-byte halves
 // of each row's 32-byte sectors at about the same time.  Planar input is
 // staged: the block copies its round's columns of every row into shared
-// memory with 16-byte cp.async, which holds no registers, so the next
+// memory with 16-byte cp.async (8-byte where a round's row is 8 bytes:
+// 4 int16 columns at m = 1000), which holds no registers, so the next
 // round's copy runs under this round's pass 2 and epilogue.  Pass 2
 // overwrites its input in place where its tasks fit the block's threads,
 // so a block holds ~100 KB of shared memory: two blocks per SM (the matrix
@@ -86,13 +96,20 @@ constexpr int kMaxM = 2 * kRows * kThreads;     // m <= 1024
 constexpr int kMaxCluster = 8;                  // the portable cluster size
 constexpr int kStat = 16;                       // floats per row exchanged
 
-// cp.async: a 16-byte global -> shared copy that holds no register;
-// src_bytes < 16 fills the rest of the destination with zeros (columns
-// past n).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+// cp.async: a B-byte global -> shared copy that holds no register (B = 16:
+// L2 only; B = 8: through L1, the only 8-byte form); src_bytes < B fills
+// the rest of the destination with zeros (columns past n).
+template <int B>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int src_bytes) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes));
+  if constexpr (B == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(src_bytes));
+  } else {
+    static_assert(B == 8, "cp.async copies 16 or 8 bytes here");
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+                 "r"(src_bytes));
+  }
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -107,7 +124,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // so both dtypes share one instantiation), is STAGED: each round the
 // block copies its `cols` columns of every range row into shared memory
 // ([plane][m][cols]) with 16-byte cp.async, one copy per row and plane at
-// 8 int16 columns, issued for round r + 1 right after round r's pass 1
+// 8 int16 columns (8-byte copies where a row of the round is 8 bytes, 4
+// int16 columns), issued for round r + 1 right after round r's pass 1
 // has read the buffer; the copy holds no registers, so it runs under
 // round r's pass 2 and epilogue.  Pass 1 then reads its rows from shared
 // memory.
@@ -121,31 +139,45 @@ struct PlanarIq {
   // the staging buffer [plane][m][cols] in 32-bit words
   __host__ __device__ int words(int cols) const { return 2 * m * cols * elem() / 4; }
 
+  // the round's rows in B-byte pieces: a thread copies piece t % per_row of
+  // every (kThreads / per_row)-th row, its addresses advancing by constant
+  // strides
+  template <int B>
+  __device__ __forceinline__ void stage_pieces(char* b, size_t unit, int j0, int nr,
+                                               int cols) const {
+    const int e = elem();
+    const int per_row = cols * e / B;           // a power of two
+    const int piece = static_cast<int>(threadIdx.x) % per_row;
+    const int col = piece * B / e;
+    const int valid = max(0, min(B, (nr - col) * e));
+    const int rstep = kThreads / per_row;
+    int row = static_cast<int>(threadIdx.x) / per_row;      // plane * m + row
+    const char* src = static_cast<const char*>(x) +
+                      (unit + static_cast<size_t>(row) * n + j0 + (valid ? col : 0)) * e;
+    char* dst = b + (static_cast<size_t>(row) * cols + col) * e;
+    for (; row < 2 * m; row += rstep) {
+      cp_async<B>(dst, src, valid);
+      src += static_cast<size_t>(rstep) * n * e;
+      dst += static_cast<size_t>(rstep) * cols * e;
+    }
+  }
+
+  // kNarrow: instantiations that may stage 8-byte rows (the leaf's
+  // geometries, 4 int16 columns a round at m = 1000); the others keep the
+  // 16-byte path alone, so their code is the same as without it
+  template <bool kNarrow>
   __device__ __forceinline__ void stage(void* buf, int u, int j0, int cols) const {
     const int e = elem();
     const int nr = min(cols, n - j0);
     const size_t unit = static_cast<size_t>(u) * 2 * m * n;
     char* b = static_cast<char*>(buf);
-    if ((cols * e) % 16 == 0 && (n * e) % 16 == 0 &&
-        reinterpret_cast<uintptr_t>(x) % 16 == 0) {
-      // a thread copies piece t % per_row of every (kThreads / per_row)-th
-      // row: its addresses advance by constant strides
-      const int per_row = cols * e / 16;        // a power of two
-      const int piece = static_cast<int>(threadIdx.x) % per_row;
-      const int col = piece * 16 / e;
-      const int valid = max(0, min(16, (nr - col) * e));
-      const int rstep = kThreads / per_row;
-      int row = static_cast<int>(threadIdx.x) / per_row;      // plane * m + row
-      const char* src = static_cast<const char*>(x) +
-                        (unit + static_cast<size_t>(row) * n + j0 + (valid ? col : 0)) * e;
-      char* dst = b + (static_cast<size_t>(row) * cols + col) * e;
-      for (; row < 2 * m; row += rstep) {
-        cp_async16(dst, src, valid);
-        src += static_cast<size_t>(rstep) * n * e;
-        dst += static_cast<size_t>(rstep) * cols * e;
-      }
+    const uintptr_t at = reinterpret_cast<uintptr_t>(x);
+    if ((cols * e) % 16 == 0 && (n * e) % 16 == 0 && at % 16 == 0) {
+      stage_pieces<16>(b, unit, j0, nr, cols);
+    } else if (kNarrow && (cols * e) % 8 == 0 && (n * e) % 8 == 0 && at % 8 == 0) {
+      stage_pieces<8>(b, unit, j0, nr, cols);
     } else {
-      // rows not 16-byte aligned: copy element by element through registers
+      // rows not 8-byte aligned: copy element by element through registers
       for (int k = threadIdx.x; k < 2 * m * cols; k += kThreads) {
         const int row = k / cols;
         const int c = k - row * cols;
@@ -212,7 +244,7 @@ struct WireIq {
 
 // The plan's table (ops/fullchain.fft_tables): w_r c [m], then W_P^t
 // (re, im) for t < P, the leaf's W_m^(k r2) at (r2 P + k), the leaf's
-// W_L^(k2 r2) at (k2 L + r2).
+// roots W_L^t for t < L.
 struct Table {
   const float* win;
   const float* tw;
@@ -289,12 +321,119 @@ __device__ __forceinline__ void dft_reg(float (&re)[N], float (&im)[N], const fl
   dif_stage<N, N / 2>(re, im, tw, P / N);
 }
 
+// The leaf's factors: the radix of the next Stockham pass over the `rem`
+// points still to combine (5, 3 and 7 first; any other factor whole), and
+// the number of passes for L.
+__host__ __device__ inline int leaf_radix(int rem) {
+  return rem % 5 == 0 ? 5 : rem % 3 == 0 ? 3 : rem % 7 == 0 ? 7 : rem;
+}
+__host__ __device__ inline int leaf_passes(int L) {
+  int passes = 0;
+  for (int rem = L; rem > 1; rem /= leaf_radix(rem)) ++passes;
+  return passes;
+}
+
+// One Stockham pass of radix R of the leaf: per column c < cols and
+// sub-transform k < P, in[(k L + r) cols + c] (r < L, the points still in
+// the order the previous pass left them) -> out.  Task (j, k, c), j <
+// L / R: v_r = in[j + r L/R] times W_(ns R)^(r (j mod ns)), an R-point DFT,
+// out[d + s ns] = its output s, d = (j / ns) ns R + j mod ns; ns is the
+// product of the radices before this pass.  The last pass writes the
+// natural Y instead: row k + P t (t = d + s ns) of pitch np, rows < m/2.
+// `roots` are the table's W_L^t.  R = 0: a pass of radix `rr` (a factor
+// other than 3, 5, 7) as loops, its inputs read from shared memory again
+// for every output.
+template <int R>
+__device__ __forceinline__ void leaf_pass(const float* ire, const float* iim, float* ore,
+                                          float* oim, const float2* __restrict__ roots, int L,
+                                          int P, int cols, int ns, int rr, bool last, int mh,
+                                          int np) {
+  const int radix = R > 0 ? R : rr;
+  const int lr = L / radix;                     // tasks per sub-transform and column
+  const int step = L / (ns * radix);            // W_(ns R) = W_L^step
+  const int tasks = P * cols * lr;
+  for (int task = threadIdx.x; task < tasks; task += kThreads) {
+    const int c = task % cols;
+    const int rest = task / cols;
+    const int j = rest % lr;
+    const int k = rest / lr;
+    const int kk = j % ns;
+    const float* pr = ire + (k * L + j) * cols + c;
+    const float* pi = iim + (k * L + j) * cols + c;
+    const int d = (j / ns) * ns * radix + kk;
+    auto store = [&](int s, float vr, float vi) {
+      const int t = d + s * ns;
+      if (last) {
+        const int row = k + P * t;
+        if (row < mh) {
+          ore[row * np + c] = vr;
+          oim[row * np + c] = vi;
+        }
+      } else {
+        ore[(k * L + t) * cols + c] = vr;
+        oim[(k * L + t) * cols + c] = vi;
+      }
+    };
+    if constexpr (R > 0) {
+      float re[R], im[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        re[r] = pr[r * lr * cols];
+        im[r] = pi[r * lr * cols];
+        if (r > 0 && kk > 0) {
+          const float2 w = __ldg(roots + (r * kk * step) % L);
+          cmul(re[r], im[r], w.x, w.y, re[r], im[r]);
+        }
+      }
+      float2 wr[R];                             // W_R^t, t < R
+#pragma unroll
+      for (int t = 1; t < R; ++t) wr[t] = __ldg(roots + t * lr);
+#pragma unroll
+      for (int s = 0; s < R; ++s) {
+        float ar = re[0], ai = im[0];
+#pragma unroll
+        for (int r = 1; r < R; ++r) {
+          const float2 w = wr[(r * s) % R];
+          if ((r * s) % R == 0) {
+            ar += re[r];
+            ai += im[r];
+          } else {
+            ar += re[r] * w.x - im[r] * w.y;
+            ai += re[r] * w.y + im[r] * w.x;
+          }
+        }
+        store(s, ar, ai);
+      }
+    } else {
+      for (int s = 0; s < radix; ++s) {
+        float ar = 0.f, ai = 0.f;
+        for (int r = 0; r < radix; ++r) {
+          float vr = pr[r * lr * cols], vi = pi[r * lr * cols];
+          if (r > 0 && kk > 0) {
+            const float2 w = __ldg(roots + (r * kk * step) % L);
+            cmul(vr, vi, w.x, w.y, vr, vi);
+          }
+          const float2 w = __ldg(roots + ((r * s) % radix) * lr);
+          ar += vr * w.x - vi * w.y;
+          ai += vr * w.y + vi * w.x;
+        }
+        store(s, ar, ai);
+      }
+    }
+  }
+}
+
+__host__ __device__ constexpr int round4(int v) { return (v + 3) & ~3; }
+
 // Shared memory of one block, in 32-bit words: A (pass 1's slot layout,
 // then the natural Y [m/2][cols + 1]: in place where pass 2's tasks fit
-// the block's threads and L = 1, after pass 3 for L > 1), B (pass 2's
-// output where A cannot take it: L > 1, or more tasks than threads), the
-// raw staging buffer S, the round's epilogue constants (wd, 4 phasor rows)
-// and, reusing the front after the last round, the cluster exchange.
+// the block's threads and L = 1), B (pass 2's output where A cannot take
+// it: more tasks than threads), the raw staging buffer S, the round's
+// epilogue constants (wd, 4 phasor rows) and, reusing the front after the
+// last round, the cluster exchange.  For L > 1 the leaf's Stockham passes
+// run between B (their input [P][L][cols]) and A in turn, the last one
+// writing the natural Y to the other buffer of its input (A for an odd
+// number of passes).  Each part is a multiple of 16 bytes.
 struct Layout {
   int sp;         // slot row pitch: P2 cols + pad
   int np;         // natural Y row pitch: cols + 1
@@ -310,8 +449,14 @@ struct Layout {
     sp = P2 * cols + pad;
     np = cols + 1;
     inplace = L == 1 && cols * P1 <= kThreads;
-    size_a = imax(L * P1 * sp, L > 1 ? (m / 2) * np : 0);
-    size_b = inplace ? 0 : (L == 1 ? (m / 2) * np : m * cols);
+    const int leaf = imax(m * cols, (m / 2) * np);    // a leaf pass's buffer
+    if (L == 1) {
+      size_a = round4(L * P1 * sp);
+      size_b = round4(inplace ? 0 : (m / 2) * np);
+    } else {
+      size_a = round4(imax(P2 > 1 ? L * P1 * sp : 0, leaf));
+      size_b = round4(leaf);
+    }
     stage = stage_words;
     const int data = 2 * (size_a + size_b) + stage + (fused ? 5 * cols : 0);
     const int stats = fused ? (m / 2) * kStat + 8 : 0;
@@ -331,6 +476,9 @@ fft_chain_kernel(Src src, const float* __restrict__ tab, const float* __restrict
                  const float* __restrict__ wd, const float* __restrict__ ph,
                  float* __restrict__ out, int m, int L, int n, int cols, float salt) {
   constexpr int P = P1 * P2;
+  // an odd L > 1 fits m <= kMaxM: the leaf's code exists only where it can
+  // run (P <= 256), so the P = 512, 1024 bodies are those of L = 1 alone
+  constexpr bool kLeaf = 3 * P <= kMaxM;
   const int mh = m / 2;
   const int u = static_cast<int>(blockIdx.z * gridDim.y + blockIdx.y);
   const int K = static_cast<int>(gridDim.x);    // the unit's blocks: one cluster
@@ -346,8 +494,11 @@ fft_chain_kernel(Src src, const float* __restrict__ tab, const float* __restrict
   float* b_im = b_re + lay.size_b;
   float* stage = b_im + lay.size_b;             // the staged samples of one round
   float* rc = stage + lay.stage;                // [5][cols]: wd, ph rows
-  float* y_re = L == 1 && !lay.inplace ? b_re : a_re;   // the natural Y [mh][np]
-  float* y_im = L == 1 && !lay.inplace ? b_im : a_im;
+  // the natural Y [mh][np]
+  const bool y_in_b = !kLeaf || L == 1 ? !lay.inplace : leaf_passes(L) % 2 == 0;
+  float* y_re = y_in_b ? b_re : a_re;
+  float* y_im = y_in_b ? b_im : a_im;
+  const auto* ltw = reinterpret_cast<const float2*>(t.leaf_tw);
   const int tid = static_cast<int>(threadIdx.x);
 
   // the epilogue's running partials of the rows this thread owns
@@ -362,7 +513,7 @@ fft_chain_kernel(Src src, const float* __restrict__ tab, const float* __restrict
   float n_a = 0.f;
 
   if constexpr (Src::kStaged) {
-    src.stage(stage, u, rank * cols, cols);
+    src.template stage<kLeaf>(stage, u, rank * cols, cols);
     cp_async_commit();
   }
   for (int r = 0; (r * K + rank) * cols < n; ++r) {
@@ -411,21 +562,35 @@ fft_chain_kernel(Src src, const float* __restrict__ tab, const float* __restrict
           const float2 w = __ldg(reinterpret_cast<const float2*>(t.tw) + (k1 * n2) % P);
           cmul(vr, vi, w.x, w.y, vr, vi);
         }
-        ar[k1 * lay.sp] = vr;
-        ai[k1 * lay.sp] = vi;
+        if (P2 == 1 && kLeaf && L > 1) {
+          // X_r2[k1] is final: the leaf's twiddle, then its layout in B
+          if (k1 > 0) {
+            const float2 w = __ldg(ltw + r2 * P + k1);
+            cmul(vr, vi, w.x, w.y, vr, vi);
+          }
+          b_re[(k1 * L + r2) * cols + c] = vr;
+          b_im[(k1 * L + r2) * cols + c] = vi;
+        } else {
+          ar[k1 * lay.sp] = vr;
+          ai[k1 * lay.sp] = vi;
+        }
       }
     }
     __syncthreads();                            // A holds pass 1; the staging buffer is free
     if constexpr (Src::kStaged) {
-      if (j0 + K * cols < n) src.stage(stage, u, j0 + K * cols, cols);   // under pass 2, epilogue
+      if (j0 + K * cols < n) {
+        src.template stage<kLeaf>(stage, u, j0 + K * cols, cols);   // under pass 2, epilogue
+      }
       cp_async_commit();
     }
 
     // pass 2: P2-point DFT over n2 -> X_r2[k1 + P1 k2]; in place, all of a
-    // task's inputs are read before any output is written
-    for (int t0 = 0; t0 < cols * P1 * L; t0 += kThreads) {
+    // task's inputs are read before any output is written (none for P2 = 1
+    // and L > 1: pass 1 wrote the leaf's input)
+    const int pass2 = P2 == 1 && kLeaf && L > 1 ? 0 : cols * P1 * L;
+    for (int t0 = 0; t0 < pass2; t0 += kThreads) {
       const int task = t0 + tid;
-      const bool has = task < cols * P1 * L;
+      const bool has = task < pass2;
       const int c = task % cols;
       const int rest = task / cols;
       const int k1 = rest % P1;
@@ -447,42 +612,52 @@ fft_chain_kernel(Src src, const float* __restrict__ tab, const float* __restrict
           const int k = k1 + P1 * k2;
           const float vr = re[brev(k2, log2i<P2>())];
           const float vi = im[brev(k2, log2i<P2>())];
-          if (L == 1) {
+          if (!kLeaf || L == 1) {
             if (k < mh) {
               y_re[k * lay.np + c] = vr;
               y_im[k * lay.np + c] = vi;
             }
           } else {
-            b_re[(r2 * P + k) * cols + c] = vr;
-            b_im[(r2 * P + k) * cols + c] = vi;
+            float wr, wi;
+            const float2 w = __ldg(ltw + r2 * P + k);
+            cmul(vr, vi, w.x, w.y, wr, wi);
+            b_re[(k * L + r2) * cols + c] = wr;
+            b_im[(k * L + r2) * cols + c] = wi;
           }
         }
       }
     }
     __syncthreads();
 
-    // pass 3 (L > 1): the leaf, Y[k + P k2] = sum_r2 W_L^(k2 r2) W_m^(k r2) X_r2[k]
-    if (L > 1) {
-      const auto* ltw = reinterpret_cast<const float2*>(t.leaf_tw);
-      const auto* lf = reinterpret_cast<const float2*>(t.leaf);
-      for (int task = tid; task < cols * P; task += kThreads) {
-        const int c = task % cols;
-        const int k = task / cols;
-        for (int k2 = 0; k2 < L && k + P * k2 < mh; ++k2) {
-          float acc_r = 0.f, acc_i = 0.f;
-          for (int r2 = 0; r2 < L; ++r2) {
-            float xr, xi;
-            const float2 w = __ldg(ltw + r2 * P + k);
-            cmul(b_re[(r2 * P + k) * cols + c], b_im[(r2 * P + k) * cols + c], w.x, w.y, xr, xi);
-            const float2 f = __ldg(lf + k2 * L + r2);
-            acc_r += f.x * xr - f.y * xi;
-            acc_i += f.x * xi + f.y * xr;
+    // the leaf (L > 1): Y[k + P k2] = sum_r2 W_L^(k2 r2) (W_m^(k r2) X_r2[k]),
+    // Stockham passes B -> A -> B ..., the last writing Y
+    if constexpr (kLeaf) {
+      if (L > 1) {
+        const auto* roots = reinterpret_cast<const float2*>(t.leaf);
+        float *ir = b_re, *ii = b_im, *orr = a_re, *oi = a_im;
+        for (int rem = L, ns = 1; rem > 1;) {
+          const int R = leaf_radix(rem);
+          const bool last = R == rem;
+          if (R == 5) {
+            leaf_pass<5>(ir, ii, orr, oi, roots, L, P, cols, ns, R, last, mh, lay.np);
+          } else if (R == 3) {
+            leaf_pass<3>(ir, ii, orr, oi, roots, L, P, cols, ns, R, last, mh, lay.np);
+          } else if (R == 7) {
+            leaf_pass<7>(ir, ii, orr, oi, roots, L, P, cols, ns, R, last, mh, lay.np);
+          } else {
+            leaf_pass<0>(ir, ii, orr, oi, roots, L, P, cols, ns, R, last, mh, lay.np);
           }
-          y_re[(k + P * k2) * lay.np + c] = acc_r;
-          y_im[(k + P * k2) * lay.np + c] = acc_i;
+          __syncthreads();
+          float* tr = ir;
+          float* ti = ii;
+          ir = orr;
+          ii = oi;
+          orr = tr;
+          oi = ti;
+          rem /= R;
+          ns *= R;
         }
       }
-      __syncthreads();
     }
 
     if constexpr (!kFused) {
@@ -628,10 +803,19 @@ fft_chain_kernel(Src src, const float* __restrict__ tab, const float* __restrict
   }
 }
 
-// The kernel for the plan's geometry: fn(P1, P2) dispatch over the P the
-// radix plans give (16 <= P <= 1024; P1 = min(32, P)).
+// The kernel for the plan's geometry: fn(P1, P2) dispatch over P (P1 =
+// min(32, P)).  Radix plans give 16 <= P <= 1024; the planar fused chain
+// (the dense entries: every even m) also takes P = 2, 4, 8.
 template <class Src, bool kFused, class Fn>
 cudaError_t dispatch_p(int P, Fn&& fn) {
+  if constexpr (Src::kStaged && kFused) {
+    switch (P) {
+      case 2: return fn(fft_chain_kernel<Src, 2, 1, kFused>);
+      case 4: return fn(fft_chain_kernel<Src, 4, 1, kFused>);
+      case 8: return fn(fft_chain_kernel<Src, 8, 1, kFused>);
+      default: break;
+    }
+  }
   switch (P) {
     case 16: return fn(fft_chain_kernel<Src, 16, 1, kFused>);
     case 32: return fn(fft_chain_kernel<Src, 32, 1, kFused>);
@@ -652,7 +836,7 @@ struct Geometry {
     L = m / imax(P, 1);
     P1 = P < 32 ? P : 32;
     P2 = P / imax(P1, 1);
-    ok = m >= 16 && m <= kMaxM && m % 2 == 0 && P >= 16;
+    ok = m >= 2 && m <= kMaxM && m % 2 == 0;    // P >= 2; wire and A-stage: P >= 16
   }
 };
 

@@ -1,10 +1,23 @@
 // Dense fused radar chain, stages 01-08, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel wrp_tpu/ops/pallas/fullchain.py::fused_chain_power
-// (body _kernel): the form for geometries whose m does not split into radix
-// branches (ops/fullchain.radix_for(m) == 1, e.g. m = 1000).  Per
-// channel-sector it maps planar IQ x [2, m, n] (int16 or f32) to the
-// matched-filter power pow [m/2]:
+// (body _kernel) and its offset entry fused_chain_power_at (_kernel_offset):
+// the chain for geometries whose m does not split into radix branches
+// (ops/fullchain.radix_for(m) == 1, e.g. m = 1000 = 8 x 125).  Two bodies,
+// chosen from m alone by the caller (ops/fullchain.dense_body):
+//
+//   * every even m <= 1024: the FFT-form body of fft_chain.cuh, launched
+//     through fused_chain_radix.cu's entry wrp_fused_chain_radix (its
+//     planar instantiation, with P = 8 register stages and a 5 x 5 x 5
+//     Stockham leaf at m = 1000).  The TPU's dense
+//     A_half contraction does 98.3 GFLOP per 48 channel-sectors at
+//     m = 1000; the FFT 1.6, so the bytes (0.031 ms) bound it, as the
+//     radix chain.
+//   * any other m (m > 1024, odd m): this file's matrix kernel, the TPU
+//     kernel's own algorithm, described next.
+//
+// The matrix kernel.  Per channel-sector it maps planar IQ x [2, m, n]
+// (int16 or f32) to the matched-filter power pow [m/2]:
 //
 //   1. Y[t, j] = sum_q A_half[t, q] x[q, j]   (t < m/2, q < m), complex, with
 //      the window folded into A_half (constants.stage1_operators);
@@ -13,9 +26,8 @@
 // What bounds it on this card: 4 m^2 n flops per channel-sector (2.05 GFLOP
 // at m = 1000, n = 512) against 4 m n bytes of int16 input (2 MB): ~1000
 // flops per byte, far above the fp32 CUDA-core ridge of ~20 flops per byte,
-// so the fp32 FMA rate bounds it.  The function itself needs a quarter of
-// that work in the radix-8 form (M = 125 at m = 1000, which the radix
-// kernel's even tiles do not divide); chip_smoke.py's bound counts that.
+// so the fp32 FMA rate bounds it.  The function itself needs the FFT's
+// work, which the FFT body runs; chip_smoke.py's bound counts that.
 //
 // Design (right first; tensor cores and TMA come later):
 //   * fp32 FMA with fp32 operators; no bf16 hi/lo splits (the TPU needed

@@ -144,7 +144,8 @@ def load_library() -> ctypes.CDLL:
                     i32, i32, i32,                    # bc, rows, n
                     ptr],                             # stream
                 "wrp_fused_stage2": [
-                    ptr, ptr, ptr, ptr, ptr,          # yr, yi, br, bi, out
+                    ptr, ptr, ptr, ptr,               # yr, yi, br, bi
+                    ptr, i64, ptr,                    # scratch, its floats, out
                     i64, i32, f32,                    # total_rows, n, tap_sum
                     ptr],                             # stream
                 "wrp_radix_chain_ablation": [

@@ -16,9 +16,14 @@ Each kernel has its wrapper, plain torch version and launch counter:
   `WIRE_LAUNCHES`.  The same kernel body on raw wire words [bs, m, ch*n]
   int32, decoded in registers, one channel per block.
 * dense, csrc/fused_chain_dense.cu (``wrp_tpu`` `fused_chain_power`):
-  `fused_chain_power_dense`, plain `fused_chain_power_reference` (its
-  R == 1 branch), `DENSE_LAUNCHES`.  Planar IQ through the dense A_half
-  [m/2, m], for m that does not split (`radix_for(m) == 1`).
+  `fused_chain_power_dense`, `DENSE_LAUNCHES`, for m that does not split
+  (`radix_for(m) == 1`).  Two bodies, chosen from m alone (`dense_body`):
+  every even m <= FFT_MAX_M (m = 1000 = 8 x 125) runs the FFT-form body
+  of csrc/fft_chain.cuh (plain `fft_chain_power_reference`,
+  `DENSE_FFT_LAUNCHES`); any other m (m > FFT_MAX_M, odd m) the matrix
+  kernel, the dense A_half [m/2, m] contraction (plain
+  `fused_chain_power_reference`, its R == 1 branch,
+  `DENSE_MATRIX_LAUNCHES`).
 
 The benchmark (wrp_tpu_torch/bench.py) reads each step's slab of a larger
 staged array through the OFFSET entries, one per kernel, each with its own
@@ -83,6 +88,10 @@ PARSEVAL_ROWS_LAUNCHES = 0   # parseval_rows.cu
 RADIX_OFFSET_LAUNCHES = 0    # the radix offset entry (salted: fused_chain_radix_salted.cu)
 WIRE_OFFSET_LAUNCHES = 0     # the wire offset entry (salted: fused_chain_wire_salted.cu)
 DENSE_OFFSET_LAUNCHES = 0    # fused_chain_power_at (fused_chain_dense.cu)
+#: launches of each dense body, from either dense entry (a run shows which
+#: body its m took)
+DENSE_FFT_LAUNCHES = 0       # the FFT-form body (fft_chain.cuh)
+DENSE_MATRIX_LAUNCHES = 0    # the matrix kernel of fused_chain_dense.cu
 
 RADIX = 8
 
@@ -121,7 +130,8 @@ class FftGeometry:
     m, L odd) is L P-point FFTs on the decimated rows L i + r2, each in
     four steps P = P1 P2 (P1 = min(32, P): a P1-point DFT in registers, a
     twiddle W_P^(k1 n2), a P2-point DFT in registers), then for L > 1 an
-    L-point leaf DFT in matrix form across the L sub-FFTs.  The pulse
+    L-point leaf DFT across the L sub-FFTs, a mixed-radix Stockham FFT
+    (`leaf_fft_reference`; 5 x 5 x 5 at m = 1000).  The pulse
     columns split into chunks of `cols`, dealt round-robin to the unit's
     `blocks` blocks (at most 8: one thread-block cluster): in round r,
     block b runs chunk r blocks + b."""
@@ -145,21 +155,50 @@ FFT_THREADS = 256
 FFT_ROUND_VALUES = 8192
 
 
+def leaf_radix(rem: int) -> int:
+    """The radix of the leaf's next Stockham pass over the `rem` points
+    still to combine: 5, 3 or 7 where one divides, else all of `rem` in one
+    pass (csrc/fft_chain.cuh leaf_radix)."""
+    for r in (5, 3, 7):
+        if rem % r == 0:
+            return r
+    return rem
+
+
+def fft_takes(m: int) -> bool:
+    """Whether the FFT-form body takes m range rows: even m, 2 <= m <=
+    FFT_MAX_M (csrc/fft_chain.cuh Geometry::ok)."""
+    return 2 <= m <= FFT_MAX_M and m % 2 == 0
+
+
+def dense_body(m: int) -> str:
+    """The body the dense entries launch for m, from m alone: "fft" (the
+    FFT-form body, csrc/fft_chain.cuh) for every m it takes, else "matrix"
+    (csrc/fused_chain_dense.cu's A_half contraction: m > FFT_MAX_M, odd
+    m)."""
+    return "fft" if fft_takes(m) else "matrix"
+
+
 def fft_geometry(m: int, width: int) -> FftGeometry:
     """The FFT-form kernels' cut of m range rows and `width` pulse
     columns (see FftGeometry).  cols: the largest power of two with
-    m cols <= FFT_ROUND_VALUES (8 at m = 1024: 64 KB), at most 64 and no
+    m cols <= FFT_ROUND_VALUES (8 at m = 1024: 64 KB), or half that for
+    L > 1 (4 at m = 1000 and 960), at most 64 and no
     more than width needs, and for L = 1 with pass 2's cols P1 tasks no
     more than the block's threads (its output then overwrites its input in
     shared memory); blocks: at most FFT_MAX_CLUSTER, each with at least one
     chunk (8 blocks of 8 rounds at n = 512)."""
-    if m > FFT_MAX_M or m % 2 or m < 2:
+    if not fft_takes(m):
         raise ValueError(f"the FFT-form kernels take even m <= {FFT_MAX_M}, "
                          f"got m={m}")
     P = m & -m
     P1 = min(32, P)
+    # L > 1: the leaf's passes run between two m x cols buffers (the L = 1
+    # chain writes pass 2 in place), so half the round keeps two blocks
+    # per SM
+    values = FFT_ROUND_VALUES if m == P else FFT_ROUND_VALUES // 2
     cols = 1
-    while (cols < 64 and 2 * cols * m <= FFT_ROUND_VALUES and cols < width
+    while (cols < 64 and 2 * cols * m <= values and cols < width
            and (m > P or 2 * cols * P1 <= FFT_THREADS)):
         cols *= 2
     return FftGeometry(P=P, L=m // P, P1=P1, P2=P // P1, cols=cols,
@@ -191,15 +230,15 @@ def fft_tables(consts: PipelineConstants) -> np.ndarray:
                              (row 0 of op_a_half, as `radix_plan` reads it)
       [m, m + 2P)            W_P^t (re, im), t < P
       then 2 L P             W_m^(k r2) at (r2 P + k): the leaf's twiddles
-      then 2 L L             W_L^(k2 r2) at (k2 L + r2): the leaf DFT."""
+      then 2 L               W_L^t, t < L: the leaf FFT's roots (its
+                             passes' twiddles and butterflies index them)."""
     m = consts.op_a_half.shape[1]
     g = fft_geometry(m, 1)
     P, L = g.P, g.L
     wr_c = np.asarray(consts.op_a_half[0]).astype(np.complex128).real
     k, r2 = np.meshgrid(np.arange(P), np.arange(L))          # [L, P]
     leaf_tw = _roots(m, m)[(k * r2) % m]
-    k2, r = np.meshgrid(np.arange(L), np.arange(L), indexing="ij")
-    leaf = _roots(L, L)[(k2 * r) % L]
+    leaf = _roots(L, L)
 
     def inter(c):
         c = np.asarray(c).reshape(-1)
@@ -234,7 +273,7 @@ class RadixPlan:
     fac_t: torch.Tensor      # [S, R, 2] f32 (re, im) of fac
     wd: torch.Tensor         # [n] f32 pulse window
     phasors: torch.Tensor    # [4, n] f32 clip-bin phasors
-    fft_t: torch.Tensor | None = None   # fft_tables (radix plans with m <= FFT_MAX_M)
+    fft_t: torch.Tensor | None = None   # fft_tables (every m that fft_takes)
     fft_phi: torch.Tensor | None = None  # [rounds, 4] fft_round_phasor_sums at n
 
     @property
@@ -285,7 +324,7 @@ def build_plan(consts: PipelineConstants, device) -> RadixPlan:
     fac_np = np.array([[[f.real, f.imag] for f in row] for row in fac],
                       np.float32).reshape(len(fac), radix, 2)
     lanes = {}
-    if radix > 1 and m <= FFT_MAX_M:
+    if fft_takes(m):
         lanes["fft_t"] = torch.from_numpy(fft_tables(consts)).to(device)
         lanes["fft_phi"] = torch.from_numpy(fft_round_phasor_sums(
             consts.clip_phasors, fft_geometry(m, n).cols)).to(device)
@@ -341,11 +380,10 @@ def fused_chain_power_reference(x: torch.Tensor, plan: RadixPlan,
 
 def _fft_plan_tables(plan: RadixPlan, name: str):
     """(geometry at the plan's n, the fft_tables split into complex64
-    tensors: win [m] f32, tw [P], leaf_tw [L, P], leaf [L, L])."""
+    tensors: win [m] f32, tw [P], leaf_tw [L, P], roots [L])."""
     if plan.fft_t is None:
-        raise ValueError(f"{name}: the FFT-form kernels take a radix plan "
-                         f"with m <= {FFT_MAX_M} (m={plan.m}, radix "
-                         f"{plan.radix})")
+        raise ValueError(f"{name}: the FFT-form kernels take an even m <= "
+                         f"{FFT_MAX_M} (m={plan.m})")
     g = plan.fft
     m, P, L = plan.m, g.P, g.L
     t = plan.fft_t
@@ -356,8 +394,34 @@ def _fft_plan_tables(plan: RadixPlan, name: str):
 
     tw = cplx(m, P)
     leaf_tw = cplx(m + 2 * P, L * P).reshape(L, P)
-    leaf = cplx(m + 2 * P + 2 * L * P, L * L).reshape(L, L)
-    return g, t[:m], tw, leaf_tw, leaf
+    roots = cplx(m + 2 * P + 2 * L * P, L)
+    return g, t[:m], tw, leaf_tw, roots
+
+
+def leaf_fft_reference(z: torch.Tensor, roots: torch.Tensor) -> torch.Tensor:
+    """The leaf's L-point DFT along dim 1 of z [b, L, ...] (complex): the
+    kernel's mixed-radix Stockham passes (csrc/fft_chain.cuh leaf_pass),
+    one per factor `leaf_radix` gives, with every factor indexed from
+    `roots` = W_L^t, t < L.  Pass of radix R after factors of product ns:
+    v_r = z[j + r L/R] W_(ns R)^(r (j mod ns)), an R-point DFT, output s to
+    (j // ns) ns R + j mod ns + s ns.  Returns the natural-order DFT."""
+    L = z.shape[1]
+    rem, ns = L, 1
+    while rem > 1:
+        R = leaf_radix(rem)
+        lr = L // R
+        j = torch.arange(lr)
+        r = torch.arange(R)
+        v = z.reshape(z.shape[0], R, lr, *z.shape[2:])         # [b, r, j, ...]
+        tw = roots[(r[:, None] * (j % ns)[None, :] * (L // (ns * R))) % L]
+        v = v * tw.reshape(1, R, lr, *([1] * (z.dim() - 2)))
+        f = roots[((r[:, None] * r[None, :]) % R) * lr]      # [s, r]
+        o = torch.einsum("sr,brj...->bsj...", f, v)
+        d = (j // ns) * ns * R + j % ns
+        out = torch.empty_like(z)
+        out[:, (d[None, :] + r[:, None] * ns).reshape(-1)] = o.reshape(z.shape)
+        z, rem, ns = out, rem // R, ns * R
+    return z
 
 
 def fft_stage_reference(x: torch.Tensor, plan: RadixPlan,
@@ -370,9 +434,10 @@ def fft_stage_reference(x: torch.Tensor, plan: RadixPlan,
     decimated sub-sequence r2 (rows L i + r2), the four-step P-point FFT
     (a P1-point DFT over n1 of rows i = P2 n1 + n2, the twiddle
     W_P^(k1 n2), a P2-point DFT over n2, X[k1 + P1 k2]); for L > 1 the
-    leaf's twiddle W_m^(k r2) and L-point DFT, Y[k + P k2]; the crop.
-    Every factor comes from the plan's float32 tables (fft_tables)."""
-    g, win, tw, leaf_tw, leaf = _fft_plan_tables(plan, "fft_stage_reference")
+    leaf's twiddle W_m^(k r2) and L-point DFT (`leaf_fft_reference`),
+    Y[k + P k2]; the crop.  Every factor comes from the plan's float32
+    tables (fft_tables)."""
+    g, win, tw, leaf_tw, roots = _fft_plan_tables(plan, "fft_stage_reference")
     P, L, P1, P2 = g.P, g.L, g.P1, g.P2
     bc, _, m, w = x.shape
     xf = x.to(torch.float32)
@@ -391,8 +456,8 @@ def fft_stage_reference(x: torch.Tensor, plan: RadixPlan,
     xk = torch.einsum("jq,blkqw->bljkw", f2, a)            # [bc, L, k2, k1, w]
     xk = xk.reshape(bc, L, P, w)                           # k = P1 k2 + k1
     if L > 1:
-        xk = torch.einsum("jr,brkw->bjkw", leaf,
-                          xk * leaf_tw[None, :, :, None])  # [bc, k2, k, w]
+        xk = leaf_fft_reference(xk * leaf_tw[None, :, :, None],
+                                roots)                     # [bc, k2, k, w]
     y = xk.reshape(bc, m, w)[:, : m // 2]
     return y.real.contiguous(), y.imag.contiguous()
 
@@ -490,7 +555,8 @@ def merged_epilogue_reference(yr: torch.Tensor, yi: torch.Tensor,
 def fft_chain_power_reference(x: torch.Tensor, plan: RadixPlan,
                               salt: int | None = None) -> torch.Tensor:
     """Plain torch version of the FFT-form fused chain kernels (radix,
-    wire, salted): x [bc, 2, m, n] int16/f32 -> pow [bc, m/2] f32, the
+    wire, salted, and the dense entries for every m `fft_takes`): x [bc,
+    2, m, n] int16/f32 -> pow [bc, m/2] f32, the
     range stage (`fft_stage_reference`) then the merged epilogue
     (`merged_epilogue_reference`) at the kernel's chunk sizes."""
     yr, yi = fft_stage_reference(x, plan, salt)
@@ -618,10 +684,16 @@ def fft_occupancy(plan: RadixPlan, body: str = "radix") -> dict:
     "wire" or "astage") at the plan's geometry, from
     cudaOccupancyMaxActiveBlocksPerMultiprocessor and, for the clustered
     fused kernels, cudaOccupancyMaxActiveClusters (clusters of
-    `plan.fft.blocks` blocks; None for the A-stage).  Needs CUDA."""
+    `plan.fft.blocks` blocks; None for the A-stage).  A radix-1 plan has
+    the planar body only ("radix": the dense entries' FFT body).  Needs
+    CUDA."""
     import ctypes
 
-    g = _fft_launch_geometry(plan, "fft_occupancy")
+    if plan.radix == 1 and body != "radix":
+        raise ValueError(f"fft_occupancy: a radix-1 plan (m={plan.m}) has the "
+                         "planar body alone ('radix')")
+    _fft_plan_tables(plan, "fft_occupancy")
+    g = plan.fft
     lib = _build.load_library()
     bps, clusters = ctypes.c_int(0), ctypes.c_int(0)
     if body == "astage":
@@ -640,14 +712,18 @@ def fft_occupancy(plan: RadixPlan, body: str = "radix") -> dict:
 
 def _dense(x: torch.Tensor, plan: RadixPlan, start: int, count: int,
            name: str, counter: str) -> torch.Tensor:
-    """pow of x[start:start + count] through the dense kernel (CUDA, adding
-    one to the module counter named `counter` per launch) or its plain
-    version (CPU)."""
+    """pow of x[start:start + count] through the body `dense_body(m)`
+    names: on CUDA its kernel, adding one to the module counter named
+    `counter` and to the body's (DENSE_FFT_LAUNCHES or
+    DENSE_MATRIX_LAUNCHES) per launch; on the CPU its plain version."""
+    global DENSE_FFT_LAUNCHES, DENSE_MATRIX_LAUNCHES
     if plan.radix != 1:
         raise ValueError(f"{name} needs a radix-1 plan; m={plan.m} splits "
                          f"into {plan.radix} branches")
+    fft = dense_body(plan.m) == "fft"
     if x.device.type == "cpu":
-        return fused_chain_power_reference(x[start:start + count], plan)
+        plain = fft_chain_power_reference if fft else fused_chain_power_reference
+        return plain(x[start:start + count], plan)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     _check_planar(x, plan, name)
@@ -657,31 +733,49 @@ def _dense(x: torch.Tensor, plan: RadixPlan, start: int, count: int,
     lib = _build.load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.wrp_fused_chain_dense(
-            x.data_ptr(), int(x.dtype == torch.int16), plan.a_kernel.data_ptr(),
-            plan.wd.data_ptr(), plan.phasors.data_ptr(), out.data_ptr(), count,
-            plan.m, plan.n, dense_tile(plan), start, stream)
-    _raise_on_error(lib, rc, "fused_chain_dense")
+        if fft:
+            g = plan.fft
+            # the radix entry's planar body, unsalted
+            rc = lib.wrp_fused_chain_radix(
+                x.data_ptr(), int(x.dtype == torch.int16), plan.fft_t.data_ptr(),
+                plan.fft_phi.data_ptr(), plan.wd.data_ptr(),
+                plan.phasors.data_ptr(), out.data_ptr(), count, plan.m, plan.n,
+                g.cols, g.blocks, start, stream)
+        else:
+            rc = lib.wrp_fused_chain_dense(
+                x.data_ptr(), int(x.dtype == torch.int16),
+                plan.a_kernel.data_ptr(), plan.wd.data_ptr(),
+                plan.phasors.data_ptr(), out.data_ptr(), count, plan.m, plan.n,
+                dense_tile(plan), start, stream)
+    _raise_on_error(lib, rc, "fused_chain_radix" if fft else "fused_chain_dense")
     globals()[counter] += 1
+    if fft:
+        DENSE_FFT_LAUNCHES += 1
+    else:
+        DENSE_MATRIX_LAUNCHES += 1
     return out
 
 
 def fused_chain_power_dense(x: torch.Tensor, plan: RadixPlan) -> torch.Tensor:
-    """x [bc, 2, m, n] int16/f32 -> pow [bc, m/2] f32 through the dense
-    A_half, for a plan with radix 1.  A CPU tensor takes the plain version
-    (the R == 1 branch of `fused_chain_power_reference`); a CUDA tensor
-    launches csrc/fused_chain_dense.cu or raises."""
+    """x [bc, 2, m, n] int16/f32 -> pow [bc, m/2] f32, for a plan with
+    radix 1, through the body `dense_body(m)` names: the FFT form for every
+    even m <= FFT_MAX_M, else the dense A_half.  A CPU tensor takes that
+    body's plain version (`fft_chain_power_reference`, or the R == 1 branch
+    of `fused_chain_power_reference`); a CUDA tensor launches its kernel
+    (csrc/fused_chain_dense.cu's entries) or raises: there is no
+    fallback."""
     return _dense(x, plan, 0, x.shape[0], "fused_chain_power_dense",
                   "DENSE_LAUNCHES")
 
 
 def fused_chain_power_at(x_all: torch.Tensor, offset, bc: int,
                          plan: RadixPlan) -> torch.Tensor:
-    """The dense kernel on `bc` channel-sectors of the staged x_all [BC, 2,
+    """The dense entry on `bc` channel-sectors of the staged x_all [BC, 2,
     m, n] from channel-sector `offset` (no copy; ``wrp_tpu``'s
     `fused_chain_power_at`, the benchmark's entry for m that does not split)
-    -> pow [bc, m/2] f32.  No salt, as there.  A CPU tensor takes the plain
-    version on the slab; a CUDA tensor launches the kernel or raises."""
+    -> pow [bc, m/2] f32, through the body `dense_body(m)` names.  No salt,
+    as there.  A CPU tensor takes that body's plain version on the slab; a
+    CUDA tensor launches its kernel or raises."""
     start, count = _slab(x_all.shape[0], offset, bc, None,
                          "fused_chain_power_at", "bc")
     return _dense(x_all, plan, start, count, "fused_chain_power_at",

@@ -9,12 +9,15 @@ in the order given, so list them in turns (parent, change, change, parent)
 to separate a code change from drift.  For each it builds the tree's kernel
 library and prints one JSON line: the card, the CUDA-event ms per call of
 the radix kernel (int16 and f32 input) and the wire kernel at 16 sectors
-of 3 x 1024 x 512, the salted radix offset entry at the bench's 384
-channel-sectors, and, where the tree has them, the A-stage kernel at
-w = 512 and the row-epilogue kernel on its Y, each with its rel-L2 against
-the tree's own plain version, and the FFT-form kernels' blocks per SM and
-resident clusters where the tree has them; the number of kernels and of
-FFMA instructions in its library.  Last, one JSON line holds every kernel
+of 3 x 1024 x 512, the radix kernel at m = 960 (an L = 15 leaf), the
+salted radix offset entry at the bench's 384 channel-sectors, the dense
+entries at m = 1000 (16 sectors, and a launch of 384 channel-sectors
+through `fused_chain_power_at`) with the body they took, `fused_stage2`
+on Y [48, 512, 512] beside torch.matmul (complex64 Y @ B), and, where the
+tree has them, the A-stage kernel at w = 512 and the row-epilogue kernel
+on its Y, each with its rel-L2 against the tree's own plain version, and
+the FFT-form kernels' blocks per SM and resident clusters where the tree
+has them; the number of kernels and of FFMA instructions in its library.  Last, one JSON line holds every kernel
 the trees share by name whose `-Xptxas=-v` report (registers, stack,
 spills, shared memory) or SASS FFMA count differs from the first tree's
 ("ptxas_differs", "ffma_differs"; kernels that are not in both trees, as
@@ -125,6 +128,8 @@ def sass_opcode_counts(so: Path, tool_dir: Path, opcodes=("FFMA",)) -> dict:
 
 def _measure(tree: str) -> dict:
     sys.path.insert(0, os.path.abspath(tree))
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -132,18 +137,24 @@ def _measure(tree: str) -> dict:
     from wrp_tpu_torch.config import DEFAULT_CONFIG as cfg
     from wrp_tpu_torch.constants import PipelineConstants
     from wrp_tpu_torch.io import codec
-    from wrp_tpu_torch.ops import _build, device_codec, fullchain
+    from wrp_tpu_torch.ops import _build, device_codec, fullchain, postprocess
+    from wrp_tpu_torch.pipeline import _DeviceConstants
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab.py needs a CUDA GPU")
     _build.load_library()
     consts = PipelineConstants.build(cfg)
     plan = fullchain.build_plan(consts, "cuda")
-    noise = [oracle.synthetic_iq(cfg, kind="noise", seed=2024 + b)
-             for b in range(16)]
-    x16 = torch.from_numpy(np.stack([
-        np.stack([s.real, s.imag], -3).astype(np.int16) for s in noise
-    ])).cuda().reshape(-1, 2, cfg.m, cfg.n)
+
+    def sectors(c):
+        noise = [oracle.synthetic_iq(c, kind="noise", seed=2024 + b)
+                 for b in range(16)]
+        x = torch.from_numpy(np.stack([
+            np.stack([s.real, s.imag], -3).astype(np.int16) for s in noise
+        ])).cuda().reshape(-1, 2, c.m, c.n)
+        return noise, x
+
+    noise, x16 = sectors(cfg)
 
     def ms(fn, reps=20):
         for _ in range(3):
@@ -174,6 +185,45 @@ def _measure(tree: str) -> dict:
     out["radix_salted_384_ms"] = ms(lambda: fullchain.fused_chain_power_radix(
         x384, plan, offset=0, bc=384, salt=7))
     del x384
+    # the L = 15 leaf (m = 960 = 64 x 15) through the radix kernel
+    lcfg = dataclasses.replace(cfg, num_range_cells=960)
+    lplan = fullchain.build_plan(PipelineConstants.build(lcfg), "cuda")
+    _, l16 = sectors(lcfg)
+    out["radix_960_ms"] = ms(lambda: fullchain.fused_chain_power_radix(l16, lplan))
+    out["radix_960_rel"] = rel(plain(l16, lplan),
+                               fullchain.fused_chain_power_radix(l16, lplan))
+    del l16
+    # the dense entries at m = 1000 (radix_for(1000) == 1), and the body
+    # they take (trees before the FFT route: the matrix kernel)
+    dcfg = dataclasses.replace(cfg, num_range_cells=1000)
+    dplan = fullchain.build_plan(PipelineConstants.build(dcfg), "cuda")
+    _, d16 = sectors(dcfg)
+    body = getattr(fullchain, "dense_body", lambda m: "matrix")(1000)
+    dplain = (fullchain.fft_chain_power_reference if body == "fft"
+              else fullchain.fused_chain_power_reference)
+    out["dense_body"] = body
+    out["dense_ms"] = ms(lambda: fullchain.fused_chain_power_dense(d16, dplan))
+    out["dense_rel"] = rel(dplain(d16, dplan),
+                           fullchain.fused_chain_power_dense(d16, dplan))
+    d384 = d16.repeat(8, 1, 1, 1).contiguous()
+    out["dense_at_384_ms"] = ms(lambda: fullchain.fused_chain_power_at(
+        d384, 0, 384, dplan), 10)
+    del d384, d16
+    # fused_stage2 on Y [48, 512, 512] and the library's complex64 Y @ B
+    dc = _DeviceConstants(consts, torch.device("cuda"))
+    rng = np.random.default_rng(2024)
+    yr, yi = (torch.from_numpy((rng.standard_normal((48, cfg.m // 2, cfg.n))
+                                * 1e-3).astype(np.float32)).cuda()
+              for _ in range(2))
+    taps = consts.ma_taps
+    out["stage2_ms"] = ms(lambda: postprocess.fused_stage2(yr, yi, dc.br, dc.bi,
+                                                           taps))
+    out["stage2_rel"] = rel(
+        postprocess.fused_stage2_reference(yr, yi, dc.br, dc.bi, taps),
+        postprocess.fused_stage2(yr, yi, dc.br, dc.bi, taps))
+    yc, bcx = torch.complex(yr, yi), torch.complex(dc.br, dc.bi)
+    out["stage2_matmul_c64_ms"] = ms(lambda: torch.matmul(yc, bcx))
+    del yr, yi, yc
     # trees before the FFT form built the wire kernel's channel-tiled
     # constants only on request
     try:
