@@ -41,15 +41,20 @@ Phases (each prints its results; any failure raises and exits non-zero):
       then `kernel_breakdown.run` at 8 repeats (equal blocks per SM across
       modes and the A-stage run at the fused kernel's shared memory, dots'
       SASS keeps the unrolled contraction's FFMAs); the
-      tensor-core probe on identity operands (16 x 16 x 8, exact), at
-      widths 512, 1024, 2048 vs plain (<= 1e-5), then `mxu_occupancy.run`
-      at its defaults; the int16 -> bf16 split dot, both variants, on the
-      14-bit range (vs plain and vs fp32 A @ x <= 1e-6, split exact) and
-      on every int16 value (vs plain, inexact samples printed), then
-      `int_split_repro.run` for both; times of each kernel, its plain
-      version and torch.matmul where one computes the function (the split
-      dot's and torch.matmul's also as device time per call, from a CUDA
-      graph of 100 calls replayed);
+      tensor-core probe (bf16 wgmma fed by TMA: its SASS holds HGMMA and
+      no HMMA, ptxas serialises no wgmma) on identity operands (16 x 16 x
+      8; M = 64 and 192 at widths 8, 136 and 256: exact), its persistent
+      grid's units against the wrapper's plan, at widths 512, 1024, 2048
+      vs plain (<= 1e-5), then `mxu_occupancy.run` at its defaults; the
+      int16 -> bf16 split dot (its blocks: >= 64 at [128, 512]), both
+      variants, on the 14-bit range (vs plain and vs fp32 A @ x <= 1e-6,
+      split exact) and on every int16 value (vs plain, inexact samples
+      printed), then `int_split_repro.run` for both; times of each
+      kernel, its plain version and torch.matmul where one computes the
+      function (the probe beside two yardsticks: a batched matmul per
+      step and one [m, ndots k] GEMM per step; the split dot's and
+      torch.matmul's also as device time per call, from a CUDA graph of
+      100 calls replayed);
 3. the radix kernel (the FFT form, csrc/fft_chain.cuh) vs its plain torch
    version at 3 x 1024 x 512, batch 16 (48 channel-sectors), int16 and f32
    input, on seeded noise and on an adversarial input whose Doppler energy
@@ -116,6 +121,7 @@ Imports torch, numpy and wrp_tpu_torch only.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -309,22 +315,6 @@ def phase_build() -> None:
                        if "Used" in ln and "registers" in ln})
         print(f"ptxas registers per thread across instantiations: {regs}",
               flush=True)
-
-
-def graph_ms(fn, calls: int = 100) -> float:
-    """Device ms per call of `fn`: `calls` calls captured once in a CUDA
-    graph (warmed on a side stream first), the replay timed by `cuda_ms`.
-    The host's work per call (Python, ctypes) is not in it."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    return cuda_ms(graph.replay) / calls
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
@@ -1644,14 +1634,58 @@ def probe_breakdown(noise, adv) -> dict:
             "modes": {m: t[m]["kernel"] for m in t}, "tool": r}
 
 
+@functools.lru_cache(maxsize=None)
+def _tensor_core_sass() -> dict:
+    return kernel_ab.sass_opcode_counts(
+        _build.library_path(), Path(_build._nvcc()).parent, ("HGMMA", "HMMA"))
+
+
+def sass_counts(pattern: str) -> dict:
+    """{kernel: {"HGMMA": n, "HMMA": n}} of the built library's kernels whose
+    names match `pattern` (warpgroup and warp-level tensor-core
+    instructions in the SASS; one dump of the library serves every call)."""
+    return {k: v for k, v in _tensor_core_sass().items()
+            if re.search(pattern, k)}
+
+
+def wgmma_serialized(pattern: str) -> list:
+    """ptxas's warnings that it serialised the wgmma of a kernel matching
+    `pattern` (the build log's lines that name both)."""
+    log = _build.library_path().with_suffix(".log").read_text()
+    return [ln for ln in log.splitlines()
+            if "wgmma" in ln and "serializ" in ln and re.search(pattern, ln)]
+
+
+def tc_identity(M: int, width: int) -> None:
+    """The probe with A = I (M x M, so K = M) and X [M, width] integers:
+    out[0] is the row sums of X, exact in fp32."""
+    dev, bf = "cuda", torch.bfloat16
+    xk = ((torch.arange(M * width, device=dev).reshape(M, width) * 7) % 61
+          - 30).float()
+    got = probes.tc_dot_probe(torch.eye(M, device=dev, dtype=bf)[None],
+                              xk.to(bf), width, 1, 1, width)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], xk.sum(1)),
+          f"tc probe {M} x {M} x {width}, A = I: row sums of X, exact")
+
+
 def probe_tc() -> dict:
-    """The tensor-core probe: identity operands first (a wrong fragment
-    layout fails here), then each width of the tool's defaults at
-    PROBE_STEPS steps vs the plain version, then `mxu_occupancy.run` at its
-    defaults (its launches counted); times of one call at width 512 and 512
-    steps, of the plain version and of torch.matmul per step."""
+    """The tensor-core probe: its SASS (HGMMA, no HMMA) and ptxas's report,
+    identity operands first (a wrong descriptor or fragment layout fails
+    here; M below, at and past one warpgroup's 64 rows and widths off the
+    128-column tile), its grid's units against the wrapper's plan, then
+    each width of the tool's defaults at PROBE_STEPS steps vs the plain
+    version, then `mxu_occupancy.run` at its defaults (its launches
+    counted); times of one call at width 512 and 512 steps, of the plain
+    version and of the two library yardsticks."""
     dev = "cuda"
     bf = torch.bfloat16
+    sass = sass_counts(r"tc_dot_kernel")
+    serial = wgmma_serialized(r"tc_dot_kernel")
+    check(len(sass) == 1 and all(v["HGMMA"] > 0 and v["HMMA"] == 0
+                                 for v in sass.values()) and not serial,
+          f"tc probe SASS {json.dumps(sass)}: HGMMA, no HMMA; ptxas "
+          f"serialises no wgmma ({serial})")
     # A = I (16 x 16), X [16, 8] = 16 k + n: out[m] = rowsum of X's row m
     xk = (16 * torch.arange(16, device=dev)[:, None]
           + torch.arange(8, device=dev)[None, :]).float()
@@ -1668,7 +1702,7 @@ def probe_tc() -> dict:
     torch.cuda.synchronize()
     check(torch.equal(got[0], ak[:, :8].sum(1)),
           "tc probe 16 x 16 x 8, X = [I8; 0]: sums of A's first 8 columns")
-    # the 64-column path, exact: A_d = I (128 x 128), X integers
+    # two dots, three steps over two slabs, exact: A_d = I (128 x 128), X integers
     x64 = ((torch.arange(128 * 128, device=dev).reshape(128, 128) * 5) % 61
            - 30).float()
     got = probes.tc_dot_probe(torch.eye(128, device=dev, dtype=bf)[None]
@@ -1679,8 +1713,21 @@ def probe_tc() -> dict:
                         for b in range(3)])
     check(torch.equal(got, want), "tc probe 2 x (128 x 128 identity) x 64 "
                                   "columns, 3 steps over 2 slabs: exact")
+    for M in (64, 192):
+        for width in (8, 136, 256):
+            tc_identity(M, width)
 
     m, k, lanes, distinct, widths = 128, 384, 24 * 512, 4, (512, 1024, 2048)
+    lib = _build.load_library()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for M, K, w, nd, st in [(m, k, w, lanes // w, 512) for w in widths] + [
+            (16, 16, 8, 1, 1), (192, 192, 136, 1, 1), (300, 48, 72, 3, 5)]:
+        plan = probes.tc_probe_plan(M, w, nd, st, sms)
+        units = lib.wrp_tc_dot_probe_units(M, K, w, nd, st)
+        check(units == plan.units, f"tc probe grid M {M} K {K} width {w} "
+                                   f"({nd} dots, {st} steps): the kernel's "
+                                   f"{units} units == the plan's; "
+                                   f"{plan.blocks} blocks")
     rng = np.random.default_rng(SEED)
     a = torch.from_numpy(rng.standard_normal((lanes // min(widths), m, k),
                                              dtype=np.float32)).to(bf).cuda()
@@ -1700,8 +1747,11 @@ def probe_tc() -> dict:
     r = mxu_occupancy.run([])
     launches = read_counts()["tc_probe"]
     print("mxu_occupancy (defaults): " + json.dumps(r), flush=True)
-    check(launches == 4 * len(widths), f"mxu_occupancy launches: {launches} "
-                                       f"(warm + 3 spans per width)")
+    check(launches == 4 * len(widths)
+          and all(r[f"n{w}"]["tensor_core_utilisation"] > 0 for w in widths),
+          f"mxu_occupancy launches: {launches} (warm + 3 spans per width); "
+          f"tensor_core_utilisation "
+          f"{[r[f'n{w}']['tensor_core_utilisation'] for w in widths]}")
     steps, w = 512, 512
     nd = lanes // w
     t = timed({"plain": lambda: probes.tc_dot_probe_reference(
@@ -1709,21 +1759,30 @@ def probe_tc() -> dict:
                "kernel": lambda: probes.tc_dot_probe(a, x, w, steps, distinct,
                                                      lanes),
                "library": mxu_occupancy.library_steps(a, x, w, steps,
-                                                      distinct, nd)},
-              ("plain", "kernel", "library", "library", "kernel", "plain"))
+                                                      distinct, nd),
+               "library_kcat": mxu_occupancy.library_kcat_steps(
+                   a, x, w, steps, distinct, nd)},
+              ("plain", "kernel", "library", "library_kcat", "library_kcat",
+               "library", "kernel", "plain"))
+    lib_form = min(("library", "library_kcat"), key=t.get)
     flops = 2.0 * m * k * lanes * steps
     bound_ms, bound_by = bound(flops, nd * m * k * 2 + x.numel() * 2
                                + steps * m * 4, PEAK_BF16)
     print(f"tc probe width {w}, {steps} steps: {t['kernel']:.3f} ms "
           f"({flops / t['kernel'] / 1e9:.1f} TFLOP/s, "
           f"{flops / t['kernel'] / 1e-3 / PEAK_BF16:.3f} of {PEAK_BF16 / 1e12} "
-          f"TFLOP/s), plain {t['plain']:.3f} ms, library (torch.matmul bf16 "
-          f"[{nd}, {m}, {k}] @ [{k}, {w}] per step, from a CUDA graph) "
-          f"{t['library']:.3f} ms, "
-          f"bound {bound_ms:.3f} ms ({bound_by})", flush=True)
+          f"TFLOP/s), plain {t['plain']:.3f} ms, library (from CUDA graphs) "
+          f"torch.matmul bf16 [{nd}, {m}, {k}] @ [{k}, {w}] per step "
+          f"{t['library']:.3f} ms, one [{m}, {nd * k}] @ [{nd * k}, {w}] GEMM "
+          f"per step {t['library_kcat']:.3f} ms; bound {bound_ms:.3f} ms "
+          f"({bound_by}); the kernel {t[lib_form] / t['kernel']:.2f}x faster "
+          f"than the faster yardstick ({lib_form})", flush=True)
     return {"max_abs_err": max_abs, "rel_l2": worst, "ms": t["kernel"],
-            "plain_ms": t["plain"], "library_ms": t["library"],
-            "bound_ms": bound_ms, "bound_by": bound_by, "launches": launches,
+            "plain_ms": t["plain"], "library_ms": t[lib_form],
+            "library_form": lib_form, "library_batched_ms": t["library"],
+            "library_kcat_ms": t["library_kcat"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "launches": launches,
+            "blocks": probes.tc_probe_plan(m, w, nd, steps, sms).blocks,
             "tool": r}
 
 
@@ -1733,8 +1792,18 @@ def probe_split() -> dict:
     version; on the 14-bit range vs fp32 A @ x (TF32 off) and split exact;
     the inexact samples of the full range printed.  Then
     `int_split_repro.run` for both variants (its launches counted); times of
-    the kernel, the plain version and torch.matmul in fp32."""
+    the kernel, the plain version and torch.matmul in fp32: its `ms` and
+    `library_ms` are device times per call from a CUDA graph of 100 calls,
+    the times from Python (the wrapper's host work in them) beside."""
     m, n = 128, 512
+    lib = _build.load_library()
+    blocks = lib.wrp_int_split_dot_blocks(m, n)
+    sass = sass_counts(r"int_split_kernel")
+    check(blocks == len(probes.int_split_tiles(m, n)) and blocks >= 64
+          and len(sass) == 2 and all(v["HMMA"] > 0 for v in sass.values()),
+          f"int split grid at [{m}, {n}]: {blocks} blocks (>= 64, one per "
+          f"{probes.SPLIT_TILE} x {probes.SPLIT_TILE} tile of "
+          f"`int_split_tiles`); SASS {json.dumps(sass)}")
     rng = np.random.default_rng(0)            # the tool's inputs
     x14 = torch.from_numpy(rng.integers(-8192, 8192, (m, n), dtype=np.int16)).cuda()
     a = torch.from_numpy(rng.standard_normal((m, m)).astype(np.float32)
@@ -1779,7 +1848,7 @@ def probe_split() -> dict:
     # calls)
     dev = {name: [] for name in ("kernel", "library")}
     for name in ("kernel", "library", "library", "kernel"):
-        dev[name].append(graph_ms(
+        dev[name].append(kernel_ab.graph_ms(
             (lambda: probes.int_split_dot(x14, a, "int")) if name == "kernel"
             else (lambda: torch.matmul(af, xf))))
     print(f"int split dot (int) [{m}, {n}]: {t['kernel']:.4f} ms a call from "
@@ -1788,11 +1857,12 @@ def probe_split() -> dict:
           f"(turns kernel/library/library/kernel): kernel {dev['kernel']}, "
           f"library {dev['library']} ms; bound {bound_ms:.5f} ms ({bound_by})",
           flush=True)
-    return {"max_abs_err": max_abs, "rel_l2": worst, "ms": t["kernel"],
-            "plain_ms": t["plain"], "library_ms": t["library"],
-            "bound_ms": bound_ms, "bound_by": bound_by, "launches": launches,
-            "graph_ms": min(dev["kernel"]),
-            "library_graph_ms": min(dev["library"])}
+    # the device time is the kernel's time; from Python it is the wrapper's
+    return {"max_abs_err": max_abs, "rel_l2": worst,
+            "ms": min(dev["kernel"]), "plain_ms": t["plain"],
+            "library_ms": min(dev["library"]), "bound_ms": bound_ms,
+            "bound_by": bound_by, "launches": launches, "blocks": blocks,
+            "python_ms": t["kernel"], "library_python_ms": t["library"]}
 
 
 def phase_probes(noise, adv) -> dict:
@@ -1895,12 +1965,18 @@ def main() -> int:
         kernel_entry("tc_dot_probe (width 512, 512 steps)",
                      "wrp_tpu_torch/csrc/tc_occupancy.cu",
                      "tools/mxu_occupancy.py:110",
-                     probe["tc"]["launches"], probe["tc"]),
+                     probe["tc"]["launches"], probe["tc"],
+                     form="bf16 wgmma, TMA", blocks=probe["tc"]["blocks"],
+                     library_form=probe["tc"]["library_form"],
+                     library_batched_ms=probe["tc"]["library_batched_ms"],
+                     library_kcat_ms=probe["tc"]["library_kcat_ms"]),
         kernel_entry("int_split_dot (int)", "wrp_tpu_torch/csrc/int_split.cu",
                      "tools/int_split_repro.py:85",
                      probe["split"]["launches"], probe["split"],
-                     graph_ms=probe["split"]["graph_ms"],
-                     library_graph_ms=probe["split"]["library_graph_ms"]),
+                     form="bf16 mma.sync, 32 x 32 tiles, split in registers",
+                     blocks=probe["split"]["blocks"],
+                     python_ms=probe["split"]["python_ms"],
+                     library_python_ms=probe["split"]["library_python_ms"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

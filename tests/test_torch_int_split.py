@@ -2,8 +2,9 @@
 `int_split_dot`) and its entry point, `python -m
 wrp_tpu_torch.tools.int_split_repro`, on the CPU: the split's exactness over
 every int16 value, the plain dot against the JAX tool's kernel body
-(tools/int_split_repro.py:64-79) restated in jax.numpy, and the JSON line
-beside the JAX tool's `--smoke` line.  The CUDA kernel is checked on the
+(tools/int_split_repro.py:64-79) restated in jax.numpy (also at the
+kernel's edge shapes), the kernel's shape contract and grid of tiles, and
+the JSON line beside the JAX tool's `--smoke` line.  The CUDA kernel is checked on the
 card by chip_smoke.py (phase_probes)."""
 
 import functools
@@ -82,6 +83,50 @@ def test_plain_dot_matches_the_jax_kernel_body(variant, full_range):
     want = _jax_body(x, a, variant)
     assert got.shape == (m, n) and got.dtype == np.float32
     assert np.linalg.norm(got - want) / np.linalg.norm(want) < 1e-6
+
+
+@pytest.mark.parametrize("variant", ["int", "f32"])
+@pytest.mark.parametrize("m,n", [(64, 8), (64, 72), (256, 8), (256, 72)])
+def test_plain_dot_at_the_kernels_edge_shapes(m, n, variant):
+    """m at 2 and 8 row tiles of 32, n under and off the 32-column tile."""
+    rng = np.random.default_rng(m + n)
+    x = rng.integers(-32768, 32768, (m, n), dtype=np.int16)
+    a = rng.standard_normal((m, m)).astype(ml_dtypes.bfloat16)
+    at = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    got = probes.int_split_dot(torch.from_numpy(x), at, variant).numpy()
+    want = _jax_body(x, a, variant)
+    assert got.shape == (m, n)
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) < 1e-6
+
+
+@pytest.mark.parametrize("m,n,takes", [
+    (16, 8, True), (1024, 8, True), (48, 40, True), (8, 8, False),
+    (24, 8, False), (1040, 8, False), (16, 4, False), (16, 12, False),
+])
+def test_wrapper_refuses_what_the_kernel_refuses(m, n, takes):
+    """csrc/int_split.cu takes m % 16 == 0, 16 <= m <= 1024, n % 8 == 0;
+    the wrapper holds a CPU tensor to the same, so a shape the kernel
+    refuses raises here as it would on the card."""
+    x = torch.zeros((m, n), dtype=torch.int16)
+    a = torch.zeros((m, m), dtype=torch.bfloat16)
+    if takes:
+        assert probes.int_split_dot(x, a, "int").shape == (m, n)
+    else:
+        with pytest.raises(ValueError, match="the kernel takes"):
+            probes.int_split_dot(x, a, "int")
+
+
+@pytest.mark.parametrize("m,n", [(128, 512), (64, 8), (256, 72), (48, 40)])
+def test_tiles_cover_out_once(m, n):
+    """Every element of out lies in exactly one block's tile; 64 blocks at
+    the tool's [128, 512]."""
+    seen = np.zeros((m, n), dtype=np.int32)
+    tiles = probes.int_split_tiles(m, n)
+    for r, c in tiles:
+        seen[r:r + probes.SPLIT_TILE, c:c + probes.SPLIT_TILE] += 1
+    assert (seen == 1).all()
+    if (m, n) == (128, 512):
+        assert len(tiles) == 64
 
 
 def test_dot_refusals():

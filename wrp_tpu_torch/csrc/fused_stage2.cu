@@ -73,11 +73,12 @@
 //     result is deterministic and independent of the caller's row
 //     blocking.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
+
+#include "hopper_async.cuh"
 
 namespace {
 
@@ -97,9 +98,7 @@ constexpr size_t kSmemBytes = 1024 /* alignment */ + static_cast<size_t>(kStages
 static_assert(kBK % (8 * kChain) == 0, "whole chains per stage");
 static_assert(kYBytes % 1024 == 0 && kBBytes % 1024 == 0, "swizzle atoms stay aligned");
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+using wrp::smem_u32;
 
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
   uint32_t r;
@@ -135,8 +134,7 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
 // swizzle: 128-byte rows (all kBK of a column), 8-row atoms 1024 bytes
 // apart (stride byte offset); a k8 step starts 32 bytes on in the row.
 __device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+  return wrp::sw128_desc(addr, 16, 1024);
 }
 
 // D (+)= A B for the warpgroup: m64n128k8, A (TF32) from registers, B from
@@ -163,65 +161,12 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4
         "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
 // wait until no committed wgmma group is in flight; d is read only after
 __device__ __forceinline__ void wgmma_wait_all(float (&d)[64]) {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-// plain (generic-proxy) shared-memory accesses before async-proxy ones
-// (wgmma's reads, TMA's writes): fence between them
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  wrp::wgmma_wait<0>();
+  wrp::fence_regs(d);
 }
 
-// mbarriers
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// wait for the phase of parity `parity` to complete; after ~10 s of
-// waiting it traps (a launch error the wrapper raises) where a lost
-// arrival would hang the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  long long start = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.b32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) {
-      start = clock64();
-    } else if (clock64() - start > (1ll << 34)) {
-      __trap();
-    }
-  }
-}
-// TMA: a 2-D box at (column c0, row c1) of `map` into shared memory `dst`,
-// its bytes counted on `bar`.
-__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                       uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
-      : "memory");
-}
 // B2^T: bt[j][h kh + k] (j < np_ columns, h = 0, 1 the halves of K, k <
 // kh = n rounded up to kBK) = B2[h n + k][j]: Br[k][j], Bi[k][j - n],
 // -Bi[k][j], Br[k][j - n] by quadrant; zero past n in a half and past 2n
@@ -273,7 +218,7 @@ __device__ __forceinline__ void chain(float (&d)[64], uint32_t ys, uint32_t bh, 
 #pragma unroll
     for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(v[e]), a_hi[s][e], a_lo[s][e]);
   }
-  wgmma_fence();                                // A and d were written by plain instructions
+  wrp::wgmma_fence();                           // A and d were written by plain instructions
 #pragma unroll
   for (int s = 0; s < kChain; ++s) {
     const uint32_t kb = (k0 + 8 * s) * 4;       // the k8 step's bytes into each row
@@ -281,7 +226,7 @@ __device__ __forceinline__ void chain(float (&d)[64], uint32_t ys, uint32_t bh, 
     wgmma_tf32(d, a_hi[s], b_desc(bl + kb), 1);
     wgmma_tf32(d, a_hi[s], b_desc(bh + kb), 1);
   }
-  wgmma_commit();
+  wrp::wgmma_commit();
 }
 
 // The stage's B lo plane: lo = rna(b - trunc(b)), trunc(b) the TF32 value
@@ -329,8 +274,8 @@ fused_stage2_kernel(const __grid_constant__ CUtensorMap map_yr,
   const int a_q = lane >> 4;
 
   if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < kStages; ++s) wrp::mbar_init(&full[s], 1);
+    wrp::fence_mbar_init();
   }
   __syncthreads();
 
@@ -344,9 +289,9 @@ fused_stage2_kernel(const __grid_constant__ CUtensorMap map_yr,
     const int half = kt / khalf;
     const int col = (kt - half * khalf) * kBK;
     char* st = smem + s * kStageBytes;
-    mbar_expect_tx(&full[s], kYBytes + kBBytes);
-    tma_2d(smem_u32(st), half ? &map_yi : &map_yr, col, r0, &full[s]);
-    tma_2d(smem_u32(st + kYBytes), &map_bt, half * kh + col, tile * kBN, &full[s]);
+    wrp::mbar_expect_tx(&full[s], kYBytes + kBBytes);
+    wrp::tma_2d(smem_u32(st), half ? &map_yi : &map_yr, col, r0, &full[s]);
+    wrp::tma_2d(smem_u32(st + kYBytes), &map_bt, half * kh + col, tile * kBN, &full[s]);
   };
   if (tid == 0) {
     for (int it = 0; it < kStages - 1 && it < total; ++it) issue(it);
@@ -362,9 +307,9 @@ fused_stage2_kernel(const __grid_constant__ CUtensorMap map_yr,
       if (tid == 0 && it + kStages - 1 < total) issue(it + kStages - 1);
       const int s = it % kStages;
       char* st = smem + s * kStageBytes;
-      mbar_wait(&full[s], (it / kStages) & 1);  // Y and B landed
+      wrp::mbar_wait(&full[s], (it / kStages) & 1);  // Y and B landed
       split_stage(st + kYBytes, st + kYBytes + kBBytes);
-      fence_proxy_async();
+      wrp::fence_proxy_async();
       __syncthreads();                          // the lo plane is written
       const uint32_t ys = smem_u32(st);
 #pragma unroll
@@ -374,7 +319,7 @@ fused_stage2_kernel(const __grid_constant__ CUtensorMap map_yr,
 #pragma unroll
         for (int i = 0; i < 64; ++i) acc[i] += d[i];
       }
-      fence_proxy_async();
+      wrp::fence_proxy_async();
       __syncthreads();                          // every warpgroup is done with stage s
     }
     // |Z|^2 of this tile into the rows: acc[4 i + 0, 1] are row g, columns
@@ -397,34 +342,12 @@ fused_stage2_kernel(const __grid_constant__ CUtensorMap map_yr,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
 // A 2-D fp32 tensor map of rows x cols (row pitch cols), boxes of box_rows
 // x kBK with the 128-byte swizzle; reads past the edges give zeros.
 cudaError_t tensor_map(CUtensorMap* map, const void* base, long long rows, int cols,
                        int box_rows) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(float)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBK), static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t step[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base),
-                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return wrp::tensor_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, sizeof(float), base, rows, cols,
+                            kBK, box_rows);
 }
 
 }  // namespace

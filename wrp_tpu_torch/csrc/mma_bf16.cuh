@@ -1,7 +1,8 @@
 // bf16 x bf16 -> fp32 tensor-core pieces for NVIDIA Hopper (sm_90a), as
 // inline PTX: `mma.sync.aligned.m16n8k16` with its operands loaded from
 // shared memory by `ldmatrix`, and the `cp.async` copies that stage them.
-// Shared by tc_occupancy.cu and int_split.cu.
+// Used by int_split.cu (the tensor-core probe, tc_occupancy.cu, runs
+// wgmma: hopper_async.cuh).
 //
 // Fragments of one m16n8k16 product (PTX ISA, "Matrix Fragments for
 // mma.m16n8k16"), lane l, g = l / 4, c = l % 4:
@@ -13,7 +14,7 @@
 //     (g + 8, 2c + 1).
 // `ldmatrix_a` loads A from a row-major tile; `ldmatrix_b2` loads two
 // B fragments (16 k x 16 n) from a ROW-major [k][n] tile with .trans, so the
-// pulse-major operand needs no transposed copy.  Row pitches should be an
+// k-major tile needs no transposed copy.  Row pitches should be an
 // odd multiple of 16 bytes (e.g. 8 bf16 of padding per row): the eight row
 // addresses of one 8 x 8 matrix then fall in distinct bank groups.
 #pragma once
@@ -67,15 +68,6 @@ __device__ __forceinline__ void ldmatrix_b2(uint32_t (&b)[4], const __nv_bfloat1
                : "r"(smem_addr(p)));
 }
 
-// The B fragment of columns n0..n0+7 alone (lanes 0-15 address its rows).
-__device__ __forceinline__ void ldmatrix_b1(uint32_t (&b)[2], const __nv_bfloat16* tile,
-                                            int pitch, int k0, int n0, int lane) {
-  const __nv_bfloat16* p = tile + (k0 + (lane & 15)) * pitch + n0;
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b[0]), "=r"(b[1])
-               : "r"(smem_addr(p)));
-}
-
 // d += A B on the tensor cores, bf16 operands, fp32 accumulation
 __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
                                                uint32_t b0, uint32_t b1) {
@@ -84,36 +76,6 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One warp's 16 x 8 NT tile of A B over k = 0..K-1 (K % 16 == 0): A rows
-// r0..r0+15 of a row-major tile `as`, B columns n0..n0 + 8 NT - 1 of a
-// row-major [k][n] tile `bs`; acc[j] is n-tile j in the C layout.
-template <int NT>
-__device__ __forceinline__ void warp_tile_mma(float (&acc)[NT][4], const __nv_bfloat16* as,
-                                              int a_pitch, int r0, const __nv_bfloat16* bs,
-                                              int b_pitch, int n0, int K, int lane) {
-#pragma unroll 2
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t af[4];
-    ldmatrix_a(af, as, a_pitch, r0, k0, lane);
-    if constexpr (NT % 2 == 0) {
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t bf[4];
-        ldmatrix_b2(bf, bs, b_pitch, k0, n0 + 8 * j, lane);
-        mma_bf16_16816(acc[j], af, bf[0], bf[1]);
-        mma_bf16_16816(acc[j + 1], af, bf[2], bf[3]);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        uint32_t bf[2];
-        ldmatrix_b1(bf, bs, b_pitch, k0, n0 + 8 * j, lane);
-        mma_bf16_16816(acc[j], af, bf[0], bf[1]);
-      }
-    }
-  }
 }
 
 }  // namespace wrp

@@ -163,15 +163,21 @@ def load_library() -> ctypes.CDLL:
                 "wrp_tc_dot_probe": [
                     ptr, ptr, ptr,                    # a, x, out
                     i32, i32, i32, i32,               # M, K, width, wmax
-                    i32, i32, i32, ptr],              # distinct, ndots, steps, stream
+                    i32, i32, i32, i32, ptr],         # distinct, ndots, steps, blocks, stream
                 "wrp_int_split_dot": [
                     ptr, ptr, ptr,                    # x, a, out
                     i32, i32, i32, ptr],              # m, n, variant, stream
+                # the launch's blocks (-1: shapes the entry refuses)
+                "wrp_int_split_dot_blocks": [i32, i32],               # m, n
             }
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = i32
+            # the persistent grid's units of a call (-1: refused shapes);
+            # M, K, width, ndots, steps
+            lib.wrp_tc_dot_probe_units.argtypes = [i32, i32, i32, i32, i32]
+            lib.wrp_tc_dot_probe_units.restype = i64
             lib.wrp_cuda_error_string.argtypes = [i32]
             lib.wrp_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

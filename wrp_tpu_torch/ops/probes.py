@@ -16,10 +16,12 @@ and launch counter:
   body's shared memory: every mode ablates that one body.
 * the tensor-core occupancy probe, csrc/tc_occupancy.cu: `tc_dot_probe`,
   plain `tc_dot_probe_reference`, `TC_PROBE_LAUNCHES`.  bf16 x bf16 ->
-  fp32 on the tensor cores (mma.sync).
+  fp32 on the tensor cores (wgmma fed by TMA, a persistent grid that
+  `tc_probe_plan` lays out).
 * the int16 -> bf16 split check, csrc/int_split.cu: `int_split_dot`, plain
-  `int_split_dot_reference`, `INT_SPLIT_LAUNCHES`; `split_planes` is the
-  split alone (plain torch, any device).
+  `int_split_dot_reference`, `INT_SPLIT_LAUNCHES`; one block per tile of
+  `int_split_tiles`; `split_planes` is the split alone (plain torch, any
+  device).
 
 Each wrapper sends a CPU tensor to the plain version; a CUDA tensor
 launches the kernel on the current stream or raises.  There is no fallback.
@@ -28,6 +30,8 @@ launches the kernel on the current stream or raises.  There is no fallback.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -227,9 +231,18 @@ def blocks_per_sm(plan, body: str, min_smem: int = 0) -> int:
 # ---------------------------------------------------------------------------
 
 
+#: csrc/tc_occupancy.cu's geometry: rows of the stacked A a block holds,
+#: columns a unit, the deepest K its row block fits in shared memory
+TC_ROWS = 256
+TC_COLS = 128
+TC_KMAX = 384
+
+
 def _probe_shape(a: torch.Tensor, x: torch.Tensor, width: int, steps: int,
                  distinct: int, lanes_total: int):
-    """(ndots, wmax) of a probe call, after checking its arguments."""
+    """(ndots, wmax) of a probe call, after checking its arguments against
+    what csrc/tc_occupancy.cu takes (on every device, so a shape the kernel
+    refuses raises the same ValueError on the CPU)."""
     if a.dtype != torch.bfloat16 or x.dtype != torch.bfloat16:
         raise TypeError(f"tc_dot_probe: a and x must be bfloat16, got "
                         f"{a.dtype}, {x.dtype}")
@@ -250,7 +263,57 @@ def _probe_shape(a: torch.Tensor, x: torch.Tensor, width: int, steps: int,
                          f"a holds {a.shape[0]}")
     if steps < 1:
         raise ValueError(f"tc_dot_probe: steps {steps} < 1")
+    M, K = a.shape[1], a.shape[2]
+    if M < 1 or K < 16 or K % 16 or K > TC_KMAX:
+        raise ValueError(f"tc_dot_probe: the kernel takes K % 16 == 0 and 16 "
+                         f"<= K <= {TC_KMAX} (M >= 1), got M {M}, K {K}")
+    if width % 8 or wmax % 8:
+        raise ValueError(f"tc_dot_probe: the kernel takes width and wmax "
+                         f"multiples of 8, got {width}, {wmax}")
+    if ndots * M > 2**31 - 1 or x.shape[1] > 2**31 - 1:
+        raise ValueError("tc_dot_probe: ndots * M and x's columns must fit "
+                         "in int32")
     return ndots, wmax
+
+
+@dataclasses.dataclass(frozen=True)
+class TcPlan:
+    """The persistent grid of one `tc_dot_probe` call: units (row block rb
+    of TC_ROWS rows of A[:ndots] stacked as [ndots M, K], step b, column
+    tile ct of TC_COLS columns), ordered rb, b, ct; block i of `blocks`
+    takes units [units i / blocks, units (i + 1) / blocks)."""
+    row_blocks: int
+    steps: int
+    col_tiles: int
+    blocks: int
+
+    @property
+    def units(self) -> int:
+        return self.row_blocks * self.steps * self.col_tiles
+
+    def block_units(self, i: int) -> range:
+        return range(self.units * i // self.blocks,
+                     self.units * (i + 1) // self.blocks)
+
+    def unit(self, u: int):
+        """(rb, b, ct) of unit u."""
+        t, ct = divmod(u, self.col_tiles)
+        rb, b = divmod(t, self.steps)
+        return rb, b, ct
+
+
+def tc_probe_plan(M: int, width: int, ndots: int, steps: int,
+                  sms: int) -> TcPlan:
+    """The grid of a call on a card of `sms` SMs: one block per SM, never
+    more blocks than units."""
+    row_blocks, col_tiles = -(-ndots * M // TC_ROWS), -(-width // TC_COLS)
+    return TcPlan(row_blocks, steps, col_tiles,
+                  max(1, min(sms, row_blocks * steps * col_tiles)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def tc_dot_probe_reference(a: torch.Tensor, x: torch.Tensor, width: int,
@@ -276,20 +339,24 @@ def tc_dot_probe(a: torch.Tensor, x: torch.Tensor, width: int, steps: int,
     (``tools/mxu_occupancy.py``'s kernel).
 
     A CPU tensor takes the plain version.  A CUDA tensor launches
-    csrc/tc_occupancy.cu (bf16 mma.sync, fp32 accumulation; M % 16 == 0 and
-    <= 128, K % 16 == 0, width and wmax % 8 == 0) or raises."""
+    csrc/tc_occupancy.cu (bf16 wgmma fed by TMA, fp32 accumulation, the
+    grid of `tc_probe_plan`; K % 16 == 0 and <= 384, width and wmax % 8 ==
+    0, any M) or raises.  Its blocks add into `out` with atomics, so `out`
+    is zeroed first (torch.zeros, a memset)."""
     global TC_PROBE_LAUNCHES
     ndots, wmax = _probe_shape(a, x, width, steps, distinct, lanes_total)
     if a.device.type == "cpu":
         return tc_dot_probe_reference(a, x, width, steps, distinct, lanes_total)
     _check_cuda(a, "tc_dot_probe")
     _check_operands("tc_dot_probe", a, x)
-    out = torch.zeros((steps, a.shape[1]), dtype=torch.float32, device=a.device)
+    M = a.shape[1]
+    plan = tc_probe_plan(M, width, ndots, steps, _sm_count(a.device.index))
+    out = torch.zeros((steps, M), dtype=torch.float32, device=a.device)
     lib = _build.load_library()
     with torch.cuda.device(a.device):
         rc = lib.wrp_tc_dot_probe(a.data_ptr(), x.data_ptr(), out.data_ptr(),
-                                  a.shape[1], a.shape[2], width, wmax, distinct,
-                                  ndots, steps, _stream(a))
+                                  M, a.shape[2], width, wmax, distinct, ndots,
+                                  steps, plan.blocks, _stream(a))
     fullchain._raise_on_error(lib, rc, "tc_dot_probe")
     TC_PROBE_LAUNCHES += 1
     return out
@@ -333,14 +400,28 @@ def int_split_dot_reference(x: torch.Tensor, a: torch.Tensor,
     return af @ hi.to(torch.float32) + af @ lo.to(torch.float32)
 
 
+#: csrc/int_split.cu's tile of out per block, and the largest m its shared
+#: memory takes
+SPLIT_TILE = 32
+SPLIT_MMAX = 1024
+
+
+def int_split_tiles(m: int, n: int) -> list:
+    """(row0, col0) of each block's SPLIT_TILE x SPLIT_TILE tile of out
+    (csrc/int_split.cu's grid: ragged edge tiles store nothing past m, n)."""
+    return [(r, c) for r in range(0, m, SPLIT_TILE)
+            for c in range(0, n, SPLIT_TILE)]
+
+
 def int_split_dot(x: torch.Tensor, a: torch.Tensor, variant: str) -> torch.Tensor:
     """x [m, n] int16, a [m, m] bf16 -> A @ hi + A @ lo [m, n] f32, with the
-    split of `split_planes` (``tools/int_split_repro.py``'s kernel).
+    split of `split_planes` (``tools/int_split_repro.py``'s kernel).  The
+    shapes are those csrc/int_split.cu takes, on every device: m % 16 == 0
+    and 16 <= m <= 1024, n % 8 == 0.
 
     A CPU tensor takes the plain version.  A CUDA tensor launches
-    csrc/int_split.cu (the split in registers, the two dots on the tensor
-    cores; m % 16 == 0 and m <= 128 or a multiple of 128, n % 8 == 0) or
-    raises."""
+    csrc/int_split.cu (one block per tile of `int_split_tiles`, the split in
+    registers, the two dots on the tensor cores) or raises."""
     global INT_SPLIT_LAUNCHES
     if variant not in SPLIT_VARIANTS:
         raise ValueError(f"unknown split variant {variant!r}; variants "
@@ -351,11 +432,14 @@ def int_split_dot(x: torch.Tensor, a: torch.Tensor, variant: str) -> torch.Tenso
     if x.dim() != 2 or a.dim() != 2 or a.shape != (x.shape[0], x.shape[0]):
         raise ValueError(f"int_split_dot: x must be [m, n] and a [m, m], got "
                          f"{tuple(x.shape)}, {tuple(a.shape)}")
+    m, n = x.shape
+    if m < 16 or m % 16 or m > SPLIT_MMAX or n < 8 or n % 8:
+        raise ValueError(f"int_split_dot: the kernel takes m % 16 == 0, 16 <= "
+                         f"m <= {SPLIT_MMAX} and n % 8 == 0, got [{m}, {n}]")
     if x.device.type == "cpu":
         return int_split_dot_reference(x, a, variant)
     _check_cuda(x, "int_split_dot")
     _check_operands("int_split_dot", x, a)
-    m, n = x.shape
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     lib = _build.load_library()
     with torch.cuda.device(x.device):

@@ -17,7 +17,12 @@ on Y [48, 512, 512] beside torch.matmul (complex64 Y @ B), and, where the
 tree has them, the A-stage kernel at w = 512 and the row-epilogue kernel
 on its Y, each with its rel-L2 against the tree's own plain version, and
 the FFT-form kernels' blocks per SM and resident clusters where the tree
-has them; the number of kernels and of FFMA instructions in its library.  Last, one JSON line holds every kernel
+has them; the tensor-core probe at width 512 x 512 steps beside
+torch.matmul bf16 (a batched matmul per step and, where the tree's
+`mxu_occupancy` has it, one [m, ndots k] GEMM per step, each replayed
+from a CUDA graph), and the split dot's device time per call from a CUDA
+graph of 100 calls beside torch.matmul fp32's; the number of kernels and
+of FFMA instructions in its library.  Last, one JSON line holds every kernel
 the trees share by name whose `-Xptxas=-v` report (registers, stack,
 spills, shared memory) or SASS FFMA count differs from the first tree's
 ("ptxas_differs", "ffma_differs"; kernels that are not in both trees, as
@@ -247,12 +252,85 @@ def _measure(tree: str) -> dict:
     if hasattr(fullchain, "fft_occupancy"):
         out["occupancy"] = {body: fullchain.fft_occupancy(plan, body)
                             for body in ("radix", "wire", "astage")}
+    _probes(out, ms, rel)
     so = _build.library_path()
     tool_dir = Path(_build._nvcc()).parent
     out["ptxas"] = ptxas_report(so.with_suffix(".log").read_text(), tool_dir)
     out["ffma"] = {k: v["FFMA"]
                    for k, v in sass_opcode_counts(so, tool_dir).items()}
     return out
+
+
+def graph_ms(fn, calls: int = 100) -> float:
+    """Device ms per call of fn: `calls` calls captured once in a CUDA graph
+    (warmed on a side stream first), the best of 5 replays timed with CUDA
+    events.  The host's work per call (Python, ctypes) is not in it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        best = min(best, a.elapsed_time(b) / calls)
+    return best
+
+
+def _probes(out: dict, ms, rel) -> None:
+    """The tensor-core probe (#11) and the split dot (#12) at the tools'
+    default shapes, with their library yardsticks (the same in every tree:
+    they time the library, not the tree)."""
+    import numpy as np
+    import torch
+
+    from wrp_tpu_torch.ops import probes
+    from wrp_tpu_torch.tools import mxu_occupancy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bf = torch.bfloat16
+    m, k, lanes, distinct, width, steps = 128, 384, 24 * 512, 4, 512, 512
+    nd = lanes // width
+    rng = np.random.default_rng(2024)
+    a = torch.from_numpy(rng.standard_normal((nd, m, k), dtype=np.float32)
+                         ).to(bf).cuda()
+    x = torch.from_numpy(rng.standard_normal((k, distinct * 2048),
+                                             dtype=np.float32)).to(bf).cuda()
+
+    out["tc_ms"] = ms(lambda: probes.tc_dot_probe(a, x, width, steps,
+                                                  distinct, lanes), 10)
+    out["tc_rel"] = rel(probes.tc_dot_probe_reference(a, x, width, 32,
+                                                      distinct, lanes),
+                        probes.tc_dot_probe(a, x, width, 32, distinct, lanes))
+    out["tc_library_ms"] = ms(mxu_occupancy.library_steps(
+        a, x, width, steps, distinct, nd), 10)
+    if hasattr(mxu_occupancy, "library_kcat_steps"):
+        out["tc_library_kcat_ms"] = ms(mxu_occupancy.library_kcat_steps(
+            a, x, width, steps, distinct, nd), 10)
+    rng = np.random.default_rng(0)
+    x14 = torch.from_numpy(rng.integers(-8192, 8192, (128, 512),
+                                        dtype=np.int16)).cuda()
+    a14 = torch.from_numpy(rng.standard_normal((128, 128)).astype(np.float32)
+                           ).to(bf).cuda()
+    af, xf = a14.float(), x14.float()
+    out["split_graph_ms"] = graph_ms(
+        lambda: probes.int_split_dot(x14, a14, "int"))
+    out["split_rel"] = rel(probes.int_split_dot_reference(x14, a14, "int"),
+                           probes.int_split_dot(x14, a14, "int"))
+    out["split_library_graph_ms"] = graph_ms(lambda: torch.matmul(af, xf))
 
 
 def main(argv) -> int:

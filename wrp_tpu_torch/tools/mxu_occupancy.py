@@ -11,9 +11,10 @@ and JSON line.  Each step dots ndots = lanes_total / width bf16 operators
 A_d [m, k] with the `width` columns of one staged X slab [k, width] (slab b
 mod distinct, so consecutive steps read different data) and writes the row
 sums of the summed products: the same multiply-adds per step at every
-width.  The kernel (`ops.probes.tc_dot_probe`, csrc/tc_occupancy.cu) stages
-each A_d once per block and reuses it over the slab's `width` columns, so
-the sweep measures what operand reuse buys on the tensor cores.
+width.  The kernel (`ops.probes.tc_dot_probe`, csrc/tc_occupancy.cu: bf16
+wgmma fed by TMA) keeps 256 rows of the stacked A_d resident per block
+and streams the slabs' columns past them, so the sweep measures what
+operand reuse buys on the tensor cores.
 
 Per width: `us_per_step`, `effective_tmacs`, `runs_s` (best of 3 spans of
 one launch of `steps` steps, CUDA events) and `tensor_core_utilisation`,
@@ -22,7 +23,11 @@ replaces the JAX tool's `mxu_utilisation` against TPU v5e's 197 TFLOP/s.
 `library_us_per_step` times torch.matmul on the same bf16 operands and
 slabs, batched [ndots, m, k] @ [k, width], one call per step, replayed
 from a CUDA graph so that the host's issue rate does not set it (the
-library's yardstick; the port never calls it).  `device` names the card.
+library's yardstick; the port never calls it).  It writes [ndots, m,
+width] a step, which the probe never does; `library_kcat_us_per_step`
+times the same multiply-adds as one GEMM a step, [m, ndots k] @ [ndots k,
+width] (`library_kcat_steps`), whose [m, width] output is the probe's sum
+over dots.  `device` names the card.
 On the CPU (`--device cpu`) the plain version runs and
 `tensor_core_utilisation` is null.  Without CUDA and without `--device
 cpu` it exits 2.
@@ -76,13 +81,45 @@ def library_steps(a, x, width: int, steps: int, distinct: int, ndots: int):
             c0 = (b % distinct) * wmax
             torch.matmul(a[:ndots], x[:, c0:c0 + width])
 
-    if a.device.type != "cuda":
+    return _graphed(calls, a.device)
+
+
+def kcat_operands(a, x, ndots: int):
+    """(a_cat [m, ndots k], x_rep [ndots k, cols]): the A_d side by side and
+    X stacked ndots times, so that a_cat @ x_rep[:, slab] = sum_d A_d @
+    X[:, slab], the probe's multiply-adds in one GEMM."""
+    m, k = a.shape[1], a.shape[2]
+    return (a[:ndots].permute(1, 0, 2).reshape(m, ndots * k).contiguous(),
+            x.repeat(ndots, 1))
+
+
+def library_kcat_steps(a, x, width: int, steps: int, distinct: int,
+                       ndots: int):
+    """fn() running the second yardstick: one GEMM a step, a_cat @
+    x_rep[:, slab] (`kcat_operands`, built once here, outside the timed
+    calls) -> [m, width].  On the card the calls replay from a CUDA graph,
+    as `library_steps`'s do."""
+    wmax = x.shape[1] // distinct
+    a_cat, x_rep = kcat_operands(a, x, ndots)
+
+    def calls():
+        for b in range(steps):
+            c0 = (b % distinct) * wmax
+            torch.matmul(a_cat, x_rep[:, c0:c0 + width])
+
+    return _graphed(calls, a.device)
+
+
+def _graphed(calls, dev):
+    """calls, or on the card a replay of them captured in a CUDA graph
+    (cuBLAS warmed on a side stream first)."""
+    if dev.type != "cuda":
         return calls
-    side = torch.cuda.Stream(a.device)          # warm cuBLAS off the graph
-    side.wait_stream(torch.cuda.current_stream(a.device))
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(side):
         calls()
-    torch.cuda.current_stream(a.device).wait_stream(side)
+    torch.cuda.current_stream(dev).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         calls()
@@ -122,6 +159,8 @@ def run(argv=None) -> dict:
             raise RuntimeError(f"width {width}: non-finite output")
         lib_dt, _ = best_of_3(library_steps(a, x, width, args.steps,
                                             args.distinct, ndots), dev)
+        kcat_dt, _ = best_of_3(library_kcat_steps(a, x, width, args.steps,
+                                                  args.distinct, ndots), dev)
         out[f"n{width}"] = {
             "us_per_step": round(dt / args.steps * 1e6, 3),
             "effective_tmacs": round(macs / dt / 1e12, 2),
@@ -129,6 +168,7 @@ def run(argv=None) -> dict:
                                         if dev.type == "cuda" else None),
             "runs_s": [round(r, 4) for r in runs],
             "library_us_per_step": round(lib_dt / args.steps * 1e6, 3),
+            "library_kcat_us_per_step": round(kcat_dt / args.steps * 1e6, 3),
         }
         print(f"N={width}: {out[f'n{width}']}", file=sys.stderr)
     return out
