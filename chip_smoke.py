@@ -35,12 +35,15 @@ Phases (each prints its results; any failure raises and exits non-zero):
       repeats; each passes its parity gate with value > 0, and its offset
       counter equals its launches;
    d. the probes (the TPU tools' kernels), each through its entry point in
-      wrp_tpu_torch/tools/: the radix chain's ablations (dots, combine) at
-      batch 16 on the noise and clip-bin slabs vs their plain versions
-      (<= 1e-5), `full` bit-identical to the salted radix offset entry,
-      then `kernel_breakdown.run` at 8 repeats (equal blocks per SM across
-      modes and the A-stage run at the fused kernel's shared memory, dots'
-      SASS keeps the unrolled contraction's FFMAs); the
+      wrp_tpu_torch/tools/: the breakdown's four modes (dots, splits,
+      combine, full: the TPU algorithm on bf16 wgmma) at batch 16 on the
+      noise and clip-bin slabs vs their plain versions (<= 1e-5), `full`
+      vs the FFT-form salted radix offset entry and the fp64 oracle of the
+      salted samples (<= 1e-5), the other geometries of its contract (m =
+      512, n = 256, 128, 64) vs plain, then `kernel_breakdown.run` at 8 repeats
+      (equal blocks per SM across modes and the A-stage at the breakdown
+      body's shared memory; HGMMA in every mode's SASS, as many in each;
+      no wgmma serialisation warning); the
       tensor-core probe (bf16 wgmma fed by TMA: its SASS holds HGMMA and
       no HMMA, ptxas serialises no wgmma) on identity operands (16 x 16 x
       8; M = 64 and 192 at widths 8, 136 and 256: exact), its persistent
@@ -176,6 +179,9 @@ PROBE_TOL = 1e-5          # an ablation or the tensor-core probe vs its plain ve
 SPLIT_TOL = 1e-6          # the split dot vs its plain version and vs fp32 A @ x
 PROBE_STEPS = 32          # tensor-core probe steps checked against the plain version
 BREAKDOWN_REPEATS = 8     # kernel_breakdown.run's repeats here (its default: 128)
+#: (m, n) of the breakdown kernel's contract checked beside 1024 x 512
+BREAKDOWN_GEOMETRIES = ((512, 512), (1024, 256), (1024, 64), (512, 128),
+                        (1024, 192), (512, 384), (1024, 320), (1024, 448))
 
 # H100 SXM peaks for the bound (NVIDIA data sheet, 700 W): fp32 on the CUDA
 # cores, dense bf16 and TF32 on the tensor cores and HBM3 bandwidth
@@ -332,6 +338,36 @@ def cuda_ms(fn, reps: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def queued_ms(fn, reps: int = 20) -> float:
+    """ms per call of `reps` calls queued back to back between two CUDA
+    events: the card's time, the host's work for each call hidden under
+    the calls before it (cuda_ms times one call, and so also the host work
+    that outlasts an empty queue)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """ms of host work per call of `fn` (its Python and launch), not
+    waiting for the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e3
 
 
 def adversarial_sector(cfg, seed: int = 3) -> np.ndarray:
@@ -1550,88 +1586,139 @@ def print_ptxas(pattern: str) -> None:
             print(f"ptxas: {name}: {line}", flush=True)
 
 
-def probe_breakdown(noise, adv) -> dict:
-    """The matrix-form radix chain's ablations (csrc/kernel_breakdown.cu, the
-    TPU algorithm's body, the port's first production kernel) at batch 16 (48
-    channel-sectors) on the noise and clip-bin slabs, salted: dots, combine
-    and full vs their plain versions, full also vs the production FFT-form
-    salted entry; then `kernel_breakdown.run` (its launches counted) with
-    its attribution, its blocks per SM (equal across modes) and its SASS
-    FFMA counts (dots keeps the unrolled contraction)."""
+def probe_breakdown(orc: Oracle, noise, adv) -> dict:
+    """The breakdown's four modes (csrc/kernel_breakdown.cu: the TPU
+    algorithm's salted radix chain on bf16 wgmma, one body) at batch 16 (48
+    channel-sectors) on the noise and clip-bin slabs, salted: each vs its
+    plain version, `full` also vs the production FFT-form salted entry and
+    the fp64 oracle of the salted samples; then `kernel_breakdown.run` (its
+    launches counted) with its attribution, its blocks per SM (equal across
+    modes) and its SASS (HGMMA in every mode, as many in each; no wgmma
+    serialisation warning from ptxas)."""
     cfg = DEFAULT_CONFIG
-    plan = fullchain.build_plan(PipelineConstants.build(cfg), "cuda")
+    bp = probes.breakdown_plan(PipelineConstants.build(cfg), "cuda")
+    plan = bp.plan
     x_all = torch.cat(list(seq_inputs(noise, adv).values()))
     bc, salt = BATCH * cfg.num_channels, BENCH_SALTS[0]
     worst = max_abs = 0.0
-    for off, label in ((0, "noise"), (bc, "clip-bin")):
+    for off, label, secs in ((0, "noise", noise), (bc, "clip-bin", [adv] * BATCH)):
         for mode in probes.ABLATION_MODES:
-            got = probes.radix_chain_ablation(x_all, plan, mode, off, bc, salt)
+            got = probes.radix_chain_ablation(x_all, bp, mode, off, bc, salt)
             torch.cuda.synchronize()
             e, a = rel_dev(probes.radix_chain_ablation_reference(
-                x_all, plan, mode, off, bc, salt), got)
-            if mode == "full":
-                e2, _ = rel_dev(fullchain.fused_chain_power_radix(
-                    x_all, plan, offset=off, bc=bc, salt=salt), got)
-                check(e2 <= POWER_TOL,
-                      f"ablation full {label}: the matrix form vs the FFT-form "
-                      f"salted radix offset entry rel-L2 {e2:.3e} <= {POWER_TOL}")
+                x_all, bp, mode, off, bc, salt), got)
             worst, max_abs = max(worst, e), max(max_abs, a)
-            check(e <= PROBE_TOL, f"ablation {mode} {label} salt {salt}: kernel "
+            check(e <= PROBE_TOL, f"breakdown {mode} {label} salt {salt}: kernel "
                                   f"vs plain rel-L2 {e:.3e} <= {PROBE_TOL} "
                                   f"(max abs {a:.3e})")
+            if mode != "full":
+                continue
+            e2, _ = rel_dev(fullchain.fused_chain_power_radix(
+                x_all, plan, offset=off, bc=bc, salt=salt), got)
+            check(e2 <= POWER_TOL,
+                  f"breakdown full {label}: vs the FFT-form salted radix offset "
+                  f"entry rel-L2 {e2:.3e} <= {POWER_TOL}")
+            pk = got.cpu().numpy().reshape(BATCH, cfg.num_channels, -1)
+            eo = max(rel(orc.power((cfg.m, cfg.n, label, s, salt),
+                                   secs[s] + salt * (1 + 1j), cfg)[c], pk[s, c])
+                     for s in range(BATCH) for c in range(cfg.num_channels))
+            check(eo <= POWER_TOL,
+                  f"breakdown full {label}: vs the fp64 oracle of the salted "
+                  f"samples, worst channel-sector rel-L2 {eo:.3e} <= {POWER_TOL}")
+    # the rest of the kernel's contract: M = 64 (one q half), clusters of
+    # 8, 4, 1 and 3, 6, 5, 7 pulse tiles (the merge's last block then
+    # takes fewer rows), on 6 channel-sectors from offset 1
+    for m, n in BREAKDOWN_GEOMETRIES:
+        bpg = probes.breakdown_plan(PipelineConstants.build(tiny_config(m=m, n=n)),
+                                    "cuda")
+        xg = torch.from_numpy(np.random.default_rng(SEED + m + n).integers(
+            -8192, 8192, (8, 2, m, n), dtype=np.int16)).cuda()
+        for mode in probes.ABLATION_MODES:
+            got = probes.radix_chain_ablation(xg, bpg, mode, 1, 6, BENCH_SALTS[-1])
+            torch.cuda.synchronize()
+            e, a = rel_dev(probes.radix_chain_ablation_reference(
+                xg, bpg, mode, 1, 6, BENCH_SALTS[-1]), got)
+            check(e <= PROBE_TOL, f"breakdown {mode} at {m} x {n}: kernel vs plain "
+                                  f"rel-L2 {e:.3e} <= {PROBE_TOL} (max abs {a:.3e})")
     t = {}
     for mode in probes.ABLATION_MODES:
         t[mode] = timed({
             "plain": lambda: probes.radix_chain_ablation_reference(
-                x_all, plan, mode, 0, bc, salt),
+                x_all, bp, mode, 0, bc, salt),
             "kernel": lambda: probes.radix_chain_ablation(
-                x_all, plan, mode, 0, bc, salt)},
+                x_all, bp, mode, 0, bc, salt)},
             ("plain", "kernel", "kernel", "plain"))
+    t["fft_entry"] = timed({"kernel": lambda: fullchain.fused_chain_power_radix(
+        x_all, plan, offset=0, bc=bc, salt=salt)}, ("kernel", "kernel"))
+    # `full` against the FFT-form salted entry on the card alone: one call a
+    # turn (above) also times the host work that outlasts the empty queue,
+    # and the two wrappers' host work differs; queued, it hides
+    pair = {"full": lambda: probes.radix_chain_ablation(x_all, bp, "full", 0, bc, salt),
+            "fft_entry": lambda: fullchain.fused_chain_power_radix(
+                x_all, plan, offset=0, bc=bc, salt=salt)}
+    queued = {name: [] for name in pair}
+    for name in ("full", "fft_entry", "fft_entry", "full"):
+        queued[name].append(queued_ms(pair[name]))
+    host = {name: host_ms(fn) for name, fn in pair.items()}
+    print("full vs the FFT-form salted entry, queued 20 a turn (ms a call, "
+          "order full/fft_entry/fft_entry/full): " + json.dumps(queued)
+          + "; host ms a call " + json.dumps(host), flush=True)
+    queued = {name: min(v) for name, v in queued.items()}
     reset_counts()
     r = kernel_breakdown.run(["--repeats", str(BREAKDOWN_REPEATS)])
     launches = read_counts()
     print("kernel_breakdown (repeats " + str(BREAKDOWN_REPEATS) + "): "
           + json.dumps(r), flush=True)
     occ = {mode: r[mode]["blocks_per_sm"] for mode in probes.ABLATION_MODES}
-    ffma = {mode: ops["FFMA"] for mode, ops in r["sass"].items()}
-    T = fullchain.kernel_tile(plan)
     occ["astage_at_fused_smem"] = r["astage_at_fused_smem"]["blocks_per_sm"]
     check(len(set(occ.values())) == 1,
-          f"ablations at the production occupancy: blocks per SM {occ}, the "
-          f"A-stage at its own 8 KB {r['astage']['blocks_per_sm']}")
-    check(ffma["dots"] >= 8 * 4 * T and ffma["combine"] > ffma["dots"]
-          and ffma["full"] > ffma["combine"],
-          f"SASS FFMA: dots {ffma['dots']} (>= {8 * 4 * T}, the contraction "
-          f"unrolled by 8), combine {ffma['combine']} (+{ffma['combine'] - ffma['dots']}"
-          f"), full {ffma['full']} (+{ffma['full'] - ffma['combine']}), A-stage "
-          f"{ffma['astage']}")
-    check(launches["breakdown"] == 5 * 4 * r["steps"]
+          f"one body at one occupancy: blocks per SM {occ}, the A-stage at its "
+          f"own 8 KB {r['astage']['blocks_per_sm']}")
+    hgmma = {mode: r["sass"][mode]["HGMMA"] for mode in probes.ABLATION_MODES}
+    check(min(hgmma.values()) > 0 and len(set(hgmma.values())) == 1,
+          f"SASS HGMMA per mode {hgmma}: every mode's dots on the tensor cores, "
+          f"none compiled away")
+    log = _build.library_path().with_suffix(".log").read_text()
+    serial = [ln for ln in log.splitlines()
+              if re.search(r"wgmma", ln, re.I) and re.search(r"serializ|warn", ln, re.I)]
+    check(not serial, f"ptxas: no wgmma serialisation warning ({serial[:2]})")
+    check(launches["breakdown"] == 6 * 4 * r["steps"]
           and launches["radix_offset"] == launches["astage"] == 0,
           f"kernel_breakdown launches: {launches['breakdown']} of "
-          f"csrc/kernel_breakdown.cu (dots, combine, full, the matrix-form "
-          f"A-stage at its own and at the full body's shared memory; "
-          f"{r['steps']} steps x (warm + 3 spans) each); production entries "
-          f"{launches['radix_offset']} radix, {launches['astage']} A-stage")
+          f"csrc/kernel_breakdown.cu (dots, splits, combine, full, the "
+          f"matrix-form A-stage at its own and at the breakdown body's shared "
+          f"memory; {r['steps']} steps x (warm + 3 spans) each); production "
+          f"entries {launches['radix_offset']} radix, {launches['astage']} A-stage")
     bound_ms, bound_by = bound(2.0 * bc * 2 * cfg.m * cfg.n,
                                bc * 2 * cfg.m * cfg.n * 2
-                               + plan.a_kernel.numel() * 4 + bc * cfg.m // 2 * 4)
+                               + bp.a_kcat.numel() * 2 + bc * cfg.m // 2 * 4)
+    # the matrix form's tensor-core floor: 24 dots of [M, 3M] @ [3M, n] a
+    # channel-sector, printed beside the bound, never as it
+    M = cfg.m // plan.radix
+    tc_ms = 1e3 * bc * 24 * 2 * M * 3 * M * cfg.n / PEAK_BF16
     att = r["attribution_us"]
-    print(f"ablations per launch of {bc} channel-sectors: dots "
-          f"{t['dots']['kernel']:.3f} ms (plain {t['dots']['plain']:.3f}), "
-          f"combine {t['combine']['kernel']:.3f} ms (plain "
-          f"{t['combine']['plain']:.3f}), full {t['full']['kernel']:.3f} ms "
-          f"(plain {t['full']['plain']:.3f}), bound {bound_ms:.3f} ms ({bound_by}); "
-          f"the tool: dots {r['dots']['ms_per_launch']}, combine "
-          f"{r['combine']['ms_per_launch']}, full {r['full']['ms_per_launch']}, "
-          f"A-stage {r['astage']['ms_per_launch']} (at the fused kernel's "
-          f"shared memory {r['astage_at_fused_smem']['ms_per_launch']}) ms; "
-          f"attribution (us per channel-step) {json.dumps(att)}; SASS "
+    print(f"breakdown per launch of {bc} channel-sectors: "
+          + ", ".join(f"{mode} {t[mode]['kernel']:.3f} ms (plain "
+                      f"{t[mode]['plain']:.3f})" for mode in probes.ABLATION_MODES)
+          + f"; bound {bound_ms:.4f} ms ({bound_by}); the matrix form's "
+          f"tensor-core floor {tc_ms:.4f} ms; full vs the FFT-form salted entry "
+          f"at {bc}: one call a turn {t['full']['kernel']:.3f} vs "
+          f"{t['fft_entry']['kernel']:.3f} ms, queued {queued['full']:.3f} vs "
+          f"{queued['fft_entry']:.3f} ms "
+          f"({queued['fft_entry'] / queued['full']:.3f}x); the tool: " + ", ".join(f"{k} {r[k]['ms_per_launch']}" for k in
+                                        (*probes.ABLATION_MODES, "astage",
+                                         "astage_at_fused_smem"))
+          + f" ms; attribution (us per channel-step) {json.dumps(att)}; SASS "
           f"{json.dumps(r['sass'])}", flush=True)
     return {"max_abs_err": max_abs, "rel_l2": worst, "ms": t["dots"]["kernel"],
             "plain_ms": t["dots"]["plain"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
-            "launches": launches["breakdown"],
-            "modes": {m: t[m]["kernel"] for m in t}, "tool": r}
+            "launches": launches["breakdown"], "tensor_core_floor_ms": tc_ms,
+            "fft_entry_ms": t["fft_entry"]["kernel"],
+            "full_queued_ms": queued["full"], "fft_entry_queued_ms": queued["fft_entry"],
+            "host_ms": host,
+            "modes": {m: t[m]["kernel"] for m in probes.ABLATION_MODES},
+            "tool": r}
 
 
 @functools.lru_cache(maxsize=None)
@@ -1865,13 +1952,13 @@ def probe_split() -> dict:
             "python_ms": t["kernel"], "library_python_ms": t["library"]}
 
 
-def phase_probes(noise, adv) -> dict:
+def phase_probes(orc: Oracle, noise, adv) -> dict:
     """The three probe kernels and their entry points (the TPU tools'
     kernels), at production geometry.  fp32 yardsticks with TF32 off."""
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    print_ptxas(r"tc_dot_kernel|int_split_kernel|body[0-3]>")
-    out = {"breakdown": probe_breakdown(noise, adv), "tc": probe_tc(),
+    print_ptxas(r"tc_dot_kernel|int_split_kernel|breakdown_kernel|radix_chain_kernel")
+    out = {"breakdown": probe_breakdown(orc, noise, adv), "tc": probe_tc(),
            "split": probe_split()}
     torch.cuda.empty_cache()
     print(f"probes phase: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1902,7 +1989,7 @@ def main() -> int:
     offsets = phase_offsets(noise, adv)
     stage2 = phase_stage2(orc, noise)
     bench_launches = phase_bench()
-    probe = phase_probes(noise, adv)
+    probe = phase_probes(orc, noise, adv)
     radix = phase_kernel(orc, noise, adv)
     wire = phase_kernel_wire(orc, noise, adv)
     dense = phase_kernel_dense(orc)
@@ -1961,7 +2048,12 @@ def main() -> int:
                      "wrp_tpu_torch/csrc/kernel_breakdown.cu",
                      "tools/kernel_breakdown.py:158",
                      probe["breakdown"]["launches"], probe["breakdown"],
-                     modes=probe["breakdown"]["modes"]),
+                     form="bf16 wgmma, TMA, cluster-merged epilogue",
+                     modes=probe["breakdown"]["modes"],
+                     tensor_core_floor_ms=probe["breakdown"]["tensor_core_floor_ms"],
+                     fft_entry_ms=probe["breakdown"]["fft_entry_ms"],
+                     full_queued_ms=probe["breakdown"]["full_queued_ms"],
+                     fft_entry_queued_ms=probe["breakdown"]["fft_entry_queued_ms"]),
         kernel_entry("tc_dot_probe (width 512, 512 steps)",
                      "wrp_tpu_torch/csrc/tc_occupancy.cu",
                      "tools/mxu_occupancy.py:110",

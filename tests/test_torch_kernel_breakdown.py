@@ -1,13 +1,16 @@
 """The in-kernel time breakdown's ablations (`ops.probes.radix_chain_ablation`)
 and their entry point, `python -m wrp_tpu_torch.tools.kernel_breakdown`, on
-the CPU: the plain versions of the modes against wrp_tpu and a float64
-restatement, the JSON contract and the refusals.  wrp_tpu's tool
+the CPU: the port's kcat operator against wrp_tpu's, the plain versions of
+the four modes against restatements built from wrp_tpu's own functions
+(`_split_bf16`, `_radix_contract`) and against float64, the kernel's shape
+contract, the JSON contract and the refusals.  wrp_tpu's tool
 (tools/kernel_breakdown.py) has no CPU mode (no interpret=), so it is not
 run; `full` is held against wrp_tpu's radix kernel in interpret mode on
 the salted samples, as tests/test_torch_offsets.py does (wrp_tpu ignores
-the salt in interpret mode).  The CUDA kernels are checked on the card by
+the salt in interpret mode).  The CUDA kernel is checked on the card by
 chip_smoke.py (phase_probes)."""
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -34,6 +37,9 @@ torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parent.parent
 M, N = 64, 32          # radix 8, M = 8 sub-DFT rows, tile 8
 BC, SLABS = 6, 3       # channel-sectors per slab, staged slabs
+#: the JAX tool's attribution keys, in its order
+JAX_ATTRIBUTION = ("mxu_dma_cast_floor", "lo_splits", "butterfly_combine",
+                   "epilogue")
 
 
 def _staged(seed=0):
@@ -42,8 +48,8 @@ def _staged(seed=0):
 
 
 def _plan(m=M, n=N):
-    return fullchain.build_plan(PipelineConstants.build(tiny_config(m=m, n=n)),
-                                "cpu")
+    return probes.breakdown_plan(PipelineConstants.build(tiny_config(m=m, n=n)),
+                                 "cpu")
 
 
 def _close(want, got):
@@ -56,21 +62,104 @@ def _salted(x, slab, salt):
     return x[slab * BC:(slab + 1) * BC].astype(np.float64) + salt
 
 
+def _jax_consts(m=M, n=N):
+    return JConsts.build(jtiny(m=m, n=n))
+
+
+@pytest.mark.parametrize("m", [64, 32, 16])
+def test_kcat_operator_and_fac_are_bit_equal_to_wrp_tpu(m):
+    """The port's own copy of radix_plan_host(layout="kcat"): the same bf16
+    bits (torch and JAX both round to nearest even) and the same fac."""
+    consts = _jax_consts(m)
+    radix = jfull.radix_for(m)
+    want, want_fac = jfull.radix_plan_host(consts, radix, layout="kcat")
+    got, fac = probes.kcat_operator(
+        PipelineConstants.build(tiny_config(m=m, n=N)), radix)
+    assert got.dtype == torch.bfloat16
+    assert tuple(got.shape) == np.asarray(want).shape == (
+        radix, 3, m // radix, 3 * m // radix)
+    assert np.array_equal(np.asarray(want).view(np.uint16),
+                          got.view(torch.int16).numpy().view(np.uint16))
+    assert [list(row) for row in fac] == [list(row) for row in want_fac]
+
+
+def _jax_branches(x, slab, salt, lo_planes):
+    """wrp_tpu's kcat dots in jax.numpy on the slab: per branch p (rows
+    p::R) and Gauss product, _split_bf16 of the salted f32 plane stacked
+    [xh; xl; xh] ([xh; xh; xh] without lo planes) against
+    radix_plan_host's kcat operator -> [(gr, gi)] per branch, [BC, M, N]."""
+    consts = _jax_consts()
+    a, _ = jfull.radix_plan_host(consts, 8, layout="kcat")
+    a = jnp.asarray(a)
+    v = jnp.asarray(x[slab * BC:(slab + 1) * BC].astype(np.float32)) + jnp.float32(salt)
+    G = []
+    for p in range(8):
+        vr, vi = v[:, 0, p::8], v[:, 1, p::8]
+        prods = []
+        for g, plane in enumerate((vr, vi, vr + vi)):
+            hi, lo = jfull._split_bf16(plane)
+            stack = jnp.concatenate([hi, lo if lo_planes else hi, hi], axis=1)
+            prods.append(jnp.einsum("tk,ukj->utj", a[p, g], stack,
+                                    preferred_element_type=jnp.float32))
+        m1, m2, m3 = prods
+        G.append((m1 - m2, m3 - m1 - m2))
+    return G
+
+
+@pytest.mark.parametrize("mode", ["dots", "splits"])
+@pytest.mark.parametrize("slab,salt", [(0, 0), (1, 7), (2, 95)])
+def test_dots_and_splits_match_wrp_tpus_split_and_kcat_operator(mode, slab, salt):
+    """dots/splits: row s M + t holds sum_j (Re + Im)(g_s + g_{s+S})[t, j],
+    the JAX tool's row sum, with g_p from wrp_tpu's _split_bf16 and kcat
+    operator (no lo planes in dots).  The products are exact in f32 on
+    both sides; only the order of the f32 sums differs."""
+    x = _staged(seed=3)
+    got = probes.radix_chain_ablation(torch.from_numpy(x), _plan(), mode,
+                                      slab * BC, BC, salt).numpy()
+    G = _jax_branches(x, slab, salt, lo_planes=mode == "splits")
+    want = np.concatenate([np.asarray(G[s][0] + G[s + 4][0] + G[s][1]
+                                      + G[s + 4][1]).sum(-1) for s in range(4)],
+                          axis=-1)
+    assert got.shape == (BC, M // 2)
+    assert _close(want, got) < 1e-6
+
+
+@pytest.mark.parametrize("slab,salt", [(0, 0), (1, 7), (2, 95), (1, -3)])
+def test_combine_matches_wrp_tpus_radix_contract(slab, salt):
+    """combine: the row sums of Yr + Yi, held against wrp_tpu's
+    _radix_contract (strided rows, the salt, its kcat dots and split-radix
+    combine) on each unit; the port's direct combine rounds in another
+    order."""
+    x = _staged(seed=4)
+    got = probes.radix_chain_ablation(torch.from_numpy(x), _plan(), "combine",
+                                      slab * BC, BC, salt).numpy()
+    consts = _jax_consts()
+    a, fac = jfull.radix_plan_host(consts, 8, layout="kcat")
+    want = []
+    for u in x[slab * BC:(slab + 1) * BC].astype(np.float32):
+        yr, yi = jfull._radix_contract(jnp.asarray(u[0]), jnp.asarray(u[1]),
+                                       jnp.asarray(a), 8, fac,
+                                       salt=jnp.float32(salt), strided_rows=True)
+        want.append(np.asarray(yr).sum(-1) + np.asarray(yi).sum(-1))
+    assert _close(want, got) < 1e-6
+
+
 @pytest.mark.parametrize("slab,salt", [(0, 0), (1, 7), (2, 95), (1, -3)])
 def test_full_is_the_salted_radix_entry_and_matches_jax(slab, salt):
     x = _staged()
-    plan = _plan()
+    bp = _plan()
     before = (probes.BREAKDOWN_LAUNCHES, fullchain.RADIX_OFFSET_LAUNCHES)
-    got = probes.radix_chain_ablation(torch.from_numpy(x), plan, "full",
+    got = probes.radix_chain_ablation(torch.from_numpy(x), bp, "full",
                                       slab * BC, BC, salt).numpy()
     assert (probes.BREAKDOWN_LAUNCHES,
             fullchain.RADIX_OFFSET_LAUNCHES) == before   # the CPU launches nothing
     assert got.shape == (BC, M // 2)
-    # the matrix-form chain of the salted radix entry (the port's first
-    # production body, which the breakdown ablates)
-    assert np.array_equal(got, fullchain.fused_chain_power_reference(
-        torch.from_numpy(x[slab * BC:(slab + 1) * BC]), plan, salt).numpy())
-    consts = JConsts.build(jtiny(m=M, n=N))
+    # the salted radix entry's chain in fp32 (the matrix form): the bf16
+    # operands drop the al * xl term, ~2^-17 of each product
+    assert _close(fullchain.fused_chain_power_reference(
+        torch.from_numpy(x[slab * BC:(slab + 1) * BC]), bp.plan, salt).numpy(),
+        got) < 2e-5
+    consts = _jax_consts()
     radix = jfull.radix_for(M)
     a_np, fac = jfull.radix_plan_host(consts, radix)
     order = jfull.radix_row_order(M, radix)
@@ -78,7 +167,10 @@ def test_full_is_the_salted_radix_entry_and_matches_jax(slab, salt):
     want = np.asarray(jfull.fused_chain_power_radix(
         jnp.asarray(planar), jnp.asarray(a_np), fac, jnp.asarray(consts.wd),
         jnp.asarray(consts.clip_phasors), interpret=True))
-    assert _close(want, got) < 2e-5    # wrp_tpu drops the bf16 lo*lo term
+    # both drop the same lo*lo term of the same split; what differs is the
+    # order of the f32 sums, the split-radix combine and wrp_tpu's clip-bin
+    # projections on bf16x3 operands (4e-7 measured)
+    assert _close(want, got) < 1e-6
 
 
 @pytest.mark.parametrize("slab,salt", [(0, 0), (1, 7), (2, 95)])
@@ -98,42 +190,69 @@ def test_combine_is_the_row_sum_of_jax_half_spectrum_dft(slab, salt):
 
 @pytest.mark.parametrize("m,salt", [(64, 0), (64, 7), (32, 5), (16, 2)])
 def test_dots_matches_a_float64_restatement(m, salt):
-    """dots: row s M + t holds sum_j (Re + Im)(g_s + g_{s+S})[t, j], g_p =
-    A_p x[p::R] the branch contractions of the port's plan (held equal to
-    wrp_tpu's operators by tests/test_torch_constants.py), no combine; at
-    radix 8, 4 and 2."""
+    """dots: row s M + t holds sum_j (Re + Im)(g_s + g_{s+S})[t, j], g_p the
+    branch contractions of the kcat operator (held bit-equal to wrp_tpu's
+    above) on [xh; xh; xh], xh = bf16(x + salt), no combine; restated in
+    float64 at radix 8, 4 and 2."""
     x = _staged(seed=2)[:, :, :m]
-    plan = _plan(m=m)
-    R, S, Mr = plan.radix, plan.radix // 2, m // plan.radix
+    bp = _plan(m=m)
+    R, S, Mr = bp.plan.radix, bp.plan.radix // 2, m // bp.plan.radix
     got = probes.radix_chain_ablation(torch.from_numpy(np.ascontiguousarray(x)),
-                                      plan, "dots", BC, BC, salt).numpy()
-    a = plan.a.double().numpy()
-    ac = a[:, 0] + 1j * a[:, 1]                     # [R, M, M] A_p[t, q]
-    xs = _salted(x, 1, salt)
-    xc = xs[:, 0] + 1j * xs[:, 1]                   # [BC, m, n]
+                                      bp, "dots", BC, BC, salt).numpy()
+    a = bp.a_kcat.double().numpy()                  # [R, 3, M, 3M]
+    xs = _salted(x, 1, salt).astype(np.float32)
+    xh = torch.from_numpy(xs).to(torch.bfloat16).double().numpy()
     want = np.zeros((BC, S, Mr))
     for p in range(R):
-        g = np.einsum("tq,uqj->utj", ac[p], xc[:, p::R])
-        want[:, p % S] += g.real.sum(-1) + g.imag.sum(-1)
+        vr, vi = xh[:, 0, p::R], xh[:, 1, p::R]
+        vs = torch.from_numpy(xs[:, 0, p::R] + xs[:, 1, p::R]).to(
+            torch.bfloat16).double().numpy()
+        m1, m2, m3 = (np.einsum("tk,ukj->utj", a[p, g], np.concatenate([v] * 3, 1))
+                      for g, v in enumerate((vr, vi, vs)))
+        want[:, p % S] += (m1 - m2 + m3 - m1 - m2).sum(-1)
     assert R == {64: 8, 32: 4, 16: 2}[m]
     assert _close(want.reshape(BC, -1), got) < 1e-5
+
+
+@pytest.mark.parametrize("m,n,radix,ok", [
+    (1024, 512, 8, True), (512, 512, 8, True), (1024, 64, 8, True),
+    (1024, 256, 8, True), (1024, 576, 8, False), (1024, 480, 8, False),
+    (2048, 512, 8, False), (256, 512, 8, False), (1024, 512, 4, False),
+    (64, 32, 8, False), (1024, 192, 8, True), (512, 384, 8, True),
+    (1024, 320, 8, True), (1024, 448, 8, True)])
+def test_kernel_shape_contract(m, n, radix, ok):
+    """csrc/kernel_breakdown.cu takes radix 8 with M = 64 or 128 and n a
+    multiple of 64 up to 512 (a cluster of at most 8 pulse tiles, 3, 5, 6
+    and 7 included: the merge's last block takes fewer rows); the plain
+    versions take the rest."""
+    why = probes.breakdown_refusal(m, n, radix)
+    assert (why is None) == ok, why
+
+
+def test_fused_smem_bytes_is_one_body_for_every_mode():
+    """One dynamic shared memory for the four modes, under a block's 227 KB
+    at m = 1024 (the stats of the cluster merge reuse the x planes)."""
+    big = dataclasses.replace(_plan().plan, m=1024, n=512)
+    assert probes.fused_smem_bytes(big) == 231936 <= 227 * 1024
+    # the merge's stats, [2 tiles][4 S x 64 rows][BD_STAT] f32, fit the x
+    # planes at M = 64, the smallest
+    assert probes.BD_STAT == 12
+    assert 2 * 256 * probes.BD_STAT * 4 <= 6 * 64 * probes.BD_TILE * 2
 
 
 def test_ablation_refusals():
     x = torch.from_numpy(_staged())
     plan = _plan()
-    with pytest.raises(ValueError, match="no counterpart"):
-        probes.radix_chain_ablation(x, plan, "splits", 0, BC, 0)
+    out = probes.radix_chain_ablation(x, plan, "splits", 0, BC, 0)
+    assert out.shape == (BC, M // 2) and bool(torch.isfinite(out).all())
     with pytest.raises(ValueError, match="unknown ablation mode"):
         probes.radix_chain_ablation(x, plan, "epilogue", 0, BC, 0)
     with pytest.raises(ValueError, match="outside"):
         probes.radix_chain_ablation(x, plan, "dots", SLABS * BC - 1, BC, 0)
     with pytest.raises(ValueError, match="int32"):
         probes.radix_chain_ablation(x, plan, "combine", 0, BC, 2 ** 31)
-    dense = fullchain.build_plan(PipelineConstants.build(tiny_config(m=40)),
-                                 "cpu")
     with pytest.raises(ValueError, match="radix plan"):
-        probes.radix_chain_ablation(x, dense, "dots", 0, BC, 0)
+        probes.breakdown_plan(PipelineConstants.build(tiny_config(m=40)), "cpu")
 
 
 @pytest.mark.parametrize("demangled,key", [
@@ -147,13 +266,22 @@ def test_ablation_refusals():
      "void wrp::radix_chain_kernel<wrp::PlanarSource<short>, 4, 8, body0>"),
     ("void wrp::radix_chain_kernel<wrp::WireSource, (int)2, (int)4, (bool)1>"
      "(wrp::WireSource)",
-     "void wrp::radix_chain_kernel<wrp::WireSource, 2, 4, body1>"),
+     "void wrp::radix_chain_kernel<wrp::WireSource, 2, 4>"),
+    ("void wrp::radix_chain_kernel<wrp::PlanarSource<short>, (int)4, (int)8, "
+     "(wrp::Body)1>(wrp::PlanarSource<short>, float const*, float const*, "
+     "float const*, float const*, float*, int, int)",
+     "void wrp::radix_chain_kernel<wrp::PlanarSource<short>, 4, 8>"),
+    ("void wrp::radix_chain_kernel<wrp::PlanarSource<short>, (int)4, (int)8>"
+     "(wrp::PlanarSource<short>, float const*, float const*, float*, int, int)",
+     "void wrp::radix_chain_kernel<wrp::PlanarSource<short>, 4, 8>"),
     ("void <unnamed>::int_split_kernel<(int)8, (bool)1>(short const*, float*)",
      "void <unnamed>::int_split_kernel<8, 1>"),
 ])
 def test_kernel_key_names_a_body_alike_across_trees(demangled, key):
     """The SASS and ptxas reports key kernels by name: the radix body's
-    bool flag (earlier trees) and Body enum (this one) compare equal."""
+    bool flag and Body enum (earlier trees) compare equal, and their
+    A-stage (flag or body 1) keys as this tree's A-stage, whose template
+    has no body argument."""
     from wrp_tpu_torch.tools.kernel_ab import kernel_key
 
     assert kernel_key(demangled) == key
@@ -177,17 +305,18 @@ def test_cli_smoke_prints_the_json_contract():
     r = json.loads(lines[0])
     assert r["device"] == "cpu" and r["geometry"] == "3x64x32"
     assert r["steps"] == 2 and r["batch"] == 16
-    for mode in ("dots", "combine", "full", "astage", "astage_at_fused_smem"):
+    for mode in ("dots", "splits", "combine", "full", "astage",
+                 "astage_at_fused_smem"):
         assert set(r[mode]) == {"us_per_channel_step", "ms_per_launch",
                                 "sectors_per_second", "runs_s",
                                 "blocks_per_sm"}
         assert r[mode]["us_per_channel_step"] > 0
         assert len(r[mode]["runs_s"]) == 3
         assert r[mode]["blocks_per_sm"] is None       # a card's number
-    assert set(r["attribution_us"]) == {"dots_floor", "butterfly_combine",
-                                        "epilogue"}
-    assert r["attribution_us"]["dots_floor"] == r["dots"]["us_per_channel_step"]
-    assert r["fused_smem_bytes"] == (2 * 4 * 8 * 32 + 2 * 8 * 8) * 4
+    assert set(r["attribution_us"]) == set(JAX_ATTRIBUTION)
+    assert (r["attribution_us"]["mxu_dma_cast_floor"]
+            == r["dots"]["us_per_channel_step"])
+    assert r["fused_smem_bytes"] == probes.fused_smem_bytes(_plan().plan)
     assert r["sass"] is None                          # a card's build
 
 
@@ -196,10 +325,18 @@ def test_modes_subset_has_no_attribution():
     assert "dots" in r and "combine" not in r and "attribution_us" not in r
 
 
-def test_splits_mode_exits_2():
-    out = _cli("--smoke", "--modes", "dots,splits")
-    assert out.returncode == 2 and out.stdout == ""
-    assert "no counterpart" in out.stderr
+def test_splits_mode_runs_with_the_jax_attribution():
+    """The JAX tool's four keys (tools/kernel_breakdown.py:201-208), each
+    the difference of two modes' times as it computes them."""
+    r = kernel_breakdown.run(["--smoke", "--device", "cpu", "--modes",
+                              "dots,splits,combine,full"])
+    att, t = r["attribution_us"], {m: r[m]["us_per_channel_step"]
+                                   for m in probes.ABLATION_MODES}
+    assert list(att) == list(JAX_ATTRIBUTION)
+    assert att["mxu_dma_cast_floor"] == t["dots"]
+    assert att["lo_splits"] == round(t["splits"] - t["dots"], 3)
+    assert att["butterfly_combine"] == round(t["combine"] - t["splits"], 3)
+    assert att["epilogue"] == round(t["full"] - t["combine"], 3)
 
 
 def test_no_cuda_without_device_cpu_exits_2():

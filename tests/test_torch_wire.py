@@ -205,9 +205,6 @@ def test_wire_and_dense_wrappers_on_cpu():
     assert tfull.dense_tile(dplan) == 10
     assert tfull.dense_tile(dataclasses.replace(dplan, m=1000, n=512)) == 10
     assert tfull.dense_tile(dataclasses.replace(dplan, m=8, n=512)) == 4
-    prod = dataclasses.replace(plan, radix=8, m=1024, n=512)
-    assert tfull.kernel_tile(prod) == 8
-    assert tfull.kernel_tile(dataclasses.replace(prod, m=32)) == 4
 
 
 class _MemoryFeed:

@@ -1,8 +1,9 @@
 // Hopper's asynchronous pieces as inline PTX, for NVIDIA H100 (sm_90a):
 // mbarriers, TMA tile copies, the wgmma issue/commit/wait protocol, the
 // shared-memory matrix descriptor of a 128-byte-swizzled tile, and the
-// host's tensor-map encoder.  Shape-independent; shared by fused_stage2.cu
-// and tc_occupancy.cu (each kernel keeps its own wgmma shape).
+// host's tensor-map encoder.  Shape-independent; shared by fused_stage2.cu,
+// tc_occupancy.cu and kernel_breakdown.cu (each kernel keeps its own wgmma
+// shape).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
@@ -74,6 +75,25 @@ __device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, int
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
       : "memory");
 }
+// a 3-D box at coordinates (c0, c1, c2), innermost first, of `map`
+__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                       int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+// a 4-D box at coordinates (c0, c1, c2, c3), innermost first, of `map`
+__device__ __forceinline__ void tma_4d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                       int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
+      : "memory");
+}
 // plain (generic-proxy) shared-memory accesses before async-proxy ones
 // (wgmma's reads, TMA's writes): fence between them
 __device__ __forceinline__ void fence_proxy_async() {
@@ -127,30 +147,55 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// A 2-D tensor map of rows x cols elements of `elem_bytes` (row pitch cols,
-// 16-byte aligned base and pitch), boxes of box_rows x box_cols (box_cols
-// x elem_bytes <= 128) with the 128-byte swizzle; reads past the edges
-// give zeros.  The driver's encoder comes through the runtime, so nothing
-// links against libcuda.
-inline cudaError_t tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
-                                 const void* base, long long rows, long long cols, int box_cols,
-                                 int box_rows) {
+// libcuda's cuTensorMapEncodeTiled, reached through the runtime (nothing
+// links against libcuda); null where it is missing.
+inline EncodeTiled tensor_map_encoder() {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess) {
+      return nullptr;
+    }
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
+  return encode;
+}
+
+// A 2-D tensor map of rows x cols elements of `elem_bytes` (row pitch cols,
+// 16-byte aligned base and pitch), boxes of box_rows x box_cols (box_cols
+// x elem_bytes <= 128) with the 128-byte swizzle; reads past the edges
+// give zeros.
+inline cudaError_t tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                                 const void* base, long long rows, long long cols, int box_cols,
+                                 int box_rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t step[2] = {1, 1};
   const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, step,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A tensor map of `rank` (<= 5) dimensions dims[] (innermost first), byte
+// strides[] of dimensions 1 .. rank - 1 (multiples of 16), boxes box[],
+// with `swizzle` (SWIZZLE_NONE: a box lands in shared memory densely,
+// innermost first; SWIZZLE_128B: rows of 128 bytes in 1024-byte atoms).
+inline cudaError_t tensor_map_nd(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                                 const void* base, const cuuint64_t* dims,
+                                 const cuuint64_t* strides, const cuuint32_t* box,
+                                 CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t step[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base),
+                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -148,18 +148,18 @@ def load_library() -> ctypes.CDLL:
                     ptr, i64, ptr,                    # scratch, its floats, out
                     i64, i32, f32,                    # total_rows, n, tap_sum
                     ptr],                             # stream
-                "wrp_radix_chain_ablation": [
-                    ptr, ptr, ptr, ptr, ptr, ptr,     # x, a, fac, wd, ph, out
-                    i32, i32, i32, i32, i32, i64,     # bc, m, n, radix, tile, offset
+                "wrp_breakdown": [
+                    ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # x, a (kcat), fac, wd, ph, phi, out
+                    i64, i32, i32, i32, i64,          # units_total, bc, m, n, offset
                     i32, i32, ptr],                   # salt, mode, stream
+                # resident blocks per SM (the last argument, int*)
+                "wrp_breakdown_blocks_per_sm": [i32, i32, i32, ptr],   # mode, m, n
                 "wrp_radix_chain_astage": [
                     ptr, ptr, ptr, ptr,               # x (int16), a, fac, y
                     i32, i32, i32, i32, i32,          # bc, m, w, radix, tile
                     i64, ptr],                        # min_smem, stream
-                # resident blocks per SM (the last argument, int*)
-                "wrp_radix_chain_ablation_blocks_per_sm": [
-                    i32, i32, i32, i32, i32, i64,     # mode, radix, tile, m, n, min_smem
-                    ptr],
+                "wrp_radix_chain_astage_blocks_per_sm": [
+                    i32, i32, i32, i64, ptr],         # radix, tile, m, min_smem
                 "wrp_tc_dot_probe": [
                     ptr, ptr, ptr,                    # a, x, out
                     i32, i32, i32, i32,               # M, K, width, wmax

@@ -95,8 +95,8 @@ DENSE_MATRIX_LAUNCHES = 0    # the matrix kernel of fused_chain_dense.cu
 
 RADIX = 8
 
-#: tile heights (sub-DFT rows per block) the radix and wire kernels are
-#: instantiated for
+#: tile heights (sub-DFT rows per block) the matrix-form A-stage of the
+#: in-kernel time breakdown is instantiated for (csrc/radix_chain.cuh)
 KERNEL_TILES = (8, 4, 2)
 
 #: tile heights (rows of Y per block) the dense kernel is instantiated for,
@@ -561,20 +561,6 @@ def fft_chain_power_reference(x: torch.Tensor, plan: RadixPlan,
     (`merged_epilogue_reference`) at the kernel's chunk sizes."""
     yr, yi = fft_stage_reference(x, plan, salt)
     return merged_epilogue_reference(yr, yi, plan)
-
-
-def kernel_tile(plan: RadixPlan) -> int:
-    """Tallest tile of the radix and wire kernels whose Y rows [S*T, n] and
-    operator slice [M, T] fit in one block's shared memory (T = 8 at
-    m = 1024, n = 512: 136 KB).  The wire kernel gives each block one
-    channel, so its tile is the planar one."""
-    S = plan.radix // 2
-    M = plan.m // plan.radix
-    for t in KERNEL_TILES:
-        if M % t == 0 and (2 * S * t * plan.n + 2 * t * M) * 4 <= MAX_SMEM_BYTES:
-            return t
-    raise ValueError(f"no kernel tile fits m={plan.m}, n={plan.n} in "
-                     f"{MAX_SMEM_BYTES} bytes of shared memory")
 
 
 def dense_tile(plan: RadixPlan) -> int:

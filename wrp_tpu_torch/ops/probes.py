@@ -9,11 +9,13 @@ and launch counter:
 * the in-kernel time breakdown, csrc/kernel_breakdown.cu:
   `radix_chain_ablation`, plain `radix_chain_ablation_reference`, and
   `radix_chain_astage`, plain `radix_chain_astage_reference`, all counted
-  in `BREAKDOWN_LAUNCHES`.  The TPU algorithm's matrix-form salted radix
-  chain (csrc/radix_chain.cuh, the port's first production body; production
-  now runs the FFT form, csrc/fft_chain.cuh) whole ("full") and with work
-  removed ("dots", "combine"), and its A-stage at its own or the full
-  body's shared memory: every mode ablates that one body.
+  in `BREAKDOWN_LAUNCHES`.  The TPU algorithm's salted radix chain in its
+  own arithmetic (bf16 hi/lo operands, the kcat operator of
+  `kcat_operator`, bf16 wgmma with fp32 accumulation) whole ("full") and
+  with work removed ("dots", "splits", "combine"), one body for every mode;
+  beside it the matrix-form A-stage of csrc/radix_chain.cuh (fp32 SIMT) at
+  its own or the breakdown body's shared memory.  Production runs the FFT
+  form (csrc/fft_chain.cuh).
 * the tensor-core occupancy probe, csrc/tc_occupancy.cu: `tc_dot_probe`,
   plain `tc_dot_probe_reference`, `TC_PROBE_LAUNCHES`.  bf16 x bf16 ->
   fp32 on the tensor cores (wgmma fed by TMA, a persistent grid that
@@ -33,8 +35,10 @@ import ctypes
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 
+from ..pipeline import stage_b_parseval
 from . import _build, fullchain
 
 #: kernel launches, counted where each wrapper launches its CUDA kernel and
@@ -43,14 +47,10 @@ BREAKDOWN_LAUNCHES = 0      # kernel_breakdown.cu (every mode, the A-stage)
 TC_PROBE_LAUNCHES = 0       # tc_occupancy.cu
 INT_SPLIT_LAUNCHES = 0      # int_split.cu
 
-ABLATION_MODES = ("dots", "combine", "full")
-#: the matrix-form bodies' wrp::Body values (csrc/radix_chain.cuh)
-_BODY = {"full": 0, "astage": 1, "dots": 2, "combine": 3}
-#: why the TPU tool's `splits` mode has no counterpart
-SPLITS_REFUSAL = ("mode 'splits' has no counterpart in the port: its chain "
-                  "kernel contracts in fp32 and does no bf16 hi/lo operand "
-                  "split (csrc/radix_chain.cuh); the split's cost on the "
-                  "tensor cores is what int_split_dot measures")
+#: the TPU tool's four modes, in its order (tools/kernel_breakdown.py)
+ABLATION_MODES = ("dots", "splits", "combine", "full")
+#: csrc/kernel_breakdown.cu's Mode values
+_MODE = {"full": 0, "dots": 1, "splits": 2, "combine": 3}
 
 #: lanes dotted per step by the tensor-core probe at every width: the
 #: chain kernel's 24 dots x 512 pulses per channel-step
@@ -84,51 +84,152 @@ def _check_operands(name: str, *ts: torch.Tensor) -> None:
 # ---------------------------------------------------------------------------
 
 
-def radix_chain_ablation_reference(x_all: torch.Tensor, plan, mode: str,
-                                   offset: int, bc: int, salt: int) -> torch.Tensor:
+#: csrc/kernel_breakdown.cu's geometry: pulses a block (two consumer
+#: warpgroups of 32), operator slots in its ring (each a 64-deep K chunk of
+#: the three Gauss products), the largest cluster (pulse tiles of a unit)
+BD_TILE = 64
+BD_STAGES = 4
+BD_MAX_CLUSTER = 8
+#: the Chan merge's tiles: one per warpgroup, BD_TILE / 2 pulses
+BD_MERGE_COLS = 32
+#: floats of one (tile, row) stat of the merge (kStat): mean re, im, the
+#: sum of squares, eight phasor projections, one of padding for 16-byte loads
+BD_STAT = 12
+
+
+@dataclasses.dataclass(frozen=True)
+class BreakdownPlan:
+    """What the breakdown's kernel reads beside the radix plan: the TPU's
+    K-concatenated operator and the phasor sums of the Chan merge's tiles.
+    Built once per geometry (`breakdown_plan`); the production chain never
+    reads it."""
+    plan: fullchain.RadixPlan
+    a_kcat: torch.Tensor     # [R, 3, M, 3M] bf16: per Gauss product [ah | ah | al]
+    phi: torch.Tensor        # [n / BD_MERGE_COLS, 4] f32: sum of each phasor over a tile
+
+
+def kcat_operator(consts, radix: int):
+    """wrp_tpu's `radix_plan_host(consts, radix, layout="kcat")` in torch:
+    (a [R, 3, M, 3M] bf16, fac [S][R] complex).  Per branch p and Gauss
+    product (re, im, re + im of A_p in float64, cast to f32), the hi/lo
+    split hi = bf16(a), lo = bf16(a - hi) (round to nearest even, as JAX
+    casts) laid along K as [hi | hi | lo], matching x's [xh; xl; xh]."""
+    a, fac = fullchain.radix_plan(consts, radix)
+    per_branch = []
+    for ap in a:
+        products = []
+        for mat in (ap.real, ap.imag, ap.real + ap.imag):
+            f = torch.from_numpy(np.ascontiguousarray(mat).astype(np.float32))
+            hi = f.to(torch.bfloat16)
+            lo = (f - hi.to(torch.float32)).to(torch.bfloat16)
+            products.append(torch.cat([hi, hi, lo], dim=1))
+        per_branch.append(torch.stack(products))
+    return torch.stack(per_branch), fac
+
+
+def breakdown_plan(consts, device) -> BreakdownPlan:
+    """The radix plan of `consts` with the breakdown's operator and tile
+    phasor sums, on `device`."""
+    plan = fullchain.build_plan(consts, device)
+    if plan.radix < 2:
+        raise ValueError(f"the breakdown needs the radix plan (m={plan.m} "
+                         "splits into no radix branches)")
+    a, _ = kcat_operator(consts, plan.radix)
+    phi = fullchain.fft_round_phasor_sums(consts.clip_phasors, BD_MERGE_COLS)
+    return BreakdownPlan(plan=plan, a_kcat=a.to(device),
+                         phi=torch.from_numpy(phi).to(device))
+
+
+def breakdown_refusal(m: int, n: int, radix: int) -> str | None:
+    """Why csrc/kernel_breakdown.cu does not take the geometry, or None: it
+    takes radix 8 with M = m / 8 of 64 or 128 (m = 512, 1024) and n a
+    multiple of BD_TILE up to BD_TILE x BD_MAX_CLUSTER (512).  The plain
+    versions take any radix geometry."""
+    if radix != 8 or m % 8 or m // 8 not in (64, 128):
+        return (f"the kernel takes radix 8 with m / 8 = 64 or 128, got m={m}, "
+                f"radix {radix}")
+    if n % BD_TILE or not BD_TILE <= n <= BD_TILE * BD_MAX_CLUSTER:
+        return (f"the kernel takes n % {BD_TILE} == 0 and n <= "
+                f"{BD_TILE * BD_MAX_CLUSTER}, got n={n}")
+    return None
+
+
+def fused_smem_bytes(plan) -> int:
+    """The breakdown body's dynamic shared memory per block, every mode
+    alike (226.5 KB at m = 1024): 1 KB of alignment, the operator ring
+    (BD_STAGES slots of 24 KB, the three Gauss products' chunks of 64 rows
+    t x 64 K columns), the x planes (hi and lo of re, im, re + im: 6 x [M,
+    64] bf16), the int16 staging ([2, M, 64]), the tile's window and
+    phasors (5 x 64 f32) and the barriers."""
+    M = plan.m // plan.radix
+    return 1024 + BD_STAGES * 3 * 8192 + 8 * M * BD_TILE * 2 + 5 * BD_TILE * 4 + 256
+
+
+def _split_planes(v: torch.Tensor, lo: bool):
+    """f32 v -> (hi, lo) as f32 values: hi = bf16(v), lo = bf16(v - hi)
+    (wrp_tpu's _split_bf16), or lo = hi without lo planes (`dots`)."""
+    hi = v.to(torch.bfloat16).to(torch.float32)
+    if not lo:
+        return hi, hi
+    return hi, (v - hi).to(torch.bfloat16).to(torch.float32)
+
+
+def radix_chain_ablation_reference(x_all: torch.Tensor, bp: BreakdownPlan,
+                                   mode: str, offset: int, bc: int,
+                                   salt: int) -> torch.Tensor:
     """Plain torch version of `radix_chain_ablation` on the slab x_all[offset:
-    offset + bc] with `salt` added to every sample -> [bc, m/2] f32:
+    offset + bc] with `salt` added to every sample in f32 -> [bc, m/2] f32.
 
-    * full: the matrix-form chain's power (`fullchain.fused_chain_power_reference`);
-    * combine: sum_j (Yr + Yi)[row, j] of the half-spectrum range DFT Y;
-    * dots: row s M + t holds sum_j (Re + Im)(g_s + g_{s+S})[t, j], g_p =
-      A_p x_p the branch contractions, without the combine."""
-    slab = x_all[offset:offset + bc]
-    if mode == "full":
-        return fullchain.fused_chain_power_reference(slab, plan, salt)
-    x = slab.to(torch.float32) + float(salt)
-    if mode == "combine":
-        yr, yi = fullchain._contract_reference(x, plan)
-        return yr.sum(-1) + yi.sum(-1)
-    if mode != "dots":
-        raise ValueError(f"unknown ablation mode {mode!r}")
+    The TPU kernel's arithmetic: per branch p (rows p::R) and Gauss product
+    (re, im, re + im of x) the stack [xh; xl; xh] against the kcat
+    operator [ah | ah | al] (products exact in fp32, summed in fp32), g_p =
+    (m1 - m2, m3 - m1 - m2); `dots` without lo planes ([xh; xh; xh]).
+    dots, splits: row s M + t holds sum_j (Re + Im)(g_s + g_{s+S})[t, j];
+    combine: the row sums of Yr + Yi, Y_s = sum_p fac[s][p] g_p; full: the
+    Parseval epilogue of Y (`pipeline.stage_b_parseval`)."""
+    plan = bp.plan
     R, S = plan.radix, plan.radix // 2
+    x = x_all[offset:offset + bc].to(torch.float32) + float(salt)
     xr, xi = x[:, 0], x[:, 1]
-    ar, ai = plan.a[:, 0], plan.a[:, 1]
-    blocks = [0.0] * S
+    a = bp.a_kcat.to(torch.float32)
+    lo = mode != "dots"
+    G = []
     for p in range(R):
-        vr, vi = xr[:, p::R, :], xi[:, p::R, :]
-        gr = ar[p] @ vr - ai[p] @ vi
-        gi = ar[p] @ vi + ai[p] @ vr
-        blocks[p % S] = blocks[p % S] + gr.sum(-1) + gi.sum(-1)
-    return torch.cat(blocks, dim=-1)
+        prods = []
+        for g, v in enumerate((xr[:, p::R], xi[:, p::R], xr[:, p::R] + xi[:, p::R])):
+            h, l = _split_planes(v, lo)
+            prods.append(a[p, g] @ torch.cat([h, l, h], dim=-2))
+        m1, m2, m3 = prods
+        G.append((m1 - m2, m3 - m1 - m2))
+    if mode in ("dots", "splits"):
+        return torch.cat([(G[s][0] + G[s + S][0] + G[s][1] + G[s + S][1]).sum(-1)
+                          for s in range(S)], dim=-1)
+    ys_r, ys_i = [0.0] * S, [0.0] * S
+    for p, (gr, gi) in enumerate(G):
+        for s in range(S):
+            f = plan.fac[s][p]
+            ys_r[s] = ys_r[s] + (f.real * gr - f.imag * gi)
+            ys_i[s] = ys_i[s] + (f.real * gi + f.imag * gr)
+    yr, yi = torch.cat(ys_r, dim=-2), torch.cat(ys_i, dim=-2)
+    if mode == "combine":
+        return yr.sum(-1) + yi.sum(-1)
+    return stage_b_parseval(yr, yi, plan.wd, plan.phasors)
 
 
-def radix_chain_ablation(x_all: torch.Tensor, plan, mode: str, offset: int,
-                         bc: int, salt: int) -> torch.Tensor:
-    """One mode of the TPU algorithm's matrix-form salted radix chain on
-    `bc` channel-sectors of the staged x_all [BC, 2, m, n] int16 (natural
-    row order) from channel-sector `offset`, with the int32 `salt` added to
-    every sample -> [bc, m/2] f32 (see `radix_chain_ablation_reference`):
-    "full" the whole chain, "dots" and "combine" with work removed, each
-    launched from csrc/kernel_breakdown.cu at the full body's grid and
-    shared memory.  "splits" (the TPU tool's bf16 hi/lo split) raises: the
-    port's chain has no split.  A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel or raises."""
+def radix_chain_ablation(x_all: torch.Tensor, bp: BreakdownPlan, mode: str,
+                         offset: int, bc: int, salt: int) -> torch.Tensor:
+    """One mode of the TPU algorithm's salted radix chain (its matrix form
+    on bf16 hi/lo operands) on `bc` channel-sectors of the staged x_all
+    [BC, 2, m, n] int16 (natural row order) from channel-sector `offset`,
+    with the int32 `salt` added to every sample -> [bc, m/2] f32 (see
+    `radix_chain_ablation_reference`): dots, splits, combine, full, every
+    mode one body of csrc/kernel_breakdown.cu on one grid at one shared
+    memory.  A CPU tensor takes the plain version (any radix geometry); a
+    CUDA tensor launches the kernel (`breakdown_refusal` says what it
+    takes) or raises."""
     global BREAKDOWN_LAUNCHES
+    plan = bp.plan
     name = f"radix_chain_ablation ({mode})"
-    if mode == "splits":
-        raise ValueError(SPLITS_REFUSAL)
     if mode not in ABLATION_MODES:
         raise ValueError(f"unknown ablation mode {mode!r}; modes "
                          f"{', '.join(ABLATION_MODES)}")
@@ -137,35 +238,33 @@ def radix_chain_ablation(x_all: torch.Tensor, plan, mode: str, offset: int,
                          "into no radix branches)")
     start, count = fullchain._slab(x_all.shape[0], offset, bc, salt, name, "bc")
     if x_all.device.type == "cpu":
-        return radix_chain_ablation_reference(x_all, plan, mode, start, count,
+        return radix_chain_ablation_reference(x_all, bp, mode, start, count,
                                               salt)
     _check_cuda(x_all, name)
     if x_all.dtype != torch.int16:
         raise TypeError(f"{name}: the ablations are built for int16 input, "
                         f"got {x_all.dtype}")
     fullchain._check_planar(x_all, plan, name)
+    why = breakdown_refusal(plan.m, plan.n, plan.radix)
+    if why:
+        raise ValueError(f"{name}: {why}")
+    _check_operands(name, x_all, bp.a_kcat)
+    if count > 65535:
+        raise ValueError(f"{name}: bc {count} > 65535 (the grid's z extent)")
     out = torch.empty((count, plan.m // 2), dtype=torch.float32,
                       device=x_all.device)
     if count == 0:
         return out
     lib = _build.load_library()
     with torch.cuda.device(x_all.device):
-        rc = lib.wrp_radix_chain_ablation(
-            x_all.data_ptr(), plan.a_kernel.data_ptr(), plan.fac_t.data_ptr(),
-            plan.wd.data_ptr(), plan.phasors.data_ptr(), out.data_ptr(), count,
-            plan.m, plan.n, plan.radix, fullchain.kernel_tile(plan), start,
-            int(salt), _BODY[mode], _stream(x_all))
+        rc = lib.wrp_breakdown(
+            x_all.data_ptr(), bp.a_kcat.data_ptr(), plan.fac_t.data_ptr(),
+            plan.wd.data_ptr(), plan.phasors.data_ptr(), bp.phi.data_ptr(),
+            out.data_ptr(), x_all.shape[0], count, plan.m, plan.n, start,
+            int(salt), _MODE[mode], _stream(x_all))
     fullchain._raise_on_error(lib, rc, name)
     BREAKDOWN_LAUNCHES += 1
     return out
-
-
-def fused_smem_bytes(plan) -> int:
-    """The matrix-form fused kernel's dynamic shared memory per block: Y
-    [2, S T, n] and the operator slice [M, T, 2] in f32 (136 KB at
-    1024 x 512)."""
-    S, M, T = plan.radix // 2, plan.m // plan.radix, fullchain.kernel_tile(plan)
-    return (2 * S * T * plan.n + 2 * T * M) * 4
 
 
 def radix_chain_astage_reference(x: torch.Tensor, plan) -> torch.Tensor:
@@ -176,12 +275,11 @@ def radix_chain_astage_reference(x: torch.Tensor, plan) -> torch.Tensor:
 
 
 def radix_chain_astage(x: torch.Tensor, plan, min_smem: int = 0) -> torch.Tensor:
-    """The matrix-form A-stage (csrc/kernel_breakdown.cu, Body::kAStage of
-    csrc/radix_chain.cuh) on x [bc, 2, m, w] int16 -> Y [bc, 2, m/2, w] f32,
+    """The matrix-form A-stage (csrc/kernel_breakdown.cu, radix_chain_kernel
+    of csrc/radix_chain.cuh) on x [bc, 2, m, w] int16 -> Y [bc, 2, m/2, w] f32,
     with at least `min_smem` bytes of dynamic shared memory requested per
     block, which it does not use: at `fused_smem_bytes(plan)` it runs at
-    the full matrix body's occupancy, the breakdown's test of whether
-    shared memory sets that body's pace.  A CPU tensor takes the plain
+    the breakdown body's blocks per SM.  A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel or raises."""
     global BREAKDOWN_LAUNCHES
     name = "radix_chain_astage"
@@ -209,22 +307,23 @@ def radix_chain_astage(x: torch.Tensor, plan, min_smem: int = 0) -> torch.Tensor
 
 def blocks_per_sm(plan, body: str, min_smem: int = 0) -> int:
     """Resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
-    of the matrix-form int16 body `body` at the plan's geometry: a mode
-    ("full", "dots", "combine": salted) or "astage" (the A-stage on all n
-    pulses), at least `min_smem` bytes of dynamic shared memory.  Needs
-    CUDA."""
-    if body not in _BODY:
-        raise ValueError(f"unknown body {body!r}")
-    tile = (fullchain.astage_tile(plan) if body == "astage"
-            else fullchain.kernel_tile(plan))
+    at the plan's geometry of the breakdown body in mode `body` (one of
+    ABLATION_MODES, at its dynamic shared memory) or of "astage" (the
+    matrix-form A-stage on all n pulses, at least `min_smem` bytes of
+    dynamic shared memory).  Needs CUDA."""
     lib = _build.load_library()
     blocks = ctypes.c_int(0)
-    rc = lib.wrp_radix_chain_ablation_blocks_per_sm(
-        _BODY[body], plan.radix, tile, plan.m, plan.n, int(min_smem),
-        ctypes.addressof(blocks))
+    if body == "astage":
+        rc = lib.wrp_radix_chain_astage_blocks_per_sm(
+            plan.radix, fullchain.astage_tile(plan), plan.m, int(min_smem),
+            ctypes.addressof(blocks))
+    elif body in ABLATION_MODES:
+        rc = lib.wrp_breakdown_blocks_per_sm(_MODE[body], plan.m, plan.n,
+                                             ctypes.addressof(blocks))
+    else:
+        raise ValueError(f"unknown body {body!r}")
     fullchain._raise_on_error(lib, rc, f"blocks_per_sm ({body})")
     return blocks.value
-
 
 # ---------------------------------------------------------------------------
 # the tensor-core occupancy probe

@@ -10,7 +10,8 @@ to separate a code change from drift.  For each it builds the tree's kernel
 library and prints one JSON line: the card, the CUDA-event ms per call of
 the radix kernel (int16 and f32 input) and the wire kernel at 16 sectors
 of 3 x 1024 x 512, the radix kernel at m = 960 (an L = 15 leaf), the
-salted radix offset entry at the bench's 384 channel-sectors, the dense
+salted radix offset entry on those 48 channel-sectors at salt 7 (what the
+breakdown's `full` computes) and at the bench's 384, the dense
 entries at m = 1000 (16 sectors, and a launch of 384 channel-sectors
 through `fused_chain_power_at`) with the body they took, `fused_stage2`
 on Y [48, 512, 512] beside torch.matmul (complex64 Y @ B), and, where the
@@ -21,7 +22,9 @@ has them; the tensor-core probe at width 512 x 512 steps beside
 torch.matmul bf16 (a batched matmul per step and, where the tree's
 `mxu_occupancy` has it, one [m, ndots k] GEMM per step, each replayed
 from a CUDA graph), and the split dot's device time per call from a CUDA
-graph of 100 calls beside torch.matmul fp32's; the number of kernels and
+graph of 100 calls beside torch.matmul fp32's; the breakdown's four modes
+(#10) on the 48 channel-sectors at salt 7 (null for a mode the tree lacks:
+older trees have no `splits`); the number of kernels and
 of FFMA instructions in its library.  Last, one JSON line holds every kernel
 the trees share by name whose `-Xptxas=-v` report (registers, stack,
 spills, shared memory) or SASS FFMA count differs from the first tree's
@@ -47,9 +50,11 @@ from pathlib import Path
 def kernel_key(name: str) -> str:
     """A demangled kernel name as a key: no parameter list, no casts on
     integer template arguments ("(int)8" -> "8", "(bool)1" -> "1"), and the
-    radix body's template argument written the same for the bool flag of
-    earlier trees ((bool)0/1) and the Body enum of later ones
-    ((wrp::Body)0/1): body0, body1, ..."""
+    matrix-form radix body's fourth template argument, the bool flag of
+    earlier trees ((bool)0/1) or their Body enum ((wrp::Body)0..3), written
+    body0, body2, ...; body 1 was the A-stage, the one body now left, whose
+    template has no such argument, so it keys as `<Src, S, T>` in every
+    tree."""
     if name.endswith(")"):          # drop the parameter list
         depth = 0
         for i in range(len(name) - 1, -1, -1):
@@ -61,9 +66,10 @@ def kernel_key(name: str) -> str:
                   r"(-?\d)", r"\1", name)
     name = re.sub(r"\((?:wrp::)?Body\)(\d)", r"\1", name)
     if "radix_chain_kernel" in name:
-        name = re.sub(r",\s*(\d+),\s*(\d+),\s*(\d|false|true)>$",
-                      lambda m: f", {m[1]}, {m[2]}, body"
-                      f"{ {'false': '0', 'true': '1'}.get(m[3], m[3]) }>", name)
+        def body(m):
+            b = {"false": "0", "true": "1"}.get(m[3], m[3])
+            return f", {m[1]}, {m[2]}" + ("" if b == "1" else f", body{b}") + ">"
+        name = re.sub(r",\s*(\d+),\s*(\d+),\s*(\d|false|true)>$", body, name)
     return name
 
 
@@ -186,6 +192,10 @@ def _measure(tree: str) -> dict:
     out["radix_f32_ms"] = ms(lambda: fullchain.fused_chain_power_radix(xf, plan))
     out["radix_rel"] = rel(plain(x16, plan),
                            fullchain.fused_chain_power_radix(x16, plan))
+    # the salted entry on the 48 channel-sectors at salt 7: what the
+    # breakdown's `full` computes, timed beside it below
+    out["radix_salted_48_ms"] = ms(lambda: fullchain.fused_chain_power_radix(
+        x16, plan, offset=0, bc=x16.shape[0], salt=7))
     x384 = x16.repeat(8, 1, 1, 1).contiguous()
     out["radix_salted_384_ms"] = ms(lambda: fullchain.fused_chain_power_radix(
         x384, plan, offset=0, bc=384, salt=7))
@@ -253,6 +263,7 @@ def _measure(tree: str) -> dict:
         out["occupancy"] = {body: fullchain.fft_occupancy(plan, body)
                             for body in ("radix", "wire", "astage")}
     _probes(out, ms, rel)
+    _breakdown(out, ms, rel, x16, consts)
     so = _build.library_path()
     tool_dir = Path(_build._nvcc()).parent
     out["ptxas"] = ptxas_report(so.with_suffix(".log").read_text(), tool_dir)
@@ -331,6 +342,29 @@ def _probes(out: dict, ms, rel) -> None:
     out["split_rel"] = rel(probes.int_split_dot_reference(x14, a14, "int"),
                            probes.int_split_dot(x14, a14, "int"))
     out["split_library_graph_ms"] = graph_ms(lambda: torch.matmul(af, xf))
+
+
+def _breakdown(out: dict, ms, rel, x16, consts) -> None:
+    """The breakdown's modes (#10) on the 48 channel-sectors x16 at salt 7,
+    each with its rel-L2 against the tree's own plain version; None for a
+    mode the tree does not have (older trees: no `splits`)."""
+    from wrp_tpu_torch.ops import fullchain, probes
+
+    if hasattr(probes, "breakdown_plan"):
+        plan = probes.breakdown_plan(consts, "cuda")
+    else:
+        plan = fullchain.build_plan(consts, "cuda")
+    for mode in ("dots", "splits", "combine", "full"):
+        if mode not in probes.ABLATION_MODES:
+            out[f"breakdown_{mode}_ms"] = out[f"breakdown_{mode}_rel"] = None
+            continue
+
+        def run(mode=mode):
+            return probes.radix_chain_ablation(x16, plan, mode, 0, x16.shape[0], 7)
+
+        out[f"breakdown_{mode}_ms"] = ms(run)
+        out[f"breakdown_{mode}_rel"] = rel(probes.radix_chain_ablation_reference(
+            x16, plan, mode, 0, x16.shape[0], 7), run())
 
 
 def main(argv) -> int:

@@ -1,43 +1,39 @@
 """Ablation breakdown of the fused radix kernel's time, on one CUDA GPU.
 
     python3 -m wrp_tpu_torch.tools.kernel_breakdown [--batch 16] [--distinct 2]
-        [--repeats 128] [--modes dots,combine,full]
+        [--repeats 128] [--modes dots,splits,combine,full]
     python3 -m wrp_tpu_torch.tools.kernel_breakdown --smoke --device cpu
 
 Counterpart of ``tools/kernel_breakdown.py`` (the JAX tool), with its
-flags, staging and JSON line.  It times three kernels that read the same
-staged input, each step i reading slab i mod D through the offset entry at
-salt i, and that drop successive parts of the work:
+flags, staging, modes and JSON line.  It times four kernels that read the
+same staged input, each step i reading slab i mod D through the offset
+entry at salt i, and that drop successive parts of the TPU algorithm's
+work:
 
-  dots     the contraction (loads, int16 -> f32, the salt, the branch
-           contractions); each g_p is added onto the Y rows of block
-           p mod S (g_s + g_{s+S} per row, no combine), stored to shared
-           memory, and a warp sums each row
-  combine  + the radix combine, with the same store and row sum
-  full     + the Parseval epilogue: the whole matrix-form chain
+  dots     int16 -> f32, the salt, bf16 hi planes only ([xh; xh; xh]
+           stacks), the 24 dots against the kcat operator [ah | ah | al];
+           every branch consumed by a row sum, no combine
+  splits   + the real hi/lo splits ([xh; xl; xh])
+  combine  + the radix combine Y_s = sum_p fac[s][p] g_p, row sums of
+           Yr + Yi
+  full     + the Parseval epilogue: the whole salted chain
 
-All three are ONE body, the TPU algorithm's matrix form of the salted
-radix chain (csrc/radix_chain.cuh, the port's first production kernel; the
-production chain now runs in FFT form, csrc/fft_chain.cuh), launched from
-csrc/kernel_breakdown.cu on its grid with its dynamic shared memory, so at
-its occupancy (`blocks_per_sm` from
-cudaOccupancyMaxActiveBlocksPerMultiprocessor).  The deltas attribute the
-time per channel-step: `dots_floor` (loads, conversion and the
-contraction), `butterfly_combine` = combine - dots, `epilogue` = full -
-combine.  Beside them `astage` times that body's A-stage on the same slabs
-(unsalted): the same contraction and combine with Y stored to device
-memory and 8 KB of shared memory per block; `astage_at_fused_smem` times
-it again requesting the full body's dynamic shared memory
-(`fused_smem_bytes`), so at the full body's blocks per SM: the direct
-test of whether shared memory sets that body's pace.  On the card
-the line also holds `sass`, each body's SASS instruction counts (FFMA and
-the others of SASS_OPCODES), which show that no mode's contraction was
-compiled away.
+All four are ONE body (csrc/kernel_breakdown.cu: bf16 wgmma on the tensor
+cores, the operator streamed by TMA, a cluster of the unit's pulse tiles
+merging each row), on one grid at one dynamic shared memory, so at one
+occupancy (`blocks_per_sm`).  The deltas attribute the time per
+channel-step as the JAX tool does: `mxu_dma_cast_floor` = dots,
+`lo_splits` = splits - dots, `butterfly_combine` = combine - splits,
+`epilogue` = full - combine.  Beside them `astage` times the matrix-form
+A-stage of csrc/radix_chain.cuh (fp32 SIMT; Y stored to device memory) on
+the same slabs (unsalted), and `astage_at_fused_smem` again at the
+breakdown body's dynamic shared memory (`fused_smem_bytes`).  On the card
+the line also holds `sass`, each body's SASS instruction counts (HGMMA and
+the others of SASS_OPCODES): equal HGMMA counts show that no mode's dots
+were compiled away.
 
-The JAX tool's `splits` mode (the bf16 hi/lo operand split) has no
-counterpart, since the port's chain contracts in fp32: asking for it exits
-2.  `--smoke` is the tiny geometry with one repeat, for `--device cpu`,
-where the plain versions run (`blocks_per_sm` and `sass` are then null).
+`--smoke` is the tiny geometry with one repeat, for `--device cpu`, where
+the plain versions run (`blocks_per_sm` and `sass` are then null).
 Without CUDA and without `--device cpu` it exits 2.
 """
 
@@ -62,18 +58,16 @@ def _args(argv):
                     help="distinct staged slabs cycled by the steps")
     ap.add_argument("--repeats", type=int, default=128,
                     help="passes over the slabs per timed span")
-    ap.add_argument("--modes", default="dots,combine,full",
-                    help="comma list of dots, combine, full")
+    ap.add_argument("--modes", default="dots,splits,combine,full",
+                    help="comma list of dots, splits, combine, full")
     ap.add_argument("--smoke", action="store_true",
                     help="tiny geometry, 1 repeat (with --device cpu)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain versions)")
     args = ap.parse_args(argv)
-    from ..ops.probes import ABLATION_MODES, SPLITS_REFUSAL
+    from ..ops.probes import ABLATION_MODES
 
     args.modes = args.modes.split(",")
-    if "splits" in args.modes:
-        ap.error(SPLITS_REFUSAL)
     bad = [m for m in args.modes if m not in ABLATION_MODES]
     if bad:
         ap.error(f"unknown modes {bad}; modes {', '.join(ABLATION_MODES)}")
@@ -83,27 +77,27 @@ def _args(argv):
 
 
 #: the instructions `sass_counts` counts per body ("all": every one)
-SASS_OPCODES = ("all", "FFMA", "FADD", "FMUL", "LDG", "LDS", "STS", "BAR")
+SASS_OPCODES = ("all", "HGMMA", "FFMA", "FADD", "FMUL", "LDG", "LDS", "STS",
+                "BAR", "SHFL")
 
 
 def sass_counts(plan) -> dict:
-    """SASS instructions (SASS_OPCODES) of each body the tool launches, at
-    the plan's (radix, tile): {dots, combine, full, astage: {opcode: n}}."""
-    from ..ops import _build, fullchain
+    """SASS instructions (SASS_OPCODES) of each body the tool launches:
+    {dots, splits, combine, full, astage: {opcode: n}}; the modes are
+    breakdown_kernel<mode> of csrc/kernel_breakdown.cu, the A-stage the
+    matrix-form body at the plan's (radix, tile)."""
+    from ..ops import _build, fullchain, probes
     from .kernel_ab import sass_opcode_counts
 
     counts = sass_opcode_counts(_build.library_path(),
                                 Path(_build._nvcc()).parent, SASS_OPCODES)
-    S, T = plan.radix // 2, fullchain.kernel_tile(plan)
-    Ta = fullchain.astage_tile(plan)
-    salted = (r"wrp::Salted<wrp::PlanarSource<short>\s*>", T)
-    want = {"dots": salted + (2,), "combine": salted + (3,),
-            "full": salted + (0,),
-            "astage": (r"wrp::PlanarSource<short>", Ta, 1)}
+    S, Ta = plan.radix // 2, fullchain.astage_tile(plan)
+    want = {mode: rf"breakdown_kernel<{v}>$" for mode, v in probes._MODE.items()}
+    want["astage"] = (rf"radix_chain_kernel<wrp::PlanarSource<short>\s*,\s*{S}"
+                      rf"\s*,\s*{Ta}\s*>")
     out = {}
-    for mode, (src, tile, body) in want.items():
-        pat = re.compile(rf"radix_chain_kernel<{src}\s*,\s*{S}\s*,\s*{tile}\s*,"
-                         rf"\s*body{body}\s*>")
+    for mode in (*probes.ABLATION_MODES, "astage"):
+        pat = re.compile(want[mode])
         hits = [v for k, v in counts.items() if pat.search(k)]
         if len(hits) != 1:
             raise RuntimeError(f"sass_counts: {len(hits)} kernels match {mode}")
@@ -117,13 +111,14 @@ def run(argv=None) -> dict:
     from ..bench import card_name
     from ..config import DEFAULT_CONFIG, tiny_config
     from ..constants import PipelineConstants
-    from ..ops import fullchain, probes
+    from ..ops import probes
     from ._common import best_of_3, device_of
 
     ap, args = _args(argv)
     dev = device_of(ap, args.device)
     cfg = tiny_config() if args.smoke else DEFAULT_CONFIG
-    plan = fullchain.build_plan(PipelineConstants.build(cfg), dev)
+    bp = probes.breakdown_plan(PipelineConstants.build(cfg), dev)
+    plan = bp.plan
     c, m, n = cfg.sector_shape
     bcn = args.batch * c
     D = args.distinct
@@ -151,7 +146,7 @@ def run(argv=None) -> dict:
            "batch": args.batch, "steps": steps}
     for mode in args.modes:
         out[mode] = measure(lambda i, mode=mode: probes.radix_chain_ablation(
-            x_all, plan, mode, (i % D) * bcn, bcn, i))
+            x_all, bp, mode, (i % D) * bcn, bcn, i))
         out[mode]["blocks_per_sm"] = (probes.blocks_per_sm(plan, mode)
                                       if on_card else None)
         print(f"{mode}: {out[mode]}", file=sys.stderr)
@@ -165,10 +160,11 @@ def run(argv=None) -> dict:
     out["fused_smem_bytes"] = smem
 
     d = {k: out[k]["us_per_channel_step"] for k in args.modes}
-    if len(d) == 3:
+    if len(d) == 4:
         out["attribution_us"] = {
-            "dots_floor": d["dots"],
-            "butterfly_combine": round(d["combine"] - d["dots"], 3),
+            "mxu_dma_cast_floor": d["dots"],
+            "lo_splits": round(d["splits"] - d["dots"], 3),
+            "butterfly_combine": round(d["combine"] - d["splits"], 3),
             "epilogue": round(d["full"] - d["combine"], 3),
         }
     out["sass"] = sass_counts(plan) if on_card else None
