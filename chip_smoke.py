@@ -8,8 +8,9 @@ Phases (each prints its results; any failure raises and exits non-zero):
 
 1. environment: torch/CUDA versions, the card's name and power limit;
    fails without CUDA;
-2. build: compiles wrp_tpu_torch/csrc with nvcc (first use) and times it;
-   then the benchmark's slice:
+2. build: compiles the native host library (wrp_tpu_torch/native: the
+   codec and the UDP reassembly loop, g++) and wrp_tpu_torch/csrc (nvcc),
+   at first use, and times both; then the benchmark's slice:
    a. the offset entries on two staged slabs (noise, clip-bin), at batch
       16 and at the bench's own shapes (batch 128: 384 channel-sectors from
       offset 384 of a 768-unit array, the wire's 128 sectors from offset
@@ -80,14 +81,15 @@ Phases (each prints its results; any failure raises and exits non-zero):
    the body of every launch from the counters; times of the kernel, the
    FFT-form and the matrix-form plain versions;
 6. the host-decode slice: a `cli produce` process (UdpProducer) ->
-   UdpIngest (loopback) -> StreamingExecutor (method="pallas", batch 16)
+   UdpIngest (loopback; the native reassembly loop) -> StreamingExecutor
+   (method="pallas", batch 16; the native codec decodes)
    -> UdpEgress + VolumeScan, one elevation cut of 143 sectors at
    21.45/s; requires 0 drops, full cut coverage, the radix kernel's launch
    count, and zdb/zdr of sampled sectors within 2e-4 of the oracle;
 7. the device-decode slice: the same with device_decode=True (the wire
    kernel; the host only views the wire bytes);
 8. capacity: the executor fed from memory, unpaced, host decode and
-   device decode;
+   device decode; beside it the native and numpy codecs' decode rates;
 9. the dense path: the executor at m = 1000 from memory, device decode
    (a decode pass, then the dense entry) and host decode, every launch on
    the FFT-form body;
@@ -98,7 +100,13 @@ Phases (each prints its results; any failure raises and exits non-zero):
    call (cuFFT: torch.fft.fft over range of the windowed complex64 input,
    then the crop) and torch.matmul(A_half, X) in complex64;
 11. the row-epilogue kernel on every row shard of that Y (rows = 512, 256,
-   128): power vs its plain version (<= 1e-5), and its time;
+   128) in its register form, on the noise, clip-bin and strong-DC
+   sectors, and in its two-pass form at n = 514 and 2048 and on a Y off
+   16 bytes: power vs its plain version (<= 1e-5), each in the form
+   `parseval_rows_form` names; its ptxas lines, blocks per SM, the C
+   entry's rule against the wrapper's at 14 pulse counts, and its times
+   (one call, and queued) beside the bound and the earlier two-pass
+   kernel's figure;
 12. the pallas-seq composition in one process for N = 1, 2 and 4 ranks:
    A-stage per pulse slab, the all_to_all's row/pulse rearrangement done
    locally (parallel/sharded.py split_rows/join_pulses), row epilogue per
@@ -147,6 +155,8 @@ from wrp_tpu_torch.config import DEFAULT_CONFIG, tiny_config  # noqa: E402
 from wrp_tpu_torch.constants import PipelineConstants, hamming_factors  # noqa: E402
 from wrp_tpu_torch.io import codec, frames  # noqa: E402
 from wrp_tpu_torch.io.udp import UdpEgress, UdpIngest  # noqa: E402
+from wrp_tpu_torch.native import build as native_build  # noqa: E402
+from wrp_tpu_torch.native import codec_native  # noqa: E402
 from wrp_tpu_torch.ops import (  # noqa: E402
     _build, device_codec, fullchain, postprocess, probes)
 from wrp_tpu_torch.parallel.multihost import (  # noqa: E402
@@ -248,7 +258,7 @@ def reset_counts() -> None:
     postprocess.STAGE2_OPERATOR_LAUNCHES = 0
     fullchain.DENSE_FFT_LAUNCHES = fullchain.DENSE_MATRIX_LAUNCHES = 0
     probes.BREAKDOWN_LAUNCHES = probes.TC_PROBE_LAUNCHES = 0
-    probes.INT_SPLIT_LAUNCHES = 0
+    probes.INT_SPLIT_LAUNCHES = fullchain.PARSEVAL_ROWS_TWO_PASS_LAUNCHES = 0
 
 
 def read_counts() -> dict:
@@ -256,6 +266,7 @@ def read_counts() -> dict:
             "dense": fullchain.DENSE_LAUNCHES,
             "astage": fullchain.ASTAGE_LAUNCHES,
             "rows": fullchain.PARSEVAL_ROWS_LAUNCHES,
+            "rows_two_pass": fullchain.PARSEVAL_ROWS_TWO_PASS_LAUNCHES,
             "radix_offset": fullchain.RADIX_OFFSET_LAUNCHES,
             "wire_offset": fullchain.WIRE_OFFSET_LAUNCHES,
             "dense_offset": fullchain.DENSE_OFFSET_LAUNCHES,
@@ -307,6 +318,11 @@ def phase_environment() -> str:
 
 
 def phase_build() -> None:
+    t0 = time.perf_counter()
+    native_build.load_library()
+    print(f"native build (g++: codec.cpp, ingest.cpp): "
+          f"{time.perf_counter() - t0:.2f} s -> "
+          f"{native_build.library_path().name}", flush=True)
     t0 = time.perf_counter()
     _build.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s -> "
@@ -390,13 +406,17 @@ def planar_i16(iq: np.ndarray) -> np.ndarray:
     return np.stack([iq.real, iq.imag], axis=-3).astype(np.int16)
 
 
-def timed(fns: dict, order) -> dict:
+def timed(fns: dict, order, clock=cuda_ms) -> dict:
     """CUDA-event ms of each named fn, run in `order` (e.g. plain, kernel,
-    kernel, plain); the best of each name's turns."""
+    kernel, plain) and timed by `clock` (cuda_ms: one call between two
+    events; queued_ms: calls queued back to back); the best of each name's
+    turns."""
     times = {name: [] for name in fns}
     for name in order:
-        times[name].append(cuda_ms(fns[name]))
-    print("timings (median of 10 per turn, order " + "/".join(order) + "): "
+        times[name].append(clock(fns[name]))
+    how = ("median of 10 per turn" if clock is cuda_ms
+           else "20 calls queued per turn")
+    print(f"timings ({how}, order " + "/".join(order) + "): "
           + json.dumps(times), flush=True)
     return {name: min(v) for name, v in times.items()}
 
@@ -861,48 +881,118 @@ def phase_kernel_astage(noise, adv) -> dict:
     return out
 
 
+#: the row epilogue's time per 48 channel-sectors in its earlier two-pass
+#: form (one warp a row, the row read twice; tools/kernel_ab.py on an
+#: NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+ROWS_PARENT_MS = "0.0625-0.0634"
+#: pulse counts held against the C entry's rule (csrc/parseval_rows.cu)
+ROWS_CONTRACT_N = (0, 4, 6, 8, 32, 100, 128, 130, 512, 514, 516, 1024, 1028,
+                   2048)
+#: row lengths outside the register form, run by the two-pass form
+ROWS_TWO_PASS_N = (514, 2048)
+
+
 def phase_kernel_rows(noise, adv, astage: dict) -> dict:
     """The row-epilogue kernel on every row shard of the A-stage's Y at
-    rows = 512, 256, 128, vs its plain version; its time at full rows."""
+    rows = 512, 256, 128 (the register form: one read of Y, rows held in
+    registers, a persistent grid) vs its plain version on the noise,
+    clip-bin and strong-DC sectors; its two-pass form at n = 514 and 2048
+    and on a Y at an address off 16 bytes; its ptxas lines, blocks per SM,
+    the C entry's rule against parseval_rows_form's, and its times (one
+    call, and queued) with its share of the bound."""
     cfg = DEFAULT_CONFIG
     plan = fullchain.build_plan(PipelineConstants.build(cfg), "cuda")
     mh = cfg.m // 2
+    print_ptxas(r"parseval_rows")
+    for n in ROWS_CONTRACT_N:
+        try:
+            fullchain.parseval_rows_occupancy(n)
+            takes = True
+        except RuntimeError:
+            takes = False
+        check(takes == (fullchain.parseval_rows_form(n) == "registers"),
+              f"rows rule n={n}: the C entry's register form "
+              f"{'takes' if takes else 'refuses'} it, as parseval_rows_form "
+              f"says")
+    occ = fullchain.parseval_rows_occupancy(cfg.n)
+    print(f"row-epilogue register form: {occ} blocks per SM at n = {cfg.n}",
+          flush=True)
     worst_rel = max_abs = 0.0
+    inputs = seq_inputs(noise, adv)
+    dc = strong_dc_sector(cfg)
+    inputs["strong-dc"] = torch.from_numpy(np.stack(
+        [planar_i16(dc)] * BATCH)).cuda().reshape(-1, 2, cfg.m, cfg.n)
     ys = {label: fullchain.fused_chain_astage(x, plan)
-          for label, x in seq_inputs(noise, adv).items()}
+          for label, x in inputs.items()}
+
+    def hold(label, y, plan, form):
+        two = fullchain.PARSEVAL_ROWS_TWO_PASS_LAUNCHES
+        got = fullchain.parseval_rows_power(y, plan)
+        torch.cuda.synchronize()
+        ran = ("two-pass" if fullchain.PARSEVAL_ROWS_TWO_PASS_LAUNCHES > two
+               else "registers")
+        e, a = rel_dev(fullchain.parseval_rows_power_reference(y, plan), got)
+        check(ran == form and e <= POWER_TOL,
+              f"rows {label} ({ran} form, expected {form}): kernel vs plain "
+              f"power rel-L2 {e:.3e} <= {POWER_TOL} (max abs {a:.3e})")
+        return e, a
+
     for label, y_full in ys.items():
         for shards in SHARDS:
             rows = mh // shards
-            errs = []
             for d in range(shards):
-                y = y_full[:, :, d * rows:(d + 1) * rows].contiguous()
-                got = fullchain.parseval_rows_power(y, plan)
-                torch.cuda.synchronize()
-                errs.append(rel_dev(
-                    fullchain.parseval_rows_power_reference(y, plan), got))
-            e, a = max(v[0] for v in errs), max(v[1] for v in errs)
-            worst_rel, max_abs = max(worst_rel, e), max(max_abs, a)
-            check(e <= POWER_TOL,
-                  f"rows {label} rows={rows} ({shards} shards): kernel vs "
-                  f"plain power rel-L2 {e:.3e} <= {POWER_TOL} (max abs "
-                  f"{a:.3e})")
+                e, a = hold(f"{label} rows={rows} shard {d}/{shards}",
+                            y_full[:, :, d * rows:(d + 1) * rows].contiguous(),
+                            plan, "registers")
+                worst_rel, max_abs = max(worst_rel, e), max(max_abs, a)
+    # the two-pass form's errors apart: at n = 2048 the powers are ~1e10
+    two_rel = two_abs = 0.0
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for n in ROWS_TWO_PASS_N:
+        tplan = fullchain.build_plan(PipelineConstants.build(
+            tiny_config(m=256, n=n)), "cuda")
+        y = 40.0 * torch.randn(48, 2, 128, n, device="cuda", generator=gen)
+        checks = [hold(f"noise n={n}", y, tplan, "two-pass")]
+        y[:, :, 5] += 3.0e4 * tplan.wd.min() / tplan.wd   # a strong DC row
+        checks.append(hold(f"strong-dc n={n}", y, tplan, "two-pass"))
+        two_rel = max([two_rel] + [e for e, _ in checks])
+        two_abs = max([two_abs] + [a for _, a in checks])
     y = ys["noise"]
+    # the same Y at an address 4 bytes past a 16-byte boundary
+    buf = torch.empty(y.numel() + 1, device="cuda")
+    y_off = buf[1:].view(y.shape)
+    y_off.copy_(y)
+    e, a = hold("noise, Y off 16 bytes", y_off, plan, "two-pass")
+    two_rel, two_abs = max(two_rel, e), max(two_abs, a)
     t = timed({"plain": lambda: fullchain.parseval_rows_power_reference(y, plan),
                "kernel": lambda: fullchain.parseval_rows_power(y, plan)},
               ("plain", "kernel", "kernel", "plain"))
+    # queued: the kernel is short enough that one call between two events
+    # times mostly the wrapper's host work (printed beside it)
+    q = timed({"kernel": lambda: fullchain.parseval_rows_power(y, plan),
+               "two_pass": lambda: fullchain.parseval_rows_power(y_off, plan)},
+              ("kernel", "two_pass", "two_pass", "kernel"), clock=queued_ms)
+    host = host_ms(lambda: fullchain.parseval_rows_power(y, plan))
     bc = y.shape[0]
     bound_ms, bound_by = bound(26.0 * bc * mh * cfg.n,
                                y.numel() * 4 + 5 * cfg.n * 4 + bc * mh * 4)
-    print(f"row-epilogue kernel, Y [{bc}, 2, {mh}, {cfg.n}]: "
-          f"{t['kernel']:.3f} ms, plain {t['plain']:.3f} ms, bound "
-          f"{bound_ms:.3f} ms ({bound_by}); A-stage + rows "
-          f"{astage['ms'] + t['kernel']:.3f} ms vs the fused radix kernel "
+    print(f"row-epilogue kernel, Y [{bc}, 2, {mh}, {cfg.n}]: one call "
+          f"{t['kernel']:.4f} ms, the wrapper's host work {host:.4f} ms a "
+          f"call; queued {q['kernel']:.4f} ms ({bound_ms / q['kernel']:.0%} of "
+          f"the bound), the two-pass form on the Y off 16 bytes "
+          f"{q['two_pass']:.4f} ms queued; the two-pass kernel's "
+          f"{ROWS_PARENT_MS} ms (tools/kernel_ab.py); plain {t['plain']:.3f} "
+          f"ms, bound {bound_ms:.4f} ms ({bound_by}); A-stage + rows "
+          f"{astage['ms'] + q['kernel']:.3f} ms vs the fused radix kernel "
           f"{astage['fused_ms']:.3f} ms in this call "
-          f"({(astage['ms'] + t['kernel']) / astage['fused_ms']:.2f}x)",
+          f"({(astage['ms'] + q['kernel']) / astage['fused_ms']:.2f}x)",
           flush=True)
     return {"max_abs_err": max_abs, "rel_l2": worst_rel, "ms": t["kernel"],
             "plain_ms": t["plain"], "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "library_ms": None, "queued_ms": q["kernel"],
+            "two_pass_queued_ms": q["two_pass"], "two_pass_rel_l2": two_rel,
+            "two_pass_max_abs_err": two_abs, "host_ms": host,
+            "blocks_per_sm": occ}
 
 
 def phase_seq_composition(orc: Oracle, noise, adv) -> None:
@@ -1008,10 +1098,12 @@ def phase_pulse_shard_stream(device_decode: bool) -> dict:
     steps = stats["batches"] + 1       # the batches and the warmup step
     check(stats["batches"] == math.ceil(SECTORS / BATCH)
           and counts["astage"] == counts["rows"] == steps
+          and counts["rows_two_pass"] == 0
           and counts["radix"] == counts["wire"] == counts["dense"] == 0,
           f"pulse-shard {tag}: A-stage and row-epilogue launches "
           f"{counts['astage']}, {counts['rows']} == {stats['batches']} full "
-          f"lock-step batches + 1 warmup step; no other kernel ({counts})")
+          f"lock-step batches + 1 warmup step, every row epilogue in its "
+          f"register form; no other kernel ({counts})")
     for k in (0, SECTORS // 4, 5 * SECTORS // 7, SECTORS - 1):
         zdb64, zdr64 = oracle.process_sector(
             oracle.produce_sector_iq(cfg, SEED, k % pool_n), cfg)
@@ -1092,6 +1184,8 @@ def phase_stream(device_decode: bool) -> dict:
     cfg = DEFAULT_CONFIG
     pool_n = 8
     ingest = UdpIngest(cfg, port=0, timeout_s=2.0)
+    check(ingest._native, f"{tag} stream: UDP reassembly in the native loop "
+                          "(native/ingest.cpp)")
     sink = _Sink()
     egress = UdpEgress(cfg, zdb_port=sink.ports[0], zdr_port=sink.ports[1],
                        extended=True)
@@ -1133,8 +1227,11 @@ def phase_stream(device_decode: bool) -> dict:
           f"{RATE}/s, delivered {ex.throughput.active_rate():.2f} sectors/s "
           f"over the active span; latency p50 {lat['p50_ms']} ms p99 "
           f"{lat['p99_ms']} ms; mean ingest/decode "
-          f"{stats['timers']['ingest/decode']['mean_ms']} ms; egress frames "
-          f"{sink.frames}; launches {counts}", flush=True)
+          f"{stats['timers']['ingest/decode']['mean_ms']} ms ("
+          f"{'a view of the wire' if device_decode else 'native codec'}), "
+          f"ingest/recv {stats['timers']['ingest/recv']['mean_ms']} ms "
+          f"(native UDP loop); egress frames {sink.frames}; launches "
+          f"{counts}", flush=True)
     samples = ex.latency.samples()
     worst = sorted(range(len(samples)), key=samples.__getitem__)[-3:]
     print(f"{tag} stream: worst latencies (arrival index: ms) " + ", ".join(
@@ -1182,13 +1279,51 @@ class _MemoryFeed:
                 frames.IngestHeader(k % self.num_sectors, 0, 0))
 
 
+#: native decode threads timed beside the codec's default
+CODEC_THREADS = (1, 2, 4, 6)
+
+
+def codec_rates(wires, cfg, reps: int = 20) -> dict:
+    """Sectors/s of one decode_iq_i16 call after another on this host, a
+    fresh output each, as the executor calls it: the native codec at its
+    default threads (io/codec) and at CODEC_THREADS, and the numpy codec,
+    in turns (forward, then back; the better of each's two): a
+    comparison, not a check."""
+    m, n, ch = cfg.m, cfg.n, cfg.num_channels
+    fns = {"native": lambda w: codec.decode_iq_i16(w, cfg),
+           "numpy": lambda w: codec.decode_iq_i16(w, cfg, native=False)}
+    for th in CODEC_THREADS:
+        fns[f"native_{th}_threads"] = functools.partial(
+            lambda w, th: codec_native.decode_iq_i16(w, m, n, ch,
+                                                     num_threads=th), th=th)
+    rates = dict.fromkeys(fns, 0.0)
+    for name in list(fns) + list(reversed(fns)):
+        fns[name](wires[0])
+        t0 = time.perf_counter()
+        for k in range(reps):
+            fns[name](wires[k % len(wires)])
+        rates[name] = max(rates[name], reps / (time.perf_counter() - t0))
+    return rates
+
+
 def phase_capacity(device_decode: bool, count: int = 2 * SECTORS) -> None:
     """Unpaced run of the same executor fed from memory; products must be
-    finite.  Reports sectors/s over the active span (first to last batch)."""
+    finite.  Reports sectors/s over the active span (first to last batch);
+    with host decode (the native codec) also the native and numpy codecs'
+    own rates on this host."""
     cfg = DEFAULT_CONFIG
     tag = "device-decode" if device_decode else "host-decode"
     wires = [codec.encode_iq(oracle.produce_sector_iq(cfg, SEED, j), cfg)
              for j in range(4)]
+    if not device_decode:
+        rates = codec_rates(wires, cfg)
+        print(f"decode_iq_i16 alone at {cfg.m} x {cfg.n} x "
+              f"{cfg.num_channels}, sectors/s: native codec "
+              f"{rates.pop('native'):.2f} at its default "
+              f"{codec_native.DEFAULT_THREADS} threads, numpy codec "
+              f"{rates.pop('numpy'):.2f}; native by threads "
+              + json.dumps({k: round(v, 2) for k, v in rates.items()}),
+              flush=True)
     volume = VolumeScan(cfg)
     ex = StreamingExecutor(cfg, transport=_MemoryFeed(wires, count,
                                                       cfg.num_sectors),
@@ -2026,7 +2161,15 @@ def main() -> int:
         kernel_entry("parseval_rows_power",
                      "wrp_tpu_torch/csrc/parseval_rows.cu",
                      "wrp_tpu/ops/pallas/fullchain.py:998", shard["rows"],
-                     rows),
+                     rows, form="one read, float4 rows in registers, "
+                     "persistent grid, 1 row a warp (two-pass form for other "
+                     "n and alignments)",
+                     queued_ms=rows["queued_ms"],
+                     two_pass_queued_ms=rows["two_pass_queued_ms"],
+                     two_pass_rel_l2=rows["two_pass_rel_l2"],
+                     two_pass_max_abs_err=rows["two_pass_max_abs_err"],
+                     host_ms=rows["host_ms"],
+                     blocks_per_sm=rows["blocks_per_sm"]),
         kernel_entry("fused_chain_power_at",
                      "wrp_tpu_torch/csrc/fused_chain_dense.cu",
                      "wrp_tpu/ops/pallas/fullchain.py:271",

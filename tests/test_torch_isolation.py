@@ -20,7 +20,9 @@ def test_port_imports_without_jax():
             "wrp_tpu_torch.ops.postprocess, wrp_tpu_torch.ops.probes, "
             "wrp_tpu_torch.tools.kernel_breakdown, "
             "wrp_tpu_torch.tools.mxu_occupancy, "
-            "wrp_tpu_torch.tools.int_split_repro; "
+            "wrp_tpu_torch.tools.int_split_repro, "
+            "wrp_tpu_torch.native.codec_native, "
+            "wrp_tpu_torch.native.ingest_native; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'wrp_tpu.')) or m == 'wrp_tpu'); "
             "assert not bad, bad; print('clean')")
@@ -38,3 +40,16 @@ def test_port_sources_import_no_jax():
     offenders = [str(f.relative_to(REPO)) for f in files
                  if IMPORT_RE.search(f.read_text())]
     assert offenders == []
+
+
+def test_port_keeps_its_own_native_sources():
+    """wrp_tpu_torch/native/ holds its own C++ copies (natural row order:
+    no radix permutation), which build.py compiles, and no built library."""
+    native = REPO / "wrp_tpu_torch" / "native"
+    from wrp_tpu_torch.native import build
+
+    assert [p.name for p in build.SOURCES] == ["codec.cpp", "ingest.cpp"]
+    assert all(p.parent == native and p.is_file() for p in build.SOURCES)
+    assert build.BUILD_DIR == REPO / "wrp_tpu_torch" / "_build"
+    assert "dest_row(" not in (native / "codec.cpp").read_text()
+    assert not list(native.glob("*.so"))

@@ -137,3 +137,75 @@ def test_products_from_jax_constants(sectors, method):
         jnp.asarray(sectors, jnp.complex64))
     for a, b in zip(jz, got):
         assert oracle.relative_l2(np.asarray(a), _np(b)) < 2e-4
+
+
+@pytest.mark.parametrize("method", tpipe.FUNCTIONAL_METHODS)
+def test_functional_api_matches_jax_and_oracle(sectors, method):
+    """process_sectors, process_sectors_planar and channel_power against
+    wrp_tpu's on the same sectors (zdb/zdr <= 2e-4, power <= 1e-5 rel-L2)
+    and against the fp64 oracle, at the same bounds."""
+    jcfg, cfg = jtiny(m=M, n=N), tiny_config(m=M, n=N)
+    jconsts, consts = JConsts.build(jcfg), PipelineConstants.build(cfg)
+    x = torch.from_numpy(sectors.astype(np.complex64))
+    planar = np.stack([sectors.real, sectors.imag], axis=2).astype(np.float32)
+    jx = jnp.asarray(sectors, jnp.complex64)
+    jzdb, jzdr = (np.asarray(a) for a in jpipe.process_sectors(
+        jx, jconsts, method=method))
+    jpow = np.asarray(jpipe.channel_power(jx, jconsts, method=method))
+    tpow = _np(tpipe.channel_power(x, consts, method=method))
+    assert tpow.shape == jpow.shape == (2, cfg.num_channels, M // 2)
+    got = {"complex": tpipe.process_sectors(x, consts, method=method),
+           "planar": tpipe.process_sectors_planar(torch.from_numpy(planar),
+                                                  consts, method=method),
+           "planar int16": tpipe.process_sectors_planar(
+               torch.from_numpy(planar.astype(np.int16)), consts,
+               method=method)}
+    jplanar = jpipe.process_sectors_planar(jnp.asarray(planar), jconsts,
+                                           method=method)
+    for b in range(2):
+        zdb64, zdr64 = oracle.process_sector(sectors[b], jcfg)
+        pow64 = oracle.channel_power(sectors[b], jcfg)
+        for c in range(cfg.num_channels):
+            assert oracle.relative_l2(jpow[b, c], tpow[b, c]) <= 1e-5
+            assert oracle.relative_l2(pow64[c], tpow[b, c]) <= 1e-5
+        assert oracle.relative_l2(np.asarray(jplanar[0])[b], jzdb[b]) <= 2e-4
+        for label, (zdb, zdr) in got.items():
+            zdb, zdr = _np(zdb), _np(zdr)
+            assert zdb.shape == (2, M // 2), label
+            assert oracle.relative_l2(jzdb[b], zdb[b]) <= 2e-4, label
+            assert oracle.relative_l2(jzdr[b], zdr[b]) <= 2e-4, label
+            assert oracle.relative_l2(zdb64, zdb[b]) <= 2e-4, label
+            assert oracle.relative_l2(zdr64, zdr[b]) <= 2e-4, label
+            assert zdb[b][0] == -np.inf
+
+
+def test_functional_api_device_rule(sectors, monkeypatch):
+    """A tensor computes on its own device; a numpy array goes to "cuda"
+    unless the caller passes device="cpu" (without CUDA it raises, never
+    falling back); `precision` has no counterpart; the package exports
+    process_sectors."""
+    import wrp_tpu_torch
+
+    cfg = tiny_config(m=M, n=N)
+    consts = PipelineConstants.build(cfg)
+    assert wrp_tpu_torch.process_sectors is tpipe.process_sectors
+    x = torch.from_numpy(sectors.astype(np.complex64))
+    zdb, zdr = tpipe.process_sectors(x, consts)
+    assert zdb.device.type == zdr.device.type == "cpu"
+    a, b = tpipe.process_sectors(sectors.astype(np.complex64), consts,
+                                 device="cpu")
+    assert torch.equal(a, zdb) and torch.equal(b, zdr)
+    assert tpipe.channel_power(sectors, consts, device="cpu").device.type \
+        == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tpipe.process_sectors(sectors, consts)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tpipe.process_sectors_planar(
+            np.stack([sectors.real, sectors.imag], axis=2), consts)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tpipe.channel_power(sectors, consts)
+    with pytest.raises(ValueError, match="unknown method"):
+        tpipe.process_sectors(x, consts, method="pallas")
+    with pytest.raises(TypeError):
+        tpipe.process_sectors(x, consts, precision="highest")

@@ -209,3 +209,42 @@ def test_cli_refuses_cuda_without_cuda(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cli.main(["process", "--input", "synthetic"]) == 2
     assert "CUDA is not available" in capsys.readouterr().err
+
+
+class _EndlessFeed:
+    """An endless memory feed: the same encoded sector, sector labels
+    counting up, as fast as the executor takes them."""
+
+    def __init__(self, wire, num_sectors):
+        self.wire, self.num_sectors, self.k = wire, num_sectors, 0
+
+    def recv_sector(self):
+        self.k += 1
+        return self.wire, frames.IngestHeader(self.k % self.num_sectors, 0, 0)
+
+
+def test_stop_from_another_thread_ends_run():
+    """stop() from a second thread ends a run() that streams an endless
+    feed: run() returns within a bounded time with its stats, its ingest
+    threads joined."""
+    cfg = tiny_config(m=M, n=N)
+    wire = codec.encode_iq(oracle.produce_sector_iq(jtiny(m=M, n=N), 3, 0),
+                           cfg)
+    published = threading.Event()
+    ex = StreamingExecutor(cfg, transport=_EndlessFeed(wire, cfg.num_sectors),
+                           publish=lambda *a: published.set(), batch=2,
+                           method="pallas", device="cpu")
+    out = {}
+    runner = threading.Thread(target=lambda: out.update(ex.run()),
+                              daemon=True)
+    runner.start()
+    assert published.wait(timeout=60)
+    t0 = time.monotonic()
+    ex.stop()
+    runner.join(timeout=30)
+    assert not runner.is_alive()
+    assert time.monotonic() - t0 < 30
+    assert out["processed_sectors"] >= 1
+    assert out["latency_ms"]["count"] == out["processed_sectors"]
+    assert ex._ingest_threads and not any(t.is_alive()
+                                          for t in ex._ingest_threads)

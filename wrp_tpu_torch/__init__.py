@@ -10,6 +10,6 @@ JAX and never ``wrp_tpu``.
 
 from .config import RadarConfig, DEFAULT_CONFIG, tiny_config  # noqa: F401
 from .constants import PipelineConstants  # noqa: F401
-from .pipeline import SectorProcessor  # noqa: F401
+from .pipeline import SectorProcessor, process_sectors  # noqa: F401
 
 __version__ = "0.1.0"

@@ -8,8 +8,10 @@ Reference behaviour (read_single.cc:125-148, udpbroadcast.cpp):
 Like ``wrp_tpu.io.udp`` this fixes the reference's silent-corruption modes
 (SURVEY.md section 5): a receive timeout, sector resynchronisation on drops
 (count-based for bare v1 datagrams, header-based with frames.IngestHeader),
-and drop accounting.  Reassembly is the Python loop; the GIL-free native
-loop (wrp_tpu/native/ingest.cpp) is not ported yet (ROADMAP.md).
+and drop accounting.  Reassembly runs in the GIL-free C++ loop
+(native/ingest.cpp, built with g++ at first use; a build failure raises)
+unless the caller passes native=False; then the Python loop runs, with the
+same results and stats.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Optional
 import numpy as np
 
 from ..config import RadarConfig, DEFAULT_CONFIG
+from ..native import ingest_native
 from . import frames
 from .stats import IngestStats
 
@@ -45,8 +48,12 @@ class UdpIngest:
         timeout_s: Optional[float] = None,
         rcvbuf_bytes: int = 1 << 27,
         reuse_port: bool = False,
+        native: bool = True,
     ):
-        """reuse_port: bind with SO_REUSEPORT, so that the N ranks of a
+        """native: reassemble in the C++ loop without the GIL
+        (native/ingest.cpp); False runs the Python loop.
+
+        reuse_port: bind with SO_REUSEPORT, so that the N ranks of a
         pulse-sharded fleet on one host can read ONE broadcast port
         (broadcast datagrams reach every bound socket).  Off by default:
         for unicast traffic the kernel routes each sender to one of the
@@ -75,7 +82,18 @@ class UdpIngest:
                 " raise net.core.rmem_max to avoid burst drops",
                 got / 2 / 1e6, rcvbuf_bytes / 1e6)
         self._sock.bind((host, self.port))
-        self._sock.settimeout(timeout_s)
+        self._native = native
+        if native:
+            ingest_native.load_library()    # build now: a failure raises here
+            # the C++ loop uses SO_RCVTIMEO on a blocking socket; it treats
+            # timeout_ms <= 0 as no timeout, so a sub-ms timeout rounds up
+            self._sock.setblocking(True)
+            self._timeout_ms = (max(1, int(timeout_s * 1000))
+                                if timeout_s is not None else -1)
+            self._nstats = np.zeros(5, np.int64)
+            self._nhdr = np.zeros(3, np.int32)
+        else:
+            self._sock.settimeout(timeout_s)
         # Full-datagram scratch: a right-sized buffer would make recv_into
         # silently TRUNCATE an oversized datagram to row_bytes and accept
         # it; oversized rows must fail the length check instead.
@@ -97,6 +115,8 @@ class UdpIngest:
         m = self.cfg.num_range_cells
         rb = self._row_bytes
         buf = out if out is not None else bytearray(self.cfg.sector_nbytes_wire)
+        if self._native:
+            return self._recv_sector_native(buf, m)
         view = memoryview(buf)
         first_header = None
         filled = bytearray(m)   # unique-row tracking (extended headers)
@@ -148,6 +168,33 @@ class UdpIngest:
             rows += 1
         self.stats.sectors += 1
         return buf, first_header
+
+    def _recv_sector_native(self, buf, m):
+        """The C++ reassembly (native/ingest.cpp), with the Python loop's
+        returns, raises and stats."""
+        st = self._nstats
+        before = st.copy()
+        rc = ingest_native.recv_sector(self._sock.fileno(), self._timeout_ms,
+                                       buf, m, self._row_bytes, st,
+                                       self._nhdr)
+        d = st - before
+        self.stats.datagrams += int(d[0])
+        self.stats.dropped_datagrams += int(d[1])
+        self.stats.dropped_sectors += int(d[2])
+        self.stats.timeouts += int(d[3])
+        self.stats.duplicate_datagrams += int(d[4])
+        if rc == 0:
+            return None, None
+        if rc == -1:
+            raise TimeoutError("sector stalled mid-receive")
+        if rc == -2:
+            raise OSError("native ingest: socket error")
+        self.stats.sectors += 1
+        header = None
+        if self._nhdr[0]:
+            header = frames.IngestHeader(int(self._nhdr[1]),
+                                         int(self._nhdr[2]), 0)
+        return buf, header
 
     def close(self):
         self._sock.close()

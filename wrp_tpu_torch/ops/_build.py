@@ -141,8 +141,10 @@ def load_library() -> ctypes.CDLL:
                     i32, i32, ptr],                   # m, cols, int* blocks per SM
                 "wrp_parseval_rows": [
                     ptr, ptr, ptr, ptr,               # y, wd, ph, out
-                    i32, i32, i32,                    # bc, rows, n
+                    i32, i32, i32, i32,               # bc, rows, n, form
                     ptr],                             # stream
+                # resident blocks per SM (the last argument, int*)
+                "wrp_parseval_rows_occupancy": [i32, ptr],  # n
                 "wrp_fused_stage2": [
                     ptr, ptr, ptr, ptr,               # yr, yi, br, bi
                     ptr, i64, ptr,                    # scratch, its floats, out

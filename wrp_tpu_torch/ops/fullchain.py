@@ -49,7 +49,9 @@ radix chain at its one communication point, with a kernel on each side:
 * row epilogue, csrc/parseval_rows.cu (``wrp_tpu`` `parseval_rows_power`):
   `parseval_rows_power`, plain `parseval_rows_power_reference`,
   `PARSEVAL_ROWS_LAUNCHES`.  The Parseval epilogue on full-pulse rows
-  Y [bc, 2, rows, n] -> pow [bc, rows].
+  Y [bc, 2, rows, n] -> pow [bc, rows]; rows the register form does not
+  take (`parseval_rows_form`) run its two-pass form, counted also in
+  `PARSEVAL_ROWS_TWO_PASS_LAUNCHES`.
 
 The host plan (`build_plan`) holds the FFT form's tables (`fft_tables`:
 the range window w_r c, the twiddles W_P, the leaf's factors, fp64 cast
@@ -84,7 +86,8 @@ LAUNCHES = 0            # fused_chain_radix.cu
 WIRE_LAUNCHES = 0       # fused_chain_wire.cu
 DENSE_LAUNCHES = 0      # fused_chain_dense.cu
 ASTAGE_LAUNCHES = 0     # fused_chain_astage.cu
-PARSEVAL_ROWS_LAUNCHES = 0   # parseval_rows.cu
+PARSEVAL_ROWS_LAUNCHES = 0   # parseval_rows.cu (either form)
+PARSEVAL_ROWS_TWO_PASS_LAUNCHES = 0  # of those, its two-pass form
 RADIX_OFFSET_LAUNCHES = 0    # the radix offset entry (salted: fused_chain_radix_salted.cu)
 WIRE_OFFSET_LAUNCHES = 0     # the wire offset entry (salted: fused_chain_wire_salted.cu)
 DENSE_OFFSET_LAUNCHES = 0    # fused_chain_power_at (fused_chain_dense.cu)
@@ -920,6 +923,24 @@ def fused_chain_astage(x: torch.Tensor, plan: RadixPlan) -> torch.Tensor:
     return y
 
 
+#: the longest row the row epilogue's register form holds (csrc/
+#: parseval_rows.cu `lanes_v`: V = ceil(n / 128) float4s a lane a plane, 1,
+#: 2, 4 or 8)
+ROWS_MAX_N = 1024
+
+
+def parseval_rows_form(n: int, *ptrs: int) -> str:
+    """The form of csrc/parseval_rows.cu that takes rows of n pulses at the
+    addresses `ptrs` (y, wd, ph): "registers" (one read, float4 rows held
+    in registers) for n % 4 == 0, 4 <= n <= ROWS_MAX_N and 16-byte aligned
+    pointers, else "two-pass" (scalar loads, the row read twice; any
+    n >= 1).  The C entry refuses the register form wherever this says
+    two-pass."""
+    if n % 4 or not 4 <= n <= ROWS_MAX_N or any(p % 16 for p in ptrs):
+        return "two-pass"
+    return "registers"
+
+
 def parseval_rows_power_reference(y: torch.Tensor, plan: RadixPlan) -> torch.Tensor:
     """Plain torch version of the row-epilogue kernel: Y [bc, 2, rows, n]
     f32 -> pow [bc, rows] f32 (`pipeline.stage_b_parseval`)."""
@@ -930,8 +951,8 @@ def parseval_rows_power(y: torch.Tensor, plan: RadixPlan) -> torch.Tensor:
     """Y [bc, 2, rows, n] f32 (the full pulse axis, any slice of the m/2
     range bins) -> pow [bc, rows] f32.  A CPU tensor takes the plain
     version; a CUDA tensor launches csrc/parseval_rows.cu on the current
-    stream or raises."""
-    global PARSEVAL_ROWS_LAUNCHES
+    stream, in the form `parseval_rows_form` picks, or raises."""
+    global PARSEVAL_ROWS_LAUNCHES, PARSEVAL_ROWS_TWO_PASS_LAUNCHES
     if y.dtype != torch.float32:
         raise TypeError(f"parseval_rows_power: y must be float32, got {y.dtype}")
     if y.dim() != 4 or y.shape[1] != 2 or y.shape[3] != plan.n:
@@ -950,15 +971,29 @@ def parseval_rows_power(y: torch.Tensor, plan: RadixPlan) -> torch.Tensor:
     out = torch.empty((bc, rows), dtype=torch.float32, device=y.device)
     if bc == 0 or rows == 0:
         return out
+    ptrs = (y.data_ptr(), plan.wd.data_ptr(), plan.phasors.data_ptr())
+    two_pass = parseval_rows_form(plan.n, *ptrs) == "two-pass"
     lib = _build.load_library()
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
-        rc = lib.wrp_parseval_rows(
-            y.data_ptr(), plan.wd.data_ptr(), plan.phasors.data_ptr(),
-            out.data_ptr(), bc, rows, plan.n, stream)
+        rc = lib.wrp_parseval_rows(*ptrs, out.data_ptr(), bc, rows, plan.n,
+                                   int(two_pass), stream)
     _raise_on_error(lib, rc, "parseval_rows")
     PARSEVAL_ROWS_LAUNCHES += 1
+    PARSEVAL_ROWS_TWO_PASS_LAUNCHES += two_pass
     return out
+
+
+def parseval_rows_occupancy(n: int) -> int:
+    """Resident blocks per SM of the row epilogue's register form at n (on
+    the current CUDA device); raises where the C entry refuses n."""
+    import ctypes
+
+    lib = _build.load_library()
+    blocks = ctypes.c_int(0)
+    rc = lib.wrp_parseval_rows_occupancy(n, ctypes.addressof(blocks))
+    _raise_on_error(lib, rc, "parseval_rows occupancy")
+    return blocks.value
 
 
 def build_fused_processor(consts: PipelineConstants, device):

@@ -218,6 +218,68 @@ def channel_power_planar(xr: torch.Tensor, xi: torch.Tensor,
     raise ValueError(f"unknown matched_filter {matched_filter!r}")
 
 
+#: the methods of the functional chain API, as in ``wrp_tpu``
+FUNCTIONAL_METHODS = ("mxu", "parseval", "fft")
+
+
+def _functional_input(x, device) -> torch.Tensor:
+    """A tensor stays on its device unless `device` is given; a numpy
+    array goes to `device`, "cuda" by default (raising without CUDA)."""
+    if torch.is_tensor(x):
+        return x if device is None else x.to(resolve_device(device))
+    return torch.as_tensor(np.asarray(x)).to(
+        resolve_device("cuda" if device is None else device))
+
+
+def _functional_power(xr: torch.Tensor, xi: torch.Tensor,
+                      consts: PipelineConstants, method: str,
+                      matched_filter: str) -> torch.Tensor:
+    if method not in FUNCTIONAL_METHODS:
+        raise ValueError(f"unknown method {method!r}: the functional API "
+                         f"takes {FUNCTIONAL_METHODS} (SectorProcessor "
+                         "runs the others)")
+    dc = _DeviceConstants(consts, xr.device)
+    return channel_power_planar(xr.to(torch.float32), xi.to(torch.float32),
+                                dc, method, matched_filter)
+
+
+def channel_power(iq, consts: PipelineConstants, method: str = "mxu",
+                  matched_filter: str = "direct",
+                  device=None) -> torch.Tensor:
+    """Stages 01-08: complex IQ [..., m, n] -> pow [..., m/2] float32, on
+    the input tensor's device (a numpy input goes to `device`, "cuda"
+    unless the caller passes device="cpu").  ``wrp_tpu``'s `precision` has
+    no counterpart: the chain runs in fp32 with TF32 off (the numerics
+    policy above)."""
+    x = _functional_input(iq, device)
+    return _functional_power(x.real, x.imag, consts, method, matched_filter)
+
+
+def process_sectors_planar(iq_planar, consts: PipelineConstants,
+                           method: str = "mxu",
+                           matched_filter: str = "direct",
+                           device=None):
+    """The full chain on planar IQ [..., channels, 2, m, n] (float32 or
+    int16, the codec's layout) -> (zdb, zdr) each [..., m/2]; the device
+    rule of `channel_power`."""
+    x = _functional_input(iq_planar, device)
+    pow_all = _functional_power(x[..., 0, :, :], x[..., 1, :, :], consts,
+                                method, matched_filter)
+    gain = torch.from_numpy(np.asarray(consts.gain)).to(x.device)
+    return stage09_10_products(pow_all[..., 0, :], pow_all[..., 1, :], gain)
+
+
+def process_sectors(iq, consts: PipelineConstants, method: str = "mxu",
+                    matched_filter: str = "direct", device=None):
+    """The full chain over a batch: complex IQ [..., channels, m, n] ->
+    (zdb, zdr) each [..., m/2].  Channel 0 = hh, channel 1 = vv; extra
+    channels ride along through the power stages.  The device rule of
+    `channel_power`."""
+    pow_all = channel_power(iq, consts, method, matched_filter, device)
+    gain = torch.from_numpy(np.asarray(consts.gain)).to(pow_all.device)
+    return stage09_10_products(pow_all[..., 0, :], pow_all[..., 1, :], gain)
+
+
 def all_stages(iq: torch.Tensor, consts: PipelineConstants,
                matched_filter: str = "direct") -> Dict[str, torch.Tensor]:
     """Every stage boundary of the fft path on complex IQ [C, m, n], keyed

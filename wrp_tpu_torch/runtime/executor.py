@@ -4,10 +4,11 @@
 Counterpart of ``wrp_tpu/runtime/executor.py`` (single-host).  Two threads
 and a two-deep batch pipeline:
 
-  ingest thread:  transport recv -> numpy decode (int16 planar, natural row
-                  order) -> queue; with device_decode, no decode: the wire
-                  bytes are only viewed in the processor's wire dtype
-                  (int32 words or uint8), and the device decodes them
+  ingest thread:  transport recv -> native decode (native/codec.cpp: int16
+                  planar, natural row order) -> queue; with device_decode,
+                  no decode: the wire bytes are only viewed in the
+                  processor's wire dtype (int32 words or uint8), and the
+                  device decodes them
   compute thread: drain batch k+1 -> stage it in a pinned ping-pong buffer
                   -> H2D on the copy stream -> dispatch the chain on the
                   compute stream once the copy's event fires -> only then
@@ -743,6 +744,12 @@ class StreamingExecutor:
         if self._ingest_error is not None:
             raise self._ingest_error
         return self.stats(processed)
+
+    def stop(self) -> None:
+        """End a running `run()` from another thread: ingest stops taking
+        sectors, `run()` processes what is already queued, joins its
+        ingest threads and returns its stats."""
+        self._stop.set()
 
     def stats(self, processed: int) -> dict:
         out = {
