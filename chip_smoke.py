@@ -88,6 +88,19 @@ Phases (each prints its results; any failure raises and exits non-zero):
    count, and zdb/zdr of sampled sectors within 2e-4 of the oracle;
 7. the device-decode slice: the same with device_decode=True (the wire
    kernel; the host only views the wire bytes);
+   then the same cut over TCP (`cli produce --transport tcp` ->
+   TcpIngest -> the executor, host decode, the radix kernel -> TcpEgress
+   -> a TcpResultConsumer here, into a VolumeScan): 143/143, 0 drops,
+   143 + 143 v2 frames, the radix kernel's launches, four received
+   sectors within 2e-4 of the oracle; the same over ZMQ (the reference's
+   2-part v2 wire, no labels) when pyzmq is installed (the run prints
+   which); and `cli supervise --transport tcp` with two feeds on one
+   host, device decode: sectors 0-71 of each feed from two paced `cli
+   produce` processes, SIGTERM (exit 4, reason interrupted, both
+   checkpoints on disk), the same command again, sectors 72-142 (exit 0,
+   reason target, 143 a feed), two sectors a feed from the checkpoints vs
+   the oracle, the wire kernel's launches from the worker's own stats in
+   its log; the worker's start-up (launch to ready) printed;
 8. capacity: the executor fed from memory, unpaced, host decode and
    device decode; beside it the native and numpy codecs' decode rates;
 9. the dense path: the executor at m = 1000 from memory, device decode
@@ -120,7 +133,7 @@ Phases (each prints its results; any failure raises and exits non-zero):
    the warmup step), sampled products within 2e-4 of the oracle.
 
 Every launch counter is set to 0 just before each path runs and read just
-after.  Prints a JSON line of per-kernel results (launches, errors, ms,
+after (a supervised worker, another process, reports its own).  Prints a JSON line of per-kernel results (launches, errors, ms,
 plain ms, bound ms), then as its last line {"ok": true, "device": {...}}.
 A bound is the least work of the function (the range DFT as an FFT, or
 the bytes moved); where a kernel runs a matrix form (the dense entries'
@@ -133,10 +146,12 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import importlib.util
 import json
 import math
 import os
 import re
+import signal
 import socket
 import subprocess
 import sys
@@ -1251,16 +1266,347 @@ def phase_stream(device_decode: bool) -> dict:
                                   f"times during the run (>= {need})")
     check(sink.frames == [SECTORS, SECTORS],
           f"egress delivered {sink.frames} zdb/zdr frames")
-    for k in (0, SECTORS // 4, 5 * SECTORS // 7, SECTORS - 1):
+    check_cut_vs_oracle(f"{tag} stream", volume, SEED, pool_n, cfg)
+    return counts
+
+
+def free_tcp_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+class _ResultCollector:
+    """Runs a v2 result consumer (TcpResultConsumer / ZmqResultConsumer) on
+    a thread and accumulates its frames into a VolumeScan; counts zdb (B)
+    and zdr (C) frames."""
+
+    def __init__(self, consumer, cfg):
+        self.consumer = consumer
+        self.volume = VolumeScan(cfg)
+        self.frames = [0, 0]
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.is_set():
+            item = self.consumer.recv()
+            if item is None:
+                continue
+            topic, sector, elevation, values = item
+            k = 0 if topic == b"B" else 1
+            self.frames[k] += 1
+            self.volume.data[k, :, sector, elevation] = values
+
+    def wait_for(self, count: int, timeout_s: float) -> None:
+        deadline = time.monotonic() + timeout_s
+        while self.frames != [count, count] and time.monotonic() < deadline:
+            time.sleep(0.05)
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=10)
+        self.consumer.close()
+
+
+def check_cut_vs_oracle(tag, volume, seed, pool_n, cfg, sectors=None) -> None:
+    """Sampled sectors of elevation 0 of a volume (sector k is pool entry
+    k % pool_n of `cli produce --seed seed`; by default 0, 35, 102 and 142
+    as in phase_stream) within PRODUCT_TOL of the fp64 oracle, and zdb bin 0
+    exactly -inf."""
+    if sectors is None:
+        sectors = (0, SECTORS // 4, 5 * SECTORS // 7, SECTORS - 1)
+    for k in sectors:
         zdb64, zdr64 = oracle.process_sector(
-            oracle.produce_sector_iq(cfg, SEED, k % pool_n), cfg)
+            oracle.produce_sector_iq(cfg, seed, k % pool_n), cfg)
         zdb, zdr = volume.data[0, :, k, 0], volume.data[1, :, k, 0]
         ezdb, ezdr = rel(zdb64, zdb), rel(zdr64, zdr)
         check(ezdb <= PRODUCT_TOL and ezdr <= PRODUCT_TOL
               and zdb[0] == -np.inf,
-              f"sector {k} vs fp64 oracle: zdb {ezdb:.3e}, zdr {ezdr:.3e}, "
-              f"zdb[0] {zdb[0]}")
+              f"{tag}: sector {k} vs fp64 oracle: zdb {ezdb:.3e}, zdr "
+              f"{ezdr:.3e}, zdb[0] {zdb[0]}")
+
+
+def phase_stream_v2(transport: str) -> dict:
+    """One cut of 143 sectors from a `cli produce --transport tcp|zmq`
+    process at the radar's rate into TcpIngest / ZmqIngest, the executor
+    with host decode (method="pallas": the radix kernel), and the v2 result
+    frames through TcpEgress / ZmqEgress to a result consumer run here,
+    which accumulates them into a VolumeScan.  zmq runs the reference's
+    2-part v2 wire without labels (rpv2.cu:356-358): sectors are placed
+    positionally."""
+    tag = f"{transport} stream"
+    t_phase = time.perf_counter()
+    cfg = DEFAULT_CONFIG
+    pool_n = 8
+    ingest_port, result_port = free_tcp_port(), free_tcp_port()
+    cmd = [sys.executable, "-m", "wrp_tpu_torch.cli", "produce",
+           "--transport", transport, "--sectors", str(SECTORS),
+           "--rate", str(RATE), "--pool", str(pool_n), "--seed", str(SEED)]
+    if transport == "tcp":
+        from wrp_tpu_torch.io.tcp import (TcpEgress, TcpIngest,
+                                          TcpResultConsumer)
+
+        ingest = TcpIngest(cfg, port=ingest_port, host="127.0.0.1",
+                           timeout_s=2.0)
+        collector = _ResultCollector(
+            TcpResultConsumer(cfg, port=result_port, host="127.0.0.1",
+                              timeout_s=0.5), cfg)
+        egress = TcpEgress(cfg, port=result_port)
+        cmd += ["--ingest-port", str(ingest_port)]
+    else:
+        from wrp_tpu_torch.io.zmq_io import (ZmqEgress, ZmqIngest,
+                                             ZmqResultConsumer)
+
+        ingest_ep = f"tcp://127.0.0.1:{ingest_port}"
+        result_ep = f"tcp://127.0.0.1:{result_port}"
+        ingest = ZmqIngest(cfg, endpoint=ingest_ep, timeout_ms=2000)
+        egress = ZmqEgress(cfg, endpoint=result_ep)
+        collector = _ResultCollector(
+            ZmqResultConsumer(cfg, endpoint=result_ep, timeout_ms=500), cfg)
+        cmd += ["--zmq-bind", ingest_ep, "--connect-delay", "1"]
+    producer: list = []
+    ex = StreamingExecutor(
+        cfg, transport=ingest, publish=egress, batch=BATCH, method="pallas",
+        max_sectors=SECTORS, idle_limit=15,
+        on_ready=lambda: producer.append(subprocess.Popen(
+            cmd, cwd=os.path.dirname(os.path.abspath(__file__)))),
+        device="cuda")
+    reset_counts()
+    try:
+        stats = ex.run()
+    finally:
+        counts = read_counts()
+        for proc in producer:
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        ingest.close()
+        egress.close()
+        collector.wait_for(SECTORS, 10.0)
+        collector.close()
+    check(bool(producer) and producer[0].returncode == 0,
+          f"{tag}: producer process exited 0")
+    lat, timers = stats["latency_ms"], stats["timers"]
+    print(f"{tag}: {stats['processed_sectors']} sectors, requested {RATE}/s, "
+          f"delivered {ex.throughput.active_rate():.2f} sectors/s over the "
+          f"active span; latency p50 {lat['p50_ms']} ms p99 {lat['p99_ms']} "
+          f"ms; mean ingest/recv {timers['ingest/recv']['mean_ms']} ms, "
+          f"ingest/decode {timers['ingest/decode']['mean_ms']} ms (native "
+          f"codec); transport {json.dumps(stats['transport'])}; v2 frames "
+          f"{collector.frames}; launches {counts}", flush=True)
+    tr = stats["transport"]
+    check(stats["processed_sectors"] == SECTORS,
+          f"{tag}: {stats['processed_sectors']}/{SECTORS} sectors processed")
+    check(tr["dropped_sectors"] == 0 and tr["sectors"] == SECTORS,
+          f"{tag}: 0 drops (dropped sectors {tr['dropped_sectors']}, "
+          f"received {tr['sectors']})")
+    check(collector.frames == [SECTORS, SECTORS],
+          f"{tag}: {collector.frames} zdb/zdr v2 frames received")
+    need = math.ceil(SECTORS / BATCH)
+    check(counts["radix"] >= need,
+          f"{tag}: radix kernel launched {counts['radix']} times during the "
+          f"run (>= {need})")
+    check_cut_vs_oracle(f"{tag} (received v2 frames)", collector.volume,
+                        SEED, pool_n, cfg)
+    print(f"{tag}: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     return counts
+
+
+def _events(path: Path) -> list:
+    if not path.exists():
+        return []
+    out = []
+    for line in path.read_text().splitlines():
+        try:
+            out.append(json.loads(line))
+        except json.JSONDecodeError:
+            pass              # a line being written
+    return out
+
+
+def _await_event(path: Path, proc, kind: str, timeout_s: float) -> dict:
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        evs = [e for e in _events(path) if e["event"] == kind]
+        if evs:
+            return evs[-1]
+        if proc.poll() is not None:
+            raise SmokeFailure(f"supervisor exited {proc.returncode} before "
+                               f"{kind!r}: {proc.communicate()[1][-3000:]}")
+        time.sleep(0.1)
+    raise SmokeFailure(f"no {kind!r} event in {timeout_s} s; events "
+                       f"{[e['event'] for e in _events(path)]}")
+
+
+def _coverage(path: Path) -> int:
+    try:
+        return int(VolumeScan.load(path).coverage.sum())
+    except (OSError, ValueError, KeyError):
+        return 0              # not written yet
+
+
+def _last_stats(log: Path) -> dict:
+    """The last stats object a worker printed (`cli stream` prints its
+    stats as indented JSON on exit; the log holds every generation of the
+    host slot, appended)."""
+    text = log.read_text()
+    start = text.rfind("\n{\n")
+    if start < 0:
+        raise SmokeFailure(f"no stats in {log}: {text[-2000:]}")
+    return json.JSONDecoder().raw_decode(text[start + 1:])[0]
+
+
+def phase_supervise() -> dict:
+    """`cli supervise --transport tcp` as a user runs it: two feeds on one
+    host, device decode (the wire kernel), checkpoints under a temp dir.
+    Sectors 0-71 of each feed from two paced `cli produce` processes, then
+    SIGTERM (exit 4, reason interrupted, both checkpoints on disk); the
+    same command again resumes from the checkpoints and takes sectors
+    72-142 to the target (exit 0, reason target, 143 a feed).  The
+    one-card form of a regroup: the checkpoint follows the feed across
+    generations.  The worker is another process, so its launches come from
+    the stats it prints into its log."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    cfg = DEFAULT_CONFIG
+    pool_n, half = 8, (SECTORS + 1) // 2
+    ports = [free_tcp_port(), free_tcp_port()]
+    seeds = [SEED, SEED + 1]
+    tmp = Path(tempfile.mkdtemp(prefix="wrp_smoke_supervise_"))
+    ckdir = tmp / "ck"
+    ck = [ckdir / f"feed{p}.npz" for p in ports]
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def supervise(state: Path):
+        cmd = [sys.executable, "-m", "wrp_tpu_torch.cli", "supervise",
+               "--transport", "tcp", "--hosts", "1", "--method", "pallas",
+               "--device-decode", "--batch", str(BATCH), "--timeout", "2",
+               "--target-sectors", str(SECTORS), "--checkpoint-dir",
+               str(ckdir), "--state-file", str(state),
+               "--result-port", str(free_tcp_port()), "--ready-timeout",
+               "240"]
+        for p in ports:
+            cmd += ["--feed-port", str(p)]
+        return subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    def produce(start: int, count: int) -> None:
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "wrp_tpu_torch.cli", "produce",
+             "--transport", "tcp", "--ingest-port", str(p), "--sectors",
+             str(count), "--start-sector", str(start), "--rate", str(RATE),
+             "--pool", str(pool_n), "--seed", str(sd)], cwd=here)
+            for p, sd in zip(ports, seeds)]
+        for proc in procs:
+            proc.wait(timeout=120)
+        check(all(proc.returncode == 0 for proc in procs),
+              f"supervised run: producers of sectors {start}-"
+              f"{start + count - 1} exited 0")
+
+    def finish(proc, timeout_s: float):
+        out, err = proc.communicate(timeout=timeout_s)
+        try:
+            return proc.returncode, json.loads(out)
+        except json.JSONDecodeError:
+            raise SmokeFailure(f"supervisor rc {proc.returncode}, no "
+                               f"summary: {out[-1000:]} {err[-3000:]}")
+
+    runs = []
+    procs = []
+    try:
+        # run 1: sectors 0-71 of each feed, then SIGTERM
+        state = tmp / "state1.jsonl"
+        sup = supervise(state)
+        procs.append(sup)
+        launch = _await_event(state, sup, "launch", 60)
+        ready = _await_event(state, sup, "ready", 240)
+        runs.append({"launch_to_ready_s": round(ready["t"] - launch["t"], 3)})
+        produce(0, half)
+        deadline = time.monotonic() + 60
+        while any(_coverage(p) < half for p in ck):
+            if time.monotonic() > deadline:
+                raise SmokeFailure(f"checkpoints never held {half} sectors: "
+                                   f"{[_coverage(p) for p in ck]}")
+            time.sleep(0.1)
+        t_term = time.monotonic()
+        sup.send_signal(signal.SIGTERM)
+        rc, summary = finish(sup, 120)
+        runs[0]["sigterm_to_exit_s"] = round(time.monotonic() - t_term, 3)
+        stats1 = _last_stats(ckdir / "logs" / "g0-h0.log")
+        print(f"supervised run 1 (interrupted): rc {rc}, summary "
+              f"{json.dumps(summary)}; worker launches "
+              f"{stats1['kernel_launches']}, processed "
+              f"{stats1['processed_sectors']}, latency p50 "
+              f"{stats1['latency_ms']['p50_ms']} ms", flush=True)
+        check(rc == 4 and summary["reason"] == "interrupted",
+              f"supervised run 1: SIGTERM ends it with exit {rc} (4), "
+              f"reason {summary['reason']!r} (interrupted)")
+        check(all(p.exists() for p in ck)
+              and list(summary["coverage"].values()) == [half, half],
+              f"supervised run 1: both checkpoints on disk, coverage "
+              f"{summary['coverage']}")
+        # run 2: the same command resumes from the checkpoints
+        state = tmp / "state2.jsonl"
+        t_relaunch = time.monotonic()
+        sup = supervise(state)
+        procs.append(sup)
+        launch = _await_event(state, sup, "launch", 60)
+        ready = _await_event(state, sup, "ready", 240)
+        runs.append({"launch_to_ready_s": round(ready["t"] - launch["t"], 3),
+                     "relaunch_to_ready_s": round(
+                         time.monotonic() - t_relaunch, 3)})
+        produce(half, SECTORS - half)
+        rc, summary = finish(sup, 120)
+        stats2 = _last_stats(ckdir / "logs" / "g0-h0.log")
+    finally:
+        killed = [proc for proc in procs if proc.poll() is None]
+        for proc in killed:
+            proc.kill()
+            proc.wait(timeout=30)
+        # a supervisor that exits by itself has stopped its worker; one
+        # killed here leaves it running: end it by the pid it launched
+        for path in (tmp / "state1.jsonl", tmp / "state2.jsonl"):
+            for ev in _events(path) if killed else ():
+                for w in ev.get("workers", []):
+                    try:
+                        os.kill(w["pid"], signal.SIGKILL)
+                    except OSError:
+                        pass
+    print(f"supervised run 2 (resumed): rc {rc}, summary "
+          f"{json.dumps(summary)}; worker launches "
+          f"{stats2['kernel_launches']}, processed "
+          f"{stats2['processed_sectors']}, latency p50 "
+          f"{stats2['latency_ms']['p50_ms']} ms p99 "
+          f"{stats2['latency_ms']['p99_ms']} ms; worker start-up "
+          f"{json.dumps(runs)}", flush=True)
+    check(rc == 0 and summary["ok"] and summary["reason"] == "target",
+          f"supervised run 2: exit {rc}, reason {summary['reason']!r} "
+          "(target)")
+    check(list(summary["coverage"].values()) == [SECTORS, SECTORS],
+          f"supervised run 2: coverage {summary['coverage']} ({SECTORS} a "
+          "feed)")
+    for f, (path, sd) in enumerate(zip(ck, seeds)):
+        check_cut_vs_oracle(f"supervised feed {f} checkpoint",
+                            VolumeScan.load(path), sd, pool_n, cfg,
+                            sectors=(5, SECTORS - 1))
+    need = math.ceil(2 * (SECTORS - half) / BATCH)
+    wire = stats2["kernel_launches"]["wire"]
+    check(wire >= need and stats2["kernel_launches"]["radix"] == 0,
+          f"supervised run 2: the worker launched the wire kernel {wire} "
+          f"times (>= {need}; radix {stats2['kernel_launches']['radix']})")
+    shutil.rmtree(tmp, ignore_errors=True)   # kept when a check fails
+    print(f"supervised run: phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"wire_run1": stats1["kernel_launches"]["wire"], "wire_run2": wire,
+            "startup": runs}
 
 
 class _MemoryFeed:
@@ -2112,8 +2458,21 @@ def kernel_entry(name, source, replaces, launches, res, **extra) -> dict:
             "library_ms": res.get("library_ms"), **extra}
 
 
+def zmq_on_this_machine() -> bool:
+    """Whether pyzmq is installed here; the ZMQ cut runs only then."""
+    if importlib.util.find_spec("zmq") is None:
+        print("zmq: not installed on this machine", flush=True)
+        return False
+    import zmq
+
+    print(f"zmq: pyzmq {zmq.__version__} (libzmq {zmq.zmq_version()})",
+          flush=True)
+    return True
+
+
 def main() -> int:
     phase_environment()
+    has_zmq = zmq_on_this_machine()
     phase_build()
     occ = phase_fft_build()
     orc = Oracle()
@@ -2133,6 +2492,9 @@ def main() -> int:
     phase_seq_composition(orc, noise, adv)
     host = phase_stream(device_decode=False)
     dev = phase_stream(device_decode=True)
+    tcp = phase_stream_v2("tcp")
+    zmq_counts = phase_stream_v2("zmq") if has_zmq else None
+    supervised = phase_supervise()
     phase_capacity(device_decode=False)
     phase_capacity(device_decode=True)
     dense_launches = phase_dense_path()
@@ -2141,11 +2503,15 @@ def main() -> int:
         kernel_entry("fused_chain_power_radix",
                      "wrp_tpu_torch/csrc/fused_chain_radix.cu",
                      "wrp_tpu/ops/pallas/fullchain.py:809", host["radix"],
-                     radix, **occ["radix"]),
+                     radix, tcp_stream_launches=tcp["radix"],
+                     zmq_stream_launches=(zmq_counts["radix"] if zmq_counts
+                                          else None), **occ["radix"]),
         kernel_entry("fused_chain_power_wire",
                      "wrp_tpu_torch/csrc/fused_chain_wire.cu",
                      "wrp_tpu/ops/pallas/fullchain.py:1170", dev["wire"],
-                     wire, **occ["wire"]),
+                     wire, supervised_worker_launches=[
+                         supervised["wire_run1"], supervised["wire_run2"]],
+                     **occ["wire"]),
         kernel_entry("fused_chain_power_dense",
                      "wrp_tpu_torch/csrc/fused_chain_dense.cu",
                      "wrp_tpu/ops/pallas/fullchain.py:194",

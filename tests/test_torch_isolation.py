@@ -22,10 +22,15 @@ def test_port_imports_without_jax():
             "wrp_tpu_torch.tools.mxu_occupancy, "
             "wrp_tpu_torch.tools.int_split_repro, "
             "wrp_tpu_torch.native.codec_native, "
-            "wrp_tpu_torch.native.ingest_native; "
+            "wrp_tpu_torch.native.ingest_native, "
+            "wrp_tpu_torch.io.tcp, wrp_tpu_torch.io.zmq_io, "
+            "wrp_tpu_torch.runtime.supervisor, "
+            "wrp_tpu_torch.tools.producer, wrp_tpu_torch.tools.consumer; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'wrp_tpu.')) or m == 'wrp_tpu'); "
-            "assert not bad, bad; print('clean')")
+            "assert not bad, bad; "
+            # pyzmq is imported where a ZMQ socket is built, not at import
+            "assert 'zmq' not in sys.modules; print('clean')")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           env=cpu_subprocess_env(), capture_output=True,
                           text=True, timeout=120)

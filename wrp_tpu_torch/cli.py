@@ -1,12 +1,15 @@
 """Command-line entry points of the port (counterpart of wrp_tpu/cli.py):
 
-  process  — single-shot: IQ in, zdb/zdr out (reference read.cc).
-  stream   — streaming processor on the v1 UDP wire (reference
-             gpu_1fp_streamcasc.cu); with --coordinator, one rank of a
-             lock-step multi-rank fleet (--pulse-shard: every rank reads
-             one broadcast wire and computes a pulse slice of each sector).
-  produce  — synthesise/replay sectors onto the wire.
-  consume  — receive result frames, optionally into a volume checkpoint.
+  process   — single-shot: IQ in, zdb/zdr out (reference read.cc).
+  stream    — streaming processor: the v1 UDP wire (reference
+              gpu_1fp_streamcasc.cu), TCP, or the reference's v2 ZMQ wire
+              (rpv2.cu); with --coordinator, one rank of a lock-step
+              multi-rank fleet (--pulse-shard: every rank reads one
+              broadcast wire and computes a pulse slice of each sector).
+  supervise — launch and watch a fleet of `stream` workers with per-feed
+              checkpoints; regroup on a worker death (runtime/supervisor.py).
+  produce   — synthesise/replay sectors onto the wire.
+  consume   — receive result frames, optionally into a volume checkpoint.
 
 Flags are wrp_tpu's where they apply, plus --device (default cuda; without
 CUDA the command exits non-zero rather than running on the CPU).
@@ -19,6 +22,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import sys
 import time
 
@@ -40,6 +44,13 @@ def _add_channels(p):
                    help="wire/chain channel count: 3 = hh+vv+vh (the "
                         "reference's wire) or 2 = hh+vv (identical "
                         "products: vh never reaches zdb/zdr)")
+
+
+def _add_transport(p):
+    p.add_argument("--transport", default="udp", choices=["udp", "tcp", "zmq"],
+                   help="udp: the reference's v1 wire; tcp: framed, "
+                        "lossless replay (io/tcp.py); zmq: the reference's "
+                        "v2 pub/sub wire (io/zmq_io.py, needs pyzmq)")
 
 
 def _cfg_from_args(args):
@@ -169,7 +180,6 @@ def cmd_stream(args):
     import signal
     import threading
 
-    from .io.udp import UdpEgress, UdpIngest
     from .runtime import StreamingExecutor, configure_logging
 
     configure_logging(args.log_level, args.structured_logs)
@@ -178,6 +188,33 @@ def cmd_stream(args):
         return 2
     # refusals come before any socket is bound or group joined: a refusal
     # after setup would leave peers blocked in the group's handshake
+    if args.feed_port and args.transport == "zmq":
+        # zmq feeds are endpoints: ignoring the ports would listen on one
+        # default endpoint and lose the feeds without a word
+        print("--feed-port supports the udp and tcp transports only; "
+              "zmq feeds are endpoints (--feed-endpoint)", file=sys.stderr)
+        return 2
+    if args.feed_endpoint and args.transport != "zmq":
+        print("--feed-endpoint supports the zmq transport only; "
+              "udp/tcp feeds are ports (--feed-port)", file=sys.stderr)
+        return 2
+    if args.feed_endpoint and len(set(args.feed_endpoint)) != len(
+            args.feed_endpoint):
+        # two SUBs on one endpoint would each receive every message:
+        # duplicated sectors under colliding per-feed labels
+        print("duplicate --feed-endpoint values", file=sys.stderr)
+        return 2
+    feeds = args.feed_port or args.feed_endpoint or []
+    if args.feed_checkpoint:
+        # the supervisor keys checkpoints by feed, so that they follow a
+        # feed across regroups; counts must match or volumes shift feeds
+        if not feeds or len(args.feed_checkpoint) != len(feeds):
+            print("--feed-checkpoint needs one path per --feed-port/"
+                  "--feed-endpoint", file=sys.stderr)
+            return 2
+        if len(set(args.feed_checkpoint)) != len(args.feed_checkpoint):
+            print("duplicate --feed-checkpoint paths", file=sys.stderr)
+            return 2
     if args.device_decode and args.method != "pallas":
         print("--device-decode requires --method pallas", file=sys.stderr)
         return 2
@@ -207,15 +244,6 @@ def cmd_stream(args):
     if threading.current_thread() is threading.main_thread():
         signal.signal(signal.SIGTERM, _sigterm)
     cfg = _cfg_from_args(args)
-    feeds = args.feed_port or []
-    if args.feed_checkpoint:
-        if not feeds or len(args.feed_checkpoint) != len(feeds):
-            print("--feed-checkpoint needs one path per --feed-port",
-                  file=sys.stderr)
-            return 2
-        if len(set(args.feed_checkpoint)) != len(args.feed_checkpoint):
-            print("duplicate --feed-checkpoint paths", file=sys.stderr)
-            return 2
     processor = None
     if args.coordinator:
         # lock-step multi-rank streaming: every rank runs this command with
@@ -239,17 +267,7 @@ def cmd_stream(args):
             processor = MultiHostProcessor.build(
                 cfg, per_host_batch=args.batch, method=args.method,
                 device=device).step_local
-    if feeds:
-        transport = [UdpIngest(cfg, port=p, timeout_s=args.timeout)
-                     for p in feeds]
-    else:
-        # pulse-shard ranks on one host read ONE broadcast port; elsewhere
-        # no sharing (unicast datagrams would be split between the sockets)
-        transport = UdpIngest(cfg, port=args.ingest_port,
-                              timeout_s=args.timeout,
-                              reuse_port=args.pulse_shard)
-    publish = UdpEgress(cfg, zdb_port=args.zdb_port, zdr_port=args.zdr_port,
-                        extended=args.extended_results)
+    transport, publish = _stream_transport(args, cfg)
 
     volume = None
     if args.feed_checkpoint:
@@ -288,10 +306,64 @@ def cmd_stream(args):
             v.save()
         cov = [v.fraction() for v in vols]
         stats["volume_coverage"] = cov if len(cov) > 1 else cov[0]
+    stats["kernel_launches"] = _chain_launches()
     print(json.dumps(stats, indent=2))
     if args.coordinator:
         _bounded_exit(args.collective_timeout)
     return 0
+
+
+def _stream_transport(args, cfg):
+    """(ingest or list of ingests, egress) for `stream --transport`.
+    Multi-feed consolidation: one ingest per --feed-port (udp, tcp) or
+    --feed-endpoint (zmq), one SHARED egress (result frames carry only
+    sector/elevation, so the per-feed checkpoints are the authoritative
+    volumes); one ingest on --ingest-port / --zmq-sub otherwise.  Called
+    after every refusal: it binds sockets."""
+    if args.transport == "zmq":
+        from .io.zmq_io import ZmqEgress, ZmqIngest
+
+        timeout_ms = int(args.timeout * 1e3) if args.timeout else None
+        if args.feed_endpoint:
+            # a single SUB cannot attribute messages to feeds
+            transport = [ZmqIngest(cfg, endpoint=e, timeout_ms=timeout_ms)
+                         for e in args.feed_endpoint]
+        else:
+            transport = ZmqIngest(cfg, endpoint=args.zmq_sub,
+                                  timeout_ms=timeout_ms)
+        return transport, ZmqEgress(cfg, endpoint=args.zmq_pub)
+    if args.transport == "tcp":
+        from .io.tcp import TcpEgress, TcpIngest
+
+        ingest_cls, kw = TcpIngest, {}
+        publish = TcpEgress(cfg, port=args.result_port)
+    else:
+        from .io.udp import UdpEgress, UdpIngest
+
+        # pulse-shard ranks on one host read ONE broadcast port; elsewhere
+        # no sharing (unicast datagrams would be split between the sockets)
+        ingest_cls, kw = UdpIngest, {"reuse_port": args.pulse_shard}
+        publish = UdpEgress(cfg, zdb_port=args.zdb_port,
+                            zdr_port=args.zdr_port,
+                            extended=args.extended_results)
+    if args.feed_port:
+        transport = [ingest_cls(cfg, port=p, timeout_s=args.timeout)
+                     for p in args.feed_port]
+    else:
+        transport = ingest_cls(cfg, port=args.ingest_port,
+                               timeout_s=args.timeout, **kw)
+    return transport, publish
+
+
+def _chain_launches() -> dict:
+    """This process's launches of the chain kernels (the wrappers' counters
+    in ops/fullchain.py; 0 on the CPU), for a worker's stats."""
+    from .ops import fullchain
+
+    return {"radix": fullchain.LAUNCHES, "wire": fullchain.WIRE_LAUNCHES,
+            "dense": fullchain.DENSE_LAUNCHES,
+            "astage": fullchain.ASTAGE_LAUNCHES,
+            "rows": fullchain.PARSEVAL_ROWS_LAUNCHES}
 
 
 def _bounded_exit(collective_timeout):
@@ -314,14 +386,115 @@ def _bounded_exit(collective_timeout):
     os._exit(0)
 
 
+def cmd_supervise(args):
+    """Coordinator-led failure recovery for a fleet of stream workers
+    (runtime/supervisor.py): on a worker death the survivors are drained,
+    the dead host's feeds are reassigned to survivors, and a smaller
+    lock-step group relaunches from the per-feed checkpoints.  The
+    reference's dataflow (rpv2.cu) loses the whole in-memory volume in
+    this scenario.  The workers run on --device, which they receive with
+    the other worker flags."""
+    import signal
+    import threading
+    from pathlib import Path
+
+    from .runtime import configure_logging
+    from .runtime.supervisor import FeedSpec, Supervisor
+
+    configure_logging(args.log_level, args.structured_logs)
+
+    # service managers stop the supervisor with SIGTERM: the graceful path
+    # (stop the fleet, report "interrupted"), as in cmd_stream
+    def _sigterm(_signo, _frame):
+        raise KeyboardInterrupt
+
+    if threading.current_thread() is threading.main_thread():
+        signal.signal(signal.SIGTERM, _sigterm)
+    if args.device_decode and args.method != "pallas":
+        # refuse here, not through every worker exiting 2 at warmup, which
+        # the supervisor would retry as infra flake until max_generations
+        print("--device-decode requires --method pallas", file=sys.stderr)
+        return 2
+    ckdir = Path(args.checkpoint_dir)
+    ckdir.mkdir(parents=True, exist_ok=True)
+    if args.transport == "zmq":
+        if args.feed_port:
+            print("--feed-port supports the udp and tcp transports "
+                  "only; zmq feeds are endpoints (--feed-endpoint)",
+                  file=sys.stderr)
+            return 2
+        if not args.feed_endpoint:
+            print("zmq supervision needs --feed-endpoint (zmq feeds are "
+                  "endpoints the workers' SUB sockets connect to)",
+                  file=sys.stderr)
+            return 2
+        # checkpoint names derive from the sanitised endpoint, so the same
+        # feed maps to the same file across supervisor restarts too
+        feeds = [FeedSpec(port=None, endpoint=e,
+                          checkpoint=ckdir / ("feed-" + re.sub(
+                              r"[^A-Za-z0-9_.-]+", "-", e) + ".npz"))
+                 for e in args.feed_endpoint]
+    else:
+        if args.feed_endpoint:
+            print("--feed-endpoint supports the zmq transport only; "
+                  "udp/tcp feeds are ports (--feed-port)", file=sys.stderr)
+            return 2
+        if not args.feed_port:
+            print(f"{args.transport} supervision needs --feed-port",
+                  file=sys.stderr)
+            return 2
+        feeds = [FeedSpec(port=p, checkpoint=ckdir / f"feed{p}.npz")
+                 for p in args.feed_port]
+    try:
+        sup = Supervisor(
+            feeds, args.hosts if args.hosts is not None else len(feeds),
+            transport=args.transport,
+            batch=args.batch, method=args.method, timeout=args.timeout,
+            collective_timeout=args.collective_timeout,
+            target_sectors=args.target_sectors,
+            max_generations=args.max_generations,
+            regrow_after_s=args.regrow_after,
+            zdb_port=args.zdb_port, zdr_port=args.zdr_port,
+            result_port=args.result_port,
+            ready_timeout_s=args.ready_timeout,
+            state_file=args.state_file,
+            log_dir=ckdir / "logs",   # postmortems of host deaths
+            pulse_shard=args.pulse_shard,
+            extra_args=(["--log-level", args.log_level,
+                         "--device", args.device]
+                        + (["--device-decode"] if args.device_decode
+                           else [])
+                        + (["--channels", str(args.channels)]
+                           if args.channels != 3 else [])),
+        )
+    except ValueError as e:          # usage errors, as in the other
+        print(e, file=sys.stderr)    # subcommands
+        return 2
+    summary = sup.run()
+    print(json.dumps(summary, indent=2))
+    return 0 if summary["ok"] else 4
+
+
 def cmd_produce(args):
     from .io import codec
-    from .io.udp import UdpProducer
     from .oracle import produce_sector_iq
 
     cfg = _cfg_from_args(args)
-    producer = UdpProducer(cfg, host=args.host, port=args.ingest_port,
-                           extended_headers=args.headers)
+    if args.transport == "tcp":
+        from .io.tcp import TcpProducer
+
+        producer = TcpProducer(cfg, host=args.host, port=args.ingest_port)
+    elif args.transport == "zmq":
+        from .io.zmq_io import ZmqProducer
+
+        producer = ZmqProducer(cfg, endpoint=args.zmq_bind,
+                               extended_headers=args.headers)
+        time.sleep(args.connect_delay)  # PUB/SUB join grace
+    else:
+        from .io.udp import UdpProducer
+
+        producer = UdpProducer(cfg, host=args.host, port=args.ingest_port,
+                               extended_headers=args.headers)
     replay_wire = None
     if args.input:
         # replay a reference-era ASCII IQ capture: 2 recorded channels, vh
@@ -365,33 +538,19 @@ def cmd_produce(args):
                 if dt > 0:
                     time.sleep(dt)
     finally:
+        # a zmq PUB queues sends to an io thread: close() flushes the tail
+        # (bounded linger) before the process exits
         producer.close()
     print(f"sent {sent} sectors", file=sys.stderr)
     return 0
 
 
 def cmd_consume(args):
-    import select
-    import socket
-    import struct
-
-    from .io import frames
     from .runtime import VolumeScan
 
     cfg = _cfg_from_args(args)
     vs = VolumeScan(cfg, args.volume) if args.volume else None
     have: dict = {}
-
-    def bind(port):
-        s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
-        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        s.bind(("", port))
-        return s
-
-    # zdb and zdr ride separate ports; zdr is only needed for a volume
-    socks = {bind(args.port or cfg.udp_zdb_port): 0}
-    if vs is not None:
-        socks[bind(args.zdr_port or cfg.udp_zdr_port)] = 1
 
     def add(product, sector, elevation, values):
         if not (0 <= sector < cfg.num_sectors
@@ -405,6 +564,66 @@ def cmd_consume(args):
         seen.add(product)
         if len(seen) == 2:   # covered once BOTH products arrived
             vs.coverage[sector, elevation] = True
+
+    if args.transport == "udp":
+        _consume_udp(args, cfg, add if vs is not None else None)
+    else:
+        _consume_v2(args, cfg, add if vs is not None else None)
+    if vs is not None:
+        p = vs.save()
+        print(f"volume -> {p} (coverage {vs.fraction():.4f})", file=sys.stderr)
+    return 0
+
+
+def _consume_v2(args, cfg, add) -> None:
+    """consume --transport tcp|zmq: topic-tagged v2 frames on one
+    connection, zdb (topic B) and zdr (topic C) alike; `add` accumulates
+    them into the volume when there is one."""
+    if args.transport == "tcp":
+        from .io.tcp import TcpResultConsumer
+
+        consumer = TcpResultConsumer(cfg, port=args.port,
+                                     timeout_s=args.timeout)
+    else:
+        from .io.zmq_io import ZmqResultConsumer
+
+        consumer = ZmqResultConsumer(cfg, endpoint=args.zmq_sub,
+                                     timeout_ms=int(args.timeout * 1e3))
+    got = 0
+    try:
+        while got < args.count:
+            item = consumer.recv()
+            if item is None:
+                break
+            topic, sector, elevation, values = item
+            print(f"{topic.decode()}: sector {sector} elev {elevation}: "
+                  f"{values[:4]} ...")
+            got += 1
+            if add is not None:
+                add(0 if topic == cfg.zmq_zdb_topic else 1,
+                    sector, elevation, values)
+    finally:
+        consumer.close()
+
+
+def _consume_udp(args, cfg, add) -> None:
+    """consume --transport udp: v1/v1x frames, zdb and zdr on separate
+    ports (the zdr port is bound only to accumulate a volume)."""
+    import select
+    import socket
+    import struct
+
+    from .io import frames
+
+    def bind(port):
+        s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        s.bind(("", port))
+        return s
+
+    socks = {bind(args.port or cfg.udp_zdb_port): 0}
+    if add is not None:
+        socks[bind(args.zdr_port or cfg.udp_zdr_port)] = 1
 
     def drain_ready(wait_s):
         """One select slice; returns the number of zdb frames seen."""
@@ -422,7 +641,7 @@ def cmd_consume(args):
                 tag = "" if elev is None else f" elev {elev}"
                 print(f"sector {sector}{tag}: {values[:4]} ...")
                 zdbs += 1
-            if vs is not None:
+            if add is not None:
                 # bare v1 frames carry no elevation: accumulate at cut 0
                 add(product, sector, elev or 0, values)
         return zdbs
@@ -436,7 +655,7 @@ def cmd_consume(args):
             if n:
                 got += n
                 deadline = time.monotonic() + args.timeout
-        if vs is not None:
+        if add is not None:
             # grace drain: the final sector's zdr frame may trail its zdb
             end = time.monotonic() + 0.5
             while time.monotonic() < end:
@@ -444,10 +663,6 @@ def cmd_consume(args):
     finally:
         for s in socks:
             s.close()
-    if vs is not None:
-        p = vs.save()
-        print(f"volume -> {p} (coverage {vs.fraction():.4f})", file=sys.stderr)
-    return 0
 
 
 def main(argv=None):
@@ -467,30 +682,45 @@ def main(argv=None):
                         "(computed on the CPU)")
     p.set_defaults(fn=cmd_process)
 
-    p = sub.add_parser("stream", help="streaming processor (UDP v1 wire)")
+    p = sub.add_parser("stream", help="streaming processor (udp, tcp or "
+                                      "zmq transport)")
     _add_common(p)
     _add_channels(p)
+    _add_transport(p)
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--timeout", type=float, default=5.0)
     p.add_argument("--ingest-port", type=int, default=None)
     p.add_argument("--feed-port", type=int, action="append", default=None,
                    metavar="PORT",
-                   help="repeat to multiplex several radar feeds into one "
-                        "processor (one ingest per port, per-feed stats "
-                        "and checkpoints); overrides --ingest-port")
+                   help="udp/tcp: repeat to multiplex several radar feeds "
+                        "into one processor (one ingest per port, per-feed "
+                        "stats and checkpoints); overrides --ingest-port")
+    p.add_argument("--feed-endpoint", action="append", default=None,
+                   metavar="ENDPOINT",
+                   help="zmq: repeat to multiplex several v2 feeds into one "
+                        "processor (one SUB socket per endpoint, per-feed "
+                        "stats and checkpoints); overrides --zmq-sub")
     p.add_argument("--zdb-port", type=int, default=None)
     p.add_argument("--zdr-port", type=int, default=None)
+    p.add_argument("--zmq-sub", default=None,
+                   help="zmq: the ingest endpoint to subscribe to")
+    p.add_argument("--zmq-pub", default=None,
+                   help="zmq: the endpoint the result PUB socket binds")
+    p.add_argument("--result-port", type=int, default=None,
+                   help="tcp: result collector port")
     p.add_argument("--checkpoint", default=None,
                    help="volume .npz path; resumes coverage if it exists")
     p.add_argument("--feed-checkpoint", action="append", default=None,
                    metavar="PATH",
                    help="explicit per-feed volume .npz (once per "
-                        "--feed-port, same order)")
+                        "--feed-port/--feed-endpoint, same order): keyed "
+                        "by feed, so a supervisor can move feeds between "
+                        "hosts across regroups")
     p.add_argument("--checkpoint-every", type=float, default=30.0,
                    help="periodic save interval in seconds (0 saves "
                         "every batch; negative disables periodic saves)")
     p.add_argument("--extended-results", action="store_true",
-                   help="emit v1x result frames carrying the elevation")
+                   help="udp: emit v1x result frames carrying the elevation")
     p.add_argument("--debug-sync", action="store_true",
                    help="validate numerics every batch (rpv2 gpuErrchk mode)")
     p.add_argument("--max-sectors", type=int, default=None)
@@ -526,8 +756,65 @@ def main(argv=None):
                         "--wire-order)")
     p.set_defaults(fn=cmd_stream)
 
-    p = sub.add_parser("produce", help="send sectors onto the UDP wire")
+    p = sub.add_parser(
+        "supervise",
+        help="launch and watch a fleet of stream workers; regroup on death")
+    _add_common(p)
     _add_channels(p)
+    _add_transport(p)
+    p.add_argument("--feed-port", type=int, action="append", default=None,
+                   metavar="PORT", help="udp/tcp: one radar feed per flag")
+    p.add_argument("--feed-endpoint", action="append", default=None,
+                   metavar="ENDPOINT",
+                   help="zmq: one v2 feed (PUB endpoint to subscribe) per "
+                        "flag; pair with `produce --headers` so sectors "
+                        "carry labels (the bare v2 wire is positional and "
+                        "cannot resume soundly after a regroup)")
+    p.add_argument("--result-port", type=int, default=None,
+                   help="tcp: result collector port")
+    p.add_argument("--hosts", type=int, default=None,
+                   help="initial worker-process count (default: one per "
+                        "feed); more than one needs a GPU per host (NCCL) "
+                        "or --device cpu (gloo)")
+    p.add_argument("--pulse-shard", action="store_true",
+                   help="redundant fleet: exactly ONE broadcast feed (udp "
+                        "broadcast / zmq pub) that every host ingests "
+                        "whole; workers run `stream --pulse-shard`, a host "
+                        "death re-slices, and the freshest per-host volume "
+                        "copy seeds each generation")
+    p.add_argument("--checkpoint-dir", required=True,
+                   help="per-feed volumes land here as feed<PORT>.npz and "
+                        "FOLLOW the feed across regroups; worker logs in "
+                        "its logs/")
+    p.add_argument("--target-sectors", type=int, default=None,
+                   help="stop successfully once every feed's checkpoint "
+                        "holds N sectors")
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--timeout", type=float, default=5.0)
+    p.add_argument("--device-decode", action="store_true",
+                   help="workers decode wire bytes on the device (needs "
+                        "--method pallas; see stream --device-decode)")
+    p.add_argument("--collective-timeout", type=float, default=30.0)
+    p.add_argument("--ready-timeout", type=float, default=300.0,
+                   metavar="S",
+                   help="a generation whose warmup (group join, kernel "
+                        "load) exceeds S without any worker dying ends the "
+                        "run with reason ready_timeout")
+    p.add_argument("--max-generations", type=int, default=8)
+    p.add_argument("--regrow-after", type=float, default=None, metavar="S",
+                   help="after a shrink, once the smaller fleet has been "
+                        "ready and healthy S seconds, probe one host back "
+                        "up toward the starting count")
+    p.add_argument("--zdb-port", type=int, default=None)
+    p.add_argument("--zdr-port", type=int, default=None)
+    p.add_argument("--state-file", default=None,
+                   help="append one JSON line per supervisor event "
+                        "(launch/ready/host_death/regroup/grow/done)")
+    p.set_defaults(fn=cmd_supervise)
+
+    p = sub.add_parser("produce", help="send sectors onto the wire")
+    _add_channels(p)
+    _add_transport(p)
     p.add_argument("--sectors", type=int, default=143)
     p.add_argument("--start-sector", type=int, default=0,
                    help="label offset: resume a feed mid-volume")
@@ -541,15 +828,22 @@ def main(argv=None):
                         "them cyclically (sector k = entry k %% N)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--ingest-port", type=int, default=None)
+    p.add_argument("--zmq-bind", default="tcp://*:5563",
+                   help="zmq: the endpoint the sector PUB socket binds")
     p.add_argument("--headers", action="store_true",
-                   help="extended ingest headers (drop detection)")
+                   help="extended ingest headers (drop detection; zmq: a "
+                        "label frame)")
     p.add_argument("--input", default=None, metavar="IQ.altb",
                    help="replay a captured ASCII IQ sector (read.cc "
                         "format, 2 channels) instead of synthesising")
+    p.add_argument("--connect-delay", type=float, default=0.5,
+                   help="zmq: seconds to wait for subscribers to join "
+                        "before the first send")
     p.set_defaults(fn=cmd_produce)
 
-    p = sub.add_parser("consume", help="receive UDP result frames")
+    p = sub.add_parser("consume", help="receive result frames")
     _add_channels(p)
+    _add_transport(p)
     p.add_argument("--volume", default=None, metavar="OUT.npz",
                    help="accumulate received zdb/zdr frames into a volume "
                         "checkpoint")
@@ -557,8 +851,10 @@ def main(argv=None):
     p.add_argument("--timeout", type=float, default=5.0)
     p.add_argument("--port", type=int, default=None)
     p.add_argument("--zdr-port", type=int, default=None,
-                   help="zdr result port for --volume (defaults to the "
+                   help="udp --volume: zdr result port (defaults to the "
                         "config port)")
+    p.add_argument("--zmq-sub", default="tcp://localhost:5564",
+                   help="zmq: the result endpoint to subscribe to")
     p.set_defaults(fn=cmd_consume)
 
     args = ap.parse_args(argv)
