@@ -130,10 +130,24 @@ Phases (each prints its results; any failure raises and exits non-zero):
    StreamingExecutor (collective timeout 30 s), 143 sectors from `cli
    produce` at 21.45/s, host decode then device decode; 0 drops, 143/143,
    the A-stage and row-epilogue launches equal to the steps (batches plus
-   the warmup step), sampled products within 2e-4 of the oracle.
+   the warmup step), sampled products within 2e-4 of the oracle; then, in
+   the same group, the halo step (parallel/halo.py) on 4 noise sectors vs
+   the fused radix chain (<= 1e-4) and the oracle (<= 2e-4);
+14. (after the bench of 2c) `bench --sharded N`, N = min(GPU count, 4)
+   (`--sharded 1` on a one-card machine, which it says): N ranks, rank k
+   on cuda:k over NCCL, each running the salted offset loop on its B/N
+   sectors; the sharded gate (data-parallel pallas < 1e-4, mxu and halo <
+   1e-3 against the unsharded processor) and each rank's salted harness on
+   its own share, every rank's offset launches, its value beside N x the
+   unsharded value; then `python -m wrp_tpu_torch.parallel.dryrun N` on
+   the GPUs (its checks and OK line);
+15. with N >= 2 cards: the halo and mxu pulse-sharded steps across N
+   ranks (tools/pulse_shard_ranks.py --method halo,mxu), each rank's
+   products vs the fused chain (<= 1e-4) and the oracle, step ms.
 
 Every launch counter is set to 0 just before each path runs and read just
-after (a supervised worker, another process, reports its own).  Prints a JSON line of per-kernel results (launches, errors, ms,
+after (a supervised worker or a bench rank, another process, reports its
+own).  Prints a JSON line of per-kernel results (launches, errors, ms,
 plain ms, bound ms), then as its last line {"ok": true, "device": {...}}.
 A bound is the least work of the function (the range DFT as an FFT, or
 the bytes moved); where a kernel runs a matrix form (the dense entries'
@@ -174,6 +188,8 @@ from wrp_tpu_torch.native import build as native_build  # noqa: E402
 from wrp_tpu_torch.native import codec_native  # noqa: E402
 from wrp_tpu_torch.ops import (  # noqa: E402
     _build, device_codec, fullchain, postprocess, probes)
+from wrp_tpu_torch.parallel import (  # noqa: E402
+    build_halo_processor, make_mesh, shard_batch)
 from wrp_tpu_torch.parallel.multihost import (  # noqa: E402
     PulseShardedProcessor, init_distributed)
 from wrp_tpu_torch.parallel.sharded import join_pulses, split_rows  # noqa: E402
@@ -1131,10 +1147,11 @@ def phase_pulse_shard_stream(device_decode: bool) -> dict:
     return counts
 
 
-def phase_pulse_shard() -> dict:
-    """Both pulse-shard streams inside one NCCL group of world size 1 (one
-    card: NCCL refuses two ranks on one GPU, so the 2-rank path is held on
-    the CPU by tests/test_torch_multihost.py)."""
+def phase_pulse_shard(orc: Oracle, noise) -> dict:
+    """Both pulse-shard streams, then the halo step, inside one NCCL group
+    of world size 1 (one card: NCCL refuses two ranks on one GPU; N ranks
+    run in phase_halo_ranks where the machine has N cards, and on the CPU
+    in tests/test_torch_multihost.py and tests/test_torch_halo.py)."""
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
     port = s.getsockname()[1]
@@ -1145,9 +1162,122 @@ def phase_pulse_shard() -> dict:
     try:
         host = phase_pulse_shard_stream(device_decode=False)
         phase_pulse_shard_stream(device_decode=True)
+        halo_world_one(orc, noise, dev)
     finally:
         dist.destroy_process_group()
     return host
+
+
+def halo_world_one(orc: Oracle, noise, dev) -> None:
+    """parallel/halo.py's step on the group's [1, 1] mesh (the circular
+    filter, torch matmuls) on 4 noise sectors: vs the fused radix chain
+    (SectorProcessor pallas, <= 1e-4) and each sector vs the fp64 oracle
+    (zdb/zdr <= 2e-4); its step time beside the chain's."""
+    from wrp_tpu_torch.pipeline import SectorProcessor
+
+    cfg = DEFAULT_CONFIG
+    mesh = make_mesh(seq=1, device=dev)
+    step = build_halo_processor(cfg, mesh)
+    x = shard_batch(np.stack([planar_i16(iq) for iq in noise[:4]]), mesh,
+                    step.layout)
+    single = SectorProcessor(cfg, method="pallas", device=dev)
+    zdb, zdr = (t.cpu().numpy() for t in step(x))
+    want_db, want_dr = (t.cpu().numpy() for t in single(x))
+    e_db, e_dr = rel(want_db, zdb), rel(want_dr, zdr)
+    check(mesh.shape == {"data": 1, "seq": 1} and e_db <= 1e-4
+          and e_dr <= 1e-4,
+          f"halo step, world size 1 (mesh {mesh.shape}): vs the fused radix "
+          f"chain zdb {e_db:.3e}, zdr {e_dr:.3e} <= 1e-4")
+    for k in range(4):
+        pow64 = orc.power((cfg.m, cfg.n, "noise", k), noise[k], cfg)
+        zdb64, zdr64 = oracle.stage09_10_products(pow64[0], pow64[1], cfg)
+        ezdb, ezdr = rel(zdb64, zdb[k]), rel(zdr64, zdr[k])
+        check(ezdb <= PRODUCT_TOL and ezdr <= PRODUCT_TOL,
+              f"halo step sector {k} vs fp64 oracle: zdb {ezdb:.3e}, zdr "
+              f"{ezdr:.3e} <= {PRODUCT_TOL}")
+    ms = cuda_ms(lambda: step(x))
+    print(f"halo step, world size 1, 4 sectors: {ms:.3f} ms (the fused "
+          f"radix chain {cuda_ms(lambda: single(x)):.3f} ms)", flush=True)
+
+
+def phase_bench_sharded(unsharded_value: float) -> dict:
+    """`bench --sharded N` in this process (it starts the N ranks, rank k
+    on cuda:k over NCCL), N = min(the GPU count, 4): its sharded gate
+    (pallas < 1e-4, mxu and halo < 1e-3 against the unsharded processor)
+    and every rank's salted harness on its own share (the salted gate's
+    bounds), value > 0 and every rank's launches of the salted offset entry
+    equal to (the warm pass and 3 timed passes) x steps + its gate's 2
+    calls; prints value, the parity, each rank's span and value over N x
+    the unsharded value.  Then the dry run of every sharded step
+    (`python -m wrp_tpu_torch.parallel.dryrun N`, on the GPUs by default)
+    at the same N."""
+    count = torch.cuda.device_count()
+    n = min(count, 4)
+    print(f"bench --sharded: {count} GPU(s) on this machine, N = {n}"
+          + (" (one GPU: the sharded harness at one rank)" if n == 1 else ""),
+          flush=True)
+    torch.cuda.empty_cache()
+    r = bench.run(["--sharded", str(n)])
+    print(f"bench --sharded {n}: " + json.dumps(r), flush=True)
+    par = r["sharded_parity_rel_l2"]
+    e0, e1 = r["parity_rel_l2"]
+    want = (1 + len(r["timed_runs_s"])) * r["steps"] + 2
+    check(r["sharded_devices"] == n and r["value"] > 0
+          and par["pallas"] < BENCH_GATE[0] and par["mxu"] < BENCH_GATE[1]
+          and par["halo"] < BENCH_GATE[1]
+          and e0 < BENCH_GATE[0] and e1 < BENCH_GATE[1]
+          and r["sharded_launches"] == [want] * n,
+          f"bench --sharded {n}: {r['value']} sectors/s, parity {par} under "
+          f"pallas {BENCH_GATE[0]}, mxu/halo {BENCH_GATE[1]}; the worst "
+          f"rank's salted harness {e0:.3e}, {e1:.3e} under {BENCH_GATE}; "
+          f"rank spans {r['sharded_rank_span_s']} s; offset launches a rank "
+          f"{r['sharded_launches']} (want {want})")
+    print(f"bench --sharded {n}: value / (N x unsharded {unsharded_value}) = "
+          f"{r['value'] / (n * unsharded_value):.4f}", flush=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m", "wrp_tpu_torch.parallel.dryrun", str(n)],
+        cwd=here, capture_output=True, text=True, timeout=660)
+    line = (done.stdout.strip().splitlines() or [""])[-1]
+    check(done.returncode == 0 and line.startswith("dryrun_multichip OK: ")
+          and f"bit-exact over {n} devices" in line,
+          f"dryrun {n} (NCCL, one GPU a rank): {line} "
+          f"({time.perf_counter() - t0:.1f} s) "
+          f"{done.stderr[-2000:] if done.returncode else ''}")
+    return {"devices": n, "launches": r["sharded_launches"],
+            "value": r["value"]}
+
+
+def phase_halo_ranks() -> None:
+    """Where the machine has N >= 2 cards (N <= 4): the halo and mxu
+    pulse-sharded steps across N ranks, one card each
+    (tools/pulse_shard_ranks.py --method halo,mxu): each rank's products vs
+    the fused radix chain on its card (<= 1e-4) and the oracle, and each
+    method's step ms."""
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        print("halo ranks: one GPU on this machine, the N-rank halo runs "
+              "only with N >= 2 cards (world size 1 runs in the pulse-shard "
+              "phase)", flush=True)
+        return
+    here = os.path.dirname(os.path.abspath(__file__))
+    done = subprocess.run(
+        [sys.executable, "wrp_tpu_torch/tools/pulse_shard_ranks.py",
+         "--ranks", str(n), "--method", "halo,mxu", "--reps", "10",
+         "--timeout", "500"], cwd=here, capture_output=True, text=True,
+        timeout=600)
+    rows = [json.loads(ln) for ln in done.stdout.splitlines()
+            if ln.startswith("{")]
+    for method in ("halo", "mxu"):
+        mine = [r for r in rows if r["method"] == method]
+        check(done.returncode == 0 and len(mine) == n
+              and all(r["ok"] for r in mine),
+              f"{method} across {n} ranks: zdb/zdr vs the fused chain "
+              f"{[(r['zdb_rel_vs_single'], r['zdr_rel_vs_single']) for r in mine]}"
+              f", step ms {[r['step_ms'] for r in mine]} (one card's fused "
+              f"chain {[r['single_device_ms'] for r in mine]}) "
+              f"{done.stderr[-2000:] if done.returncode else ''}")
 
 
 class _Sink:
@@ -2029,8 +2159,8 @@ def phase_bench() -> dict:
     passed, value > 0, and the run's offset counter equal to its launches:
     (the warm pass and 3 timed passes) x steps + the gate's 2 calls, with
     the other offset entries unused.  Returns {counter: launches} of the
-    first run of each counter."""
-    launches = {}
+    first run of each counter, and the first run's value (pallas int16)."""
+    launches, values = {}, {}
     for label, argv, counter in BENCH_RUNS:
         reset_counts()
         r = bench.run(argv)
@@ -2055,7 +2185,8 @@ def phase_bench() -> dict:
               f"{counts['dense_fft']})")
         if counter:
             launches.setdefault(counter, counts[counter])
-    return launches
+        values.setdefault(label, r["value"])
+    return launches, values[BENCH_RUNS[0][0]]
 
 
 def print_ptxas(pattern: str) -> None:
@@ -2482,7 +2613,8 @@ def main() -> int:
     adv = adversarial_sector(cfg)
     offsets = phase_offsets(noise, adv)
     stage2 = phase_stage2(orc, noise)
-    bench_launches = phase_bench()
+    bench_launches, bench_value = phase_bench()
+    sharded = phase_bench_sharded(bench_value)
     probe = phase_probes(orc, noise, adv)
     radix = phase_kernel(orc, noise, adv)
     wire = phase_kernel_wire(orc, noise, adv)
@@ -2498,7 +2630,8 @@ def main() -> int:
     phase_capacity(device_decode=False)
     phase_capacity(device_decode=True)
     dense_launches = phase_dense_path()
-    shard = phase_pulse_shard()
+    shard = phase_pulse_shard(orc, noise)
+    phase_halo_ranks()
     print(json.dumps({"kernels": [
         kernel_entry("fused_chain_power_radix",
                      "wrp_tpu_torch/csrc/fused_chain_radix.cu",
@@ -2544,7 +2677,9 @@ def main() -> int:
         kernel_entry("fused_chain_power_radix (offset, salt)",
                      "wrp_tpu_torch/csrc/fused_chain_radix_salted.cu",
                      "wrp_tpu/ops/pallas/fullchain.py:840",
-                     bench_launches["radix_offset"], offsets["radix"]),
+                     bench_launches["radix_offset"], offsets["radix"],
+                     sharded_launches=sharded["launches"],
+                     sharded_devices=sharded["devices"]),
         kernel_entry("fused_chain_power_wire (offset, salt)",
                      "wrp_tpu_torch/csrc/fused_chain_wire_salted.cu",
                      "wrp_tpu/ops/pallas/fullchain.py:1210",

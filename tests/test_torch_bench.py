@@ -98,7 +98,7 @@ def test_methods_and_input_forms_pass_the_gate(flags, method, in_dtype,
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--sharded", "2"], "not yet ported"),
+    (["--sharded", "2", "--profile", "unused"], "not yet ported"),
     (["--method", "mxu", "--in-dtype", "wire"], "pallas method only"),
     (["--in-dtype", "wire", "--distinct", "1"], "distinct >= 2"),
     (["--matched-filter", "fold"], "non-fused methods"),
@@ -140,3 +140,59 @@ def test_failed_gate_prints_an_error_and_exits_1(monkeypatch, capsys):
     r = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert r["error"] == "salted-harness parity check failed"
     assert r["salt0_rel_l2"] > 1e-4
+
+
+def test_sharded_two_ranks_cli_contract():
+    """`--sharded 2 --device cpu`: two gloo ranks (one torch thread each),
+    exit 0, one JSON line with the contract, the three parity keys under
+    their limits (pallas 1e-4, mxu and halo 1e-3), each rank's salted
+    harness under the salted gate's, each rank's span, `value` over the
+    whole batch, and no one-card secondary metric."""
+    from conftest import cpu_subprocess_env
+
+    done = subprocess.run(
+        [sys.executable, "-m", "wrp_tpu_torch.bench", *SMOKE, "--sharded",
+         "2"], cwd=REPO, capture_output=True, text=True, timeout=300,
+        env=cpu_subprocess_env(OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES=""))
+    assert done.returncode == 0, (done.stdout[-500:], done.stderr[-3000:])
+    lines = done.stdout.strip().splitlines()
+    assert len(lines) == 1
+    r = json.loads(lines[0])
+    assert r["metric"] == "sectors_per_second_3ch" and r["value"] > 0
+    assert r["sharded_devices"] == 2 and r["sharded_backend"] == "gloo"
+    par = r["sharded_parity_rel_l2"]
+    assert sorted(par) == ["halo", "mxu", "pallas"]
+    assert par["pallas"] < 1e-4 and par["mxu"] < 1e-3 and par["halo"] < 1e-3
+    # the worst rank's salted harness on its own share, salt 0 and 7
+    assert r["parity_rel_l2"][0] < 1e-4 and r["parity_rel_l2"][1] < 1e-3
+    # one card's secondary metrics are not measured under --sharded
+    assert r["h2d_gbps"] > 0
+    assert r["sectors_per_second_with_h2d"] is None
+    assert r["sectors_per_second_with_h2d_pipelined"] is None
+    assert r["calib_tflops"] is None and r["value_normalized"] is None
+    assert len(r["sharded_rank_span_s"]) == 2
+    assert r["sharded_launches"] == [0, 0]       # the CPU: plain versions
+    # the slowest rank's span, best of 3, over all B sectors of a step
+    assert max(r["sharded_rank_span_s"]) <= min(r["timed_runs_s"]) + 1e-3
+    assert r["batch"] == 4 and r["steps"] == 4 and r["device"] == "cpu"
+
+
+def test_sharded_refusals_as_wrp_tpu(monkeypatch, capsys):
+    """The JAX bench's --sharded refusals with its exit code, sys.exit with
+    the message, status 1 (bench.py:162-165, 312-313, 503-505); and on
+    cuda, N above the GPU count exits 2 before any rank starts (it does
+    not run fewer ranks)."""
+    for flags, match in ((["--sharded", "2", "--method", "mxu"],
+                          "flagship kernel"),
+                         (["--sharded", "2", "--in-dtype", "wire"],
+                          "does not support --sharded"),
+                         (["--sharded", "3"], "must divide by --sharded 3")):
+        with pytest.raises(SystemExit) as e:
+            bench.run(SMOKE + flags)
+        assert isinstance(e.value.code, str) and match in e.value.code
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit) as e:
+        bench.run(["--smoke", "--sharded", "2"])
+    assert e.value.code == 2
+    assert "needs 2 GPUs, this host has 1" in capsys.readouterr().err

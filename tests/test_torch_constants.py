@@ -149,3 +149,21 @@ def test_radix_helpers_match(m):
     r = tfull.radix_for(m)
     np.testing.assert_array_equal(tfull.radix_row_order(m, r),
                                   jfull.radix_row_order(m, r))
+
+
+@pytest.mark.parametrize("geom", ["default", "tiny-3ch"])
+def test_default_constants_matches(geom):
+    """constants.default_constants: every field equal to wrp_tpu's, cached
+    per configuration; None means DEFAULT_CONFIG."""
+    jc, tc = _cfgs(geom)
+    want = jconst.default_constants(jc)
+    got = tconst.default_constants(tc)
+    assert got is tconst.default_constants(tc)
+    pairs = [(want, got)]
+    if geom == "default":
+        pairs.append((jconst.default_constants(), tconst.default_constants()))
+    for w, g in pairs:
+        for f in dataclasses.fields(w):
+            a, b = getattr(w, f.name), getattr(g, f.name)
+            assert a.dtype == b.dtype, f.name
+            np.testing.assert_array_equal(a, b, err_msg=f.name)

@@ -25,7 +25,9 @@ def test_port_imports_without_jax():
             "wrp_tpu_torch.native.ingest_native, "
             "wrp_tpu_torch.io.tcp, wrp_tpu_torch.io.zmq_io, "
             "wrp_tpu_torch.runtime.supervisor, "
-            "wrp_tpu_torch.tools.producer, wrp_tpu_torch.tools.consumer; "
+            "wrp_tpu_torch.tools.producer, wrp_tpu_torch.tools.consumer, "
+            "wrp_tpu_torch.parallel.halo, wrp_tpu_torch.parallel.dryrun, "
+            "wrp_tpu_torch.parallel.launch; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'wrp_tpu.')) or m == 'wrp_tpu'); "
             "assert not bad, bad; "

@@ -11,8 +11,10 @@ gloo (torch.distributed), in subprocesses on ephemeral ports.
 * a SIGSTOPped peer: the survivor saves its checkpoint and exits 3 within
   a bound.
 
-Every subprocess has a timeout.  The card runs the same code at world size
-1 over NCCL (chip_smoke.py)."""
+Every subprocess has a timeout.  The rank pairs run through the shared
+runner (parallel/launch.py), which reruns a pair once on a fresh port when
+its rendezvous could not bind the port it was handed.  The card runs the
+same code at world size 1 over NCCL (chip_smoke.py)."""
 
 import json
 import signal
@@ -32,6 +34,7 @@ from wrp_tpu import oracle
 from wrp_tpu import pipeline as jpipe
 from wrp_tpu.config import DEFAULT_CONFIG as JDEFAULT
 from wrp_tpu.config import tiny_config as jtiny
+from wrp_tpu_torch.parallel.launch import run_ranks
 from wrp_tpu_torch.runtime import VolumeScan
 
 REPO = Path(__file__).resolve().parent.parent
@@ -52,21 +55,15 @@ def _env():
 
 
 def _run_ranks(script, *args, timeout=240):
-    """Run `script` as ranks 0 and 1 of a fresh group; (rc, out, err) each."""
-    port = str(_free_port())
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", script, str(pid), "2", port, *map(str, args)],
-        cwd=REPO, env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True) for pid in range(2)]
-    outs = []
-    for p in procs:
-        try:
-            out, err = p.communicate(timeout=timeout)
-        except subprocess.TimeoutExpired:
-            p.kill()
-            out, err = p.communicate()
-        outs.append((p.returncode, out, err))
-    return outs
+    """Run `script` as ranks 0 and 1 of a fresh group; (rc, out, err) each.
+    The shared rank runner (parallel/launch.py) reruns both ranks once on a
+    fresh port when the group's store could not bind the one it was given
+    (another test took it after the runner found it free)."""
+    results = run_ranks(
+        lambda pid, port: [sys.executable, "-c", script, str(pid), "2",
+                           str(port), *map(str, args)],
+        2, timeout, env=_env(), cwd=str(REPO))
+    return [(r.rc, r.out, r.err) for r in results]
 
 
 def _iq(seed):
@@ -322,17 +319,80 @@ def test_pulse_shard_stopped_peer_bounded_exit(tmp_path):
 def test_pulse_shard_ranks_tool_on_cpu(decode):
     """wrp_tpu_torch/tools/pulse_shard_ranks.py (the N-rank check the cards
     run over NCCL) on 2 gloo ranks at a small geometry: every rank's full
-    products equal the single-device fused chain's and the oracle's."""
+    products equal the single-device fused chain's and the oracle's; with
+    host decode for each of its methods in one group (pallas-seq, mxu, fft,
+    halo), with device decode for pallas-seq, its default."""
+    methods = [] if decode else ["--method", "pallas-seq,mxu,fft,halo"]
     done = subprocess.run(
         [sys.executable, "wrp_tpu_torch/tools/pulse_shard_ranks.py",
          "--ranks", "2", "--device", "cpu", "--m", "128", "--n", "64",
-         "--batch", "2", "--reps", "1", "--timeout", "200", *decode],
+         "--batch", "2", "--reps", "1", "--timeout", "200", *decode,
+         *methods],
         cwd=REPO, env=_env(), capture_output=True, text=True, timeout=240)
     assert done.returncode == 0, (done.stdout[-2000:], done.stderr[-3000:])
     rows = [json.loads(ln) for ln in done.stdout.splitlines()
             if ln.startswith("{")]
-    assert sorted(r["rank"] for r in rows) == [0, 1]
+    want = ["pallas-seq"] if decode else ["pallas-seq", "mxu", "fft", "halo"]
+    assert sorted((r["rank"], r["method"]) for r in rows) == sorted(
+        (k, m) for k in (0, 1) for m in want)
     for r in rows:
         assert r["ok"] and r["backend"] == "gloo" and r["ranks"] == 2
         assert r["zdb_rel_vs_single"] <= 1e-5 and r["zdr_rel_vs_single"] <= 1e-5
         assert r["device_decode"] == bool(decode)
+
+
+# a stand-in rank: fails like a store that could not bind its port until
+# the file it is given exists, then succeeds
+BIND_ONCE = r"""
+import os, sys
+marker, rank = sys.argv[1], sys.argv[2]
+with open(marker + ".log", "a") as f:
+    f.write(rank + "\n")
+if not os.path.exists(marker):
+    if rank == "1":
+        open(marker, "w").close()
+    sys.stderr.write("The server socket has failed to listen on any local "
+                     "network address. code: -98, name: EADDRINUSE\n")
+    sys.exit(1)
+print("ran", rank)
+"""
+
+
+@pytest.mark.parametrize("message,retried", [
+    ("EADDRINUSE", True), ("address already in use", True),
+    ("some other failure", False)])
+def test_rank_runner_reruns_once_on_a_bind_failure(tmp_path, message,
+                                                   retried):
+    """parallel/launch.run_ranks reruns the whole rank set once, on a
+    fresh port, when a rank reports that the rendezvous store could not
+    bind; any other failure is returned as it is, without a rerun."""
+    marker = tmp_path / "bound"
+    script = BIND_ONCE.replace("code: -98, name: EADDRINUSE", message)
+    results = run_ranks(
+        lambda rank, port: [sys.executable, "-c", script, str(marker),
+                            str(rank)], 2, 60, env=_env())
+    starts = (tmp_path / "bound.log").read_text().split()
+    if retried:
+        assert [r.rc for r in results] == [0, 0]
+        assert [r.out.split() for r in results] == [["ran", "0"],
+                                                    ["ran", "1"]]
+        assert sorted(starts) == ["0", "0", "1", "1"]
+    else:
+        # rank 1 always fails; rank 0 fails too unless rank 1 already
+        # left the file
+        assert results[1].rc == 1 and message in results[1].err
+        assert sorted(starts) == ["0", "1"]
+
+
+def test_rank_runner_stops_peers_of_a_failed_rank():
+    """A rank that fails leaves its peers `grace_s` before they are killed
+    (a peer blocked in a collective would otherwise hold the run to its
+    time limit); a killed rank reports 124."""
+    t0 = time.monotonic()
+    results = run_ranks(
+        lambda rank, port: [sys.executable, "-c",
+                            "import sys, time; rank = int(sys.argv[1]); "
+                            "time.sleep(60 if rank else 0); sys.exit(2)",
+                            str(rank)], 2, 120, env=_env(), grace_s=1.0)
+    assert [r.rc for r in results] == [2, 124]
+    assert time.monotonic() - t0 < 30

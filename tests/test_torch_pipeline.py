@@ -209,3 +209,29 @@ def test_functional_api_device_rule(sectors, monkeypatch):
         tpipe.process_sectors(x, consts, method="pallas")
     with pytest.raises(TypeError):
         tpipe.process_sectors(x, consts, precision="highest")
+
+
+def test_stage01_04_mxu_matches_jax(sectors):
+    """pipeline.stage01_04_mxu (complex IQ and complex operators) against
+    wrp_tpu's on the same complex64 input, within the JAX suite's bound for
+    the collapsed matmul form (tests/test_pipeline.py:73), and against the
+    planar form it wraps, exactly."""
+    cfg = jtiny(m=M, n=N)
+    jc = JConsts.build(cfg)
+    tc = PipelineConstants.build(tiny_config(m=M, n=N))
+    x = sectors.astype(np.complex64)
+    want = np.asarray(jpipe.stage01_04_mxu(
+        jnp.asarray(x), jnp.asarray(jc.op_a_half), jnp.asarray(jc.op_b)))
+    got = tpipe.stage01_04_mxu(x, tc.op_a_half, tc.op_b)
+    assert got.dtype == torch.float32 and got.shape == (2, 3, M // 2, N)
+    assert oracle.relative_l2(want, _np(got)) < 5e-5
+    xt = torch.from_numpy(x)
+    planar = tpipe.stage01_04_mxu_planar(
+        xt.real, xt.imag,
+        (torch.from_numpy(tc.op_a_half.real.copy()),
+         torch.from_numpy(tc.op_a_half.imag.copy())),
+        (torch.from_numpy(tc.op_b.real.copy()),
+         torch.from_numpy(tc.op_b.imag.copy())))
+    torch.testing.assert_close(tpipe.stage01_04_mxu(xt, tc.op_a_half,
+                                                    tc.op_b), planar,
+                               rtol=0, atol=0)

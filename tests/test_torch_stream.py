@@ -248,3 +248,88 @@ def test_stop_from_another_thread_ends_run():
     assert out["latency_ms"]["count"] == out["processed_sectors"]
     assert ex._ingest_threads and not any(t.is_alive()
                                           for t in ex._ingest_threads)
+
+
+class _V1Recorder:
+    """A user's egress with the v1 signature: send(sector, zdb, zdr)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def send(self, sector, zdb, zdr):
+        self.calls.append((int(sector), np.array(zdb), np.array(zdr)))
+
+
+class _OpaqueRecorder(_V1Recorder):
+    """A v1 send whose signature cannot be read: the executor probes it
+    once by call."""
+
+    def send(self, sector, zdb, zdr):
+        super().send(sector, zdb, zdr)
+
+    send.__signature__ = "unreadable"     # inspect.signature raises
+
+
+def _fixed_step(cfg):
+    """An override step both executors run: products from the staged
+    samples, the same float32 arrays for the same batch."""
+    def step(planar, labels):
+        x = np.asarray(planar, np.float32)
+        zdb = (x[:, 0, 0, : cfg.num_output_bins, 0]
+               + labels[:, :1].astype(np.float32))
+        return zdb, -zdb
+    return step
+
+
+@pytest.mark.parametrize("egress", ["v1-object", "v1-opaque", "udp-v1"])
+def test_v1_egress_through_executor_matches_wrp_tpu(egress):
+    """An egress whose send takes (sector, zdb, zdr) runs through the
+    port's executor as through wrp_tpu's: the arity read once, by
+    signature (or one probing call when it cannot be read), and the same
+    calls or v1 frames (wrp_tpu.io.udp.UdpEgress(extended=False) to a
+    loopback consumer) from both."""
+    from wrp_tpu.io.udp import UdpEgress as JUdpEgress
+    from wrp_tpu.runtime.executor import SectorTask as JTask
+    from wrp_tpu.runtime.executor import StreamingExecutor as JExecutor
+    from wrp_tpu_torch.runtime.executor import SectorTask
+
+    cfg, jcfg = tiny_config(m=M, n=N), jtiny(m=M, n=N)
+    rng = np.random.default_rng(5)
+    sectors = rng.integers(-2048, 2048, (3, cfg.num_channels, 2, M, N)
+                           ).astype(np.int16)
+    got = {}
+    for name, Executor, Task, c in (("port", StreamingExecutor, SectorTask,
+                                     cfg),
+                                    ("wrp_tpu", JExecutor, JTask, jcfg)):
+        sinks = None
+        if egress == "udp-v1":
+            sinks = (_sink(), _sink())
+            pub = JUdpEgress(jcfg, zdb_port=sinks[0].getsockname()[1],
+                             zdr_port=sinks[1].getsockname()[1],
+                             extended=False)
+        else:
+            pub = _V1Recorder() if egress == "v1-object" else _OpaqueRecorder()
+        ex = Executor(c, transport=None, publish=pub, batch=2,
+                      processor=_fixed_step(cfg), checkpoint_every_s=None)
+        tasks = [Task(sectors[k], 10 + k, 1) for k in range(3)]
+        assert ex._process_batch(tasks[:2]) == 2
+        assert ex._process_batch(tasks[2:]) == 1
+        assert ex._pub_v2 == {0: False}
+        if sinks is None:
+            got[name] = pub.calls
+        else:
+            got[name] = [(s0.recv(65536), s1.recv(65536))
+                         for s0, s1 in [sinks] * 3]
+            for s in sinks:
+                s.close()
+            pub.close()
+    assert len(got["port"]) == 3
+    if egress == "udp-v1":
+        assert got["port"] == got["wrp_tpu"]
+        sec, zdb = frames.unpack_result_v1(got["port"][0][0])
+        assert sec == 10 and zdb.shape == (cfg.num_output_bins,)
+    else:
+        for (s0, db0, dr0), (s1, db1, dr1) in zip(got["port"], got["wrp_tpu"]):
+            assert s0 == s1
+            np.testing.assert_array_equal(db0, db1)
+            np.testing.assert_array_equal(dr0, dr1)

@@ -30,9 +30,28 @@ JSON line (one line on stdout):
   from pinned memory while the current one computes), and `calib_tflops`,
   256 serial 4096^3 bf16 torch.matmuls, the card's delivered rate.
 
+`--sharded N` runs the pallas harness data-parallel on N ranks, one
+process each (rank k on cuda:k over NCCL, or on the CPU over gloo with
+`--device cpu`): each rank stages its B/N sectors of every slab and runs
+the salted offset loop over them; a timed span is the slowest rank's
+(all_reduce MAX between two barriers), and `value` is B * steps over it.
+Its parity gate: every rank's salted harness on its own share (the offset
+entry at that rank's offsets, salt 0 and 7, against the unsalted processor
+on the same sectors; `parity_rel_l2` is the worst rank's), and the JAX
+bench's sharded gate on the same [N, 1] mesh: the data-parallel pallas
+step, the mxu step and the halo step (parallel/halo.py), each gathered to
+rank 0, against the unsharded processor there (1e-4 pallas, 1e-3 mxu and
+halo).  `h2d_gbps` is every rank's staged bytes over the slowest rank's
+copy; the one-card secondary metrics (sectors/s with H2D, plain and
+pipelined, and the calibration) are null.  It refuses what
+the JAX bench refuses, with its exit code 1 (a method other than pallas,
+`--in-dtype wire`, a batch N does not divide), and N above the GPU count
+(exit 2: NCCL takes one rank a GPU, and fewer ranks would be another
+measurement).
+
 Not ported: the TPU formulation knobs (`--a-layout`, `--clip`, `--xsplit`,
 `--xpair`, `--wire-order`; the CUDA kernels have no such variants) and
-their JSON fields; `--sharded N` exits 2 (it needs parallel/halo.py).
+their JSON fields; `--profile` with `--sharded` exits 2 (not yet ported).
 Without CUDA the bench exits 2 unless `--device cpu` asks for the CPU.
 """
 
@@ -47,6 +66,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 BASELINE_3CH = 36.1   # the reference's GeForce 930M, prof/g7.prof
 BASELINE_2CH = 73.5   # prof/nocin-sep.prof
@@ -56,6 +76,9 @@ BASELINE_2CH = 73.5   # prof/nocin-sep.prof
 #: power.limit), the default run of chip_smoke.py's bench phase, whose value
 #: was 9,708.94 sectors/s (readings 814.0-833.0 across that call's 8 runs)
 RECORD_CALIB_TFLOPS = 821.3
+
+#: the time limit of a --sharded run's ranks, and of its group's collectives
+SHARDED_TIMEOUT_S = 900.0
 
 
 def _args(argv):
@@ -94,15 +117,37 @@ def _args(argv):
                          "kernel; xla = a torch decode pass feeding the "
                          "planar kernel (the name is kept from wrp_tpu)")
     ap.add_argument("--sharded", type=int, default=0, metavar="N",
-                    help="not yet ported (needs parallel/halo.py)")
+                    help="the pallas harness data-parallel on N ranks, one "
+                         "process and one GPU each, with the sharded parity "
+                         "gate (pallas, mxu, halo)")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of one timed pass to "
                          "DIR/trace.json")
     ap.add_argument("--verbose", action="store_true")
+    # a rank of --sharded N, started by the launching process
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.sharded:
-        ap.error("--sharded is not yet ported to wrp_tpu_torch (it needs "
-                 "parallel/halo.py, ROADMAP.md)")
+        # the JAX bench's refusals, with its exit code (sys.exit(str): 1)
+        if args.method != "pallas":
+            sys.exit("--sharded measures the flagship kernel; use --method "
+                     "pallas (the mxu sharded path is covered by the parity "
+                     "check it runs)")
+        if args.in_dtype == "wire":
+            sys.exit("--in-dtype wire does not support --sharded")
+        if args.sharded < 0:
+            ap.error("--sharded N takes N >= 1 ranks")
+        if args.profile:
+            ap.error("--profile with --sharded is not yet ported (one trace "
+                     "a rank)")
+        if (torch.device(args.device).type == "cuda"
+                and torch.cuda.is_available()
+                and args.sharded > torch.cuda.device_count()):
+            ap.error(f"--sharded {args.sharded} needs {args.sharded} GPUs, "
+                     f"this host has {torch.cuda.device_count()} (NCCL takes "
+                     "one rank a GPU; fewer ranks would measure something "
+                     "else)")
     if args.method == "pallas" and args.matched_filter != "direct":
         ap.error("--matched-filter applies to the non-fused methods")
     if args.in_dtype is None:
@@ -159,21 +204,22 @@ def _wire_bytes(host_iq: np.ndarray) -> np.ndarray:
 
 def run(argv=None) -> dict:
     """Run the benchmark; returns the result dict that `main` prints.
-    Refusals exit 2 (argparse); a failed parity gate prints {"error": ...}
-    and exits 1."""
+    Refusals exit 2 (argparse; the JAX bench's `--sharded` refusals exit
+    1); a failed parity gate prints {"error": ...} and exits 1.  With
+    `--sharded N` this process starts the N ranks and returns rank 0's
+    result."""
     from .config import DEFAULT_CONFIG, tiny_config
     from .constants import PipelineConstants, hamming_factors
     from .oracle import relative_l2
     from .ops import device_codec, fullchain
     from .pipeline import SectorProcessor, resolve_device, stage09_10_products
 
+    argv = list(sys.argv[1:] if argv is None else argv)
     ap, args = _args(argv)
     try:
         dev = resolve_device(args.device)
     except RuntimeError as e:
         ap.error(str(e))
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
     if args.smoke:
         # the smallest geometry where every method runs its own path (the
         # radix method's split needs m and n of at least 2 x 128)
@@ -186,6 +232,23 @@ def run(argv=None) -> dict:
         cfg = dataclasses.replace(
             DEFAULT_CONFIG, num_channels=args.channels,
             num_range_cells=args.range_cells or DEFAULT_CONFIG.m).validate()
+    mesh = None
+    if args.sharded:
+        if args.batch % args.sharded:
+            sys.exit(f"--batch {args.batch} must divide by --sharded "
+                     f"{args.sharded}")
+        if args.rank is None:
+            return _launch_ranks(argv, args)
+        from .parallel.mesh import init_distributed, make_mesh
+
+        dev = init_distributed(f"127.0.0.1:{args.port}", args.sharded,
+                               args.rank, args.device,
+                               timeout_s=SHARDED_TIMEOUT_S)
+        mesh = make_mesh(data=args.sharded, seq=1, device=dev)
+        fullchain.RADIX_OFFSET_LAUNCHES = 0
+    elif dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    lead = mesh is None or mesh.rank == 0
     baseline = BASELINE_3CH if args.channels == 3 else BASELINE_2CH
     log = ((lambda *a: print(*a, file=sys.stderr, flush=True))
            if args.verbose else (lambda *a: None))
@@ -193,13 +256,14 @@ def run(argv=None) -> dict:
     log(f"device: {card}, batch {args.batch}, method {args.method}")
 
     calib = None
-    if not args.smoke and dev.type == "cuda":
+    if not args.smoke and dev.type == "cuda" and mesh is None:
         calib = calibration_probe(dev)
         log(f"calibration: {calib:.1f} TFLOP/s (record {RECORD_CALIB_TFLOPS})")
 
     c, m, n = cfg.sector_shape
     B, D = args.batch, args.distinct
-    bcn = B * c
+    b_loc = B // (args.sharded or 1)      # this rank's sectors of a slab
+    bcn = b_loc * c
     steps = D * args.repeats
     rng = np.random.default_rng(0)
     host_iq = rng.integers(-8192, 8192, (D, B, c, 2, m, n), dtype=np.int16)
@@ -214,11 +278,26 @@ def run(argv=None) -> dict:
     else:
         host_stage = host_iq
 
+    if mesh is not None:
+        from .parallel.sharded import host_share
+
+        # this rank's B/N sectors of every slab (pallas int16 or f32 only),
+        # cut on the host before the copy is timed
+        host_stage = np.stack([host_share(host_stage[d], mesh, "data")
+                               for d in range(D)])
+        _barrier(dev)
     t0 = time.perf_counter()
     staged = torch.from_numpy(host_stage).to(dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    h2d_gbps = host_stage.nbytes / (time.perf_counter() - t0) / 1e9
+    t_h2d = time.perf_counter() - t0
+    h2d_bytes = staged.numel() * staged.element_size()
+    if mesh is not None:
+        # every rank's bytes over the slowest rank's copy
+        t = torch.tensor([t_h2d], dtype=torch.float64, device=dev)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        t_h2d, h2d_bytes = float(t.item()), h2d_bytes * mesh.world
+    h2d_gbps = h2d_bytes / t_h2d / 1e9
 
     consts = PipelineConstants.build(cfg)
     gain = torch.from_numpy(consts.gain).to(dev)
@@ -236,7 +315,7 @@ def run(argv=None) -> dict:
             torch.isfinite(zdr), zdr, torch.zeros_like(zdr)).sum(dim=0)
 
     def products(pw):
-        pw = pw.reshape(B, c, -1)
+        pw = pw.reshape(b_loc, c, -1)
         return stage09_10_products(pw[:, 0], pw[:, 1], gain)
 
     if args.method == "pallas":
@@ -278,8 +357,11 @@ def run(argv=None) -> dict:
             return acc.cpu()
 
         def parity():
-            """The harness at salt 0 and 7 vs the unsalted processor."""
-            zdb_ref = proc(torch.from_numpy(host_iq[0]).to(dev))[0]
+            """The harness at salt 0 and 7 vs the unsalted processor on the
+            same sectors (under --sharded, this rank's share of slab 0)."""
+            x0 = (staged[0] if mesh is not None
+                  else torch.from_numpy(host_iq[0]).to(dev))
+            zdb_ref = proc(x0)[0]
             return [relative_l2(zdb_ref.cpu().numpy(),
                                 products(step_power(0, salt))[0].cpu().numpy())
                     for salt in (0, 7)]
@@ -308,14 +390,39 @@ def run(argv=None) -> dict:
     timed_pass()
     t_compile = time.perf_counter() - t0
 
-    err0, err1 = parity()
     thr0, thr1 = 1e-4, 1e-3
-    log(f"parity: salt 0 {err0:.3e}, salted {err1:.3e}")
-    if not (err0 < thr0 and err1 < thr1):
-        print(json.dumps({"error": "salted-harness parity check failed",
-                          "salt0_rel_l2": err0, "salted_rel_l2": err1}),
-              flush=True)
-        sys.exit(1)
+    sharded_parity = None
+    err0, err1 = parity()
+    ok = err0 < thr0 and err1 < thr1
+    if mesh is None:
+        log(f"parity: salt 0 {err0:.3e}, salted {err1:.3e}")
+        if not ok:
+            print(json.dumps({"error": "salted-harness parity check failed",
+                              "salt0_rel_l2": err0, "salted_rel_l2": err1}),
+                  flush=True)
+            sys.exit(1)
+    else:
+        # every rank's salted harness on its own share, and the JAX bench's
+        # sharded gate on rank 0; one MAX gives every rank the worst errors
+        # and the verdict
+        log(f"rank {mesh.rank} parity: salt 0 {err0:.3e}, salted {err1:.3e}")
+        nat = rng.integers(-8192, 8192, (B, c, 2, m, n)).astype(np.float32)
+        sharded_parity = _sharded_gate(cfg, proc, mesh, nat)
+        if lead:
+            log(f"sharded parity: {sharded_parity}")
+            ok = ok and sharded_parity["pallas"] < thr0 and max(
+                sharded_parity["mxu"], sharded_parity["halo"]) < thr1
+        worst = torch.tensor([err0, err1, 0.0 if ok else 1.0],
+                             dtype=torch.float64, device=dev)
+        dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+        err0, err1, bad = worst.tolist()
+        if bad:
+            if lead:
+                print(json.dumps({"error": "sharded parity check failed",
+                                  "sharded_parity_rel_l2": sharded_parity,
+                                  "salt0_rel_l2": err0,
+                                  "salted_rel_l2": err1}), flush=True)
+            sys.exit(1)
 
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -334,34 +441,63 @@ def run(argv=None) -> dict:
                          else "self_cpu_time_total", row_limit=12))
         log(f"profiled pass: {wall_us / 1e3:.3f} ms, device kernels "
             f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}% busy)")
-    runs = []
+    runs, own_runs = [], []
     for _ in range(3):
+        if mesh is not None:
+            _barrier(dev)
         t0 = time.perf_counter()
         acc = timed_pass()
-        runs.append(time.perf_counter() - t0)
+        span = time.perf_counter() - t0
+        own_runs.append(span)
+        if mesh is not None:
+            # the slowest rank's span; no collective inside it
+            _barrier(dev)
+            t = torch.tensor([span], dtype=torch.float64, device=dev)
+            dist.all_reduce(t, op=dist.ReduceOp.MAX)
+            span = float(t.item())
+        runs.append(span)
     elapsed = min(runs)
     sectors_s = steps * B / elapsed
     if not bool(torch.isfinite(acc[1:]).all()):
         raise RuntimeError("non-finite zdb accumulator")
+    sharded = {}
+    if mesh is not None:
+        # every rank's launches of the offset entry and its own spans
+        mine = torch.tensor([fullchain.RADIX_OFFSET_LAUNCHES, *own_runs],
+                            dtype=torch.float64, device=dev)
+        parts = [torch.empty_like(mine) for _ in range(mesh.world)]
+        dist.all_gather(parts, mine)
+        table = torch.stack(parts).cpu().numpy()
+        best = int(np.argmin(runs))
+        sharded = {"sharded_backend": dist.get_backend(),
+                   "sharded_rank_span_s": [round(float(r[1 + best]), 6)
+                                           for r in table],
+                   "sharded_launches": [int(r[0]) for r in table]}
+        dist.destroy_process_group()
+        if not lead:
+            return {"rank": mesh.rank, **sharded}
 
-    # --- with the H2D of each batch (secondary) ---
-    if host_wire is not None:
-        proc_stream = SectorProcessor(cfg, method="pallas", device=dev,
-                                      consts=consts, wire_input=True,
-                                      wire_decode=args.wire_decode)
-        slabs = [host_stage[k * B:(k + 1) * B] for k in range(D)]
-    else:
-        proc_stream = proc
-        slabs = list(host_iq)
+    # --- with the H2D of each batch (secondary; one card's, so not
+    # measured under --sharded) ---
+    sectors_s_h2d = sectors_s_pipe = None
+    if mesh is None:
+        if host_wire is not None:
+            proc_stream = SectorProcessor(cfg, method="pallas", device=dev,
+                                          consts=consts, wire_input=True,
+                                          wire_decode=args.wire_decode)
+            slabs = [host_stage[k * B:(k + 1) * B] for k in range(D)]
+        else:
+            proc_stream = proc
+            slabs = list(host_iq)
 
-    def fetch(out):
-        return out[0].cpu(), out[1].cpu()
+        def fetch(out):
+            return out[0].cpu(), out[1].cpu()
 
-    fetch(proc_stream(torch.from_numpy(slabs[0]).to(dev)))
-    t0 = time.perf_counter()
-    fetch(proc_stream(torch.from_numpy(slabs[0]).to(dev)))
-    sectors_s_h2d = B / (time.perf_counter() - t0)
-    sectors_s_pipe = _pipelined(proc_stream, slabs, dev, fetch) * B
+        fetch(proc_stream(torch.from_numpy(slabs[0]).to(dev)))
+        t0 = time.perf_counter()
+        fetch(proc_stream(torch.from_numpy(slabs[0]).to(dev)))
+        sectors_s_h2d = B / (time.perf_counter() - t0)
+        sectors_s_pipe = _pipelined(proc_stream, slabs, dev, fetch) * B
 
     result = {
         "metric": f"sectors_per_second_{cfg.num_channels}ch",
@@ -370,8 +506,10 @@ def run(argv=None) -> dict:
         "vs_baseline": round(sectors_s / baseline, 2),
         "pulses_per_second": round(sectors_s * cfg.num_pulses, 0),
         "samples_per_second": round(sectors_s * c * m * n, 0),
-        "sectors_per_second_with_h2d": round(sectors_s_h2d, 2),
-        "sectors_per_second_with_h2d_pipelined": round(sectors_s_pipe, 2),
+        "sectors_per_second_with_h2d": (round(sectors_s_h2d, 2)
+                                        if mesh is None else None),
+        "sectors_per_second_with_h2d_pipelined": (round(sectors_s_pipe, 2)
+                                                  if mesh is None else None),
         "ms_per_sector": round(1e3 / sectors_s, 4),
         "h2d_gbps": round(h2d_gbps, 2),
         "calib_tflops": round(calib, 1) if calib is not None else None,
@@ -384,8 +522,8 @@ def run(argv=None) -> dict:
         "batch": B,
         "steps": steps,
         "method": proc.method,
-        "sharded_devices": None,
-        "sharded_parity_rel_l2": None,
+        "sharded_devices": args.sharded or None,
+        "sharded_parity_rel_l2": sharded_parity,
         "parity_rel_l2": [round(err0, 9), round(err1, 9)],
         "in_dtype": args.in_dtype,
         "wire_decode": args.wire_decode if host_wire is not None else None,
@@ -394,8 +532,69 @@ def run(argv=None) -> dict:
         "geometry": f"{c}x{m}x{n}",
         "baseline": {"3ch": BASELINE_3CH, "2ch_nocin": BASELINE_2CH,
                      "hw": "GeForce 930M (prof/g7.prof, nocin-sep.prof)"},
+        **sharded,
     }
     return result
+
+
+def _barrier(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        dist.barrier(device_ids=[dev.index])
+    else:
+        dist.barrier()
+
+
+def _sharded_gate(cfg, proc, mesh, nat: np.ndarray):
+    """The JAX bench's sharded parity (bench.py:587-616) on this rank's
+    mesh: the data-parallel pallas step, the mxu step and the halo step on
+    the natural-order batch `nat` [B, C, 2, m, n], each gathered to rank 0
+    and held against the unsharded processor there.  Returns
+    {name: zdb rel-L2} on rank 0, None elsewhere."""
+    from .oracle import relative_l2
+    from .parallel import (build_halo_processor, build_sharded_processor,
+                           gather_batch, shard_batch)
+
+    want = None
+    if mesh.rank == 0:
+        want = proc(torch.from_numpy(nat).to(mesh.device))[0].cpu().numpy()
+    out = {}
+    for name, step in (
+            ("pallas", build_sharded_processor(cfg, mesh, "pallas")),
+            ("mxu", build_sharded_processor(cfg, mesh, "mxu")),
+            ("halo", build_halo_processor(cfg, mesh))):
+        zdb = gather_batch(step(shard_batch(nat, mesh, step.layout))[0],
+                           mesh, step.layout)
+        if mesh.rank == 0:
+            out[name] = relative_l2(want, zdb.cpu().numpy())
+    return out if mesh.rank == 0 else None
+
+
+def _launch_ranks(argv, args) -> dict:
+    """`--sharded N`: run this command as ranks 0..N-1, one process each
+    (a free port for the group's store; once more on a fresh port if the
+    store could not bind it), and return rank 0's result.  A failed gate
+    prints rank 0's error line and exits 1; any other failed rank
+    raises."""
+    from .parallel.launch import ROOT, module_env, run_ranks
+
+    results = run_ranks(
+        lambda rank, port: [sys.executable, "-m", "wrp_tpu_torch.bench",
+                            *argv, "--rank", str(rank), "--port", str(port)],
+        args.sharded, SHARDED_TIMEOUT_S, env=module_env(), cwd=ROOT)
+    if args.verbose:
+        for r in results:
+            for line in r.err.splitlines():
+                print(f"[rank {r.rank}] {line}", file=sys.stderr, flush=True)
+    lines = [ln for ln in results[0].out.splitlines() if ln.startswith("{")]
+    if results[0].rc == 1 and lines and "error" in json.loads(lines[-1]):
+        print(lines[-1], flush=True)
+        sys.exit(1)
+    failed = [r for r in results if r.rc != 0]
+    if failed or not lines:
+        raise RuntimeError("--sharded {}: {}".format(args.sharded, "; ".join(
+            f"rank {r.rank} exit {r.rc}: {r.err[-3000:]}" for r in failed)
+            or "rank 0 printed no result"))
+    return json.loads(lines[-1])
 
 
 def _pipelined(proc_stream, slabs, dev, fetch) -> float:

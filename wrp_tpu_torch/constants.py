@@ -15,6 +15,7 @@ processor is bound to its device.
 from __future__ import annotations
 
 import dataclasses
+from functools import lru_cache
 
 import numpy as np
 
@@ -164,3 +165,12 @@ class PipelineConstants:
                 f"PipelineConstants fields {sorted(want)}; got "
                 f"{sorted(fields)}")
         return cls(**{k: np.array(fields[k]) for k in want})
+
+
+@lru_cache(maxsize=8)
+def default_constants(cfg: RadarConfig = None) -> PipelineConstants:
+    """PipelineConstants for `cfg` (DEFAULT_CONFIG when None), cached per
+    configuration."""
+    from .config import DEFAULT_CONFIG
+
+    return PipelineConstants.build(cfg or DEFAULT_CONFIG)

@@ -3,12 +3,18 @@
 Counterpart of ``wrp_tpu/parallel/mesh.py``.  The JAX package lays a
 [data, seq] mesh over devices, with several devices per process; here
 there is one rank per device (rank k on ``cuda:(k % device_count)``), and
-the ranks form the mesh along one of its two axes:
+the ranks form the same [data, seq] mesh, row-major: rank r sits in data
+row r // seq at seq index r % seq.
 
-  * "data" — sectors/elevations (the independent batch axis): seq = 1,
-    every rank its own sectors, no group (MultiHostProcessor);
-  * "seq"  — the in-sector pulse/range split: seq = world, the all_to_all
-    and all_gather run over every rank (PulseShardedProcessor).
+  * "data" — sectors/elevations (the independent batch axis): each data
+    row takes its own sectors, no communication between rows;
+  * "seq"  — the in-sector pulse/range split: the ranks of one row hold the
+    pulse (or range-row) slices of the same sectors, and the all_to_all,
+    all_gather, halo exchange and power reduction run over the row's
+    process group, `Mesh.seq_group`.
+
+seq = 1 is the data-parallel mesh (MultiHostProcessor), seq = world the
+pulse-sharded one (PulseShardedProcessor).
 
 NCCL carries the collectives of CUDA tensors, gloo those of CPU tensors.
 """
@@ -78,27 +84,55 @@ class Mesh:
         return self.rank % self.seq
 
     @property
+    def data_index(self) -> int:
+        return self.rank // self.seq
+
+    @property
     def shape(self) -> dict:
         return {DATA_AXIS: self.data, SEQ_AXIS: self.seq}
 
+    def seq_rank(self, index: int) -> int:
+        """The global rank at seq index `index` (mod seq) of this row."""
+        return self.data_index * self.seq + index % self.seq
 
-def make_mesh(seq: int = 1, device="cuda") -> Mesh:
-    """The mesh of the joined ranks: seq = 1 (data-parallel, no group) or
-    seq = world size (pulse-sharded, the whole group); one rank with seq 1
-    when no process group exists."""
+
+def make_mesh(data: Optional[int] = None, seq: int = 1,
+              device="cuda") -> Mesh:
+    """The [data, seq] mesh of the joined ranks; data=None takes
+    world // seq.  data x seq must equal the world size.  Without a
+    process group: one rank, a 1 x 1 mesh.
+
+    Each data row's ranks form its seq group: every rank creates every
+    row's group, in row order, as `dist.new_group` requires.  With one row
+    the group is the world group itself; with several rows of one rank
+    (seq = 1) there is none, since no collective runs along a one-rank
+    axis."""
+    if seq < 1 or (data is not None and data < 1):
+        raise ValueError(f"a {data}x{seq} mesh: each axis must be >= 1")
     if not dist.is_initialized():
-        if seq != 1:
-            raise ValueError(f"seq={seq} needs an initialised process group "
-                             "(init_distributed)")
+        if seq != 1 or data not in (None, 1):
+            raise ValueError(f"a {data or 1}x{seq} mesh needs an "
+                             "initialised process group (init_distributed)")
         return Mesh(rank=0, world=1, data=1, seq=1,
                     device=torch.device(device))
     rank, world = dist.get_rank(), dist.get_world_size()
-    if seq not in (1, world):
-        raise ValueError(f"seq={seq}: the ranks split either the batch "
-                         f"(seq=1) or the pulses (seq={world})")
+    if data is None:
+        if world % seq:
+            raise ValueError(f"{world} ranks not divisible by seq={seq}")
+        data = world // seq
+    if data * seq != world:
+        raise ValueError(f"mesh {data}x{seq} needs {data * seq} ranks, "
+                         f"the group has {world}")
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", rank % torch.cuda.device_count())
-    return Mesh(rank=rank, world=world, data=world // seq, seq=seq,
-                device=dev,
-                seq_group=dist.group.WORLD if seq == world else None)
+    group = None
+    if data == 1:
+        group = dist.group.WORLD
+    elif seq > 1:
+        for row in range(data):
+            g = dist.new_group(list(range(row * seq, (row + 1) * seq)))
+            if row == rank // seq:
+                group = g
+    return Mesh(rank=rank, world=world, data=data, seq=seq, device=dev,
+                seq_group=group)

@@ -119,7 +119,10 @@ def build_sharded_processor(cfg: RadarConfig = DEFAULT_CONFIG,
     pulse-byte columns of the wire rows, uint8 [b, m, n/seq * bps], and
     decodes them on the device first.
 
-    n and m/2 must divide by seq.  device defaults to the mesh's."""
+    n and m/2 must divide by seq.  device defaults to the mesh's.  The step
+    names the input layout it takes as `step.layout`: "data" (pallas),
+    "mesh" (the others), "wire" (pallas-seq with wire_input); `shard_batch`
+    cuts the first two from a host batch."""
     if mesh is None:
         mesh = make_mesh(device=device or "cuda")
     if method not in METHODS:
@@ -133,19 +136,75 @@ def build_sharded_processor(cfg: RadarConfig = DEFAULT_CONFIG,
     m, n = cfg.num_range_cells, cfg.num_pulses
     mh = m // 2
     if method == "pallas":
-        return pipeline.SectorProcessor(cfg, method="pallas", device=dev,
+        proc = pipeline.SectorProcessor(cfg, method="pallas", device=dev,
                                         consts=consts)
+        proc.layout = "data"
+        return proc
     if n % mesh.seq or mh % mesh.seq:
         raise ValueError(f"n={n} and m/2={mh} must divide by seq={mesh.seq}")
     if method == "pallas-seq":
-        return _build_pallas_seq(cfg, consts, mesh, dev, wire_input)
+        step = _build_pallas_seq(cfg, consts, mesh, dev, wire_input)
+        step.layout = "wire" if wire_input else "mesh"
+        return step
     dc = pipeline._DeviceConstants(consts, dev)
 
     def step(x_local):
         x = torch.as_tensor(x_local).to(dev, non_blocking=True)
         return _shard_body(x, consts, dc, cfg, method, mesh)
 
+    step.layout = "mesh"
     return step
+
+
+def gather_batch(t: torch.Tensor, mesh: Mesh, layout: str) -> torch.Tensor:
+    """The inverse of shard_batch for a step's output: every rank's rows
+    [b, ...] -> the whole batch on every rank, over the world group.
+    "data" holds the batch in rank order; "mesh" in data-row order, from
+    seq index 0 of each row (the row's ranks hold equal rows)."""
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(mesh.world)]
+    dist.all_gather(parts, t)
+    return torch.cat(parts[::mesh.seq] if layout == "mesh" else parts)
+
+
+def shard_batch(iq, mesh: Mesh, layout: str = "mesh") -> torch.Tensor:
+    """Host batch -> this rank's part of it, on its device.
+
+    iq: complex [B, C, m, n] (made planar f32 on the host) or planar
+    [B, C, 2, m, n] (its dtype kept).  layout (a step's `layout`):
+    "mesh": data row d's B/data sectors and seq index s's n/seq pulse
+    columns (wrp_tpu's iq_sharding); "data": the rank's B/world sectors,
+    all pulses (iq_sharding_flat, the batch over every rank)."""
+    return torch.from_numpy(host_share(iq, mesh, layout)).to(mesh.device)
+
+
+def host_share(iq, mesh: Mesh, layout: str = "mesh") -> np.ndarray:
+    """shard_batch's cut on the host: this rank's part of `iq`, a
+    contiguous planar numpy array (no copy to the device)."""
+    x = np.asarray(iq)
+    if np.iscomplexobj(x):
+        x = np.stack([x.real, x.imag], axis=-3).astype(np.float32)
+    if x.ndim != 5 or x.shape[2] != 2:
+        raise ValueError(f"expected planar [B, C, 2, m, n] or complex "
+                         f"[B, C, m, n]; got {np.asarray(iq).shape}")
+    b, n = x.shape[0], x.shape[-1]
+    if layout == "data":
+        parts, k = mesh.world, mesh.rank
+        cols = slice(None)
+    elif layout == "mesh":
+        parts, k = mesh.data, mesh.data_index
+        if n % mesh.seq:
+            raise ValueError(f"n={n} must divide by seq={mesh.seq}")
+        w = n // mesh.seq
+        cols = slice(mesh.seq_index * w, (mesh.seq_index + 1) * w)
+    else:
+        raise ValueError(f"layout {layout!r}: shard_batch cuts 'mesh' or "
+                         "'data'")
+    if b % parts:
+        raise ValueError(f"batch {b} must divide by {parts} ({layout} "
+                         f"layout of a {mesh.data}x{mesh.seq} mesh)")
+    rows = slice(k * (b // parts), (k + 1) * (b // parts))
+    return np.ascontiguousarray(x[rows, ..., cols])
 
 
 def _build_pallas_seq(cfg, consts, mesh, dev, wire_input):

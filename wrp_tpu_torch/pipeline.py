@@ -162,6 +162,21 @@ def stage01_04_mxu_planar(xr, xi, op_a: tuple, op_b: tuple) -> torch.Tensor:
     return zr * zr + zi * zi
 
 
+def stage01_04_mxu(iq, op_a_half, op_b) -> torch.Tensor:
+    """Complex-input convenience wrapper over stage01_04_mxu_planar: IQ
+    [..., m, n] and the complex operators (numpy or torch) -> power
+    [..., m/2, n] float32, on the device of `iq` when it is a tensor."""
+    x = torch.as_tensor(iq)
+    dev = x.device
+
+    def planes(t):
+        t = torch.as_tensor(t).to(dev)
+        return t.real.to(torch.float32), t.imag.to(torch.float32)
+
+    return stage01_04_mxu_planar(*planes(x), planes(op_a_half),
+                                 planes(op_b))
+
+
 # --------------------------------------------------------------------------
 # Full chain.
 # --------------------------------------------------------------------------

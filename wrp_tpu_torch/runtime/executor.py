@@ -247,6 +247,7 @@ class StreamingExecutor:
         # feed's tail
         self.feed_latencies = [LatencyStats() for _ in range(nfeeds)]
         self._feed_processed = [0] * nfeeds
+        self._pub_v2: dict = {}      # feed -> send() takes elevation?
         # reference counters (rpv2.cu:46-51, advance() :572-579), per feed
         self._pos = [[0, 0] for _ in range(nfeeds)]
 
@@ -583,11 +584,9 @@ class StreamingExecutor:
             vol = self.volumes[t.feed]
             if vol is not None:
                 vol.store(t.sector, t.elevation, zdb[k], zdr[k])
-            pub = self.publishes[t.feed]
-            if pub is not None:
+            if self.publishes[t.feed] is not None:
                 with self.timers.time("egress/send"):
-                    send = pub.send if hasattr(pub, "send") else pub
-                    send(t.sector, t.elevation, zdb[k], zdr[k])
+                    self._publish_one(t, zdb[k], zdr[k])
             self._feed_processed[t.feed] += 1
             if t.t_recv:
                 dt = time.perf_counter() - t.t_recv
@@ -597,6 +596,36 @@ class StreamingExecutor:
         self._processed += len(tasks)
         self._maybe_checkpoint()
         return len(tasks)
+
+    def _publish_one(self, t, zdb, zdr) -> None:
+        """One sector's products to its feed's egress: a plain callable
+        takes (sector, elevation, zdb, zdr); an object's `send` takes that
+        (v2) or (sector, zdb, zdr) (v1, e.g. a v1 UdpEgress)."""
+        pub = self.publishes[t.feed]
+        if callable(pub) and not hasattr(pub, "send"):
+            pub(t.sector, t.elevation, zdb, zdr)
+            return
+        v2 = self._pub_v2.get(t.feed)
+        if v2 is None:
+            # the arity once, by signature: a call that catches TypeError
+            # would take an error raised inside a v2 send for a v1
+            # signature and call it again with zdb as the elevation
+            try:
+                v2 = len(inspect.signature(pub.send).parameters) >= 4
+                self._pub_v2[t.feed] = v2
+            except (TypeError, ValueError):
+                # no signature to read: probe once by call
+                try:
+                    pub.send(t.sector, t.elevation, zdb, zdr)
+                    self._pub_v2[t.feed] = True
+                except TypeError:
+                    pub.send(t.sector, zdb, zdr)
+                    self._pub_v2[t.feed] = False
+                return
+        if v2:
+            pub.send(t.sector, t.elevation, zdb, zdr)
+        else:
+            pub.send(t.sector, zdb, zdr)
 
     def _process_batch(self, tasks):
         """Synchronous dispatch + complete (debug_sync / tests)."""
