@@ -143,7 +143,22 @@ Phases (each prints its results; any failure raises and exits non-zero):
    the GPUs (its checks and OK line);
 15. with N >= 2 cards: the halo and mxu pulse-sharded steps across N
    ranks (tools/pulse_shard_ranks.py --method halo,mxu), each rank's
-   products vs the fused chain (<= 1e-4) and the oracle, step ms.
+   products vs the fused chain (<= 1e-4) and the oracle, step ms;
+16. the rest of the CLI and the tools that read or check it: `cli process
+   --method pallas --timings --output` (six stage lines, one radix
+   launch) and `cli compare` of its output against the fp64 oracle's
+   products (pass at 1e-4); `cli stream --trace` in its own process, one
+   paced cut over UDP loopback, host decode (143/143, 0 drops, sampled
+   sectors vs the oracle), then `tools/trace_summary.run --overlap` on its
+   trace: one fft_chain_kernel event per radix launch the worker counted,
+   the executor's stage spans from the ingest and compute threads, the
+   overlap (`of_stage`) of `ingest/decode` and `compute/h2d_enqueue` with
+   the in-flight window and the device's busy share, over the traced
+   window and over the cut's traffic; `cli volume --render --export-ascii`
+   on that stream's checkpoint (a 256 x 256 PPM, 143 files);
+   `tools/hw_parity.run` (every method and path vs the oracle, each row's
+   kernels launched); `tools/wire_ab.run` and `tools/decode_ab.run` at
+   production geometry, batch 32 (parity pinned, us per sector).
 
 Every launch counter is set to 0 just before each path runs and read just
 after (a supervised worker or a bench rank, another process, reports its
@@ -2577,6 +2592,279 @@ def phase_probes(orc: Oracle, noise, adv) -> dict:
     return out
 
 
+def _cli(argv) -> tuple:
+    """(rc, stdout, stderr) of `wrp_tpu_torch.cli` run in this process, as a
+    user runs the command; its output is echoed."""
+    import contextlib
+    import io
+
+    from wrp_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    for stream in (out, err):
+        if stream.getvalue():
+            print(stream.getvalue().rstrip(), flush=True)
+    return rc, out.getvalue(), err.getvalue()
+
+
+CLI_STAGES = ["01hamm", "02fft1", "03fft2", "04abs", "07conv", "08pow"]
+
+
+def phase_cli_process(tmp: Path) -> dict:
+    """`cli process --method pallas --timings --output` on the card (the fft
+    path's six stages fenced one by one, then one radix launch), and `cli
+    compare` of its output against the fp64 oracle's products of the same
+    synthetic sector written the same way (pass at 1e-4)."""
+    from wrp_tpu_torch.io.files import write_ascii_matrix
+
+    cfg = DEFAULT_CONFIG
+    got = tmp / "process.out"
+    reset_counts()
+    rc, _, err = _cli(["process", "--method", "pallas", "--timings",
+                       "--output", str(got)])
+    counts = read_counts()
+    stages = [ln.split()[1].rstrip(":") for ln in err.splitlines()
+              if ln.startswith("stage ")]
+    check(rc == 0 and stages == CLI_STAGES and counts["radix"] == 1,
+          f"cli process --timings on the card: rc {rc}, stages {stages}, "
+          f"radix launches {counts['radix']} (== 1)")
+    want = tmp / "oracle.out"
+    write_ascii_matrix(want, np.stack(oracle.process_sector(
+        oracle.synthetic_iq(cfg, kind="noise", seed=0), cfg), 1))
+    rc, out, _ = _cli(["compare", str(want), str(got)])
+    line = json.loads(out)
+    check(rc == 0 and line["pass"] and line["threshold"] == 1e-4,
+          f"cli compare of process --output vs the fp64 oracle: relative L2 "
+          f"{line['relative_l2']:.3e} <= 1e-4")
+    return {"radix": counts["radix"], "stages_us": {
+        ln.split()[1].rstrip(":"): float(ln.split()[2])
+        for ln in err.splitlines() if ln.startswith("stage ")}}
+
+
+def free_udp_port() -> int:
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def phase_stream_trace(tmp: Path) -> tuple:
+    """`cli stream --trace` as a user runs it: its own process, one paced
+    cut of 143 sectors from `cli produce` over UDP loopback, host decode,
+    the radix kernel, a volume checkpoint.  Then the port's trace_summary
+    --overlap on the trace: the radix kernel's CUDA events (one per launch
+    the worker counted), the executor's stage spans from the ingest thread
+    and from the compute thread, the overlap of `ingest/decode` and
+    `compute/h2d_enqueue` with the in-flight window, and the device's busy
+    share (its kernels, copies and memsets over the traced window).
+    Returns (the summary's numbers, the checkpoint's path)."""
+    from wrp_tpu_torch.tools import trace_summary
+
+    cfg = DEFAULT_CONFIG
+    here = os.path.dirname(os.path.abspath(__file__))
+    pool_n = 8
+    port = free_udp_port()
+    ready, trace, ckpt = tmp / "ready", tmp / "trace", tmp / "stream.npz"
+    sink = _Sink()
+    cmd = [sys.executable, "-m", "wrp_tpu_torch.cli", "stream", "--method",
+           "pallas", "--batch", str(BATCH), "--timeout", "2", "--idle-limit",
+           "15", "--max-sectors", str(SECTORS), "--ingest-port", str(port),
+           "--zdb-port", str(sink.ports[0]), "--zdr-port", str(sink.ports[1]),
+           "--extended-results", "--ready-file", str(ready), "--trace",
+           str(trace), "--checkpoint", str(ckpt), "--checkpoint-every", "-1"]
+    t0 = time.perf_counter()
+    stream = subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.monotonic() + 180
+        while not ready.exists():
+            if stream.poll() is not None or time.monotonic() > deadline:
+                raise SmokeFailure(f"stream --trace never became ready: rc "
+                                   f"{stream.poll()} {stream.stderr.read()[-3000:]}")
+            time.sleep(0.05)
+        t_ready = time.perf_counter() - t0
+        prod = subprocess.run(
+            [sys.executable, "-m", "wrp_tpu_torch.cli", "produce", "--sectors",
+             str(SECTORS), "--rate", str(RATE), "--pool", str(pool_n),
+             "--seed", str(SEED), "--headers", "--ingest-port", str(port)],
+            cwd=here, timeout=120)
+        out, err = stream.communicate(timeout=180)
+    finally:
+        if stream.poll() is None:
+            stream.kill()
+            stream.wait()
+        time.sleep(0.5)
+        sink.close()
+    print("\n".join(err.splitlines()[-4:]), flush=True)
+    check(prod.returncode == 0 and stream.returncode == 0,
+          f"stream --trace: producer rc {prod.returncode}, stream rc "
+          f"{stream.returncode}, ready after {t_ready:.1f} s, "
+          f"{time.perf_counter() - t0:.1f} s in all")
+    stats = json.loads(out)
+    tr = stats["transport"]
+    radix = stats["kernel_launches"]["radix"]
+    lat = stats["latency_ms"]
+    print(f"stream --trace: {stats['processed_sectors']} sectors, latency "
+          f"p50 {lat['p50_ms']} ms p99 {lat['p99_ms']} ms, ingest/decode "
+          f"{stats['timers']['ingest/decode']['mean_ms']} ms; launches "
+          f"{stats['kernel_launches']}; egress frames {sink.frames}",
+          flush=True)
+    check(stats["processed_sectors"] == SECTORS and tr["dropped_sectors"] == 0
+          and tr["dropped_datagrams"] == 0
+          and stats["volume_coverage"] == SECTORS / (
+              cfg.num_sectors * cfg.num_elevations)
+          and radix >= math.ceil(SECTORS / BATCH),
+          f"stream --trace: {stats['processed_sectors']}/{SECTORS} sectors, "
+          f"0 drops, the cut covered, {radix} radix launches")
+    volume = VolumeScan.load(ckpt, cfg)
+    check_cut_vs_oracle("stream --trace", volume, SEED, pool_n, cfg)
+
+    summary = trace_summary.run(str(trace), top=10, overlap=True)
+    dev = summary["device"]["trace"]
+    traced_radix = sum(c for name, c in dev["kernel_launches"].items()
+                       if "fft_chain_kernel" in name)
+    check(traced_radix == radix,
+          f"the trace holds {traced_radix} radix kernel events "
+          f"(fft_chain_kernel), one per launch the stream counted ({radix})")
+    spans = {}
+    for e in trace_summary.load_events(summary["traces"][0]):
+        if e.get("ph") == "X" and e.get("cat") == "user_annotation":
+            spans.setdefault(e["name"], set()).add(e["tid"])
+    stages = ("ingest/recv", "ingest/decode", "compute/stage_copy",
+              "compute/h2d_enqueue", "compute/dispatch", "compute/fetch",
+              "egress/send")
+    check(all(s in spans for s in stages)
+          and spans["ingest/decode"].isdisjoint(spans["compute/dispatch"]),
+          f"the trace holds the executor's stage spans {list(stages)}, the "
+          f"ingest thread's and the compute thread's on their own threads "
+          f"({sorted(spans['ingest/decode'])} vs "
+          f"{sorted(spans['compute/dispatch'])})")
+    ov = summary["overlap"]["overlap_with_in_flight"]
+    active = summary["device"].get("trace:stream")
+    in_window = sum(c for name, c in (active or {}).get(
+        "kernel_launches", {}).items() if "fft_chain_kernel" in name)
+    check(active is not None and in_window >= SECTORS // BATCH,
+          f"trace_summary finds the stream's traffic window (first decode to "
+          f"last fetch, {active and active['window_ms']} ms) and {in_window} "
+          "radix kernel events inside it")
+    with open(trace / "host_intervals.json") as f:
+        decodes = sorted(t0 for name, _, t0, _ in json.load(f)
+                         if name == "ingest/decode")
+    arrival = (len(decodes) - 1) / (decodes[-1] - decodes[0])
+    result = {"radix": radix, "traced_radix": traced_radix,
+              "arrival_sectors_per_s": round(arrival, 3),
+              "active_sectors_per_second": stats["active_sectors_per_second"],
+              "in_flight_s": summary["overlap"]["in_flight_s"],
+              "of_stage": {k: ov[k]["of_stage"] for k in
+                           ("ingest/decode", "compute/h2d_enqueue")},
+              "of_in_flight": {k: ov[k]["of_in_flight"] for k in
+                               ("ingest/decode", "compute/h2d_enqueue")},
+              "device": {k: dev[k] for k in
+                         ("window_ms", "kernel_ms", "busy_ms",
+                          "kernel_share", "busy_share")},
+              "device_stream_window": {k: active[k] for k in
+                                       ("window_ms", "kernel_ms", "busy_ms",
+                                        "kernel_share", "busy_share")},
+              "p50_ms": lat["p50_ms"], "p99_ms": lat["p99_ms"]}
+    print("stream --trace summary: " + json.dumps(result), flush=True)
+    return result, ckpt
+
+
+def phase_volume(tmp: Path, ckpt: Path) -> None:
+    """`cli volume --render` and `--export-ascii` on the traced stream's
+    checkpoint: the JSON line, a PPM of the requested size, one 99result
+    file per covered sector (143)."""
+    size = 256
+    ppm, ascii_dir = tmp / "ppi.ppm", tmp / "ascii"
+    rc, out, _ = _cli(["volume", str(ckpt), "--render", str(ppm),
+                       "--render-size", str(size), "--export-ascii",
+                       str(ascii_dir)])
+    info = json.loads(out)
+    head = f"P6\n{size} {size}\n255\n".encode()
+    data = ppm.read_bytes()
+    n_files = len(list(ascii_dir.glob("s*e*.out")))
+    check(rc == 0 and info["sectors_covered"] == SECTORS
+          and data.startswith(head) and len(data) == len(head) + size * size * 3
+          and n_files == SECTORS,
+          f"cli volume: {info['sectors_covered']} sectors covered, a "
+          f"{size} x {size} PPM ({len(data)} bytes), {n_files} 99result files")
+
+
+def phase_hw_parity() -> dict:
+    """tools/hw_parity.py on the card: every method and path against the
+    fp64 oracle, each row passing with its kernels launched."""
+    from wrp_tpu_torch.tools import hw_parity
+
+    reset_counts()
+    rows = hw_parity.run(device="cuda")
+    counts = read_counts()
+    for r in rows:
+        print("hw_parity: " + json.dumps(r), flush=True)
+    check(all(r["pass"] for r in rows)
+          and [r["method"] for r in rows][:5] == list(hw_parity.METHODS),
+          f"hw_parity: all {len(rows)} rows pass, every kernel a row names "
+          f"launched ({', '.join(r['method'] for r in rows)})")
+    return counts
+
+
+def phase_ab_tools() -> dict:
+    """tools/wire_ab.py and tools/decode_ab.py at production geometry on the
+    card: parity pinned, per-sector us of every piece and variant."""
+    from wrp_tpu_torch.tools import decode_ab, wire_ab
+
+    cfg = DEFAULT_CONFIG
+    reset_counts()
+    w = wire_ab.run(cfg, device="cuda")
+    counts = read_counts()
+    print("wire_ab: " + json.dumps(w), flush=True)
+    check("error" not in w and w["parity"]["wire_vs_i16_rel_l2"] < 1e-5,
+          "wire_ab: parity (wire vs i16 kernel "
+          f"{w['parity'].get('wire_vs_i16_rel_l2', float('nan')):.3e}, bit "
+          f"identical at salt 0 {w['parity'].get('bit_identical_at_salt_0')}"
+          f"); us per sector " + json.dumps(
+              {k: w[k]["us_per_sector"] for k in
+               ("k_i16", "k_wire", "slice+k_wire", "view") if k in w}))
+    torch.cuda.empty_cache()
+    reset_counts()
+    d = decode_ab.run(cfg, device="cuda")
+    d_counts = read_counts()
+    print("decode_ab: " + json.dumps(d), flush=True)
+    timed = {k: v["us_per_sector"] for k, v in d.items()
+             if isinstance(v, dict) and "us_per_sector" in v}
+    check("error" not in d, f"decode_ab: every variant bit-exact vs the host "
+                            f"codec; us per sector {json.dumps(timed)}")
+    torch.cuda.empty_cache()
+    return {"wire_ab": {k: w[k]["us_per_sector"] for k in
+                        ("k_i16", "k_wire", "slice+k_wire", "view")},
+            "decode_ab": timed,
+            "launches": {"wire_ab": counts, "decode_ab": d_counts}}
+
+
+def phase_cli_tools() -> dict:
+    """The rest of the CLI and the tools that read or check it: process
+    --timings and compare, stream --trace with trace_summary --overlap,
+    volume on that stream's checkpoint, hw_parity, wire_ab and decode_ab."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="wrp_smoke_cli_"))
+    try:
+        out = {"process": phase_cli_process(tmp)}
+        out["stream"], ckpt = phase_stream_trace(tmp)
+        phase_volume(tmp, ckpt)
+        out["hw_parity"] = phase_hw_parity()
+        out["ab"] = phase_ab_tools()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"cli and tools phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, res, **extra) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2632,18 +2920,26 @@ def main() -> int:
     dense_launches = phase_dense_path()
     shard = phase_pulse_shard(orc, noise)
     phase_halo_ranks()
+    tools = phase_cli_tools()
     print(json.dumps({"kernels": [
         kernel_entry("fused_chain_power_radix",
                      "wrp_tpu_torch/csrc/fused_chain_radix.cu",
                      "wrp_tpu/ops/pallas/fullchain.py:809", host["radix"],
                      radix, tcp_stream_launches=tcp["radix"],
                      zmq_stream_launches=(zmq_counts["radix"] if zmq_counts
-                                          else None), **occ["radix"]),
+                                          else None),
+                     cli_process_launches=tools["process"]["radix"],
+                     traced_stream_launches=tools["stream"]["radix"],
+                     hw_parity_launches=tools["hw_parity"]["radix"],
+                     **occ["radix"]),
         kernel_entry("fused_chain_power_wire",
                      "wrp_tpu_torch/csrc/fused_chain_wire.cu",
                      "wrp_tpu/ops/pallas/fullchain.py:1170", dev["wire"],
                      wire, supervised_worker_launches=[
                          supervised["wire_run1"], supervised["wire_run2"]],
+                     hw_parity_launches=tools["hw_parity"]["wire"],
+                     wire_ab_launches=tools["ab"]["launches"]["wire_ab"]["wire"],
+                     decode_ab_launches=tools["ab"]["launches"]["decode_ab"]["wire"],
                      **occ["wire"]),
         kernel_entry("fused_chain_power_dense",
                      "wrp_tpu_torch/csrc/fused_chain_dense.cu",
@@ -2656,6 +2952,7 @@ def main() -> int:
                      "wrp_tpu_torch/csrc/fused_chain_astage.cu",
                      "wrp_tpu/ops/pallas/fullchain.py:955", shard["astage"],
                      astage, matmul_ms=astage["matmul_ms"],
+                     hw_parity_launches=tools["hw_parity"]["astage"],
                      blocks_per_sm=occ["astage"]["blocks_per_sm"]),
         kernel_entry("parseval_rows_power",
                      "wrp_tpu_torch/csrc/parseval_rows.cu",
@@ -2668,6 +2965,7 @@ def main() -> int:
                      two_pass_rel_l2=rows["two_pass_rel_l2"],
                      two_pass_max_abs_err=rows["two_pass_max_abs_err"],
                      host_ms=rows["host_ms"],
+                     hw_parity_launches=tools["hw_parity"]["rows"],
                      blocks_per_sm=rows["blocks_per_sm"]),
         kernel_entry("fused_chain_power_at",
                      "wrp_tpu_torch/csrc/fused_chain_dense.cu",
@@ -2679,15 +2977,18 @@ def main() -> int:
                      "wrp_tpu/ops/pallas/fullchain.py:840",
                      bench_launches["radix_offset"], offsets["radix"],
                      sharded_launches=sharded["launches"],
-                     sharded_devices=sharded["devices"]),
+                     sharded_devices=sharded["devices"],
+                     wire_ab_launches=tools["ab"]["launches"]["wire_ab"]["radix_offset"]),
         kernel_entry("fused_chain_power_wire (offset, salt)",
                      "wrp_tpu_torch/csrc/fused_chain_wire_salted.cu",
                      "wrp_tpu/ops/pallas/fullchain.py:1210",
-                     bench_launches["wire_offset"], offsets["wire"]),
+                     bench_launches["wire_offset"], offsets["wire"],
+                     wire_ab_launches=tools["ab"]["launches"]["wire_ab"]["wire_offset"]),
         kernel_entry("fused_stage2", "wrp_tpu_torch/csrc/fused_stage2.cu",
                      "wrp_tpu/ops/pallas/postprocess.py:86",
                      stage2["launches"], stage2, form="3xTF32 wgmma",
-                     operator_launches=stage2["operator_launches"]),
+                     operator_launches=stage2["operator_launches"],
+                     hw_parity_launches=tools["hw_parity"]["stage2"]),
         kernel_entry("radix_chain_ablation (dots; ms of each mode in 'modes')",
                      "wrp_tpu_torch/csrc/kernel_breakdown.cu",
                      "tools/kernel_breakdown.py:158",

@@ -1,10 +1,13 @@
 """The port stands alone: it imports neither JAX nor wrp_tpu (the machine
 with the GPU has no JAX)."""
 
+import argparse
 import re
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|wrp_tpu)\b", re.M)
@@ -27,7 +30,10 @@ def test_port_imports_without_jax():
             "wrp_tpu_torch.runtime.supervisor, "
             "wrp_tpu_torch.tools.producer, wrp_tpu_torch.tools.consumer, "
             "wrp_tpu_torch.parallel.halo, wrp_tpu_torch.parallel.dryrun, "
-            "wrp_tpu_torch.parallel.launch; "
+            "wrp_tpu_torch.parallel.launch, wrp_tpu_torch.viz, "
+            "wrp_tpu_torch.tools.trace_summary, "
+            "wrp_tpu_torch.tools.hw_parity, wrp_tpu_torch.tools.wire_ab, "
+            "wrp_tpu_torch.tools.decode_ab; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'wrp_tpu.')) or m == 'wrp_tpu'); "
             "assert not bad, bad; "
@@ -60,3 +66,44 @@ def test_port_keeps_its_own_native_sources():
     assert build.BUILD_DIR == REPO / "wrp_tpu_torch" / "_build"
     assert "dest_row(" not in (native / "codec.cpp").read_text()
     assert not list(native.glob("*.so"))
+
+
+#: wrp_tpu flags the port leaves out by design: rows stay in natural order
+#: and the kernels read radix branches by index
+BY_DESIGN = {("stream", "--wire-order")}
+
+
+def _subcommands(ap: argparse.ArgumentParser) -> dict:
+    """{subcommand: its option strings and positional names}."""
+    sub = next(a for a in ap._actions
+               if isinstance(a, argparse._SubParsersAction))
+    return {name: {s for a in p._actions for s in a.option_strings}
+            | {a.dest for a in p._actions if not a.option_strings}
+            for name, p in sub.choices.items()}
+
+
+def test_cli_parser_has_every_wrp_tpu_flag(monkeypatch):
+    """Every subcommand and flag of wrp_tpu/cli.py's parser is in the
+    port's, but the by-design list; wrp_tpu's parser is taken from its
+    main(), stopped at parse_args."""
+    import wrp_tpu.cli as jcli
+    from wrp_tpu_torch import cli
+
+    class Parsed(Exception):
+        pass
+
+    def stop(self, *args, **kwargs):
+        raise Parsed(self)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", stop)
+    with pytest.raises(Parsed) as parsed:
+        jcli.main([])
+    monkeypatch.undo()
+    theirs = _subcommands(parsed.value.args[0])
+    mine = _subcommands(cli.build_parser())
+    assert set(theirs) <= set(mine), sorted(set(theirs) - set(mine))
+    missing = {(name, flag) for name, flags in theirs.items()
+               for flag in flags - mine[name]}
+    assert missing == BY_DESIGN
+    assert {"compare", "volume"} <= set(mine)
+    assert "--timings" in mine["process"] and "--trace" in mine["stream"]

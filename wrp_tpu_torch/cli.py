@@ -1,6 +1,8 @@
 """Command-line entry points of the port (counterpart of wrp_tpu/cli.py):
 
-  process   — single-shot: IQ in, zdb/zdr out (reference read.cc).
+  process   — single-shot: IQ in, zdb/zdr out (reference read.cc), per-stage
+              dumps and timings on request.
+  compare   — relative-L2 comparator of two result files (error.cpp).
   stream    — streaming processor: the v1 UDP wire (reference
               gpu_1fp_streamcasc.cu), TCP, or the reference's v2 ZMQ wire
               (rpv2.cu); with --coordinator, one rank of a lock-step
@@ -10,9 +12,11 @@
               checkpoints; regroup on a worker death (runtime/supervisor.py).
   produce   — synthesise/replay sectors onto the wire.
   consume   — receive result frames, optionally into a volume checkpoint.
+  volume    — inspect, export or render a volume checkpoint.
 
 Flags are wrp_tpu's where they apply, plus --device (default cuda; without
-CUDA the command exits non-zero rather than running on the CPU).
+CUDA the command exits non-zero rather than running on the CPU).  compare
+and volume are host commands, as in wrp_tpu: they touch no device.
 
 Usage: python -m wrp_tpu_torch.cli <subcommand> --help
 """
@@ -22,6 +26,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import re
 import sys
 import time
@@ -127,6 +132,10 @@ def cmd_process(args):
                                arr[0] if arr.ndim == 3 else arr)
         print(f"stage dumps -> {outdir}", file=sys.stderr)
 
+    if args.timings:
+        for name, us in _stage_timings(planar, cfg, device):
+            print(f"stage {name}: {us:.0f} us", file=sys.stderr)
+
     proc = SectorProcessor(cfg, method=args.method, device=device)
     t0 = time.perf_counter()
     zdb, zdr = proc(planar[None])
@@ -139,6 +148,71 @@ def cmd_process(args):
         for a, b in zip(zdb, zdr):
             print(f"{a:g} {b:g}")
     return 0
+
+
+def _stage_timings(planar: np.ndarray, cfg, device) -> list:
+    """[(stage, us)]: the fft path's six stages, from the window to the
+    pulse sum, one after the other on `device` (the read_gpu.cu tick/tock
+    methodology): each stage boundary is fenced with a device synchronise
+    before the timestamp, as `jax.block_until_ready` fences it in
+    ``wrp_tpu``.  The first call of each stage includes its one-time costs
+    (cuFFT plans, allocations)."""
+    import torch
+
+    from . import pipeline as pl_mod
+    from .constants import PipelineConstants
+
+    consts = PipelineConstants.build(cfg)
+    hamming = torch.from_numpy(np.asarray(consts.hamming, np.float32)).to(device)
+    stages = [
+        ("01hamm", lambda x: pl_mod.stage01_window(x, hamming)),
+        ("02fft1", pl_mod.stage02_range_fft),
+        ("03fft2", pl_mod.stage03_doppler),
+        ("04abs", pl_mod.stage04_power),
+        ("07conv", lambda p: pl_mod.matched_filter_direct(p, consts.ma_taps)),
+        ("08pow", pl_mod.stage08_pulse_sum),
+    ]
+
+    def fence():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    x = torch.complex(torch.from_numpy(np.asarray(planar[:, 0], np.float32)),
+                      torch.from_numpy(np.asarray(planar[:, 1], np.float32)))
+    x = x.to(device)
+    fence()
+    marks = []
+    t_last = time.perf_counter()
+    for name, fn in stages:
+        x = fn(x)
+        fence()
+        now = time.perf_counter()
+        marks.append((name, (now - t_last) * 1e6))
+        t_last = now
+    return marks
+
+
+def cmd_compare(args):
+    """The reference's accuracy comparator (error.cpp:9-36): relative L2
+    over the mutually finite values of two result files.  A `.bin` file is
+    the reference's native-endian zdb capture (out/cpu.bin), any other an
+    ASCII matrix.  Host only."""
+    from . import oracle
+    from .io.files import read_ascii_matrix, read_zdb_dump
+
+    def load(path):
+        return read_zdb_dump(path) if path.endswith(".bin") else \
+            read_ascii_matrix(path)
+
+    expected, actual = load(args.expected), load(args.actual)
+    if expected.shape != actual.shape:
+        print(f"shape mismatch: {expected.shape} vs {actual.shape}",
+              file=sys.stderr)
+        return 2
+    err = oracle.relative_l2(expected, actual)
+    print(json.dumps({"relative_l2": err, "threshold": args.threshold,
+                      "pass": err <= args.threshold}))
+    return 0 if err <= args.threshold else 1
 
 
 def _ready_marker(path):
@@ -294,12 +368,21 @@ def cmd_stream(args):
         # shortly after, not as a silent hang
         stall_warning_s=max(10.0, 2.0 * (args.timeout or 0.0)),
         collective_timeout_s=args.collective_timeout)
+    prof = None
+    if args.trace:
+        os.makedirs(args.trace, exist_ok=True)
+        ex.timers.enable_intervals(annotate=True)
+        prof = _start_trace(device)
     try:
         stats = ex.run()
     finally:
+        if prof is not None:
+            prof.stop()
         for t in (transport if isinstance(transport, list) else [transport]):
             t.close()
         publish.close()
+    if prof is not None:
+        _write_trace(prof, ex.timers.intervals, args.trace)
     if volume is not None:
         vols = volume if isinstance(volume, list) else [volume]
         for v in vols:
@@ -311,6 +394,38 @@ def cmd_stream(args):
     if args.coordinator:
         _bounded_exit(args.collective_timeout)
     return 0
+
+
+#: the chrome trace `stream --trace DIR` writes, as `bench --profile DIR`
+TRACE_FILE = "trace.json"
+
+
+def _start_trace(device):
+    """A running torch.profiler over every thread of this process (the
+    ingest threads start inside `ex.run()`): CPU activity, and CUDA
+    activity on a CUDA device, so the executor's stage spans
+    (`StageTimers` with annotate) lie in one trace with the kernels."""
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    prof = profile(activities=acts, experimental_config=_ExperimentalConfig(
+        profile_all_threads=True))
+    prof.start()
+    return prof
+
+
+def _write_trace(prof, intervals, out_dir) -> None:
+    """DIR/trace.json (chrome trace) and DIR/host_intervals.json, the
+    executor's [name, thread, t0, t1] rows, for tools/trace_summary.py
+    --overlap."""
+    prof.export_chrome_trace(os.path.join(out_dir, TRACE_FILE))
+    ipath = os.path.join(out_dir, "host_intervals.json")
+    with open(ipath, "w") as f:
+        json.dump(intervals, f)
+    print(f"trace written to {out_dir} (host intervals: {ipath})",
+          file=sys.stderr)
 
 
 def _stream_transport(args, cfg):
@@ -473,6 +588,72 @@ def cmd_supervise(args):
     summary = sup.run()
     print(json.dumps(summary, indent=2))
     return 0 if summary["ok"] else 4
+
+
+def cmd_volume(args):
+    """Inspect, export or render a volume-scan checkpoint (the persistent
+    form of the reference's in-memory result[2, 512, 143, 9] buffer,
+    rpv2.cu:292).  Host only."""
+    from pathlib import Path
+
+    from .runtime import VolumeScan
+
+    vs = VolumeScan.load(args.checkpoint)   # geometry is self-describing
+    covered = vs.coverage
+    info = {
+        "coverage": round(vs.fraction(), 4),
+        "sectors_covered": int(covered.sum()),
+        "elevations_touched": int(covered.any(axis=0).sum()),
+        "complete": vs.complete(),
+    }
+    if covered.any():
+        # zdb = data[0], zdr = data[1] (read_single.cc:496-498)
+        for name, plane in (("zdb", vs.data[0]), ("zdr", vs.data[1])):
+            vals = plane[1:, covered]    # skip the always -inf/NaN bin 0
+            finite = vals[np.isfinite(vals)]
+            if finite.size:
+                info[f"{name}_min"] = round(float(finite.min()), 2)
+                info[f"{name}_max"] = round(float(finite.max()), 2)
+                info[f"{name}_mean"] = round(float(finite.mean()), 2)
+    print(json.dumps(info))
+    if args.export:
+        np.savez(args.export, zdb=vs.data[0], zdr=vs.data[1],
+                 coverage=vs.coverage)
+        print(f"exported -> {args.export}", file=sys.stderr)
+    if args.export_ascii:
+        # one 99result-format file per covered sector (lines of "zdb zdr",
+        # out/99result.cpu.out), for reference-era tooling and `compare`
+        from .io.files import write_ascii_matrix
+
+        outdir = Path(args.export_ascii)
+        outdir.mkdir(parents=True, exist_ok=True)
+        n_files = 0
+        for sec, elev in np.argwhere(covered):
+            pair = np.stack([vs.data[0, :, sec, elev],
+                             vs.data[1, :, sec, elev]], axis=1)
+            write_ascii_matrix(outdir / f"s{int(sec):03d}e{int(elev)}.out",
+                               pair)
+            n_files += 1
+        print(f"exported {n_files} sectors (99result format) -> {outdir}",
+              file=sys.stderr)
+    plane = {"zdb": 0, "zdr": 1}[args.product]
+    if args.render:
+        from . import viz
+
+        field = np.array(vs.data[plane, :, :, args.elevation])
+        field[:, ~vs.coverage[:, args.elevation]] = np.nan  # uncovered
+        viz.write_ppm(args.render, viz.render_ppi(field, size=args.render_size))
+        print(f"rendered {args.product} elevation {args.elevation} "
+              f"-> {args.render}", file=sys.stderr)
+    if args.render_all:
+        from . import viz
+
+        img = viz.render_volume_mosaic(np.asarray(vs.data[plane]), vs.coverage,
+                                       size=min(args.render_size, 256))
+        viz.write_ppm(args.render_all, img)
+        print(f"rendered {args.product} mosaic of {vs.data.shape[-1]} cuts "
+              f"-> {args.render_all}", file=sys.stderr)
+    return 0
 
 
 def cmd_produce(args):
@@ -665,7 +846,9 @@ def _consume_udp(args, cfg, add) -> None:
             s.close()
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
+    """The CLI's parser: wrp_tpu's subcommands and flags (all but stream's
+    --wire-order: rows stay in natural order), plus --device."""
     ap = argparse.ArgumentParser(prog="wrp_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -680,7 +863,18 @@ def main(argv=None):
     p.add_argument("--dump-stages", default=None, metavar="DIR",
                    help="write per-stage .altb dumps of the fft path "
                         "(computed on the CPU)")
+    p.add_argument("--timings", action="store_true",
+                   help="per-stage wall-clock breakdown of the fft path on "
+                        "--device, each stage fenced by a synchronise "
+                        "(read_gpu.cu tick/tock equivalent)")
     p.set_defaults(fn=cmd_process)
+
+    p = sub.add_parser("compare",
+                       help="relative-L2 comparator (error.cpp equivalent)")
+    p.add_argument("expected")
+    p.add_argument("actual")
+    p.add_argument("--threshold", type=float, default=1e-4)
+    p.set_defaults(fn=cmd_compare)
 
     p = sub.add_parser("stream", help="streaming processor (udp, tcp or "
                                       "zmq transport)")
@@ -754,6 +948,12 @@ def main(argv=None):
                         "radix branches, a decode pass feeds the dense "
                         "kernel.  Rows stay in natural order (no "
                         "--wire-order)")
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="write a torch.profiler chrome trace (DIR/"
+                        "trace.json) with every executor stage annotated, "
+                        "from every thread, plus DIR/host_intervals.json; "
+                        "summarise with `python -m wrp_tpu_torch.tools."
+                        "trace_summary DIR --overlap`")
     p.set_defaults(fn=cmd_stream)
 
     p = sub.add_parser(
@@ -812,6 +1012,24 @@ def main(argv=None):
                         "(launch/ready/host_death/regroup/grow/done)")
     p.set_defaults(fn=cmd_supervise)
 
+    p = sub.add_parser("volume", help="inspect/export a volume checkpoint")
+    p.add_argument("checkpoint", help="volume .npz path")
+    p.add_argument("--export", default=None, help="write plain .npz arrays")
+    p.add_argument("--export-ascii", default=None, metavar="DIR",
+                   help="write one 99result-format ASCII file per covered "
+                        "sector ('zdb zdr' lines) for reference-era tooling "
+                        "and `compare`")
+    p.add_argument("--render", default=None, metavar="OUT.ppm",
+                   help="render a PPI image of one elevation cut (binary "
+                        "PPM, no imaging dependencies)")
+    p.add_argument("--render-all", default=None, metavar="OUT.ppm",
+                   help="render every elevation cut as one tiled mosaic "
+                        "with a shared color scale")
+    p.add_argument("--product", default="zdb", choices=["zdb", "zdr"])
+    p.add_argument("--elevation", type=int, default=0)
+    p.add_argument("--render-size", type=int, default=512)
+    p.set_defaults(fn=cmd_volume)
+
     p = sub.add_parser("produce", help="send sectors onto the wire")
     _add_channels(p)
     _add_transport(p)
@@ -856,8 +1074,11 @@ def main(argv=None):
     p.add_argument("--zmq-sub", default="tcp://localhost:5564",
                    help="zmq: the result endpoint to subscribe to")
     p.set_defaults(fn=cmd_consume)
+    return ap
 
-    args = ap.parse_args(argv)
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
     return args.fn(args)
 
 

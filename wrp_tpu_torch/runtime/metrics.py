@@ -1,9 +1,10 @@
 """Observability: per-stage timers, throughput counters, structured logs.
 
 Counterpart of ``wrp_tpu/runtime/metrics.py``.  Where the JAX package
-wraps timed sections in ``jax.profiler.TraceAnnotation``, this one pushes
-``torch.cuda.nvtx`` ranges, so the spans line up with the kernels in an
-NVTX-aware profiler.
+wraps timed sections in ``jax.profiler.TraceAnnotation``, this one opens a
+``torch.profiler.record_function`` span (and, on CUDA builds, an NVTX
+range), so the spans line up with the kernels in a torch.profiler trace
+(`cli stream --trace`) or an NVTX-aware profiler.
 """
 
 from __future__ import annotations
@@ -45,6 +46,20 @@ class _JsonFormatter(logging.Formatter):
         return json.dumps(payload)
 
 
+@contextlib.contextmanager
+def _annotation(name: str):
+    """A torch.profiler span named `name`, with an NVTX range of the same
+    name where torch has CUDA."""
+    import torch
+
+    with torch.profiler.record_function(name):
+        if torch.cuda.is_available():
+            with torch.cuda.nvtx.range(name):
+                yield
+        else:
+            yield
+
+
 class StageTimers:
     """Named accumulating wall-clock timers (the tick/tock ledger).
 
@@ -62,7 +77,8 @@ class StageTimers:
                          max_events: int = 500_000) -> None:
         """Record (name, thread, t0, t1) per timed section — the overlap
         evidence the totals can't carry.  annotate=True additionally wraps
-        each section in an NVTX range (CUDA builds of torch only)."""
+        each section in a torch.profiler span (`_annotation`), so it lands
+        in a trace beside the kernels; off, the timed sections open none."""
         self.intervals = []
         self._max_events = max_events
         self._annotate = annotate
@@ -78,27 +94,19 @@ class StageTimers:
 
     @contextlib.contextmanager
     def time(self, name: str):
-        nvtx = None
-        if self._annotate:
-            import torch
-
-            if torch.cuda.is_available():
-                nvtx = torch.cuda.nvtx
-                nvtx.range_push(name)
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            t1 = time.perf_counter()
-            if nvtx is not None:
-                nvtx.range_pop()
-            with self._lock:
-                self.totals[name] += t1 - t0
-                self.counts[name] += 1
-                if (self.intervals is not None
-                        and len(self.intervals) < self._max_events):
-                    self.intervals.append(
-                        (name, threading.current_thread().name, t0, t1))
+        with _annotation(name) if self._annotate else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                t1 = time.perf_counter()
+                with self._lock:
+                    self.totals[name] += t1 - t0
+                    self.counts[name] += 1
+                    if (self.intervals is not None
+                            and len(self.intervals) < self._max_events):
+                        self.intervals.append(
+                            (name, threading.current_thread().name, t0, t1))
 
     def summary(self) -> Dict[str, Dict[str, float]]:
         return {

@@ -1,5 +1,5 @@
 """What the probe entry points share: the device, as the bench resolves it,
-and their timing (best of 3 spans, each many launches)."""
+and their timing (best of n spans, 3 by default, each many launches)."""
 
 from __future__ import annotations
 
@@ -39,9 +39,9 @@ def span_s(fn, dev: torch.device) -> float:
     return time.perf_counter() - t0
 
 
-def best_of_3(fn, dev: torch.device):
-    """(best, [the three]) seconds of fn() after one warm call, as the JAX
-    tools time their spans."""
+def best_of(fn, dev: torch.device, n: int = 3):
+    """(best, [all n]) seconds of n calls of fn() after one warm call, as
+    the JAX tools time their spans."""
     fn()
-    runs = [span_s(fn, dev) for _ in range(3)]
+    runs = [span_s(fn, dev) for _ in range(n)]
     return min(runs), runs

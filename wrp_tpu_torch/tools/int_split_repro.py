@@ -61,7 +61,7 @@ def run(argv=None) -> dict:
     """Run the check; returns the dict that `main` prints."""
     from ..bench import card_name
     from ..ops import probes
-    from ._common import best_of_3, device_of
+    from ._common import best_of, device_of
 
     ap, args = _args(argv)
     dev = device_of(ap, args.device)
@@ -79,7 +79,7 @@ def run(argv=None) -> dict:
     def calls():
         for _ in range(CALLS):
             probes.int_split_dot(x, a, args.variant)
-    dt, _ = best_of_3(calls, dev)
+    dt, _ = best_of(calls, dev)
     return {
         "variant": args.variant,
         "repro": False,

@@ -112,7 +112,7 @@ def run(argv=None) -> dict:
     from ..config import DEFAULT_CONFIG, tiny_config
     from ..constants import PipelineConstants
     from ..ops import probes
-    from ._common import best_of_3, device_of
+    from ._common import best_of, device_of
 
     ap, args = _args(argv)
     dev = device_of(ap, args.device)
@@ -134,7 +134,7 @@ def run(argv=None) -> dict:
         def span():
             for i in range(steps):
                 last[:] = [step(i)]
-        dt, runs = best_of_3(span, dev)
+        dt, runs = best_of(span, dev)
         if not bool(torch.isfinite(last[0]).all()):
             raise RuntimeError("non-finite output")
         return {"us_per_channel_step": round(dt / (steps * bcn) * 1e6, 3),

@@ -130,7 +130,7 @@ def run(argv=None) -> dict:
     """Run the sweep; returns the dict that `main` prints."""
     from ..bench import card_name
     from ..ops import probes
-    from ._common import best_of_3, device_of
+    from ._common import best_of, device_of
 
     ap, args = _args(argv)
     dev = device_of(ap, args.device)
@@ -154,12 +154,12 @@ def run(argv=None) -> dict:
             res[:] = [probes.tc_dot_probe(a, x, width, args.steps,
                                           args.distinct, args.lanes_total)]
 
-        dt, runs = best_of_3(kernel, dev)
+        dt, runs = best_of(kernel, dev)
         if not bool(torch.isfinite(res[0]).all()):
             raise RuntimeError(f"width {width}: non-finite output")
-        lib_dt, _ = best_of_3(library_steps(a, x, width, args.steps,
+        lib_dt, _ = best_of(library_steps(a, x, width, args.steps,
                                             args.distinct, ndots), dev)
-        kcat_dt, _ = best_of_3(library_kcat_steps(a, x, width, args.steps,
+        kcat_dt, _ = best_of(library_kcat_steps(a, x, width, args.steps,
                                                   args.distinct, ndots), dev)
         out[f"n{width}"] = {
             "us_per_step": round(dt / args.steps * 1e6, 3),
