@@ -159,6 +159,20 @@ Phases (each prints its results; any failure raises and exits non-zero):
    `tools/hw_parity.run` (every method and path vs the oracle, each row's
    kernels launched); `tools/wire_ab.run` and `tools/decode_ab.run` at
    production geometry, batch 32 (parity pinned, us per sector).
+17. the last three tools: `tools/ab_sweep.run` in process at the bench's
+   shapes (batch 128, 2 slabs, 16 repeats): i16 (#4), f32 (#4 on an f32
+   copy made on the card), wire (#8 on words encoded on the card) and
+   wire_xla (the torch decode, then #4), each passing the bench's gate
+   with its offset launches, the i16 row within 0.8-1.25 x the bench's
+   pallas int16 value of this run; `tools/multihost_bench --method
+   pallas --m 1024 --n 512 --per-host-batch 16 --hosts min(GPU count, 4)`
+   in its own process (exit 0, its line, #3 once a timed step on every
+   rank); `tools/consolidation_soak` three times in its own process: 4
+   feeds (1 UDP, 3 ZMQ) at 21.45 sectors/s, host decode, 20 s; the same
+   with --device-decode, 10 s; --stub-device with 8 feeds, 10 s: every
+   sector of every feed processed, 0 drops, 0 contamination failures, the
+   path's kernel launched, per-feed p50/p99 and the executor's core share
+   printed.
 
 Every launch counter is set to 0 just before each path runs and read just
 after (a supervised worker or a bench rank, another process, reports its
@@ -205,6 +219,7 @@ from wrp_tpu_torch.ops import (  # noqa: E402
     _build, device_codec, fullchain, postprocess, probes)
 from wrp_tpu_torch.parallel import (  # noqa: E402
     build_halo_processor, make_mesh, shard_batch)
+from wrp_tpu_torch.parallel.launch import leave_group  # noqa: E402
 from wrp_tpu_torch.parallel.multihost import (  # noqa: E402
     PulseShardedProcessor, init_distributed)
 from wrp_tpu_torch.parallel.sharded import join_pulses, split_rows  # noqa: E402
@@ -1179,7 +1194,8 @@ def phase_pulse_shard(orc: Oracle, noise) -> dict:
         phase_pulse_shard_stream(device_decode=True)
         halo_world_one(orc, noise, dev)
     finally:
-        dist.destroy_process_group()
+        # bounded: a teardown that blocks ends the script with exit 1
+        leave_group(timeout_s=60.0)
     return host
 
 
@@ -2865,6 +2881,142 @@ def phase_cli_tools() -> dict:
     return out
 
 
+#: ab_sweep's repeats here (its default: 48, the bench's 96 steps)
+AB_SWEEP_REPEATS = 16
+#: the i16 row of ab_sweep over phase_bench's pallas int16 value: both run
+#: #4 under the bench's methodology on the bench's slabs
+AB_SWEEP_RATIO = (0.8, 1.25)
+#: consolidation_soak runs: (tag, flags); 4 feeds = 1 UDP + 3 ZMQ
+SOAKS = (
+    ("host", ["--feeds", "4", "--udp-feeds", "1", "--duration", "20"]),
+    ("device-decode", ["--feeds", "4", "--udp-feeds", "1", "--duration",
+                       "10", "--device-decode"]),
+    ("stub", ["--feeds", "8", "--udp-feeds", "1", "--duration", "10",
+              "--stub-device"]),
+)
+
+
+def _tool(argv, timeout: float) -> tuple:
+    """(rc, stdout, stderr) of `python -m wrp_tpu_torch.tools.<argv>` in its
+    own process, from the repository root; its output's tail is echoed."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable, "-m", "wrp_tpu_torch.tools." + argv[0],
+                        *argv[1:]], cwd=here, capture_output=True, text=True,
+                       timeout=timeout)
+    if r.returncode != 0:
+        print(r.stderr[-4000:], flush=True)
+    return r.returncode, r.stdout, r.stderr
+
+
+def phase_ab_sweep(bench_value: float) -> dict:
+    """tools/ab_sweep.py in this process at the bench's shapes (batch 128,
+    2 slabs): every variant passes the bench's gate and launches its offset
+    entry (the first pass, 3 spans, 2 gate calls), and the i16 row lies
+    within AB_SWEEP_RATIO of phase_bench's value."""
+    from wrp_tpu_torch.tools import ab_sweep
+
+    reset_counts()
+    rows, summary = ab_sweep.run(DEFAULT_CONFIG, batch=BENCH_BATCH,
+                                 distinct=2, repeats=AB_SWEEP_REPEATS,
+                                 device="cuda")
+    counts = read_counts()
+    for r in rows + [summary]:
+        print("ab_sweep: " + json.dumps(r), flush=True)
+    for r in rows:
+        entry = "wire_offset" if r["variant"] == "wire" else "radix_offset"
+        other = "radix_offset" if entry == "wire_offset" else "wire_offset"
+        want = (1 + len(r["timed_runs_s"])) * r["steps"] + 2
+        check(r["parity_ok"] and r["sectors_per_second"] > 0
+              and r["launches"][entry] == want and r["launches"][other] == 0,
+              f"ab_sweep {r['variant']}: gate {r['parity_rel_l2']} under "
+              f"{BENCH_GATE}, {r['sectors_per_second']} sectors/s, "
+              f"{entry} launches {r['launches'][entry]} == {want}")
+    ratio = rows[0]["sectors_per_second"] / bench_value
+    check(rows[0]["variant"] == "i16"
+          and AB_SWEEP_RATIO[0] <= ratio <= AB_SWEEP_RATIO[1],
+          f"ab_sweep i16 {rows[0]['sectors_per_second']} sectors/s over the "
+          f"bench's {bench_value}: {ratio:.4f} (within {AB_SWEEP_RATIO})")
+    torch.cuda.empty_cache()
+    return {"rows": {r["variant"]: r["sectors_per_second"] for r in rows},
+            "i16_over_bench": ratio, "launches": counts}
+
+
+def phase_multihost() -> list:
+    """tools/multihost_bench.py --method pallas at 1024 x 512, 16 sectors a
+    host, over min(GPU count, 4) hosts (one on a one-card machine): exit 0,
+    its line, and every rank of the N-host world launching the fused chain
+    (#3) once a timed step.  Returns those ranks' launches."""
+    hosts = min(torch.cuda.device_count(), 4)
+    steps = 8
+    rc, out, err = _tool(["multihost_bench", "--method", "pallas", "--m",
+                          "1024", "--n", "512", "--per-host-batch", "16",
+                          "--steps", str(steps), "--hosts", str(hosts)], 300)
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    found = [ln for ln in err.splitlines() if ln.startswith("launches: ")]
+    check(rc == 0 and bool(lines) and bool(found),
+          f"multihost_bench --hosts {hosts}: exit {rc}, its line printed")
+    r = json.loads(lines[-1])
+    launches = json.loads(found[-1][len("launches: "):])
+    print("multihost_bench: " + json.dumps(r), flush=True)
+    print("multihost_bench launches: " + json.dumps(launches), flush=True)
+    check(r["efficiency_raw"] > 0 and r["backend"].startswith("nccl")
+          and all(k["radix"] == steps for k in
+                  launches["1host"] + launches["nhost"]),
+          f"multihost_bench: {r['sectors_per_second_1host']} sectors/s on 1 "
+          f"host, {r['sectors_per_second_nhost']} on {hosts}, efficiency "
+          f"{r['efficiency_raw']} ({r['backend']}); each rank's #3 launches "
+          f"== {steps} ({launches})")
+    return [k["radix"] for k in launches["nhost"]]
+
+
+def phase_soak(tag: str, flags) -> dict:
+    """tools/consolidation_soak.py in its own process (the executor's CPU
+    time is that process's): every feed's sectors processed, 0 drops, 0
+    contamination failures (the oracle check without --stub-device), and
+    the kernel of its path launched.  Returns its launches."""
+    rc, out, err = _tool(["consolidation_soak", *flags], 300)
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    check(rc == 0 and bool(lines), f"soak {tag}: exit {rc}")
+    r = json.loads(lines[-1])
+    feeds = r["per_feed"]
+    for f in feeds:
+        print(f"soak {tag} feed {f['feed']} ({f['kind']}): "
+              + json.dumps(f), flush=True)
+    print(f"soak {tag}: {r['total_sectors']} sectors over "
+          f"{r['duration_s']} s, executor {r['executor_cpu_ms_per_sector']} "
+          f"ms CPU a sector, {r['executor_core_fraction']} of a core; "
+          f"p50/p99 per feed "
+          + json.dumps([[f["p50_ms"], f["p99_ms"]] for f in feeds])
+          + "; stages " + json.dumps({k: v["mean_ms"]
+                                      for k, v in r["timers"].items()}),
+          flush=True)
+    kernel = {"host": "radix", "device-decode": "wire"}.get(tag)
+    launched = r["kernel_launches"]
+    check(not r["contamination_failures"]
+          and all(f["drops"] == 0 and f["processed_sectors"]
+                  == f["sent_sectors"] == f["coverage_sectors"]
+                  for f in feeds)
+          and (r["method"] == "stub") == (tag == "stub")
+          and (kernel is None or launched[kernel] > 0)
+          and sum(launched.values()) == (launched[kernel] if kernel else 0),
+          f"soak {tag}: {len(feeds)} feeds, each {feeds[0]['sent_sectors']} "
+          f"sectors processed, 0 drops, contamination failures "
+          f"{r['contamination_failures']}; launches {launched}")
+    return launched
+
+
+def phase_last_tools(bench_value: float) -> dict:
+    """The last three tools of the JAX package's tools/ on the card:
+    ab_sweep, multihost_bench, consolidation_soak (host decode, device
+    decode, the host stub)."""
+    t0 = time.perf_counter()
+    out = {"ab_sweep": phase_ab_sweep(bench_value),
+           "multihost": phase_multihost()}
+    out["soak"] = {tag: phase_soak(tag, flags) for tag, flags in SOAKS}
+    print(f"last tools phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, res, **extra) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2921,6 +3073,7 @@ def main() -> int:
     shard = phase_pulse_shard(orc, noise)
     phase_halo_ranks()
     tools = phase_cli_tools()
+    last = phase_last_tools(bench_value)
     print(json.dumps({"kernels": [
         kernel_entry("fused_chain_power_radix",
                      "wrp_tpu_torch/csrc/fused_chain_radix.cu",
@@ -2931,6 +3084,9 @@ def main() -> int:
                      cli_process_launches=tools["process"]["radix"],
                      traced_stream_launches=tools["stream"]["radix"],
                      hw_parity_launches=tools["hw_parity"]["radix"],
+                     soak_launches=last["soak"]["host"]["radix"],
+                     multihost_bench_launches=last["multihost"],
+                     ab_sweep_gate_launches=last["ab_sweep"]["launches"]["radix"],
                      **occ["radix"]),
         kernel_entry("fused_chain_power_wire",
                      "wrp_tpu_torch/csrc/fused_chain_wire.cu",
@@ -2940,6 +3096,7 @@ def main() -> int:
                      hw_parity_launches=tools["hw_parity"]["wire"],
                      wire_ab_launches=tools["ab"]["launches"]["wire_ab"]["wire"],
                      decode_ab_launches=tools["ab"]["launches"]["decode_ab"]["wire"],
+                     soak_device_decode_launches=last["soak"]["device-decode"]["wire"],
                      **occ["wire"]),
         kernel_entry("fused_chain_power_dense",
                      "wrp_tpu_torch/csrc/fused_chain_dense.cu",
@@ -2978,12 +3135,14 @@ def main() -> int:
                      bench_launches["radix_offset"], offsets["radix"],
                      sharded_launches=sharded["launches"],
                      sharded_devices=sharded["devices"],
-                     wire_ab_launches=tools["ab"]["launches"]["wire_ab"]["radix_offset"]),
+                     wire_ab_launches=tools["ab"]["launches"]["wire_ab"]["radix_offset"],
+                     ab_sweep_launches=last["ab_sweep"]["launches"]["radix_offset"]),
         kernel_entry("fused_chain_power_wire (offset, salt)",
                      "wrp_tpu_torch/csrc/fused_chain_wire_salted.cu",
                      "wrp_tpu/ops/pallas/fullchain.py:1210",
                      bench_launches["wire_offset"], offsets["wire"],
-                     wire_ab_launches=tools["ab"]["launches"]["wire_ab"]["wire_offset"]),
+                     wire_ab_launches=tools["ab"]["launches"]["wire_ab"]["wire_offset"],
+                     ab_sweep_launches=last["ab_sweep"]["launches"]["wire_offset"]),
         kernel_entry("fused_stage2", "wrp_tpu_torch/csrc/fused_stage2.cu",
                      "wrp_tpu/ops/pallas/postprocess.py:86",
                      stage2["launches"], stage2, form="3xTF32 wgmma",

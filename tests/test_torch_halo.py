@@ -169,7 +169,8 @@ def test_choose_seq_as_graft_entry():
 
 # One rank of a dry run over gloo: the dry run's checks (run_checks, rank 0
 # prints its OK line), then the products of every seq-sharded formulation
-# on a second batch, with this rank's place in the mesh, into out % rank.
+# on a second batch, with this rank's place in the mesh, into out % rank;
+# the rank ends through the port's bounded ending (parallel/launch.end_rank).
 DRYRUN_WORKER = r"""
 import sys
 import numpy as np
@@ -180,6 +181,7 @@ from wrp_tpu_torch.parallel import (build_halo_processor,
                                     build_sharded_processor, gather_batch,
                                     shard_batch)
 from wrp_tpu_torch.parallel.dryrun import dryrun_config, run_checks
+from wrp_tpu_torch.parallel.launch import end_rank
 from wrp_tpu_torch.parallel.mesh import init_distributed, make_mesh
 
 rank, world, port, seq, timeout, out = (
@@ -206,9 +208,9 @@ for name, step in (("mxu", build_sharded_processor(cfg, mesh, "mxu")),
     res[name + "_zdb"] = gather_batch(zdb, mesh, step.layout).numpy()
     res[name + "_zdr"] = gather_batch(zdr, mesh, step.layout).numpy()
 np.savez(out % rank, **res)
-dist.destroy_process_group()
 if rank == 0:
     print(line, flush=True)
+end_rank(0, timeout)
 """
 
 

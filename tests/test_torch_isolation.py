@@ -33,7 +33,9 @@ def test_port_imports_without_jax():
             "wrp_tpu_torch.parallel.launch, wrp_tpu_torch.viz, "
             "wrp_tpu_torch.tools.trace_summary, "
             "wrp_tpu_torch.tools.hw_parity, wrp_tpu_torch.tools.wire_ab, "
-            "wrp_tpu_torch.tools.decode_ab; "
+            "wrp_tpu_torch.tools.decode_ab, wrp_tpu_torch.tools.ab_sweep, "
+            "wrp_tpu_torch.tools.multihost_bench, "
+            "wrp_tpu_torch.tools.consolidation_soak; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'wrp_tpu.')) or m == 'wrp_tpu'); "
             "assert not bad, bad; "

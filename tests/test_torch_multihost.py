@@ -77,9 +77,9 @@ import sys
 import numpy as np
 import torch
 torch.set_num_threads(2)
-import torch.distributed as dist
 from wrp_tpu_torch.config import tiny_config
 from wrp_tpu_torch.io import codec
+from wrp_tpu_torch.parallel.launch import end_rank
 from wrp_tpu_torch.parallel.multihost import (
     MultiHostProcessor, PulseShardedProcessor, init_distributed)
 
@@ -119,8 +119,8 @@ assert own.mesh.shape == {"data": nproc, "seq": 1}
 zdb, zdr = own.step_local(planar(iq(100 + pid)))
 res["dp_zdb"], res["dp_zdr"] = zdb.numpy(), zdr.numpy()
 np.savez(out % pid, **res)
-dist.destroy_process_group()
 print(f"PARITY_OK rank={pid}", flush=True)
+end_rank(0)
 """
 
 

@@ -68,6 +68,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .parallel.launch import end_rank
+
 BASELINE_3CH = 36.1   # the reference's GeForce 930M, prof/g7.prof
 BASELINE_2CH = 73.5   # prof/nocin-sep.prof
 
@@ -202,6 +204,84 @@ def _wire_bytes(host_iq: np.ndarray) -> np.ndarray:
             .view(np.uint8).reshape(s, -1))
 
 
+def consume(acc, zdb, zdr):
+    """The accumulator after one step: every output element feeds it."""
+    return acc + zdb.sum(dim=0) + torch.where(
+        torch.isfinite(zdr), zdr, torch.zeros_like(zdr)).sum(dim=0)
+
+
+def harness_products(gain: torch.Tensor, b: int, c: int):
+    """products(pw): the step's power [b * c, 2, m/2] -> (zdb, zdr)."""
+    from .pipeline import stage09_10_products
+
+    def products(pw):
+        pw = pw.reshape(b, c, -1)
+        return stage09_10_products(pw[:, 0], pw[:, 1], gain)
+    return products
+
+
+def pallas_step_power(staged: torch.Tensor, plan, cfg, D: int, B: int,
+                      bcn: int, in_dtype: str, wire_decode: str):
+    """step_power(i, salt) of the pallas harness: the power of slab i % D of
+    the staged slabs, read in place through the kernel's offset entry with
+    `salt`.  `staged`: int16 or f32 planar (`in_dtype` i16 / f32, bcn
+    channel-sectors a slab), or the wire (`in_dtype` wire, B sectors a
+    slab): int32 words for `wire_decode` fused (the wire kernel), bytes for
+    xla (a torch decode pass, then the planar entry)."""
+    from .ops import device_codec, fullchain
+
+    c, m, n = cfg.sector_shape
+    if plan.radix > 1:
+        def power_at(x_all, off, salt):
+            return fullchain.fused_chain_power_radix(
+                x_all, plan, offset=off, bc=bcn, salt=salt)
+    else:
+        def power_at(x_all, off, salt):
+            del salt            # the dense entry has offsets only
+            return fullchain.fused_chain_power_at(x_all, off, bcn, plan)
+
+    if in_dtype != "wire":
+        x_all = staged.reshape(D * bcn, 2, m, n)
+
+        def step_power(i, salt):
+            return power_at(x_all, (i % D) * bcn, salt)
+    elif wire_decode == "fused":
+        w32_all = device_codec.wire_words_i32(staged, cfg)
+
+        def step_power(i, salt):
+            return fullchain.fused_chain_power_wire(
+                w32_all, plan, c, offset=(i % D) * B, bs=B, salt=salt)
+    else:
+        def step_power(i, salt):
+            w = staged[(i % D) * B:(i % D + 1) * B]
+            x = device_codec.decode_wire_i16(w, cfg).reshape(bcn, 2, m, n)
+            return power_at(x, 0, salt)
+    return step_power
+
+
+def salted_pass(step_power, products, acc0: torch.Tensor, steps: int):
+    """timed_pass(): `steps` steps, step i at salt i, their products summed
+    into one device accumulator and fetched once (the D2H closes the span:
+    launches are asynchronous)."""
+    def timed_pass():
+        acc = acc0
+        for i in range(steps):
+            acc = consume(acc, *products(step_power(i, i)))
+        return acc.cpu()
+    return timed_pass
+
+
+def harness_parity(proc, x0: torch.Tensor, step_power, products) -> list:
+    """The gate's two errors: zdb rel-L2 of the harness's slab 0 at salt 0
+    and at salt 7 against the unsalted processor on the same sectors x0."""
+    from .oracle import relative_l2
+
+    zdb_ref = proc(x0)[0]
+    return [relative_l2(zdb_ref.cpu().numpy(),
+                        products(step_power(0, salt))[0].cpu().numpy())
+            for salt in (0, 7)]
+
+
 def run(argv=None) -> dict:
     """Run the benchmark; returns the result dict that `main` prints.
     Refusals exit 2 (argparse; the JAX bench's `--sharded` refusals exit
@@ -211,8 +291,8 @@ def run(argv=None) -> dict:
     from .config import DEFAULT_CONFIG, tiny_config
     from .constants import PipelineConstants, hamming_factors
     from .oracle import relative_l2
-    from .ops import device_codec, fullchain
-    from .pipeline import SectorProcessor, resolve_device, stage09_10_products
+    from .ops import fullchain
+    from .pipeline import SectorProcessor, resolve_device
 
     argv = list(sys.argv[1:] if argv is None else argv)
     ap, args = _args(argv)
@@ -308,63 +388,24 @@ def run(argv=None) -> dict:
     except ValueError as e:
         ap.error(str(e))
     acc0 = torch.zeros(cfg.num_output_bins, device=dev)
-
-    def consume(acc, zdb, zdr):
-        # every output element feeds the accumulator
-        return acc + zdb.sum(dim=0) + torch.where(
-            torch.isfinite(zdr), zdr, torch.zeros_like(zdr)).sum(dim=0)
-
-    def products(pw):
-        pw = pw.reshape(b_loc, c, -1)
-        return stage09_10_products(pw[:, 0], pw[:, 1], gain)
+    products = harness_products(gain, b_loc, c)
 
     if args.method == "pallas":
         plan = fullchain.build_plan(consts, dev)
-        if plan.radix > 1:
-            def power_at(x_all, off, salt):
-                return fullchain.fused_chain_power_radix(
-                    x_all, plan, offset=off, bc=bcn, salt=salt)
-        else:
-            if args.in_dtype == "wire" and args.wire_decode == "fused":
-                ap.error(f"--wire-decode fused needs the radix kernel; m={m} "
-                         "uses the dense kernel (--wire-decode xla)")
-
-            def power_at(x_all, off, salt):
-                del salt            # the dense entry has offsets only
-                return fullchain.fused_chain_power_at(x_all, off, bcn, plan)
-
-        if host_wire is None:
-            x_all = staged.reshape(D * bcn, 2, m, n)
-
-            def step_power(i, salt):
-                return power_at(x_all, (i % D) * bcn, salt)
-        elif args.wire_decode == "fused":
-            w32_all = device_codec.wire_words_i32(staged, cfg)
-
-            def step_power(i, salt):
-                return fullchain.fused_chain_power_wire(
-                    w32_all, plan, c, offset=(i % D) * B, bs=B, salt=salt)
-        else:
-            def step_power(i, salt):
-                w = staged[(i % D) * B:(i % D + 1) * B]
-                x = device_codec.decode_wire_i16(w, cfg).reshape(bcn, 2, m, n)
-                return power_at(x, 0, salt)
-
-        def timed_pass():
-            acc = acc0
-            for i in range(steps):
-                acc = consume(acc, *products(step_power(i, i)))
-            return acc.cpu()
+        if (plan.radix == 1 and args.in_dtype == "wire"
+                and args.wire_decode == "fused"):
+            ap.error(f"--wire-decode fused needs the radix kernel; m={m} "
+                     "uses the dense kernel (--wire-decode xla)")
+        step_power = pallas_step_power(staged, plan, cfg, D, B, bcn,
+                                       args.in_dtype, args.wire_decode)
+        timed_pass = salted_pass(step_power, products, acc0, steps)
 
         def parity():
             """The harness at salt 0 and 7 vs the unsalted processor on the
             same sectors (under --sharded, this rank's share of slab 0)."""
             x0 = (staged[0] if mesh is not None
                   else torch.from_numpy(host_iq[0]).to(dev))
-            zdb_ref = proc(x0)[0]
-            return [relative_l2(zdb_ref.cpu().numpy(),
-                                products(step_power(0, salt))[0].cpu().numpy())
-                    for salt in (0, 7)]
+            return harness_parity(proc, x0, step_power, products)
     else:
         _, wd, _ = hamming_factors(cfg)
         inv_wd = torch.from_numpy((1.0 / wd).astype(np.float32)).to(dev)
@@ -473,7 +514,6 @@ def run(argv=None) -> dict:
                    "sharded_rank_span_s": [round(float(r[1 + best]), 6)
                                            for r in table],
                    "sharded_launches": [int(r[0]) for r in table]}
-        dist.destroy_process_group()
         if not lead:
             return {"rank": mesh.rank, **sharded}
 
@@ -637,7 +677,17 @@ def _pipelined(proc_stream, slabs, dev, fetch) -> float:
 
 
 def main(argv=None) -> int:
-    print(json.dumps(run(argv)), flush=True)
+    try:
+        print(json.dumps(run(argv)), flush=True)
+    except SystemExit as e:
+        if not dist.is_initialized():
+            raise
+        # a rank of --sharded N stopped by its gate ends as every rank does
+        if not isinstance(e.code, int):
+            print(e.code, file=sys.stderr)
+        end_rank(e.code if isinstance(e.code, int) else 1)
+    if dist.is_initialized():          # a rank of --sharded N
+        end_rank(0)
     return 0
 
 

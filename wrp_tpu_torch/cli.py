@@ -392,7 +392,11 @@ def cmd_stream(args):
     stats["kernel_launches"] = _chain_launches()
     print(json.dumps(stats, indent=2))
     if args.coordinator:
-        _bounded_exit(args.collective_timeout)
+        from .parallel.launch import end_rank
+
+        # with a dead peer the teardown can block: the barrier and the
+        # teardown wait at most the collective timeout (10 s at least)
+        end_rank(0, max(10.0, args.collective_timeout or 0.0))
     return 0
 
 
@@ -479,26 +483,6 @@ def _chain_launches() -> dict:
             "dense": fullchain.DENSE_LAUNCHES,
             "astage": fullchain.ASTAGE_LAUNCHES,
             "rows": fullchain.PARSEVAL_ROWS_LAUNCHES}
-
-
-def _bounded_exit(collective_timeout):
-    """Leave the process group and end the process within a bound.  With a
-    dead peer, tearing the group down can block; a hard-exit timer bounds
-    that, while a healthy group leaves in milliseconds.  Never returns."""
-    import os
-    import threading
-
-    import torch.distributed as dist
-
-    sys.stdout.flush()
-    sys.stderr.flush()
-    bound = max(10.0, collective_timeout or 0.0)
-    threading.Timer(bound, lambda: os._exit(0)).start()
-    try:
-        dist.destroy_process_group()
-    except Exception:
-        pass
-    os._exit(0)
 
 
 def cmd_supervise(args):

@@ -29,7 +29,7 @@ from ..io import codec
 from ..ops import device_codec
 from ..oracle import relative_l2
 from .halo import build_halo_processor
-from .launch import ROOT, module_env, run_ranks
+from .launch import ROOT, end_rank, module_env, run_ranks
 from .mesh import init_distributed, make_mesh
 from .sharded import build_sharded_processor, gather_batch, shard_batch
 
@@ -134,9 +134,7 @@ def _rank(n_ranks: int, rank: int, port: int, device: str) -> str:
     if dev.type == "cpu":
         torch.set_num_threads(1)
     seq = choose_seq(n_ranks)
-    line = run_checks(make_mesh(data=n_ranks // seq, seq=seq, device=dev))
-    dist.destroy_process_group()
-    return line
+    return run_checks(make_mesh(data=n_ranks // seq, seq=seq, device=dev))
 
 
 def dryrun_multichip(n_ranks: int, device: str = "cuda") -> str:
@@ -180,7 +178,7 @@ def main(argv=None) -> int:
         line = _rank(args.ranks, args.rank, args.port, args.device)
         if args.rank == 0:
             print(line, flush=True)
-        return 0
+        end_rank(0)
     try:
         print(dryrun_multichip(args.ranks, args.device), flush=True)
     except ValueError as e:

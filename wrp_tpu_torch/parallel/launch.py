@@ -11,18 +11,27 @@ again when it starts the group's store, and another process may take it in
 between.  So when a rank reports that the store could not bind
 (EADDRINUSE), the whole set runs once more on a fresh port.  Any other
 failure is returned as it is.
+
+A rank ends through `end_rank(code)`: a barrier with a timeout, a flush,
+the group's teardown under a hard-exit timer, then `os._exit(code)`.  The
+interpreter's own exit is never reached with a process group behind it:
+its static destructors can abort the process ("terminate called without an
+active exception") after the rank's work is done.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 import re
 import socket
 import subprocess
+import sys
 import tempfile
+import threading
 import time
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, NoReturn, Optional, Sequence
 
 #: a rank's stderr when the rendezvous store could not bind its port
 BIND_FAILURE = re.compile(r"EADDRINUSE|address already in use", re.I)
@@ -49,9 +58,10 @@ class RankResult:
     err: str
 
 
-def free_port() -> int:
-    """A TCP port that was free on 127.0.0.1 a moment ago."""
-    with socket.socket() as s:
+def free_port(kind: int = socket.SOCK_STREAM) -> int:
+    """A port that was free on 127.0.0.1 a moment ago: TCP, or UDP with
+    kind=socket.SOCK_DGRAM."""
+    with socket.socket(socket.AF_INET, kind) as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
 
@@ -99,6 +109,54 @@ def _run_once(argv_of, n, timeout_s, env, cwd, grace_s) -> List[RankResult]:
         for fo, fe in files:
             fo.close()
             fe.close()
+
+
+def leave_group(timeout_s: float = 30.0, code_on_hang: int = 1) -> None:
+    """Leave the process group within a bound, for a process that goes on
+    after it: a barrier that waits at most `timeout_s` for the peers (a
+    dead or late peer is passed over), a flush of stdout and stderr, then
+    `destroy_process_group` under a timer that ends the process with
+    `code_on_hang` if the barrier and the teardown together block for
+    2 x `timeout_s` (a dead peer can leave either waiting).  Does nothing
+    outside a group."""
+    import torch
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        return
+    sys.stdout.flush()
+    sys.stderr.flush()
+    timer = threading.Timer(2 * timeout_s, lambda: os._exit(code_on_hang))
+    timer.daemon = True
+    timer.start()
+    try:
+        kw = {}
+        if dist.get_backend() == "nccl":
+            kw["device_ids"] = [torch.cuda.current_device()]
+        dist.barrier(async_op=True, **kw).wait(
+            timeout=datetime.timedelta(seconds=timeout_s))
+    except Exception as e:   # a gone peer: tear down all the same
+        print(f"end of rank: barrier failed ({type(e).__name__}: {e})",
+              file=sys.stderr)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    try:
+        dist.destroy_process_group()
+    except Exception as e:
+        print(f"end of rank: teardown failed ({type(e).__name__}: {e})",
+              file=sys.stderr, flush=True)
+    timer.cancel()
+
+
+def end_rank(code: int = 0, timeout_s: float = 30.0) -> NoReturn:
+    """The one way a rank process ends: `leave_group(timeout_s)`, then
+    `os._exit(code)`, so the interpreter's exit never runs with the group's
+    threads behind it.  A teardown that blocks ends the process with `code`
+    all the same: the rank's work was done.  Never returns."""
+    leave_group(timeout_s, code_on_hang=code)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
 
 
 def run_ranks(argv_of: Callable[[int, int], Sequence[str]], n: int,

@@ -135,7 +135,6 @@ def _rank(args) -> list:
                          == out["launches"]["rows"] == kernel_steps)
         out["ok"] = bool(ok)
         rows.append(out)
-    dist.destroy_process_group()
     return rows
 
 
@@ -160,12 +159,13 @@ def main() -> int:
         ap.error(f"--method {args.method}: a comma list of {METHODS}")
     if args.device_decode and methods != ["pallas-seq"]:
         ap.error("--device-decode applies to --method pallas-seq only")
+    from wrp_tpu_torch.parallel.launch import end_rank, run_ranks
+
     if args.rank is not None:
         rows = _rank(args)
         for out in rows:
             print(json.dumps(out), flush=True)
-        return 0 if all(out["ok"] for out in rows) else 1
-    from wrp_tpu_torch.parallel.launch import run_ranks
+        end_rank(0 if all(out["ok"] for out in rows) else 1)
 
     base = [sys.executable, os.path.abspath(__file__)]
     for k, v in vars(args).items():
