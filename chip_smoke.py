@@ -136,11 +136,15 @@ Phases (each prints its results; any failure raises and exits non-zero):
 14. (after the bench of 2c) `bench --sharded N`, N = min(GPU count, 4)
    (`--sharded 1` on a one-card machine, which it says): N ranks, rank k
    on cuda:k over NCCL, each running the salted offset loop on its B/N
-   sectors; the sharded gate (data-parallel pallas < 1e-4, mxu and halo <
-   1e-3 against the unsharded processor) and each rank's salted harness on
-   its own share, every rank's offset launches, its value beside N x the
-   unsharded value; then `python -m wrp_tpu_torch.parallel.dryrun N` on
-   the GPUs (its checks and OK line);
+   sectors, with `--profile DIR`; the sharded gate (data-parallel pallas
+   < 1e-4, mxu and halo < 1e-3 against the unsharded processor) and each
+   rank's salted harness on its own share, every rank's offset launches
+   (the profiled pass's included), its value beside N x the unsharded
+   value; one trace a rank (DIR/rank{r}/trace.json) holding `steps`
+   offset-entry kernel events, all on cuda:r, trace_summary over DIR
+   reporting N processes, and each rank's busy share in its profiled pass
+   printed; then `python -m wrp_tpu_torch.parallel.dryrun N` on the GPUs
+   (its checks and OK line);
 15. with N >= 2 cards: the halo and mxu pulse-sharded steps across N
    ranks (tools/pulse_shard_ranks.py --method halo,mxu), each rank's
    products vs the fused chain (<= 1e-4) and the oracle, step ms;
@@ -172,7 +176,14 @@ Phases (each prints its results; any failure raises and exits non-zero):
    with --device-decode, 10 s; --stub-device with 8 feeds, 10 s: every
    sector of every feed processed, 0 drops, 0 contamination failures, the
    path's kernel launched, per-feed p50/p99 and the executor's core share
-   printed.
+   printed;
+18. the hardware demo, `python -m wrp_tpu_torch.tools.hw_demo 286`, with
+   host decode and with --device-decode, each in its own process and both
+   at once: `cli stream`, `cli consume --volume`, `cli produce --headers`
+   (unpaced) and `cli volume` over UDP loopback; MATCH (the consumer's
+   volume equals the processor's) and exit 0, 286/286 sectors, and the
+   radix kernel (#3; the wire kernel, #7, with --device-decode) launched,
+   from the stream's own stats (OUT/stream_stats.json).
 
 Every launch counter is set to 0 just before each path runs and read just
 after (a supervised worker or a bench rank, another process, reports its
@@ -1231,28 +1242,60 @@ def halo_world_one(orc: Oracle, noise, dev) -> None:
           f"radix chain {cuda_ms(lambda: single(x)):.3f} ms)", flush=True)
 
 
+#: the offset entries' kernel in a trace (the radix and salted entries are
+#: instantiations of one FFT-form body, csrc/fft_chain.cuh)
+FFT_CHAIN_KERNEL = "fft_chain_kernel"
+
+
 def phase_bench_sharded(unsharded_value: float) -> dict:
-    """`bench --sharded N` in this process (it starts the N ranks, rank k
-    on cuda:k over NCCL), N = min(the GPU count, 4): its sharded gate
-    (pallas < 1e-4, mxu and halo < 1e-3 against the unsharded processor)
-    and every rank's salted harness on its own share (the salted gate's
-    bounds), value > 0 and every rank's launches of the salted offset entry
-    equal to (the warm pass and 3 timed passes) x steps + its gate's 2
-    calls; prints value, the parity, each rank's span and value over N x
-    the unsharded value.  Then the dry run of every sharded step
-    (`python -m wrp_tpu_torch.parallel.dryrun N`, on the GPUs by default)
-    at the same N."""
+    """`bench --sharded N --profile DIR --verbose` in this process (it
+    starts the N ranks, rank k on cuda:k over NCCL), N = min(the GPU
+    count, 4): its sharded gate (pallas < 1e-4, mxu and halo < 1e-3
+    against the unsharded processor) and every rank's salted harness on its
+    own share (the salted gate's bounds), value > 0 and every rank's
+    launches of the salted offset entry equal to (the profiled pass, the
+    warm pass and 3 timed passes) x steps + its gate's 2 calls; prints
+    value, the parity, each rank's span and value over N x the unsharded
+    value.  Then its traces (`sharded_traces`) and the dry run of every
+    sharded step (`python -m wrp_tpu_torch.parallel.dryrun N`, on the GPUs
+    by default) at the same N."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
     count = torch.cuda.device_count()
     n = min(count, 4)
     print(f"bench --sharded: {count} GPU(s) on this machine, N = {n}"
           + (" (one GPU: the sharded harness at one rank)" if n == 1 else ""),
           flush=True)
     torch.cuda.empty_cache()
-    r = bench.run(["--sharded", str(n)])
+    prof = Path(tempfile.mkdtemp(prefix="wrp_smoke_sharded_profile_"))
+    try:
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            r = bench.run(["--sharded", str(n), "--profile", str(prof),
+                           "--verbose"])
+        lines = [ln for ln in err.getvalue().splitlines()
+                 if "profiled pass" in ln]
+        print("\n".join(lines), flush=True)
+        found = [ln.split("busy share by rank: ", 1)[1] for ln in lines
+                 if "busy share by rank: " in ln]
+        shares = json.loads(found[-1]) if found else []
+        check(len(shares) == n and all(0 < x["busy_share"] <= 1
+                                       for x in shares),
+              f"bench --sharded {n} --profile: rank 0 logged every rank's "
+              f"busy share in its profiled pass "
+              f"{[x['busy_share'] for x in shares]}")
+        traced = sharded_traces(prof, n, r["steps"])
+        for row, x in zip(traced, shares):
+            row["pass_busy_share"] = x["busy_share"]
+    finally:
+        shutil.rmtree(prof, ignore_errors=True)
     print(f"bench --sharded {n}: " + json.dumps(r), flush=True)
     par = r["sharded_parity_rel_l2"]
     e0, e1 = r["parity_rel_l2"]
-    want = (1 + len(r["timed_runs_s"])) * r["steps"] + 2
+    want = (2 + len(r["timed_runs_s"])) * r["steps"] + 2
     check(r["sharded_devices"] == n and r["value"] > 0
           and par["pallas"] < BENCH_GATE[0] and par["mxu"] < BENCH_GATE[1]
           and par["halo"] < BENCH_GATE[1]
@@ -1277,7 +1320,48 @@ def phase_bench_sharded(unsharded_value: float) -> dict:
           f"({time.perf_counter() - t0:.1f} s) "
           f"{done.stderr[-2000:] if done.returncode else ''}")
     return {"devices": n, "launches": r["sharded_launches"],
-            "value": r["value"]}
+            "value": r["value"], "traced": traced}
+
+
+def sharded_traces(prof: Path, n: int, steps: int) -> list:
+    """The traces of `bench --sharded n --profile prof`: one a rank,
+    prof/rank{r}/trace.json, none at prof/trace.json; each holds `steps`
+    events of the offset entry's kernel (the profiled pass's), all on
+    cuda:r; trace_summary over prof reports n processes, one a rank folder,
+    each with its device time.  Returns each rank's {"events": the offset
+    kernel's events, "trace_busy_share": the device's busy share over the
+    whole trace}."""
+    from wrp_tpu_torch.tools import trace_summary
+
+    paths = [prof / f"rank{r}" / "trace.json" for r in range(n)]
+    check(all(p.exists() for p in paths) and not (prof / "trace.json").exists()
+          and trace_summary.find_traces(str(prof)) == [str(p) for p in paths],
+          f"bench --sharded {n} --profile: one trace a rank "
+          f"({[str(p.relative_to(prof)) for p in paths]})")
+    out = []
+    for r, path in enumerate(paths):
+        events = trace_summary.load_events(str(path))
+        mine = [e for e in events if e.get("ph") == "X"
+                and e.get("cat") == "kernel"
+                and FFT_CHAIN_KERNEL in e.get("name", "")]
+        devices = sorted({e.get("args", {}).get("device", e.get("pid"))
+                          for e in mine})
+        check(len(mine) == steps and devices == [r],
+              f"rank {r}'s trace: {len(mine)} {FFT_CHAIN_KERNEL} events "
+              f"(== steps {steps}) on device(s) {devices} (== [{r}])")
+        out.append({"events": len(mine)})
+    summary = trace_summary.run(str(prof), top=5)
+    procs = summary["processes"]
+    print("bench --sharded trace_summary: " + json.dumps(
+        {p: info["device"] for p, info in procs.items()}), flush=True)
+    check(len(procs) == n and sorted(p.split(":")[0] for p in procs)
+          == [f"rank{r}" for r in range(n)]
+          and all(info["device"]["kernel_ms"] > 0 for info in procs.values()),
+          f"trace_summary over the profile: {len(procs)} processes "
+          f"({sorted(procs)}), one a rank, each with device time")
+    for r in range(n):
+        out[r]["trace_busy_share"] = summary["device"][f"rank{r}"]["busy_share"]
+    return out
 
 
 def phase_halo_ranks() -> None:
@@ -3017,6 +3101,73 @@ def phase_last_tools(bench_value: float) -> dict:
     return out
 
 
+#: the demo's sectors: two cuts, the JAX package's tools/hw_demo.sh default
+DEMO_SECTORS = 286
+
+
+def phase_hw_demo() -> dict:
+    """`python -m wrp_tpu_torch.tools.hw_demo 286`, with host decode and with
+    --device-decode, each in its own process and both at once (free ports
+    each; one after the other they took 118 s on an H100 host, each run
+    mostly its producer making sectors on the host): exit 0, MATCH, 286/286 sectors
+    through the stream, and the path's kernel (#3 on host decode, #7 with
+    --device-decode) launched, read from the stream's stats in
+    OUT/stream_stats.json.  Returns {"radix": n, "wire": n}."""
+    import shutil
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    runs = []
+    try:
+        for tag, flags, kernel in (
+                ("host-decode", [], "radix"),
+                ("device-decode", ["--device-decode"], "wire")):
+            demo = Path(tempfile.mkdtemp(prefix="wrp_smoke_hw_demo_"))
+            runs.append((tag, kernel, demo, subprocess.Popen(
+                [sys.executable, "-m", "wrp_tpu_torch.tools.hw_demo", *flags,
+                 "--out", str(demo), str(DEMO_SECTORS)], cwd=here,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        out = {}
+        for tag, kernel, demo, proc in runs:
+            stdout, stderr = proc.communicate(timeout=300)
+            took = time.perf_counter() - t0
+            print(stdout.rstrip(), flush=True)
+            if proc.returncode != 0:
+                print(stderr[-4000:], flush=True)
+            stats = json.loads((demo / "stream_stats.json").read_text())
+            lines = stdout.strip().splitlines()
+            launched = stats["kernel_launches"]
+            tr, lat = stats["transport"], stats["latency_ms"]
+            print(f"hw_demo {tag}: done after {took:.1f} s; "
+                  f"{stats['processed_sectors']} sectors, "
+                  f"{stats['sectors_per_second']} sectors/s (active "
+                  f"{stats['active_sectors_per_second']}), latency p50 "
+                  f"{lat['p50_ms']} ms p99 {lat['p99_ms']} ms, dropped "
+                  f"sectors {tr['dropped_sectors']}, datagrams "
+                  f"{tr['dropped_datagrams']}; launches {launched}",
+                  flush=True)
+            check(proc.returncode == 0 and bool(lines)
+                  and lines[-1] == "MATCH"
+                  and stats["processed_sectors"] == DEMO_SECTORS
+                  and launched[kernel] >= math.ceil(DEMO_SECTORS / BATCH)
+                  and sum(launched.values()) == launched[kernel],
+                  f"hw_demo {tag}: exit {proc.returncode}, "
+                  f"{lines[-1] if lines else None}, "
+                  f"{stats['processed_sectors']}/{DEMO_SECTORS} sectors, "
+                  f"{kernel} launches {launched[kernel]} (>= "
+                  f"{math.ceil(DEMO_SECTORS / BATCH)}), no other kernel")
+            out[kernel] = launched[kernel]
+    finally:
+        for _, _, demo, proc in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            shutil.rmtree(demo, ignore_errors=True)
+    print(f"hw_demo phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, res, **extra) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -3074,6 +3225,7 @@ def main() -> int:
     phase_halo_ranks()
     tools = phase_cli_tools()
     last = phase_last_tools(bench_value)
+    demo = phase_hw_demo()
     print(json.dumps({"kernels": [
         kernel_entry("fused_chain_power_radix",
                      "wrp_tpu_torch/csrc/fused_chain_radix.cu",
@@ -3087,6 +3239,7 @@ def main() -> int:
                      soak_launches=last["soak"]["host"]["radix"],
                      multihost_bench_launches=last["multihost"],
                      ab_sweep_gate_launches=last["ab_sweep"]["launches"]["radix"],
+                     hw_demo_launches=demo["radix"],
                      **occ["radix"]),
         kernel_entry("fused_chain_power_wire",
                      "wrp_tpu_torch/csrc/fused_chain_wire.cu",
@@ -3097,6 +3250,7 @@ def main() -> int:
                      wire_ab_launches=tools["ab"]["launches"]["wire_ab"]["wire"],
                      decode_ab_launches=tools["ab"]["launches"]["decode_ab"]["wire"],
                      soak_device_decode_launches=last["soak"]["device-decode"]["wire"],
+                     hw_demo_launches=demo["wire"],
                      **occ["wire"]),
         kernel_entry("fused_chain_power_dense",
                      "wrp_tpu_torch/csrc/fused_chain_dense.cu",
@@ -3135,6 +3289,7 @@ def main() -> int:
                      bench_launches["radix_offset"], offsets["radix"],
                      sharded_launches=sharded["launches"],
                      sharded_devices=sharded["devices"],
+                     sharded_profile_traced=sharded["traced"],
                      wire_ab_launches=tools["ab"]["launches"]["wire_ab"]["radix_offset"],
                      ab_sweep_launches=last["ab_sweep"]["launches"]["radix_offset"]),
         kernel_entry("fused_chain_power_wire (offset, salt)",

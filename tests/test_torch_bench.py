@@ -98,13 +98,13 @@ def test_methods_and_input_forms_pass_the_gate(flags, method, in_dtype,
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--sharded", "2", "--profile", "unused"], "not yet ported"),
     (["--method", "mxu", "--in-dtype", "wire"], "pallas method only"),
     (["--in-dtype", "wire", "--distinct", "1"], "distinct >= 2"),
     (["--matched-filter", "fold"], "non-fused methods"),
     (["--method", "radix", "--matched-filter", "spectral"], "spectral"),
     (["--range-cells", "200", "--in-dtype", "wire"], "dense kernel"),
-])
+], ids=["flags1-pallas method only", "flags2-distinct >= 2",
+        "flags3-non-fused methods", "flags4-spectral", "flags5-dense kernel"])
 def test_refusals_exit_2(flags, match, capsys):
     with pytest.raises(SystemExit) as e:
         bench.run(SMOKE + flags)
@@ -142,18 +142,19 @@ def test_failed_gate_prints_an_error_and_exits_1(monkeypatch, capsys):
     assert r["salt0_rel_l2"] > 1e-4
 
 
-def test_sharded_two_ranks_cli_contract():
-    """`--sharded 2 --device cpu`: two gloo ranks (one torch thread each),
-    exit 0, one JSON line with the contract, the three parity keys under
-    their limits (pallas 1e-4, mxu and halo 1e-3), each rank's salted
-    harness under the salted gate's, each rank's span, `value` over the
-    whole batch, and no one-card secondary metric."""
+def _sharded(*flags):
+    """`--sharded 2 --device cpu` through the CLI: two gloo ranks, one torch
+    thread each, through parallel/launch.run_ranks."""
     from conftest import cpu_subprocess_env
 
-    done = subprocess.run(
+    return subprocess.run(
         [sys.executable, "-m", "wrp_tpu_torch.bench", *SMOKE, "--sharded",
-         "2"], cwd=REPO, capture_output=True, text=True, timeout=300,
+         "2", *flags], cwd=REPO, capture_output=True, text=True, timeout=300,
         env=cpu_subprocess_env(OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES=""))
+
+
+def _sharded_contract(done) -> dict:
+    """The line of a `--sharded 2` run, after the contract's checks."""
     assert done.returncode == 0, (done.stdout[-500:], done.stderr[-3000:])
     lines = done.stdout.strip().splitlines()
     assert len(lines) == 1
@@ -175,6 +176,72 @@ def test_sharded_two_ranks_cli_contract():
     # the slowest rank's span, best of 3, over all B sectors of a step
     assert max(r["sharded_rank_span_s"]) <= min(r["timed_runs_s"]) + 1e-3
     assert r["batch"] == 4 and r["steps"] == 4 and r["device"] == "cpu"
+    return r
+
+
+def test_sharded_two_ranks_cli_contract():
+    """`--sharded 2 --device cpu`: two gloo ranks (one torch thread each),
+    exit 0, one JSON line with the contract, the three parity keys under
+    their limits (pallas 1e-4, mxu and halo 1e-3), each rank's salted
+    harness under the salted gate's, each rank's span, `value` over the
+    whole batch, and no one-card secondary metric."""
+    _sharded_contract(_sharded())
+
+
+@pytest.fixture(scope="module")
+def sharded_profile(tmp_path_factory):
+    """One `--sharded 2 --profile DIR` run for the tests that read it."""
+    out = tmp_path_factory.mktemp("sharded_profile")
+    return _sharded("--profile", str(out)), out
+
+
+def test_sharded_profile_writes_one_trace_a_rank(sharded_profile):
+    """Under --sharded each rank traces its own pass into
+    DIR/rank{r}/trace.json; the line is the sharded contract's, with no
+    profile keys (the JAX bench adds none), and nothing is written to
+    DIR/trace.json."""
+    done, out = sharded_profile
+    r = _sharded_contract(done)
+    assert not any("profile" in k or "busy" in k for k in r)
+    for rank in (0, 1):
+        trace = json.loads((out / f"rank{rank}" / "trace.json").read_text())
+        assert trace["traceEvents"]
+    assert not (out / "trace.json").exists()
+
+
+def test_trace_summary_reads_a_sharded_profile(sharded_profile):
+    """trace_summary over DIR finds both ranks' traces and lists one
+    process a rank, labelled by its rank folder, with its device time."""
+    from wrp_tpu_torch.tools import trace_summary
+
+    done, out = sharded_profile
+    assert done.returncode == 0, done.stderr[-3000:]
+    assert trace_summary.find_traces(str(out)) == [
+        str(out / "rank0" / "trace.json"), str(out / "rank1" / "trace.json")]
+    summary = trace_summary.run(str(out))
+    procs = summary["processes"]
+    assert len(procs) == 2
+    assert sorted(p.split(":")[0] for p in procs) == ["rank0", "rank1"]
+    assert sorted(summary["device"]) == ["rank0", "rank1"]
+    # the CPU: no device work in either rank's pass
+    assert all(p["device"]["kernel_ms"] == 0.0 for p in procs.values())
+
+
+def test_a_failed_rank_ends_non_zero(monkeypatch, capsys):
+    """A rank whose pass raises (its profiler, a launch) ends through
+    end_rank with code 1, its traceback on stderr; it never returns 0."""
+    def fail(argv=None):
+        raise RuntimeError("profiler failed")
+
+    def end_rank(code=0, timeout_s=30.0):
+        raise SystemExit(code)
+    monkeypatch.setattr(bench, "run", fail)
+    monkeypatch.setattr(bench, "end_rank", end_rank)
+    monkeypatch.setattr(bench.dist, "is_initialized", lambda: True)
+    with pytest.raises(SystemExit) as e:
+        bench.main([])
+    assert e.value.code == 1
+    assert "RuntimeError: profiler failed" in capsys.readouterr().err
 
 
 def test_sharded_refusals_as_wrp_tpu(monkeypatch, capsys):

@@ -155,6 +155,54 @@ def test_stream_span_is_first_decode_to_last_fetch():
     assert trace_summary.stream_span(ev[:2]) is None
 
 
+def test_summarise_counts_the_device_as_threads_of_its_process(tmp_path):
+    """A CUDA trace in torch.profiler's form: the host process (labels
+    "CPU"), the device under its index (labels "GPU 1", named after the
+    program too) and the profiler's own rows (pids "Spans" and -1, no
+    process name).  One process,
+    the device's stream among its threads; two such traces in rank folders
+    stay two processes, each with its own device time, though they share
+    the device index and the pid."""
+    def meta(pid, name, labels):
+        return [{"ph": "M", "name": "process_name", "pid": pid, "tid": 0,
+                 "args": {"name": name}},
+                {"ph": "M", "name": "process_labels", "pid": pid, "tid": 0,
+                 "args": {"labels": labels}}]
+
+    def trace(kernel_us):
+        return {"traceEvents": meta(4242, "python3", "CPU") + meta(
+            1, "python3", "GPU 1") + [
+            {"ph": "M", "name": "thread_name", "pid": 1, "tid": 7,
+             "args": {"name": "stream 7"}},
+            {"ph": "X", "cat": "cpu_op", "name": "aten::mul", "pid": 4242,
+             "tid": 4242, "ts": 0, "dur": 100},
+            {"ph": "X", "cat": "kernel", "name": "fft_chain_kernel",
+             "pid": 1, "tid": 7, "ts": 10, "dur": kernel_us},
+            {"ph": "X", "cat": "Trace", "name": "PyTorch Profiler",
+             "pid": "Spans", "tid": 0, "ts": 0, "dur": 200},
+            {"ph": "X", "cat": "overhead", "name": "Activity Buffer Request",
+             "pid": -1, "tid": 0, "ts": 5, "dur": 3}]}
+
+    procs = trace_summary.summarise(trace(20)["traceEvents"])
+    assert list(procs) == ["python3 [pid 4242]"]
+    threads = procs["python3 [pid 4242]"]["threads"]
+    assert sorted(threads) == ["4242", "GPU 1: stream 7 [tid 7]"]
+    for rank, us in ((0, 20), (1, 50)):
+        (tmp_path / f"rank{rank}").mkdir()
+        (tmp_path / f"rank{rank}" / "trace.json").write_text(
+            json.dumps(trace(us)))
+        if rank == 0:      # one rank (--sharded 1): still labelled by rank
+            assert list(trace_summary.run(str(tmp_path))["device"]) == [
+                "rank0"]
+    out = trace_summary.run(str(tmp_path))
+    assert {k: v["device"]["kernel_ms"] for k, v in
+            out["processes"].items()} == {"rank0: python3 [pid 4242]": 0.02,
+                                          "rank1: python3 [pid 4242]": 0.05}
+    assert sorted(out["device"]) == ["rank0", "rank1"]
+    assert out["device"]["rank1"]["kernel_launches"] == {
+        "fft_chain_kernel": 1}
+
+
 def test_find_traces_takes_the_port_names(tmp_path):
     (tmp_path / "a").mkdir()
     (tmp_path / "a" / "w.1.pt.trace.json").write_text("{}")

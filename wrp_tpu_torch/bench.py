@@ -49,10 +49,21 @@ the JAX bench refuses, with its exit code 1 (a method other than pallas,
 (exit 2: NCCL takes one rank a GPU, and fewer ranks would be another
 measurement).
 
+`--profile DIR` traces one pass of the harness with torch.profiler, after
+the gate and before the timed spans (CUDA activity on the card, the CPU
+activity alone under `--device cpu`), into DIR/trace.json; under
+`--sharded N` each rank traces its own pass, between two barriers, into
+DIR/rank{r}/trace.json, and rank 0 gathers every rank's busy share (device
+kernel time over the pass's wall time) and logs them with --verbose.  The
+JSON line has no profile fields, as the JAX bench's.  The profiled pass
+launches the offset entry `steps` more times: a rank's `sharded_launches`
+is then (1 profiled + 1 warm + 3 timed) x steps + 2.  A rank whose
+profiler fails ends with a non-zero code, and so does the bench.
+
 Not ported: the TPU formulation knobs (`--a-layout`, `--clip`, `--xsplit`,
 `--xpair`, `--wire-order`; the CUDA kernels have no such variants) and
-their JSON fields; `--profile` with `--sharded` exits 2 (not yet ported).
-Without CUDA the bench exits 2 unless `--device cpu` asks for the CPU.
+their JSON fields.  Without CUDA the bench exits 2 unless `--device cpu`
+asks for the CPU.
 """
 
 from __future__ import annotations
@@ -63,6 +74,7 @@ import os
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -124,7 +136,8 @@ def _args(argv):
                          "gate (pallas, mxu, halo)")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of one timed pass to "
-                         "DIR/trace.json")
+                         "DIR/trace.json (under --sharded: each rank's to "
+                         "DIR/rank{r}/trace.json)")
     ap.add_argument("--verbose", action="store_true")
     # a rank of --sharded N, started by the launching process
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
@@ -140,9 +153,6 @@ def _args(argv):
             sys.exit("--in-dtype wire does not support --sharded")
         if args.sharded < 0:
             ap.error("--sharded N takes N >= 1 ranks")
-        if args.profile:
-            ap.error("--profile with --sharded is not yet ported (one trace "
-                     "a rank)")
         if (torch.device(args.device).type == "cuda"
                 and torch.cuda.is_available()
                 and args.sharded > torch.cuda.device_count()):
@@ -466,22 +476,14 @@ def run(argv=None) -> dict:
             sys.exit(1)
 
     if args.profile:
-        from torch.profiler import ProfilerActivity, profile
-
-        acts = [ProfilerActivity.CPU] + (
-            [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            timed_pass()
-            wall_us = 1e6 * (time.perf_counter() - t0)
-        os.makedirs(args.profile, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
-        events = prof.key_averages()
-        busy_us = sum(getattr(e, "self_device_time_total", 0) for e in events)
-        log(events.table(sort_by="self_device_time_total" if dev.type == "cuda"
-                         else "self_cpu_time_total", row_limit=12))
-        log(f"profiled pass: {wall_us / 1e3:.3f} ms, device kernels "
-            f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}% busy)")
+        if mesh is not None:
+            _barrier(dev)
+        path = os.path.join(args.profile, *(
+            [f"rank{mesh.rank}"] if mesh is not None else []), "trace.json")
+        wall_us, busy_us = profile_pass(timed_pass, dev, path, log)
+        if mesh is not None:
+            _barrier(dev)
+            _log_rank_shares(mesh, dev, wall_us, busy_us, log)
     runs, own_runs = [], []
     for _ in range(3):
         if mesh is not None:
@@ -575,6 +577,51 @@ def run(argv=None) -> dict:
         **sharded,
     }
     return result
+
+
+def profile_pass(timed_pass, dev: torch.device, path: str, log):
+    """One pass of the harness under torch.profiler (CUDA activity on the
+    card, the CPU activity alone on the CPU), its chrome trace written to
+    `path`.  Returns (the pass's wall time, its device kernel time) in
+    microseconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        timed_pass()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    events = prof.key_averages()
+    busy_us = sum(getattr(e, "self_device_time_total", 0) for e in events)
+    log(events.table(sort_by="self_device_time_total" if dev.type == "cuda"
+                     else "self_cpu_time_total", row_limit=12))
+    log(f"profiled pass: {wall_us / 1e3:.3f} ms, device kernels "
+        f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}% busy)")
+    return wall_us, busy_us
+
+
+def _log_rank_shares(mesh, dev: torch.device, wall_us: float,
+                     busy_us: float, log) -> None:
+    """Every rank's (wall, device) time of its profiled pass, gathered on
+    every rank (one all_gather, outside any timed span); rank 0 logs each
+    rank's busy share and the slowest rank's."""
+    mine = torch.tensor([wall_us, busy_us], dtype=torch.float64, device=dev)
+    parts = [torch.empty_like(mine) for _ in range(mesh.world)]
+    dist.all_gather(parts, mine)
+    if mesh.rank != 0:
+        return
+    table = torch.stack(parts).cpu().tolist()
+    shares = [busy / wall for wall, busy in table]
+    slow = max(range(mesh.world), key=lambda r: table[r][0])
+    log("profiled pass busy share by rank: " + json.dumps(
+        [{"rank": r, "wall_ms": round(w / 1e3, 3),
+          "device_ms": round(b / 1e3, 3), "busy_share": round(sh, 6)}
+         for r, ((w, b), sh) in enumerate(zip(table, shares))]))
+    log(f"profiled pass: the slowest rank, {slow}, "
+        f"{table[slow][0] / 1e3:.3f} ms, {100 * shares[slow]:.2f}% busy")
 
 
 def _barrier(dev: torch.device) -> None:
@@ -686,6 +733,13 @@ def main(argv=None) -> int:
         if not isinstance(e.code, int):
             print(e.code, file=sys.stderr)
         end_rank(e.code if isinstance(e.code, int) else 1)
+    except Exception:
+        if not dist.is_initialized():
+            raise
+        # a rank that failed (its profiler, a launch) ends non-zero, and
+        # the launching process with it
+        traceback.print_exc()
+        end_rank(1)
     if dist.is_initialized():          # a rank of --sharded N
         end_rank(0)
     return 0

@@ -250,10 +250,21 @@ def _open_volume(cfg, path):
     return VolumeScan(cfg, path)
 
 
-def cmd_stream(args):
+def _sigterm_as_interrupt() -> None:
+    """Service managers stop daemons with SIGTERM: take it as Ctrl-C, the
+    command's graceful path (only the main thread may install handlers; an
+    embedding thread keeps its process's handling)."""
     import signal
     import threading
 
+    def _sigterm(_signo, _frame):
+        raise KeyboardInterrupt
+
+    if threading.current_thread() is threading.main_thread():
+        signal.signal(signal.SIGTERM, _sigterm)
+
+
+def cmd_stream(args):
     from .runtime import StreamingExecutor, configure_logging
 
     configure_logging(args.log_level, args.structured_logs)
@@ -309,14 +320,7 @@ def cmd_stream(args):
               "pallas-seq)", file=sys.stderr)
         return 2
 
-    # service managers stop daemons with SIGTERM: take the graceful path
-    # (only the main thread may install handlers; an embedding thread
-    # keeps its process's handling)
-    def _sigterm(_signo, _frame):
-        raise KeyboardInterrupt
-
-    if threading.current_thread() is threading.main_thread():
-        signal.signal(signal.SIGTERM, _sigterm)
+    _sigterm_as_interrupt()
     cfg = _cfg_from_args(args)
     processor = None
     if args.coordinator:
@@ -493,22 +497,14 @@ def cmd_supervise(args):
     reference's dataflow (rpv2.cu) loses the whole in-memory volume in
     this scenario.  The workers run on --device, which they receive with
     the other worker flags."""
-    import signal
-    import threading
     from pathlib import Path
 
     from .runtime import configure_logging
     from .runtime.supervisor import FeedSpec, Supervisor
 
     configure_logging(args.log_level, args.structured_logs)
-
-    # service managers stop the supervisor with SIGTERM: the graceful path
-    # (stop the fleet, report "interrupted"), as in cmd_stream
-    def _sigterm(_signo, _frame):
-        raise KeyboardInterrupt
-
-    if threading.current_thread() is threading.main_thread():
-        signal.signal(signal.SIGTERM, _sigterm)
+    # SIGTERM: stop the fleet, report "interrupted", as in cmd_stream
+    _sigterm_as_interrupt()
     if args.device_decode and args.method != "pallas":
         # refuse here, not through every worker exiting 2 at warmup, which
         # the supervisor would retry as infra flake until max_generations
@@ -730,10 +726,15 @@ def cmd_consume(args):
         if len(seen) == 2:   # covered once BOTH products arrived
             vs.coverage[sector, elevation] = True
 
-    if args.transport == "udp":
-        _consume_udp(args, cfg, add if vs is not None else None)
-    else:
-        _consume_v2(args, cfg, add if vs is not None else None)
+    # SIGINT or SIGTERM ends the reception, and the volume keeps what came
+    _sigterm_as_interrupt()
+    try:
+        if args.transport == "udp":
+            _consume_udp(args, cfg, add if vs is not None else None)
+        else:
+            _consume_v2(args, cfg, add if vs is not None else None)
+    except KeyboardInterrupt:
+        print("interrupted: reception ended", file=sys.stderr)
     if vs is not None:
         p = vs.save()
         print(f"volume -> {p} (coverage {vs.fraction():.4f})", file=sys.stderr)

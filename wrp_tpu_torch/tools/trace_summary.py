@@ -4,11 +4,20 @@ and per thread, and the device's busy share; with --overlap, the host
 stages' overlap with the device in-flight window from
 DIR/host_intervals.json.  Counterpart of ``tools/trace_summary.py``.
 
-Both commands write DIR/trace.json; torch.profiler's tensorboard handler
+Both commands write DIR/trace.json, and `bench --sharded N --profile DIR`
+one DIR/rank{r}/trace.json a rank; torch.profiler's tensorboard handler
 writes `<worker>.<n>.pt.trace.json`; gzipped copies are read too.
 Complete events ("ph": "X") carry a name and a duration in microseconds.
-A process is labelled by its name and pid (torch names the host process
-and the device alike after the program), a thread by its name and tid.
+A process is labelled by its name and pid, a thread by its name and tid.
+A trace is one process's: torch names the device after the program too
+(its pid is the device's index, labelled "GPU n"), so the device's streams
+are counted as threads of the host process ("GPU n: stream 7 [tid 7]"),
+and the profiler's own rows (pids without a process name: "Spans", and
+-1 for its buffer requests on the card) are left out.
+Traces are summarised each on its own; one in a folder under DIR has its
+processes labelled by that folder ("rank0: python3 [pid 4242]"): ranks'
+traces reuse device indices and have unsynchronised clocks.  Every process
+carries its trace's device time.
 
     python -m wrp_tpu_torch.tools.trace_summary DIR [--top 25] [--json]
         [--overlap]
@@ -53,18 +62,22 @@ def load_events(path: str) -> list:
 
 
 def _labels(events):
-    """({pid: process label}, {(pid, tid): thread label}) from the trace's
-    metadata events."""
-    pnames, tnames = {}, {}
+    """({pid: process label}, {(pid, tid): thread label}, {pid: "GPU n"})
+    from the trace's metadata events."""
+    pnames, tnames, devices = {}, {}, {}
     for e in events:
         if e.get("ph") != "M":
             continue
-        name = e.get("args", {}).get("name")
+        args = e.get("args", {})
+        name = args.get("name")
         if e.get("name") == "process_name":
             pnames[e.get("pid")] = f"{name} [pid {e.get('pid')}]"
         elif e.get("name") == "thread_name":
             tnames[(e.get("pid"), e.get("tid"))] = f"{name} [tid {e.get('tid')}]"
-    return pnames, tnames
+        elif (e.get("name") == "process_labels"
+              and str(args.get("labels", "")).startswith("GPU")):
+            devices[e.get("pid")] = args["labels"]
+    return pnames, tnames, devices
 
 
 def _top(totals, counts, span, top):
@@ -77,8 +90,12 @@ def _top(totals, counts, span, top):
 def summarise(events, top: int = 25) -> dict:
     """{process: {span_ms, ops, threads: {thread: {span_ms, ops}}}}: time
     totals by event name (the `top` largest), call counts and first-to-last
-    spans, per process and per thread."""
-    pnames, tnames = _labels(events)
+    spans, per process and per thread.  A device's streams count as threads
+    of the trace's one host process; rows under pids without a process
+    name (the profiler's own) are left out."""
+    pnames, tnames, devices = _labels(events)
+    hosts = {pid for pid in pnames if pid not in devices}
+    host = next(iter(hosts)) if len(hosts) == 1 else None
     totals = collections.defaultdict(lambda: collections.defaultdict(float))
     counts = collections.defaultdict(lambda: collections.defaultdict(int))
     spans = collections.defaultdict(lambda: [float("inf"), float("-inf")])
@@ -86,8 +103,12 @@ def summarise(events, top: int = 25) -> dict:
         if e.get("ph") != "X" or "dur" not in e:
             continue
         pid, tid = e.get("pid"), e.get("tid")
-        proc = pnames.get(pid, str(pid))
+        if pid not in pnames:
+            continue
         thread = tnames.get((pid, tid), str(tid))
+        if pid in devices and host is not None:
+            pid, thread = host, f"{devices[pid]}: {thread}"
+        proc = pnames[pid]
         name, dur, ts = e.get("name", "?"), float(e["dur"]), float(e["ts"])
         for key in ((proc,), (proc, thread)):
             totals[key][name] += dur
@@ -236,20 +257,34 @@ def run(trace_dir: str, top: int = 25, overlap: bool = False) -> dict:
     paths = find_traces(trace_dir)
     if not paths:
         raise FileNotFoundError(f"no trace files under {trace_dir}")
-    # each file on its own, under file-qualified process names: files of
-    # several processes reuse pids and have unsynchronised clocks
+    # each file on its own, its processes under the trace's label: files of
+    # several processes (ranks) reuse pids and device indices and have
+    # unsynchronised clocks
     out["traces"], out["processes"], out["device"] = paths, {}, {}
     for p in paths:
         events = load_events(p)
-        prefix = "" if len(paths) == 1 else os.path.basename(p) + ":"
+        key = trace_label(p, trace_dir)
+        busy = out["device"][key] = device_busy(events)
+        prefix = "" if key == "trace" else key + ": "
         for proc, info in summarise(events, top).items():
+            info["device"] = {k: busy[k] for k in
+                              ("kernel_ms", "busy_ms", "busy_share")}
             out["processes"][prefix + proc] = info
-        key = os.path.basename(p) if len(paths) > 1 else "trace"
-        out["device"][key] = device_busy(events)
         span = stream_span(events)
         if span is not None:
             out["device"][key + ":stream"] = device_busy(events, span)
     return out
+
+
+def trace_label(path: str, root: str) -> str:
+    """A trace's name under root: "trace" for root's own trace.json, the
+    folder for root/<folder>/trace.json (a rank's: "rank0"), else its path
+    under root."""
+    rel = os.path.relpath(path, root)
+    head, tail = os.path.split(rel)
+    if tail in ("trace.json", "trace.json.gz"):
+        return head or "trace"
+    return rel
 
 
 def _print_ops(title, info, indent):
