@@ -76,7 +76,7 @@ Phases (each prints its results; any failure raises and exits non-zero):
    rel-L2 <= 1e-6; strong-DC <= 1e-5) and the oracle (the strong-DC
    sector's power error against the oracle printed for the kernel and
    both plain versions), and at m = 40 (P = 8, L = 5) and m = 8; the
-   matrix kernel at m = 1100 (> 1024) on noise and clip-bin vs its plain
+   matrix kernel at m = 4100 (> 4096) on noise and clip-bin vs its plain
    version (<= 1e-5) and the oracle, and its offset entry on two slabs;
    the body of every launch from the counters; times of the kernel, the
    FFT-form and the matrix-form plain versions;
@@ -106,6 +106,21 @@ Phases (each prints its results; any failure raises and exits non-zero):
 9. the dense path: the executor at m = 1000 from memory, device decode
    (a decode pass, then the dense entry) and host decode, every launch on
    the FFT-form body;
+   then rays longer than 1024 cells (`phase_long_rays`): the ptxas lines of
+   the long-ray kernels; the executor at m = 2048 x 512, 3 channels, batch
+   16, 32 sectors from memory with host decode (#3) and device decode
+   (#7), every launch on the FFT-form body and none on the matrix kernel,
+   sampled sectors within 2e-4 of the oracle; #3 (int16, f32), #4 (salt
+   95), #7, #8 (salt 7) and #5 (w = 512, 128) vs their plain versions at
+   m = 1536, 1840, 2048, 4096 (<= 1e-5), with each geometry's cut and
+   occupancy; CUDA-event times of each at m = 2048 per 48 channel-sectors
+   beside its plain version and bound; #1 and #2 at m = 1832 (radix 1,
+   a 229-point leaf) vs plain and the oracle; `bench --range-cells 2048`
+   at batch 32, int16 (#4) and wire (#8), its gate passing; a world-size-1
+   pallas-seq step (#5, #6) and the mxu method (#9) at m = 2048 vs the
+   pallas processor and the oracle; m = 4160 (radix 8 above 4096) through
+   the radix entry's matrix route, with and without salt, vs its plain
+   version and the oracle;
 10. the A-stage kernel (the pulse-sharded path's first half) on the noise
    and clip-bin sectors, int16 and f32, on every rank's pulse slab of 1, 2
    and 4 ranks (w = 512, 256, 128): Y vs its plain version (rel-L2 <=
@@ -172,16 +187,16 @@ Phases (each prints its results; any failure raises and exits non-zero):
    pallas --m 1024 --n 512 --per-host-batch 16 --hosts min(GPU count, 4)`
    in its own process (exit 0, its line, #3 once a timed step on every
    rank); `tools/consolidation_soak` three times in its own process: 4
-   feeds (1 UDP, 3 ZMQ) at 21.45 sectors/s, host decode, 20 s; the same
-   with --device-decode, 10 s; --stub-device with 8 feeds, 10 s: every
+   feeds (1 UDP, 3 ZMQ) at 21.45 sectors/s, host decode, 8 s; the same
+   with --device-decode, 6 s; --stub-device with 8 feeds, 6 s: every
    sector of every feed processed, 0 drops, 0 contamination failures, the
    path's kernel launched, per-feed p50/p99 and the executor's core share
    printed;
-18. the hardware demo, `python -m wrp_tpu_torch.tools.hw_demo 286`, with
+18. the hardware demo, `python -m wrp_tpu_torch.tools.hw_demo 143`, with
    host decode and with --device-decode, each in its own process and both
    at once: `cli stream`, `cli consume --volume`, `cli produce --headers`
    (unpaced) and `cli volume` over UDP loopback; MATCH (the consumer's
-   volume equals the processor's) and exit 0, 286/286 sectors, and the
+   volume equals the processor's) and exit 0, 143/143 sectors, and the
    radix kernel (#3; the wire kernel, #7, with --device-decode) launched,
    from the stream's own stats (OUT/stream_stats.json).
 
@@ -229,13 +244,14 @@ from wrp_tpu_torch.native import codec_native  # noqa: E402
 from wrp_tpu_torch.ops import (  # noqa: E402
     _build, device_codec, fullchain, postprocess, probes)
 from wrp_tpu_torch.parallel import (  # noqa: E402
-    build_halo_processor, make_mesh, shard_batch)
+    build_halo_processor, build_sharded_processor, make_mesh, shard_batch)
 from wrp_tpu_torch.parallel.launch import leave_group  # noqa: E402
 from wrp_tpu_torch.parallel.multihost import (  # noqa: E402
     PulseShardedProcessor, init_distributed)
 from wrp_tpu_torch.parallel.sharded import join_pulses, split_rows  # noqa: E402
 from wrp_tpu_torch.pipeline import (  # noqa: E402
-    _DeviceConstants, _rmatmul, channel_power_planar, stage09_10_products)
+    SectorProcessor, _DeviceConstants, _rmatmul, channel_power_planar,
+    stage09_10_products)
 from wrp_tpu_torch.runtime import StreamingExecutor, VolumeScan  # noqa: E402
 from wrp_tpu_torch.tools import (  # noqa: E402
     int_split_repro, kernel_ab, kernel_breakdown, mxu_occupancy)
@@ -253,7 +269,7 @@ BENCH_GATE = (1e-4, 1e-3)  # the bench's parity gate: salt 0, salted
 BENCH_SALTS = (7, 95)     # the bench gate's salt; the largest a default run uses
 SEED = 2024
 DENSE_M = 1000            # radix_for(1000) == 1: the dense entries' geometry (FFT body)
-MATRIX_M = 1100           # m > 1024: the dense entries' matrix kernel
+MATRIX_M = 4100           # radix 1 above FFT_MAX_M: the dense entries' matrix kernel
 LEAF_M = 960              # 64 x 15: the FFT-form kernels' L = 15 leaf
 SHARDS = (1, 2, 4)        # ranks of the pulse-sharded path
 
@@ -300,10 +316,10 @@ def chain_flops(m: int, n: int) -> float:
 
 def algorithm_note(m: int, w: int, bc: int) -> str:
     """The work of the algorithm a kernel runs, beside the bound, never as
-    it: every even m <= 1024 runs the FFT form (csrc/fft_chain.cuh: radix-2
+    it: every even m <= 4096 runs the FFT form (csrc/fft_chain.cuh: radix-2
     register DFTs and the leaf's radix-5/3/7 passes, the bound's flops up
-    to the butterflies' constant); the dense matrix kernel (m > 1024) the
-    TPU's A_half contraction (8 flops per complex multiply-add)."""
+    to the butterflies' constant); the dense matrix kernel (m > 4096, odd
+    m) the TPU's A_half contraction (8 flops per complex multiply-add)."""
     R = fullchain.radix_for(m)
     tpu = bc * 8.0 * (m * (m // R) * w if R > 1 else (m // 2) * m * w)
     form = f"radix-{R} matrix form" if R > 1 else "dense A_half form"
@@ -315,9 +331,12 @@ def algorithm_note(m: int, w: int, bc: int) -> str:
             rem //= passes[-1]
         leaf = (f", leaf passes {' x '.join(map(str, passes))}" if passes
                 else "")
-        return (f"the kernel runs the FFT form (P = {g.P} = {g.P1} x {g.P2}, "
-                f"L = {g.L}{leaf}; {g.cols} columns a round, {g.blocks} blocks "
-                f"a unit); the TPU's {form} would do {tpu / 1e9:.1f} GFLOP")
+        split = f"{g.P1} x {g.P2}" + (f" x {g.P3}" if g.P3 > 1 else "")
+        body = "long-ray" if fullchain.fft_long(m) else "register"
+        return (f"the kernel runs the FFT form (the {body} body; P = {g.P} = "
+                f"{split}, L = {g.L}{leaf}; {g.cols} columns a round, "
+                f"{g.blocks} blocks a unit); the TPU's {form} would do "
+                f"{tpu / 1e9:.1f} GFLOP")
     return (f"the kernel's dense contraction does {tpu / 1e9:.1f} GFLOP, "
             f"{1e3 * tpu / PEAK_FP32:.3f} ms at the fp32 peak")
 
@@ -731,7 +750,7 @@ def phase_kernel_dense(orc: Oracle) -> dict:
     m = 1000 (batch 16 x 3 channels) vs its plain version (noise, clip-bin
     <= KERNEL_TOL; strong-DC <= POWER_TOL, as the radix kernel's) and the
     oracle, and at m = 40 (P = 8, L = 5) and m = 8; the matrix kernel at
-    m = 1100 vs its plain version (<= POWER_TOL) and the oracle.  The
+    m = 4100 vs its plain version (<= POWER_TOL) and the oracle.  The
     counters show each launch's body."""
     cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=DENSE_M)
     consts = PipelineConstants.build(cfg)
@@ -800,7 +819,7 @@ def phase_kernel_dense(orc: Oracle) -> dict:
               f", matrix {counts['dense_matrix']}")
         worst_rel, max_abs = max(worst_rel, e), max(max_abs, a)
 
-    # m > 1024: the matrix kernel, the TPU kernel's own algorithm
+    # m > 4096: the matrix kernel, the TPU kernel's own algorithm
     mcfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=MATRIX_M)
     mconsts = PipelineConstants.build(mcfg)
     mplan = fullchain.build_plan(mconsts, "cuda")
@@ -1983,6 +2002,390 @@ def phase_dense_path() -> dict:
     return launches
 
 
+#: the long-ray slice (1024 < m <= FFT_MAX_M: the FFT-form body with its
+#: partials in shared memory; above it the matrix route)
+LONG_M = 2048             # the executor's, the bench's and the times' geometry
+LONG_CHECK_MS = (1536, 1840, 2048, 4096)   # each FFT-form kernel vs plain
+LONG_DENSE_M = 1832       # radix 1 (8 x 229): the dense entries' long-ray body
+LONG_MATRIX_M = 4160      # radix 8 above FFT_MAX_M: the radix entry's matrix route
+LONG_TOL = 1e-5           # a long-ray kernel vs its plain version (power rel-L2)
+LONG_BENCH = ("--range-cells", str(LONG_M), "--batch", "32", "--repeats", "4")
+
+
+def long_ray_executor(cfg, iqs, wires) -> dict:
+    """The executor at m = LONG_M from memory, host decode (#3) and device
+    decode (#7): every sector processed, every launch on the FFT-form
+    body (no matrix kernel), sampled sectors within PRODUCT_TOL of the
+    oracle.  Returns {"radix": host-decode launches, "wire": device's}."""
+    count = 2 * BATCH
+    out = {}
+    for device_decode, key in ((False, "radix"), (True, "wire")):
+        tag = "device-decode" if device_decode else "host-decode"
+        volume = VolumeScan(cfg)
+        ex = StreamingExecutor(cfg, transport=_MemoryFeed(wires, count,
+                                                          cfg.num_sectors),
+                               batch=BATCH, method="pallas", volume=volume,
+                               max_sectors=count, idle_limit=1, device="cuda",
+                               device_decode=device_decode)
+        reset_counts()
+        stats = ex.run()
+        counts = read_counts()
+        print(f"long rays m={cfg.m}, {tag}: {stats['processed_sectors']} "
+              f"sectors, {ex.throughput.active_rate():.2f} sectors/s; "
+              f"launches {counts}", flush=True)
+        others = {k: v for k, v in counts.items() if k != key}
+        check(stats["processed_sectors"] == count
+              and counts[key] >= count // BATCH and not any(others.values()),
+              f"long rays m={cfg.m} {tag}: {stats['processed_sectors']}/"
+              f"{count} sectors, every launch on the FFT-form {key} kernel "
+              f"({counts[key]}), none on the matrix kernel "
+              f"({counts['dense_matrix']}) or another")
+        for k in range(len(iqs)):
+            zdb64, zdr64 = oracle.process_sector(iqs[k], cfg)
+            zdb, zdr = volume.data[0, :, k, 0], volume.data[1, :, k, 0]
+            ezdb, ezdr = rel(zdb64, zdb), rel(zdr64, zdr)
+            check(ezdb <= PRODUCT_TOL and ezdr <= PRODUCT_TOL
+                  and zdb[0] == -np.inf,
+                  f"long rays {tag} sector {k} vs fp64 oracle: zdb "
+                  f"{ezdb:.3e}, zdr {ezdr:.3e}")
+        out[key] = counts[key]
+    return out
+
+
+def long_ray_kernels(gen) -> dict:
+    """Each FFT-form kernel vs its plain version at LONG_CHECK_MS on seeded
+    int16 noise (f32 too for #3): #3, #4 (salt 95, the second of two
+    slabs), #7, #8 (salt 7), #5 (w = n, n/4); power (Y for #5) rel-L2 <=
+    LONG_TOL.  Each geometry's cut and occupancy printed.  Returns
+    {kernel: {rel_l2, max_abs_err}}."""
+    res = {k: {"rel_l2": 0.0, "max_abs_err": 0.0}
+           for k in ("radix", "radix_offset", "wire", "wire_offset", "astage")}
+
+    def hold(key, what, ref, got):
+        torch.cuda.synchronize()
+        e, a = rel_dev(ref, got)
+        check(e <= LONG_TOL, f"long rays {what}: kernel vs plain rel-L2 "
+                             f"{e:.3e} <= {LONG_TOL}")
+        res[key]["rel_l2"] = max(res[key]["rel_l2"], e)
+        res[key]["max_abs_err"] = max(res[key]["max_abs_err"], a)
+
+    for m in LONG_CHECK_MS:
+        cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=m)
+        n, ch = cfg.n, cfg.num_channels
+        plan = fullchain.build_plan(PipelineConstants.build(cfg), "cuda")
+        b = BATCH if m == LONG_M else 4
+        bc = b * ch
+        occ = {body: fullchain.fft_occupancy(plan, body)
+               for body in ("radix", "wire", "astage")}
+        print(f"long rays m={m}: radix {plan.radix}, {plan.fft}; "
+              f"{algorithm_note(m, n, bc)}; occupancy {json.dumps(occ)}",
+              flush=True)
+        check(plan.radix > 1 and fullchain.fft_long(m)
+              and all(v["blocks_per_sm"] >= 1 for v in occ.values())
+              and occ["radix"]["clusters"] > 0 and occ["wire"]["clusters"] > 0,
+              f"m={m} takes the long-ray body, resident: {json.dumps(occ)}")
+        x = torch.randint(-8192, 8192, (2 * bc, 2, m, n), generator=gen,
+                          device="cuda", dtype=torch.int32).to(torch.int16)
+        for xx in (x[:bc], x[:bc].float()):
+            hold("radix", f"#3 m={m} {xx.dtype}",
+                 fullchain.fft_chain_power_reference(xx, plan),
+                 fullchain.fused_chain_power_radix(xx, plan))
+        hold("radix_offset", f"#4 m={m} offset {bc} salt 95",
+             fullchain.fft_chain_power_reference(x[bc:], plan, 95),
+             fullchain.fused_chain_power_radix(x, plan, offset=bc, bc=bc,
+                                               salt=95))
+        w32 = torch.randint(-2 ** 31, 2 ** 31 - 1, (2 * b, m, ch * n),
+                            generator=gen, device="cuda", dtype=torch.int32)
+        hold("wire", f"#7 m={m}",
+             fullchain.fused_chain_power_wire_reference(w32[:b], plan, ch),
+             fullchain.fused_chain_power_wire(w32[:b].contiguous(), plan, ch))
+        hold("wire_offset", f"#8 m={m} offset {b} salt 7",
+             fullchain.fused_chain_power_wire_reference(w32[b:], plan, ch, 7),
+             fullchain.fused_chain_power_wire(w32, plan, ch, offset=b, bs=b,
+                                              salt=7))
+        for w in (n, n // 4):
+            xs = x[:bc, ..., :w].contiguous()
+            hold("astage", f"#5 m={m} w={w}",
+                 fullchain.fused_chain_astage_reference(xs, plan),
+                 fullchain.fused_chain_astage(xs, plan))
+        del x, w32
+        torch.cuda.empty_cache()
+    return res
+
+
+def long_ray_times(gen) -> dict:
+    """CUDA-event ms per 48 channel-sectors (16 sectors x 3 x LONG_M x 512)
+    of #3, #4 (offset 48 of 96, salted), #7, #8 and #5 (w = 512), each in
+    turns with its plain version, beside the bound (the bytes: 201 MB of
+    int16 at m = 2048)."""
+    cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=LONG_M)
+    n, ch = cfg.n, cfg.num_channels
+    plan = fullchain.build_plan(PipelineConstants.build(cfg), "cuda")
+    bc = BATCH * ch
+    x = torch.randint(-8192, 8192, (2 * bc, 2, LONG_M, n), generator=gen,
+                      device="cuda", dtype=torch.int32).to(torch.int16)
+    x16 = x[:bc]
+    w32 = torch.randint(-2 ** 31, 2 ** 31 - 1, (2 * BATCH, LONG_M, ch * n),
+                        generator=gen, device="cuda", dtype=torch.int32)
+    w16 = w32[:BATCH].contiguous()
+    out_b = bc * LONG_M // 2 * 4
+    runs = {
+        "radix": (lambda: fullchain.fused_chain_power_radix(x16, plan),
+                  lambda: fullchain.fft_chain_power_reference(x16, plan),
+                  x16.numel() * 2),
+        "radix_offset": (
+            lambda: fullchain.fused_chain_power_radix(x, plan, offset=bc,
+                                                      bc=bc, salt=7),
+            lambda: fullchain.fft_chain_power_reference(x[bc:], plan, 7),
+            x16.numel() * 2),
+        "wire": (lambda: fullchain.fused_chain_power_wire(w16, plan, ch),
+                 lambda: fullchain.fused_chain_power_wire_reference(
+                     w16, plan, ch), w16.numel() * 4),
+        "wire_offset": (
+            lambda: fullchain.fused_chain_power_wire(
+                w32, plan, ch, offset=BATCH, bs=BATCH, salt=7),
+            lambda: fullchain.fused_chain_power_wire_reference(
+                w32[BATCH:], plan, ch, 7), w16.numel() * 4),
+        "astage": (lambda: fullchain.fused_chain_astage(x16, plan),
+                   lambda: fullchain.fused_chain_astage_reference(x16, plan),
+                   x16.numel() * 2),
+    }
+    out = {}
+    for key, (kernel, plain, in_bytes) in runs.items():
+        t = timed({"plain": plain, "kernel": kernel},
+                  ("plain", "kernel", "kernel", "plain"))
+        queued = queued_ms(kernel)
+        fused = key != "astage"
+        bound_ms, bound_by = bound(
+            bc * (chain_flops(LONG_M, n) if fused else astage_flops(LONG_M, n)),
+            in_bytes + plan.fft_t.numel() * 4
+            + (out_b if fused else x16.numel() // 2 * 4))
+        print(f"long rays {key} at m={LONG_M}, {bc} channel-sectors x {n} "
+              f"pulses: {t['kernel']:.3f} ms ({queued:.3f} queued), plain "
+              f"{t['plain']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})",
+              flush=True)
+        out[key] = {"ms": t["kernel"], "queued_ms": queued,
+                    "plain_ms": t["plain"], "bound_ms": bound_ms,
+                    "bound_by": bound_by}
+    del x, w32
+    torch.cuda.empty_cache()
+    return out
+
+
+def long_ray_dense(orc: Oracle) -> dict:
+    """The dense entries at LONG_DENSE_M (radix 1, 8 x 229: the long-ray
+    body with a 229-point leaf), batch 16: #1 on noise sectors, int16 and
+    f32, vs its plain version (<= LONG_TOL) and the oracle; #2 on the
+    second of two slabs; every launch on the FFT-form body; #1's time per
+    48 channel-sectors beside the matrix kernel's, the body it took
+    before."""
+    m = LONG_DENSE_M
+    cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=m)
+    consts = PipelineConstants.build(cfg)
+    plan = fullchain.build_plan(consts, "cuda")
+    check(plan.radix == 1 and fullchain.dense_body(m) == "fft"
+          and fullchain.fft_long(m) and plan.fft.L == 229,
+          f"m={m} takes the dense entries' long-ray FFT body: {plan.fft}")
+    sectors = [oracle.synthetic_iq(cfg, kind="noise", seed=SEED + b)
+               for b in range(BATCH)]
+    x_np = np.stack([planar_i16(s) for s in sectors])
+    reset_counts()
+    worst_rel, max_abs = planar_kernel_checks(
+        f"dense m={m} (long-ray FFT body)", fullchain.fused_chain_power_dense,
+        dense_plain, plan, cfg, {"noise": (x_np, sectors[:2])}, orc,
+        torch.from_numpy(consts.gain).cuda(), {"noise": LONG_TOL})
+    x16 = torch.from_numpy(x_np).cuda().reshape(-1, 2, m, cfg.n)
+    half = x16.shape[0] // 2
+    got = fullchain.fused_chain_power_at(x16, half, half, plan)
+    torch.cuda.synchronize()
+    e, a = rel_dev(dense_plain(x16[half:], plan), got)
+    check(e <= LONG_TOL, f"#2 m={m} offset {half}: kernel vs plain rel-L2 "
+                         f"{e:.3e} <= {LONG_TOL}")
+    counts = read_counts()
+    check(counts["dense_fft"] == counts["dense"] + counts["dense_offset"]
+          and counts["dense_offset"] == 1 and counts["dense_matrix"] == 0,
+          f"dense m={m}: every launch on the FFT-form body ({counts['dense']} "
+          f"+ {counts['dense_offset']} offset, {counts['dense_matrix']} matrix)")
+    bc = x16.shape[0]
+    out = torch.empty(bc, m // 2, device="cuda")
+    # the body this m took before: the matrix kernel on the same sectors,
+    # launched past the route (a yardstick, not counted)
+    matrix = functools.partial(fullchain._launch_matrix, x16, plan, out, 0, bc,
+                               None)
+    matrix()
+    torch.cuda.synchronize()
+    e_m = rel_dev(dense_plain(x16, plan), out)[0]
+    check(e_m <= POWER_TOL, f"the matrix kernel at m={m} vs the FFT-form "
+                            f"plain version {e_m:.3e} <= {POWER_TOL}")
+    t = timed({"plain": lambda: dense_plain(x16, plan),
+               "kernel": lambda: fullchain.fused_chain_power_dense(x16, plan),
+               "matrix": matrix},
+              ("plain", "matrix", "kernel", "kernel", "matrix", "plain"))
+    bound_ms, bound_by = bound(bc * chain_flops(m, cfg.n),
+                               x16.numel() * 2 + plan.fft_t.numel() * 4
+                               + bc * m // 2 * 4)
+    print(f"long rays dense m={m}, {bc} channel-sectors: {t['kernel']:.3f} ms, "
+          f"plain {t['plain']:.3f} ms, the matrix kernel (the body before) "
+          f"{t['matrix']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}); "
+          f"{algorithm_note(m, cfg.n, bc)}", flush=True)
+    return {"dense": counts["dense"], "dense_offset": counts["dense_offset"],
+            "rel_l2": max(worst_rel, e), "max_abs_err": max(max_abs, a),
+            "ms": t["kernel"], "plain_ms": t["plain"], "matrix_ms": t["matrix"],
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def long_ray_bench() -> dict:
+    """`bench.run` at --range-cells LONG_M (batch 32, 4 repeats), int16
+    (#4) and --in-dtype wire (#8): the parity gate passes and the offset
+    counter equals (warm + timed passes) x steps + 2."""
+    out = {}
+    for label, extra, counter in (("i16", [], "radix_offset"),
+                                  ("wire", ["--in-dtype", "wire"],
+                                   "wire_offset")):
+        reset_counts()
+        r = bench.run(list(LONG_BENCH) + extra)
+        counts = read_counts()
+        torch.cuda.empty_cache()
+        print(f"bench m={LONG_M} {label}: " + json.dumps(r), flush=True)
+        e0, e1 = r["parity_rel_l2"]
+        want = (1 + len(r["timed_runs_s"])) * r["steps"] + 2
+        # the gate's unsalted processor launches #3 besides
+        others = {k: counts[k] for k in OFFSET_COUNTERS + ("dense_matrix",)
+                  if k != counter}
+        check(e0 < BENCH_GATE[0] and e1 < BENCH_GATE[1] and r["value"] > 0
+              and counts[counter] == want and not any(others.values()),
+              f"bench m={LONG_M} {label}: parity {e0:.3e}, {e1:.3e} under "
+              f"{BENCH_GATE}; {r['value']} sectors/s; {counter} launches "
+              f"{counts[counter]} == {want}, no other offset entry, no "
+              f"matrix kernel")
+        out[counter] = counts[counter]
+    return out
+
+
+def long_ray_seq_and_mxu(cfg, iqs) -> dict:
+    """At m = LONG_M on the oracle's sectors: a world-size-1 pallas-seq step
+    (#5 then #6 on all m/2 rows) vs the pallas processor (<= 1e-5) and the
+    oracle; #9 on the mxu method's range-stage Y [.., 1024, 512] vs that
+    method's own power (<= POWER_TOL), its products vs the oracle."""
+    planar = torch.from_numpy(np.stack([planar_i16(iq) for iq in iqs])).cuda()
+    zdb_p, zdr_p = (t.cpu().numpy() for t in SectorProcessor(
+        cfg, method="pallas", device="cuda")(planar))
+    step = build_sharded_processor(cfg, make_mesh(device="cuda"),
+                                   method="pallas-seq", device="cuda")
+    reset_counts()
+    zdb, zdr = (t.cpu().numpy() for t in step(planar))
+    seq = read_counts()
+    e = max(rel(zdb_p, zdb), rel(zdr_p, zdr))
+    check(e <= 1e-5 and seq["astage"] == 1 and seq["rows"] == 1
+          and seq["rows_two_pass"] == 0,
+          f"pallas-seq world 1 at m={cfg.m}: vs the pallas processor {e:.3e} "
+          f"<= 1e-5; A-stage {seq['astage']}, row epilogue {seq['rows']} "
+          f"(register form)")
+    consts = PipelineConstants.build(cfg)
+    dc = _DeviceConstants(consts, torch.device("cuda"))
+    mh, n = cfg.m // 2, cfg.n
+    xr, xi = planar.float()[:, :, 0], planar.float()[:, :, 1]
+    ys = _rmatmul(dc.ar, dc.ai, xr, xi)         # the mxu method's range stage
+    want = channel_power_planar(xr, xi, dc, "mxu", "direct").reshape(-1, mh)
+    reset_counts()
+    pw = postprocess.fused_stage2(*(y.reshape(-1, mh, n).contiguous()
+                                    for y in ys), dc.br, dc.bi, consts.ma_taps)
+    torch.cuda.synchronize()
+    mxu = read_counts()
+    e = rel_dev(want, pw)[0]
+    check(e <= POWER_TOL and mxu["stage2"] == 1,
+          f"#9 on the mxu method's Y at m={cfg.m}: vs the mxu power rel-L2 "
+          f"{e:.3e} <= {POWER_TOL}; {mxu['stage2']} launch")
+    pw = pw.reshape(len(iqs), cfg.num_channels, mh)
+    zdb_m, zdr_m = (t.cpu().numpy() for t in stage09_10_products(
+        pw[:, 0], pw[:, 1], torch.from_numpy(consts.gain).cuda()))
+    for k, iq in enumerate(iqs):
+        zdb64, zdr64 = oracle.process_sector(iq, cfg)
+        for what, a, b in (("pallas-seq", zdb, zdr), ("mxu", zdb_m, zdr_m)):
+            ezdb, ezdr = rel(zdb64, a[k]), rel(zdr64, b[k])
+            check(ezdb <= PRODUCT_TOL and ezdr <= PRODUCT_TOL,
+                  f"{what} m={cfg.m} sector {k} vs fp64 oracle: zdb "
+                  f"{ezdb:.3e}, zdr {ezdr:.3e}")
+    return {"astage": seq["astage"], "rows": seq["rows"],
+            "stage2": mxu["stage2"]}
+
+
+def long_ray_matrix(orc: Oracle) -> dict:
+    """m = LONG_MATRIX_M (radix 8, above FFT_MAX_M): the radix entry plain
+    and with offset and salt 7 on the matrix kernel (the dense A_half,
+    built at first use) vs fused_chain_power_reference (<= POWER_TOL) and
+    the oracle; every launch counted on the matrix kernel."""
+    m = LONG_MATRIX_M
+    cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=m)
+    consts = PipelineConstants.build(cfg)
+    plan = fullchain.build_plan(consts, "cuda")
+    check(plan.radix == 8 and not fullchain.fft_takes(m) and plan.fft_t is None,
+          f"m={m}: radix {plan.radix}, above FFT_MAX_M = {fullchain.FFT_MAX_M}"
+          f" (matrix tile {fullchain.dense_tile(plan)})")
+    sectors = [oracle.synthetic_iq(cfg, kind="noise", seed=SEED + b)
+               for b in range(2)]
+    reset_counts()
+    planar_kernel_checks(f"radix m={m} (matrix route)",
+                         fullchain.fused_chain_power_radix,
+                         fullchain.fused_chain_power_reference, plan, cfg,
+                         {"noise": (np.stack([planar_i16(s) for s in sectors]),
+                                    sectors)},
+                         orc, torch.from_numpy(consts.gain).cuda())
+    x = torch.from_numpy(np.stack([planar_i16(s) for s in sectors])).cuda()
+    x = x.reshape(-1, 2, m, cfg.n)
+    bc = cfg.num_channels
+    got = fullchain.fused_chain_power_radix(x, plan, offset=bc, bc=bc, salt=7)
+    torch.cuda.synchronize()
+    e, _ = rel_dev(fullchain.fused_chain_power_reference(x[bc:], plan, 7), got)
+    counts = read_counts()
+    check(e <= POWER_TOL and counts["dense_matrix"] == counts["radix"]
+          + counts["radix_offset"] == 3 and counts["dense_fft"] == 0,
+          f"radix m={m} offset {bc} salt 7 on the matrix kernel vs plain "
+          f"{e:.3e} <= {POWER_TOL}; matrix launches {counts['dense_matrix']}"
+          f" == radix {counts['radix']} + offset {counts['radix_offset']}")
+    t = timed({"plain": lambda: fullchain.fused_chain_power_reference(x, plan),
+               "kernel": lambda: fullchain.fused_chain_power_radix(x, plan)},
+              ("plain", "kernel", "kernel", "plain"))
+    print(f"radix m={m} on the matrix kernel, {x.shape[0]} channel-sectors: "
+          f"{t['kernel']:.3f} ms, plain {t['plain']:.3f} ms; "
+          f"{algorithm_note(m, cfg.n, x.shape[0])}", flush=True)
+    return counts
+
+
+def phase_long_rays(orc: Oracle) -> dict:
+    """Rays longer than 1024 cells: the executor at m = LONG_M with host
+    and device decode, each FFT-form kernel vs its plain version at
+    LONG_CHECK_MS and its time at LONG_M, the dense entries at
+    LONG_DENSE_M, the bench at LONG_M (i16, wire), a world-size-1
+    pallas-seq step and the mxu method at LONG_M, and the matrix route
+    above FFT_MAX_M.  Returns each kernel's launches on the slice's paths
+    (`long_ray_launches`) and its results."""
+    t0 = time.perf_counter()
+    print_ptxas(r"fft_chain_long_kernel")
+    cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=LONG_M)
+    iqs = [oracle.produce_sector_iq(cfg, SEED, j) for j in range(4)]
+    wires = [codec.encode_iq(iq, cfg) for iq in iqs]
+    launches = dict.fromkeys(("radix", "wire", "dense", "dense_offset",
+                              "radix_offset", "wire_offset", "astage", "rows",
+                              "stage2"), 0)
+    launches.update(long_ray_executor(cfg, iqs, wires))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    res = long_ray_kernels(gen)
+    times = long_ray_times(gen)
+    for key, t in times.items():
+        res[key].update(t)
+    dense = long_ray_dense(orc)
+    launches["dense"], launches["dense_offset"] = (dense["dense"],
+                                                   dense["dense_offset"])
+    launches.update(long_ray_bench())
+    launches.update(long_ray_seq_and_mxu(cfg, iqs))
+    matrix = long_ray_matrix(orc)
+    print(f"long rays: launches {json.dumps(launches)}; matrix route "
+          f"{matrix['dense_matrix']}; phase {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"launches": launches, "res": res, "dense": dense}
+
+
 def offset_entry_checks(name, units, count, call, on_slab, plain, zdb_of,
                         salts, tol) -> dict:
     """One offset entry on a staged array of `units` holding two slabs of
@@ -2972,10 +3375,10 @@ AB_SWEEP_REPEATS = 16
 AB_SWEEP_RATIO = (0.8, 1.25)
 #: consolidation_soak runs: (tag, flags); 4 feeds = 1 UDP + 3 ZMQ
 SOAKS = (
-    ("host", ["--feeds", "4", "--udp-feeds", "1", "--duration", "20"]),
+    ("host", ["--feeds", "4", "--udp-feeds", "1", "--duration", "8"]),
     ("device-decode", ["--feeds", "4", "--udp-feeds", "1", "--duration",
-                       "10", "--device-decode"]),
-    ("stub", ["--feeds", "8", "--udp-feeds", "1", "--duration", "10",
+                       "6", "--device-decode"]),
+    ("stub", ["--feeds", "8", "--udp-feeds", "1", "--duration", "6",
               "--stub-device"]),
 )
 
@@ -3101,15 +3504,16 @@ def phase_last_tools(bench_value: float) -> dict:
     return out
 
 
-#: the demo's sectors: two cuts, the JAX package's tools/hw_demo.sh default
-DEMO_SECTORS = 286
+#: the demo's sectors: one cut (the JAX package's tools/hw_demo.sh default
+#: is two, 286; one keeps the script's run well inside its time limit)
+DEMO_SECTORS = 143
 
 
 def phase_hw_demo() -> dict:
-    """`python -m wrp_tpu_torch.tools.hw_demo 286`, with host decode and with
+    """`python -m wrp_tpu_torch.tools.hw_demo 143`, with host decode and with
     --device-decode, each in its own process and both at once (free ports
     each; one after the other they took 118 s on an H100 host, each run
-    mostly its producer making sectors on the host): exit 0, MATCH, 286/286 sectors
+    mostly its producer making sectors on the host): exit 0, MATCH, 143/143 sectors
     through the stream, and the path's kernel (#3 on host decode, #7 with
     --device-decode) launched, read from the stream's stats in
     OUT/stream_stats.json.  Returns {"radix": n, "wire": n}."""
@@ -3221,6 +3625,8 @@ def main() -> int:
     phase_capacity(device_decode=False)
     phase_capacity(device_decode=True)
     dense_launches = phase_dense_path()
+    long = phase_long_rays(orc)
+    lr = long["launches"]
     shard = phase_pulse_shard(orc, noise)
     phase_halo_ranks()
     tools = phase_cli_tools()
@@ -3240,6 +3646,8 @@ def main() -> int:
                      multihost_bench_launches=last["multihost"],
                      ab_sweep_gate_launches=last["ab_sweep"]["launches"]["radix"],
                      hw_demo_launches=demo["radix"],
+                     long_ray_launches=lr["radix"],
+                     long_ray=long["res"]["radix"],
                      **occ["radix"]),
         kernel_entry("fused_chain_power_wire",
                      "wrp_tpu_torch/csrc/fused_chain_wire.cu",
@@ -3251,6 +3659,7 @@ def main() -> int:
                      decode_ab_launches=tools["ab"]["launches"]["decode_ab"]["wire"],
                      soak_device_decode_launches=last["soak"]["device-decode"]["wire"],
                      hw_demo_launches=demo["wire"],
+                     long_ray_launches=lr["wire"], long_ray=long["res"]["wire"],
                      **occ["wire"]),
         kernel_entry("fused_chain_power_dense",
                      "wrp_tpu_torch/csrc/fused_chain_dense.cu",
@@ -3258,12 +3667,16 @@ def main() -> int:
                      dense_launches["dense"], dense,
                      body=fullchain.dense_body(DENSE_M),
                      fft_body_launches=dense_launches["dense_fft"],
-                     matrix_plain_ms=dense["matrix_plain_ms"], **occ["dense"]),
+                     matrix_plain_ms=dense["matrix_plain_ms"],
+                     long_ray_launches=lr["dense"], long_ray=long["dense"],
+                     **occ["dense"]),
         kernel_entry("fused_chain_astage",
                      "wrp_tpu_torch/csrc/fused_chain_astage.cu",
                      "wrp_tpu/ops/pallas/fullchain.py:955", shard["astage"],
                      astage, matmul_ms=astage["matmul_ms"],
                      hw_parity_launches=tools["hw_parity"]["astage"],
+                     long_ray_launches=lr["astage"],
+                     long_ray=long["res"]["astage"],
                      blocks_per_sm=occ["astage"]["blocks_per_sm"]),
         kernel_entry("parseval_rows_power",
                      "wrp_tpu_torch/csrc/parseval_rows.cu",
@@ -3277,12 +3690,14 @@ def main() -> int:
                      two_pass_max_abs_err=rows["two_pass_max_abs_err"],
                      host_ms=rows["host_ms"],
                      hw_parity_launches=tools["hw_parity"]["rows"],
+                     long_ray_launches=lr["rows"],
                      blocks_per_sm=rows["blocks_per_sm"]),
         kernel_entry("fused_chain_power_at",
                      "wrp_tpu_torch/csrc/fused_chain_dense.cu",
                      "wrp_tpu/ops/pallas/fullchain.py:271",
                      bench_launches["dense_offset"], offsets["dense"],
-                     body=fullchain.dense_body(DENSE_M)),
+                     body=fullchain.dense_body(DENSE_M),
+                     long_ray_launches=lr["dense_offset"]),
         kernel_entry("fused_chain_power_radix (offset, salt)",
                      "wrp_tpu_torch/csrc/fused_chain_radix_salted.cu",
                      "wrp_tpu/ops/pallas/fullchain.py:840",
@@ -3291,18 +3706,23 @@ def main() -> int:
                      sharded_devices=sharded["devices"],
                      sharded_profile_traced=sharded["traced"],
                      wire_ab_launches=tools["ab"]["launches"]["wire_ab"]["radix_offset"],
-                     ab_sweep_launches=last["ab_sweep"]["launches"]["radix_offset"]),
+                     ab_sweep_launches=last["ab_sweep"]["launches"]["radix_offset"],
+                     long_ray_launches=lr["radix_offset"],
+                     long_ray=long["res"]["radix_offset"]),
         kernel_entry("fused_chain_power_wire (offset, salt)",
                      "wrp_tpu_torch/csrc/fused_chain_wire_salted.cu",
                      "wrp_tpu/ops/pallas/fullchain.py:1210",
                      bench_launches["wire_offset"], offsets["wire"],
                      wire_ab_launches=tools["ab"]["launches"]["wire_ab"]["wire_offset"],
-                     ab_sweep_launches=last["ab_sweep"]["launches"]["wire_offset"]),
+                     ab_sweep_launches=last["ab_sweep"]["launches"]["wire_offset"],
+                     long_ray_launches=lr["wire_offset"],
+                     long_ray=long["res"]["wire_offset"]),
         kernel_entry("fused_stage2", "wrp_tpu_torch/csrc/fused_stage2.cu",
                      "wrp_tpu/ops/pallas/postprocess.py:86",
                      stage2["launches"], stage2, form="3xTF32 wgmma",
                      operator_launches=stage2["operator_launches"],
-                     hw_parity_launches=tools["hw_parity"]["stage2"]),
+                     hw_parity_launches=tools["hw_parity"]["stage2"],
+                     long_ray_launches=lr["stage2"]),
         kernel_entry("radix_chain_ablation (dots; ms of each mode in 'modes')",
                      "wrp_tpu_torch/csrc/kernel_breakdown.cu",
                      "tools/kernel_breakdown.py:158",
@@ -3312,7 +3732,8 @@ def main() -> int:
                      tensor_core_floor_ms=probe["breakdown"]["tensor_core_floor_ms"],
                      fft_entry_ms=probe["breakdown"]["fft_entry_ms"],
                      full_queued_ms=probe["breakdown"]["full_queued_ms"],
-                     fft_entry_queued_ms=probe["breakdown"]["fft_entry_queued_ms"]),
+                     fft_entry_queued_ms=probe["breakdown"]["fft_entry_queued_ms"],
+                     long_ray_launches=0),
         kernel_entry("tc_dot_probe (width 512, 512 steps)",
                      "wrp_tpu_torch/csrc/tc_occupancy.cu",
                      "tools/mxu_occupancy.py:110",
@@ -3320,14 +3741,16 @@ def main() -> int:
                      form="bf16 wgmma, TMA", blocks=probe["tc"]["blocks"],
                      library_form=probe["tc"]["library_form"],
                      library_batched_ms=probe["tc"]["library_batched_ms"],
-                     library_kcat_ms=probe["tc"]["library_kcat_ms"]),
+                     library_kcat_ms=probe["tc"]["library_kcat_ms"],
+                     long_ray_launches=0),
         kernel_entry("int_split_dot (int)", "wrp_tpu_torch/csrc/int_split.cu",
                      "tools/int_split_repro.py:85",
                      probe["split"]["launches"], probe["split"],
                      form="bf16 mma.sync, 32 x 32 tiles, split in registers",
                      blocks=probe["split"]["blocks"],
                      python_ms=probe["split"]["python_ms"],
-                     library_python_ms=probe["split"]["library_python_ms"]),
+                     library_python_ms=probe["split"]["library_python_ms"],
+                     long_ray_launches=0),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

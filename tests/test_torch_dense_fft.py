@@ -103,16 +103,17 @@ def test_leaf_steps_equal_the_dft(L):
 
 @pytest.mark.parametrize("m,body", [
     (1000, "fft"), (40, "fft"), (24, "fft"), (8, "fft"), (2, "fft"),
-    (6, "fft"), (1024, "fft"), (1100, "matrix"), (2048, "matrix"),
-    (1026, "matrix"), (999, "matrix"), (7, "matrix"),
+    (6, "fft"), (1024, "fft"), (1100, "fft"), (4096, "fft"),
+    (1026, "fft"), (999, "matrix"), (7, "matrix"), (4100, "matrix"),
 ])
 def test_dense_body_from_m_alone(m, body):
-    """The dense entries' body: the FFT form for every even m <= 1024,
-    the matrix kernel otherwise; a plan builds the FFT tables exactly for
-    the m that take the FFT form."""
+    """The dense entries' body: the FFT form for every even m <= 4096
+    (the long-ray body above 1024), the matrix kernel otherwise; a plan
+    builds the FFT tables exactly for the m that take the FFT form."""
     assert tfull.dense_body(m) == body
     assert tfull.fft_takes(m) == (body == "fft")
-    if m % 2 == 0 and m <= 2048 and m >= 8:
+    assert tfull.fft_long(m) == (body == "fft" and m > 1024)
+    if m % 2 == 0 and m <= 4100 and m >= 8:
         plan = _plan(m, 16)
         assert (plan.fft_t is not None) == (body == "fft")
 
@@ -158,10 +159,10 @@ def test_fft_route_vs_jax_dense_kernel_and_oracle(m, n, kind):
 
 def test_offset_entry_takes_the_route():
     """fused_chain_power_at on the CPU: the FFT-form plain version of its
-    slab at m = 40 (bit for bit), the matrix form's at m = 1100; no
+    slab at m = 40 (bit for bit), the matrix form's at m = 4100; no
     counter moves."""
     for m, plain in ((40, tfull.fft_chain_power_reference),
-                     (1100, tfull.fused_chain_power_reference)):
+                     (4100, tfull.fused_chain_power_reference)):
         plan = _plan(m, 16)
         rng = np.random.default_rng(m)
         x = torch.from_numpy(rng.integers(-8192, 8192, (9, 2, m, 16))
@@ -175,9 +176,10 @@ def test_offset_entry_takes_the_route():
 
 
 def test_matrix_route_at_m_over_1024_vs_oracle():
-    """m = 1100 > 1024: the matrix form's plain version (the dense A_half),
-    no FFT tables; vs the fp64 oracle < POWER_TOL."""
-    m, n = 1100, 16
+    """m = 4100 > 4096 (over 1024, and over the FFT-form body's 4096): the
+    matrix form's plain version (the dense A_half), no FFT tables; vs the
+    fp64 oracle < POWER_TOL."""
+    m, n = 4100, 16
     plan = _plan(m, n)
     assert tfull.dense_body(m) == "matrix" and plan.fft_t is None
     iq = oracle.synthetic_iq(jtiny(m=m, n=n), kind="noise", seed=4)
@@ -186,5 +188,5 @@ def test_matrix_route_at_m_over_1024_vs_oracle():
     pow64 = oracle.channel_power(iq, jtiny(m=m, n=n))
     for c in range(3):
         assert oracle.relative_l2(pow64[c], got[c]) < POWER_TOL, c
-    with pytest.raises(ValueError, match="even m <= 1024"):
+    with pytest.raises(ValueError, match="FFT_MAX_M = 4096"):
         tfull.fft_chain_power_reference(torch.zeros(1, 2, m, n), plan)

@@ -238,16 +238,16 @@ def test_geometry_and_tables():
     g = tfull.fft_geometry(960, 512)
     assert (g.P, g.L, g.P1, g.P2) == (64, 15, 32, 2)
     assert tfull.fft_geometry(1024, 20).blocks == 3
-    with pytest.raises(ValueError, match="m <= 1024"):
-        tfull.fft_geometry(2048, 512)
+    with pytest.raises(ValueError, match="FFT_MAX_M = 4096"):
+        tfull.fft_geometry(4100, 512)
     plan = _plan(96, 64)
     tw = plan.fft_t[96:96 + 64].reshape(32, 2)
     assert tw[0].tolist() == [1.0, 0.0] and tw[8].tolist() == [0.0, -1.0]
     # a radix-1 m takes the FFT form through the dense entries (P = 8,
-    # L = 5 at m = 40); m > 1024 has no FFT tables
+    # L = 5 at m = 40); m > 4096 has no FFT tables
     assert tfull.build_plan(PipelineConstants.build(tiny_config(m=40)),
                             "cpu").fft.L == 5
-    assert tfull.build_plan(PipelineConstants.build(tiny_config(m=1100)),
+    assert tfull.build_plan(PipelineConstants.build(tiny_config(m=4100)),
                             "cpu").fft_t is None
 
 

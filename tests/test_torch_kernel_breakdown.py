@@ -276,6 +276,14 @@ def test_ablation_refusals():
      "void wrp::radix_chain_kernel<wrp::PlanarSource<short>, 4, 8>"),
     ("void <unnamed>::int_split_kernel<(int)8, (bool)1>(short const*, float*)",
      "void <unnamed>::int_split_kernel<8, 1>"),
+    # the dense matrix kernel's unsalted instantiation keys as the earlier
+    # trees' kernel, which had no salt argument; the salted one apart
+    ("void <unnamed>::fused_chain_dense_kernel<short, (int)10, (bool)0>"
+     "(short const*, float const*, float const*, float const*, float*, int, "
+     "int, float)",
+     "void <unnamed>::fused_chain_dense_kernel<short, 10>"),
+    ("void <unnamed>::fused_chain_dense_kernel<float, 4, true>(float const*)",
+     "void <unnamed>::fused_chain_dense_kernel<float, 4, true>"),
 ])
 def test_kernel_key_names_a_body_alike_across_trees(demangled, key):
     """The SASS and ptxas reports key kernels by name: the radix body's

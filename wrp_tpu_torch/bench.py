@@ -116,10 +116,11 @@ def _args(argv):
                     help="2 compares against the reference's 2-channel "
                          "baseline (73.5 sectors/s)")
     # range cells per pulse (default 1024, 256 with --smoke); not in the
-    # help: no cell runs another m.  It exists so the dense offset entry
-    # (fused_chain_power_at, for an m that does not split into radix
-    # branches, e.g. 1000) has a path through the bench, for chip_smoke.py
-    # and the tests
+    # help: no cell of the benchmark runs another m yet.  It gives other
+    # geometries a path through the bench, for chip_smoke.py and the tests:
+    # the dense offset entry (fused_chain_power_at) at an m that does not
+    # split into radix branches (1000), and the long-ray body of the
+    # radix and wire offset entries with their salt (2048)
     ap.add_argument("--range-cells", type=int, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--in-dtype", default=None, choices=["f32", "i16", "wire"],

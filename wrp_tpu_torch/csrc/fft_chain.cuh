@@ -1,6 +1,6 @@
 // The fused chain, stages 01-08, in FFT form for NVIDIA Hopper (sm_90a):
 // one kernel body behind fused_chain_radix{,_salted}.cu (planar IQ; also
-// the dense entries of fused_chain_dense.cu for every even m <= 1024),
+// the dense entries of fused_chain_dense.cu for every even m <= 4096),
 // fused_chain_wire{,_salted}.cu (raw wire words) and, storing Y instead of
 // running the epilogue, fused_chain_astage.cu (the pulse-sharded path's
 // A-stage).
@@ -22,7 +22,7 @@
 // TFLOP/s over 3.35 TB/s = 20), so the kernel is bound by bytes, once per
 // sample, and tensor cores would buy nothing.
 //
-// The FFT (m = P L, P the largest power of two dividing m, 2 <= P <= 1024,
+// The FFT (m = P L, P the largest power of two dividing m, 2 <= P <= 4096,
 // L odd):
 //   pass 1  per (column, r2, n2): a P1-point DFT in registers of rows
 //           L (P2 n1 + n2) + r2, n1 < P1, loaded, converted to f32,
@@ -43,6 +43,13 @@
 // butterflies, fully unrolled.  Every twiddle comes from the plan's table
 // (fp64 on the host, cast once: ops/fullchain.fft_tables); none is
 // computed with sincosf.  Only the rows k < m/2 are kept.
+// P = 2048, 4096 (m = 2048, 4096; L = 1): P = P1 P2 P3, P3 = 8, P2 = 8 or
+// 16, three register passes in place on pass 1's slots (a 64- or
+// 128-point register DFT would spill): pass 1 as above over n2 < Q =
+// P2 P3; pass 2 per (column, k1, n3) a P2-point DFT over the n2 of slots
+// P3 n2 + n3, times W_Q^(k2 n3); pass 3 per (column, k1, k2) a P3-point
+// DFT over n3, X[k1 + P1 (k2 + P2 k3)] left in slot P3 k2 + k3, where the
+// epilogue and the A-stage's store read it (no natural copy).
 //
 // The grid: a unit's columns split into chunks of `cols` (8 at m = 1024:
 // 64 KB of complex fp32), dealt round-robin to the unit's `blocks` <= 8
@@ -76,6 +83,25 @@
 // n_b |mu_b - mu|^2], D_c = sum [P_bc + (mu_b - mu) Phi_bc], and writes
 // their power: one launch, no global scratch.
 // ops/fullchain.merged_epilogue_reference is the same algebra in torch.
+//
+// Rays longer than 1024 cells (1024 < m <= 4096) run fft_chain_long_kernel,
+// the same body with three changes.  A thread would own m/512 rows, 13
+// floats of partials each (52-104 live floats at m = 2048-4096, beside a
+// register DFT of up to 64): they would spill.  So every row's partials
+// live in shared memory, [13][m/2] floats (53 KB at m = 2048, 106 KB at
+// 4096), read and written once per row and round, and the cluster merges
+// them in place (no exchange buffer).  P = 2048, 4096 run the three
+// register passes above.  And the leaf runs at every P <= 1024 (odd L up
+// to 2047: m = 1536 = 512 x 3, 1840 = 16 x 5 x 23, 1832 = 8 x 229), a pass
+// of radix other than 3, 5, 7 spread over the block (leaf_pass_split:
+// one thread's 229 outputs of a 229-point pass would leave 16 threads of
+// 256 busy).
+// Round sizes: ops/fullchain.fft_geometry (cols = 4 at m = 2048, 1 at
+// 4096: the block fits 227 KB with f32 samples staged); one block per SM
+// (__launch_bounds__(256, 1): no spill).  Its kernels are instantiated in
+// fused_chain_{radix,wire,astage}_long.cu, beside the m <= 1024 ones, so
+// that nvcc builds them in parallel; the m <= 1024 instantiations are
+// those of the register body, unchanged.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -92,12 +118,15 @@ namespace fft {
 namespace cg = cooperative_groups;
 
 constexpr int kRows = 2;                        // epilogue rows a thread owns
-constexpr int kMaxM = 2 * kRows * kThreads;     // m <= 1024
+constexpr int kMaxM = 2 * kRows * kThreads;     // m <= 1024: partials in registers
+constexpr int kLongMaxM = 4096;                 // the long-ray body: partials in smem
 constexpr int kMaxCluster = 8;                  // the portable cluster size
-constexpr int kStat = 16;                       // floats per row exchanged
+constexpr int kStat = 16;                       // floats per row exchanged (m <= 1024)
+constexpr int kPart = 13;                       // floats of a row's partials (long body)
+constexpr int kP3 = 8;                          // the third register pass at P > 1024
 
 // cp.async: a B-byte global -> shared copy that holds no register (B = 16:
-// L2 only; B = 8: through L1, the only 8-byte form); src_bytes < B fills
+// L2 only; B = 8, 4: through L1, the only such forms); src_bytes < B fills
 // the rest of the destination with zeros (columns past n).
 template <int B>
 __device__ __forceinline__ void cp_async(void* dst, const void* src, int src_bytes) {
@@ -105,9 +134,12 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src, int src_byt
   if constexpr (B == 16) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
                  "r"(src_bytes));
-  } else {
-    static_assert(B == 8, "cp.async copies 16 or 8 bytes here");
+  } else if constexpr (B == 8) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+                 "r"(src_bytes));
+  } else {
+    static_assert(B == 4, "cp.async copies 16, 8 or 4 bytes here");
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
                  "r"(src_bytes));
   }
 }
@@ -162,10 +194,11 @@ struct PlanarIq {
     }
   }
 
-  // kNarrow: instantiations that may stage 8-byte rows (the leaf's
-  // geometries, 4 int16 columns a round at m = 1000); the others keep the
-  // 16-byte path alone, so their code is the same as without it
-  template <bool kNarrow>
+  // kMinB: the narrowest copy an instantiation may stage a row with: 8 for
+  // the leaf's geometries (4 int16 columns a round at m = 1000), 4 for the
+  // long-ray body (2 int16 columns at m = 1536-1840, 1 f32 at 4096), 16
+  // for the others, whose code keeps the 16-byte path alone
+  template <int kMinB>
   __device__ __forceinline__ void stage(void* buf, int u, int j0, int cols) const {
     const int e = elem();
     const int nr = min(cols, n - j0);
@@ -174,10 +207,12 @@ struct PlanarIq {
     const uintptr_t at = reinterpret_cast<uintptr_t>(x);
     if ((cols * e) % 16 == 0 && (n * e) % 16 == 0 && at % 16 == 0) {
       stage_pieces<16>(b, unit, j0, nr, cols);
-    } else if (kNarrow && (cols * e) % 8 == 0 && (n * e) % 8 == 0 && at % 8 == 0) {
+    } else if (kMinB <= 8 && (cols * e) % 8 == 0 && (n * e) % 8 == 0 && at % 8 == 0) {
       stage_pieces<8>(b, unit, j0, nr, cols);
+    } else if (kMinB <= 4 && (cols * e) % 4 == 0 && (n * e) % 4 == 0 && at % 4 == 0) {
+      stage_pieces<4>(b, unit, j0, nr, cols);
     } else {
-      // rows not 8-byte aligned: copy element by element through registers
+      // rows too narrow or not aligned: copy element by element through registers
       for (int k = threadIdx.x; k < 2 * m * cols; k += kThreads) {
         const int row = k / cols;
         const int c = k - row * cols;
@@ -423,6 +458,79 @@ __device__ __forceinline__ void leaf_pass(const float* ire, const float* iim, fl
   }
 }
 
+// The long-ray body's pass of radix `radix` (a factor other than 3, 5, 7),
+// leaf_pass<0> spread over more threads: a task computes kLeafOuts
+// outputs s of one (j, k, column), reading each input once for all of
+// them; the root indices (r s) mod radix and the twiddle's (r kk step)
+// mod L advance by addition, no division in the loop.  A prime L = 229
+// (m = 1832) otherwise gives P cols = 16 tasks of 229 outputs each to
+// the block's 256 threads.
+constexpr int kLeafOuts = 8;
+__device__ __forceinline__ void leaf_pass_split(const float* ire, const float* iim, float* ore,
+                                                float* oim, const float2* __restrict__ roots,
+                                                int L, int P, int cols, int ns, int radix,
+                                                bool last, int mh, int np) {
+  const int lr = L / radix;
+  const int step = L / (ns * radix);            // W_(ns R) = W_L^step
+  const int inner = P * cols * lr;
+  const int groups = (radix + kLeafOuts - 1) / kLeafOuts;
+  for (int task = threadIdx.x; task < inner * groups; task += kThreads) {
+    const int g = task / inner;                 // outputs g kLeafOuts + t
+    const int rest0 = task - g * inner;
+    const int c = rest0 % cols;
+    const int rest = rest0 / cols;
+    const int j = rest % lr;
+    const int k = rest / lr;
+    const int kk = j % ns;
+    const float* pr = ire + (k * L + j) * cols + c;
+    const float* pi = iim + (k * L + j) * cols + c;
+    int s[kLeafOuts], at[kLeafOuts];
+    float ar[kLeafOuts], ai[kLeafOuts];
+#pragma unroll
+    for (int t = 0; t < kLeafOuts; ++t) {
+      s[t] = min(g * kLeafOuts + t, radix - 1);  // a padded output repeats the last
+      at[t] = 0;                                // (r s) mod radix at r = 0
+      ar[t] = ai[t] = 0.f;
+    }
+    const int twstep = kk * step;               // < L / radix
+    int tw = 0;                                 // (r kk step) mod L
+#pragma unroll 2
+    for (int r = 0; r < radix; ++r) {
+      float vr = pr[r * lr * cols], vi = pi[r * lr * cols];
+      if (tw > 0) {
+        const float2 w = __ldg(roots + tw);
+        cmul(vr, vi, w.x, w.y, vr, vi);
+      }
+#pragma unroll
+      for (int t = 0; t < kLeafOuts; ++t) {
+        const float2 w = __ldg(roots + at[t] * lr);
+        ar[t] += vr * w.x - vi * w.y;
+        ai[t] += vr * w.y + vi * w.x;
+        at[t] += s[t];
+        if (at[t] >= radix) at[t] -= radix;
+      }
+      tw += twstep;
+      if (tw >= L) tw -= L;
+    }
+    const int d = (j / ns) * ns * radix + kk;
+#pragma unroll
+    for (int t = 0; t < kLeafOuts; ++t) {
+      if (g * kLeafOuts + t >= radix) break;
+      const int to = d + s[t] * ns;
+      if (last) {
+        const int row = k + P * to;
+        if (row < mh) {
+          ore[row * np + c] = ar[t];
+          oim[row * np + c] = ai[t];
+        }
+      } else {
+        ore[(k * L + to) * cols + c] = ar[t];
+        oim[(k * L + to) * cols + c] = ai[t];
+      }
+    }
+  }
+}
+
 __host__ __device__ constexpr int round4(int v) { return (v + 3) & ~3; }
 
 // Shared memory of one block, in 32-bit words: A (pass 1's slot layout,
@@ -433,22 +541,27 @@ __host__ __device__ constexpr int round4(int v) { return (v + 3) & ~3; }
 // last round, the cluster exchange.  For L > 1 the leaf's Stockham passes
 // run between B (their input [P][L][cols]) and A in turn, the last one
 // writing the natural Y to the other buffer of its input (A for an odd
-// number of passes).  Each part is a multiple of 16 bytes.
+// number of passes).  P3 > 1 (L = 1): A's slots [P1][Q cols + pad] hold
+// Y at the end, no B.  The long-ray body keeps the partials [kPart][m/2]
+// (then the block's Phi and n_b) after the rest, for the whole launch.
+// Each part is a multiple of 16 bytes.  ops/fullchain.fft_smem_bytes is
+// the same arithmetic.
 struct Layout {
-  int sp;         // slot row pitch: P2 cols + pad
+  int sp;         // slot row pitch: P2 P3 cols + pad
   int np;         // natural Y row pitch: cols + 1
-  bool inplace;   // the natural Y overwrites A (L = 1, cols P1 <= threads)
+  bool inplace;   // Y overwrites A (L = 1: cols P1 <= threads, or P3 > 1)
   int size_a;     // complex values
   int size_b;
   int stage;      // words of S
+  int part;       // the long body's partials, from this word
   int words;      // in all
 
-  __host__ __device__ Layout(int m, int L, int P1, int P2, int cols, bool fused,
-                             int stage_words) {
+  __host__ __device__ Layout(int m, int L, int P1, int P2, int P3, int cols, bool fused,
+                             int stage_words, bool lng) {
     const int pad = cols < 32 ? cols : 0;
-    sp = P2 * cols + pad;
+    sp = P2 * P3 * cols + pad;
     np = cols + 1;
-    inplace = L == 1 && cols * P1 <= kThreads;
+    inplace = L == 1 && (P3 > 1 || cols * P1 <= kThreads);
     const int leaf = imax(m * cols, (m / 2) * np);    // a leaf pass's buffer
     if (L == 1) {
       size_a = round4(L * P1 * sp);
@@ -459,32 +572,114 @@ struct Layout {
     }
     stage = stage_words;
     const int data = 2 * (size_a + size_b) + stage + (fused ? 5 * cols : 0);
-    const int stats = fused ? (m / 2) * kStat + 8 : 0;
-    words = imax(data, stats);
+    part = data;
+    if (lng) {
+      words = data + (fused ? kPart * (m / 2) + 8 : 0);
+    } else {
+      const int stats = fused ? (m / 2) * kStat + 8 : 0;
+      words = imax(data, stats);
+    }
   }
   __host__ __device__ size_t bytes() const { return static_cast<size_t>(words) * sizeof(float); }
 };
 
-// Src: PlanarIq or WireIq.  Grid (blocks, channels, sectors): unit u =
-// sector * channels + channel; its block b = blockIdx.x owns the column
-// chunks [q cols, min(n, (q + 1) cols)), q = b, b + blocks, ...  kFused: out = pow [units,
-// m/2], launched as clusters of gridDim.x blocks; else (the A-stage) out =
-// Y [units, 2, m/2, n] and wd, ph, phi are unused.
-template <class Src, int P1, int P2, bool kFused>
-__global__ void __launch_bounds__(kThreads, 2)
-fft_chain_kernel(Src src, const float* __restrict__ tab, const float* __restrict__ phi,
-                 const float* __restrict__ wd, const float* __restrict__ ph,
-                 float* __restrict__ out, int m, int L, int n, int cols, float salt) {
-  constexpr int P = P1 * P2;
-  // an odd L > 1 fits m <= kMaxM: the leaf's code exists only where it can
-  // run (P <= 256), so the P = 512, 1024 bodies are those of L = 1 alone
-  constexpr bool kLeaf = 3 * P <= kMaxM;
+// One row's partials of a round merged into its running ones (the
+// epilogue above): the round's nr columns of q = Y wd, shifted by s (set
+// from the first column in the first round), their mean, E_r and P_rc in
+// two passes, then Chan's merge (n_a, mu, E, D, Phi_a) + (nb, m, E_r,
+// P_r, phi_r), f = nb / (n_a + nb).
+__device__ __forceinline__ void merge_row(const float* yr, const float* yi, const float* rc,
+                                          int cols, int nr, float nb, float f, float n_a,
+                                          const float (&phi_a)[4], const float (&phi_r)[4],
+                                          bool first, float& s_r, float& s_i, float& mu_r,
+                                          float& mu_i, float& e, float (&d)[8]) {
+  if (first) {
+    s_r = yr[0] * rc[0];
+    s_i = yi[0] * rc[0];
+  }
+  // two passes over the round, 8 columns at a time unrolled so their
+  // shared-memory loads are in flight together
+  float sr = 0.f, si = 0.f;
+  for (int c0 = 0; c0 < nr; c0 += 8) {
+#pragma unroll
+    for (int c = c0; c < c0 + 8; ++c) {
+      if (c < nr) {
+        sr += yr[c] * rc[c] - s_r;
+        si += yi[c] * rc[c] - s_i;
+      }
+    }
+  }
+  const float mr = sr / nb;
+  const float mi = si / nb;
+  float er = 0.f, dr[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int c0 = 0; c0 < nr; c0 += 8) {
+#pragma unroll
+    for (int c = c0; c < c0 + 8; ++c) {
+      if (c < nr) {
+        const float qr = (yr[c] * rc[c] - s_r) - mr;
+        const float qi = (yi[c] * rc[c] - s_i) - mi;
+        er += qr * qr + qi * qi;
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          const float p = rc[(cc + 1) * cols + c];
+          dr[cc] += qr * p;
+          dr[4 + cc] += qi * p;
+        }
+      }
+    }
+  }
+  const float dlr = mr - mu_r;
+  const float dli = mi - mu_i;
+  mu_r += f * dlr;
+  mu_i += f * dli;
+  e += er + n_a * f * (dlr * dlr + dli * dli);
+#pragma unroll
+  for (int cc = 0; cc < 4; ++cc) {
+    d[cc] += dr[cc] - f * dlr * phi_a[cc] + (1.f - f) * dlr * phi_r[cc];
+    d[4 + cc] += dr[4 + cc] - f * dli * phi_a[cc] + (1.f - f) * dli * phi_r[cc];
+  }
+}
+
+// Where row k of Y starts: k np in the natural Y; for P3 > 1,
+// X[k1 + P1 (k2 + P2 k3)] lies in slot P3 k2 + k3 of row k1 (pitch sp).
+template <int P1, int P2, int P3>
+__device__ __forceinline__ int y_row(int k, int sp, int np, int cols) {
+  if constexpr (P3 > 1) {
+    const int kq = k / P1;
+    return (k - kq * P1) * sp + ((kq % P2) * P3 + kq / P2) * cols;
+  } else {
+    return k * np;
+  }
+}
+
+// The body of both kernels below.  Src: PlanarIq or WireIq.  Grid
+// (blocks, channels, sectors): unit u = sector * channels + channel; its
+// block b = blockIdx.x owns the column chunks [q cols, min(n, (q + 1)
+// cols)), q = b, b + blocks, ...  kFused: out = pow [units, m/2], launched
+// as clusters of gridDim.x blocks; else (the A-stage) out = Y [units, 2,
+// m/2, n] and wd, ph, phi are unused.  kLong: the long-ray body (partials
+// in shared memory; P3 > 1 for P = 2048, 4096).
+template <class Src, int P1, int P2, int P3, bool kFused, bool kLong>
+__device__ __forceinline__ void fft_chain_body(Src src, const float* __restrict__ tab,
+                                               const float* __restrict__ phi,
+                                               const float* __restrict__ wd,
+                                               const float* __restrict__ ph,
+                                               float* __restrict__ out, int m, int L, int n,
+                                               int cols, float salt) {
+  constexpr int P = P1 * P2 * P3;
+  constexpr int Q = P2 * P3;                    // pass 1's n2 < Q
+  // the leaf's code exists only where it can run: an odd L > 1 fits
+  // m <= kMaxM for P <= 256 (the P = 512, 1024 bodies of the register
+  // body are those of L = 1 alone); the long body runs L > 1 at every
+  // P <= 1024, and P = 2048, 4096 (P3 > 1) at L = 1 alone
+  constexpr bool kLeaf = kLong ? P3 == 1 : 3 * P <= kMaxM;
+  constexpr int kStageB = kLong ? 4 : kLeaf ? 8 : 16;
   const int mh = m / 2;
   const int u = static_cast<int>(blockIdx.z * gridDim.y + blockIdx.y);
   const int K = static_cast<int>(gridDim.x);    // the unit's blocks: one cluster
   const int rank = static_cast<int>(blockIdx.x);
   const Table t(tab, m, P, L);
-  const Layout lay(m, L, P1, P2, cols, kFused, src.words(cols));
+  const Layout lay(m, L, P1, P2, P3, cols, kFused, src.words(cols), kLong);
   cg::cluster_group cluster = cg::this_cluster();
 
   extern __shared__ __align__(16) float smem[];
@@ -494,14 +689,16 @@ fft_chain_kernel(Src src, const float* __restrict__ tab, const float* __restrict
   float* b_im = b_re + lay.size_b;
   float* stage = b_im + lay.size_b;             // the staged samples of one round
   float* rc = stage + lay.stage;                // [5][cols]: wd, ph rows
-  // the natural Y [mh][np]
+  float* part = smem + lay.part;                // kLong: [kPart][mh] partials, Phi, n_b
+  // the natural Y [mh][np] (P3 > 1: A's slots)
   const bool y_in_b = !kLeaf || L == 1 ? !lay.inplace : leaf_passes(L) % 2 == 0;
   float* y_re = y_in_b ? b_re : a_re;
   float* y_im = y_in_b ? b_im : a_im;
   const auto* ltw = reinterpret_cast<const float2*>(t.leaf_tw);
   const int tid = static_cast<int>(threadIdx.x);
 
-  // the epilogue's running partials of the rows this thread owns
+  // the epilogue's running partials of the rows this thread owns (the
+  // register body)
   float s_r[kRows], s_i[kRows], mu_r[kRows], mu_i[kRows], e[kRows], d[kRows][8];
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
@@ -513,7 +710,7 @@ fft_chain_kernel(Src src, const float* __restrict__ tab, const float* __restrict
   float n_a = 0.f;
 
   if constexpr (Src::kStaged) {
-    src.template stage<kLeaf>(stage, u, rank * cols, cols);
+    src.template stage<kStageB>(stage, u, rank * cols, cols);
     cp_async_commit();
   }
   for (int r = 0; (r * K + rank) * cols < n; ++r) {
@@ -531,23 +728,23 @@ fft_chain_kernel(Src src, const float* __restrict__ tab, const float* __restrict
     }
 
     // pass 1: samples, salt, window; P1-point DFT; twiddle W_P^(k1 n2)
-    for (int task = tid; task < cols * P2 * L; task += kThreads) {
+    for (int task = tid; task < cols * Q * L; task += kThreads) {
       const int c = task % cols;
       const int rest = task / cols;
-      const int n2 = rest % P2;
-      const int r2 = rest / P2;
+      const int n2 = rest % Q;
+      const int r2 = rest / Q;
       const int row0 = L * n2 + r2;
       // a column past n reads column j0 and is zeroed by its window
       const float keep = c < nr ? 1.f : 0.f;
       float re[P1], im[P1];
       if constexpr (Src::kStaged) {
-        src.template read<P1>(stage, row0, L * P2, c, cols, re, im);
+        src.template read<P1>(stage, row0, L * Q, c, cols, re, im);
       } else {
-        src.template load<P1>(u, row0, L * P2, c < nr ? j0 + c : j0, re, im);
+        src.template load<P1>(u, row0, L * Q, c < nr ? j0 + c : j0, re, im);
       }
 #pragma unroll
       for (int n1 = 0; n1 < P1; ++n1) {
-        const float w = __ldg(t.win + row0 + n1 * L * P2) * keep;
+        const float w = __ldg(t.win + row0 + n1 * L * Q) * keep;
         re[n1] = w * (re[n1] + salt);
         im[n1] = w * (im[n1] + salt);
       }
@@ -558,11 +755,11 @@ fft_chain_kernel(Src src, const float* __restrict__ tab, const float* __restrict
       for (int k1 = 0; k1 < P1; ++k1) {
         float vr = re[brev(k1, log2i<P1>())];
         float vi = im[brev(k1, log2i<P1>())];
-        if (P2 > 1 && k1 > 0) {        // W^0 = 1 exactly at n2 = 0: no branch
+        if (Q > 1 && k1 > 0) {         // W^0 = 1 exactly at n2 = 0: no branch
           const float2 w = __ldg(reinterpret_cast<const float2*>(t.tw) + (k1 * n2) % P);
           cmul(vr, vi, w.x, w.y, vr, vi);
         }
-        if (P2 == 1 && kLeaf && L > 1) {
+        if (Q == 1 && kLeaf && L > 1) {
           // X_r2[k1] is final: the leaf's twiddle, then its layout in B
           if (k1 > 0) {
             const float2 w = __ldg(ltw + r2 * P + k1);
@@ -579,51 +776,106 @@ fft_chain_kernel(Src src, const float* __restrict__ tab, const float* __restrict
     __syncthreads();                            // A holds pass 1; the staging buffer is free
     if constexpr (Src::kStaged) {
       if (j0 + K * cols < n) {
-        src.template stage<kLeaf>(stage, u, j0 + K * cols, cols);   // under pass 2, epilogue
+        src.template stage<kStageB>(stage, u, j0 + K * cols, cols);   // under pass 2, epilogue
       }
       cp_async_commit();
     }
 
-    // pass 2: P2-point DFT over n2 -> X_r2[k1 + P1 k2]; in place, all of a
-    // task's inputs are read before any output is written (none for P2 = 1
-    // and L > 1: pass 1 wrote the leaf's input)
-    const int pass2 = P2 == 1 && kLeaf && L > 1 ? 0 : cols * P1 * L;
-    for (int t0 = 0; t0 < pass2; t0 += kThreads) {
-      const int task = t0 + tid;
-      const bool has = task < pass2;
-      const int c = task % cols;
-      const int rest = task / cols;
-      const int k1 = rest % P1;
-      const int r2 = rest / P1;
-      float re[P2], im[P2];
-      const int base = (r2 * P1 + k1) * lay.sp + c;
-      if (has) {
+    if constexpr (P3 == 1) {
+      // pass 2: P2-point DFT over n2 -> X_r2[k1 + P1 k2]; in place, all of a
+      // task's inputs are read before any output is written (none for P2 = 1
+      // and L > 1: pass 1 wrote the leaf's input)
+      const int pass2 = P2 == 1 && kLeaf && L > 1 ? 0 : cols * P1 * L;
+      for (int t0 = 0; t0 < pass2; t0 += kThreads) {
+        const int task = t0 + tid;
+        const bool has = task < pass2;
+        const int c = task % cols;
+        const int rest = task / cols;
+        const int k1 = rest % P1;
+        const int r2 = rest / P1;
+        float re[P2], im[P2];
+        const int base = (r2 * P1 + k1) * lay.sp + c;
+        if (has) {
 #pragma unroll
-        for (int n2 = 0; n2 < P2; ++n2) {
-          re[n2] = a_re[base + n2 * cols];
-          im[n2] = a_im[base + n2 * cols];
+          for (int n2 = 0; n2 < P2; ++n2) {
+            re[n2] = a_re[base + n2 * cols];
+            im[n2] = a_im[base + n2 * cols];
+          }
+        }
+        if (lay.inplace) __syncthreads();
+        if (has) {
+          dft_reg<P2>(re, im, t.tw, P);
+#pragma unroll
+          for (int k2 = 0; k2 < P2; ++k2) {
+            const int k = k1 + P1 * k2;
+            const float vr = re[brev(k2, log2i<P2>())];
+            const float vi = im[brev(k2, log2i<P2>())];
+            if (!kLeaf || L == 1) {
+              if (k < mh) {
+                y_re[k * lay.np + c] = vr;
+                y_im[k * lay.np + c] = vi;
+              }
+            } else {
+              float wr, wi;
+              const float2 w = __ldg(ltw + r2 * P + k);
+              cmul(vr, vi, w.x, w.y, wr, wi);
+              b_re[(k * L + r2) * cols + c] = wr;
+              b_im[(k * L + r2) * cols + c] = wi;
+            }
+          }
         }
       }
-      if (lay.inplace) __syncthreads();
-      if (has) {
+    } else {
+      // pass 2 (P3 > 1, L = 1): per (column, k1, n3) a P2-point DFT over
+      // the n2 of slots P3 n2 + n3, times W_Q^(k2 n3) = W_P^(P1 k2 n3),
+      // back to its own slots (no other task reads them: no barrier
+      // inside).  Tasks column fastest, then k1: a warp's rows are k1 apart
+      // by the padded pitch, on distinct banks.
+      for (int task = tid; task < cols * P1 * P3; task += kThreads) {
+        const int c = task % cols;
+        const int rest = task / cols;
+        const int k1 = rest % P1;
+        const int n3 = rest / P1;
+        const int base = k1 * lay.sp + n3 * cols + c;
+        float re[P2], im[P2];
+#pragma unroll
+        for (int n2 = 0; n2 < P2; ++n2) {
+          re[n2] = a_re[base + n2 * P3 * cols];
+          im[n2] = a_im[base + n2 * P3 * cols];
+        }
         dft_reg<P2>(re, im, t.tw, P);
 #pragma unroll
         for (int k2 = 0; k2 < P2; ++k2) {
-          const int k = k1 + P1 * k2;
-          const float vr = re[brev(k2, log2i<P2>())];
-          const float vi = im[brev(k2, log2i<P2>())];
-          if (!kLeaf || L == 1) {
-            if (k < mh) {
-              y_re[k * lay.np + c] = vr;
-              y_im[k * lay.np + c] = vi;
-            }
-          } else {
-            float wr, wi;
-            const float2 w = __ldg(ltw + r2 * P + k);
-            cmul(vr, vi, w.x, w.y, wr, wi);
-            b_re[(k * L + r2) * cols + c] = wr;
-            b_im[(k * L + r2) * cols + c] = wi;
+          float vr = re[brev(k2, log2i<P2>())];
+          float vi = im[brev(k2, log2i<P2>())];
+          if (k2 > 0) {                 // W^0 = 1 exactly at n3 = 0: no branch
+            const float2 w = __ldg(reinterpret_cast<const float2*>(t.tw) + (P1 * k2 * n3) % P);
+            cmul(vr, vi, w.x, w.y, vr, vi);
           }
+          a_re[base + k2 * P3 * cols] = vr;
+          a_im[base + k2 * P3 * cols] = vi;
+        }
+      }
+      __syncthreads();
+      // pass 3: per (column, k1, k2) a P3-point DFT over n3 of slots
+      // P3 k2 + n3 -> X[k1 + P1 (k2 + P2 k3)] in slot P3 k2 + k3
+      for (int task = tid; task < cols * P1 * P2; task += kThreads) {
+        const int c = task % cols;
+        const int rest = task / cols;
+        const int k1 = rest % P1;
+        const int k2 = rest / P1;
+        const int base = k1 * lay.sp + k2 * P3 * cols + c;
+        float re[P3], im[P3];
+#pragma unroll
+        for (int n3 = 0; n3 < P3; ++n3) {
+          re[n3] = a_re[base + n3 * cols];
+          im[n3] = a_im[base + n3 * cols];
+        }
+        dft_reg<P3>(re, im, t.tw, P);
+#pragma unroll
+        for (int k3 = 0; k3 < P3; ++k3) {
+          a_re[base + k3 * cols] = re[brev(k3, log2i<P3>())];
+          a_im[base + k3 * cols] = im[brev(k3, log2i<P3>())];
         }
       }
     }
@@ -644,6 +896,8 @@ fft_chain_kernel(Src src, const float* __restrict__ tab, const float* __restrict
             leaf_pass<3>(ir, ii, orr, oi, roots, L, P, cols, ns, R, last, mh, lay.np);
           } else if (R == 7) {
             leaf_pass<7>(ir, ii, orr, oi, roots, L, P, cols, ns, R, last, mh, lay.np);
+          } else if (kLong) {
+            leaf_pass_split(ir, ii, orr, oi, roots, L, P, cols, ns, R, last, mh, lay.np);
           } else {
             leaf_pass<0>(ir, ii, orr, oi, roots, L, P, cols, ns, R, last, mh, lay.np);
           }
@@ -666,8 +920,9 @@ fft_chain_kernel(Src src, const float* __restrict__ tab, const float* __restrict
       for (int k = tid; k < mh * nr; k += kThreads) {
         const int row = k / nr;
         const int c = k - row * nr;
-        yo[static_cast<size_t>(row) * n + c] = y_re[row * lay.np + c];
-        yo[static_cast<size_t>(mh + row) * n + c] = y_im[row * lay.np + c];
+        const int y = y_row<P1, P2, P3>(row, lay.sp, lay.np, cols) + c;
+        yo[static_cast<size_t>(row) * n + c] = y_re[y];
+        yo[static_cast<size_t>(mh + row) * n + c] = y_im[y];
       }
     } else {
       // the round's partials of each owned row, merged into the running ones
@@ -677,57 +932,84 @@ fft_chain_kernel(Src src, const float* __restrict__ tab, const float* __restrict
       float phi_r[4];
 #pragma unroll
       for (int cc = 0; cc < 4; ++cc) phi_r[cc] = __ldg(phi + q * 4 + cc);
+      if constexpr (kLong) {
+        // every row's partials in shared memory: [j][k] at part[j mh + k]
+        for (int k = tid; k < mh; k += kThreads) {
+          float* pk = part + k;
+          const bool first = r == 0;
+          float ps_r = first ? 0.f : pk[0], ps_i = first ? 0.f : pk[mh];
+          float pmu_r = first ? 0.f : pk[2 * mh], pmu_i = first ? 0.f : pk[3 * mh];
+          float pe = first ? 0.f : pk[4 * mh];
+          float pd[8];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int k = tid + i * kThreads;
-        if (k >= mh) continue;
-        const float* yr = y_re + k * lay.np;
-        const float* yi = y_im + k * lay.np;
-        if (r == 0) {
-          s_r[i] = yr[0] * rc[0];
-          s_i[i] = yi[0] * rc[0];
+          for (int c = 0; c < 8; ++c) pd[c] = first ? 0.f : pk[(5 + c) * mh];
+          const int y = y_row<P1, P2, P3>(k, lay.sp, lay.np, cols);
+          merge_row(y_re + y, y_im + y, rc, cols, nr, nb, f, n_a, phi_a, phi_r, first, ps_r,
+                    ps_i, pmu_r, pmu_i, pe, pd);
+          pk[0] = ps_r;
+          pk[mh] = ps_i;
+          pk[2 * mh] = pmu_r;
+          pk[3 * mh] = pmu_i;
+          pk[4 * mh] = pe;
+#pragma unroll
+          for (int c = 0; c < 8; ++c) pk[(5 + c) * mh] = pd[c];
         }
-        // two passes over the round, 8 columns at a time unrolled so their
-        // shared-memory loads are in flight together
-        float sr = 0.f, si = 0.f;
-        for (int c0 = 0; c0 < nr; c0 += 8) {
+      } else {
+        // the register body's rows, kRows a thread (merge_row's arithmetic,
+        // written out as before the long-ray body: its instantiations stay
+        // as they were)
 #pragma unroll
-          for (int c = c0; c < c0 + 8; ++c) {
-            if (c < nr) {
-              sr += yr[c] * rc[c] - s_r[i];
-              si += yi[c] * rc[c] - s_i[i];
-            }
+        for (int i = 0; i < kRows; ++i) {
+          const int k = tid + i * kThreads;
+          if (k >= mh) continue;
+          const float* yr = y_re + k * lay.np;
+          const float* yi = y_im + k * lay.np;
+          if (r == 0) {
+            s_r[i] = yr[0] * rc[0];
+            s_i[i] = yi[0] * rc[0];
           }
-        }
-        const float mr = sr / nb;
-        const float mi = si / nb;
-        float er = 0.f, dr[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        for (int c0 = 0; c0 < nr; c0 += 8) {
+          // two passes over the round, 8 columns at a time unrolled so their
+          // shared-memory loads are in flight together
+          float sr = 0.f, si = 0.f;
+          for (int c0 = 0; c0 < nr; c0 += 8) {
 #pragma unroll
-          for (int c = c0; c < c0 + 8; ++c) {
-            if (c < nr) {
-              const float qr = (yr[c] * rc[c] - s_r[i]) - mr;
-              const float qi = (yi[c] * rc[c] - s_i[i]) - mi;
-              er += qr * qr + qi * qi;
-#pragma unroll
-              for (int cc = 0; cc < 4; ++cc) {
-                const float p = rc[(cc + 1) * cols + c];
-                dr[cc] += qr * p;
-                dr[4 + cc] += qi * p;
+            for (int c = c0; c < c0 + 8; ++c) {
+              if (c < nr) {
+                sr += yr[c] * rc[c] - s_r[i];
+                si += yi[c] * rc[c] - s_i[i];
               }
             }
           }
-        }
-        // Chan's merge: (n_a, mu, E, D, Phi_a) + (nb, m, er, dr, phi_r)
-        const float dlr = mr - mu_r[i];
-        const float dli = mi - mu_i[i];
-        mu_r[i] += f * dlr;
-        mu_i[i] += f * dli;
-        e[i] += er + n_a * f * (dlr * dlr + dli * dli);
+          const float mr = sr / nb;
+          const float mi = si / nb;
+          float er = 0.f, dr[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+          for (int c0 = 0; c0 < nr; c0 += 8) {
 #pragma unroll
-        for (int cc = 0; cc < 4; ++cc) {
-          d[i][cc] += dr[cc] - f * dlr * phi_a[cc] + (1.f - f) * dlr * phi_r[cc];
-          d[i][4 + cc] += dr[4 + cc] - f * dli * phi_a[cc] + (1.f - f) * dli * phi_r[cc];
+            for (int c = c0; c < c0 + 8; ++c) {
+              if (c < nr) {
+                const float qr = (yr[c] * rc[c] - s_r[i]) - mr;
+                const float qi = (yi[c] * rc[c] - s_i[i]) - mi;
+                er += qr * qr + qi * qi;
+#pragma unroll
+                for (int cc = 0; cc < 4; ++cc) {
+                  const float p = rc[(cc + 1) * cols + c];
+                  dr[cc] += qr * p;
+                  dr[4 + cc] += qi * p;
+                }
+              }
+            }
+          }
+          // Chan's merge: (n_a, mu, E, D, Phi_a) + (nb, m, er, dr, phi_r)
+          const float dlr = mr - mu_r[i];
+          const float dli = mi - mu_i[i];
+          mu_r[i] += f * dlr;
+          mu_i[i] += f * dli;
+          e[i] += er + n_a * f * (dlr * dlr + dli * dli);
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) {
+            d[i][cc] += dr[cc] - f * dlr * phi_a[cc] + (1.f - f) * dlr * phi_r[cc];
+            d[i][4 + cc] += dr[4 + cc] - f * dli * phi_a[cc] + (1.f - f) * dli * phi_r[cc];
+          }
         }
       }
 #pragma unroll
@@ -736,7 +1018,7 @@ fft_chain_kernel(Src src, const float* __restrict__ tab, const float* __restrict
     }
   }
 
-  if constexpr (kFused) {
+  if constexpr (kFused && !kLong) {
     // the cluster's merge over distributed shared memory
     __syncthreads();                            // the last round's Y is consumed
     float* st = smem;                           // [mh][kStat], then Phi, n_b
@@ -801,6 +1083,81 @@ fft_chain_kernel(Src src, const float* __restrict__ tab, const float* __restrict
     }
     cluster.sync();                             // peers' shared memory stays until all read
   }
+  if constexpr (kFused && kLong) {
+    // the same merge on the long body's partials, in place: stat j of row
+    // k at part[j mh + k], the block's Phi and n_b after them
+    __syncthreads();                            // every row's last round is merged
+    float* st = part;
+    const int tail = kPart * mh;
+    if (tid == 0) {
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) st[tail + cc] = phi_a[cc];
+      st[tail + 4] = n_a;
+    }
+    cluster.sync();
+
+    const int per = (mh + K - 1) / K;
+    const float nf = static_cast<float>(n);
+    for (int k = rank * per + tid; k < min(mh, (rank + 1) * per); k += kThreads) {
+      const float* r0 = cluster.map_shared_rank(st, 0) + k;
+      const float o_r = r0[0], o_i = r0[mh];    // block 0's shift: the origin
+      float sr = 0.f, si = 0.f;
+      for (int b = 0; b < K; ++b) {
+        const float* sb = cluster.map_shared_rank(st, b);
+        const float* r = sb + k;
+        const float nb = sb[tail + 4];
+        sr += nb * ((r[0] - o_r) + r[2 * mh]);
+        si += nb * ((r[mh] - o_i) + r[3 * mh]);
+      }
+      const float mr = sr / nf;
+      const float mi = si / nf;
+      float et = 0.f, dt[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      for (int b = 0; b < K; ++b) {
+        const float* sb = cluster.map_shared_rank(st, b);
+        const float* r = sb + k;
+        const float* phb = sb + tail;
+        const float dmr = ((r[0] - o_r) + r[2 * mh]) - mr;
+        const float dmi = ((r[mh] - o_i) + r[3 * mh]) - mi;
+        et += r[4 * mh] + phb[4] * (dmr * dmr + dmi * dmi);
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          dt[cc] += r[(5 + cc) * mh] + dmr * phb[cc];
+          dt[4 + cc] += r[(9 + cc) * mh] + dmi * phb[cc];
+        }
+      }
+      float pw = nf * et;
+#pragma unroll
+      for (int cc = 0; cc < 4; cc += 2) {
+        const float re = dt[cc] - dt[4 + cc + 1];
+        const float im = dt[cc + 1] + dt[4 + cc];
+        pw -= re * re + im * im;
+      }
+      out[static_cast<size_t>(u) * mh + k] = pw;
+    }
+    cluster.sync();                             // peers' shared memory stays until all read
+  }
+}
+
+// The register body (m <= 1024): two blocks per SM.
+template <class Src, int P1, int P2, bool kFused>
+__global__ void __launch_bounds__(kThreads, 2)
+fft_chain_kernel(Src src, const float* __restrict__ tab, const float* __restrict__ phi,
+                 const float* __restrict__ wd, const float* __restrict__ ph,
+                 float* __restrict__ out, int m, int L, int n, int cols, float salt) {
+  fft_chain_body<Src, P1, P2, 1, kFused, false>(src, tab, phi, wd, ph, out, m, L, n, cols,
+                                                salt);
+}
+
+// The long-ray body (1024 < m <= 4096): one block per SM (its shared
+// memory mostly allows no more), registers unbounded below 255, so the
+// P2 = 32 register DFT does not spill.
+template <class Src, int P1, int P2, int P3, bool kFused>
+__global__ void __launch_bounds__(kThreads, 1)
+fft_chain_long_kernel(Src src, const float* __restrict__ tab, const float* __restrict__ phi,
+                      const float* __restrict__ wd, const float* __restrict__ ph,
+                      float* __restrict__ out, int m, int L, int n, int cols, float salt) {
+  fft_chain_body<Src, P1, P2, P3, kFused, true>(src, tab, phi, wd, ph, out, m, L, n, cols,
+                                                salt);
 }
 
 // The kernel for the plan's geometry: fn(P1, P2) dispatch over P (P1 =
@@ -828,22 +1185,52 @@ cudaError_t dispatch_p(int P, Fn&& fn) {
   }
 }
 
+// The long-ray kernels (1024 < m <= 4096): P <= 1024 with an odd L >= 3
+// (the planar fused chain takes P = 2, 4, 8 too: radix-1 m such as 1832),
+// P = 2048, 4096 at L = 1 in three register passes.
+template <class Src, bool kFused, class Fn>
+cudaError_t dispatch_long(int P, Fn&& fn) {
+  if constexpr (Src::kStaged && kFused) {
+    switch (P) {
+      case 2: return fn(fft_chain_long_kernel<Src, 2, 1, 1, kFused>);
+      case 4: return fn(fft_chain_long_kernel<Src, 4, 1, 1, kFused>);
+      case 8: return fn(fft_chain_long_kernel<Src, 8, 1, 1, kFused>);
+      default: break;
+    }
+  }
+  switch (P) {
+    case 16: return fn(fft_chain_long_kernel<Src, 16, 1, 1, kFused>);
+    case 32: return fn(fft_chain_long_kernel<Src, 32, 1, 1, kFused>);
+    case 64: return fn(fft_chain_long_kernel<Src, 32, 2, 1, kFused>);
+    case 128: return fn(fft_chain_long_kernel<Src, 32, 4, 1, kFused>);
+    case 256: return fn(fft_chain_long_kernel<Src, 32, 8, 1, kFused>);
+    case 512: return fn(fft_chain_long_kernel<Src, 32, 16, 1, kFused>);
+    case 1024: return fn(fft_chain_long_kernel<Src, 32, 32, 1, kFused>);
+    case 2048: return fn(fft_chain_long_kernel<Src, 32, 8, kP3, kFused>);
+    case 4096: return fn(fft_chain_long_kernel<Src, 32, 16, kP3, kFused>);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 struct Geometry {
-  int P, L, P1, P2;
+  int P, L, P1, P2, P3;
+  bool lng;       // the long-ray body
   bool ok;
   Geometry(int m) {
     P = m & -m;
     L = m / imax(P, 1);
     P1 = P < 32 ? P : 32;
-    P2 = P / imax(P1, 1);
-    ok = m >= 2 && m <= kMaxM && m % 2 == 0;    // P >= 2; wire and A-stage: P >= 16
+    P3 = P > kMaxM ? kP3 : 1;
+    P2 = P / imax(P1 * P3, 1);
+    lng = m > kMaxM;
+    ok = m >= 2 && m <= kLongMaxM && m % 2 == 0;  // P >= 2; wire and A-stage: P >= 16
   }
 };
 
 // The smem bytes of a launch of `blocks` blocks per unit.
 template <class Src>
 size_t smem_bytes(const Src& src, const Geometry& g, int m, int cols, bool fused) {
-  return Layout(m, g.L, g.P1, g.P2, cols, fused, src.words(cols)).bytes();
+  return Layout(m, g.L, g.P1, g.P2, g.P3, cols, fused, src.words(cols), g.lng).bytes();
 }
 
 // One launch of `kernel` over units (sectors x channels), clusters of
@@ -874,52 +1261,104 @@ cudaError_t launch_clusters(Kernel kernel, size_t smem, int blocks, int channels
   return cudaGetLastError();
 }
 
+// The dispatch of the register body (kLong = false) or the long-ray body.
+template <class Src, bool kFused, bool kLong, class Fn>
+cudaError_t dispatch_body(int P, Fn&& fn) {
+  if constexpr (kLong) {
+    return dispatch_long<Src, kFused>(P, fn);
+  } else {
+    return dispatch_p<Src, kFused>(P, fn);
+  }
+}
+
+// The long-ray body's entries, defined in fused_chain_{radix,wire,astage}_
+// long.cu (each the *_as<true> template below): the m > 1024 kernels
+// compile there, in parallel with the register body's.
+cudaError_t launch_fused_long(const PlanarIq& src, const float* tab, const float* phi,
+                              const float* wd, const float* ph, float* out, int sectors,
+                              int channels, int m, int n, int cols, int blocks, float salt,
+                              cudaStream_t stream);
+cudaError_t launch_fused_long(const WireIq& src, const float* tab, const float* phi,
+                              const float* wd, const float* ph, float* out, int sectors,
+                              int channels, int m, int n, int cols, int blocks, float salt,
+                              cudaStream_t stream);
+cudaError_t launch_astage_long(const PlanarIq& src, const float* tab, float* y, int units,
+                               int m, int w, int cols, int blocks, cudaStream_t stream);
+cudaError_t occupancy_long(const PlanarIq& src, int m, int cols, int blocks, int* blocks_per_sm,
+                           int* clusters);
+cudaError_t occupancy_long(const WireIq& src, int m, int cols, int blocks, int* blocks_per_sm,
+                           int* clusters);
+cudaError_t occupancy_astage_long(const PlanarIq& src, int m, int cols, int blocks,
+                                  int* blocks_per_sm, int* clusters);
+
 // The fused chain over units u = sector * channels + channel, clusters of
-// `blocks` <= ceil(n / cols) blocks, on `stream` without synchronising.
-// The caller validates shapes, dtypes and offsets.
-template <class Src>
-cudaError_t launch_fused(const Src& src, const float* tab, const float* phi, const float* wd,
-                         const float* ph, float* out, int sectors, int channels, int m, int n,
-                         int cols, int blocks, float salt, cudaStream_t stream) {
+// `blocks` <= ceil(n / cols) blocks, on `stream` without synchronising,
+// through the register body or (kLong) the long-ray body.  The caller
+// validates shapes, dtypes and offsets.
+template <bool kLong, class Src>
+cudaError_t launch_fused_as(const Src& src, const float* tab, const float* phi, const float* wd,
+                            const float* ph, float* out, int sectors, int channels, int m,
+                            int n, int cols, int blocks, float salt, cudaStream_t stream) {
   const Geometry g(m);
-  if (!g.ok || sectors <= 0 || sectors > 65535 || channels <= 0 || channels > 65535 ||
-      n <= 0 || cols <= 0 || blocks <= 0 || blocks > kMaxCluster ||
+  if (!g.ok || g.lng != kLong || sectors <= 0 || sectors > 65535 || channels <= 0 ||
+      channels > 65535 || n <= 0 || cols <= 0 || blocks <= 0 || blocks > kMaxCluster ||
       (blocks - 1) * cols >= n) {
     return cudaErrorInvalidValue;
   }
   const size_t smem = smem_bytes(src, g, m, cols, true);
-  return dispatch_p<Src, true>(g.P, [&](auto kernel) {
+  return dispatch_body<Src, true, kLong>(g.P, [&](auto kernel) {
     return launch_clusters(kernel, smem, blocks, channels, sectors, stream, src, tab, phi, wd,
                            ph, out, m, g.L, n, cols, salt);
   });
 }
 
-// The A-stage over `units` units of w pulses: Y [units, 2, m/2, w].
 template <class Src>
-cudaError_t launch_astage(const Src& src, const float* tab, float* y, int units, int m, int w,
-                          int cols, int blocks, cudaStream_t stream) {
+cudaError_t launch_fused(const Src& src, const float* tab, const float* phi, const float* wd,
+                         const float* ph, float* out, int sectors, int channels, int m, int n,
+                         int cols, int blocks, float salt, cudaStream_t stream) {
+  if (Geometry(m).lng) {
+    return launch_fused_long(src, tab, phi, wd, ph, out, sectors, channels, m, n, cols, blocks,
+                             salt, stream);
+  }
+  return launch_fused_as<false>(src, tab, phi, wd, ph, out, sectors, channels, m, n, cols,
+                                blocks, salt, stream);
+}
+
+// The A-stage over `units` units of w pulses: Y [units, 2, m/2, w].
+template <bool kLong, class Src>
+cudaError_t launch_astage_as(const Src& src, const float* tab, float* y, int units, int m,
+                             int w, int cols, int blocks, cudaStream_t stream) {
   const Geometry g(m);
-  if (!g.ok || units <= 0 || units > 65535 || w <= 0 || cols <= 0 || blocks <= 0 ||
-      blocks > kMaxCluster || (blocks - 1) * cols >= w) {
+  if (!g.ok || g.lng != kLong || units <= 0 || units > 65535 || w <= 0 || cols <= 0 ||
+      blocks <= 0 || blocks > kMaxCluster || (blocks - 1) * cols >= w) {
     return cudaErrorInvalidValue;
   }
   const size_t smem = smem_bytes(src, g, m, cols, false);
-  return dispatch_p<Src, false>(g.P, [&](auto kernel) {
+  return dispatch_body<Src, false, kLong>(g.P, [&](auto kernel) {
     return launch_clusters(kernel, smem, blocks, 1, units, stream, src, tab, nullptr, nullptr,
                            nullptr, y, m, g.L, w, cols, 0.f);
   });
 }
 
+template <class Src>
+cudaError_t launch_astage(const Src& src, const float* tab, float* y, int units, int m, int w,
+                          int cols, int blocks, cudaStream_t stream) {
+  if (Geometry(m).lng) return launch_astage_long(src, tab, y, units, m, w, cols, blocks, stream);
+  return launch_astage_as<false>(src, tab, y, units, m, w, cols, blocks, stream);
+}
+
 // Resident blocks per SM and the clusters of `blocks` blocks the card can
 // hold at once (cudaOccupancyMaxActiveClusters), at (m, cols) for the
 // source `src` (its staging buffer's size).
-template <class Src, bool kFused>
-cudaError_t occupancy(const Src& src, int m, int cols, int blocks, int* blocks_per_sm,
-                      int* clusters) {
+template <bool kLong, class Src, bool kFused>
+cudaError_t occupancy_as(const Src& src, int m, int cols, int blocks, int* blocks_per_sm,
+                         int* clusters) {
   const Geometry g(m);
-  if (!g.ok || cols <= 0 || blocks <= 0 || blocks > kMaxCluster) return cudaErrorInvalidValue;
+  if (!g.ok || g.lng != kLong || cols <= 0 || blocks <= 0 || blocks > kMaxCluster) {
+    return cudaErrorInvalidValue;
+  }
   const size_t smem = smem_bytes(src, g, m, cols, kFused);
-  return dispatch_p<Src, kFused>(g.P, [&](auto kernel) {
+  return dispatch_body<Src, kFused, kLong>(g.P, [&](auto kernel) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return err;
@@ -938,6 +1377,19 @@ cudaError_t occupancy(const Src& src, int m, int cols, int blocks, int* blocks_p
     cfg.numAttrs = 1;
     return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
   });
+}
+
+template <class Src, bool kFused>
+cudaError_t occupancy(const Src& src, int m, int cols, int blocks, int* blocks_per_sm,
+                      int* clusters) {
+  if (Geometry(m).lng) {
+    if constexpr (kFused) {
+      return occupancy_long(src, m, cols, blocks, blocks_per_sm, clusters);
+    } else {
+      return occupancy_astage_long(src, m, cols, blocks, blocks_per_sm, clusters);
+    }
+  }
+  return occupancy_as<false, Src, kFused>(src, m, cols, blocks, blocks_per_sm, clusters);
 }
 
 }  // namespace fft

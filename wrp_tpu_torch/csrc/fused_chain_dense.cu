@@ -6,15 +6,20 @@
 // (ops/fullchain.radix_for(m) == 1, e.g. m = 1000 = 8 x 125).  Two bodies,
 // chosen from m alone by the caller (ops/fullchain.dense_body):
 //
-//   * every even m <= 1024: the FFT-form body of fft_chain.cuh, launched
+//   * every even m <= 4096: the FFT-form body of fft_chain.cuh, launched
 //     through fused_chain_radix.cu's entry wrp_fused_chain_radix (its
 //     planar instantiation, with P = 8 register stages and a 5 x 5 x 5
-//     Stockham leaf at m = 1000).  The TPU's dense
+//     Stockham leaf at m = 1000; the long-ray body above 1024, a 229-point
+//     leaf at m = 1832).  The TPU's dense
 //     A_half contraction does 98.3 GFLOP per 48 channel-sectors at
 //     m = 1000; the FFT 1.6, so the bytes (0.031 ms) bound it, as the
 //     radix chain.
-//   * any other m (m > 1024, odd m): this file's matrix kernel, the TPU
-//     kernel's own algorithm, described next.
+//   * any other m (m > 4096, odd m): this file's matrix kernel, the TPU
+//     kernel's own algorithm, described next.  The radix entry launches it
+//     too, with its salt, for a radix plan above 4096 (m = 4160, 8192),
+//     where wrp_tpu's radix kernel still runs: the TPU kernel
+//     wrp_tpu/ops/pallas/fullchain.py::fused_chain_power_radix (with
+//     offset and salt, _kernel_radix_offset) at those m.
 //
 // The matrix kernel.  Per channel-sector it maps planar IQ x [2, m, n]
 // (int16 or f32) to the matched-filter power pow [m/2]:
@@ -46,7 +51,9 @@
 // `offset` (channel-sectors) starts the launch `offset` units into a larger
 // staged array: the benchmark's entry fused_chain_power_at (the TPU's
 // _kernel_offset, whose scalar-prefetch index map this pointer arithmetic
-// replaces; the kernel body is the plain entry's).
+// replaces; the kernel body is the plain entry's).  `salt` (0 from the
+// dense entries) is added to every sample after its conversion to f32,
+// as in the salted FFT-form entries.
 
 #include <cuda_runtime.h>
 
@@ -65,11 +72,13 @@ constexpr int kQ = 64;  // A^T rows staged per step
 // a   [m(q), m/2(t), 2] float: A_half[t, q] at (q (m/2) + t) * 2 + {0: re, 1: im}
 // wd  [n] float, ph [4, n] float
 // out [bc, m/2] float
-template <typename In, int T>
+// kSalted: `salt` added to every sample (the radix entry above 4096); the
+// unsalted instantiations are the dense entries' kernel as it was
+template <typename In, int T, bool kSalted>
 __global__ void __launch_bounds__(kThreads)
 fused_chain_dense_kernel(const In* __restrict__ x, const float* __restrict__ a,
                          const float* __restrict__ wd, const float* __restrict__ ph,
-                         float* __restrict__ out, int m, int n) {
+                         float* __restrict__ out, int m, int n, float salt) {
   const int mh = m / 2;
   const int t0 = blockIdx.x * T;
   const int cs = blockIdx.y;
@@ -103,8 +112,13 @@ fused_chain_dense_kernel(const In* __restrict__ x, const float* __restrict__ a,
         const In* pi = xi + static_cast<size_t>(q0) * n + j;
 #pragma unroll 8
         for (int q = 0; q < kq; ++q) {
-          wrp::mac_rows<T>(gr, gi, a_s + q * 2 * T, static_cast<float>(pr[q * n]),
-                           static_cast<float>(pi[q * n]));
+          if constexpr (kSalted) {
+            wrp::mac_rows<T>(gr, gi, a_s + q * 2 * T, static_cast<float>(pr[q * n]) + salt,
+                             static_cast<float>(pi[q * n]) + salt);
+          } else {
+            wrp::mac_rows<T>(gr, gi, a_s + q * 2 * T, static_cast<float>(pr[q * n]),
+                             static_cast<float>(pi[q * n]));
+          }
         }
       }
     }
@@ -129,43 +143,54 @@ fused_chain_dense_kernel(const In* __restrict__ x, const float* __restrict__ a,
   }
 }
 
-template <typename In, int T>
+template <typename In, int T, bool kSalted>
 cudaError_t launch(const void* x, const float* a, const float* wd, const float* ph, float* out,
-                   int bc, int m, int n, cudaStream_t stream) {
+                   int bc, int m, int n, float salt, cudaStream_t stream) {
   const size_t smem =
       (static_cast<size_t>(2) * T * kQ + static_cast<size_t>(2) * T * n) * sizeof(float);
-  auto kernel = fused_chain_dense_kernel<In, T>;
+  auto kernel = fused_chain_dense_kernel<In, T, kSalted>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(m / 2 / T), static_cast<unsigned>(bc));
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const In*>(x), a, wd, ph, out, m, n);
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const In*>(x), a, wd, ph, out, m, n,
+                                           salt);
   return cudaGetLastError();
 }
 
-template <typename In>
+template <typename In, bool kSalted>
 cudaError_t launch_tile(int tile, const void* x, const float* a, const float* wd,
-                        const float* ph, float* out, int bc, int m, int n,
+                        const float* ph, float* out, int bc, int m, int n, float salt,
                         cudaStream_t stream) {
   switch (tile) {
-    case 10: return launch<In, 10>(x, a, wd, ph, out, bc, m, n, stream);
-    case 4: return launch<In, 4>(x, a, wd, ph, out, bc, m, n, stream);
-    case 2: return launch<In, 2>(x, a, wd, ph, out, bc, m, n, stream);
-    case 1: return launch<In, 1>(x, a, wd, ph, out, bc, m, n, stream);
+    case 10: return launch<In, 10, kSalted>(x, a, wd, ph, out, bc, m, n, salt, stream);
+    case 4: return launch<In, 4, kSalted>(x, a, wd, ph, out, bc, m, n, salt, stream);
+    case 2: return launch<In, 2, kSalted>(x, a, wd, ph, out, bc, m, n, salt, stream);
+    case 1: return launch<In, 1, kSalted>(x, a, wd, ph, out, bc, m, n, salt, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <typename In>
+cudaError_t launch_salt(int tile, const In* x, const float* a, const float* wd,
+                        const float* ph, float* out, int bc, int m, int n, int salt,
+                        cudaStream_t stream) {
+  if (salt == 0) return launch_tile<In, false>(tile, x, a, wd, ph, out, bc, m, n, 0.f, stream);
+  return launch_tile<In, true>(tile, x, a, wd, ph, out, bc, m, n, static_cast<float>(salt),
+                               stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x [>= offset + bc, 2, m, n].  Launches on `stream` without
-// synchronising; returns the launch's cudaError_t (0 on success).  The
-// caller validates shapes, dtypes and the offset's range.
+// x [>= offset + bc, 2, m, n]; `salt` an int32 added to every sample (0:
+// none).  Launches on `stream` without synchronising; returns the
+// launch's cudaError_t (0 on success).  The caller validates shapes,
+// dtypes and the offset's range.
 int wrp_fused_chain_dense(const void* x, int x_is_int16, const void* a, const void* wd,
                           const void* ph, void* out, int bc, int m, int n, int tile,
-                          long long offset, void* stream) {
+                          long long offset, int salt, void* stream) {
   if (bc <= 0 || n <= 0 || m <= 0 || m % 2 != 0 || tile <= 0 || (m / 2) % tile != 0 ||
       offset < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -178,10 +203,10 @@ int wrp_fused_chain_dense(const void* x, int x_is_int16, const void* a, const vo
   auto st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       x_is_int16
-          ? launch_tile<int16_t>(tile, static_cast<const int16_t*>(x) + skip, af, wf, pf, of,
-                                 bc, m, n, st)
-          : launch_tile<float>(tile, static_cast<const float*>(x) + skip, af, wf, pf, of, bc,
-                               m, n, st);
+          ? launch_salt<int16_t>(tile, static_cast<const int16_t*>(x) + skip, af, wf, pf, of,
+                                 bc, m, n, salt, st)
+          : launch_salt<float>(tile, static_cast<const float*>(x) + skip, af, wf, pf, of, bc,
+                               m, n, salt, st);
   return static_cast<int>(err);
 }
 

@@ -132,7 +132,7 @@ def load_library() -> ctypes.CDLL:
                 "wrp_fused_chain_dense": [
                     ptr, i32, ptr, ptr, ptr, ptr,     # x, x_is_int16, a, wd, ph, out
                     i32, i32, i32, i32, i64,          # bc, m, n, tile, offset
-                    ptr],                             # stream
+                    i32, ptr],                        # salt, stream
                 "wrp_fused_chain_astage": [
                     ptr, i32, ptr, ptr,               # x, x_is_int16, tab, y
                     i32, i32, i32, i32, i32,          # bc, m, w, cols, blocks

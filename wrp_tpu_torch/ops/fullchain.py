@@ -10,7 +10,11 @@ Each kernel has its wrapper, plain torch version and launch counter:
   `LAUNCHES`.  Planar int16/f32 IQ through the FFT-form kernel
   (csrc/fft_chain.cuh), for m that splits (`radix_for(m) > 1`) up to
   FFT_MAX_M: the range DFT as an FFT, and the Parseval epilogue from
-  chunked partials merged across a thread-block cluster.
+  chunked partials merged across a thread-block cluster.  Above FFT_MAX_M
+  (m = 4160, 8192) it launches the dense entries' matrix kernel on the
+  dense A_half (`RadixPlan.dense_operator`, built at first use; plain
+  `fused_chain_power_reference`), counted also in
+  `DENSE_MATRIX_LAUNCHES`.
 * wire, csrc/fused_chain_wire.cu (``wrp_tpu`` `fused_chain_power_wire`):
   `fused_chain_power_wire`, plain `fused_chain_power_wire_reference`,
   `WIRE_LAUNCHES`.  The same kernel body on raw wire words [bs, m, ch*n]
@@ -23,7 +27,14 @@ Each kernel has its wrapper, plain torch version and launch counter:
   `DENSE_FFT_LAUNCHES`); any other m (m > FFT_MAX_M, odd m) the matrix
   kernel, the dense A_half [m/2, m] contraction (plain
   `fused_chain_power_reference`, its R == 1 branch,
-  `DENSE_MATRIX_LAUNCHES`).
+  `DENSE_MATRIX_LAUNCHES`, which counts the radix entry's launches of it
+  above FFT_MAX_M too).
+
+The FFT-form body has two forms, chosen from m alone (`fft_long`): m <=
+1024 keeps each thread's epilogue partials in registers; 1024 < m <=
+FFT_MAX_M = 4096 (the long-ray body) keeps them in shared memory, runs
+P = 2048 and 4096 as three register passes (32 x 8 x 8, 32 x 16 x 8)
+and every odd L through the leaf.
 
 The benchmark (wrp_tpu_torch/bench.py) reads each step's slab of a larger
 staged array through the OFFSET entries, one per kernel, each with its own
@@ -94,7 +105,7 @@ DENSE_OFFSET_LAUNCHES = 0    # fused_chain_power_at (fused_chain_dense.cu)
 #: launches of each dense body, from either dense entry (a run shows which
 #: body its m took)
 DENSE_FFT_LAUNCHES = 0       # the FFT-form body (fft_chain.cuh)
-DENSE_MATRIX_LAUNCHES = 0    # the matrix kernel of fused_chain_dense.cu
+DENSE_MATRIX_LAUNCHES = 0    # the matrix kernel of fused_chain_dense.cu (any entry)
 
 RADIX = 8
 
@@ -131,13 +142,15 @@ class FftGeometry:
 
     The range DFT of m = P L points (P the largest power of two dividing
     m, L odd) is L P-point FFTs on the decimated rows L i + r2, each in
-    four steps P = P1 P2 (P1 = min(32, P): a P1-point DFT in registers, a
-    twiddle W_P^(k1 n2), a P2-point DFT in registers), then for L > 1 an
-    L-point leaf DFT across the L sub-FFTs, a mixed-radix Stockham FFT
-    (`leaf_fft_reference`; 5 x 5 x 5 at m = 1000).  The pulse
-    columns split into chunks of `cols`, dealt round-robin to the unit's
-    `blocks` blocks (at most 8: one thread-block cluster): in round r,
-    block b runs chunk r blocks + b."""
+    four steps P = P1 Q (P1 = min(32, P): a P1-point DFT in registers, a
+    twiddle W_P^(k1 n2), a Q-point DFT), then for L > 1 an L-point leaf
+    DFT across the L sub-FFTs, a mixed-radix Stockham FFT
+    (`leaf_fft_reference`; 5 x 5 x 5 at m = 1000).  Q = P2 P3: one
+    register DFT of P2 <= 32 points (P3 = 1), or for P = 2048, 4096 two,
+    P2 then P3 = 8 points with the twiddle W_Q^(k2 n3) between them.  The
+    pulse columns split into chunks of `cols`, dealt round-robin to the
+    unit's `blocks` blocks (at most 8: one thread-block cluster): in round
+    r, block b runs chunk r blocks + b."""
 
     P: int
     L: int
@@ -145,17 +158,28 @@ class FftGeometry:
     P2: int
     cols: int
     blocks: int
+    P3: int = 1
 
 
-#: the FFT-form kernels' limits: m <= FFT_MAX_M (a thread owns at most
-#: two of the m/2 <= 512 rows across its rounds, csrc/fft_chain.cuh
-#: kRows), at most FFT_MAX_CLUSTER blocks per unit (the portable cluster
-#: size), FFT_THREADS threads a block
-FFT_MAX_M = 1024
+#: the FFT-form kernels' limits: m <= FFT_MAX_M, at most FFT_MAX_CLUSTER
+#: blocks per unit (the portable cluster size), FFT_THREADS threads a
+#: block.  Up to FFT_SHORT_M a thread holds its two rows' epilogue
+#: partials in registers (csrc/fft_chain.cuh kRows); above it (the
+#: long-ray body) every row's partials live in shared memory
+FFT_MAX_M = 4096
+FFT_SHORT_M = 1024
 FFT_MAX_CLUSTER = 8
 FFT_THREADS = 256
 #: complex values of one round's working set (m cols): 64 KB of fp32
 FFT_ROUND_VALUES = 8192
+#: the long-ray body's register passes over P = 2048 and 4096: P3 points
+#: after P1 = 32 and P2 = P / 256
+FFT_P3 = 8
+#: floats of one row's epilogue partials (shift 2, mean 2, energy 1, the
+#: four phasor projections of re and im 8), and of the cluster exchange's
+#: row in the m <= 1024 body (padded to 16)
+FFT_PARTIALS = 13
+FFT_STAT = 16
 
 
 def leaf_radix(rem: int) -> int:
@@ -174,12 +198,58 @@ def fft_takes(m: int) -> bool:
     return 2 <= m <= FFT_MAX_M and m % 2 == 0
 
 
+def fft_long(m: int) -> bool:
+    """Whether m takes the long-ray form of the FFT-form body (m >
+    FFT_SHORT_M: partials in shared memory, csrc/fft_chain.cuh
+    fft_chain_long_kernel)."""
+    return fft_takes(m) and m > FFT_SHORT_M
+
+
 def dense_body(m: int) -> str:
     """The body the dense entries launch for m, from m alone: "fft" (the
     FFT-form body, csrc/fft_chain.cuh) for every m it takes, else "matrix"
     (csrc/fused_chain_dense.cu's A_half contraction: m > FFT_MAX_M, odd
     m)."""
     return "fft" if fft_takes(m) else "matrix"
+
+
+def _fft_factors(m: int):
+    """(P, L, P1, P2, P3) of m (csrc/fft_chain.cuh Geometry)."""
+    P = m & -m
+    P1 = min(32, P)
+    P3 = FFT_P3 if P > FFT_SHORT_M else 1
+    return P, m // P, P1, P // (P1 * P3), P3
+
+
+def _round4(v: int) -> int:
+    return (v + 3) & ~3
+
+
+def fft_smem_bytes(m: int, cols: int, fused: bool = True,
+                   elem: int = 2) -> int:
+    """Dynamic shared memory of one block of the FFT-form kernel at m and
+    `cols` columns a round, staging planar samples of `elem` bytes (2:
+    int16, 4: f32; 0: the wire, read straight from device memory): the
+    words of csrc/fft_chain.cuh Layout.  fused=False: the A-stage."""
+    P, L, P1, P2, P3 = _fft_factors(m)
+    pad = cols if cols < 32 else 0
+    sp = P2 * P3 * cols + pad
+    np_ = cols + 1
+    inplace = L == 1 and (P3 > 1 or cols * P1 <= FFT_THREADS)
+    leaf = max(m * cols, (m // 2) * np_)
+    if L == 1:
+        size_a = _round4(P1 * sp)
+        size_b = _round4(0 if inplace else (m // 2) * np_)
+    else:
+        size_a = _round4(max(L * P1 * sp if P2 > 1 else 0, leaf))
+        size_b = _round4(leaf)
+    data = 2 * (size_a + size_b) + 2 * m * cols * elem // 4
+    data += 5 * cols if fused else 0
+    if not fused:
+        return 4 * data
+    if m > FFT_SHORT_M:
+        return 4 * (data + FFT_PARTIALS * (m // 2) + 8)
+    return 4 * max(data, FFT_STAT * (m // 2) + 8)
 
 
 def fft_geometry(m: int, width: int) -> FftGeometry:
@@ -189,22 +259,26 @@ def fft_geometry(m: int, width: int) -> FftGeometry:
     L > 1 (4 at m = 1000 and 960), at most 64 and no
     more than width needs, and for L = 1 with pass 2's cols P1 tasks no
     more than the block's threads (its output then overwrites its input in
-    shared memory); blocks: at most FFT_MAX_CLUSTER, each with at least one
-    chunk (8 blocks of 8 rounds at n = 512)."""
+    shared memory); above m = 1024, halved until the fused block fits one
+    block's shared memory with f32 samples staged (4 at m = 2048, 1 at
+    m = 4096, 2 at m = 1536-1840); blocks: at most FFT_MAX_CLUSTER, each
+    with at least one chunk (8 blocks of 8 rounds at n = 512)."""
     if not fft_takes(m):
-        raise ValueError(f"the FFT-form kernels take even m <= {FFT_MAX_M}, "
-                         f"got m={m}")
-    P = m & -m
-    P1 = min(32, P)
+        raise ValueError(f"the FFT-form kernels take an even m with 2 <= m "
+                         f"<= FFT_MAX_M = {FFT_MAX_M}, got m={m}")
+    P, L, P1, P2, P3 = _fft_factors(m)
+    lng = m > FFT_SHORT_M
     # L > 1: the leaf's passes run between two m x cols buffers (the L = 1
     # chain writes pass 2 in place), so half the round keeps two blocks
     # per SM
     values = FFT_ROUND_VALUES if m == P else FFT_ROUND_VALUES // 2
     cols = 1
     while (cols < 64 and 2 * cols * m <= values and cols < width
-           and (m > P or 2 * cols * P1 <= FFT_THREADS)):
+           and (m > P or lng or 2 * cols * P1 <= FFT_THREADS)):
         cols *= 2
-    return FftGeometry(P=P, L=m // P, P1=P1, P2=P // P1, cols=cols,
+    while lng and cols > 1 and fft_smem_bytes(m, cols, True, 4) > MAX_SMEM_BYTES:
+        cols //= 2
+    return FftGeometry(P=P, L=L, P1=P1, P2=P2, P3=P3, cols=cols,
                        blocks=min(FFT_MAX_CLUSTER, _cdiv(width, cols)))
 
 
@@ -278,10 +352,35 @@ class RadixPlan:
     phasors: torch.Tensor    # [4, n] f32 clip-bin phasors
     fft_t: torch.Tensor | None = None   # fft_tables (every m that fft_takes)
     fft_phi: torch.Tensor | None = None  # [rounds, 4] fft_round_phasor_sums at n
+    #: a radix plan above FFT_MAX_M: the host's A_half [m/2, m] complex, from
+    #: which `dense_operator` builds the matrix kernel's operator
+    host_a_half: np.ndarray | None = dataclasses.field(default=None,
+                                                       repr=False)
+    _dense_op: dict = dataclasses.field(default_factory=dict, repr=False,
+                                        compare=False)
 
     @property
     def device(self) -> torch.device:
         return self.a.device
+
+    def dense_operator(self) -> torch.Tensor:
+        """The matrix kernel's operator, A_half as [m(q), m/2(t), 2] f32 on
+        the plan's device: a radix-1 plan's `a_kernel`; for a radix plan
+        above FFT_MAX_M built from `host_a_half` at first use and kept (it
+        holds m^2 / 2 complex values: 268 MB at m = 8192, so only a plan
+        that launches the matrix kernel pays for it)."""
+        if self.radix == 1:
+            return self.a_kernel
+        if self.host_a_half is None:
+            raise ValueError(f"m={self.m}: a radix plan takes the matrix "
+                             f"kernel only above FFT_MAX_M = {FFT_MAX_M}")
+        if "a" not in self._dense_op:
+            a = np.asarray(self.host_a_half)
+            # C order: the stack of transposed views keeps their strides
+            planes = np.ascontiguousarray(np.stack([a.real.T, a.imag.T], -1),
+                                          dtype=np.float32)
+            self._dense_op["a"] = torch.from_numpy(planes).to(self.device)
+        return self._dense_op["a"]
 
     @property
     def fft(self) -> FftGeometry:
@@ -331,6 +430,8 @@ def build_plan(consts: PipelineConstants, device) -> RadixPlan:
         lanes["fft_t"] = torch.from_numpy(fft_tables(consts)).to(device)
         lanes["fft_phi"] = torch.from_numpy(fft_round_phasor_sums(
             consts.clip_phasors, fft_geometry(m, n).cols)).to(device)
+    elif radix > 1:
+        lanes["host_a_half"] = consts.op_a_half
     return RadixPlan(
         radix=radix, m=m, n=n,
         a=a_t,
@@ -386,7 +487,7 @@ def _fft_plan_tables(plan: RadixPlan, name: str):
     tensors: win [m] f32, tw [P], leaf_tw [L, P], roots [L])."""
     if plan.fft_t is None:
         raise ValueError(f"{name}: the FFT-form kernels take an even m <= "
-                         f"{FFT_MAX_M} (m={plan.m})")
+                         f"FFT_MAX_M = {FFT_MAX_M} (m={plan.m})")
     g = plan.fft
     m, P, L = plan.m, g.P, g.L
     t = plan.fft_t
@@ -435,13 +536,16 @@ def fft_stage_reference(x: torch.Tensor, plan: RadixPlan,
 
     The kernels' stages, written out: the window and salt on load; per
     decimated sub-sequence r2 (rows L i + r2), the four-step P-point FFT
-    (a P1-point DFT over n1 of rows i = P2 n1 + n2, the twiddle
-    W_P^(k1 n2), a P2-point DFT over n2, X[k1 + P1 k2]); for L > 1 the
-    leaf's twiddle W_m^(k r2) and L-point DFT (`leaf_fft_reference`),
-    Y[k + P k2]; the crop.  Every factor comes from the plan's float32
-    tables (fft_tables)."""
+    (a P1-point DFT over n1 of rows i = Q n1 + n2, Q = P2 P3, the twiddle
+    W_P^(k1 n2), a P2-point DFT over n2, X[k1 + P1 k2]; for P3 > 1 the
+    Q-point DFT is itself two: a P2-point DFT over the n2 of n2 P3 + n3,
+    the twiddle W_Q^(k2 n3), a P3-point DFT over n3, X[k1 + P1 (k2 + P2
+    k3)]); for L > 1 the leaf's twiddle W_m^(k r2) and L-point DFT
+    (`leaf_fft_reference`), Y[k + P k2]; the crop.  Every factor comes from
+    the plan's float32 tables (fft_tables)."""
     g, win, tw, leaf_tw, roots = _fft_plan_tables(plan, "fft_stage_reference")
-    P, L, P1, P2 = g.P, g.L, g.P1, g.P2
+    P, L, P1, P2, P3 = g.P, g.L, g.P1, g.P2, g.P3
+    Q = P2 * P3
     bc, _, m, w = x.shape
     xf = x.to(torch.float32)
     if salt is not None:
@@ -449,15 +553,25 @@ def fft_stage_reference(x: torch.Tensor, plan: RadixPlan,
     xw = xf * win[:, None]
     v = torch.complex(xw[:, 0], xw[:, 1])                  # [bc, m, w]
     v = v.reshape(bc, P, L, w).permute(0, 2, 1, 3)         # [bc, L, P(i), w]
-    v = v.reshape(bc, L, P1, P2, w)                        # i = P2 n1 + n2
+    v = v.reshape(bc, L, P1, Q, w)                         # i = Q n1 + n2
     a1 = torch.arange(P1)
     a2 = torch.arange(P2)
-    f1 = tw[(a1[:, None] * a1[None, :] * P2) % P]          # [k1, n1]
+    aq = torch.arange(Q)
+    f1 = tw[(a1[:, None] * a1[None, :] * Q) % P]           # [k1, n1]
     a = torch.einsum("kn,blnqw->blkqw", f1, v)
-    a = a * tw[(a1[:, None] * a2[None, :]) % P][None, None, :, :, None]
-    f2 = tw[(a2[:, None] * a2[None, :] * P1) % P]          # [k2, n2]
-    xk = torch.einsum("jq,blkqw->bljkw", f2, a)            # [bc, L, k2, k1, w]
-    xk = xk.reshape(bc, L, P, w)                           # k = P1 k2 + k1
+    a = a * tw[(a1[:, None] * aq[None, :]) % P][None, None, :, :, None]
+    f2 = tw[(a2[:, None] * a2[None, :] * (P // P2)) % P]   # [k2, n2]
+    if P3 == 1:
+        xk = torch.einsum("jq,blkqw->bljkw", f2, a)        # [bc, L, k2, k1, w]
+    else:
+        a3 = torch.arange(P3)
+        a = a.reshape(bc, L, P1, P2, P3, w)                # n2 P3 + n3
+        b = torch.einsum("jq,blkqtw->blkjtw", f2, a)       # [.., k1, k2, n3, w]
+        b = b * tw[(a2[:, None] * a3[None, :] * P1) % P][None, None, None,
+                                                         :, :, None]
+        f3 = tw[(a3[:, None] * a3[None, :] * (P // P3)) % P]    # [k3, n3]
+        xk = torch.einsum("st,blkjtw->blsjkw", f3, b)      # [.., k3, k2, k1, w]
+    xk = xk.reshape(bc, L, P, w)                           # k = k1 + P1 (k2 + P2 k3)
     if L > 1:
         xk = leaf_fft_reference(xk * leaf_tw[None, :, :, None],
                                 roots)                     # [bc, k2, k, w]
@@ -628,44 +742,74 @@ def fused_chain_power_radix(x: torch.Tensor, plan: RadixPlan, offset=None,
                             bc: int | None = None,
                             salt: int | None = None) -> torch.Tensor:
     """x [bc, 2, m, n] int16/f32, rows in natural order -> pow [bc, m/2] f32,
-    through the FFT-form kernel (csrc/fft_chain.cuh) for a radix plan with
-    m <= FFT_MAX_M.
+    for a radix plan: through the FFT-form kernel (csrc/fft_chain.cuh) for
+    m <= FFT_MAX_M, above it through the dense entries' matrix kernel
+    (csrc/fused_chain_dense.cu on `plan.dense_operator()`, as wrp_tpu's
+    radix kernel runs m = 8192; also counted in DENSE_MATRIX_LAUNCHES).
+    The route is m's alone.
 
     With `offset` (the benchmark's entry), x is a larger staged array and
     the kernel reads its `bc` channel-sectors from channel-sector `offset`
     (no copy), with the int32 `salt`, if given, added to every sample.
 
-    A CPU tensor takes the plain version (`fft_chain_power_reference`).  A
-    CUDA tensor launches the kernel on the current stream (no
-    synchronisation) or raises; there is no fallback."""
-    global LAUNCHES, RADIX_OFFSET_LAUNCHES
+    A CPU tensor takes the route's plain version (`fft_chain_power_reference`;
+    `fused_chain_power_reference` above FFT_MAX_M).  A CUDA tensor launches
+    the kernel on the current stream (no synchronisation) or raises; there
+    is no fallback."""
+    global LAUNCHES, RADIX_OFFSET_LAUNCHES, DENSE_MATRIX_LAUNCHES
     name = "fused_chain_power_radix"
     start, count = _slab(x.shape[0], offset, bc, salt, name, "bc")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {x.device}")
-    g = _fft_launch_geometry(plan, name)
+    if plan.radix == 1:
+        raise ValueError(f"m={plan.m} does not split into radix branches: "
+                         "use fused_chain_power_dense")
+    fft = fft_takes(plan.m)
     if x.device.type == "cpu":
-        return fft_chain_power_reference(x[start:start + count], plan, salt)
+        plain = fft_chain_power_reference if fft else fused_chain_power_reference
+        return plain(x[start:start + count], plan, salt)
     _check_planar(x, plan, name)
     out = torch.empty((count, plan.m // 2), dtype=torch.float32, device=x.device)
     if count == 0:
         return out
-    lib = _build.load_library()
-    args = (x.data_ptr(), int(x.dtype == torch.int16), plan.fft_t.data_ptr(),
-            plan.fft_phi.data_ptr(), plan.wd.data_ptr(), plan.phasors.data_ptr(),
-            out.data_ptr(), count, plan.m, plan.n, g.cols, g.blocks, start)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        if salt is None:
-            rc = lib.wrp_fused_chain_radix(*args, stream)
-        else:
-            rc = lib.wrp_fused_chain_radix_salted(*args, int(salt), stream)
-    _raise_on_error(lib, rc, "fused_chain_radix")
+    if not fft:
+        _launch_matrix(x, plan, out, start, count, salt)
+        DENSE_MATRIX_LAUNCHES += 1
+    else:
+        g = _fft_launch_geometry(plan, name)
+        lib = _build.load_library()
+        args = (x.data_ptr(), int(x.dtype == torch.int16), plan.fft_t.data_ptr(),
+                plan.fft_phi.data_ptr(), plan.wd.data_ptr(),
+                plan.phasors.data_ptr(), out.data_ptr(), count, plan.m, plan.n,
+                g.cols, g.blocks, start)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            if salt is None:
+                rc = lib.wrp_fused_chain_radix(*args, stream)
+            else:
+                rc = lib.wrp_fused_chain_radix_salted(*args, int(salt), stream)
+        _raise_on_error(lib, rc, "fused_chain_radix")
     if offset is None:
         LAUNCHES += 1
     else:
         RADIX_OFFSET_LAUNCHES += 1
     return out
+
+
+def _launch_matrix(x: torch.Tensor, plan: RadixPlan, out: torch.Tensor,
+                   start: int, count: int, salt: int | None) -> None:
+    """Launch csrc/fused_chain_dense.cu's matrix kernel on x[start:start +
+    count] (the caller checked it) into `out`, with `salt` (None: 0) added
+    to every sample."""
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.wrp_fused_chain_dense(
+            x.data_ptr(), int(x.dtype == torch.int16),
+            plan.dense_operator().data_ptr(), plan.wd.data_ptr(),
+            plan.phasors.data_ptr(), out.data_ptr(), count, plan.m, plan.n,
+            dense_tile(plan), start, int(salt or 0), stream)
+    _raise_on_error(lib, rc, "fused_chain_dense")
 
 
 def fft_occupancy(plan: RadixPlan, body: str = "radix") -> dict:
@@ -719,24 +863,20 @@ def _dense(x: torch.Tensor, plan: RadixPlan, start: int, count: int,
     out = torch.empty((count, plan.m // 2), dtype=torch.float32, device=x.device)
     if count == 0:
         return out
-    lib = _build.load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        if fft:
-            g = plan.fft
+    if fft:
+        g = plan.fft
+        lib = _build.load_library()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
             # the radix entry's planar body, unsalted
             rc = lib.wrp_fused_chain_radix(
                 x.data_ptr(), int(x.dtype == torch.int16), plan.fft_t.data_ptr(),
                 plan.fft_phi.data_ptr(), plan.wd.data_ptr(),
                 plan.phasors.data_ptr(), out.data_ptr(), count, plan.m, plan.n,
                 g.cols, g.blocks, start, stream)
-        else:
-            rc = lib.wrp_fused_chain_dense(
-                x.data_ptr(), int(x.dtype == torch.int16),
-                plan.a_kernel.data_ptr(), plan.wd.data_ptr(),
-                plan.phasors.data_ptr(), out.data_ptr(), count, plan.m, plan.n,
-                dense_tile(plan), start, stream)
-    _raise_on_error(lib, rc, "fused_chain_radix" if fft else "fused_chain_dense")
+        _raise_on_error(lib, rc, "fused_chain_radix")
+    else:
+        _launch_matrix(x, plan, out, start, count, None)
     globals()[counter] += 1
     if fft:
         DENSE_FFT_LAUNCHES += 1

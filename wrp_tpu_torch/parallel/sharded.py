@@ -213,14 +213,20 @@ def _build_pallas_seq(cfg, consts, mesh, dev, wire_input):
     powers.  The same contraction and epilogue as the fused kernel, so the
     products agree with it to fp32 reassociation."""
     from ..ops import device_codec
-    from ..ops.fullchain import (build_plan, fused_chain_astage,
-                                 parseval_rows_power, radix_for)
+    from ..ops.fullchain import (FFT_MAX_M, build_plan, fft_takes,
+                                 fused_chain_astage, parseval_rows_power,
+                                 radix_for)
 
     m, n = cfg.num_range_cells, cfg.num_pulses
     if radix_for(m) < 2:
         raise ValueError(
             f"pallas-seq needs the radix kernel plan (m={m} supports radix "
             "1 only); use method='mxu' at this geometry")
+    if not fft_takes(m):
+        raise ValueError(
+            f"pallas-seq needs the FFT-form A-stage: m={m} is above "
+            f"FFT_MAX_M = {FFT_MAX_M}; use method='pallas' or 'mxu' at this "
+            "geometry")
     plan = build_plan(consts, dev)
     gain = torch.from_numpy(consts.gain).to(dev)
     n_loc = n // mesh.seq

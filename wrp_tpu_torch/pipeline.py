@@ -359,9 +359,10 @@ class SectorProcessor:
         happens; needs m that splits into radix branches); "xla" is a
         standalone decode pass (ops/device_codec.decode_wire_i16) feeding
         the planar kernel (the name is kept from ``wrp_tpu``).  None picks
-        "fused" when radix_for(m) > 1, else "xla".  Rows stay in natural
-        order, so ``wrp_tpu``'s `layout` and `wire_order` have no
-        counterpart."""
+        "fused" when radix_for(m) > 1 and m <= fullchain.FFT_MAX_M (the
+        FFT-form wire kernel's limit), else "xla", as ``wrp_tpu``'s natural
+        layout does above it.  Rows stay in natural order, so
+        ``wrp_tpu``'s `layout` and `wire_order` have no counterpart."""
         if matched_filter not in ("direct", "fold", "spectral"):
             raise ValueError(
                 f"unknown matched_filter {matched_filter!r}: use "
@@ -410,10 +411,16 @@ class SectorProcessor:
             from .ops import fullchain
 
             if wire_input:
-                fused_ok = fullchain.radix_for(cfg.m) > 1
+                fused_ok = (fullchain.radix_for(cfg.m) > 1
+                            and fullchain.fft_takes(cfg.m))
                 if wire_decode is None:
                     wire_decode = "fused" if fused_ok else "xla"
                 elif wire_decode == "fused" and not fused_ok:
+                    if fullchain.radix_for(cfg.m) > 1:
+                        raise ValueError(
+                            "wire_decode='fused' needs the FFT-form wire "
+                            f"kernel: m={cfg.m} is above FFT_MAX_M = "
+                            f"{fullchain.FFT_MAX_M} (use 'xla')")
                     raise ValueError(
                         "wire_decode='fused' needs the radix kernel (an m "
                         f"that splits into radix branches); got m={cfg.m}")

@@ -65,6 +65,9 @@ def kernel_key(name: str) -> str:
     name = re.sub(r"\((?:unsigned |long |short )*(?:int|long|short|char|bool)\)"
                   r"(-?\d)", r"\1", name)
     name = re.sub(r"\((?:wrp::)?Body\)(\d)", r"\1", name)
+    # the dense matrix kernel's unsalted instantiations under the name of
+    # trees without the salted ones
+    name = re.sub(r"(fused_chain_dense_kernel<[^<>]*), (?:false|0)>$", r"\1>", name)
     if "radix_chain_kernel" in name:
         def body(m):
             b = {"false": "0", "true": "1"}.get(m[3], m[3])
