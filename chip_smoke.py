@@ -114,13 +114,20 @@ Phases (each prints its results; any failure raises and exits non-zero):
    95), #7, #8 (salt 7) and #5 (w = 512, 128) vs their plain versions at
    m = 1536, 1840, 2048, 4096 (<= 1e-5), with each geometry's cut and
    occupancy; CUDA-event times of each at m = 2048 per 48 channel-sectors
-   beside its plain version and bound; #1 and #2 at m = 1832 (radix 1,
-   a 229-point leaf) vs plain and the oracle; `bench --range-cells 2048`
-   at batch 32, int16 (#4) and wire (#8), its gate passing; a world-size-1
-   pallas-seq step (#5, #6) and the mxu method (#9) at m = 2048 vs the
-   pallas processor and the oracle; m = 4160 (radix 8 above 4096) through
-   the radix entry's matrix route, with and without salt, vs its plain
-   version and the oracle;
+   beside its plain version and bound, and of #3, #7 and #5 at m = 4096;
+   #1 and #2 at m = 1832 (radix 1, a 229-point leaf) vs plain and the
+   oracle; `bench --range-cells 2048` at batch 32, int16 (#4) and wire
+   (#8), its gate passing; a world-size-1 pallas-seq step (#5, #6) and
+   the mxu method (#9) at m = 2048 vs the pallas processor and the oracle,
+   and the pallas-seq step at m = 4160 (the matrix A-stage) from host
+   planar int16 and from wire bytes; m = 4160 (radix 8 above 4096)
+   through the radix entry's matrix route, with and without salt, vs its
+   plain version and the oracle, and through the routes above 4096 of #5
+   (csrc/fused_chain_astage_matrix.cu, int16 and f32, then #6 on its Y)
+   and #7/#8 (the matrix kernel's wire source, offset and salt 7) vs their
+   plain versions and the oracle, every launch counted, each timed in
+   turns with its plain version beside its bound and the matrix form's
+   FMAs;
 10. the A-stage kernel (the pulse-sharded path's first half) on the noise
    and clip-bin sectors, int16 and f32, on every rank's pulse slab of 1, 2
    and 4 ranks (w = 512, 256, 128): Y vs its plain version (rel-L2 <=
@@ -344,6 +351,7 @@ def algorithm_note(m: int, w: int, bc: int) -> str:
 def reset_counts() -> None:
     fullchain.LAUNCHES = fullchain.WIRE_LAUNCHES = fullchain.DENSE_LAUNCHES = 0
     fullchain.ASTAGE_LAUNCHES = fullchain.PARSEVAL_ROWS_LAUNCHES = 0
+    fullchain.ASTAGE_MATRIX_LAUNCHES = 0
     fullchain.RADIX_OFFSET_LAUNCHES = fullchain.WIRE_OFFSET_LAUNCHES = 0
     fullchain.DENSE_OFFSET_LAUNCHES = postprocess.STAGE2_LAUNCHES = 0
     postprocess.STAGE2_OPERATOR_LAUNCHES = 0
@@ -356,6 +364,7 @@ def read_counts() -> dict:
     return {"radix": fullchain.LAUNCHES, "wire": fullchain.WIRE_LAUNCHES,
             "dense": fullchain.DENSE_LAUNCHES,
             "astage": fullchain.ASTAGE_LAUNCHES,
+            "astage_matrix": fullchain.ASTAGE_MATRIX_LAUNCHES,
             "rows": fullchain.PARSEVAL_ROWS_LAUNCHES,
             "rows_two_pass": fullchain.PARSEVAL_ROWS_TWO_PASS_LAUNCHES,
             "radix_offset": fullchain.RADIX_OFFSET_LAUNCHES,
@@ -2113,22 +2122,22 @@ def long_ray_kernels(gen) -> dict:
     return res
 
 
-def long_ray_times(gen) -> dict:
-    """CUDA-event ms per 48 channel-sectors (16 sectors x 3 x LONG_M x 512)
-    of #3, #4 (offset 48 of 96, salted), #7, #8 and #5 (w = 512), each in
-    turns with its plain version, beside the bound (the bytes: 201 MB of
-    int16 at m = 2048)."""
-    cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=LONG_M)
+def long_ray_times(gen, m: int = LONG_M, keys=None) -> dict:
+    """CUDA-event ms per 48 channel-sectors (16 sectors x 3 x m x 512) of
+    #3, #4 (offset 48 of 96, salted), #7, #8 and #5 (w = 512), or of those
+    named in `keys`, each in turns with its plain version, beside the bound
+    (the bytes: 201 MB of int16 at m = 2048)."""
+    cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=m)
     n, ch = cfg.n, cfg.num_channels
     plan = fullchain.build_plan(PipelineConstants.build(cfg), "cuda")
     bc = BATCH * ch
-    x = torch.randint(-8192, 8192, (2 * bc, 2, LONG_M, n), generator=gen,
+    x = torch.randint(-8192, 8192, (2 * bc, 2, m, n), generator=gen,
                       device="cuda", dtype=torch.int32).to(torch.int16)
     x16 = x[:bc]
-    w32 = torch.randint(-2 ** 31, 2 ** 31 - 1, (2 * BATCH, LONG_M, ch * n),
+    w32 = torch.randint(-2 ** 31, 2 ** 31 - 1, (2 * BATCH, m, ch * n),
                         generator=gen, device="cuda", dtype=torch.int32)
     w16 = w32[:BATCH].contiguous()
-    out_b = bc * LONG_M // 2 * 4
+    out_b = bc * m // 2 * 4
     runs = {
         "radix": (lambda: fullchain.fused_chain_power_radix(x16, plan),
                   lambda: fullchain.fft_chain_power_reference(x16, plan),
@@ -2152,15 +2161,17 @@ def long_ray_times(gen) -> dict:
     }
     out = {}
     for key, (kernel, plain, in_bytes) in runs.items():
+        if keys is not None and key not in keys:
+            continue
         t = timed({"plain": plain, "kernel": kernel},
                   ("plain", "kernel", "kernel", "plain"))
         queued = queued_ms(kernel)
         fused = key != "astage"
         bound_ms, bound_by = bound(
-            bc * (chain_flops(LONG_M, n) if fused else astage_flops(LONG_M, n)),
+            bc * (chain_flops(m, n) if fused else astage_flops(m, n)),
             in_bytes + plan.fft_t.numel() * 4
             + (out_b if fused else x16.numel() // 2 * 4))
-        print(f"long rays {key} at m={LONG_M}, {bc} channel-sectors x {n} "
+        print(f"long rays {key} at m={m}, {bc} channel-sectors x {n} "
               f"pulses: {t['kernel']:.3f} ms ({queued:.3f} queued), plain "
               f"{t['plain']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})",
               flush=True)
@@ -2262,11 +2273,55 @@ def long_ray_bench() -> dict:
     return out
 
 
+def long_ray_seq_matrix() -> dict:
+    """A world-size-1 pallas-seq step at m = LONG_MATRIX_M (the matrix
+    A-stage, then #6 on all 2080 rows) from host memory, planar int16 and
+    wire bytes (decoded on the card), on two produced sectors: vs the
+    pallas processor (<= 1e-5) and the oracle (<= PRODUCT_TOL); each step
+    one A-stage launch, on the matrix route, and one row-epilogue launch.
+    Returns the A-stage's and the rows' launches."""
+    m = LONG_MATRIX_M
+    cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=m)
+    iqs = [oracle.produce_sector_iq(cfg, SEED, j) for j in range(2)]
+    planar = np.stack([planar_i16(iq) for iq in iqs])
+    wires = np.stack([np.frombuffer(codec.encode_iq(iq, cfg), np.uint8)
+                      for iq in iqs]).reshape(len(iqs), m, -1)
+    zdb_p, zdr_p = (t.cpu().numpy() for t in SectorProcessor(
+        cfg, method="pallas", device="cuda")(planar))
+    launches = {"astage": 0, "rows": 0}
+    for tag, x, wire_input in (("host planar", planar, False),
+                               ("wire", wires, True)):
+        step = build_sharded_processor(cfg, make_mesh(device="cuda"),
+                                       method="pallas-seq",
+                                       wire_input=wire_input, device="cuda")
+        reset_counts()
+        zdb, zdr = (t.cpu().numpy() for t in step(x))
+        c = read_counts()
+        e = max(rel(zdb_p, zdb), rel(zdr_p, zdr))
+        others = {k: v for k, v in c.items()
+                  if k not in ("astage", "astage_matrix", "rows")}
+        check(e <= 1e-5 and c["astage"] == c["astage_matrix"] == 1
+              and c["rows"] == 1 and not any(others.values()),
+              f"pallas-seq world 1 at m={m} ({tag}): vs the pallas processor "
+              f"{e:.3e} <= 1e-5; A-stage {c['astage']} (matrix route "
+              f"{c['astage_matrix']}), row epilogue {c['rows']}, no other")
+        for k, iq in enumerate(iqs):
+            zdb64, zdr64 = oracle.process_sector(iq, cfg)
+            ezdb, ezdr = rel(zdb64, zdb[k]), rel(zdr64, zdr[k])
+            check(ezdb <= PRODUCT_TOL and ezdr <= PRODUCT_TOL,
+                  f"pallas-seq m={m} ({tag}) sector {k} vs fp64 oracle: zdb "
+                  f"{ezdb:.3e}, zdr {ezdr:.3e}")
+        launches["astage"] += c["astage"]
+        launches["rows"] += c["rows"]
+    return launches
+
+
 def long_ray_seq_and_mxu(cfg, iqs) -> dict:
     """At m = LONG_M on the oracle's sectors: a world-size-1 pallas-seq step
     (#5 then #6 on all m/2 rows) vs the pallas processor (<= 1e-5) and the
     oracle; #9 on the mxu method's range-stage Y [.., 1024, 512] vs that
-    method's own power (<= POWER_TOL), its products vs the oracle."""
+    method's own power (<= POWER_TOL), its products vs the oracle.  Then
+    the pallas-seq step above FFT_MAX_M (`long_ray_seq_matrix`)."""
     planar = torch.from_numpy(np.stack([planar_i16(iq) for iq in iqs])).cuda()
     zdb_p, zdr_p = (t.cpu().numpy() for t in SectorProcessor(
         cfg, method="pallas", device="cuda")(planar))
@@ -2306,50 +2361,183 @@ def long_ray_seq_and_mxu(cfg, iqs) -> dict:
             check(ezdb <= PRODUCT_TOL and ezdr <= PRODUCT_TOL,
                   f"{what} m={cfg.m} sector {k} vs fp64 oracle: zdb "
                   f"{ezdb:.3e}, zdr {ezdr:.3e}")
-    return {"astage": seq["astage"], "rows": seq["rows"],
-            "stage2": mxu["stage2"]}
+    above = long_ray_seq_matrix()
+    return {"astage": seq["astage"] + above["astage"],
+            "rows": seq["rows"] + above["rows"], "stage2": mxu["stage2"]}
+
+
+def matrix_fma(m: int, w: int, bc: int) -> float:
+    """Real FMAs of the matrix-form A-stage (csrc/radix_chain.cuh) on bc
+    units of w pulses, 4 m M w a unit (M = m / R): the work of the
+    algorithm the route runs, printed beside the bound, never as it."""
+    return bc * 4.0 * m * (m // fullchain.radix_for(m)) * w
 
 
 def long_ray_matrix(orc: Oracle) -> dict:
-    """m = LONG_MATRIX_M (radix 8, above FFT_MAX_M): the radix entry plain
-    and with offset and salt 7 on the matrix kernel (the dense A_half,
-    built at first use) vs fused_chain_power_reference (<= POWER_TOL) and
-    the oracle; every launch counted on the matrix kernel."""
+    """m = LONG_MATRIX_M (radix 8, above FFT_MAX_M) on two noise sectors (6
+    channel-sectors): the radix entry plain and with offset and salt 7 on
+    the matrix kernel (the dense A_half, built at first use) vs
+    fused_chain_power_reference (<= POWER_TOL) and the oracle; the A-stage's
+    matrix route (#5, csrc/fused_chain_astage_matrix.cu; int16 and f32) vs
+    its plain version (Y <= LONG_TOL), then #6 on its Y vs the matrix
+    form's power (<= POWER_TOL) and the oracle; the wire entry's matrix
+    route (#7, and #8 at offset 2 salt 7 on a 4-sector staging) vs its
+    plain version (<= POWER_TOL) and the oracle.  Each check's launch
+    counts equal its calls.  Then each new route timed in turns with its
+    plain version (kernel, plain, plain, kernel) beside its bound and the
+    matrix form's FMAs, and the radix entry beside the A-stage + #6
+    composition.  Returns {"counts": the radix checks' launches, "astage",
+    "wire", "wire_offset": each route's launches, errors and times}."""
     m = LONG_MATRIX_M
     cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=m)
     consts = PipelineConstants.build(cfg)
     plan = fullchain.build_plan(consts, "cuda")
-    check(plan.radix == 8 and not fullchain.fft_takes(m) and plan.fft_t is None,
+    tile = fullchain.astage_tile(plan)
+    check(plan.radix == 8 and not fullchain.fft_takes(m) and plan.fft_t is None
+          and tile == 8,
           f"m={m}: radix {plan.radix}, above FFT_MAX_M = {fullchain.FFT_MAX_M}"
-          f" (matrix tile {fullchain.dense_tile(plan)})")
+          f" (matrix tile {fullchain.dense_tile(plan)}, A-stage tile {tile})")
     sectors = [oracle.synthetic_iq(cfg, kind="noise", seed=SEED + b)
                for b in range(2)]
+    gain = torch.from_numpy(consts.gain).cuda()
     reset_counts()
     planar_kernel_checks(f"radix m={m} (matrix route)",
                          fullchain.fused_chain_power_radix,
                          fullchain.fused_chain_power_reference, plan, cfg,
                          {"noise": (np.stack([planar_i16(s) for s in sectors]),
                                     sectors)},
-                         orc, torch.from_numpy(consts.gain).cuda())
+                         orc, gain)
     x = torch.from_numpy(np.stack([planar_i16(s) for s in sectors])).cuda()
     x = x.reshape(-1, 2, m, cfg.n)
-    bc = cfg.num_channels
-    got = fullchain.fused_chain_power_radix(x, plan, offset=bc, bc=bc, salt=7)
+    ch, n = cfg.num_channels, cfg.n
+    bc = x.shape[0]
+    got = fullchain.fused_chain_power_radix(x, plan, offset=ch, bc=ch, salt=7)
     torch.cuda.synchronize()
-    e, _ = rel_dev(fullchain.fused_chain_power_reference(x[bc:], plan, 7), got)
+    e, _ = rel_dev(fullchain.fused_chain_power_reference(x[ch:], plan, 7), got)
     counts = read_counts()
     check(e <= POWER_TOL and counts["dense_matrix"] == counts["radix"]
           + counts["radix_offset"] == 3 and counts["dense_fft"] == 0,
-          f"radix m={m} offset {bc} salt 7 on the matrix kernel vs plain "
+          f"radix m={m} offset {ch} salt 7 on the matrix kernel vs plain "
           f"{e:.3e} <= {POWER_TOL}; matrix launches {counts['dense_matrix']}"
           f" == radix {counts['radix']} + offset {counts['radix_offset']}")
+
+    res = {k: {"rel_l2": 0.0, "max_abs_err": 0.0}
+           for k in ("astage", "wire", "wire_offset")}
+
+    def hold(key, what, ref, out, tol):
+        torch.cuda.synchronize()
+        e, a = rel_dev(ref, out)
+        check(e <= tol, f"{what}: kernel vs plain rel-L2 {e:.3e} <= {tol}")
+        res[key]["rel_l2"] = max(res[key]["rel_l2"], e)
+        res[key]["max_abs_err"] = max(res[key]["max_abs_err"], a)
+
+    def vs_oracle(what, pw):
+        p = pw.reshape(len(sectors), ch, m // 2).cpu().numpy()
+        for k, iq in enumerate(sectors):
+            check_vs_oracle(f"{what} sector {k}", p[k],
+                            orc.power((m, n, "noise", k), iq, cfg), cfg, gain)
+
+    reset_counts()
+    for xx in (x, x.float()):
+        y = fullchain.fused_chain_astage(xx, plan)
+        hold("astage", f"#5 m={m} {xx.dtype} (matrix route)",
+             fullchain.fused_chain_astage_reference(xx, plan), y, LONG_TOL)
+        pw = fullchain.parseval_rows_power(y, plan)
+        torch.cuda.synchronize()
+        e = rel_dev(fullchain.fused_chain_power_reference(xx, plan), pw)[0]
+        check(e <= POWER_TOL, f"#6 on the matrix A-stage's Y at m={m} "
+                              f"{xx.dtype}: vs the matrix form's power "
+                              f"{e:.3e} <= {POWER_TOL}")
+        vs_oracle(f"#5 + #6 m={m} {xx.dtype}", pw)
+    w32 = wire_words_on_card(x, cfg)
+    got = fullchain.fused_chain_power_wire(w32, plan, ch)
+    hold("wire", f"#7 m={m} (matrix route)",
+         fullchain.fused_chain_power_wire_reference(w32, plan, ch), got,
+         POWER_TOL)
+    vs_oracle(f"#7 m={m}", got)
+    w_all = torch.cat([w32.flip(0), w32]).contiguous()   # sectors 1, 0, 0, 1
+    ns = w32.shape[0]
+
+    def salted():
+        return fullchain.fused_chain_power_wire(w_all, plan, ch, offset=ns,
+                                                bs=ns, salt=7)
+
+    def salted_plain():
+        return fullchain.fused_chain_power_wire_reference(w_all[ns:], plan,
+                                                          ch, 7)
+
+    hold("wire_offset", f"#8 m={m} offset {ns} salt 7 (matrix route)",
+         salted_plain(), salted(), POWER_TOL)
+    mc = read_counts()
+    others = {k: v for k, v in mc.items() if k not in (
+        "astage", "astage_matrix", "rows", "wire", "wire_offset",
+        "dense_matrix")}
+    check(mc["astage"] == mc["astage_matrix"] == 2 and mc["rows"] == 2
+          and mc["wire"] == 1 and mc["wire_offset"] == 1
+          and mc["dense_matrix"] == 2 and not any(others.values()),
+          f"m={m} matrix routes: A-stage {mc['astage']} (matrix "
+          f"{mc['astage_matrix']}) == 2, rows {mc['rows']} == 2 (register "
+          f"form), wire {mc['wire']} + offset {mc['wire_offset']} == matrix "
+          f"kernel {mc['dense_matrix']} == 2, no other: {json.dumps(others)}")
+    res["astage"]["launches"] = mc["astage_matrix"]
+    res["wire"]["launches"] = mc["wire"]
+    res["wire_offset"]["launches"] = mc["wire_offset"]
+
+    win = torch.from_numpy(np.ascontiguousarray(
+        consts.op_a_half[0].real, np.float32)).cuda()
+    xw = (torch.complex(x[:, 0].float(), x[:, 1].float())
+          * win[:, None]).contiguous()       # pre-windowed, as cuFFT's input
+    out_b = bc * m // 2 * 4
+    routes = {
+        "astage": ("wrp_tpu_torch/csrc/fused_chain_astage_matrix.cu",
+                   lambda: fullchain.fused_chain_astage(x, plan),
+                   lambda: fullchain.fused_chain_astage_reference(x, plan),
+                   bc * astage_flops(m, n),
+                   x.numel() * 2 + m * 4 + bc * 2 * (m // 2) * n * 4),
+        "wire": ("wrp_tpu_torch/csrc/fused_chain_dense.cu",
+                 lambda: fullchain.fused_chain_power_wire(w32, plan, ch),
+                 lambda: fullchain.fused_chain_power_wire_reference(
+                     w32, plan, ch),
+                 bc * chain_flops(m, n), w32.numel() * 4 + m * 4 + out_b),
+        "wire_offset": ("wrp_tpu_torch/csrc/fused_chain_dense.cu", salted,
+                        salted_plain, bc * chain_flops(m, n),
+                        w32.numel() * 4 + m * 4 + out_b),
+    }
+    for key, (source, kernel, plain, flops, nbytes) in routes.items():
+        fns = {"kernel": kernel, "plain": plain}
+        if key == "astage":
+            fns["library"] = lambda: torch.fft.fft(xw, dim=1)[:, :m // 2]
+        t = timed(fns, ("kernel", "plain") + (("library",) * 2
+                                              if key == "astage" else ())
+                  + ("plain", "kernel"))
+        bound_ms, bound_by = bound(flops, nbytes)
+        fma = matrix_fma(m, n, bc) if key == "astage" else (
+            bc * 4.0 * (m // 2) * m * n)
+        print(f"{key} at m={m} on its matrix route ({source}), {bc} "
+              f"channel-sectors x {n} pulses: {t['kernel']:.3f} ms, plain "
+              f"{t['plain']:.3f} ms"
+              + (f", library (cuFFT over range of the windowed complex64 "
+                 f"input, then the crop) {t['library']:.3f} ms"
+                 if "library" in t else "")
+              + f", bound {bound_ms:.3f} ms ({bound_by}); the matrix form "
+              f"does {fma / 1e9:.2f} G real FMAs, "
+              f"{2e3 * fma / PEAK_FP32:.3f} ms at the fp32 peak", flush=True)
+        res[key].update(source=source, ms=t["kernel"], plain_ms=t["plain"],
+                        library_ms=t.get("library"), bound_ms=bound_ms,
+                        bound_by=bound_by, matrix_fma=fma)
     t = timed({"plain": lambda: fullchain.fused_chain_power_reference(x, plan),
-               "kernel": lambda: fullchain.fused_chain_power_radix(x, plan)},
-              ("plain", "kernel", "kernel", "plain"))
-    print(f"radix m={m} on the matrix kernel, {x.shape[0]} channel-sectors: "
-          f"{t['kernel']:.3f} ms, plain {t['plain']:.3f} ms; "
-          f"{algorithm_note(m, cfg.n, x.shape[0])}", flush=True)
-    return counts
+               "kernel": lambda: fullchain.fused_chain_power_radix(x, plan),
+               "astage_rows": lambda: fullchain.parseval_rows_power(
+                   fullchain.fused_chain_astage(x, plan), plan)},
+              ("plain", "kernel", "astage_rows", "astage_rows", "kernel",
+               "plain"))
+    print(f"radix m={m} on the matrix kernel, {bc} channel-sectors: "
+          f"{t['kernel']:.3f} ms, plain {t['plain']:.3f} ms; the matrix "
+          f"A-stage then #6 on the same sectors {t['astage_rows']:.3f} ms; "
+          f"{algorithm_note(m, n, bc)}", flush=True)
+    res["radix_ms"], res["astage_rows_ms"] = t["kernel"], t["astage_rows"]
+    res["counts"] = counts
+    return res
 
 
 def phase_long_rays(orc: Oracle) -> dict:
@@ -2357,9 +2545,12 @@ def phase_long_rays(orc: Oracle) -> dict:
     and device decode, each FFT-form kernel vs its plain version at
     LONG_CHECK_MS and its time at LONG_M, the dense entries at
     LONG_DENSE_M, the bench at LONG_M (i16, wire), a world-size-1
-    pallas-seq step and the mxu method at LONG_M, and the matrix route
-    above FFT_MAX_M.  Returns each kernel's launches on the slice's paths
-    (`long_ray_launches`) and its results."""
+    pallas-seq step and the mxu method at LONG_M, the times of #3, #7 and
+    #5 at m = 4096 (the FFT-form body's longest ray), and the matrix routes
+    above FFT_MAX_M (#3/#4, #5 with #6 and a pallas-seq step, #7/#8).
+    Returns each kernel's launches on the slice's paths
+    (`long_ray_launches`), its results, its times at 4096 and its matrix
+    route's results."""
     t0 = time.perf_counter()
     print_ptxas(r"fft_chain_long_kernel")
     cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=LONG_M)
@@ -2374,16 +2565,26 @@ def phase_long_rays(orc: Oracle) -> dict:
     times = long_ray_times(gen)
     for key, t in times.items():
         res[key].update(t)
+    t_4096 = time.perf_counter()
+    at_4096 = long_ray_times(gen, 4096, ("radix", "wire", "astage"))
+    t_4096 = time.perf_counter() - t_4096
     dense = long_ray_dense(orc)
     launches["dense"], launches["dense_offset"] = (dense["dense"],
                                                    dense["dense_offset"])
     launches.update(long_ray_bench())
+    t_seq = time.perf_counter()
     launches.update(long_ray_seq_and_mxu(cfg, iqs))
+    t_seq = time.perf_counter() - t_seq
+    t_matrix = time.perf_counter()
     matrix = long_ray_matrix(orc)
-    print(f"long rays: launches {json.dumps(launches)}; matrix route "
-          f"{matrix['dense_matrix']}; phase {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    return {"launches": launches, "res": res, "dense": dense}
+    t_matrix = time.perf_counter() - t_matrix
+    print(f"long rays: launches {json.dumps(launches)}; radix matrix route "
+          f"{matrix['counts']['dense_matrix']}; phase "
+          f"{time.perf_counter() - t0:.1f} s (times at m=4096 {t_4096:.1f} s, "
+          f"pallas-seq and mxu {t_seq:.1f} s, m={LONG_MATRIX_M} matrix "
+          f"routes {t_matrix:.1f} s)", flush=True)
+    return {"launches": launches, "res": res, "dense": dense,
+            "at_4096": at_4096, "matrix": matrix}
 
 
 def offset_entry_checks(name, units, count, call, on_slab, plain, zdb_of,
@@ -3648,6 +3849,9 @@ def main() -> int:
                      hw_demo_launches=demo["radix"],
                      long_ray_launches=lr["radix"],
                      long_ray=long["res"]["radix"],
+                     long_ray_4096=long["at_4096"]["radix"],
+                     matrix_route_ms=long["matrix"]["radix_ms"],
+                     matrix_astage_rows_ms=long["matrix"]["astage_rows_ms"],
                      **occ["radix"]),
         kernel_entry("fused_chain_power_wire",
                      "wrp_tpu_torch/csrc/fused_chain_wire.cu",
@@ -3660,6 +3864,8 @@ def main() -> int:
                      soak_device_decode_launches=last["soak"]["device-decode"]["wire"],
                      hw_demo_launches=demo["wire"],
                      long_ray_launches=lr["wire"], long_ray=long["res"]["wire"],
+                     long_ray_4096=long["at_4096"]["wire"],
+                     matrix_route=long["matrix"]["wire"],
                      **occ["wire"]),
         kernel_entry("fused_chain_power_dense",
                      "wrp_tpu_torch/csrc/fused_chain_dense.cu",
@@ -3677,6 +3883,8 @@ def main() -> int:
                      hw_parity_launches=tools["hw_parity"]["astage"],
                      long_ray_launches=lr["astage"],
                      long_ray=long["res"]["astage"],
+                     long_ray_4096=long["at_4096"]["astage"],
+                     matrix_route=long["matrix"]["astage"],
                      blocks_per_sm=occ["astage"]["blocks_per_sm"]),
         kernel_entry("parseval_rows_power",
                      "wrp_tpu_torch/csrc/parseval_rows.cu",
@@ -3716,7 +3924,8 @@ def main() -> int:
                      wire_ab_launches=tools["ab"]["launches"]["wire_ab"]["wire_offset"],
                      ab_sweep_launches=last["ab_sweep"]["launches"]["wire_offset"],
                      long_ray_launches=lr["wire_offset"],
-                     long_ray=long["res"]["wire_offset"]),
+                     long_ray=long["res"]["wire_offset"],
+                     matrix_route=long["matrix"]["wire_offset"]),
         kernel_entry("fused_stage2", "wrp_tpu_torch/csrc/fused_stage2.cu",
                      "wrp_tpu/ops/pallas/postprocess.py:86",
                      stage2["launches"], stage2, form="3xTF32 wgmma",

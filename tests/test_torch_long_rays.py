@@ -4,7 +4,7 @@ and 4160 (above the FFT-form kernels' 4096: the matrix body) against
 wrp_tpu's `pallas` processor (Pallas in interpret mode) and the fp64
 oracle; the wire input at m = 2048; the A-stage and a world-size-1
 `pallas-seq` step at m = 2048; the FFT-form cut of each geometry, worked
-out by hand; the refusals above 4096.  The CUDA kernels themselves
+out by hand; the matrix routes above 4096.  The CUDA kernels themselves
 (csrc/fft_chain.cuh's long-ray body) are checked on the card by
 chip_smoke.py."""
 
@@ -184,8 +184,11 @@ def test_above_4096_routes_and_refusals():
     radix entry takes the matrix form's plain version (salted too, on a
     slab); the
     default wire decode picks "xla" and equals the planar products;
-    "fused", the wire entry, the A-stage and pallas-seq refuse, naming
-    FFT_MAX_M."""
+    "fused", the wire entry, the A-stage and pallas-seq, which refused
+    here before the matrix routes, now take them: "fused" and pallas-seq
+    equal the planar products, the wire entry and the A-stage their
+    matrix-form plain versions (tests/test_torch_matrix_routes.py holds
+    them against wrp_tpu)."""
     m = 4160
     cfg = tiny_config(m=m, n=N)
     plan = tfull.build_plan(_consts(m), "cpu")
@@ -213,14 +216,16 @@ def test_above_4096_routes_and_refusals():
     pzdb, pzdr = SectorProcessor(cfg, method="pallas", device="cpu")(
         _planar(iq)[None])
     assert torch.equal(zdb, pzdb) and torch.equal(zdr, pzdr)
-    with pytest.raises(ValueError, match="FFT_MAX_M = 4096"):
-        SectorProcessor(cfg, method="pallas", device="cpu", wire_input=True,
-                        wire_decode="fused")
-    w32 = torch.zeros(1, m, 3 * N, dtype=torch.int32)
-    with pytest.raises(ValueError, match="FFT_MAX_M = 4096"):
-        tfull.fused_chain_power_wire(w32, plan, 3)
-    with pytest.raises(ValueError, match="FFT_MAX_M = 4096"):
-        tfull.fused_chain_astage(x, plan)
-    with pytest.raises(ValueError, match="FFT_MAX_M = 4096"):
-        build_sharded_processor(cfg, make_mesh(device="cpu"),
-                                method="pallas-seq", device="cpu")
+    fused = SectorProcessor(cfg, method="pallas", device="cpu",
+                            wire_input=True, wire_decode="fused")
+    fzdb, fzdr = fused(wire.view("<i4"))
+    assert torch.equal(fzdb, pzdb) and torch.equal(fzdr, pzdr)
+    w32 = torch.from_numpy(wire.view("<i4").reshape(1, m, 3 * N))
+    assert torch.equal(tfull.fused_chain_power_wire(w32, plan, 3)[0],
+                       tfull.fused_chain_power_reference(x[:3], plan))
+    y = tfull.fused_chain_astage(x, plan)
+    assert torch.equal(y, torch.stack(tfull._contract_reference(x, plan), 1))
+    step = build_sharded_processor(cfg, make_mesh(device="cpu"),
+                                   method="pallas-seq", device="cpu")
+    szdb, szdr = step(_planar(iq)[None])
+    assert torch.equal(szdb, pzdb) and torch.equal(szdr, pzdr)

@@ -90,6 +90,12 @@ class RadarConfig:
         return self.num_sectors * self.num_elevations
 
     def validate(self) -> "RadarConfig":
+        if self.num_channels < 2:
+            # wrp_tpu accepts one channel and returns zdr = 0 dB; a ratio
+            # of a channel with itself is no product, so the port refuses
+            raise ValueError(
+                f"num_channels={self.num_channels}: zdr needs two channels, "
+                "hh (channel 0) and vv (channel 1)")
         if self.num_range_cells % 2:
             raise ValueError("num_range_cells must be even (half-spectrum keep)")
         if self.num_pulses % 2:

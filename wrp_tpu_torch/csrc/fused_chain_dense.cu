@@ -20,6 +20,10 @@
 //     where wrp_tpu's radix kernel still runs: the TPU kernel
 //     wrp_tpu/ops/pallas/fullchain.py::fused_chain_power_radix (with
 //     offset and salt, _kernel_radix_offset) at those m.
+//     Its wire source (wrp_fused_chain_dense_wire) is the wire entries'
+//     kernel above 4096: the TPU kernel fused_chain_power_wire (with
+//     offset and salt, _kernel_radix_wire_offset), which wrp_tpu runs at
+//     any radix m.
 //
 // The matrix kernel.  Per channel-sector it maps planar IQ x [2, m, n]
 // (int16 or f32) to the matched-filter power pow [m/2]:
@@ -180,6 +184,109 @@ cudaError_t launch_salt(int tile, const In* x, const float* a, const float* wd,
                                stream);
 }
 
+// The wire source: the same body on raw wire words w [bs, m, ch n] int32,
+// decoded in registers (chain_common.cuh decode_word, the arithmetic of
+// fft_chain.cuh WireIq::load).  Unit u = blockIdx.y is channel u % ch of
+// sector u / ch; its pulse j is word ch j + c of each row, so the channel
+// deinterleave never happens.  out [bs, ch, m/2] float.  A kernel of its
+// own, not a source parameter of the planar kernel: the planar
+// instantiations keep their text, and with it their registers.
+template <int T, bool kSalted>
+__global__ void __launch_bounds__(kThreads)
+fused_chain_dense_wire_kernel(const int32_t* __restrict__ w, const float* __restrict__ a,
+                              const float* __restrict__ wd, const float* __restrict__ ph,
+                              float* __restrict__ out, int m, int n, int ch, float salt) {
+  const int mh = m / 2;
+  const int t0 = blockIdx.x * T;
+  const int u = blockIdx.y;
+  const int sec = u / ch;
+
+  extern __shared__ __align__(16) float smem[];
+  float* a_s = smem;                  // [kQ][T][2]
+  float* ys_r = a_s + 2 * T * kQ;     // [T][n]
+  float* ys_i = ys_r + T * n;         // [T][n]
+
+  const size_t pitch = static_cast<size_t>(ch) * n;  // words a row
+  const int32_t* xw = w + static_cast<size_t>(sec) * m * pitch + (u - sec * ch);
+
+  for (int j0 = 0; j0 < n; j0 += kThreads) {
+    const int j = j0 + static_cast<int>(threadIdx.x);
+    const bool active = j < n;
+
+    float gr[T], gi[T];
+#pragma unroll
+    for (int t = 0; t < T; ++t) {
+      gr[t] = 0.f;
+      gi[t] = 0.f;
+    }
+    for (int q0 = 0; q0 < m; q0 += kQ) {
+      const int kq = min(kQ, m - q0);
+      __syncthreads();  // all reads of the previous operator tile are done
+      wrp::stage_operator<T>(a_s, a, mh, q0, kq, t0);
+      __syncthreads();
+      if (active) {
+        const int32_t* p = xw + static_cast<size_t>(q0) * pitch + static_cast<size_t>(j) * ch;
+#pragma unroll 8
+        for (int q = 0; q < kq; ++q) {
+          float vr, vi;
+          wrp::decode_word(__ldg(p + q * pitch), vr, vi);
+          if constexpr (kSalted) {
+            vr += salt;
+            vi += salt;
+          }
+          wrp::mac_rows<T>(gr, gi, a_s + q * 2 * T, vr, vi);
+        }
+      }
+    }
+    if (active) {
+#pragma unroll
+      for (int t = 0; t < T; ++t) {
+        ys_r[t * n + j] = gr[t];
+        ys_i[t * n + j] = gi[t];
+      }
+    }
+  }
+  __syncthreads();
+
+  // Parseval epilogue: one warp per row of Y.
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int t = warp; t < T; t += kThreads / 32) {
+    const float pw = wrp::parseval_row_power(ys_r + static_cast<size_t>(t) * n,
+                                             ys_i + static_cast<size_t>(t) * n, 1, wd, ph, 1,
+                                             n, n, lane);
+    if (lane == 0) out[static_cast<size_t>(u) * mh + t0 + t] = pw;
+  }
+}
+
+template <int T, bool kSalted>
+cudaError_t launch_wire(const int32_t* w, const float* a, const float* wd, const float* ph,
+                        float* out, int bs, int m, int n, int ch, float salt,
+                        cudaStream_t stream) {
+  const size_t smem =
+      (static_cast<size_t>(2) * T * kQ + static_cast<size_t>(2) * T * n) * sizeof(float);
+  auto kernel = fused_chain_dense_wire_kernel<T, kSalted>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>(m / 2 / T), static_cast<unsigned>(bs * ch));
+  kernel<<<grid, kThreads, smem, stream>>>(w, a, wd, ph, out, m, n, ch, salt);
+  return cudaGetLastError();
+}
+
+template <bool kSalted>
+cudaError_t launch_wire_tile(int tile, const int32_t* w, const float* a, const float* wd,
+                             const float* ph, float* out, int bs, int m, int n, int ch,
+                             float salt, cudaStream_t stream) {
+  switch (tile) {
+    case 10: return launch_wire<10, kSalted>(w, a, wd, ph, out, bs, m, n, ch, salt, stream);
+    case 4: return launch_wire<4, kSalted>(w, a, wd, ph, out, bs, m, n, ch, salt, stream);
+    case 2: return launch_wire<2, kSalted>(w, a, wd, ph, out, bs, m, n, ch, salt, stream);
+    case 1: return launch_wire<1, kSalted>(w, a, wd, ph, out, bs, m, n, ch, salt, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -207,6 +314,32 @@ int wrp_fused_chain_dense(const void* x, int x_is_int16, const void* a, const vo
                                  bc, m, n, salt, st)
           : launch_salt<float>(tile, static_cast<const float*>(x) + skip, af, wf, pf, of, bc,
                                m, n, salt, st);
+  return static_cast<int>(err);
+}
+
+// The matrix kernel on wire words w [>= offset + bs, m, ch n] int32 ->
+// out [bs, ch, m/2] (the wire entries above 4096: ops/fullchain.
+// fused_chain_power_wire); `offset` counts SECTORS, `salt` an int32 added
+// to every decoded sample (0: none).  Launches on `stream` without
+// synchronising; returns the launch's cudaError_t (0 on success).  The
+// caller validates shapes, dtypes and the offset's range.
+int wrp_fused_chain_dense_wire(const void* w, const void* a, const void* wd, const void* ph,
+                               void* out, int bs, int m, int n, int ch, int tile,
+                               long long offset, int salt, void* stream) {
+  if (bs <= 0 || n <= 0 || ch <= 0 || m <= 0 || m % 2 != 0 || tile <= 0 ||
+      (m / 2) % tile != 0 || offset < 0 || static_cast<long long>(bs) * ch > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* wp = static_cast<const int32_t*>(w) + static_cast<size_t>(offset) * m * ch * n;
+  const auto* af = static_cast<const float*>(a);
+  const auto* wf = static_cast<const float*>(wd);
+  const auto* pf = static_cast<const float*>(ph);
+  auto* of = static_cast<float*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      salt == 0 ? launch_wire_tile<false>(tile, wp, af, wf, pf, of, bs, m, n, ch, 0.f, st)
+                : launch_wire_tile<true>(tile, wp, af, wf, pf, of, bs, m, n, ch,
+                                         static_cast<float>(salt), st);
   return static_cast<int>(err);
 }
 

@@ -1,9 +1,10 @@
 // The radix-R A-stage in the TPU algorithm's matrix form, for NVIDIA Hopper
 // (sm_90a): fp32 SIMT, Y stored to global memory.  The port's first
 // production chain was this body; production now runs the FFT form
-// (fft_chain.cuh), and the in-kernel time breakdown (kernel_breakdown.cu)
-// keeps this A-stage beside its tensor-core body, at its own and at that
-// body's shared memory.
+// (fft_chain.cuh) up to 4096 range cells and this body above it, as the
+// pulse-sharded A-stage (fused_chain_astage_matrix.cu, int16 and f32 x);
+// the in-kernel time breakdown (kernel_breakdown.cu) keeps it beside its
+// tensor-core body, at its own and at that body's shared memory.
 //
 // Per unit (one channel of one sector) it maps the unit's IQ rows (range
 // rows in NATURAL order) to the half-spectrum range DFT Y [2, m/2, w]:

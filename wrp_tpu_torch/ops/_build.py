@@ -133,6 +133,14 @@ def load_library() -> ctypes.CDLL:
                     ptr, i32, ptr, ptr, ptr, ptr,     # x, x_is_int16, a, wd, ph, out
                     i32, i32, i32, i32, i64,          # bc, m, n, tile, offset
                     i32, ptr],                        # salt, stream
+                "wrp_fused_chain_dense_wire": [
+                    ptr, ptr, ptr, ptr, ptr,          # w, a, wd, ph, out
+                    i32, i32, i32, i32, i32, i64,     # bs, m, n, ch, tile, offset
+                    i32, ptr],                        # salt, stream
+                "wrp_fused_chain_astage_matrix": [
+                    ptr, i32, ptr, ptr, ptr,          # x, x_is_int16, a, fac, y
+                    i32, i32, i32, i32, i32,          # bc, m, w, radix, tile
+                    ptr],                             # stream
                 "wrp_fused_chain_astage": [
                     ptr, i32, ptr, ptr,               # x, x_is_int16, tab, y
                     i32, i32, i32, i32, i32,          # bc, m, w, cols, blocks

@@ -18,7 +18,11 @@ Each kernel has its wrapper, plain torch version and launch counter:
 * wire, csrc/fused_chain_wire.cu (``wrp_tpu`` `fused_chain_power_wire`):
   `fused_chain_power_wire`, plain `fused_chain_power_wire_reference`,
   `WIRE_LAUNCHES`.  The same kernel body on raw wire words [bs, m, ch*n]
-  int32, decoded in registers, one channel per block.
+  int32, decoded in registers, one channel per block.  Above FFT_MAX_M it
+  launches the matrix kernel's wire source (csrc/fused_chain_dense.cu
+  `wrp_fused_chain_dense_wire`, on `RadixPlan.dense_operator`, plain
+  `fused_chain_power_wire_reference` on the matrix form), counted also in
+  `DENSE_MATRIX_LAUNCHES`.
 * dense, csrc/fused_chain_dense.cu (``wrp_tpu`` `fused_chain_power`):
   `fused_chain_power_dense`, `DENSE_LAUNCHES`, for m that does not split
   (`radix_for(m) == 1`).  Two bodies, chosen from m alone (`dense_body`):
@@ -56,7 +60,10 @@ radix chain at its one communication point, with a kernel on each side:
 * A-stage, csrc/fused_chain_astage.cu (``wrp_tpu`` `fused_chain_astage`):
   `fused_chain_astage`, plain `fused_chain_astage_reference`,
   `ASTAGE_LAUNCHES`.  The FFT stage of csrc/fft_chain.cuh on a rank's
-  pulse slab [bc, 2, m, w] -> Y [bc, 2, m/2, w].
+  pulse slab [bc, 2, m, w] -> Y [bc, 2, m/2, w]; above FFT_MAX_M the
+  matrix form of csrc/radix_chain.cuh through
+  csrc/fused_chain_astage_matrix.cu (int16 and f32, any radix and w),
+  counted also in `ASTAGE_MATRIX_LAUNCHES`.
 * row epilogue, csrc/parseval_rows.cu (``wrp_tpu`` `parseval_rows_power`):
   `parseval_rows_power`, plain `parseval_rows_power_reference`,
   `PARSEVAL_ROWS_LAUNCHES`.  The Parseval epilogue on full-pulse rows
@@ -96,7 +103,8 @@ from . import _build
 LAUNCHES = 0            # fused_chain_radix.cu
 WIRE_LAUNCHES = 0       # fused_chain_wire.cu
 DENSE_LAUNCHES = 0      # fused_chain_dense.cu
-ASTAGE_LAUNCHES = 0     # fused_chain_astage.cu
+ASTAGE_LAUNCHES = 0     # fused_chain_astage (either body)
+ASTAGE_MATRIX_LAUNCHES = 0   # of those, fused_chain_astage_matrix.cu (m > FFT_MAX_M)
 PARSEVAL_ROWS_LAUNCHES = 0   # parseval_rows.cu (either form)
 PARSEVAL_ROWS_TWO_PASS_LAUNCHES = 0  # of those, its two-pass form
 RADIX_OFFSET_LAUNCHES = 0    # the radix offset entry (salted: fused_chain_radix_salted.cu)
@@ -109,8 +117,9 @@ DENSE_MATRIX_LAUNCHES = 0    # the matrix kernel of fused_chain_dense.cu (any en
 
 RADIX = 8
 
-#: tile heights (sub-DFT rows per block) the matrix-form A-stage of the
-#: in-kernel time breakdown is instantiated for (csrc/radix_chain.cuh)
+#: tile heights (sub-DFT rows per block) the matrix-form A-stage
+#: (csrc/radix_chain.cuh: the A-stage above FFT_MAX_M and the in-kernel
+#: time breakdown's) is instantiated for
 KERNEL_TILES = (8, 4, 2)
 
 #: tile heights (rows of Y per block) the dense kernel is instantiated for,
@@ -728,16 +737,6 @@ def _slab(units: int, offset, count, salt, name: str, what: str):
     return start, count
 
 
-def _fft_launch_geometry(plan: RadixPlan, name: str) -> FftGeometry:
-    """The plan's FftGeometry, or a ValueError naming why the FFT-form
-    kernels do not take the plan."""
-    if plan.radix == 1:
-        raise ValueError(f"m={plan.m} does not split into radix branches: "
-                         "use fused_chain_power_dense")
-    _fft_plan_tables(plan, name)
-    return plan.fft
-
-
 def fused_chain_power_radix(x: torch.Tensor, plan: RadixPlan, offset=None,
                             bc: int | None = None,
                             salt: int | None = None) -> torch.Tensor:
@@ -776,7 +775,7 @@ def fused_chain_power_radix(x: torch.Tensor, plan: RadixPlan, offset=None,
         _launch_matrix(x, plan, out, start, count, salt)
         DENSE_MATRIX_LAUNCHES += 1
     else:
-        g = _fft_launch_geometry(plan, name)
+        g = plan.fft
         lib = _build.load_library()
         args = (x.data_ptr(), int(x.dtype == torch.int16), plan.fft_t.data_ptr(),
                 plan.fft_phi.data_ptr(), plan.wd.data_ptr(),
@@ -926,16 +925,19 @@ def decode_words_iq(w: torch.Tensor):
 
 def fused_chain_power_wire_reference(w32: torch.Tensor, plan: RadixPlan,
                                      ch: int, salt: int | None = None) -> torch.Tensor:
-    """Plain torch version of the wire kernel: w32 [bs, m, ch*n] int32 ->
+    """Plain torch version of the wire kernels: w32 [bs, m, ch*n] int32 ->
     pow [bs, ch, m/2] f32.  Decode the words, deinterleave the channels,
-    then `fft_chain_power_reference` on the planar sectors (with `salt`
-    added to every decoded sample, the salted kernel)."""
+    then the route's planar plain version on the planar sectors
+    (`fft_chain_power_reference`; `fused_chain_power_reference` above
+    FFT_MAX_M), with `salt` added to every decoded sample (the salted
+    kernels)."""
     bs, m, lanes = w32.shape
     i_, q_ = decode_words_iq(w32)
     planar = torch.stack([i_, q_], dim=1).reshape(bs, 2, m, lanes // ch, ch)
     planar = planar.permute(0, 4, 1, 2, 3).reshape(bs * ch, 2, m, lanes // ch)
-    return fft_chain_power_reference(planar.to(torch.float32), plan,
-                                     salt).reshape(bs, ch, m // 2)
+    plain = (fft_chain_power_reference if fft_takes(m)
+             else fused_chain_power_reference)
+    return plain(planar.to(torch.float32), plan, salt).reshape(bs, ch, m // 2)
 
 
 def fused_chain_power_wire(w32: torch.Tensor, plan: RadixPlan, ch: int,
@@ -949,11 +951,14 @@ def fused_chain_power_wire(w32: torch.Tensor, plan: RadixPlan, ch: int,
     the kernel reads its `bs` sectors from SECTOR `offset` (no copy), with
     the int32 `salt`, if given, added to every decoded sample.
 
-    A CPU tensor takes the plain version.  A CUDA tensor launches
-    csrc/fused_chain_wire.cu (salted: csrc/fused_chain_wire_salted.cu) on
-    the current stream or raises.  Every channel reads the planar window
-    and phasors."""
-    global WIRE_LAUNCHES, WIRE_OFFSET_LAUNCHES
+    The route is m's alone: m <= FFT_MAX_M launches csrc/fused_chain_wire.cu
+    (salted: csrc/fused_chain_wire_salted.cu), the FFT-form body; above it
+    the matrix kernel's wire source (csrc/fused_chain_dense.cu
+    `wrp_fused_chain_dense_wire`, on `plan.dense_operator()`, also counted
+    in DENSE_MATRIX_LAUNCHES).  A CPU tensor takes the plain version.  A
+    CUDA tensor launches the route's kernel on the current stream or
+    raises.  Every channel reads the planar window and phasors."""
+    global WIRE_LAUNCHES, WIRE_OFFSET_LAUNCHES, DENSE_MATRIX_LAUNCHES
     name = "fused_chain_power_wire"
     start, count = _slab(w32.shape[0], offset, bs, salt, name, "bs")
     if w32.device.type not in ("cpu", "cuda"):
@@ -963,7 +968,6 @@ def fused_chain_power_wire(w32: torch.Tensor, plan: RadixPlan, ch: int,
     if plan.radix == 1:
         raise ValueError(f"m={plan.m} does not split into radix branches: the "
                          "wire path decodes first (wire_decode='xla')")
-    g = _fft_launch_geometry(plan, name)
     if w32.device.type == "cpu":
         return fused_chain_power_wire_reference(w32[start:start + count], plan,
                                                 ch, salt)
@@ -979,17 +983,29 @@ def fused_chain_power_wire(w32: torch.Tensor, plan: RadixPlan, ch: int,
                       device=w32.device)
     if count == 0:
         return out
+    fft = fft_takes(plan.m)
     lib = _build.load_library()
-    args = (w32.data_ptr(), plan.fft_t.data_ptr(), plan.fft_phi.data_ptr(),
-            plan.wd.data_ptr(), plan.phasors.data_ptr(), out.data_ptr(), count,
-            plan.m, plan.n, ch, g.cols, g.blocks, start)
     with torch.cuda.device(w32.device):
         stream = torch.cuda.current_stream(w32.device).cuda_stream
-        if salt is None:
-            rc = lib.wrp_fused_chain_wire(*args, stream)
+        if not fft:
+            rc = lib.wrp_fused_chain_dense_wire(
+                w32.data_ptr(), plan.dense_operator().data_ptr(),
+                plan.wd.data_ptr(), plan.phasors.data_ptr(), out.data_ptr(),
+                count, plan.m, plan.n, ch, dense_tile(plan), start,
+                int(salt or 0), stream)
         else:
-            rc = lib.wrp_fused_chain_wire_salted(*args, int(salt), stream)
-    _raise_on_error(lib, rc, "fused_chain_wire")
+            g = plan.fft
+            args = (w32.data_ptr(), plan.fft_t.data_ptr(),
+                    plan.fft_phi.data_ptr(), plan.wd.data_ptr(),
+                    plan.phasors.data_ptr(), out.data_ptr(), count, plan.m,
+                    plan.n, ch, g.cols, g.blocks, start)
+            if salt is None:
+                rc = lib.wrp_fused_chain_wire(*args, stream)
+            else:
+                rc = lib.wrp_fused_chain_wire_salted(*args, int(salt), stream)
+    _raise_on_error(lib, rc, "fused_chain_wire" if fft
+                    else "fused_chain_dense_wire")
+    DENSE_MATRIX_LAUNCHES += not fft
     if offset is None:
         WIRE_LAUNCHES += 1
     else:
@@ -998,36 +1014,50 @@ def fused_chain_power_wire(w32: torch.Tensor, plan: RadixPlan, ch: int,
 
 
 def astage_tile(plan: RadixPlan) -> int:
-    """Tallest tile dividing M = m / R of the matrix-form A-stage, which
-    the in-kernel time breakdown runs (csrc/kernel_breakdown.cu): the block
-    holds only its operator slice [M, T] (8 KB at T = 8, M = 128), so
-    shared memory never binds; T = 8 measured fastest at 1024 x 512
-    (PERF.md)."""
+    """Tallest tile T in KERNEL_TILES of the matrix-form A-stage
+    (csrc/radix_chain.cuh: the A-stage above FFT_MAX_M and the in-kernel
+    time breakdown's) that divides M = m / R and whose operator slice
+    [M, T] complex, 2 T M 4 bytes, fits one block's shared memory (8 KB at
+    T = 8, M = 128; 131,584 bytes at m = 4112, M = 2056; at m = 7280, M =
+    3640, T = 8 would need 232,960, so T = 4).  T = 8 measured fastest at
+    1024 x 512 (PERF.md).  Raises, naming m, where no tile fits."""
     M = plan.m // plan.radix
     for t in KERNEL_TILES:
-        if M % t == 0:
+        if M % t == 0 and 2 * t * M * 4 <= MAX_SMEM_BYTES:
             return t
-    raise ValueError(f"no A-stage tile divides M={M}")
+    raise ValueError(f"no A-stage tile divides M={M} and fits "
+                     f"{MAX_SMEM_BYTES} bytes of shared memory (m={plan.m})")
 
 
 def fused_chain_astage_reference(x: torch.Tensor, plan: RadixPlan) -> torch.Tensor:
-    """Plain torch version of the A-stage kernel: x [bc, 2, m, w] int16/f32,
-    natural row order, any pulse count w -> Y [bc, 2, m/2, w] f32
-    (`fft_stage_reference`)."""
-    yr, yi = fft_stage_reference(x, plan)
+    """Plain torch version of the A-stage kernels: x [bc, 2, m, w]
+    int16/f32, natural row order, any pulse count w -> Y [bc, 2, m/2, w]
+    f32; the FFT form's (`fft_stage_reference`) for every m `fft_takes`,
+    the matrix form's (`_contract_reference`) above FFT_MAX_M."""
+    if fft_takes(plan.m):
+        yr, yi = fft_stage_reference(x, plan)
+    else:
+        yr, yi = _contract_reference(x, plan)
     return torch.stack([yr, yi], dim=1)
 
 
 def fused_chain_astage(x: torch.Tensor, plan: RadixPlan) -> torch.Tensor:
     """x [bc, 2, m, w] int16/f32 (natural row order, w = this rank's pulse
     lanes) -> Y [bc, 2, m/2, w] f32, the windowed half-spectrum range DFT.
+    Needs a plan whose m splits into radix branches, as ``wrp_tpu``'s
+    pallas-seq does.  The route is m's alone:
 
-    A CPU tensor takes the plain version.  A CUDA tensor launches
-    csrc/fused_chain_astage.cu (the FFT stage of csrc/fft_chain.cuh, cut
-    by `fft_geometry(m, w)`) on the current stream or raises.  Needs a
-    plan whose m splits into radix branches, as ``wrp_tpu``'s pallas-seq
-    does, with m <= FFT_MAX_M."""
-    global ASTAGE_LAUNCHES
+    * m <= FFT_MAX_M: csrc/fused_chain_astage.cu, the FFT stage of
+      csrc/fft_chain.cuh cut by `fft_geometry(m, w)`;
+    * above it: csrc/fused_chain_astage_matrix.cu, the matrix form of
+      csrc/radix_chain.cuh on the plan's branch operators and combine
+      factors at the tile `astage_tile` picks (also counted in
+      ASTAGE_MATRIX_LAUNCHES).
+
+    A CPU tensor takes the route's plain version
+    (`fused_chain_astage_reference`).  A CUDA tensor launches the route's
+    kernel on the current stream or raises; there is no fallback."""
+    global ASTAGE_LAUNCHES, ASTAGE_MATRIX_LAUNCHES
     name = "fused_chain_astage"
     if plan.radix < 2:
         raise ValueError(f"the A-stage needs the radix plan (m={plan.m} "
@@ -1039,7 +1069,6 @@ def fused_chain_astage(x: torch.Tensor, plan: RadixPlan) -> torch.Tensor:
                          f"got {tuple(x.shape)}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {x.device}")
-    _fft_plan_tables(plan, name)
     if x.device.type == "cpu":
         return fused_chain_astage_reference(x, plan)
     if not x.is_contiguous():
@@ -1051,15 +1080,25 @@ def fused_chain_astage(x: torch.Tensor, plan: RadixPlan) -> torch.Tensor:
                     device=x.device)
     if bc == 0:
         return y
-    g = fft_geometry(plan.m, w)
+    fft = fft_takes(plan.m)
     lib = _build.load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.wrp_fused_chain_astage(
-            x.data_ptr(), int(x.dtype == torch.int16), plan.fft_t.data_ptr(),
-            y.data_ptr(), bc, plan.m, w, g.cols, g.blocks, stream)
-    _raise_on_error(lib, rc, "fused_chain_astage")
+        if fft:
+            g = fft_geometry(plan.m, w)
+            rc = lib.wrp_fused_chain_astage(
+                x.data_ptr(), int(x.dtype == torch.int16),
+                plan.fft_t.data_ptr(), y.data_ptr(), bc, plan.m, w, g.cols,
+                g.blocks, stream)
+        else:
+            rc = lib.wrp_fused_chain_astage_matrix(
+                x.data_ptr(), int(x.dtype == torch.int16),
+                plan.a_kernel.data_ptr(), plan.fac_t.data_ptr(), y.data_ptr(),
+                bc, plan.m, w, plan.radix, astage_tile(plan), stream)
+    _raise_on_error(lib, rc, "fused_chain_astage" if fft
+                    else "fused_chain_astage_matrix")
     ASTAGE_LAUNCHES += 1
+    ASTAGE_MATRIX_LAUNCHES += not fft
     return y
 
 

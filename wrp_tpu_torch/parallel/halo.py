@@ -83,6 +83,7 @@ def build_halo_processor(cfg: RadarConfig = DEFAULT_CONFIG,
     device, where x_local is planar IQ [b, C, 2, m, n/seq] (int16 or f32),
     its data row's sectors and its seq index's pulses (`step.layout` is
     "mesh", the layout `shard_batch` cuts)."""
+    cfg.validate()
     if mesh is None:
         mesh = make_mesh(device=device or "cuda")
     seq = mesh.seq

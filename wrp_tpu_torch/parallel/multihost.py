@@ -44,6 +44,7 @@ class MultiHostProcessor:
     @classmethod
     def build(cls, cfg: RadarConfig = DEFAULT_CONFIG, per_host_batch: int = 16,
               method: str = "mxu", device="cuda") -> "MultiHostProcessor":
+        cfg.validate()
         mesh = make_mesh(seq=1, device=device)
         step = build_sharded_processor(cfg, mesh, method=method,
                                        device=mesh.device)

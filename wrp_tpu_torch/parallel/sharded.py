@@ -123,6 +123,7 @@ def build_sharded_processor(cfg: RadarConfig = DEFAULT_CONFIG,
     names the input layout it takes as `step.layout`: "data" (pallas),
     "mesh" (the others), "wire" (pallas-seq with wire_input); `shard_batch`
     cuts the first two from a host batch."""
+    cfg.validate()
     if mesh is None:
         mesh = make_mesh(device=device or "cuda")
     if method not in METHODS:
@@ -209,24 +210,20 @@ def host_share(iq, mesh: Mesh, layout: str = "mesh") -> np.ndarray:
 
 def _build_pallas_seq(cfg, consts, mesh, dev, wire_input):
     """The fused chain seq-sharded over pulses: A-stage kernel per pulse
-    slab, all_to_all, row-epilogue kernel per row shard, all_gather of the
-    powers.  The same contraction and epilogue as the fused kernel, so the
-    products agree with it to fp32 reassociation."""
+    slab (the FFT form up to FFT_MAX_M, the matrix form above it: m's
+    route in `fused_chain_astage`), all_to_all, row-epilogue kernel per
+    row shard, all_gather of the powers.  The same range DFT and epilogue
+    as the fused kernel, so the products agree with it to fp32
+    reassociation."""
     from ..ops import device_codec
-    from ..ops.fullchain import (FFT_MAX_M, build_plan, fft_takes,
-                                 fused_chain_astage, parseval_rows_power,
-                                 radix_for)
+    from ..ops.fullchain import (build_plan, fused_chain_astage,
+                                 parseval_rows_power, radix_for)
 
     m, n = cfg.num_range_cells, cfg.num_pulses
     if radix_for(m) < 2:
         raise ValueError(
             f"pallas-seq needs the radix kernel plan (m={m} supports radix "
             "1 only); use method='mxu' at this geometry")
-    if not fft_takes(m):
-        raise ValueError(
-            f"pallas-seq needs the FFT-form A-stage: m={m} is above "
-            f"FFT_MAX_M = {FFT_MAX_M}; use method='pallas' or 'mxu' at this "
-            "geometry")
     plan = build_plan(consts, dev)
     gain = torch.from_numpy(consts.gain).to(dev)
     n_loc = n // mesh.seq

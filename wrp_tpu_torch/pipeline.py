@@ -355,14 +355,22 @@ class SectorProcessor:
         PipelineConstants.from_numpy of the JAX package's.
 
         wire_decode (with wire_input): "fused" decodes inside the wire
-        kernel (csrc/fused_chain_wire.cu: the channel deinterleave never
-        happens; needs m that splits into radix branches); "xla" is a
-        standalone decode pass (ops/device_codec.decode_wire_i16) feeding
-        the planar kernel (the name is kept from ``wrp_tpu``).  None picks
-        "fused" when radix_for(m) > 1 and m <= fullchain.FFT_MAX_M (the
-        FFT-form wire kernel's limit), else "xla", as ``wrp_tpu``'s natural
-        layout does above it.  Rows stay in natural order, so
-        ``wrp_tpu``'s `layout` and `wire_order` have no counterpart."""
+        kernel (the channel deinterleave never happens; needs m that
+        splits into radix branches): csrc/fused_chain_wire.cu up to
+        fullchain.FFT_MAX_M, the matrix kernel's wire source
+        (csrc/fused_chain_dense.cu) above it, as ``wrp_tpu``'s radix layout
+        runs its fused wire kernel at any radix m; "xla" is a standalone
+        decode pass (ops/device_codec.decode_wire_i16) feeding the planar
+        kernel (the name is kept from ``wrp_tpu``).  None picks "fused"
+        when radix_for(m) > 1 and m <= fullchain.FFT_MAX_M, else "xla", as
+        ``wrp_tpu``'s natural layout does above it.  Rows stay in natural
+        order, so ``wrp_tpu``'s `layout` and `wire_order` have no
+        counterpart: "fused" here is its `layout="radix"` with the fused
+        decode.
+
+        Raises ValueError for a config `RadarConfig.validate` refuses (one
+        channel among them)."""
+        cfg.validate()
         if matched_filter not in ("direct", "fold", "spectral"):
             raise ValueError(
                 f"unknown matched_filter {matched_filter!r}: use "
@@ -411,16 +419,11 @@ class SectorProcessor:
             from .ops import fullchain
 
             if wire_input:
-                fused_ok = (fullchain.radix_for(cfg.m) > 1
-                            and fullchain.fft_takes(cfg.m))
+                fused_ok = fullchain.radix_for(cfg.m) > 1
                 if wire_decode is None:
-                    wire_decode = "fused" if fused_ok else "xla"
+                    wire_decode = ("fused" if fused_ok
+                                   and fullchain.fft_takes(cfg.m) else "xla")
                 elif wire_decode == "fused" and not fused_ok:
-                    if fullchain.radix_for(cfg.m) > 1:
-                        raise ValueError(
-                            "wire_decode='fused' needs the FFT-form wire "
-                            f"kernel: m={cfg.m} is above FFT_MAX_M = "
-                            f"{fullchain.FFT_MAX_M} (use 'xla')")
                     raise ValueError(
                         "wire_decode='fused' needs the radix kernel (an m "
                         f"that splits into radix branches); got m={cfg.m}")
