@@ -351,7 +351,8 @@ def algorithm_note(m: int, w: int, bc: int) -> str:
 def reset_counts() -> None:
     fullchain.LAUNCHES = fullchain.WIRE_LAUNCHES = fullchain.DENSE_LAUNCHES = 0
     fullchain.ASTAGE_LAUNCHES = fullchain.PARSEVAL_ROWS_LAUNCHES = 0
-    fullchain.ASTAGE_MATRIX_LAUNCHES = 0
+    fullchain.ASTAGE_MATRIX_LAUNCHES = fullchain.ASTAGE_CLUSTER_LAUNCHES = 0
+    fullchain.WIRE_CLUSTER_LAUNCHES = 0
     fullchain.RADIX_OFFSET_LAUNCHES = fullchain.WIRE_OFFSET_LAUNCHES = 0
     fullchain.DENSE_OFFSET_LAUNCHES = postprocess.STAGE2_LAUNCHES = 0
     postprocess.STAGE2_OPERATOR_LAUNCHES = 0
@@ -365,6 +366,8 @@ def read_counts() -> dict:
             "dense": fullchain.DENSE_LAUNCHES,
             "astage": fullchain.ASTAGE_LAUNCHES,
             "astage_matrix": fullchain.ASTAGE_MATRIX_LAUNCHES,
+            "astage_cluster": fullchain.ASTAGE_CLUSTER_LAUNCHES,
+            "wire_cluster": fullchain.WIRE_CLUSTER_LAUNCHES,
             "rows": fullchain.PARSEVAL_ROWS_LAUNCHES,
             "rows_two_pass": fullchain.PARSEVAL_ROWS_TWO_PASS_LAUNCHES,
             "radix_offset": fullchain.RADIX_OFFSET_LAUNCHES,
@@ -2011,21 +2014,27 @@ def phase_dense_path() -> dict:
     return launches
 
 
-#: the long-ray slice (1024 < m <= FFT_MAX_M: the FFT-form body with its
-#: partials in shared memory; above it the matrix route)
+#: the long-ray slice: 1024 < m <= FFT_MAX_M the planar chain's FFT-form
+#: body with its partials in shared memory, above it its matrix route; the
+#: wire chain and the A-stage on the cluster body up to CLUSTER_MAX_M, their
+#: matrix routes above it
 LONG_M = 2048             # the executor's, the bench's and the times' geometry
 LONG_CHECK_MS = (1536, 1840, 2048, 4096)   # each FFT-form kernel vs plain
+#: the cluster body's kernels (#5, #7, #8) vs plain, and their times
+CLUSTER_CHECK_MS = LONG_CHECK_MS + (4160, 8192)
 LONG_DENSE_M = 1832       # radix 1 (8 x 229): the dense entries' long-ray body
 LONG_MATRIX_M = 4160      # radix 8 above FFT_MAX_M: the radix entry's matrix route
+MATRIX_ABOVE_M = 8320     # radix 8 above CLUSTER_MAX_M: #5, #7, #8 on their matrix routes
 LONG_TOL = 1e-5           # a long-ray kernel vs its plain version (power rel-L2)
 LONG_BENCH = ("--range-cells", str(LONG_M), "--batch", "32", "--repeats", "4")
 
 
 def long_ray_executor(cfg, iqs, wires) -> dict:
-    """The executor at m = LONG_M from memory, host decode (#3) and device
-    decode (#7): every sector processed, every launch on the FFT-form
-    body (no matrix kernel), sampled sectors within PRODUCT_TOL of the
-    oracle.  Returns {"radix": host-decode launches, "wire": device's}."""
+    """The executor at m = LONG_M from memory, host decode (#3, the planar
+    FFT-form body) and device decode (#7, the cluster body): every sector
+    processed, every launch on its body (no matrix kernel), sampled sectors
+    within PRODUCT_TOL of the oracle.  Returns {"radix": host-decode
+    launches, "wire": device's}."""
     count = 2 * BATCH
     out = {}
     for device_decode, key in ((False, "radix"), (True, "wire")):
@@ -2042,13 +2051,16 @@ def long_ray_executor(cfg, iqs, wires) -> dict:
         print(f"long rays m={cfg.m}, {tag}: {stats['processed_sectors']} "
               f"sectors, {ex.throughput.active_rate():.2f} sectors/s; "
               f"launches {counts}", flush=True)
-        others = {k: v for k, v in counts.items() if k != key}
+        body = {"radix": None, "wire": "wire_cluster"}[key]
+        others = {k: v for k, v in counts.items() if k not in (key, body)}
         check(stats["processed_sectors"] == count
-              and counts[key] >= count // BATCH and not any(others.values()),
+              and counts[key] >= count // BATCH and not any(others.values())
+              and (body is None or counts[body] == counts[key]),
               f"long rays m={cfg.m} {tag}: {stats['processed_sectors']}/"
-              f"{count} sectors, every launch on the FFT-form {key} kernel "
-              f"({counts[key]}), none on the matrix kernel "
-              f"({counts['dense_matrix']}) or another")
+              f"{count} sectors, every launch on the {key} kernel's "
+              f"{'cluster' if body else 'FFT-form'} body ({counts[key]}), "
+              f"none on the matrix kernel ({counts['dense_matrix']}) or "
+              f"another")
         for k in range(len(iqs)):
             zdb64, zdr64 = oracle.process_sector(iqs[k], cfg)
             zdb, zdr = volume.data[0, :, k, 0], volume.data[1, :, k, 0]
@@ -2061,12 +2073,34 @@ def long_ray_executor(cfg, iqs, wires) -> dict:
     return out
 
 
+def cluster_note(m: int, w: int) -> str:
+    """The cluster body's cut of m rows and w pulses (csrc/cluster_chain.cuh),
+    printed beside the bound, never as it."""
+    g = fullchain.cluster_geometry(m, w)
+    passes, rem = [], g.L
+    while rem > 1:
+        passes.append(fullchain.leaf_radix(rem))
+        rem //= passes[-1]
+    leaf = f", leaf passes {' x '.join(map(str, passes))}" if passes else ""
+    cuts = []
+    for what, fused, elem in (("wire", True, 0), ("A-stage int16", False, 2),
+                              ("A-stage f32", False, 4)):
+        cols = fullchain.cluster_geometry(m, w, fused, elem).cols
+        cuts.append(f"{what} {cols} columns a round, "
+                    f"{fullchain.cluster_smem_bytes(m, cols, fused, elem)} B")
+    return (f"the cluster body: 8 blocks a unit, each the {g.ms}-point DFT of "
+            f"rows 8 t + b (P = {g.P} = {g.P1} x {g.P2}, L = {g.L}{leaf}), "
+            f"the 4-of-8 combine over DSMEM on {g.span} k1 a block; "
+            + "; ".join(cuts))
+
+
 def long_ray_kernels(gen) -> dict:
-    """Each FFT-form kernel vs its plain version at LONG_CHECK_MS on seeded
-    int16 noise (f32 too for #3): #3, #4 (salt 95, the second of two
-    slabs), #7, #8 (salt 7), #5 (w = n, n/4); power (Y for #5) rel-L2 <=
-    LONG_TOL.  Each geometry's cut and occupancy printed.  Returns
-    {kernel: {rel_l2, max_abs_err}}."""
+    """Each long-ray kernel vs its plain version on seeded int16 noise: at
+    LONG_CHECK_MS the planar chain's FFT-form body, #3 (int16, f32) and #4
+    (salt 95, the second of two slabs); at CLUSTER_CHECK_MS the cluster
+    body's #7, #8 (offset, salt 7) and #5 (int16 and f32 at w = n, int16 at
+    n/4); power (Y for #5) rel-L2 <= LONG_TOL.  Each geometry's cut, route
+    and occupancy printed.  Returns {kernel: {rel_l2, max_abs_err}}."""
     res = {k: {"rel_l2": 0.0, "max_abs_err": 0.0}
            for k in ("radix", "radix_offset", "wire", "wire_offset", "astage")}
 
@@ -2078,43 +2112,48 @@ def long_ray_kernels(gen) -> dict:
         res[key]["rel_l2"] = max(res[key]["rel_l2"], e)
         res[key]["max_abs_err"] = max(res[key]["max_abs_err"], a)
 
-    for m in LONG_CHECK_MS:
+    for m in CLUSTER_CHECK_MS:
         cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=m)
         n, ch = cfg.n, cfg.num_channels
         plan = fullchain.build_plan(PipelineConstants.build(cfg), "cuda")
         b = BATCH if m == LONG_M else 4
         bc = b * ch
+        planar = fullchain.fft_takes(m)
         occ = {body: fullchain.fft_occupancy(plan, body)
-               for body in ("radix", "wire", "astage")}
-        print(f"long rays m={m}: radix {plan.radix}, {plan.fft}; "
-              f"{algorithm_note(m, n, bc)}; occupancy {json.dumps(occ)}",
-              flush=True)
-        check(plan.radix > 1 and fullchain.fft_long(m)
-              and all(v["blocks_per_sm"] >= 1 for v in occ.values())
-              and occ["radix"]["clusters"] > 0 and occ["wire"]["clusters"] > 0,
-              f"m={m} takes the long-ray body, resident: {json.dumps(occ)}")
+               for body in (("radix",) if planar else ()) + ("wire", "astage")}
+        print(f"long rays m={m}: radix {plan.radix}, "
+              + (f"planar {plan.fft}; {algorithm_note(m, n, bc)}; " if planar
+                 else "the planar chain on its matrix route; ")
+              + f"#5, #7, #8 on {cluster_note(m, n)}; occupancy "
+              f"{json.dumps(occ)}", flush=True)
+        check(plan.radix > 1 and fullchain.chain_route(m) == "cluster"
+              and (fullchain.fft_long(m) or not planar)
+              and all(v["blocks_per_sm"] >= 1 and v["clusters"] > 0
+                      for v in occ.values()),
+              f"m={m} takes the long-ray bodies, resident: {json.dumps(occ)}")
         x = torch.randint(-8192, 8192, (2 * bc, 2, m, n), generator=gen,
                           device="cuda", dtype=torch.int32).to(torch.int16)
-        for xx in (x[:bc], x[:bc].float()):
-            hold("radix", f"#3 m={m} {xx.dtype}",
-                 fullchain.fft_chain_power_reference(xx, plan),
-                 fullchain.fused_chain_power_radix(xx, plan))
-        hold("radix_offset", f"#4 m={m} offset {bc} salt 95",
-             fullchain.fft_chain_power_reference(x[bc:], plan, 95),
-             fullchain.fused_chain_power_radix(x, plan, offset=bc, bc=bc,
-                                               salt=95))
+        if planar:
+            for xx in (x[:bc], x[:bc].float()):
+                hold("radix", f"#3 m={m} {xx.dtype}",
+                     fullchain.fft_chain_power_reference(xx, plan),
+                     fullchain.fused_chain_power_radix(xx, plan))
+            hold("radix_offset", f"#4 m={m} offset {bc} salt 95",
+                 fullchain.fft_chain_power_reference(x[bc:], plan, 95),
+                 fullchain.fused_chain_power_radix(x, plan, offset=bc, bc=bc,
+                                                   salt=95))
         w32 = torch.randint(-2 ** 31, 2 ** 31 - 1, (2 * b, m, ch * n),
                             generator=gen, device="cuda", dtype=torch.int32)
-        hold("wire", f"#7 m={m}",
+        hold("wire", f"#7 m={m} (cluster body)",
              fullchain.fused_chain_power_wire_reference(w32[:b], plan, ch),
              fullchain.fused_chain_power_wire(w32[:b].contiguous(), plan, ch))
-        hold("wire_offset", f"#8 m={m} offset {b} salt 7",
+        hold("wire_offset", f"#8 m={m} offset {b} salt 7 (cluster body)",
              fullchain.fused_chain_power_wire_reference(w32[b:], plan, ch, 7),
              fullchain.fused_chain_power_wire(w32, plan, ch, offset=b, bs=b,
                                               salt=7))
-        for w in (n, n // 4):
-            xs = x[:bc, ..., :w].contiguous()
-            hold("astage", f"#5 m={m} w={w}",
+        for xs in (x[:bc], x[:bc].float(), x[:bc, ..., :n // 4].contiguous()):
+            hold("astage", f"#5 m={m} {xs.dtype} w={xs.shape[-1]} (cluster "
+                           f"body)",
                  fullchain.fused_chain_astage_reference(xs, plan),
                  fullchain.fused_chain_astage(xs, plan))
         del x, w32
@@ -2122,22 +2161,26 @@ def long_ray_kernels(gen) -> dict:
     return res
 
 
-def long_ray_times(gen, m: int = LONG_M, keys=None) -> dict:
-    """CUDA-event ms per 48 channel-sectors (16 sectors x 3 x m x 512) of
-    #3, #4 (offset 48 of 96, salted), #7, #8 and #5 (w = 512), or of those
-    named in `keys`, each in turns with its plain version, beside the bound
-    (the bytes: 201 MB of int16 at m = 2048)."""
+def long_ray_times(gen, m: int = LONG_M, keys=None,
+                   sectors: int = BATCH) -> dict:
+    """CUDA-event ms per `sectors` sectors x 3 channels x m x 512 (48
+    channel-sectors by default) of #3, #4 (offset of the second slab,
+    salted), #7, #8 and #5 (w = 512), or of those named in `keys`, each in
+    turns with its plain version (#5 also with cuFFT: torch.fft.fft over
+    range of the windowed complex64 input, then the crop), beside the bound
+    (the bytes: 201 MB of int16 at m = 2048, 48 channel-sectors)."""
     cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=m)
     n, ch = cfg.n, cfg.num_channels
     plan = fullchain.build_plan(PipelineConstants.build(cfg), "cuda")
-    bc = BATCH * ch
+    bc = sectors * ch
     x = torch.randint(-8192, 8192, (2 * bc, 2, m, n), generator=gen,
                       device="cuda", dtype=torch.int32).to(torch.int16)
     x16 = x[:bc]
-    w32 = torch.randint(-2 ** 31, 2 ** 31 - 1, (2 * BATCH, m, ch * n),
+    w32 = torch.randint(-2 ** 31, 2 ** 31 - 1, (2 * sectors, m, ch * n),
                         generator=gen, device="cuda", dtype=torch.int32)
-    w16 = w32[:BATCH].contiguous()
+    w16 = w32[:sectors].contiguous()
     out_b = bc * m // 2 * 4
+    route = fullchain.chain_route(m)
     runs = {
         "radix": (lambda: fullchain.fused_chain_power_radix(x16, plan),
                   lambda: fullchain.fft_chain_power_reference(x16, plan),
@@ -2152,9 +2195,9 @@ def long_ray_times(gen, m: int = LONG_M, keys=None) -> dict:
                      w16, plan, ch), w16.numel() * 4),
         "wire_offset": (
             lambda: fullchain.fused_chain_power_wire(
-                w32, plan, ch, offset=BATCH, bs=BATCH, salt=7),
+                w32, plan, ch, offset=sectors, bs=sectors, salt=7),
             lambda: fullchain.fused_chain_power_wire_reference(
-                w32[BATCH:], plan, ch, 7), w16.numel() * 4),
+                w32[sectors:], plan, ch, 7), w16.numel() * 4),
         "astage": (lambda: fullchain.fused_chain_astage(x16, plan),
                    lambda: fullchain.fused_chain_astage_reference(x16, plan),
                    x16.numel() * 2),
@@ -2163,21 +2206,37 @@ def long_ray_times(gen, m: int = LONG_M, keys=None) -> dict:
     for key, (kernel, plain, in_bytes) in runs.items():
         if keys is not None and key not in keys:
             continue
-        t = timed({"plain": plain, "kernel": kernel},
-                  ("plain", "kernel", "kernel", "plain"))
+        fns = {"plain": plain, "kernel": kernel}
+        order = ("plain", "kernel", "kernel", "plain")
+        if key == "astage":
+            win = plan.fft_t[:m] if route != "cluster" else plan.cluster_t[:m]
+            xw = (torch.complex(x16[:, 0].float(), x16[:, 1].float())
+                  * win[:, None]).contiguous()     # pre-windowed, as cuFFT's input
+            fns["library"] = lambda: torch.fft.fft(xw, dim=1)[:, :m // 2]
+            order = ("plain", "kernel", "library", "library", "kernel", "plain")
+        t = timed(fns, order)
         queued = queued_ms(kernel)
+        lib_queued = queued_ms(fns["library"]) if "library" in fns else None
         fused = key != "astage"
+        body = route if key in ("wire", "wire_offset", "astage") else "planar"
+        tab = plan.cluster_t if body == "cluster" else plan.fft_t
         bound_ms, bound_by = bound(
             bc * (chain_flops(m, n) if fused else astage_flops(m, n)),
-            in_bytes + plan.fft_t.numel() * 4
+            in_bytes + tab.numel() * 4
             + (out_b if fused else x16.numel() // 2 * 4))
-        print(f"long rays {key} at m={m}, {bc} channel-sectors x {n} "
-              f"pulses: {t['kernel']:.3f} ms ({queued:.3f} queued), plain "
-              f"{t['plain']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})",
-              flush=True)
+        print(f"long rays {key} at m={m} ({body} body), {bc} channel-sectors "
+              f"x {n} pulses: {t['kernel']:.3f} ms ({queued:.3f} queued), "
+              f"plain {t['plain']:.3f} ms"
+              + (f", cuFFT {t['library']:.3f} ms ({lib_queued:.3f} queued)"
+                 if lib_queued is not None else "")
+              + f", bound {bound_ms:.3f} ms ({bound_by})", flush=True)
         out[key] = {"ms": t["kernel"], "queued_ms": queued,
                     "plain_ms": t["plain"], "bound_ms": bound_ms,
-                    "bound_by": bound_by}
+                    "bound_by": bound_by, "library_ms": t.get("library"),
+                    "library_queued_ms": lib_queued, "body": body,
+                    "channel_sectors": bc}
+        if "library" in fns:
+            del fns["library"], xw
     del x, w32
     torch.cuda.empty_cache()
     return out
@@ -2274,12 +2333,13 @@ def long_ray_bench() -> dict:
 
 
 def long_ray_seq_matrix() -> dict:
-    """A world-size-1 pallas-seq step at m = LONG_MATRIX_M (the matrix
-    A-stage, then #6 on all 2080 rows) from host memory, planar int16 and
-    wire bytes (decoded on the card), on two produced sectors: vs the
-    pallas processor (<= 1e-5) and the oracle (<= PRODUCT_TOL); each step
-    one A-stage launch, on the matrix route, and one row-epilogue launch.
-    Returns the A-stage's and the rows' launches."""
+    """A world-size-1 pallas-seq step at m = LONG_MATRIX_M (the A-stage on
+    the cluster body, then #6 on all 2080 rows) from host memory, planar
+    int16 and wire bytes (decoded on the card), on two produced sectors: vs
+    the pallas processor (the radix entry's matrix route, <= 1e-5) and the
+    oracle (<= PRODUCT_TOL); each step one A-stage launch, on the cluster
+    body, and one row-epilogue launch.  Returns the A-stage's and the
+    rows' launches."""
     m = LONG_MATRIX_M
     cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=m)
     iqs = [oracle.produce_sector_iq(cfg, SEED, j) for j in range(2)]
@@ -2299,12 +2359,12 @@ def long_ray_seq_matrix() -> dict:
         c = read_counts()
         e = max(rel(zdb_p, zdb), rel(zdr_p, zdr))
         others = {k: v for k, v in c.items()
-                  if k not in ("astage", "astage_matrix", "rows")}
-        check(e <= 1e-5 and c["astage"] == c["astage_matrix"] == 1
+                  if k not in ("astage", "astage_cluster", "rows")}
+        check(e <= 1e-5 and c["astage"] == c["astage_cluster"] == 1
               and c["rows"] == 1 and not any(others.values()),
               f"pallas-seq world 1 at m={m} ({tag}): vs the pallas processor "
-              f"{e:.3e} <= 1e-5; A-stage {c['astage']} (matrix route "
-              f"{c['astage_matrix']}), row epilogue {c['rows']}, no other")
+              f"{e:.3e} <= 1e-5; A-stage {c['astage']} (cluster body "
+              f"{c['astage_cluster']}), row epilogue {c['rows']}, no other")
         for k, iq in enumerate(iqs):
             zdb64, zdr64 = oracle.process_sector(iq, cfg)
             ezdb, ezdr = rel(zdb64, zdb[k]), rel(zdr64, zdr[k])
@@ -2318,10 +2378,11 @@ def long_ray_seq_matrix() -> dict:
 
 def long_ray_seq_and_mxu(cfg, iqs) -> dict:
     """At m = LONG_M on the oracle's sectors: a world-size-1 pallas-seq step
-    (#5 then #6 on all m/2 rows) vs the pallas processor (<= 1e-5) and the
-    oracle; #9 on the mxu method's range-stage Y [.., 1024, 512] vs that
-    method's own power (<= POWER_TOL), its products vs the oracle.  Then
-    the pallas-seq step above FFT_MAX_M (`long_ray_seq_matrix`)."""
+    (#5 on the cluster body, then #6 on all m/2 rows) vs the pallas
+    processor (<= 1e-5) and the oracle; #9 on the mxu method's range-stage
+    Y [.., 1024, 512] vs that method's own power (<= POWER_TOL), its
+    products vs the oracle.  Then the pallas-seq step at LONG_MATRIX_M
+    (`long_ray_seq_matrix`)."""
     planar = torch.from_numpy(np.stack([planar_i16(iq) for iq in iqs])).cuda()
     zdb_p, zdr_p = (t.cpu().numpy() for t in SectorProcessor(
         cfg, method="pallas", device="cuda")(planar))
@@ -2331,11 +2392,12 @@ def long_ray_seq_and_mxu(cfg, iqs) -> dict:
     zdb, zdr = (t.cpu().numpy() for t in step(planar))
     seq = read_counts()
     e = max(rel(zdb_p, zdb), rel(zdr_p, zdr))
-    check(e <= 1e-5 and seq["astage"] == 1 and seq["rows"] == 1
-          and seq["rows_two_pass"] == 0,
+    check(e <= 1e-5 and seq["astage"] == seq["astage_cluster"] == 1
+          and seq["rows"] == 1 and seq["rows_two_pass"] == 0,
           f"pallas-seq world 1 at m={cfg.m}: vs the pallas processor {e:.3e} "
-          f"<= 1e-5; A-stage {seq['astage']}, row epilogue {seq['rows']} "
-          f"(register form)")
+          f"<= 1e-5; A-stage {seq['astage']} (cluster body "
+          f"{seq['astage_cluster']}), row epilogue {seq['rows']} (register "
+          f"form)")
     consts = PipelineConstants.build(cfg)
     dc = _DeviceConstants(consts, torch.device("cuda"))
     mh, n = cfg.m // 2, cfg.n
@@ -2377,26 +2439,22 @@ def long_ray_matrix(orc: Oracle) -> dict:
     """m = LONG_MATRIX_M (radix 8, above FFT_MAX_M) on two noise sectors (6
     channel-sectors): the radix entry plain and with offset and salt 7 on
     the matrix kernel (the dense A_half, built at first use) vs
-    fused_chain_power_reference (<= POWER_TOL) and the oracle; the A-stage's
-    matrix route (#5, csrc/fused_chain_astage_matrix.cu; int16 and f32) vs
-    its plain version (Y <= LONG_TOL), then #6 on its Y vs the matrix
-    form's power (<= POWER_TOL) and the oracle; the wire entry's matrix
-    route (#7, and #8 at offset 2 salt 7 on a 4-sector staging) vs its
-    plain version (<= POWER_TOL) and the oracle.  Each check's launch
-    counts equal its calls.  Then each new route timed in turns with its
-    plain version (kernel, plain, plain, kernel) beside its bound and the
-    matrix form's FMAs, and the radix entry beside the A-stage + #6
-    composition.  Returns {"counts": the radix checks' launches, "astage",
-    "wire", "wire_offset": each route's launches, errors and times}."""
+    fused_chain_power_reference (<= POWER_TOL) and the oracle, each check's
+    launch counts equal to its calls; then the radix entry timed beside #5
+    (the cluster body at this m) then #6 on the same sectors.  Then the
+    matrix routes of #5, #7 and #8, above CLUSTER_MAX_M
+    (`long_ray_matrix_above`).  Returns {"counts": the radix checks'
+    launches, "radix_ms", "astage_rows_ms", and "astage", "wire",
+    "wire_offset": each matrix route's launches, errors and times}."""
     m = LONG_MATRIX_M
     cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=m)
     consts = PipelineConstants.build(cfg)
     plan = fullchain.build_plan(consts, "cuda")
-    tile = fullchain.astage_tile(plan)
     check(plan.radix == 8 and not fullchain.fft_takes(m) and plan.fft_t is None
-          and tile == 8,
+          and fullchain.chain_route(m) == "cluster",
           f"m={m}: radix {plan.radix}, above FFT_MAX_M = {fullchain.FFT_MAX_M}"
-          f" (matrix tile {fullchain.dense_tile(plan)}, A-stage tile {tile})")
+          f" (matrix tile {fullchain.dense_tile(plan)}); #5, #7, #8 on the "
+          f"cluster body")
     sectors = [oracle.synthetic_iq(cfg, kind="noise", seed=SEED + b)
                for b in range(2)]
     gain = torch.from_numpy(consts.gain).cuda()
@@ -2420,7 +2478,51 @@ def long_ray_matrix(orc: Oracle) -> dict:
           f"radix m={m} offset {ch} salt 7 on the matrix kernel vs plain "
           f"{e:.3e} <= {POWER_TOL}; matrix launches {counts['dense_matrix']}"
           f" == radix {counts['radix']} + offset {counts['radix_offset']}")
+    t = timed({"plain": lambda: fullchain.fused_chain_power_reference(x, plan),
+               "kernel": lambda: fullchain.fused_chain_power_radix(x, plan),
+               "astage_rows": lambda: fullchain.parseval_rows_power(
+                   fullchain.fused_chain_astage(x, plan), plan)},
+              ("plain", "kernel", "astage_rows", "astage_rows", "kernel",
+               "plain"))
+    print(f"radix m={m} on the matrix kernel, {bc} channel-sectors: "
+          f"{t['kernel']:.3f} ms, plain {t['plain']:.3f} ms; the cluster "
+          f"A-stage then #6 on the same sectors {t['astage_rows']:.3f} ms; "
+          f"{algorithm_note(m, n, bc)}", flush=True)
+    res = long_ray_matrix_above(orc)
+    res["radix_ms"], res["astage_rows_ms"] = t["kernel"], t["astage_rows"]
+    res["counts"] = counts
+    return res
 
+
+def long_ray_matrix_above(orc: Oracle) -> dict:
+    """m = MATRIX_ABOVE_M (radix 8, above CLUSTER_MAX_M) on two noise sectors
+    (6 channel-sectors): the A-stage's matrix route (#5,
+    csrc/fused_chain_astage_matrix.cu; int16 and f32) vs its plain version
+    (Y <= LONG_TOL), then #6 on its Y vs the matrix form's power (<=
+    POWER_TOL) and the oracle; the wire entry's matrix route (#7, and #8 at
+    offset 2 salt 7 on a 4-sector staging) vs its plain version (<=
+    POWER_TOL) and the oracle.  The launch counts equal the calls.  Then
+    each route timed in turns with its plain version (kernel, plain, plain,
+    kernel; #5 with cuFFT too) beside its bound and the matrix form's FMAs.
+    Returns {"astage", "wire", "wire_offset": each route's launches,
+    errors and times}."""
+    m = MATRIX_ABOVE_M
+    cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=m)
+    consts = PipelineConstants.build(cfg)
+    plan = fullchain.build_plan(consts, "cuda")
+    tile = fullchain.astage_tile(plan)
+    check(plan.radix == 8 and fullchain.chain_route(m) == "matrix"
+          and plan.cluster_t is None and tile == 8,
+          f"m={m}: radix {plan.radix}, above CLUSTER_MAX_M = "
+          f"{fullchain.CLUSTER_MAX_M} (matrix tile {fullchain.dense_tile(plan)},"
+          f" A-stage tile {tile})")
+    sectors = [oracle.synthetic_iq(cfg, kind="noise", seed=SEED + b)
+               for b in range(2)]
+    gain = torch.from_numpy(consts.gain).cuda()
+    x = torch.from_numpy(np.stack([planar_i16(s) for s in sectors])).cuda()
+    x = x.reshape(-1, 2, m, cfg.n)
+    ch, n = cfg.num_channels, cfg.n
+    bc = x.shape[0]
     res = {k: {"rel_l2": 0.0, "max_abs_err": 0.0}
            for k in ("astage", "wire", "wire_offset")}
 
@@ -2522,37 +2624,30 @@ def long_ray_matrix(orc: Oracle) -> dict:
               + f", bound {bound_ms:.3f} ms ({bound_by}); the matrix form "
               f"does {fma / 1e9:.2f} G real FMAs, "
               f"{2e3 * fma / PEAK_FP32:.3f} ms at the fp32 peak", flush=True)
-        res[key].update(source=source, ms=t["kernel"], plain_ms=t["plain"],
-                        library_ms=t.get("library"), bound_ms=bound_ms,
-                        bound_by=bound_by, matrix_fma=fma)
-    t = timed({"plain": lambda: fullchain.fused_chain_power_reference(x, plan),
-               "kernel": lambda: fullchain.fused_chain_power_radix(x, plan),
-               "astage_rows": lambda: fullchain.parseval_rows_power(
-                   fullchain.fused_chain_astage(x, plan), plan)},
-              ("plain", "kernel", "astage_rows", "astage_rows", "kernel",
-               "plain"))
-    print(f"radix m={m} on the matrix kernel, {bc} channel-sectors: "
-          f"{t['kernel']:.3f} ms, plain {t['plain']:.3f} ms; the matrix "
-          f"A-stage then #6 on the same sectors {t['astage_rows']:.3f} ms; "
-          f"{algorithm_note(m, n, bc)}", flush=True)
-    res["radix_ms"], res["astage_rows_ms"] = t["kernel"], t["astage_rows"]
-    res["counts"] = counts
+        res[key].update(source=source, m=m, ms=t["kernel"],
+                        plain_ms=t["plain"], library_ms=t.get("library"),
+                        bound_ms=bound_ms, bound_by=bound_by, matrix_fma=fma)
+    del x, xw, w32, w_all
+    torch.cuda.empty_cache()
     return res
 
 
 def phase_long_rays(orc: Oracle) -> dict:
     """Rays longer than 1024 cells: the executor at m = LONG_M with host
-    and device decode, each FFT-form kernel vs its plain version at
-    LONG_CHECK_MS and its time at LONG_M, the dense entries at
-    LONG_DENSE_M, the bench at LONG_M (i16, wire), a world-size-1
-    pallas-seq step and the mxu method at LONG_M, the times of #3, #7 and
-    #5 at m = 4096 (the FFT-form body's longest ray), and the matrix routes
-    above FFT_MAX_M (#3/#4, #5 with #6 and a pallas-seq step, #7/#8).
+    and device decode, each long-ray kernel vs its plain version (the planar
+    FFT-form body at LONG_CHECK_MS, the cluster body at CLUSTER_CHECK_MS)
+    and their times at LONG_M, the dense entries at LONG_DENSE_M, the bench
+    at LONG_M (i16, wire), a world-size-1 pallas-seq step and the mxu method
+    at LONG_M, the times of #3 at m = 4096 and of the cluster body's #5, #7,
+    #8 at every m of CLUSTER_CHECK_MS (48 channel-sectors; 6 at 4160; #5
+    beside cuFFT), the radix entry's matrix route and a pallas-seq step at
+    LONG_MATRIX_M, and the matrix routes of #5, #7, #8 above CLUSTER_MAX_M.
     Returns each kernel's launches on the slice's paths
-    (`long_ray_launches`), its results, its times at 4096 and its matrix
+    (`long_ray_launches`), its results, its times by m and its matrix
     route's results."""
     t0 = time.perf_counter()
     print_ptxas(r"fft_chain_long_kernel")
+    print_ptxas(r"cluster_chain_kernel")
     cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=LONG_M)
     iqs = [oracle.produce_sector_iq(cfg, SEED, j) for j in range(4)]
     wires = [codec.encode_iq(iq, cfg) for iq in iqs]
@@ -2561,13 +2656,21 @@ def phase_long_rays(orc: Oracle) -> dict:
                               "stage2"), 0)
     launches.update(long_ray_executor(cfg, iqs, wires))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t_checks = time.perf_counter()
     res = long_ray_kernels(gen)
-    times = long_ray_times(gen)
-    for key, t in times.items():
+    t_checks = time.perf_counter() - t_checks
+    t_times = time.perf_counter()
+    by_m = {LONG_M: long_ray_times(gen)}
+    for key, t in by_m[LONG_M].items():
         res[key].update(t)
-    t_4096 = time.perf_counter()
-    at_4096 = long_ray_times(gen, 4096, ("radix", "wire", "astage"))
-    t_4096 = time.perf_counter() - t_4096
+    cluster_keys = ("wire", "wire_offset", "astage")
+    for m in CLUSTER_CHECK_MS:
+        if m == LONG_M:
+            continue
+        keys = cluster_keys + (("radix",) if m == 4096 else ())
+        by_m[m] = long_ray_times(gen, m, keys,
+                                 2 if m == LONG_MATRIX_M else BATCH)
+    t_times = time.perf_counter() - t_times
     dense = long_ray_dense(orc)
     launches["dense"], launches["dense_offset"] = (dense["dense"],
                                                    dense["dense_offset"])
@@ -2580,11 +2683,14 @@ def phase_long_rays(orc: Oracle) -> dict:
     t_matrix = time.perf_counter() - t_matrix
     print(f"long rays: launches {json.dumps(launches)}; radix matrix route "
           f"{matrix['counts']['dense_matrix']}; phase "
-          f"{time.perf_counter() - t0:.1f} s (times at m=4096 {t_4096:.1f} s, "
-          f"pallas-seq and mxu {t_seq:.1f} s, m={LONG_MATRIX_M} matrix "
-          f"routes {t_matrix:.1f} s)", flush=True)
+          f"{time.perf_counter() - t0:.1f} s (checks {t_checks:.1f} s, times "
+          f"{t_times:.1f} s, pallas-seq and mxu {t_seq:.1f} s, m="
+          f"{LONG_MATRIX_M} radix and m={MATRIX_ABOVE_M} matrix routes "
+          f"{t_matrix:.1f} s)", flush=True)
+    times = {key: {str(m): t[key] for m, t in by_m.items() if key in t}
+             for key in cluster_keys}
     return {"launches": launches, "res": res, "dense": dense,
-            "at_4096": at_4096, "matrix": matrix}
+            "at_4096": by_m[4096], "times": times, "matrix": matrix}
 
 
 def offset_entry_checks(name, units, count, call, on_slab, plain, zdb_of,
@@ -3863,10 +3969,29 @@ def main() -> int:
                      decode_ab_launches=tools["ab"]["launches"]["decode_ab"]["wire"],
                      soak_device_decode_launches=last["soak"]["device-decode"]["wire"],
                      hw_demo_launches=demo["wire"],
-                     long_ray_launches=lr["wire"], long_ray=long["res"]["wire"],
-                     long_ray_4096=long["at_4096"]["wire"],
                      matrix_route=long["matrix"]["wire"],
                      **occ["wire"]),
+        # the cluster body (1024 < m <= 8192): launches on the long-ray
+        # executor's device-decode run; errors over CLUSTER_CHECK_MS; ms,
+        # plain and bound per 48 channel-sectors at m = 4096, every m's in
+        # times_by_m
+        kernel_entry("fused_chain_power_wire (cluster body, 1024 < m <= 8192)",
+                     "wrp_tpu_torch/csrc/fused_chain_wire_cluster.cu",
+                     "wrp_tpu/ops/pallas/fullchain.py:1170", lr["wire"],
+                     {**long["res"]["wire"], **long["at_4096"]["wire"]},
+                     m=4096, times_by_m=long["times"]["wire"]),
+        kernel_entry("fused_chain_power_wire (offset, salt; cluster body)",
+                     "wrp_tpu_torch/csrc/fused_chain_wire_cluster.cu",
+                     "wrp_tpu/ops/pallas/fullchain.py:1210",
+                     lr["wire_offset"],
+                     {**long["res"]["wire_offset"],
+                      **long["at_4096"]["wire_offset"]},
+                     m=4096, times_by_m=long["times"]["wire_offset"]),
+        kernel_entry("fused_chain_astage (cluster body, 1024 < m <= 8192)",
+                     "wrp_tpu_torch/csrc/fused_chain_astage_cluster.cu",
+                     "wrp_tpu/ops/pallas/fullchain.py:955", lr["astage"],
+                     {**long["res"]["astage"], **long["at_4096"]["astage"]},
+                     m=4096, times_by_m=long["times"]["astage"]),
         kernel_entry("fused_chain_power_dense",
                      "wrp_tpu_torch/csrc/fused_chain_dense.cu",
                      "wrp_tpu/ops/pallas/fullchain.py:194",
@@ -3881,9 +4006,6 @@ def main() -> int:
                      "wrp_tpu/ops/pallas/fullchain.py:955", shard["astage"],
                      astage, matmul_ms=astage["matmul_ms"],
                      hw_parity_launches=tools["hw_parity"]["astage"],
-                     long_ray_launches=lr["astage"],
-                     long_ray=long["res"]["astage"],
-                     long_ray_4096=long["at_4096"]["astage"],
                      matrix_route=long["matrix"]["astage"],
                      blocks_per_sm=occ["astage"]["blocks_per_sm"]),
         kernel_entry("parseval_rows_power",
@@ -3923,8 +4045,6 @@ def main() -> int:
                      bench_launches["wire_offset"], offsets["wire"],
                      wire_ab_launches=tools["ab"]["launches"]["wire_ab"]["wire_offset"],
                      ab_sweep_launches=last["ab_sweep"]["launches"]["wire_offset"],
-                     long_ray_launches=lr["wire_offset"],
-                     long_ray=long["res"]["wire_offset"],
                      matrix_route=long["matrix"]["wire_offset"]),
         kernel_entry("fused_stage2", "wrp_tpu_torch/csrc/fused_stage2.cu",
                      "wrp_tpu/ops/pallas/postprocess.py:86",

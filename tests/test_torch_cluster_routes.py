@@ -1,0 +1,286 @@
+"""Which kernel the A-stage (#5) and the wire chain (#7/#8) launch for each m,
+and the cluster body's cut, on the CPU.
+
+`chain_route(m)` picks from m alone: the register body of csrc/fft_chain.cuh
+up to 1024 range cells, the cluster body of csrc/cluster_chain.cuh up to
+8192 (each ray split across a cluster of 8 blocks), the matrix forms above
+(csrc/fused_chain_dense.cu's wire source, csrc/fused_chain_astage_matrix.cu).
+Here: the route and the plan's tables per m; the cluster geometry's cut and
+shared memory at each m the slice names, worked out by hand; the layout of
+`cluster_tables`; the cluster stage against the fp64 DFT at its smallest m;
+the `pallas-seq` and fused-wire processors' products against the oracle at
+m = 1840 and 8192; and the matrix routes, which now start above 8192, at
+m = 8320 (radix 8): the A-stage's matrix plain version against wrp_tpu's,
+the fused wire decode and `pallas-seq` equal to the planar products, #8's
+plain version with offset and salt."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from wrp_tpu import oracle
+from wrp_tpu.config import tiny_config as jtiny
+from wrp_tpu.constants import PipelineConstants as JConsts
+from wrp_tpu.ops.pallas import fullchain as jfull
+from wrp_tpu_torch.config import tiny_config
+from wrp_tpu_torch.constants import PipelineConstants
+from wrp_tpu_torch.io import codec
+from wrp_tpu_torch.ops import fullchain as tfull
+from wrp_tpu_torch.parallel import build_sharded_processor, make_mesh
+from wrp_tpu_torch.pipeline import SectorProcessor
+
+# few CPU threads per worker: the suite runs 6 workers beside tests that
+# assert CPU-time floors (tests/test_native_codec.py)
+torch.set_num_threads(2)
+
+N = 16
+SAME_TOL = 1e-5       # two forms of the same chain (fp32 reassociation)
+PRODUCT_TOL = 2e-4    # zdb, zdr vs the fp64 oracle
+ASTAGE_TOL = 1e-5     # Y vs wrp_tpu's A-stage (bf16 hi/lo splits there)
+ABOVE = 8320          # radix 8 above CLUSTER_MAX_M: the matrix routes
+
+
+def _planar(iq):
+    return np.stack([iq.real, iq.imag], 1).astype(np.int16)
+
+
+def _plan(m, n=N):
+    return tfull.build_plan(PipelineConstants.build(tiny_config(m=m, n=n)),
+                            "cpu")
+
+
+def _hold(got, want, tol, what):
+    for name, g, w in zip(("zdb", "zdr"), got, want):
+        g = g.numpy() if torch.is_tensor(g) else g
+        e = oracle.relative_l2(np.asarray(w), np.asarray(g))
+        assert e <= tol, (what, name, e)
+
+
+def test_chain_route_by_m():
+    """The register body up to 1024, the cluster body for radix m up to
+    8192, the matrix forms above; cluster_geometry refuses m outside its
+    range, naming CLUSTER_MAX_M."""
+    for m in (64, 960, 1024):
+        assert tfull.chain_route(m) == "register", m
+    for m in (1040, 1536, 1840, 2048, 4096, 4160, 8192):
+        assert tfull.cluster_takes(m) and tfull.chain_route(m) == "cluster", m
+    for m in (8208, ABOVE, 16384):
+        assert tfull.radix_for(m) > 1 and tfull.chain_route(m) == "matrix", m
+    # m = 1832 = 8 x 229 does not split: the dense entries' body, no cluster
+    assert tfull.radix_for(1832) == 1 and not tfull.cluster_takes(1832)
+    for m in (1024, 1832, ABOVE):
+        with pytest.raises(ValueError, match="CLUSTER_MAX_M = 8192"):
+            tfull.cluster_geometry(m, 512)
+
+
+def test_plan_tables_by_route():
+    """A plan holds the tables its routes read: fft_t for the planar
+    FFT-form body (m <= 4096), cluster_t and cluster_phi for the cluster
+    body, A_half on the host for the matrix kernel of the radix entry
+    (m > 4096)."""
+    cases = {1024: (True, False, False), 2048: (True, True, False),
+             4160: (False, True, True), ABOVE: (False, False, True)}
+    for m, (fft, cluster, host) in cases.items():
+        plan = _plan(m)
+        assert (plan.fft_t is not None, plan.cluster_t is not None,
+                plan.host_a_half is not None) == (fft, cluster, host), m
+        if cluster:
+            g = plan.cluster
+            assert plan.cluster_phi.shape == (-(-N // g.cols), 4)
+            assert plan.cluster_t.numel() == (m + 2 * g.P + 2 * g.L * g.P
+                                              + 2 * g.L + 16 * g.ms + 16)
+
+
+# words of one block (4 bytes each) at n = 512, worked out by hand: A and B
+# (complex, so twice their values), the staged samples (the A-stage's:
+# 2 ms cols samples of 2 or 4 bytes), the wire chain's owned rows
+# (complex, 4 span rows of pitch cols + 1) and round constants (5 cols)
+@pytest.mark.parametrize("m,cut,leaf,cols,smem", [
+    # ms = 192 = 64 x 3 at 32 columns: pass 1's slots 3 x 32 x (2 x 32) =
+    # 6144 in A (no pad at 32 columns), the leaf buffer 192 x 32 in B
+    (1536, (192, 64, 3, 32, 2, 24), [3], (32, 32, 32),
+     (4 * (2 * (6144 + 6144) + 2 * 4 * 24 * 33 + 5 * 32),
+      4 * (2 * (6144 + 6144) + 6144), 4 * (2 * (6144 + 6144) + 12288))),
+    # ms = 230 = 2 x 115: P2 = 1, so pass 1 writes the leaf's layout (B);
+    # A is the other leaf buffer
+    (1840, (230, 2, 115, 2, 1, 29), [5, 23], (32, 32, 32),
+     (4 * (2 * (7360 + 7360) + 2 * 3828 + 160),
+      4 * (2 * (7360 + 7360) + 7360), 4 * (2 * (7360 + 7360) + 14720))),
+    # ms = 256 = 32 x 8, L = 1: A's slots 32 x (8 cols), pass 2 in place;
+    # 64 columns but for the f32 A-stage (64 would need 262,144 bytes)
+    (2048, (256, 256, 1, 32, 8, 32), [], (64, 64, 32),
+     (4 * (2 * 16384 + 2 * 4 * 32 * 65 + 5 * 64),
+      4 * (2 * 16384 + 16384), 4 * (2 * 8192 + 16384))),
+    (4096, (512, 512, 1, 32, 16, 64), [], (32, 32, 16),
+     (4 * (2 * 16384 + 2 * 4 * 64 * 33 + 5 * 32),
+      4 * (2 * 16384 + 16384), 4 * (2 * 32 * (16 * 16 + 16) + 16384))),
+    # a prime leaf of 257 points (one O(L^2) pass)
+    (4112, (514, 2, 257, 2, 1, 65), [257], (16, 16, 16),
+     (4 * (2 * (8224 + 8224) + 2 * 4420 + 80),
+      4 * (2 * (8224 + 8224) + 8224), 4 * (2 * (8224 + 8224) + 16448))),
+    (4128, (516, 4, 129, 4, 1, 65), [3, 43], (16, 16, 16),
+     (4 * (2 * (8256 + 8256) + 2 * 4420 + 80),
+      4 * (2 * (8256 + 8256) + 8256), 4 * (2 * (8256 + 8256) + 16512))),
+    (4160, (520, 8, 65, 8, 1, 65), [5, 13], (16, 16, 16),
+     (4 * (2 * (8320 + 8320) + 2 * 4420 + 80),
+      4 * (2 * (8320 + 8320) + 8320), 4 * (2 * (8320 + 8320) + 16640))),
+    # slots 32 x (32 x 16 + 16); the f32 A-stage at 8 columns
+    (8192, (1024, 1024, 1, 32, 32, 128), [], (16, 16, 8),
+     (4 * (2 * 16896 + 2 * 4 * 128 * 17 + 80),
+      4 * (2 * 16896 + 16384), 4 * (2 * 32 * (32 * 8 + 8) + 16384))),
+])
+def test_cluster_geometry(m, cut, leaf, cols, smem):
+    """The cluster cut at n = 512: (ms, P, L, P1, P2, span), the leaf's
+    radices, and for the wire chain, the int16 and the f32 A-stage the
+    columns a round and a block's shared memory, each within one block's
+    227 KB and with twice the columns over it."""
+    bodies = ((True, 0), (False, 2), (False, 4))
+    for body, want_cols, want_smem in zip(bodies, cols, smem):
+        g = tfull.cluster_geometry(m, 512, *body)
+        assert (g.ms, g.P, g.L, g.P1, g.P2, g.span) == cut
+        assert g.cols == want_cols, body
+        assert tfull.cluster_smem_bytes(m, g.cols, *body) == want_smem, body
+        assert want_smem <= tfull.MAX_SMEM_BYTES
+        assert (g.cols == tfull.CLUSTER_MAX_COLS or tfull.cluster_smem_bytes(
+            m, 2 * g.cols, *body) > tfull.MAX_SMEM_BYTES), body
+    assert g.ms * tfull.CLUSTER_SPLIT == m and g.P * g.L == g.ms
+    assert g.P1 * g.P2 == g.P and g.span * tfull.CLUSTER_SPLIT >= g.ms
+    radices, rem = [], g.L
+    while rem > 1:
+        radices.append(tfull.leaf_radix(rem))
+        rem //= radices[-1]
+    assert radices == leaf
+    assert tfull.cluster_geometry(m, 512).cols == cols[0]     # the plan's cut
+    # a narrow A-stage slab takes fewer columns a round
+    assert tfull.cluster_geometry(m, 4, False, 2).cols == 4
+
+
+def test_cluster_tables_layout():
+    """m = 1040 (ms = 130 = 2 x 65): the window, W_P, the leaf's W_ms^(k r2)
+    and W_L roots, the cluster's W_m^(b k1) and W_8, each the fp64 value
+    cast once."""
+    m = 1040
+    consts = PipelineConstants.build(tiny_config(m=m, n=N))
+    g = tfull.cluster_geometry(m, N)
+    t = tfull.cluster_tables(consts).astype(np.float64)
+    assert t.dtype == np.float64 and g.P == 2 and g.L == 65
+    win = np.asarray(consts.op_a_half[0]).real
+    np.testing.assert_array_equal(t[:m], win.astype(np.float32))
+    at = m
+
+    def take(count):
+        nonlocal at
+        v = t[at:at + 2 * count].reshape(count, 2)
+        at += 2 * count
+        return v[:, 0] + 1j * v[:, 1]
+
+    def w(period, e):
+        return np.exp(-2j * np.pi * (np.asarray(e) % period) / period)
+
+    k, r2 = np.meshgrid(np.arange(g.P), np.arange(g.L))
+    b, k1 = np.meshgrid(np.arange(8), np.arange(g.ms), indexing="ij")
+    for got, want in ((take(g.P), w(g.P, np.arange(g.P))),
+                      (take(g.L * g.P), w(g.ms, k * r2).reshape(-1)),
+                      (take(g.L), w(g.L, np.arange(g.L))),
+                      (take(8 * g.ms), w(m, b * k1).reshape(-1)),
+                      (take(8), w(8, np.arange(8)))):
+        assert np.abs(got - want).max() < 1e-7
+    assert at == t.size
+
+
+def test_cluster_stage_vs_fp64_dft():
+    """At m = 1040, the smallest m the cluster body takes (a 2-point pass and
+    a 65-point leaf, 5 x 13): Y within 1e-6 of A_half @ x in float64, salt
+    included, at w = 16 and 3."""
+    m = 1040
+    plan = _plan(m)
+    a_half = JConsts.build(jtiny(m=m, n=N), dtype=np.float64).op_a_half
+    rng = np.random.default_rng(1040)
+    x = rng.integers(-8192, 8192, (3, 2, m, N), dtype=np.int16)
+    for w, salt in ((N, None), (3, 5)):
+        xs = np.ascontiguousarray(x[..., :w]).astype(np.float64) + (salt or 0)
+        yr, yi = tfull.cluster_stage_reference(
+            torch.from_numpy(np.ascontiguousarray(x[..., :w])), plan, salt)
+        y64 = np.einsum("km,umj->ukj", a_half, xs[:, 0] + 1j * xs[:, 1])
+        got = np.stack([yr.numpy(), yi.numpy()], 1)
+        assert oracle.relative_l2(np.stack([y64.real, y64.imag], 1), got) < 1e-6
+
+
+@pytest.mark.parametrize("m", [1840, 8192])
+def test_cluster_processors_vs_oracle(m):
+    """SectorProcessor(wire_decode="fused") (#7) and a world-size-1
+    pallas-seq step (#5 then #6) on the cluster route: products within 2e-4
+    of the fp64 oracle and 1e-5 of the planar pallas processor."""
+    cfg = tiny_config(m=m, n=N)
+    iqs = [oracle.synthetic_iq(jtiny(m=m, n=N), kind="noise", seed=s)
+           for s in (11, 12)]
+    planar = np.stack([_planar(iq) for iq in iqs])
+    wires = np.stack([np.frombuffer(codec.encode_iq(iq, cfg), np.uint8)
+                      for iq in iqs])
+    pallas = SectorProcessor(cfg, method="pallas", device="cpu")(planar)
+    fused = SectorProcessor(cfg, method="pallas", device="cpu",
+                            wire_input=True, wire_decode="fused")
+    step = build_sharded_processor(cfg, make_mesh(device="cpu"),
+                                   method="pallas-seq", device="cpu")
+    for what, got in (("fused wire", fused(wires.view("<i4"))),
+                      ("pallas-seq", step(planar))):
+        _hold(got, pallas, SAME_TOL, (what, "pallas"))
+        for b, iq in enumerate(iqs):
+            _hold((got[0][b], got[1][b]), oracle.process_sector(
+                iq, jtiny(m=m, n=N)), PRODUCT_TOL, (what, b))
+
+
+def test_astage_matrix_above_8192_vs_jax():
+    """m = 8320 (radix 8, M = 1040): the A-stage takes the matrix form's
+    plain version, within 1e-5 of wrp_tpu's A-stage on the same slab in
+    radix row order at w = n and n/2; no cluster tables; no launch
+    counted."""
+    m = ABOVE
+    plan = _plan(m)
+    assert plan.radix == 8 and plan.cluster_t is None
+    x = _planar(oracle.synthetic_iq(jtiny(m=m, n=N), kind="noise", seed=m))
+    a_np, fac = jfull.radix_plan_host(JConsts.build(jtiny(m=m, n=N)), 8)
+    order = jfull.radix_row_order(m, 8)
+    before = (tfull.ASTAGE_LAUNCHES, tfull.ASTAGE_MATRIX_LAUNCHES)
+    for w in (N, N // 2):
+        slab = torch.from_numpy(np.ascontiguousarray(x[..., :w]))
+        got = tfull.fused_chain_astage(slab, plan)
+        assert torch.equal(got, torch.stack(
+            tfull._contract_reference(slab, plan), dim=1))
+        want = np.asarray(jfull.fused_chain_astage(
+            jnp.asarray(slab.numpy()[:, :, order, :]), jnp.asarray(a_np), fac,
+            interpret=True))
+        assert oracle.relative_l2(want, got.numpy()) <= ASTAGE_TOL, w
+    assert before == (tfull.ASTAGE_LAUNCHES, tfull.ASTAGE_MATRIX_LAUNCHES)
+
+
+def test_wire_and_seq_matrix_above_8192():
+    """m = 8320: the fused wire decode and a world-size-1 pallas-seq step
+    take the matrix routes and give the planar products exactly (one
+    matrix-form plain version), within 2e-4 of the oracle; #8's plain
+    version with offset 1 and salt 7 equals fused_chain_power_reference on
+    the decoded, salted slab."""
+    m = ABOVE
+    cfg = tiny_config(m=m, n=N)
+    iqs = [oracle.synthetic_iq(jtiny(m=m, n=N), kind="noise", seed=s)
+           for s in (21, 22)]
+    planar = np.stack([_planar(iq) for iq in iqs])
+    wires = np.stack([np.frombuffer(codec.encode_iq(iq, cfg), np.uint8)
+                      for iq in iqs])
+    pzdb, pzdr = SectorProcessor(cfg, method="pallas", device="cpu")(planar)
+    fused = SectorProcessor(cfg, method="pallas", device="cpu",
+                            wire_input=True, wire_decode="fused")
+    step = build_sharded_processor(cfg, make_mesh(device="cpu"),
+                                   method="pallas-seq", device="cpu")
+    for got in (fused(wires.view("<i4")), step(planar)):
+        assert torch.equal(got[0], pzdb) and torch.equal(got[1], pzdr)
+        for b, iq in enumerate(iqs):
+            _hold((got[0][b], got[1][b]), oracle.process_sector(
+                iq, jtiny(m=m, n=N)), PRODUCT_TOL, b)
+    plan = fused._wire_plan
+    w32 = torch.from_numpy(wires.view("<i4").reshape(2, m, -1).copy())
+    got = tfull.fused_chain_power_wire(w32, plan, 3, offset=1, bs=1, salt=7)
+    want = tfull.fused_chain_power_reference(
+        torch.from_numpy(planar[1]).float(), plan, 7)
+    assert torch.equal(got.reshape(3, -1), want)

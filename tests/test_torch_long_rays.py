@@ -4,9 +4,10 @@ and 4160 (above the FFT-form kernels' 4096: the matrix body) against
 wrp_tpu's `pallas` processor (Pallas in interpret mode) and the fp64
 oracle; the wire input at m = 2048; the A-stage and a world-size-1
 `pallas-seq` step at m = 2048; the FFT-form cut of each geometry, worked
-out by hand; the matrix routes above 4096.  The CUDA kernels themselves
-(csrc/fft_chain.cuh's long-ray body) are checked on the card by
-chip_smoke.py."""
+out by hand; the routes above 4096 (the radix entry's matrix route; the
+cluster body of the wire entry, the A-stage and pallas-seq).  The CUDA
+kernels themselves (csrc/fft_chain.cuh's long-ray body, csrc/
+cluster_chain.cuh) are checked on the card by chip_smoke.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +24,7 @@ from wrp_tpu_torch.constants import PipelineConstants
 from wrp_tpu_torch.io import codec
 from wrp_tpu_torch.ops import fullchain as tfull
 from wrp_tpu_torch.parallel import build_sharded_processor, make_mesh
-from wrp_tpu_torch.pipeline import SectorProcessor
+from wrp_tpu_torch.pipeline import SectorProcessor, stage09_10_products
 
 # few CPU threads per worker: the suite runs 6 workers beside tests that
 # assert CPU-time floors (tests/test_native_codec.py)
@@ -185,10 +186,12 @@ def test_above_4096_routes_and_refusals():
     slab); the
     default wire decode picks "xla" and equals the planar products;
     "fused", the wire entry, the A-stage and pallas-seq, which refused
-    here before the matrix routes, now take them: "fused" and pallas-seq
-    equal the planar products, the wire entry and the A-stage their
-    matrix-form plain versions (tests/test_torch_matrix_routes.py holds
-    them against wrp_tpu)."""
+    here before the matrix routes, take the cluster body up to m =
+    8192: the wire entry and the A-stage equal its plain versions, "fused"
+    and pallas-seq the products of those plain versions, within 1e-5 of
+    the planar products (tests/test_torch_cluster.py holds them against
+    wrp_tpu; tests/test_torch_cluster_routes.py the matrix routes, now
+    above 8192)."""
     m = 4160
     cfg = tiny_config(m=m, n=N)
     plan = tfull.build_plan(_consts(m), "cpu")
@@ -216,16 +219,24 @@ def test_above_4096_routes_and_refusals():
     pzdb, pzdr = SectorProcessor(cfg, method="pallas", device="cpu")(
         _planar(iq)[None])
     assert torch.equal(zdb, pzdb) and torch.equal(zdr, pzdr)
+    assert tfull.chain_route(m) == "cluster"
+    gain = torch.from_numpy(_consts(m).gain)
     fused = SectorProcessor(cfg, method="pallas", device="cpu",
                             wire_input=True, wire_decode="fused")
     fzdb, fzdr = fused(wire.view("<i4"))
-    assert torch.equal(fzdb, pzdb) and torch.equal(fzdr, pzdr)
+    pw = tfull.cluster_chain_power_reference(x[:3].float(), plan)
+    want = stage09_10_products(pw[0][None], pw[1][None], gain)
+    assert torch.equal(fzdb, want[0]) and torch.equal(fzdr, want[1])
     w32 = torch.from_numpy(wire.view("<i4").reshape(1, m, 3 * N))
-    assert torch.equal(tfull.fused_chain_power_wire(w32, plan, 3)[0],
-                       tfull.fused_chain_power_reference(x[:3], plan))
+    assert torch.equal(tfull.fused_chain_power_wire(w32, plan, 3)[0], pw)
     y = tfull.fused_chain_astage(x, plan)
-    assert torch.equal(y, torch.stack(tfull._contract_reference(x, plan), 1))
+    assert torch.equal(y, torch.stack(tfull.cluster_stage_reference(x, plan), 1))
     step = build_sharded_processor(cfg, make_mesh(device="cpu"),
                                    method="pallas-seq", device="cpu")
     szdb, szdr = step(_planar(iq)[None])
-    assert torch.equal(szdb, pzdb) and torch.equal(szdr, pzdr)
+    pw = tfull.parseval_rows_power_reference(y[:3], plan)
+    want_seq = stage09_10_products(pw[0][None], pw[1][None], gain)
+    assert torch.equal(szdb, want_seq[0]) and torch.equal(szdr, want_seq[1])
+    for got in ((fzdb, fzdr), (szdb, szdr)):
+        for g, w in zip(got, (pzdb, pzdr)):
+            assert oracle.relative_l2(w.numpy(), g.numpy()) < 1e-5

@@ -1,19 +1,21 @@
 """The routes above FFT_MAX_M = 4096 range cells on the CPU, and the refusal
 of one channel.
 
-Above 4096 the FFT-form kernels stop and the matrix form takes over, chosen
-from m alone: the A-stage (#5) runs csrc/fused_chain_astage_matrix.cu (the
-matrix form of csrc/radix_chain.cuh), the wire entries (#7, #8) the matrix
-kernel's wire source in csrc/fused_chain_dense.cu.  Here each route's plain
-version is held against wrp_tpu (Pallas in interpret mode) and the fp64
-oracle at m = 4160 (radix 8), 4128 (radix 4) and 4112 (radix 2), n = 16:
-the A-stage on natural rows vs wrp_tpu's on radix rows, the tile the
-A-stage picks, a `pallas-seq` step at world 1 and over a 2-rank gloo group
-(int16, f32 and wire input), `MultiHostProcessor` with `pallas-seq`, the
-fused wire decode of `SectorProcessor`, and #8's plain version with offset
-and salt.  The CUDA kernels themselves are checked on the card by
-chip_smoke.py.  Last, every processor refuses a config of one channel at
-construction."""
+Above 4096 the radix entry (#3/#4) takes the matrix kernel; the A-stage
+(#5) and the wire entries (#7, #8) take the cluster body
+(csrc/cluster_chain.cuh) up to 8192 and the matrix forms above it
+(csrc/fused_chain_astage_matrix.cu, the matrix form of csrc/radix_chain.cuh;
+the matrix kernel's wire source in csrc/fused_chain_dense.cu), each chosen
+from m alone.  Here, at m = 4160 (radix 8), 4128 (radix 4) and 4112 (radix
+2), n = 16, against wrp_tpu (Pallas in interpret mode) and the fp64
+oracle: the A-stage's matrix-form plain version on natural rows vs
+wrp_tpu's on radix rows (the form the A-stage runs above 8192), the tile
+the matrix A-stage picks, a `pallas-seq` step at world 1 and over a 2-rank
+gloo group (int16, f32 and wire input), `MultiHostProcessor` with
+`pallas-seq`, the fused wire decode of `SectorProcessor`, and #8's plain
+version with offset and salt.  The CUDA kernels themselves are checked on
+the card by chip_smoke.py.  Last, every processor refuses a config of one
+channel at construction."""
 
 import dataclasses
 import sys
@@ -43,7 +45,7 @@ from wrp_tpu_torch.parallel import (build_halo_processor,
                                     build_sharded_processor, make_mesh)
 from wrp_tpu_torch.parallel.launch import run_ranks
 from wrp_tpu_torch.parallel.multihost import MultiHostProcessor
-from wrp_tpu_torch.pipeline import SectorProcessor
+from wrp_tpu_torch.pipeline import SectorProcessor, stage09_10_products
 
 # few CPU threads per worker: the suite runs 6 workers beside tests that
 # assert CPU-time floors (tests/test_native_codec.py)
@@ -118,26 +120,31 @@ def _hold_oracle(got, batch, what):
 
 @pytest.mark.parametrize("m,radix", [(4160, 8), (4128, 4), (4112, 2)])
 def test_astage_matrix_plain_vs_jax(m, radix):
-    """The A-stage above 4096 takes the matrix form's plain version: Y on
-    natural rows within 1e-5 of wrp_tpu's A-stage on the same slab in
-    radix row order, at w = n and n/2; no FFT tables; no launch counted."""
+    """The matrix form's plain version of the A-stage (`_contract_reference`,
+    the route above 8192), called directly at each radix: Y on natural rows
+    within 1e-5 of wrp_tpu's A-stage on the same slab in radix row order,
+    at w = n and n/2; no FFT tables.  The A-stage itself takes the cluster
+    body at these m (its plain version, no launch counted)."""
     plan = _plan(m)
     assert plan.radix == radix and plan.fft_t is None
+    assert tfull.chain_route(m) == "cluster"
     x = _planar(oracle.synthetic_iq(jtiny(m=m, n=N), kind="noise", seed=m))
     a_np, fac = jfull.radix_plan_host(JConsts.build(jtiny(m=m, n=N)), radix)
     order = jfull.radix_row_order(m, radix)
-    before = (tfull.ASTAGE_LAUNCHES, tfull.ASTAGE_MATRIX_LAUNCHES)
+    before = (tfull.ASTAGE_LAUNCHES, tfull.ASTAGE_MATRIX_LAUNCHES,
+              tfull.ASTAGE_CLUSTER_LAUNCHES)
     for w in (N, N // 2):
         slab = torch.from_numpy(np.ascontiguousarray(x[..., :w]))
-        got = tfull.fused_chain_astage(slab, plan)
+        got = torch.stack(tfull._contract_reference(slab, plan), dim=1)
         assert got.shape == (x.shape[0], 2, m // 2, w)
-        assert torch.equal(got, torch.stack(
-            tfull._contract_reference(slab, plan), dim=1))
+        assert torch.equal(tfull.fused_chain_astage(slab, plan), torch.stack(
+            tfull.cluster_stage_reference(slab, plan), dim=1))
         want = np.asarray(jfull.fused_chain_astage(
             jnp.asarray(slab.numpy()[:, :, order, :]), jnp.asarray(a_np), fac,
             interpret=True))
         assert oracle.relative_l2(want, got.numpy()) <= ASTAGE_TOL, w
-    assert before == (tfull.ASTAGE_LAUNCHES, tfull.ASTAGE_MATRIX_LAUNCHES)
+    assert before == (tfull.ASTAGE_LAUNCHES, tfull.ASTAGE_MATRIX_LAUNCHES,
+                      tfull.ASTAGE_CLUSTER_LAUNCHES)
 
 
 @pytest.mark.parametrize("m,tile,smem", [
@@ -260,8 +267,10 @@ def test_pallas_seq_two_ranks(form, two_ranks, batch, jax_products):
 def test_fused_wire_above_4096(batch):
     """SectorProcessor(wire_input=True, wire_decode="fused") builds at
     m = 4160 and takes int32 words: within 1e-5 of wrp_tpu's radix-layout
-    processor, which picks its fused wire kernel there, and equal to the
-    port's planar products.  The default decode there stays "xla"."""
+    processor, which picks its fused wire kernel there, equal to the
+    products of the cluster body's plain version on the planar samples and
+    within 1e-5 of the port's planar products (the radix entry's matrix
+    route).  The default decode there stays "xla"."""
     cfg = _cfg()
     proc = SectorProcessor(cfg, method="pallas", device="cpu",
                            wire_input=True, wire_decode="fused")
@@ -274,28 +283,33 @@ def test_fused_wire_above_4096(batch):
     assert jproc.wire_decode == "fused"
     _hold(got, tuple(np.asarray(t) for t in jproc(batch.wires)), SAME_TOL,
           "wrp_tpu fused wire")
-    assert torch.equal(got[0], batch.pallas[0])
-    assert torch.equal(got[1], batch.pallas[1])
+    pw = tfull.cluster_chain_power_reference(
+        torch.from_numpy(batch.planar.reshape(-1, 2, M, N)).float(),
+        _plan()).reshape(2, 3, -1)
+    want = stage09_10_products(pw[:, 0], pw[:, 1], torch.from_numpy(
+        PipelineConstants.build(cfg).gain))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _hold(got, batch.pallas, SAME_TOL, "planar")
     _hold_oracle(got, batch, "fused wire")
 
 
 def test_wire_offset_salt_plain_above_4096(batch):
     """#8's plain version at m = 4160: offset 1, salt 7 on a 2-sector slab
-    equals the decoded words through fused_chain_power_reference with the
-    salt; no launch counted."""
+    equals the decoded words through cluster_chain_power_reference (the
+    route up to 8192) with the salt; no launch counted."""
     plan = _plan()
     w32 = torch.from_numpy(batch.wires.view("<i4").reshape(2, M, -1).copy())
     counts = (tfull.WIRE_LAUNCHES, tfull.WIRE_OFFSET_LAUNCHES,
-              tfull.DENSE_MATRIX_LAUNCHES)
+              tfull.DENSE_MATRIX_LAUNCHES, tfull.WIRE_CLUSTER_LAUNCHES)
     got = tfull.fused_chain_power_wire(w32, plan, 3, offset=1, bs=1, salt=7)
     i_, q_ = tfull.decode_words_iq(w32[1:])
     planar = torch.stack([i_, q_], 1).reshape(1, 2, M, N, 3)
     planar = planar.permute(0, 4, 1, 2, 3).reshape(3, 2, M, N).contiguous()
-    want = tfull.fused_chain_power_reference(planar.float(), plan, 7)
+    want = tfull.cluster_chain_power_reference(planar.float(), plan, 7)
     assert got.shape == (1, 3, M // 2)
     assert torch.equal(got.reshape(3, -1), want)
     assert counts == (tfull.WIRE_LAUNCHES, tfull.WIRE_OFFSET_LAUNCHES,
-                      tfull.DENSE_MATRIX_LAUNCHES)
+                      tfull.DENSE_MATRIX_LAUNCHES, tfull.WIRE_CLUSTER_LAUNCHES)
 
 
 ONE_CHANNEL = dataclasses.replace(tiny_config(m=64, n=16), num_channels=1)

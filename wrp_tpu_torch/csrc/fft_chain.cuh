@@ -3,7 +3,7 @@
 // the dense entries of fused_chain_dense.cu for every even m <= 4096),
 // fused_chain_wire{,_salted}.cu (raw wire words) and, storing Y instead of
 // running the epilogue, fused_chain_astage.cu (the pulse-sharded path's
-// A-stage).
+// A-stage); the last two for m <= 1024 only.
 //
 // Per unit (one channel of one sector) and pulse column j it computes
 //
@@ -84,24 +84,33 @@
 // their power: one launch, no global scratch.
 // ops/fullchain.merged_epilogue_reference is the same algebra in torch.
 //
-// Rays longer than 1024 cells (1024 < m <= 4096) run fft_chain_long_kernel,
-// the same body with three changes.  A thread would own m/512 rows, 13
-// floats of partials each (52-104 live floats at m = 2048-4096, beside a
-// register DFT of up to 64): they would spill.  So every row's partials
-// live in shared memory, [13][m/2] floats (53 KB at m = 2048, 106 KB at
-// 4096), read and written once per row and round, and the cluster merges
-// them in place (no exchange buffer).  P = 2048, 4096 run the three
-// register passes above.  And the leaf runs at every P <= 1024 (odd L up
-// to 2047: m = 1536 = 512 x 3, 1840 = 16 x 5 x 23, 1832 = 8 x 229), a pass
-// of radix other than 3, 5, 7 spread over the block (leaf_pass_split:
-// one thread's 229 outputs of a 229-point pass would leave 16 threads of
-// 256 busy).
+// Which kernel serves which m.  This body serves m <= 1024 for every
+// entry (fft_chain_kernel, the register body).  For 1024 < m <= 4096 the
+// planar fused chain (the radix entry and its offset/salt entry, and the
+// dense entries at every even m) runs fft_chain_long_kernel below; the
+// wire chain and the A-stage run cluster_chain.cuh there and up to m =
+// 8192 (each ray split across a cluster of 8 blocks); above those the
+// matrix forms (fused_chain_dense.cu, fused_chain_astage_matrix.cu) run.
+// ops/fullchain.chain_route and dense_body choose from m alone.
+//
+// fft_chain_long_kernel, the planar fused chain's long-ray form, is the
+// same body with three changes.  A thread would own m/512 rows, 13 floats
+// of partials each (52-104 live floats at m = 2048-4096, beside a register
+// DFT of up to 64): they would spill.  So every row's partials live in
+// shared memory, [13][m/2] floats (53 KB at m = 2048, 106 KB at 4096),
+// read and written once per row and round, and the cluster merges them in
+// place (no exchange buffer).  P = 2048, 4096 run the three register
+// passes above.  And the leaf runs at every P <= 1024 (odd L up to 2047:
+// m = 1536 = 512 x 3, 1840 = 16 x 5 x 23, 1832 = 8 x 229), a pass of
+// radix other than 3, 5, 7 spread over the block (leaf_pass_split: one
+// thread's 229 outputs of a 229-point pass would leave 16 threads of 256
+// busy; cluster_chain.cuh's leaf uses it too).
 // Round sizes: ops/fullchain.fft_geometry (cols = 4 at m = 2048, 1 at
 // 4096: the block fits 227 KB with f32 samples staged); one block per SM
 // (__launch_bounds__(256, 1): no spill).  Its kernels are instantiated in
-// fused_chain_{radix,wire,astage}_long.cu, beside the m <= 1024 ones, so
-// that nvcc builds them in parallel; the m <= 1024 instantiations are
-// those of the register body, unchanged.
+// fused_chain_radix_long.cu, beside the m <= 1024 ones, so that nvcc
+// builds them in parallel; the m <= 1024 instantiations are those of the
+// register body, unchanged.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -1271,25 +1280,16 @@ cudaError_t dispatch_body(int P, Fn&& fn) {
   }
 }
 
-// The long-ray body's entries, defined in fused_chain_{radix,wire,astage}_
-// long.cu (each the *_as<true> template below): the m > 1024 kernels
-// compile there, in parallel with the register body's.
+// The planar long-ray body's entries, defined in fused_chain_radix_long.cu
+// (the *_as<true> templates below): the m > 1024 kernels compile there, in
+// parallel with the register body's.  The wire chain and the A-stage have
+// none: above 1024 they run cluster_chain.cuh.
 cudaError_t launch_fused_long(const PlanarIq& src, const float* tab, const float* phi,
                               const float* wd, const float* ph, float* out, int sectors,
                               int channels, int m, int n, int cols, int blocks, float salt,
                               cudaStream_t stream);
-cudaError_t launch_fused_long(const WireIq& src, const float* tab, const float* phi,
-                              const float* wd, const float* ph, float* out, int sectors,
-                              int channels, int m, int n, int cols, int blocks, float salt,
-                              cudaStream_t stream);
-cudaError_t launch_astage_long(const PlanarIq& src, const float* tab, float* y, int units,
-                               int m, int w, int cols, int blocks, cudaStream_t stream);
 cudaError_t occupancy_long(const PlanarIq& src, int m, int cols, int blocks, int* blocks_per_sm,
                            int* clusters);
-cudaError_t occupancy_long(const WireIq& src, int m, int cols, int blocks, int* blocks_per_sm,
-                           int* clusters);
-cudaError_t occupancy_astage_long(const PlanarIq& src, int m, int cols, int blocks,
-                                  int* blocks_per_sm, int* clusters);
 
 // The fused chain over units u = sector * channels + channel, clusters of
 // `blocks` <= ceil(n / cols) blocks, on `stream` without synchronising,
@@ -1312,39 +1312,40 @@ cudaError_t launch_fused_as(const Src& src, const float* tab, const float* phi, 
   });
 }
 
+// m > 1024: the planar long-ray body; the wire chain's is cluster_chain.cuh
+// (cudaErrorInvalidValue here).
 template <class Src>
 cudaError_t launch_fused(const Src& src, const float* tab, const float* phi, const float* wd,
                          const float* ph, float* out, int sectors, int channels, int m, int n,
                          int cols, int blocks, float salt, cudaStream_t stream) {
   if (Geometry(m).lng) {
-    return launch_fused_long(src, tab, phi, wd, ph, out, sectors, channels, m, n, cols, blocks,
-                             salt, stream);
+    if constexpr (Src::kStaged) {
+      return launch_fused_long(src, tab, phi, wd, ph, out, sectors, channels, m, n, cols, blocks,
+                               salt, stream);
+    } else {
+      return cudaErrorInvalidValue;
+    }
   }
   return launch_fused_as<false>(src, tab, phi, wd, ph, out, sectors, channels, m, n, cols,
                                 blocks, salt, stream);
 }
 
-// The A-stage over `units` units of w pulses: Y [units, 2, m/2, w].
-template <bool kLong, class Src>
-cudaError_t launch_astage_as(const Src& src, const float* tab, float* y, int units, int m,
-                             int w, int cols, int blocks, cudaStream_t stream) {
-  const Geometry g(m);
-  if (!g.ok || g.lng != kLong || units <= 0 || units > 65535 || w <= 0 || cols <= 0 ||
-      blocks <= 0 || blocks > kMaxCluster || (blocks - 1) * cols >= w) {
-    return cudaErrorInvalidValue;
-  }
-  const size_t smem = smem_bytes(src, g, m, cols, false);
-  return dispatch_body<Src, false, kLong>(g.P, [&](auto kernel) {
-    return launch_clusters(kernel, smem, blocks, 1, units, stream, src, tab, nullptr, nullptr,
-                           nullptr, y, m, g.L, w, cols, 0.f);
-  });
-}
-
+// The A-stage over `units` units of w pulses: Y [units, 2, m/2, w], on the
+// register body (m <= 1024); above, the A-stage runs cluster_chain.cuh
+// (cudaErrorInvalidValue here).
 template <class Src>
 cudaError_t launch_astage(const Src& src, const float* tab, float* y, int units, int m, int w,
                           int cols, int blocks, cudaStream_t stream) {
-  if (Geometry(m).lng) return launch_astage_long(src, tab, y, units, m, w, cols, blocks, stream);
-  return launch_astage_as<false>(src, tab, y, units, m, w, cols, blocks, stream);
+  const Geometry g(m);
+  if (!g.ok || g.lng || units <= 0 || units > 65535 || w <= 0 || cols <= 0 || blocks <= 0 ||
+      blocks > kMaxCluster || (blocks - 1) * cols >= w) {
+    return cudaErrorInvalidValue;
+  }
+  const size_t smem = smem_bytes(src, g, m, cols, false);
+  return dispatch_body<Src, false, false>(g.P, [&](auto kernel) {
+    return launch_clusters(kernel, smem, blocks, 1, units, stream, src, tab, nullptr, nullptr,
+                           nullptr, y, m, g.L, w, cols, 0.f);
+  });
 }
 
 // Resident blocks per SM and the clusters of `blocks` blocks the card can
@@ -1383,10 +1384,12 @@ template <class Src, bool kFused>
 cudaError_t occupancy(const Src& src, int m, int cols, int blocks, int* blocks_per_sm,
                       int* clusters) {
   if (Geometry(m).lng) {
-    if constexpr (kFused) {
+    // the planar fused chain's long-ray body; the wire chain and the
+    // A-stage run cluster_chain.cuh above 1024
+    if constexpr (kFused && Src::kStaged) {
       return occupancy_long(src, m, cols, blocks, blocks_per_sm, clusters);
     } else {
-      return occupancy_astage_long(src, m, cols, blocks, blocks_per_sm, clusters);
+      return cudaErrorInvalidValue;
     }
   }
   return occupancy_as<false, Src, kFused>(src, m, cols, blocks, blocks_per_sm, clusters);

@@ -1,7 +1,9 @@
 // The A-stage of the pulse-sharded chain, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel wrp_tpu/ops/pallas/fullchain.py::
-// fused_chain_astage (body _kernel_radix_astage).  Per channel-sector it
+// fused_chain_astage (body _kernel_radix_astage) for m <= 1024 (1024 < m
+// <= 8192: fused_chain_astage_cluster.cu; above: fused_chain_astage_
+// matrix.cu; ops/fullchain.chain_route picks).  Per channel-sector it
 // maps this rank's pulse slab x [2, m, w] (int16 or f32, range rows in
 // NATURAL order, any w) to the windowed half-spectrum range DFT
 // Y [2, m/2, w] f32: the FFT stage of the fused kernel (fft_chain.cuh

@@ -1,0 +1,46 @@
+// The A-stage of the pulse-sharded chain for rays of 1024 < m <= 8192 range
+// cells, for NVIDIA Hopper (sm_90a).
+//
+// Replaces, at those m, the TPU kernel wrp_tpu/ops/pallas/fullchain.py::
+// fused_chain_astage (body _kernel_radix_astage).  Per channel-sector it
+// maps this rank's pulse slab x [2, m, w] (int16 or f32, range rows in
+// NATURAL order, any w) to the windowed half-spectrum range DFT
+// Y [2, m/2, w] f32 through cluster_chain.cuh's body with kFused = false:
+// each unit one cluster of 8 blocks, block b the m/8-point DFT of rows
+// 8 t + b, the 4-of-8 combine over distributed shared memory, its m/16
+// rows of Y stored `cols` contiguous floats a row and plane.  The caller
+// picks this entry from m alone (ops/fullchain.chain_route); m <= 1024
+// runs fused_chain_astage.cu, m > 8192 fused_chain_astage_matrix.cu.
+//
+// What bounds it: bytes.  4 m w bytes of int16 in and 4 m w of Y out a
+// unit; the FFT's ~5 m log2 m flops a column are ~10 per byte, under the
+// fp32 ridge of 20.  Grid (8, 1, units), clusters of 8.
+
+#include <cuda_runtime.h>
+
+#include "cluster_chain.cuh"
+
+extern "C" {
+
+// x [bc, 2, m, w] int16 or float, tab the plan's cluster_tables, y [bc, 2,
+// m/2, w] float; cols the ClusterGeometry's at width w.  Launches on
+// `stream` without synchronising; returns the launch's cudaError_t (0 on
+// success; cudaErrorInvalidValue for an m or cols the body does not take).
+// The caller validates shapes and dtypes.
+int wrp_fused_chain_astage_cluster(const void* x, int x_is_int16, const void* tab, void* y,
+                                   int bc, int m, int w, int cols, void* stream) {
+  return static_cast<int>(wrp::cluster::launch<wrp::cluster::PlanarRows, false>(
+      wrp::cluster::PlanarRows{x, x_is_int16, m, w}, static_cast<const float*>(tab), nullptr,
+      nullptr, nullptr, static_cast<float*>(y), bc, 1, m, w, cols, 0.f,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// Resident blocks per SM and clusters of 8 the card holds at once of the
+// cluster A-stage at (m, cols), f32 samples staged (the larger staging).
+int wrp_fused_chain_astage_cluster_occupancy(int m, int cols, int* blocks_per_sm,
+                                             int* clusters) {
+  return static_cast<int>(wrp::cluster::occupancy<wrp::cluster::PlanarRows, false>(
+      wrp::cluster::PlanarRows{nullptr, 0, m, 0}, m, cols, blocks_per_sm, clusters));
+}
+
+}  // extern "C"

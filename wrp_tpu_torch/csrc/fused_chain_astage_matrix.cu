@@ -1,12 +1,12 @@
-// The A-stage of the pulse-sharded chain above 4096 range cells, for NVIDIA
+// The A-stage of the pulse-sharded chain above 8192 range cells, for NVIDIA
 // Hopper (sm_90a).
 //
 // Replaces the TPU kernel wrp_tpu/ops/pallas/fullchain.py::
-// fused_chain_astage (body _kernel_radix_astage) where the FFT-form
-// A-stage (fused_chain_astage.cu) does not reach: every m that splits into
-// radix branches (ops/fullchain.radix_for(m) > 1) above FFT_MAX_M = 4096,
-// e.g. m = 4160 (radix 8), 4128 (radix 4), 4112 (radix 2).  The caller
-// picks this entry from m alone (ops/fullchain.fused_chain_astage).
+// fused_chain_astage (body _kernel_radix_astage) where the FFT forms do not
+// reach: every m that splits into radix branches (ops/fullchain.radix_for(m)
+// > 1) above CLUSTER_MAX_M = 8192, e.g. m = 8320 (radix 8).  m <= 1024 runs
+// fused_chain_astage.cu, 1024 < m <= 8192 fused_chain_astage_cluster.cu.
+// The caller picks the entry from m alone (ops/fullchain.chain_route).
 //
 // Per channel-sector it maps this rank's pulse slab x [2, m, w] (int16 or
 // f32, range rows in NATURAL order, any w) to the windowed half-spectrum
@@ -18,10 +18,10 @@
 // wrp_radix_chain_astage, int16 only); this entry adds the f32 source,
 // which pallas-seq hands the A-stage for complex host input.
 //
-// What bounds it: fp32 FMA issue.  4 m M w real FMAs per unit (4.43 G at
-// m = 4160, M = 520, w = 512) against 4 m w bytes of int16 in and 4 m w of
-// Y out: ~270 FMAs per byte, far above the fp32 ridge of ~20 flops per
-// byte.  A correct kernel first: the FFT form above 4096 is later work.
+// What bounds it: fp32 FMA issue.  4 m M w real FMAs per unit (17.7 G at
+// m = 8320, M = 1040, w = 512) against 4 m w bytes of int16 in and 4 m w of
+// Y out: ~530 FMAs per byte, far above the fp32 ridge of ~20 flops per
+// byte.  A correct kernel, kept for the m the cluster body does not take.
 //
 // The tile T (sub-DFT rows per block) comes from the caller
 // (ops/fullchain.astage_tile): the tallest of 8, 4, 2 that divides M and

@@ -3,7 +3,8 @@
 //
 // Replaces the TPU kernel wrp_tpu/ops/pallas/fullchain.py::
 // fused_chain_power_wire with offset and salt (body
-// _kernel_radix_wire_offset): the wire kernel of fused_chain_wire.cu on
+// _kernel_radix_wire_offset) for m <= 1024 (above: the wire cluster and
+// matrix entries' own offset and salt): the wire kernel of fused_chain_wire.cu on
 // `bs` sectors starting `offset` SECTORS into a larger staged array of
 // wire words, with the int32 `salt` added to every decoded I and Q sample
 // (after the in-register decode and the conversion to f32, before the

@@ -3,26 +3,30 @@
 Counterpart of ``wrp_tpu/ops/pallas/fullchain.py``: per channel-sector,
 IQ [2, m, n] -> matched-filter power [m/2] via a half-spectrum range DFT
 followed by the closed-form Parseval epilogue (``pipeline.stage_b_parseval``).
-Each kernel has its wrapper, plain torch version and launch counter:
+Each kernel has its wrapper, plain torch version and launch counter; which
+kernel serves an m is m's alone:
 
 * radix, csrc/fused_chain_radix.cu (``wrp_tpu`` `fused_chain_power_radix`):
   `fused_chain_power_radix`, plain `fft_chain_power_reference`,
   `LAUNCHES`.  Planar int16/f32 IQ through the FFT-form kernel
-  (csrc/fft_chain.cuh), for m that splits (`radix_for(m) > 1`) up to
-  FFT_MAX_M: the range DFT as an FFT, and the Parseval epilogue from
-  chunked partials merged across a thread-block cluster.  Above FFT_MAX_M
-  (m = 4160, 8192) it launches the dense entries' matrix kernel on the
-  dense A_half (`RadixPlan.dense_operator`, built at first use; plain
-  `fused_chain_power_reference`), counted also in
-  `DENSE_MATRIX_LAUNCHES`.
+  (csrc/fft_chain.cuh) for m that splits (`radix_for(m) > 1`) up to
+  FFT_MAX_M = 4096: the register body up to FFT_SHORT_M = 1024, the
+  long-ray body (csrc/fused_chain_radix_long.cu) above.  Above FFT_MAX_M it
+  launches the dense entries' matrix kernel on the dense A_half
+  (`RadixPlan.dense_operator`, built at first use; plain
+  `fused_chain_power_reference`), counted also in `DENSE_MATRIX_LAUNCHES`.
 * wire, csrc/fused_chain_wire.cu (``wrp_tpu`` `fused_chain_power_wire`):
   `fused_chain_power_wire`, plain `fused_chain_power_wire_reference`,
-  `WIRE_LAUNCHES`.  The same kernel body on raw wire words [bs, m, ch*n]
-  int32, decoded in registers, one channel per block.  Above FFT_MAX_M it
-  launches the matrix kernel's wire source (csrc/fused_chain_dense.cu
+  `WIRE_LAUNCHES`.  Raw wire words [bs, m, ch*n] int32, decoded in
+  registers, one channel a cluster, through the route `chain_route(m)`
+  names: the register body of csrc/fft_chain.cuh for m <= 1024; the
+  cluster body (csrc/fused_chain_wire_cluster.cu, csrc/cluster_chain.cuh:
+  each ray split across a cluster of 8 blocks, plain
+  `cluster_chain_power_reference`, counted also in
+  `WIRE_CLUSTER_LAUNCHES`) for 1024 < m <= CLUSTER_MAX_M = 8192; above it
+  the matrix kernel's wire source (csrc/fused_chain_dense.cu
   `wrp_fused_chain_dense_wire`, on `RadixPlan.dense_operator`, plain
-  `fused_chain_power_wire_reference` on the matrix form), counted also in
-  `DENSE_MATRIX_LAUNCHES`.
+  `fused_chain_power_reference`), counted also in `DENSE_MATRIX_LAUNCHES`.
 * dense, csrc/fused_chain_dense.cu (``wrp_tpu`` `fused_chain_power`):
   `fused_chain_power_dense`, `DENSE_LAUNCHES`, for m that does not split
   (`radix_for(m) == 1`).  Two bodies, chosen from m alone (`dense_body`):
@@ -34,20 +38,21 @@ Each kernel has its wrapper, plain torch version and launch counter:
   `DENSE_MATRIX_LAUNCHES`, which counts the radix entry's launches of it
   above FFT_MAX_M too).
 
-The FFT-form body has two forms, chosen from m alone (`fft_long`): m <=
-1024 keeps each thread's epilogue partials in registers; 1024 < m <=
-FFT_MAX_M = 4096 (the long-ray body) keeps them in shared memory, runs
-P = 2048 and 4096 as three register passes (32 x 8 x 8, 32 x 16 x 8)
-and every odd L through the leaf.
+The FFT-form body of csrc/fft_chain.cuh has two forms, chosen from m alone
+(`fft_long`): m <= 1024 keeps each thread's epilogue partials in
+registers; 1024 < m <= FFT_MAX_M (the planar chain's long-ray body) keeps
+them in shared memory, runs P = 2048 and 4096 as three register passes (32
+x 8 x 8, 32 x 16 x 8) and every odd L through the leaf.
 
 The benchmark (wrp_tpu_torch/bench.py) reads each step's slab of a larger
 staged array through the OFFSET entries, one per kernel, each with its own
 counter (counted only when an offset is given): `fused_chain_power_radix`
 and `fused_chain_power_wire` with `offset=`, `bc=`/`bs=` and `salt=`
 (``wrp_tpu``'s `_kernel_radix_offset`, `_kernel_radix_wire_offset`;
-`RADIX_OFFSET_LAUNCHES`, `WIRE_OFFSET_LAUNCHES`; a salt launches through
-csrc/fused_chain_{radix,wire}_salted.cu, the same instantiation with its
-salt), and `fused_chain_power_at` (``wrp_tpu``'s dense offset entry;
+`RADIX_OFFSET_LAUNCHES`, `WIRE_OFFSET_LAUNCHES`; for m <= 1024 a salt
+launches through csrc/fused_chain_{radix,wire}_salted.cu, the same
+instantiation with its salt; the cluster and matrix entries take the salt
+themselves), and `fused_chain_power_at` (``wrp_tpu``'s dense offset entry;
 `DENSE_OFFSET_LAUNCHES`).  The offset is applied by the C launcher as
 pointer arithmetic, so there is no copy; one past the staged array raises
 (``wrp_tpu`` clamps it in interpret mode and would read past the buffer
@@ -57,10 +62,13 @@ conversion to f32.
 The pulse-sharded path (parallel/sharded.py "pallas-seq") splits the
 radix chain at its one communication point, with a kernel on each side:
 
-* A-stage, csrc/fused_chain_astage.cu (``wrp_tpu`` `fused_chain_astage`):
-  `fused_chain_astage`, plain `fused_chain_astage_reference`,
-  `ASTAGE_LAUNCHES`.  The FFT stage of csrc/fft_chain.cuh on a rank's
-  pulse slab [bc, 2, m, w] -> Y [bc, 2, m/2, w]; above FFT_MAX_M the
+* A-stage (``wrp_tpu`` `fused_chain_astage`): `fused_chain_astage`, plain
+  `fused_chain_astage_reference`, `ASTAGE_LAUNCHES`.  A rank's pulse slab
+  [bc, 2, m, w] -> Y [bc, 2, m/2, w] through the route `chain_route(m)`
+  names: the FFT stage of csrc/fft_chain.cuh (csrc/fused_chain_astage.cu)
+  for m <= 1024; the cluster body (csrc/fused_chain_astage_cluster.cu,
+  plain `cluster_stage_reference`, counted also in
+  `ASTAGE_CLUSTER_LAUNCHES`) for 1024 < m <= CLUSTER_MAX_M; above it the
   matrix form of csrc/radix_chain.cuh through
   csrc/fused_chain_astage_matrix.cu (int16 and f32, any radix and w),
   counted also in `ASTAGE_MATRIX_LAUNCHES`.
@@ -71,9 +79,11 @@ radix chain at its one communication point, with a kernel on each side:
   take (`parseval_rows_form`) run its two-pass form, counted also in
   `PARSEVAL_ROWS_TWO_PASS_LAUNCHES`.
 
-The host plan (`build_plan`) holds the FFT form's tables (`fft_tables`:
-the range window w_r c, the twiddles W_P, the leaf's factors, fp64 cast
-once; `fft_round_phasor_sums`) beside the TPU algorithm's matrix form
+The host plan (`build_plan`) holds the FFT forms' tables (`fft_tables`:
+the range window w_r c, the twiddles W_P, the leaf's factors; for the
+cluster body `cluster_tables`, the same for the m/8-point sub-DFT and the
+cluster's twiddles W_m^(b k1) and W_8; each fp64, cast once;
+`fft_round_phasor_sums`) beside the TPU algorithm's matrix form
 (`radix_plan`: the branch operators A_p = F_M diag(w_r c)[p::R] diag(T_p)
 and the combine factors fac[s][p] = exp(-2 pi i p s / R); R == 1: A_half
 itself), which the dense kernel, the matrix-form plain version
@@ -103,12 +113,16 @@ from . import _build
 LAUNCHES = 0            # fused_chain_radix.cu
 WIRE_LAUNCHES = 0       # fused_chain_wire.cu
 DENSE_LAUNCHES = 0      # fused_chain_dense.cu
-ASTAGE_LAUNCHES = 0     # fused_chain_astage (either body)
-ASTAGE_MATRIX_LAUNCHES = 0   # of those, fused_chain_astage_matrix.cu (m > FFT_MAX_M)
+ASTAGE_LAUNCHES = 0     # fused_chain_astage (any route)
+ASTAGE_CLUSTER_LAUNCHES = 0  # of those, fused_chain_astage_cluster.cu (1024 < m <= 8192)
+ASTAGE_MATRIX_LAUNCHES = 0   # of those, fused_chain_astage_matrix.cu (m > 8192)
 PARSEVAL_ROWS_LAUNCHES = 0   # parseval_rows.cu (either form)
 PARSEVAL_ROWS_TWO_PASS_LAUNCHES = 0  # of those, its two-pass form
 RADIX_OFFSET_LAUNCHES = 0    # the radix offset entry (salted: fused_chain_radix_salted.cu)
 WIRE_OFFSET_LAUNCHES = 0     # the wire offset entry (salted: fused_chain_wire_salted.cu)
+#: launches of the wire chain's cluster body (fused_chain_wire_cluster.cu,
+#: 1024 < m <= 8192) from either wire entry
+WIRE_CLUSTER_LAUNCHES = 0
 DENSE_OFFSET_LAUNCHES = 0    # fused_chain_power_at (fused_chain_dense.cu)
 #: launches of each dense body, from either dense entry (a run shows which
 #: body its m took)
@@ -118,7 +132,7 @@ DENSE_MATRIX_LAUNCHES = 0    # the matrix kernel of fused_chain_dense.cu (any en
 RADIX = 8
 
 #: tile heights (sub-DFT rows per block) the matrix-form A-stage
-#: (csrc/radix_chain.cuh: the A-stage above FFT_MAX_M and the in-kernel
+#: (csrc/radix_chain.cuh: the A-stage above CLUSTER_MAX_M and the in-kernel
 #: time breakdown's) is instantiated for
 KERNEL_TILES = (8, 4, 2)
 
@@ -346,6 +360,142 @@ def fft_round_phasor_sums(phasors: np.ndarray, cols: int) -> np.ndarray:
     return ph.reshape(4, -1, cols).sum(-1).T.astype(np.float32).copy()
 
 
+#: the cluster body (csrc/cluster_chain.cuh), the wire chain's (#7/#8) and
+#: the A-stage's (#5) route for FFT_SHORT_M < m <= CLUSTER_MAX_M: each ray
+#: split across a cluster of CLUSTER_SPLIT blocks, block b the rows
+#: 8 t + b, of whose 8-point DFT across blocks CLUSTER_OUT outputs are kept
+#: (k < m/2); at most CLUSTER_MAX_COLS pulse columns a round (16 int16 are
+#: a row's whole 32-byte sector; each round costs two cluster barriers, so
+#: a round takes as many columns as shared memory allows)
+CLUSTER_MAX_M = 8192
+CLUSTER_SPLIT = 8
+CLUSTER_OUT = 4
+CLUSTER_MAX_COLS = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterGeometry:
+    """How the cluster body (csrc/cluster_chain.cuh) cuts m range rows.
+
+    Block b of a unit's cluster owns the rows r = 8 t + b, t < ms = m / 8,
+    and runs their ms-point DFT F_b as the register body runs its range DFT
+    (ms = P L, P the largest power of two dividing ms, L odd; P = P1 P2, a
+    P1-point then a P2-point register DFT, each <= 32; for L > 1 the
+    leaf's Stockham passes).  Then block b' combines the k1 of its slice,
+    [b' span, min(ms, (b' + 1) span)), span = ceil(ms / 8), over the eight
+    blocks: Y[k1 + ms k2] = sum_b W_8^(b k2) W_m^(b k1) F_b[k1], k2 < 4.
+    Every block sees every pulse column, `cols` a round: as many as one
+    block's shared memory allows for the body (the wire chain, or the
+    A-stage at its input's sample width)."""
+
+    ms: int
+    P: int
+    L: int
+    P1: int
+    P2: int
+    cols: int
+    span: int
+
+
+def cluster_takes(m: int) -> bool:
+    """Whether the cluster body takes m: FFT_SHORT_M < m <= CLUSTER_MAX_M
+    and m splits into radix branches (so m % 16 == 0: ms = m / 8 is even)."""
+    return FFT_SHORT_M < m <= CLUSTER_MAX_M and radix_for(m) > 1
+
+
+def chain_route(m: int) -> str:
+    """The kernel the wire chain (#7/#8) and the A-stage (#5) launch for m
+    (a radix m), from m alone: "register" (csrc/fft_chain.cuh's register
+    body, m <= FFT_SHORT_M), "cluster" (csrc/cluster_chain.cuh, up to
+    CLUSTER_MAX_M) or "matrix" (above it: csrc/fused_chain_dense.cu's wire
+    source, csrc/fused_chain_astage_matrix.cu)."""
+    if m <= FFT_SHORT_M and fft_takes(m):
+        return "register"
+    return "cluster" if cluster_takes(m) else "matrix"
+
+
+def _cluster_factors(m: int):
+    """(ms, P, L, P1, P2) of the cluster body at m."""
+    ms = m // CLUSTER_SPLIT
+    P = ms & -ms
+    P1 = min(32, P)
+    return ms, P, ms // P, P1, P // P1
+
+
+def cluster_smem_bytes(m: int, cols: int, fused: bool = True,
+                       elem: int = 0) -> int:
+    """Dynamic shared memory of one block of the cluster body at m and
+    `cols` columns a round: the words of csrc/cluster_chain.cuh Layout.
+    fused: the wire chain (the owned rows and the round's constants beside
+    the FFT's buffers); else the A-stage, staging planar samples of `elem`
+    bytes (2: int16, 4: f32; 0: the wire, read straight from device
+    memory)."""
+    ms, P, L, P1, P2 = _cluster_factors(m)
+    pad = cols if cols < 32 else 0
+    sp = P2 * cols + pad
+    leaf = ms * cols
+    if L == 1:          # pass 2 in place: F stays in pass 1's slots
+        size_a, size_b = _round4(P1 * sp), 0
+    else:
+        size_a = _round4(max(L * P1 * sp if P2 > 1 else 0, leaf))
+        size_b = _round4(leaf)
+    own = _round4(CLUSTER_OUT * _cdiv(ms, CLUSTER_SPLIT) * (cols + 1)) if fused else 0
+    words = (2 * (size_a + size_b) + _round4(2 * ms * cols * elem // 4)
+             + 2 * own + (_round4(5 * cols) if fused else 0))
+    return 4 * words
+
+
+def cluster_geometry(m: int, width: int, fused: bool = True,
+                     elem: int = 0) -> ClusterGeometry:
+    """The cluster body's cut of m range rows and `width` pulse columns for
+    the wire chain (fused, the default) or the A-stage staging samples of
+    `elem` bytes (`cluster_smem_bytes`): cols the largest power of two <=
+    CLUSTER_MAX_COLS that width needs, halved until the block fits one
+    block's shared memory (the wire chain and the int16 A-stage 64 at m =
+    2048, 32 at 1536, 1840 and 4096, 16 at 4112-4160 and 8192; the f32
+    A-stage half that at 2048, 4096, 8192)."""
+    if not cluster_takes(m):
+        raise ValueError(f"the cluster body takes a radix m with "
+                         f"{FFT_SHORT_M} < m <= CLUSTER_MAX_M = "
+                         f"{CLUSTER_MAX_M}, got m={m}")
+    ms, P, L, P1, P2 = _cluster_factors(m)
+    cols = 1
+    while cols < CLUSTER_MAX_COLS and cols < width:
+        cols *= 2
+    while cols > 1 and cluster_smem_bytes(m, cols, fused, elem) > MAX_SMEM_BYTES:
+        cols //= 2
+    return ClusterGeometry(ms=ms, P=P, L=L, P1=P1, P2=P2, cols=cols,
+                           span=_cdiv(ms, CLUSTER_SPLIT))
+
+
+def cluster_tables(consts: PipelineConstants) -> np.ndarray:
+    """The cluster body's constants, one float32 vector (fp64 on the host,
+    cast once; the kernels compute no sine at run time):
+
+      [0, m)                 w_r c, the real range window and scale
+      [m, m + 2P)            W_P^t (re, im), t < P
+      then 2 L P             W_ms^(k r2) at (r2 P + k): the leaf's twiddles
+      then 2 L               W_L^t, t < L: the leaf's roots
+      then 2 * 8 ms          W_m^(b k1) at (b ms + k1): the cluster's twiddles
+      then 2 * 8             W_8^t, t < 8: the combine across the blocks."""
+    m = consts.op_a_half.shape[1]
+    ms, P, L, _, _ = _cluster_factors(m)
+    wr_c = np.asarray(consts.op_a_half[0]).astype(np.complex128).real
+    k, r2 = np.meshgrid(np.arange(P), np.arange(L))          # [L, P]
+    leaf_tw = _roots(ms, ms)[(k * r2) % ms]
+    b, k1 = np.meshgrid(np.arange(CLUSTER_SPLIT), np.arange(ms), indexing="ij")
+    ctw = _roots(m, m)[(b * k1) % m]                          # [8, ms]
+
+    def inter(c):
+        c = np.asarray(c).reshape(-1)
+        return np.stack([c.real, c.imag], -1).reshape(-1)
+
+    return np.concatenate([wr_c, inter(_roots(P, P)), inter(leaf_tw),
+                           inter(_roots(L, L)), inter(ctw),
+                           inter(_roots(CLUSTER_SPLIT, CLUSTER_SPLIT))]
+                          ).astype(np.float32)
+
+
 @dataclasses.dataclass(frozen=True)
 class RadixPlan:
     """Device-resident constants of the fused chain for one geometry."""
@@ -361,6 +511,8 @@ class RadixPlan:
     phasors: torch.Tensor    # [4, n] f32 clip-bin phasors
     fft_t: torch.Tensor | None = None   # fft_tables (every m that fft_takes)
     fft_phi: torch.Tensor | None = None  # [rounds, 4] fft_round_phasor_sums at n
+    cluster_t: torch.Tensor | None = None    # cluster_tables (every m that cluster_takes)
+    cluster_phi: torch.Tensor | None = None  # [rounds, 4] at the cluster geometry's cols
     #: a radix plan above FFT_MAX_M: the host's A_half [m/2, m] complex, from
     #: which `dense_operator` builds the matrix kernel's operator
     host_a_half: np.ndarray | None = dataclasses.field(default=None,
@@ -376,7 +528,7 @@ class RadixPlan:
         """The matrix kernel's operator, A_half as [m(q), m/2(t), 2] f32 on
         the plan's device: a radix-1 plan's `a_kernel`; for a radix plan
         above FFT_MAX_M built from `host_a_half` at first use and kept (it
-        holds m^2 / 2 complex values: 268 MB at m = 8192, so only a plan
+        holds m^2 / 2 complex values: 277 MB at m = 8320, so only a plan
         that launches the matrix kernel pays for it)."""
         if self.radix == 1:
             return self.a_kernel
@@ -395,6 +547,12 @@ class RadixPlan:
     def fft(self) -> FftGeometry:
         """The FFT-form kernels' cut of the plan's m x n."""
         return fft_geometry(self.m, self.n)
+
+    @property
+    def cluster(self) -> ClusterGeometry:
+        """The cluster body's cut of the plan's m x n for the wire chain
+        (the cut `cluster_phi` is summed at)."""
+        return cluster_geometry(self.m, self.n)
 
 
 def radix_plan(consts: PipelineConstants, radix: int):
@@ -441,6 +599,10 @@ def build_plan(consts: PipelineConstants, device) -> RadixPlan:
             consts.clip_phasors, fft_geometry(m, n).cols)).to(device)
     elif radix > 1:
         lanes["host_a_half"] = consts.op_a_half
+    if cluster_takes(m):
+        lanes["cluster_t"] = torch.from_numpy(cluster_tables(consts)).to(device)
+        lanes["cluster_phi"] = torch.from_numpy(fft_round_phasor_sums(
+            consts.clip_phasors, cluster_geometry(m, n).cols)).to(device)
     return RadixPlan(
         radix=radix, m=m, n=n,
         a=a_t,
@@ -553,14 +715,24 @@ def fft_stage_reference(x: torch.Tensor, plan: RadixPlan,
     (`leaf_fft_reference`), Y[k + P k2]; the crop.  Every factor comes from
     the plan's float32 tables (fft_tables)."""
     g, win, tw, leaf_tw, roots = _fft_plan_tables(plan, "fft_stage_reference")
-    P, L, P1, P2, P3 = g.P, g.L, g.P1, g.P2, g.P3
-    Q = P2 * P3
-    bc, _, m, w = x.shape
     xf = x.to(torch.float32)
     if salt is not None:
         xf = xf + float(salt)
     xw = xf * win[:, None]
     v = torch.complex(xw[:, 0], xw[:, 1])                  # [bc, m, w]
+    y = _fft_points(v, g.P1, g.P2, g.P3, tw, leaf_tw, roots)[:, : x.shape[2] // 2]
+    return y.real.contiguous(), y.imag.contiguous()
+
+
+def _fft_points(v: torch.Tensor, P1: int, P2: int, P3: int, tw: torch.Tensor,
+                leaf_tw: torch.Tensor, roots: torch.Tensor) -> torch.Tensor:
+    """The FFT-form kernels' DFT of v [bc, m, w] complex along dim 1, m = P
+    L (P = P1 P2 P3, L = len(roots)), in natural order: the steps
+    `fft_stage_reference` writes out, on the twiddles W_P `tw`, the leaf's
+    `leaf_tw` [L, P] and its roots."""
+    P, L = P1 * P2 * P3, roots.shape[0]
+    Q = P2 * P3
+    bc, m, w = v.shape
     v = v.reshape(bc, P, L, w).permute(0, 2, 1, 3)         # [bc, L, P(i), w]
     v = v.reshape(bc, L, P1, Q, w)                         # i = Q n1 + n2
     a1 = torch.arange(P1)
@@ -584,8 +756,7 @@ def fft_stage_reference(x: torch.Tensor, plan: RadixPlan,
     if L > 1:
         xk = leaf_fft_reference(xk * leaf_tw[None, :, :, None],
                                 roots)                     # [bc, k2, k, w]
-    y = xk.reshape(bc, m, w)[:, : m // 2]
-    return y.real.contiguous(), y.imag.contiguous()
+    return xk.reshape(bc, m, w)
 
 
 def merged_epilogue_reference(yr: torch.Tensor, yi: torch.Tensor,
@@ -618,6 +789,9 @@ def merged_epilogue_reference(yr: torch.Tensor, yi: torch.Tensor,
     ph = plan.phasors.to(torch.float32)
     if plan.fft_phi is not None and n == plan.n and cols == plan.fft.cols:
         phi = plan.fft_phi.cpu()       # the kernel's table
+    elif (plan.cluster_phi is not None and n == plan.n
+          and cols == plan.cluster.cols):
+        phi = plan.cluster_phi.cpu()   # the cluster body's
     else:
         phi = torch.from_numpy(fft_round_phasor_sums(ph.cpu().numpy(), cols))
 
@@ -676,6 +850,80 @@ def merged_epilogue_reference(yr: torch.Tensor, yi: torch.Tensor,
         im = dr[..., sn] + di[..., cc]
         pw = pw - (re * re + im * im)
     return pw
+
+
+def _cluster_plan_tables(plan: RadixPlan, name: str):
+    """(geometry at the plan's n, the cluster_tables split into tensors: win
+    [m] f32, tw [P], leaf_tw [L, P], roots [L], ctw [8, ms], w8 [8], the
+    complex ones complex64)."""
+    if plan.cluster_t is None:
+        raise ValueError(f"{name}: the cluster body takes a radix m with "
+                         f"{FFT_SHORT_M} < m <= CLUSTER_MAX_M = "
+                         f"{CLUSTER_MAX_M} (m={plan.m})")
+    g = plan.cluster
+    m, P, L, ms = plan.m, g.P, g.L, g.ms
+    t = plan.cluster_t
+    at = [m]
+
+    def cplx(count):
+        v = t[at[0]:at[0] + 2 * count].reshape(count, 2)
+        at[0] += 2 * count
+        return torch.complex(v[:, 0], v[:, 1])
+
+    tw = cplx(P)
+    leaf_tw = cplx(L * P).reshape(L, P)
+    roots = cplx(L)
+    ctw = cplx(CLUSTER_SPLIT * ms).reshape(CLUSTER_SPLIT, ms)
+    return g, t[:m], tw, leaf_tw, roots, ctw, cplx(CLUSTER_SPLIT)
+
+
+def _dft4(g: torch.Tensor) -> torch.Tensor:
+    """The 4-point DFT along dim 1 of g [bc, 4, ...] (W_4 = -i, exact), in
+    the kernel's order (csrc/cluster_chain.cuh dft4)."""
+    s, a = g[:, 0] + g[:, 2], g[:, 0] - g[:, 2]
+    t, d = g[:, 1] + g[:, 3], g[:, 1] - g[:, 3]
+    jd = torch.complex(-d.imag, d.real)                   # i d
+    return torch.stack([s + t, a - jd, s - t, a + jd], 1)
+
+
+def cluster_stage_reference(x: torch.Tensor, plan: RadixPlan,
+                            salt: int | None = None):
+    """Plain torch version of the cluster body's range stage
+    (csrc/cluster_chain.cuh): x [bc, 2, m, w] int16/f32 (natural row order,
+    any w) -> (yr, yi) [bc, m/2, w] f32, the same Y as `fft_stage_reference`
+    by the kernel's steps: the window and salt on load; decimate the rows
+    by 8 (block b: rows 8 t + b, t < ms = m / 8); each block's ms-point DFT
+    F_b (`_fft_points` at the geometry's P1 x P2 and leaf); the twiddle
+    W_m^(b k1); the 4 kept outputs of the 8-point DFT across the blocks,
+    Y[k1 + ms k2] = E[k2] + W_8^k2 O[k2] (E, O the 4-point DFTs of the even
+    and odd blocks), k2 < 4.  Every factor comes from the plan's float32
+    tables (cluster_tables)."""
+    g, win, tw, leaf_tw, roots, ctw, w8 = _cluster_plan_tables(
+        plan, "cluster_stage_reference")
+    bc, _, m, w = x.shape
+    xf = x.to(torch.float32)
+    if salt is not None:
+        xf = xf + float(salt)
+    xw = xf * win[:, None]
+    v = torch.complex(xw[:, 0], xw[:, 1]).reshape(bc, g.ms, CLUSTER_SPLIT, w)
+    v = v.transpose(1, 2).reshape(bc * CLUSTER_SPLIT, g.ms, w)   # [bc b, t, w]
+    f = _fft_points(v, g.P1, g.P2, 1, tw, leaf_tw, roots)
+    f = f.reshape(bc, CLUSTER_SPLIT, g.ms, w) * ctw[None, :, :, None]
+    e, o = _dft4(f[:, 0::2]), _dft4(f[:, 1::2])            # [bc, k2, k1, w]
+    y = (e + o * w8[:CLUSTER_OUT, None, None]).reshape(bc, m // 2, w)
+    return y.real.contiguous(), y.imag.contiguous()
+
+
+def cluster_chain_power_reference(x: torch.Tensor, plan: RadixPlan,
+                                  salt: int | None = None) -> torch.Tensor:
+    """Plain torch version of the cluster body's wire chain on planar
+    samples: x [bc, 2, m, n] int16/f32 -> pow [bc, m/2] f32, the range stage
+    (`cluster_stage_reference`) then the epilogue of one block a row
+    (`merged_epilogue_reference` with blocks = 1 at the geometry's cols:
+    every column of a row passes through the block that owns it)."""
+    yr, yi = cluster_stage_reference(x, plan, salt)
+    return merged_epilogue_reference(yr, yi, plan, cols=plan.cluster.cols,
+                                     blocks=1)
 
 
 def fft_chain_power_reference(x: torch.Tensor, plan: RadixPlan,
@@ -815,8 +1063,10 @@ def fft_occupancy(plan: RadixPlan, body: str = "radix") -> dict:
     """{blocks_per_sm, clusters}: the FFT-form kernel `body` ("radix",
     "wire" or "astage") at the plan's geometry, from
     cudaOccupancyMaxActiveBlocksPerMultiprocessor and, for the clustered
-    fused kernels, cudaOccupancyMaxActiveClusters (clusters of
-    `plan.fft.blocks` blocks; None for the A-stage).  A radix-1 plan has
+    kernels, cudaOccupancyMaxActiveClusters (clusters of `plan.fft.blocks`
+    blocks; of 8 for the cluster body, which "wire" and "astage" take for
+    1024 < m <= CLUSTER_MAX_M, each at its cut of the plan's n, the A-stage
+    with f32 staged; None for the register body's A-stage).  A radix-1 plan has
     the planar body only ("radix": the dense entries' FFT body).  Needs
     CUDA."""
     import ctypes
@@ -824,10 +1074,18 @@ def fft_occupancy(plan: RadixPlan, body: str = "radix") -> dict:
     if plan.radix == 1 and body != "radix":
         raise ValueError(f"fft_occupancy: a radix-1 plan (m={plan.m}) has the "
                          "planar body alone ('radix')")
-    _fft_plan_tables(plan, "fft_occupancy")
-    g = plan.fft
     lib = _build.load_library()
     bps, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    if body in ("wire", "astage") and chain_route(plan.m) == "cluster":
+        fn = getattr(lib, f"wrp_fused_chain_{body}_cluster_occupancy")
+        g = (plan.cluster if body == "wire"
+             else cluster_geometry(plan.m, plan.n, False, 4))
+        rc = fn(plan.m, g.cols, ctypes.addressof(bps),
+                ctypes.addressof(clusters))
+        _raise_on_error(lib, rc, f"fft_occupancy ({body}, cluster body)")
+        return {"blocks_per_sm": bps.value, "clusters": clusters.value}
+    _fft_plan_tables(plan, "fft_occupancy")
+    g = plan.fft
     if body == "astage":
         rc = lib.wrp_fused_chain_astage_occupancy(plan.m, g.cols,
                                                   ctypes.addressof(bps))
@@ -927,16 +1185,17 @@ def fused_chain_power_wire_reference(w32: torch.Tensor, plan: RadixPlan,
                                      ch: int, salt: int | None = None) -> torch.Tensor:
     """Plain torch version of the wire kernels: w32 [bs, m, ch*n] int32 ->
     pow [bs, ch, m/2] f32.  Decode the words, deinterleave the channels,
-    then the route's planar plain version on the planar sectors
-    (`fft_chain_power_reference`; `fused_chain_power_reference` above
-    FFT_MAX_M), with `salt` added to every decoded sample (the salted
-    kernels)."""
+    then the planar plain version of the route `chain_route(m)` names on the
+    planar sectors (`fft_chain_power_reference`,
+    `cluster_chain_power_reference` or `fused_chain_power_reference`), with
+    `salt` added to every decoded sample (the salted kernels)."""
     bs, m, lanes = w32.shape
     i_, q_ = decode_words_iq(w32)
     planar = torch.stack([i_, q_], dim=1).reshape(bs, 2, m, lanes // ch, ch)
     planar = planar.permute(0, 4, 1, 2, 3).reshape(bs * ch, 2, m, lanes // ch)
-    plain = (fft_chain_power_reference if fft_takes(m)
-             else fused_chain_power_reference)
+    plain = {"register": fft_chain_power_reference,
+             "cluster": cluster_chain_power_reference,
+             "matrix": fused_chain_power_reference}[chain_route(m)]
     return plain(planar.to(torch.float32), plan, salt).reshape(bs, ch, m // 2)
 
 
@@ -951,14 +1210,18 @@ def fused_chain_power_wire(w32: torch.Tensor, plan: RadixPlan, ch: int,
     the kernel reads its `bs` sectors from SECTOR `offset` (no copy), with
     the int32 `salt`, if given, added to every decoded sample.
 
-    The route is m's alone: m <= FFT_MAX_M launches csrc/fused_chain_wire.cu
-    (salted: csrc/fused_chain_wire_salted.cu), the FFT-form body; above it
-    the matrix kernel's wire source (csrc/fused_chain_dense.cu
+    The route is m's alone (`chain_route`): m <= 1024 launches
+    csrc/fused_chain_wire.cu (salted: csrc/fused_chain_wire_salted.cu), the
+    register body; 1024 < m <= CLUSTER_MAX_M csrc/fused_chain_wire_cluster.cu,
+    the cluster body (also counted in WIRE_CLUSTER_LAUNCHES); above it the
+    matrix kernel's wire source (csrc/fused_chain_dense.cu
     `wrp_fused_chain_dense_wire`, on `plan.dense_operator()`, also counted
     in DENSE_MATRIX_LAUNCHES).  A CPU tensor takes the plain version.  A
     CUDA tensor launches the route's kernel on the current stream or
-    raises.  Every channel reads the planar window and phasors."""
+    raises: there is no fallback.  Every channel reads the planar window
+    and phasors."""
     global WIRE_LAUNCHES, WIRE_OFFSET_LAUNCHES, DENSE_MATRIX_LAUNCHES
+    global WIRE_CLUSTER_LAUNCHES
     name = "fused_chain_power_wire"
     start, count = _slab(w32.shape[0], offset, bs, salt, name, "bs")
     if w32.device.type not in ("cpu", "cuda"):
@@ -983,16 +1246,22 @@ def fused_chain_power_wire(w32: torch.Tensor, plan: RadixPlan, ch: int,
                       device=w32.device)
     if count == 0:
         return out
-    fft = fft_takes(plan.m)
+    route = chain_route(plan.m)
     lib = _build.load_library()
     with torch.cuda.device(w32.device):
         stream = torch.cuda.current_stream(w32.device).cuda_stream
-        if not fft:
+        if route == "matrix":
             rc = lib.wrp_fused_chain_dense_wire(
                 w32.data_ptr(), plan.dense_operator().data_ptr(),
                 plan.wd.data_ptr(), plan.phasors.data_ptr(), out.data_ptr(),
                 count, plan.m, plan.n, ch, dense_tile(plan), start,
                 int(salt or 0), stream)
+        elif route == "cluster":
+            rc = lib.wrp_fused_chain_wire_cluster(
+                w32.data_ptr(), plan.cluster_t.data_ptr(),
+                plan.cluster_phi.data_ptr(), plan.wd.data_ptr(),
+                plan.phasors.data_ptr(), out.data_ptr(), count, plan.m,
+                plan.n, ch, plan.cluster.cols, start, int(salt or 0), stream)
         else:
             g = plan.fft
             args = (w32.data_ptr(), plan.fft_t.data_ptr(),
@@ -1003,9 +1272,11 @@ def fused_chain_power_wire(w32: torch.Tensor, plan: RadixPlan, ch: int,
                 rc = lib.wrp_fused_chain_wire(*args, stream)
             else:
                 rc = lib.wrp_fused_chain_wire_salted(*args, int(salt), stream)
-    _raise_on_error(lib, rc, "fused_chain_wire" if fft
-                    else "fused_chain_dense_wire")
-    DENSE_MATRIX_LAUNCHES += not fft
+    _raise_on_error(lib, rc, {"register": "fused_chain_wire",
+                              "cluster": "fused_chain_wire_cluster",
+                              "matrix": "fused_chain_dense_wire"}[route])
+    DENSE_MATRIX_LAUNCHES += route == "matrix"
+    WIRE_CLUSTER_LAUNCHES += route == "cluster"
     if offset is None:
         WIRE_LAUNCHES += 1
     else:
@@ -1015,7 +1286,7 @@ def fused_chain_power_wire(w32: torch.Tensor, plan: RadixPlan, ch: int,
 
 def astage_tile(plan: RadixPlan) -> int:
     """Tallest tile T in KERNEL_TILES of the matrix-form A-stage
-    (csrc/radix_chain.cuh: the A-stage above FFT_MAX_M and the in-kernel
+    (csrc/radix_chain.cuh: the A-stage above CLUSTER_MAX_M and the in-kernel
     time breakdown's) that divides M = m / R and whose operator slice
     [M, T] complex, 2 T M 4 bytes, fits one block's shared memory (8 KB at
     T = 8, M = 128; 131,584 bytes at m = 4112, M = 2056; at m = 7280, M =
@@ -1032,10 +1303,14 @@ def astage_tile(plan: RadixPlan) -> int:
 def fused_chain_astage_reference(x: torch.Tensor, plan: RadixPlan) -> torch.Tensor:
     """Plain torch version of the A-stage kernels: x [bc, 2, m, w]
     int16/f32, natural row order, any pulse count w -> Y [bc, 2, m/2, w]
-    f32; the FFT form's (`fft_stage_reference`) for every m `fft_takes`,
-    the matrix form's (`_contract_reference`) above FFT_MAX_M."""
-    if fft_takes(plan.m):
+    f32, that of the route `chain_route(m)` names: the register body's
+    (`fft_stage_reference`), the cluster body's (`cluster_stage_reference`)
+    or the matrix form's (`_contract_reference`)."""
+    route = chain_route(plan.m)
+    if route == "register":
         yr, yi = fft_stage_reference(x, plan)
+    elif route == "cluster":
+        yr, yi = cluster_stage_reference(x, plan)
     else:
         yr, yi = _contract_reference(x, plan)
     return torch.stack([yr, yi], dim=1)
@@ -1045,10 +1320,13 @@ def fused_chain_astage(x: torch.Tensor, plan: RadixPlan) -> torch.Tensor:
     """x [bc, 2, m, w] int16/f32 (natural row order, w = this rank's pulse
     lanes) -> Y [bc, 2, m/2, w] f32, the windowed half-spectrum range DFT.
     Needs a plan whose m splits into radix branches, as ``wrp_tpu``'s
-    pallas-seq does.  The route is m's alone:
+    pallas-seq does.  The route is m's alone (`chain_route`):
 
-    * m <= FFT_MAX_M: csrc/fused_chain_astage.cu, the FFT stage of
+    * m <= 1024: csrc/fused_chain_astage.cu, the FFT stage of
       csrc/fft_chain.cuh cut by `fft_geometry(m, w)`;
+    * 1024 < m <= CLUSTER_MAX_M: csrc/fused_chain_astage_cluster.cu, the
+      cluster body of csrc/cluster_chain.cuh cut by `cluster_geometry(m,
+      w, False, x.element_size())` (also counted in ASTAGE_CLUSTER_LAUNCHES);
     * above it: csrc/fused_chain_astage_matrix.cu, the matrix form of
       csrc/radix_chain.cuh on the plan's branch operators and combine
       factors at the tile `astage_tile` picks (also counted in
@@ -1057,7 +1335,7 @@ def fused_chain_astage(x: torch.Tensor, plan: RadixPlan) -> torch.Tensor:
     A CPU tensor takes the route's plain version
     (`fused_chain_astage_reference`).  A CUDA tensor launches the route's
     kernel on the current stream or raises; there is no fallback."""
-    global ASTAGE_LAUNCHES, ASTAGE_MATRIX_LAUNCHES
+    global ASTAGE_LAUNCHES, ASTAGE_MATRIX_LAUNCHES, ASTAGE_CLUSTER_LAUNCHES
     name = "fused_chain_astage"
     if plan.radix < 2:
         raise ValueError(f"the A-stage needs the radix plan (m={plan.m} "
@@ -1080,25 +1358,31 @@ def fused_chain_astage(x: torch.Tensor, plan: RadixPlan) -> torch.Tensor:
                     device=x.device)
     if bc == 0:
         return y
-    fft = fft_takes(plan.m)
+    route = chain_route(plan.m)
     lib = _build.load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if fft:
+        if route == "register":
             g = fft_geometry(plan.m, w)
             rc = lib.wrp_fused_chain_astage(
                 x.data_ptr(), int(x.dtype == torch.int16),
                 plan.fft_t.data_ptr(), y.data_ptr(), bc, plan.m, w, g.cols,
                 g.blocks, stream)
+        elif route == "cluster":
+            rc = lib.wrp_fused_chain_astage_cluster(
+                x.data_ptr(), int(x.dtype == torch.int16),
+                plan.cluster_t.data_ptr(), y.data_ptr(), bc, plan.m, w,
+                cluster_geometry(plan.m, w, False, x.element_size()).cols,
+                stream)
         else:
             rc = lib.wrp_fused_chain_astage_matrix(
                 x.data_ptr(), int(x.dtype == torch.int16),
                 plan.a_kernel.data_ptr(), plan.fac_t.data_ptr(), y.data_ptr(),
                 bc, plan.m, w, plan.radix, astage_tile(plan), stream)
-    _raise_on_error(lib, rc, "fused_chain_astage" if fft
-                    else "fused_chain_astage_matrix")
+    _raise_on_error(lib, rc, f"fused_chain_astage ({route})")
     ASTAGE_LAUNCHES += 1
-    ASTAGE_MATRIX_LAUNCHES += not fft
+    ASTAGE_CLUSTER_LAUNCHES += route == "cluster"
+    ASTAGE_MATRIX_LAUNCHES += route == "matrix"
     return y
 
 

@@ -210,9 +210,10 @@ def host_share(iq, mesh: Mesh, layout: str = "mesh") -> np.ndarray:
 
 def _build_pallas_seq(cfg, consts, mesh, dev, wire_input):
     """The fused chain seq-sharded over pulses: A-stage kernel per pulse
-    slab (the FFT form up to FFT_MAX_M, the matrix form above it: m's
-    route in `fused_chain_astage`), all_to_all, row-epilogue kernel per
-    row shard, all_gather of the powers.  The same range DFT and epilogue
+    slab (the register body up to 1024 range cells, the cluster body up to
+    8192, the matrix form above it: m's route, `fullchain.chain_route`),
+    all_to_all, row-epilogue kernel per row shard, all_gather of the
+    powers.  The same range DFT and epilogue
     as the fused kernel, so the products agree with it to fp32
     reassociation."""
     from ..ops import device_codec

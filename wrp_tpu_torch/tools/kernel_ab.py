@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B timing of the port's kernels across source trees, on one GPU.
 
-    python3 wrp_tpu_torch/tools/kernel_ab.py TREE [TREE ...]
+    python3 wrp_tpu_torch/tools/kernel_ab.py [--long] TREE [TREE ...]
 
 Each TREE is the root of a checkout (e.g. the parent commit unpacked with
 `git archive` into a git-ignored directory); each runs in its own process,
@@ -24,7 +24,12 @@ torch.matmul bf16 (a batched matmul per step and, where the tree's
 from a CUDA graph), and the split dot's device time per call from a CUDA
 graph of 100 calls beside torch.matmul fp32's; the breakdown's four modes
 (#10) on the 48 channel-sectors at salt 7 (null for a mode the tree lacks:
-older trees have no `splits`); the number of kernels and
+older trees have no `splits`); the long rays ("long": the A-stage, int16
+at w = 512, and the wire chain at m = 2048, 4096, 8192 per 48
+channel-sectors and at m = 4160 on 6, each through the route the tree
+takes at that m, with cuFFT over range of the windowed complex64 input
+beside the A-stage and each kernel's rel-L2 against the tree's plain
+version on one sector; with --long, these alone); the number of kernels and
 of FFMA instructions in its library.  Last, one JSON line holds every kernel
 the trees share by name whose `-Xptxas=-v` report (registers, stack,
 spills, shared memory) or SASS FFMA count differs from the first tree's
@@ -140,7 +145,7 @@ def sass_opcode_counts(so: Path, tool_dir: Path, opcodes=("FFMA",)) -> dict:
     return {keys[k]: v for k, v in counts.items()}
 
 
-def _measure(tree: str) -> dict:
+def _measure(tree: str, long_only: bool = False) -> dict:
     sys.path.insert(0, os.path.abspath(tree))
     import dataclasses
 
@@ -187,6 +192,9 @@ def _measure(tree: str) -> dict:
         return float((got.double() - ref.double()).norm() / ref.double().norm())
 
     out = {"tree": tree, "device": torch.cuda.get_device_name(0)}
+    if long_only:
+        _long_rays(out, ms, rel)
+        return _compiled(out, _build)
     # the tree's plain version of the radix and wire kernels
     plain = getattr(fullchain, "fft_chain_power_reference",
                     fullchain.fused_chain_power_reference)
@@ -267,8 +275,14 @@ def _measure(tree: str) -> dict:
                             for body in ("radix", "wire", "astage")}
     _probes(out, ms, rel)
     _breakdown(out, ms, rel, x16, consts)
-    so = _build.library_path()
-    tool_dir = Path(_build._nvcc()).parent
+    _long_rays(out, ms, rel)
+    return _compiled(out, _build)
+
+
+def _compiled(out: dict, build) -> dict:
+    """out with the tree's ptxas report and SASS FFMA counts."""
+    so = build.library_path()
+    tool_dir = Path(build._nvcc()).parent
     out["ptxas"] = ptxas_report(so.with_suffix(".log").read_text(), tool_dir)
     out["ffma"] = {k: v["FFMA"]
                    for k, v in sass_opcode_counts(so, tool_dir).items()}
@@ -370,19 +384,91 @@ def _breakdown(out: dict, ms, rel, x16, consts) -> None:
             x16, plan, mode, 0, x16.shape[0], 7), run())
 
 
+#: (m, sectors) of the long-ray timings: 48 channel-sectors, and m = 4160
+#: on 6 as the matrix routes were first timed there
+LONG_RAYS = ((2048, 16), (4096, 16), (4160, 2), (8192, 16))
+
+
+def _long_rays(out: dict, ms, rel) -> None:
+    """out["long"]: per (m, channel-sectors), the A-stage (#5, int16, w =
+    512) and the wire chain (#7) through the tree's route for m, cuFFT
+    beside #5, the route's name, each kernel's rel-L2 vs the tree's plain
+    version on the first sector.  A call slower than 10 ms is queued fewer
+    times."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from wrp_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from wrp_tpu_torch.constants import PipelineConstants
+    from wrp_tpu_torch.ops import fullchain
+
+    def route(m):
+        if hasattr(fullchain, "chain_route"):
+            return fullchain.chain_route(m)
+        return "long" if fullchain.fft_takes(m) else "matrix"
+
+    def timed_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        return ms(fn, max(3, min(20, int(100 / max(a.elapsed_time(b), 1e-3)))))
+
+    gen = torch.Generator(device="cuda").manual_seed(2024)
+    long = {}
+    for m, sectors in LONG_RAYS:
+        c = dataclasses.replace(cfg, num_range_cells=m)
+        consts = PipelineConstants.build(c)
+        plan = fullchain.build_plan(consts, "cuda")
+        ch, n = c.num_channels, c.n
+        bc = sectors * ch
+        x = torch.randint(-8192, 8192, (bc, 2, m, n), generator=gen,
+                          device="cuda", dtype=torch.int32).to(torch.int16)
+        w32 = torch.randint(-2 ** 31, 2 ** 31 - 1, (sectors, m, ch * n),
+                            generator=gen, device="cuda", dtype=torch.int32)
+        win = torch.from_numpy(np.ascontiguousarray(
+            consts.op_a_half[0].real, np.float32)).cuda()
+        xw = (torch.complex(x[:, 0].float(), x[:, 1].float())
+              * win[:, None]).contiguous()
+        r = {"route": route(m), "channel_sectors": bc}
+        r["astage_ms"] = timed_ms(lambda: fullchain.fused_chain_astage(x, plan))
+        r["wire_ms"] = timed_ms(
+            lambda: fullchain.fused_chain_power_wire(w32, plan, ch))
+        r["cufft_ms"] = timed_ms(lambda: torch.fft.fft(xw, dim=1)[:, :m // 2])
+        r["astage_rel"] = rel(
+            fullchain.fused_chain_astage_reference(x[:ch], plan),
+            fullchain.fused_chain_astage(x[:ch].contiguous(), plan))
+        r["wire_rel"] = rel(
+            fullchain.fused_chain_power_wire_reference(w32[:1], plan, ch),
+            fullchain.fused_chain_power_wire(w32[:1].contiguous(), plan, ch))
+        long[f"m{m}_bc{bc}"] = r
+        del x, w32, xw, plan
+        torch.cuda.empty_cache()
+    out["long"] = long
+
+
 def main(argv) -> int:
-    if len(argv) == 3 and argv[1] == "--one":
-        print(json.dumps(_measure(argv[2])), flush=True)
+    if len(argv) == 3 and argv[1] in ("--one", "--one-long"):
+        print(json.dumps(_measure(argv[2], argv[1] == "--one-long")),
+              flush=True)
         return 0
-    if len(argv) < 2:
+    long_only = argv[1:2] == ["--long"]
+    trees = argv[2:] if long_only else argv[1:]
+    if not trees:
         print(__doc__, file=sys.stderr)
         return 2
     rc = 0
     results = []
-    for tree in argv[1:]:
+    for tree in trees:
         done = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--one", tree], stdout=subprocess.PIPE,
-                              text=True, timeout=600)
+                               "--one-long" if long_only else "--one", tree],
+                              stdout=subprocess.PIPE, text=True, timeout=600)
         rc = rc or done.returncode
         if done.returncode != 0:
             continue
