@@ -109,25 +109,26 @@ Phases (each prints its results; any failure raises and exits non-zero):
    then rays longer than 1024 cells (`phase_long_rays`): the ptxas lines of
    the long-ray kernels; the executor at m = 2048 x 512, 3 channels, batch
    16, 32 sectors from memory with host decode (#3) and device decode
-   (#7), every launch on the FFT-form body and none on the matrix kernel,
-   sampled sectors within 2e-4 of the oracle; #3 (int16, f32), #4 (salt
-   95), #7, #8 (salt 7) and #5 (w = 512, 128) vs their plain versions at
-   m = 1536, 1840, 2048, 4096 (<= 1e-5), with each geometry's cut and
-   occupancy; CUDA-event times of each at m = 2048 per 48 channel-sectors
-   beside its plain version and bound, and of #3, #7 and #5 at m = 4096;
-   #1 and #2 at m = 1832 (radix 1, a 229-point leaf) vs plain and the
-   oracle; `bench --range-cells 2048` at batch 32, int16 (#4) and wire
-   (#8), its gate passing; a world-size-1 pallas-seq step (#5, #6) and
-   the mxu method (#9) at m = 2048 vs the pallas processor and the oracle,
-   and the pallas-seq step at m = 4160 (the matrix A-stage) from host
-   planar int16 and from wire bytes; m = 4160 (radix 8 above 4096)
-   through the radix entry's matrix route, with and without salt, vs its
-   plain version and the oracle, and through the routes above 4096 of #5
-   (csrc/fused_chain_astage_matrix.cu, int16 and f32, then #6 on its Y)
-   and #7/#8 (the matrix kernel's wire source, offset and salt 7) vs their
-   plain versions and the oracle, every launch counted, each timed in
-   turns with its plain version beside its bound and the matrix form's
-   FMAs;
+   (#7), every launch on the cluster body and none on the matrix kernel,
+   sampled sectors within 2e-4 of the oracle; on the cluster body #3
+   (int16, f32), #4 (offset, salt 7), #7, #8 (offset, salt 7) and #5
+   (int16 and f32 at w = 512, int16 at 128) vs their plain versions at m
+   = 1536, 1840, 2048, 4096, 4160, 8192 (<= 1e-5), with each geometry's
+   cut and occupancy; CUDA-event times of each at those m per 48
+   channel-sectors (6 at 4160) beside its plain version and bound; #1 and
+   #2 at m = 1832 (radix 1, the dense entries' long-ray body, a 229-point
+   leaf) vs plain and the oracle; `bench --range-cells 2048` at batch 32,
+   int16 (#4) and wire (#8), its gate passing; a world-size-1 pallas-seq
+   step (#5, #6) and the mxu method (#9) at m = 2048 vs the pallas
+   processor and the oracle, and the pallas-seq step at m = 4160 (the
+   cluster A-stage) from host planar int16 and from wire bytes; m = 8320
+   (radix 8 above 8192) through the radix entry's matrix route, with and
+   without salt, vs its plain version and the oracle, and through the
+   matrix routes of #5 (csrc/fused_chain_astage_matrix.cu, int16 and f32,
+   then #6 on its Y) and #7/#8 (the matrix kernel's wire source, offset
+   and salt 7) vs their plain versions and the oracle, every launch
+   counted, each timed in turns with its plain version beside its bound
+   and the matrix form's FMAs;
 10. the A-stage kernel (the pulse-sharded path's first half) on the noise
    and clip-bin sectors, int16 and f32, on every rank's pulse slab of 1, 2
    and 4 ranks (w = 512, 256, 128): Y vs its plain version (rel-L2 <=
@@ -323,10 +324,12 @@ def chain_flops(m: int, n: int) -> float:
 
 def algorithm_note(m: int, w: int, bc: int) -> str:
     """The work of the algorithm a kernel runs, beside the bound, never as
-    it: every even m <= 4096 runs the FFT form (csrc/fft_chain.cuh: radix-2
-    register DFTs and the leaf's radix-5/3/7 passes, the bound's flops up
-    to the butterflies' constant); the dense matrix kernel (m > 4096, odd
-    m) the TPU's A_half contraction (8 flops per complex multiply-add)."""
+    it: m <= 1024 and the dense entries' radix-1 m up to 4096 run the FFT
+    form (csrc/fft_chain.cuh: radix-2 register DFTs and the leaf's
+    radix-5/3/7 passes, the bound's flops up to the butterflies' constant),
+    the radix m up to 8192 the cluster body's (`cluster_note`); the dense
+    matrix kernel (radix-1 m > 4096, odd m, radix m > 8192) the TPU's
+    A_half contraction (8 flops per complex multiply-add)."""
     R = fullchain.radix_for(m)
     tpu = bc * 8.0 * (m * (m // R) * w if R > 1 else (m // 2) * m * w)
     form = f"radix-{R} matrix form" if R > 1 else "dense A_half form"
@@ -338,12 +341,14 @@ def algorithm_note(m: int, w: int, bc: int) -> str:
             rem //= passes[-1]
         leaf = (f", leaf passes {' x '.join(map(str, passes))}" if passes
                 else "")
-        split = f"{g.P1} x {g.P2}" + (f" x {g.P3}" if g.P3 > 1 else "")
         body = "long-ray" if fullchain.fft_long(m) else "register"
         return (f"the kernel runs the FFT form (the {body} body; P = {g.P} = "
-                f"{split}, L = {g.L}{leaf}; {g.cols} columns a round, "
+                f"{g.P1} x {g.P2}, L = {g.L}{leaf}; {g.cols} columns a round, "
                 f"{g.blocks} blocks a unit); the TPU's {form} would do "
                 f"{tpu / 1e9:.1f} GFLOP")
+    if R > 1 and fullchain.cluster_takes(m):
+        return (f"the kernel runs {cluster_note(m, w)}; the TPU's {form} "
+                f"would do {tpu / 1e9:.1f} GFLOP")
     return (f"the kernel's dense contraction does {tpu / 1e9:.1f} GFLOP, "
             f"{1e3 * tpu / PEAK_FP32:.3f} ms at the fp32 peak")
 
@@ -352,7 +357,7 @@ def reset_counts() -> None:
     fullchain.LAUNCHES = fullchain.WIRE_LAUNCHES = fullchain.DENSE_LAUNCHES = 0
     fullchain.ASTAGE_LAUNCHES = fullchain.PARSEVAL_ROWS_LAUNCHES = 0
     fullchain.ASTAGE_MATRIX_LAUNCHES = fullchain.ASTAGE_CLUSTER_LAUNCHES = 0
-    fullchain.WIRE_CLUSTER_LAUNCHES = 0
+    fullchain.WIRE_CLUSTER_LAUNCHES = fullchain.RADIX_CLUSTER_LAUNCHES = 0
     fullchain.RADIX_OFFSET_LAUNCHES = fullchain.WIRE_OFFSET_LAUNCHES = 0
     fullchain.DENSE_OFFSET_LAUNCHES = postprocess.STAGE2_LAUNCHES = 0
     postprocess.STAGE2_OPERATOR_LAUNCHES = 0
@@ -368,6 +373,7 @@ def read_counts() -> dict:
             "astage_matrix": fullchain.ASTAGE_MATRIX_LAUNCHES,
             "astage_cluster": fullchain.ASTAGE_CLUSTER_LAUNCHES,
             "wire_cluster": fullchain.WIRE_CLUSTER_LAUNCHES,
+            "radix_cluster": fullchain.RADIX_CLUSTER_LAUNCHES,
             "rows": fullchain.PARSEVAL_ROWS_LAUNCHES,
             "rows_two_pass": fullchain.PARSEVAL_ROWS_TWO_PASS_LAUNCHES,
             "radix_offset": fullchain.RADIX_OFFSET_LAUNCHES,
@@ -2014,26 +2020,25 @@ def phase_dense_path() -> dict:
     return launches
 
 
-#: the long-ray slice: 1024 < m <= FFT_MAX_M the planar chain's FFT-form
-#: body with its partials in shared memory, above it its matrix route; the
-#: wire chain and the A-stage on the cluster body up to CLUSTER_MAX_M, their
-#: matrix routes above it
+#: the long-ray slice: the planar chain (#3/#4), the wire chain (#7/#8)
+#: and the A-stage (#5) on the cluster body for 1024 < m <= CLUSTER_MAX_M,
+#: their matrix routes above it; the dense entries' radix-1 m on the
+#: FFT-form long-ray body up to FFT_MAX_M
 LONG_M = 2048             # the executor's, the bench's and the times' geometry
-LONG_CHECK_MS = (1536, 1840, 2048, 4096)   # each FFT-form kernel vs plain
-#: the cluster body's kernels (#5, #7, #8) vs plain, and their times
-CLUSTER_CHECK_MS = LONG_CHECK_MS + (4160, 8192)
+#: the cluster body's kernels (#3, #4, #5, #7, #8) vs plain, and their times
+CLUSTER_CHECK_MS = (1536, 1840, 2048, 4096, 4160, 8192)
 LONG_DENSE_M = 1832       # radix 1 (8 x 229): the dense entries' long-ray body
-LONG_MATRIX_M = 4160      # radix 8 above FFT_MAX_M: the radix entry's matrix route
-MATRIX_ABOVE_M = 8320     # radix 8 above CLUSTER_MAX_M: #5, #7, #8 on their matrix routes
+ODD_LEAF_M = 4160         # radix 8, 8 x 520 (a 5 x 13 leaf): timed on 6 channel-sectors
+MATRIX_ABOVE_M = 8320     # radix 8 above CLUSTER_MAX_M: #3/#4, #5, #7, #8 on their matrix routes
 LONG_TOL = 1e-5           # a long-ray kernel vs its plain version (power rel-L2)
 LONG_BENCH = ("--range-cells", str(LONG_M), "--batch", "32", "--repeats", "4")
 
 
 def long_ray_executor(cfg, iqs, wires) -> dict:
-    """The executor at m = LONG_M from memory, host decode (#3, the planar
-    FFT-form body) and device decode (#7, the cluster body): every sector
-    processed, every launch on its body (no matrix kernel), sampled sectors
-    within PRODUCT_TOL of the oracle.  Returns {"radix": host-decode
+    """The executor at m = LONG_M from memory, host decode (#3) and device
+    decode (#7), each on the cluster body: every sector processed, every
+    launch on the cluster body (no matrix kernel, no other), sampled
+    sectors within PRODUCT_TOL of the oracle.  Returns {"radix": host-decode
     launches, "wire": device's}."""
     count = 2 * BATCH
     out = {}
@@ -2051,16 +2056,15 @@ def long_ray_executor(cfg, iqs, wires) -> dict:
         print(f"long rays m={cfg.m}, {tag}: {stats['processed_sectors']} "
               f"sectors, {ex.throughput.active_rate():.2f} sectors/s; "
               f"launches {counts}", flush=True)
-        body = {"radix": None, "wire": "wire_cluster"}[key]
+        body = f"{key}_cluster"
         others = {k: v for k, v in counts.items() if k not in (key, body)}
         check(stats["processed_sectors"] == count
               and counts[key] >= count // BATCH and not any(others.values())
-              and (body is None or counts[body] == counts[key]),
+              and counts[body] == counts[key],
               f"long rays m={cfg.m} {tag}: {stats['processed_sectors']}/"
-              f"{count} sectors, every launch on the {key} kernel's "
-              f"{'cluster' if body else 'FFT-form'} body ({counts[key]}), "
-              f"none on the matrix kernel ({counts['dense_matrix']}) or "
-              f"another")
+              f"{count} sectors, every launch on the {key} kernel's cluster "
+              f"body ({counts[body]} of {counts[key]}), none on the matrix "
+              f"kernel ({counts['dense_matrix']}) or another")
         for k in range(len(iqs)):
             zdb64, zdr64 = oracle.process_sector(iqs[k], cfg)
             zdb, zdr = volume.data[0, :, k, 0], volume.data[1, :, k, 0]
@@ -2083,7 +2087,8 @@ def cluster_note(m: int, w: int) -> str:
         rem //= passes[-1]
     leaf = f", leaf passes {' x '.join(map(str, passes))}" if passes else ""
     cuts = []
-    for what, fused, elem in (("wire", True, 0), ("A-stage int16", False, 2),
+    for what, fused, elem in (("#3/#4 and #7/#8", True, 0),
+                              ("A-stage int16", False, 2),
                               ("A-stage f32", False, 4)):
         cols = fullchain.cluster_geometry(m, w, fused, elem).cols
         cuts.append(f"{what} {cols} columns a round, "
@@ -2095,12 +2100,13 @@ def cluster_note(m: int, w: int) -> str:
 
 
 def long_ray_kernels(gen) -> dict:
-    """Each long-ray kernel vs its plain version on seeded int16 noise: at
-    LONG_CHECK_MS the planar chain's FFT-form body, #3 (int16, f32) and #4
-    (salt 95, the second of two slabs); at CLUSTER_CHECK_MS the cluster
-    body's #7, #8 (offset, salt 7) and #5 (int16 and f32 at w = n, int16 at
-    n/4); power (Y for #5) rel-L2 <= LONG_TOL.  Each geometry's cut, route
-    and occupancy printed.  Returns {kernel: {rel_l2, max_abs_err}}."""
+    """Each cluster-body kernel vs its plain version on seeded int16 noise
+    at CLUSTER_CHECK_MS: #3 (int16, f32) and #4 (offset, salt 7, the second
+    of two slabs) vs cluster_chain_power_reference, #7, #8 (offset, salt 7)
+    and #5 (int16 and f32 at w = n, int16 at n/4); power (Y for #5) rel-L2
+    <= LONG_TOL.  Each geometry's cut, route and occupancy printed; no FFT
+    tables and no A_half on the host at those m.  Returns {kernel:
+    {rel_l2, max_abs_err}}."""
     res = {k: {"rel_l2": 0.0, "max_abs_err": 0.0}
            for k in ("radix", "radix_offset", "wire", "wire_offset", "astage")}
 
@@ -2118,30 +2124,27 @@ def long_ray_kernels(gen) -> dict:
         plan = fullchain.build_plan(PipelineConstants.build(cfg), "cuda")
         b = BATCH if m == LONG_M else 4
         bc = b * ch
-        planar = fullchain.fft_takes(m)
         occ = {body: fullchain.fft_occupancy(plan, body)
-               for body in (("radix",) if planar else ()) + ("wire", "astage")}
-        print(f"long rays m={m}: radix {plan.radix}, "
-              + (f"planar {plan.fft}; {algorithm_note(m, n, bc)}; " if planar
-                 else "the planar chain on its matrix route; ")
-              + f"#5, #7, #8 on {cluster_note(m, n)}; occupancy "
-              f"{json.dumps(occ)}", flush=True)
+               for body in ("radix", "wire", "astage")}
+        print(f"long rays m={m}: radix {plan.radix}, #3, #4, #5, #7, #8 on "
+              f"{cluster_note(m, n)}; occupancy {json.dumps(occ)}",
+              flush=True)
         check(plan.radix > 1 and fullchain.chain_route(m) == "cluster"
-              and (fullchain.fft_long(m) or not planar)
+              and not fullchain.fft_takes(m) and plan.fft_t is None
+              and plan.host_a_half is None
               and all(v["blocks_per_sm"] >= 1 and v["clusters"] > 0
                       for v in occ.values()),
-              f"m={m} takes the long-ray bodies, resident: {json.dumps(occ)}")
+              f"m={m} takes the cluster body, resident: {json.dumps(occ)}")
         x = torch.randint(-8192, 8192, (2 * bc, 2, m, n), generator=gen,
                           device="cuda", dtype=torch.int32).to(torch.int16)
-        if planar:
-            for xx in (x[:bc], x[:bc].float()):
-                hold("radix", f"#3 m={m} {xx.dtype}",
-                     fullchain.fft_chain_power_reference(xx, plan),
-                     fullchain.fused_chain_power_radix(xx, plan))
-            hold("radix_offset", f"#4 m={m} offset {bc} salt 95",
-                 fullchain.fft_chain_power_reference(x[bc:], plan, 95),
-                 fullchain.fused_chain_power_radix(x, plan, offset=bc, bc=bc,
-                                                   salt=95))
+        for xx in (x[:bc], x[:bc].float()):
+            hold("radix", f"#3 m={m} {xx.dtype} (cluster body)",
+                 fullchain.cluster_chain_power_reference(xx, plan),
+                 fullchain.fused_chain_power_radix(xx, plan))
+        hold("radix_offset", f"#4 m={m} offset {bc} salt 7 (cluster body)",
+             fullchain.cluster_chain_power_reference(x[bc:], plan, 7),
+             fullchain.fused_chain_power_radix(x, plan, offset=bc, bc=bc,
+                                               salt=7))
         w32 = torch.randint(-2 ** 31, 2 ** 31 - 1, (2 * b, m, ch * n),
                             generator=gen, device="cuda", dtype=torch.int32)
         hold("wire", f"#7 m={m} (cluster body)",
@@ -2164,11 +2167,12 @@ def long_ray_kernels(gen) -> dict:
 def long_ray_times(gen, m: int = LONG_M, keys=None,
                    sectors: int = BATCH) -> dict:
     """CUDA-event ms per `sectors` sectors x 3 channels x m x 512 (48
-    channel-sectors by default) of #3, #4 (offset of the second slab,
-    salted), #7, #8 and #5 (w = 512), or of those named in `keys`, each in
-    turns with its plain version (#5 also with cuFFT: torch.fft.fft over
-    range of the windowed complex64 input, then the crop), beside the bound
-    (the bytes: 201 MB of int16 at m = 2048, 48 channel-sectors)."""
+    channel-sectors by default) of #3 (int16; "radix_f32": f32, queued
+    only), #4 (offset of the second slab, salt 7), #7, #8 and #5 (w = 512),
+    or of those named in `keys`, each through its route at m, in turns with
+    its plain version (#5 also with cuFFT: torch.fft.fft over range of the
+    windowed complex64 input, then the crop), beside the bound (the bytes:
+    201 MB of int16 at m = 2048, 48 channel-sectors)."""
     cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=m)
     n, ch = cfg.n, cfg.num_channels
     plan = fullchain.build_plan(PipelineConstants.build(cfg), "cuda")
@@ -2176,20 +2180,24 @@ def long_ray_times(gen, m: int = LONG_M, keys=None,
     x = torch.randint(-8192, 8192, (2 * bc, 2, m, n), generator=gen,
                       device="cuda", dtype=torch.int32).to(torch.int16)
     x16 = x[:bc]
+    x32 = x16.float() if keys is None or "radix_f32" in keys else None
     w32 = torch.randint(-2 ** 31, 2 ** 31 - 1, (2 * sectors, m, ch * n),
                         generator=gen, device="cuda", dtype=torch.int32)
     w16 = w32[:sectors].contiguous()
     out_b = bc * m // 2 * 4
     route = fullchain.chain_route(m)
+    planar_plain = {"register": fullchain.fft_chain_power_reference,
+                    "cluster": fullchain.cluster_chain_power_reference,
+                    "matrix": fullchain.fused_chain_power_reference}[route]
     runs = {
         "radix": (lambda: fullchain.fused_chain_power_radix(x16, plan),
-                  lambda: fullchain.fft_chain_power_reference(x16, plan),
-                  x16.numel() * 2),
+                  lambda: planar_plain(x16, plan), x16.numel() * 2),
+        "radix_f32": (lambda: fullchain.fused_chain_power_radix(x32, plan),
+                      None, x16.numel() * 4),
         "radix_offset": (
             lambda: fullchain.fused_chain_power_radix(x, plan, offset=bc,
                                                       bc=bc, salt=7),
-            lambda: fullchain.fft_chain_power_reference(x[bc:], plan, 7),
-            x16.numel() * 2),
+            lambda: planar_plain(x[bc:], plan, 7), x16.numel() * 2),
         "wire": (lambda: fullchain.fused_chain_power_wire(w16, plan, ch),
                  lambda: fullchain.fused_chain_power_wire_reference(
                      w16, plan, ch), w16.numel() * 4),
@@ -2206,38 +2214,38 @@ def long_ray_times(gen, m: int = LONG_M, keys=None,
     for key, (kernel, plain, in_bytes) in runs.items():
         if keys is not None and key not in keys:
             continue
-        fns = {"plain": plain, "kernel": kernel}
-        order = ("plain", "kernel", "kernel", "plain")
+        fns = {"plain": plain, "kernel": kernel} if plain else {}
+        order = ("plain", "kernel", "kernel", "plain") if plain else ()
         if key == "astage":
             win = plan.fft_t[:m] if route != "cluster" else plan.cluster_t[:m]
             xw = (torch.complex(x16[:, 0].float(), x16[:, 1].float())
                   * win[:, None]).contiguous()     # pre-windowed, as cuFFT's input
             fns["library"] = lambda: torch.fft.fft(xw, dim=1)[:, :m // 2]
             order = ("plain", "kernel", "library", "library", "kernel", "plain")
-        t = timed(fns, order)
+        t = timed(fns, order) if order else {}
         queued = queued_ms(kernel)
         lib_queued = queued_ms(fns["library"]) if "library" in fns else None
         fused = key != "astage"
-        body = route if key in ("wire", "wire_offset", "astage") else "planar"
-        tab = plan.cluster_t if body == "cluster" else plan.fft_t
+        tab = plan.cluster_t if route == "cluster" else plan.fft_t
         bound_ms, bound_by = bound(
             bc * (chain_flops(m, n) if fused else astage_flops(m, n)),
-            in_bytes + tab.numel() * 4
+            in_bytes + (tab.numel() * 4 if tab is not None else m * 4)
             + (out_b if fused else x16.numel() // 2 * 4))
-        print(f"long rays {key} at m={m} ({body} body), {bc} channel-sectors "
-              f"x {n} pulses: {t['kernel']:.3f} ms ({queued:.3f} queued), "
-              f"plain {t['plain']:.3f} ms"
+        print(f"long rays {key} at m={m} ({route} body), {bc} "
+              f"channel-sectors x {n} pulses: "
+              + (f"{t['kernel']:.3f} ms ({queued:.3f} queued), plain "
+                 f"{t['plain']:.3f} ms" if t else f"{queued:.3f} ms queued")
               + (f", cuFFT {t['library']:.3f} ms ({lib_queued:.3f} queued)"
                  if lib_queued is not None else "")
               + f", bound {bound_ms:.3f} ms ({bound_by})", flush=True)
-        out[key] = {"ms": t["kernel"], "queued_ms": queued,
-                    "plain_ms": t["plain"], "bound_ms": bound_ms,
+        out[key] = {"ms": t.get("kernel", queued), "queued_ms": queued,
+                    "plain_ms": t.get("plain"), "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": t.get("library"),
-                    "library_queued_ms": lib_queued, "body": body,
+                    "library_queued_ms": lib_queued, "body": route,
                     "channel_sectors": bc}
         if "library" in fns:
             del fns["library"], xw
-    del x, w32
+    del x, x32, w32
     torch.cuda.empty_cache()
     return out
 
@@ -2306,8 +2314,9 @@ def long_ray_dense(orc: Oracle) -> dict:
 
 def long_ray_bench() -> dict:
     """`bench.run` at --range-cells LONG_M (batch 32, 4 repeats), int16
-    (#4) and --in-dtype wire (#8): the parity gate passes and the offset
-    counter equals (warm + timed passes) x steps + 2."""
+    (#4) and --in-dtype wire (#8): the parity gate passes, the offset
+    counter equals (warm + timed passes) x steps + 2, and every launch of
+    the entry runs on the cluster body."""
     out = {}
     for label, extra, counter in (("i16", [], "radix_offset"),
                                   ("wire", ["--in-dtype", "wire"],
@@ -2322,25 +2331,29 @@ def long_ray_bench() -> dict:
         # the gate's unsalted processor launches #3 besides
         others = {k: counts[k] for k in OFFSET_COUNTERS + ("dense_matrix",)
                   if k != counter}
+        entry = counter.split("_")[0]
+        cluster = counts[f"{entry}_cluster"]
         check(e0 < BENCH_GATE[0] and e1 < BENCH_GATE[1] and r["value"] > 0
-              and counts[counter] == want and not any(others.values()),
+              and counts[counter] == want and not any(others.values())
+              and cluster == counts[entry] + counts[counter],
               f"bench m={LONG_M} {label}: parity {e0:.3e}, {e1:.3e} under "
               f"{BENCH_GATE}; {r['value']} sectors/s; {counter} launches "
               f"{counts[counter]} == {want}, no other offset entry, no "
-              f"matrix kernel")
+              f"matrix kernel; {cluster} on the cluster body == "
+              f"{counts[entry]} + {counts[counter]}")
         out[counter] = counts[counter]
     return out
 
 
 def long_ray_seq_matrix() -> dict:
-    """A world-size-1 pallas-seq step at m = LONG_MATRIX_M (the A-stage on
+    """A world-size-1 pallas-seq step at m = ODD_LEAF_M (the A-stage on
     the cluster body, then #6 on all 2080 rows) from host memory, planar
     int16 and wire bytes (decoded on the card), on two produced sectors: vs
-    the pallas processor (the radix entry's matrix route, <= 1e-5) and the
-    oracle (<= PRODUCT_TOL); each step one A-stage launch, on the cluster
-    body, and one row-epilogue launch.  Returns the A-stage's and the
-    rows' launches."""
-    m = LONG_MATRIX_M
+    the pallas processor (the radix entry on the cluster body, <= 1e-5) and
+    the oracle (<= PRODUCT_TOL); each step one A-stage launch, on the
+    cluster body, and one row-epilogue launch.  Returns the A-stage's and
+    the rows' launches."""
+    m = ODD_LEAF_M
     cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=m)
     iqs = [oracle.produce_sector_iq(cfg, SEED, j) for j in range(2)]
     planar = np.stack([planar_i16(iq) for iq in iqs])
@@ -2381,7 +2394,7 @@ def long_ray_seq_and_mxu(cfg, iqs) -> dict:
     (#5 on the cluster body, then #6 on all m/2 rows) vs the pallas
     processor (<= 1e-5) and the oracle; #9 on the mxu method's range-stage
     Y [.., 1024, 512] vs that method's own power (<= POWER_TOL), its
-    products vs the oracle.  Then the pallas-seq step at LONG_MATRIX_M
+    products vs the oracle.  Then the pallas-seq step at ODD_LEAF_M
     (`long_ray_seq_matrix`)."""
     planar = torch.from_numpy(np.stack([planar_i16(iq) for iq in iqs])).cuda()
     zdb_p, zdr_p = (t.cpu().numpy() for t in SectorProcessor(
@@ -2436,25 +2449,26 @@ def matrix_fma(m: int, w: int, bc: int) -> float:
 
 
 def long_ray_matrix(orc: Oracle) -> dict:
-    """m = LONG_MATRIX_M (radix 8, above FFT_MAX_M) on two noise sectors (6
-    channel-sectors): the radix entry plain and with offset and salt 7 on
-    the matrix kernel (the dense A_half, built at first use) vs
+    """m = MATRIX_ABOVE_M (radix 8, above CLUSTER_MAX_M) on two noise
+    sectors (6 channel-sectors): the radix entry plain and with offset and
+    salt 7 on the matrix kernel (the dense A_half, built at first use) vs
     fused_chain_power_reference (<= POWER_TOL) and the oracle, each check's
     launch counts equal to its calls; then the radix entry timed beside #5
-    (the cluster body at this m) then #6 on the same sectors.  Then the
-    matrix routes of #5, #7 and #8, above CLUSTER_MAX_M
+    then #6 (both on their matrix routes at this m) on the same sectors.
+    Then the matrix routes of #5, #7 and #8 on the same plan and sectors
     (`long_ray_matrix_above`).  Returns {"counts": the radix checks'
     launches, "radix_ms", "astage_rows_ms", and "astage", "wire",
     "wire_offset": each matrix route's launches, errors and times}."""
-    m = LONG_MATRIX_M
+    m = MATRIX_ABOVE_M
     cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=m)
     consts = PipelineConstants.build(cfg)
     plan = fullchain.build_plan(consts, "cuda")
-    check(plan.radix == 8 and not fullchain.fft_takes(m) and plan.fft_t is None
-          and fullchain.chain_route(m) == "cluster",
-          f"m={m}: radix {plan.radix}, above FFT_MAX_M = {fullchain.FFT_MAX_M}"
-          f" (matrix tile {fullchain.dense_tile(plan)}); #5, #7, #8 on the "
-          f"cluster body")
+    check(plan.radix == 8 and fullchain.chain_route(m) == "matrix"
+          and plan.fft_t is None and plan.cluster_t is None
+          and plan.host_a_half is not None,
+          f"m={m}: radix {plan.radix}, above CLUSTER_MAX_M = "
+          f"{fullchain.CLUSTER_MAX_M}: the radix entry on the matrix kernel "
+          f"(tile {fullchain.dense_tile(plan)})")
     sectors = [oracle.synthetic_iq(cfg, kind="noise", seed=SEED + b)
                for b in range(2)]
     gain = torch.from_numpy(consts.gain).cuda()
@@ -2474,10 +2488,12 @@ def long_ray_matrix(orc: Oracle) -> dict:
     e, _ = rel_dev(fullchain.fused_chain_power_reference(x[ch:], plan, 7), got)
     counts = read_counts()
     check(e <= POWER_TOL and counts["dense_matrix"] == counts["radix"]
-          + counts["radix_offset"] == 3 and counts["dense_fft"] == 0,
+          + counts["radix_offset"] == 3 and counts["dense_fft"] == 0
+          and counts["radix_cluster"] == 0,
           f"radix m={m} offset {ch} salt 7 on the matrix kernel vs plain "
           f"{e:.3e} <= {POWER_TOL}; matrix launches {counts['dense_matrix']}"
-          f" == radix {counts['radix']} + offset {counts['radix_offset']}")
+          f" == radix {counts['radix']} + offset {counts['radix_offset']}, "
+          f"none on the cluster body")
     t = timed({"plain": lambda: fullchain.fused_chain_power_reference(x, plan),
                "kernel": lambda: fullchain.fused_chain_power_radix(x, plan),
                "astage_rows": lambda: fullchain.parseval_rows_power(
@@ -2485,18 +2501,20 @@ def long_ray_matrix(orc: Oracle) -> dict:
               ("plain", "kernel", "astage_rows", "astage_rows", "kernel",
                "plain"))
     print(f"radix m={m} on the matrix kernel, {bc} channel-sectors: "
-          f"{t['kernel']:.3f} ms, plain {t['plain']:.3f} ms; the cluster "
+          f"{t['kernel']:.3f} ms, plain {t['plain']:.3f} ms; the matrix "
           f"A-stage then #6 on the same sectors {t['astage_rows']:.3f} ms; "
           f"{algorithm_note(m, n, bc)}", flush=True)
-    res = long_ray_matrix_above(orc)
+    res = long_ray_matrix_above(orc, cfg, consts, plan, sectors, x)
     res["radix_ms"], res["astage_rows_ms"] = t["kernel"], t["astage_rows"]
     res["counts"] = counts
     return res
 
 
-def long_ray_matrix_above(orc: Oracle) -> dict:
-    """m = MATRIX_ABOVE_M (radix 8, above CLUSTER_MAX_M) on two noise sectors
-    (6 channel-sectors): the A-stage's matrix route (#5,
+def long_ray_matrix_above(orc: Oracle, cfg, consts, plan, sectors,
+                          x) -> dict:
+    """m = MATRIX_ABOVE_M (radix 8, above CLUSTER_MAX_M) on the two noise
+    sectors of `long_ray_matrix` (its config, constants, plan and planar
+    int16 x, 6 channel-sectors): the A-stage's matrix route (#5,
     csrc/fused_chain_astage_matrix.cu; int16 and f32) vs its plain version
     (Y <= LONG_TOL), then #6 on its Y vs the matrix form's power (<=
     POWER_TOL) and the oracle; the wire entry's matrix route (#7, and #8 at
@@ -2506,21 +2524,10 @@ def long_ray_matrix_above(orc: Oracle) -> dict:
     kernel; #5 with cuFFT too) beside its bound and the matrix form's FMAs.
     Returns {"astage", "wire", "wire_offset": each route's launches,
     errors and times}."""
-    m = MATRIX_ABOVE_M
-    cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=m)
-    consts = PipelineConstants.build(cfg)
-    plan = fullchain.build_plan(consts, "cuda")
+    m = cfg.m
     tile = fullchain.astage_tile(plan)
-    check(plan.radix == 8 and fullchain.chain_route(m) == "matrix"
-          and plan.cluster_t is None and tile == 8,
-          f"m={m}: radix {plan.radix}, above CLUSTER_MAX_M = "
-          f"{fullchain.CLUSTER_MAX_M} (matrix tile {fullchain.dense_tile(plan)},"
-          f" A-stage tile {tile})")
-    sectors = [oracle.synthetic_iq(cfg, kind="noise", seed=SEED + b)
-               for b in range(2)]
+    check(tile == 8, f"m={m}: the matrix A-stage's tile {tile}")
     gain = torch.from_numpy(consts.gain).cuda()
-    x = torch.from_numpy(np.stack([planar_i16(s) for s in sectors])).cuda()
-    x = x.reshape(-1, 2, m, cfg.n)
     ch, n = cfg.num_channels, cfg.n
     bc = x.shape[0]
     res = {k: {"rel_l2": 0.0, "max_abs_err": 0.0}
@@ -2634,17 +2641,15 @@ def long_ray_matrix_above(orc: Oracle) -> dict:
 
 def phase_long_rays(orc: Oracle) -> dict:
     """Rays longer than 1024 cells: the executor at m = LONG_M with host
-    and device decode, each long-ray kernel vs its plain version (the planar
-    FFT-form body at LONG_CHECK_MS, the cluster body at CLUSTER_CHECK_MS)
-    and their times at LONG_M, the dense entries at LONG_DENSE_M, the bench
-    at LONG_M (i16, wire), a world-size-1 pallas-seq step and the mxu method
-    at LONG_M, the times of #3 at m = 4096 and of the cluster body's #5, #7,
-    #8 at every m of CLUSTER_CHECK_MS (48 channel-sectors; 6 at 4160; #5
-    beside cuFFT), the radix entry's matrix route and a pallas-seq step at
-    LONG_MATRIX_M, and the matrix routes of #5, #7, #8 above CLUSTER_MAX_M.
-    Returns each kernel's launches on the slice's paths
-    (`long_ray_launches`), its results, its times by m and its matrix
-    route's results."""
+    and device decode, each cluster-body kernel (#3, #4, #5, #7, #8) vs its
+    plain version and its times at every m of CLUSTER_CHECK_MS (48
+    channel-sectors; 6 at ODD_LEAF_M; #5 beside cuFFT), the dense entries
+    at LONG_DENSE_M (the long-ray FFT-form body), the bench at LONG_M
+    (i16, wire), a world-size-1 pallas-seq step and the mxu method at
+    LONG_M and a pallas-seq step at ODD_LEAF_M, and the matrix routes of
+    #3/#4, #5, #7, #8 above CLUSTER_MAX_M.  Returns each kernel's launches
+    on the slice's paths (`long_ray_launches`), its results, its times by
+    m and its matrix route's results."""
     t0 = time.perf_counter()
     print_ptxas(r"fft_chain_long_kernel")
     print_ptxas(r"cluster_chain_kernel")
@@ -2660,16 +2665,12 @@ def phase_long_rays(orc: Oracle) -> dict:
     res = long_ray_kernels(gen)
     t_checks = time.perf_counter() - t_checks
     t_times = time.perf_counter()
-    by_m = {LONG_M: long_ray_times(gen)}
+    by_m = {m: long_ray_times(gen, m, None,
+                              2 if m == ODD_LEAF_M else BATCH)
+            for m in CLUSTER_CHECK_MS}
     for key, t in by_m[LONG_M].items():
-        res[key].update(t)
-    cluster_keys = ("wire", "wire_offset", "astage")
-    for m in CLUSTER_CHECK_MS:
-        if m == LONG_M:
-            continue
-        keys = cluster_keys + (("radix",) if m == 4096 else ())
-        by_m[m] = long_ray_times(gen, m, keys,
-                                 2 if m == LONG_MATRIX_M else BATCH)
+        if key in res:
+            res[key].update(t)
     t_times = time.perf_counter() - t_times
     dense = long_ray_dense(orc)
     launches["dense"], launches["dense_offset"] = (dense["dense"],
@@ -2685,10 +2686,10 @@ def phase_long_rays(orc: Oracle) -> dict:
           f"{matrix['counts']['dense_matrix']}; phase "
           f"{time.perf_counter() - t0:.1f} s (checks {t_checks:.1f} s, times "
           f"{t_times:.1f} s, pallas-seq and mxu {t_seq:.1f} s, m="
-          f"{LONG_MATRIX_M} radix and m={MATRIX_ABOVE_M} matrix routes "
-          f"{t_matrix:.1f} s)", flush=True)
-    times = {key: {str(m): t[key] for m, t in by_m.items() if key in t}
-             for key in cluster_keys}
+          f"{MATRIX_ABOVE_M} matrix routes {t_matrix:.1f} s)", flush=True)
+    keys = ("radix", "radix_f32", "radix_offset", "wire", "wire_offset",
+            "astage")
+    times = {key: {str(m): t[key] for m, t in by_m.items()} for key in keys}
     return {"launches": launches, "res": res, "dense": dense,
             "at_4096": by_m[4096], "times": times, "matrix": matrix}
 
@@ -3953,12 +3954,28 @@ def main() -> int:
                      multihost_bench_launches=last["multihost"],
                      ab_sweep_gate_launches=last["ab_sweep"]["launches"]["radix"],
                      hw_demo_launches=demo["radix"],
-                     long_ray_launches=lr["radix"],
-                     long_ray=long["res"]["radix"],
-                     long_ray_4096=long["at_4096"]["radix"],
+                     matrix_route_m=MATRIX_ABOVE_M,
                      matrix_route_ms=long["matrix"]["radix_ms"],
                      matrix_astage_rows_ms=long["matrix"]["astage_rows_ms"],
                      **occ["radix"]),
+        # the cluster body (1024 < m <= 8192): launches on the long-ray
+        # executor's host-decode run (#3) and the bench at m = 2048 (#4);
+        # errors over CLUSTER_CHECK_MS, int16 and f32; ms, plain and bound
+        # per 48 channel-sectors at m = 4096, every m's in times_by_m (f32
+        # queued in f32_times_by_m)
+        kernel_entry("fused_chain_power_radix (cluster body, 1024 < m <= 8192)",
+                     "wrp_tpu_torch/csrc/fused_chain_radix_cluster.cu",
+                     "wrp_tpu/ops/pallas/fullchain.py:809", lr["radix"],
+                     {**long["res"]["radix"], **long["at_4096"]["radix"]},
+                     m=4096, times_by_m=long["times"]["radix"],
+                     f32_times_by_m=long["times"]["radix_f32"]),
+        kernel_entry("fused_chain_power_radix (offset, salt; cluster body)",
+                     "wrp_tpu_torch/csrc/fused_chain_radix_cluster.cu",
+                     "wrp_tpu/ops/pallas/fullchain.py:840",
+                     lr["radix_offset"],
+                     {**long["res"]["radix_offset"],
+                      **long["at_4096"]["radix_offset"]},
+                     m=4096, times_by_m=long["times"]["radix_offset"]),
         kernel_entry("fused_chain_power_wire",
                      "wrp_tpu_torch/csrc/fused_chain_wire.cu",
                      "wrp_tpu/ops/pallas/fullchain.py:1170", dev["wire"],
@@ -4036,9 +4053,7 @@ def main() -> int:
                      sharded_devices=sharded["devices"],
                      sharded_profile_traced=sharded["traced"],
                      wire_ab_launches=tools["ab"]["launches"]["wire_ab"]["radix_offset"],
-                     ab_sweep_launches=last["ab_sweep"]["launches"]["radix_offset"],
-                     long_ray_launches=lr["radix_offset"],
-                     long_ray=long["res"]["radix_offset"]),
+                     ab_sweep_launches=last["ab_sweep"]["launches"]["radix_offset"]),
         kernel_entry("fused_chain_power_wire (offset, salt)",
                      "wrp_tpu_torch/csrc/fused_chain_wire_salted.cu",
                      "wrp_tpu/ops/pallas/fullchain.py:1210",

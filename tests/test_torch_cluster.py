@@ -1,15 +1,17 @@
 """The cluster body (csrc/cluster_chain.cuh) on the CPU: the route the
-A-stage (#5) and the wire chain (#7, and #8 with offset and salt) take for
-1024 < m <= 8192, each ray split across a cluster of 8 blocks.
+planar chain (#3, and #4 with offset and salt), the A-stage (#5) and the
+wire chain (#7, and #8 with offset and salt) take for 1024 < m <= 8192,
+each ray split across a cluster of 8 blocks.
 
 At m = 1536, 1840, 2048, 4096, 4112, 4128, 4160 and 8192 (n = 16, two
 noise sectors) the wrappers' plain versions (`cluster_stage_reference`,
 `cluster_chain_power_reference`) are held against wrp_tpu's kernels in
 interpret mode and the fp64 oracle: the A-stage's Y on natural rows vs
-wrp_tpu's on radix rows, the wire chain vs wrp_tpu's wire kernel, the
-offset/salt entry vs wrp_tpu's radix kernel on the salted samples (wrp_tpu
-ignores the salt in interpret mode).  The CUDA kernels themselves are
-checked on the card by chip_smoke.py."""
+wrp_tpu's on radix rows, the planar chain (int16 and f32) vs wrp_tpu's
+radix kernel on radix rows, the wire chain vs wrp_tpu's wire kernel, the
+offset/salt entries vs wrp_tpu's radix kernel on the salted samples
+(wrp_tpu ignores the salt in interpret mode).  The CUDA kernels themselves
+are checked on the card by chip_smoke.py."""
 
 import functools
 import types
@@ -73,7 +75,9 @@ def _rel(want, got):
 def _counts():
     return (tfull.ASTAGE_LAUNCHES, tfull.ASTAGE_CLUSTER_LAUNCHES,
             tfull.WIRE_LAUNCHES, tfull.WIRE_OFFSET_LAUNCHES,
-            tfull.WIRE_CLUSTER_LAUNCHES)
+            tfull.WIRE_CLUSTER_LAUNCHES, tfull.LAUNCHES,
+            tfull.RADIX_OFFSET_LAUNCHES, tfull.RADIX_CLUSTER_LAUNCHES,
+            tfull.DENSE_MATRIX_LAUNCHES)
 
 
 def _astage(c):
@@ -139,13 +143,49 @@ def _offset_salt(c):
     assert _rel(want, got[0].numpy()) <= JAX_TOL
 
 
+def _radix(c):
+    """#3 on both sectors, int16 and f32: the plain version (equal to
+    cluster_chain_power_reference) vs wrp_tpu's radix kernel (interpret
+    mode) on the same samples in radix row order and the oracle; #4 on the
+    second sector of the staging at salt 7: equal to
+    cluster_chain_power_reference on the slab, vs wrp_tpu's radix kernel
+    on the salted samples; salt 0 equal to the unsalted entry on the slab
+    alone."""
+    x = torch.from_numpy(c.planar.reshape(-1, 2, c.m, N))
+    consts = (jnp.asarray(c.a_np), c.fac, jnp.asarray(c.jconsts.wd),
+              jnp.asarray(c.jconsts.clip_phasors))
+    for xs in (x, x.float()):
+        got = tfull.fused_chain_power_radix(xs, c.plan)
+        assert got.shape == (2 * CH, c.m // 2)
+        assert torch.equal(got, tfull.cluster_chain_power_reference(xs, c.plan))
+        want = np.asarray(jfull.fused_chain_power_radix(
+            jnp.asarray(xs.numpy()[:, :, c.order, :]), *consts,
+            interpret=True))
+        assert _rel(want, got.numpy()) <= JAX_TOL, xs.dtype
+        for s in range(2):
+            assert _rel(c.pow64[s], got[s * CH:(s + 1) * CH].numpy()) <= POWER_TOL
+    got = tfull.fused_chain_power_radix(x, c.plan, offset=CH, bc=CH, salt=SALT)
+    assert got.shape == (CH, c.m // 2)
+    assert torch.equal(got, tfull.cluster_chain_power_reference(
+        x[CH:], c.plan, SALT))
+    assert torch.equal(
+        tfull.fused_chain_power_radix(x, c.plan, offset=CH, bc=CH, salt=0),
+        tfull.fused_chain_power_radix(x[CH:].contiguous(), c.plan))
+    salted = c.planar[1].astype(np.float32) + np.float32(SALT)
+    want = np.asarray(jfull.fused_chain_power_radix(
+        jnp.asarray(salted[:, :, c.order, :]), *consts, interpret=True))
+    assert _rel(want, got.numpy()) <= JAX_TOL
+
+
 @pytest.mark.parametrize("m,kind", [(m, k) for m in MS
-                                    for k in ("astage", "wire", "offset_salt")])
+                                    for k in ("astage", "wire", "offset_salt",
+                                              "radix")])
 def test_cluster_route_vs_jax(m, kind):
-    """Each m takes the cluster route for #5 and #7/#8; the CPU runs the
-    plain version and counts no launch."""
+    """Each m takes the cluster route for #3/#4, #5 and #7/#8; the CPU runs
+    the plain version and counts no launch."""
     assert tfull.chain_route(m) == "cluster"
     c = _case(m)
     before = _counts()
-    {"astage": _astage, "wire": _wire, "offset_salt": _offset_salt}[kind](c)
+    {"astage": _astage, "wire": _wire, "offset_salt": _offset_salt,
+     "radix": _radix}[kind](c)
     assert _counts() == before

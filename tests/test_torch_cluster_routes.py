@@ -1,12 +1,16 @@
-"""Which kernel the A-stage (#5) and the wire chain (#7/#8) launch for each m,
-and the cluster body's cut, on the CPU.
+"""Which kernel the planar chain (#3/#4), the A-stage (#5) and the wire
+chain (#7/#8) launch for each m, and the cluster body's cut, on the CPU.
 
 `chain_route(m)` picks from m alone: the register body of csrc/fft_chain.cuh
 up to 1024 range cells, the cluster body of csrc/cluster_chain.cuh up to
 8192 (each ray split across a cluster of 8 blocks), the matrix forms above
-(csrc/fused_chain_dense.cu's wire source, csrc/fused_chain_astage_matrix.cu).
-Here: the route and the plan's tables per m; the cluster geometry's cut and
-shared memory at each m the slice names, worked out by hand; the layout of
+(csrc/fused_chain_dense.cu's matrix kernel and its wire source,
+csrc/fused_chain_astage_matrix.cu).  Here: the route, the radix entry's
+plain version and the plan's tables per m; the cluster geometry's cut and
+shared memory at each m the slice names, worked out by hand, for the
+A-stage, the wire chain and the planar chain (which reads its samples
+straight from device memory, against the staged form it was measured
+beside); the layout of
 `cluster_tables`; the cluster stage against the fp64 DFT at its smallest m;
 the `pallas-seq` and fused-wire processors' products against the oracle at
 m = 1840 and 8192; and the matrix routes, which now start above 8192, at
@@ -60,11 +64,28 @@ def _hold(got, want, tol, what):
 def test_chain_route_by_m():
     """The register body up to 1024, the cluster body for radix m up to
     8192, the matrix forms above; cluster_geometry refuses m outside its
-    range, naming CLUSTER_MAX_M."""
+    range, naming CLUSTER_MAX_M.  The radix entry's CPU result is the
+    plain version of the route the card launches, exactly (the matrix
+    route's at m = 8320 in test_wire_and_seq_matrix_above_8192), and the
+    FFT-form body takes a radix m only up to 1024."""
+    rng = np.random.default_rng(7)
     for m in (64, 960, 1024):
         assert tfull.chain_route(m) == "register", m
     for m in (1040, 1536, 1840, 2048, 4096, 4160, 8192):
         assert tfull.cluster_takes(m) and tfull.chain_route(m) == "cluster", m
+        assert not tfull.fft_takes(m) and not tfull.fft_long(m), m
+    for m, plain in ((960, tfull.fft_chain_power_reference),
+                     (1024, tfull.fft_chain_power_reference),
+                     (1040, tfull.cluster_chain_power_reference),
+                     (1840, tfull.cluster_chain_power_reference)):
+        plan = _plan(m)
+        x = torch.from_numpy(rng.integers(-8192, 8192, (4, 2, m, N),
+                                          dtype=np.int16))
+        assert torch.equal(tfull.fused_chain_power_radix(x, plan),
+                           plain(x, plan)), m
+        assert torch.equal(
+            tfull.fused_chain_power_radix(x, plan, offset=1, bc=2, salt=7),
+            plain(x[1:3], plan, 7)), m
     for m in (8208, ABOVE, 16384):
         assert tfull.radix_for(m) > 1 and tfull.chain_route(m) == "matrix", m
     # m = 1832 = 8 x 229 does not split: the dense entries' body, no cluster
@@ -75,12 +96,15 @@ def test_chain_route_by_m():
 
 
 def test_plan_tables_by_route():
-    """A plan holds the tables its routes read: fft_t for the planar
-    FFT-form body (m <= 4096), cluster_t and cluster_phi for the cluster
-    body, A_half on the host for the matrix kernel of the radix entry
-    (m > 4096)."""
-    cases = {1024: (True, False, False), 2048: (True, True, False),
-             4160: (False, True, True), ABOVE: (False, False, True)}
+    """A plan holds the tables its routes read: fft_t for the FFT-form body
+    (m <= 1024, and the dense entries' radix-1 m up to 4096: 1832),
+    cluster_t and cluster_phi for the cluster body (every chain of a radix
+    m up to 8192, the radix entry's too), A_half on the host only for the
+    matrix kernel of the radix entry above 8192."""
+    cases = {1024: (True, False, False), 1832: (True, False, False),
+             2048: (False, True, False), 4096: (False, True, False),
+             4160: (False, True, False), 8192: (False, True, False),
+             ABOVE: (False, False, True)}
     for m, (fft, cluster, host) in cases.items():
         plan = _plan(m)
         assert (plan.fft_t is not None, plan.cluster_t is not None,
@@ -96,6 +120,60 @@ def test_plan_tables_by_route():
 # (complex, so twice their values), the staged samples (the A-stage's:
 # 2 ms cols samples of 2 or 4 bytes), the wire chain's owned rows
 # (complex, 4 span rows of pitch cols + 1) and round constants (5 cols)
+# the planar chain (#3/#4) at n = 512: (m, its cut: the fused chains' cols
+# and shared memory with nothing staged; the staged form it was measured
+# beside, int16 then f32: cols and shared memory).  Staging adds 2 ms cols
+# samples of 2 or 4 bytes to the wire chain's words at the same cols, and
+# halves the cols where that passes 227 KB (232,448 bytes).
+@pytest.mark.parametrize("m,direct,staged16,staged32", [
+    # ms = 192 = 64 x 3: A, B 6144 each, owned rows 4 x 24 x 33, 5 x 32;
+    # staged 6144 (int16) or 12288 (f32) words more, still 32 columns
+    (1536, (32, 4 * (2 * (6144 + 6144) + 2 * 3168 + 160)),
+     (32, 4 * (2 * (6144 + 6144) + 2 * 3168 + 160 + 6144)),
+     (32, 4 * (2 * (6144 + 6144) + 2 * 3168 + 160 + 12288))),
+    (1840, (32, 4 * (2 * (7360 + 7360) + 2 * 3828 + 160)),
+     (32, 4 * (2 * (7360 + 7360) + 2 * 3828 + 160 + 7360)),
+     (32, 4 * (2 * (7360 + 7360) + 2 * 3828 + 160 + 14720))),
+    # 64 columns direct; staged, 64 int16 columns would need 264,448 bytes
+    (2048, (64, 4 * (2 * 16384 + 2 * 8320 + 320)),
+     (32, 4 * (2 * 8192 + 2 * 4224 + 160 + 8192)),
+     (32, 4 * (2 * 8192 + 2 * 4224 + 160 + 16384))),
+    # 16 columns pad the slots: 32 x (16 x 16 + 16)
+    (4096, (32, 4 * (2 * 16384 + 2 * 8448 + 160)),
+     (16, 4 * (2 * 32 * 272 + 2 * 4352 + 80 + 8192)),
+     (16, 4 * (2 * 32 * 272 + 2 * 4352 + 80 + 16384))),
+    # the f32 staging halves the columns near 4096 with an odd leaf
+    (4112, (16, 4 * (2 * (8224 + 8224) + 2 * 4420 + 80)),
+     (16, 4 * (2 * (8224 + 8224) + 2 * 4420 + 80 + 8224)),
+     (8, 4 * (2 * (4112 + 4112) + 2 * 2340 + 40 + 8224))),
+    (4128, (16, 4 * (2 * (8256 + 8256) + 2 * 4420 + 80)),
+     (16, 4 * (2 * (8256 + 8256) + 2 * 4420 + 80 + 8256)),
+     (8, 4 * (2 * (4128 + 4128) + 2 * 2340 + 40 + 8256))),
+    (4160, (16, 4 * (2 * (8320 + 8320) + 2 * 4420 + 80)),
+     (16, 4 * (2 * (8320 + 8320) + 2 * 4420 + 80 + 8320)),
+     (8, 4 * (2 * (4160 + 4160) + 2 * 2340 + 40 + 8320))),
+    (8192, (16, 4 * (2 * 16896 + 2 * 8704 + 80)),
+     (8, 4 * (2 * 32 * 264 + 2 * 4608 + 40 + 8192)),
+     (8, 4 * (2 * 32 * 264 + 2 * 4608 + 40 + 16384))),
+])
+def test_radix_cluster_cut(m, direct, staged16, staged32):
+    """The planar chain's cut on the cluster body: the fused chains' (no
+    staging buffer, so int16 and f32 alike, and the cut `cluster_phi` is
+    summed at), at least the staged form's columns at every m, and twice
+    them at 2048, 4096 and 8192 for int16; each within one block's 227 KB
+    with twice the columns over it."""
+    for elem, (cols, smem) in ((0, direct), (2, staged16), (4, staged32)):
+        g = tfull.cluster_geometry(m, 512, True, elem)
+        assert g.cols == cols, elem
+        assert tfull.cluster_smem_bytes(m, cols, True, elem) == smem, elem
+        assert smem <= tfull.MAX_SMEM_BYTES
+        assert (cols == tfull.CLUSTER_MAX_COLS or tfull.cluster_smem_bytes(
+            m, 2 * cols, True, elem) > tfull.MAX_SMEM_BYTES), elem
+    assert tfull.cluster_geometry(m, 512).cols == direct[0]
+    assert direct[0] >= staged16[0] >= staged32[0]
+    assert (direct[0] == 2 * staged16[0]) == (m in (2048, 4096, 8192))
+
+
 @pytest.mark.parametrize("m,cut,leaf,cols,smem", [
     # ms = 192 = 64 x 3 at 32 columns: pass 1's slots 3 x 32 x (2 x 32) =
     # 6144 in A (no pad at 32 columns), the leaf buffer 192 x 32 in B
@@ -258,7 +336,8 @@ def test_astage_matrix_above_8192_vs_jax():
 def test_wire_and_seq_matrix_above_8192():
     """m = 8320: the fused wire decode and a world-size-1 pallas-seq step
     take the matrix routes and give the planar products exactly (one
-    matrix-form plain version), within 2e-4 of the oracle; #8's plain
+    matrix-form plain version, which the radix entry's CPU result equals),
+    within 2e-4 of the oracle; #8's plain
     version with offset 1 and salt 7 equals fused_chain_power_reference on
     the decoded, salted slab."""
     m = ABOVE
@@ -279,6 +358,10 @@ def test_wire_and_seq_matrix_above_8192():
             _hold((got[0][b], got[1][b]), oracle.process_sector(
                 iq, jtiny(m=m, n=N)), PRODUCT_TOL, b)
     plan = fused._wire_plan
+    # the radix entry's CPU result is the matrix route's plain version
+    x = torch.from_numpy(planar.reshape(-1, 2, m, N))
+    assert torch.equal(tfull.fused_chain_power_radix(x, plan),
+                       tfull.fused_chain_power_reference(x, plan))
     w32 = torch.from_numpy(wires.view("<i4").reshape(2, m, -1).copy())
     got = tfull.fused_chain_power_wire(w32, plan, 3, offset=1, bs=1, salt=7)
     want = tfull.fused_chain_power_reference(

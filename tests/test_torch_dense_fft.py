@@ -109,13 +109,16 @@ def test_leaf_steps_equal_the_dft(L):
 def test_dense_body_from_m_alone(m, body):
     """The dense entries' body: the FFT form for every even m <= 4096
     (the long-ray body above 1024), the matrix kernel otherwise; a plan
-    builds the FFT tables exactly for the m that take the FFT form."""
+    builds the FFT tables exactly for the m that take the FFT form: every
+    even m up to 1024, and above it the radix-1 m (a radix m there, 4096,
+    takes the cluster body)."""
+    fft = body == "fft" and (m <= 1024 or tfull.radix_for(m) == 1)
     assert tfull.dense_body(m) == body
-    assert tfull.fft_takes(m) == (body == "fft")
-    assert tfull.fft_long(m) == (body == "fft" and m > 1024)
+    assert tfull.fft_takes(m) == fft
+    assert tfull.fft_long(m) == (fft and m > 1024)
     if m % 2 == 0 and m <= 4100 and m >= 8:
         plan = _plan(m, 16)
-        assert (plan.fft_t is not None) == (body == "fft")
+        assert (plan.fft_t is not None) == fft
 
 
 @pytest.mark.parametrize("m,n", [(1000, 32), (40, 32), (24, 16), (8, 16)])

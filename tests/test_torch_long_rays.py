@@ -1,13 +1,15 @@
 """Rays longer than 1024 range cells on the CPU: the `pallas` method at
 m = 1536 (512 x 3), 1832 (8 x 229, radix 1), 1840 (16 x 115), 2048, 4096
-and 4160 (above the FFT-form kernels' 4096: the matrix body) against
-wrp_tpu's `pallas` processor (Pallas in interpret mode) and the fp64
-oracle; the wire input at m = 2048; the A-stage and a world-size-1
-`pallas-seq` step at m = 2048; the FFT-form cut of each geometry, worked
-out by hand; the routes above 4096 (the radix entry's matrix route; the
-cluster body of the wire entry, the A-stage and pallas-seq).  The CUDA
-kernels themselves (csrc/fft_chain.cuh's long-ray body, csrc/
-cluster_chain.cuh) are checked on the card by chip_smoke.py."""
+and 4160 (above the FFT-form kernels' 4096) against wrp_tpu's `pallas`
+processor (Pallas in interpret mode) and the fp64 oracle, each through the
+plain version of its route (the cluster body for the radix m, the dense
+entries' long-ray FFT body at 1832); the wire input at m = 2048; the
+A-stage and a world-size-1 `pallas-seq` step at m = 2048; the dense
+entries' long-ray cut, worked out by hand; the routes above 4096 (the
+cluster body of the radix and wire entries, the A-stage and pallas-seq;
+the radix entry's matrix route above 8192).  The CUDA kernels themselves
+(csrc/fft_chain.cuh's long-ray body, csrc/cluster_chain.cuh) are checked
+on the card by chip_smoke.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -74,9 +76,11 @@ def test_pallas_long_rays_match_jax_and_oracle(m):
     pow64 = oracle.channel_power(iq, jtiny(m=m, n=N))
     for c in range(got.shape[0]):
         assert oracle.relative_l2(pow64[c], got[c]) < POWER_TOL, c
-    # the FFT-form body for every even m <= 4096, the matrix form above
-    plain = (tfull.fft_chain_power_reference if tfull.fft_takes(m)
-             else tfull.fused_chain_power_reference)
+    # the radix m on the cluster body up to 8192, the radix-1 m on the
+    # dense entries' FFT-form body
+    plain = (tfull.cluster_chain_power_reference if plan.radix > 1
+             else tfull.fft_chain_power_reference)
+    assert plan.radix == 1 or tfull.chain_route(m) == "cluster"
     assert torch.equal(torch.from_numpy(got), plain(x, plan))
 
 
@@ -101,14 +105,16 @@ def test_wire_input_at_2048_equals_planar(decode):
 
 
 def test_astage_at_2048_vs_jax_kernel():
-    """The A-stage's plain version at m = 2048 (the three-pass factoring,
-    32 x 8 x 8) on natural rows vs wrp_tpu's A-stage on the same slab in
-    radix row order, Y rel-L2 <= 1e-5, at the full width and half of it."""
+    """The A-stage's plain version at m = 2048 (the cluster body: eight
+    256-point sub-DFTs, 32 x 8) on natural rows vs wrp_tpu's A-stage on
+    the same slab in radix row order, Y rel-L2 <= 1e-5, at the full width
+    and half of it."""
     m = 2048
     x = np.stack([_planar(_sector(m, seed=s)) for s in (3, 4)]).reshape(
         -1, 2, m, N)
     plan = tfull.build_plan(_consts(m), "cpu")
-    assert (plan.fft.P1, plan.fft.P2, plan.fft.P3) == (32, 8, 8)
+    assert plan.fft_t is None
+    assert (plan.cluster.ms, plan.cluster.P1, plan.cluster.P2) == (256, 32, 8)
     consts = JConsts.build(jtiny(m=m, n=N))
     radix = jfull.radix_for(m)
     a_np, fac = jfull.radix_plan_host(consts, radix)
@@ -144,30 +150,22 @@ def test_pallas_seq_world_one_at_2048():
 
 
 @pytest.mark.parametrize("m,cut,leaf,smem", [
-    # P = 512 = 32 x 16 and an L = 3 leaf; a round of 2 columns: two leaf
-    # buffers of 2 x 3264 and 2 x 3072 words, 6144 staged (f32), 10 of
-    # round constants, 13 x 768 + 8 of partials
-    (1536, (512, 3, 32, 16, 1, 2, 8), [3], 4 * (2 * (3264 + 3072) + 6144
-                                                + 10 + 13 * 768 + 8)),
-    # radix 1: P = 8 in one register pass, a prime leaf of 229 points
-    (1832, (8, 229, 8, 1, 1, 2, 8), [229], 4 * (2 * (3664 + 3664) + 7328
-                                                + 10 + 13 * 916 + 8)),
-    (1840, (16, 115, 16, 1, 1, 2, 8), [5, 23], 4 * (2 * (3680 + 3680) + 7360
-                                                    + 10 + 13 * 920 + 8)),
-    # P = 2048 = 32 x 8 x 8 in place: slots of 32 x (64 x 4 + 4) words
-    (2048, (2048, 1, 32, 8, 8, 4, 8), [], 4 * (2 * 32 * 260 + 16384 + 20
-                                                + 13 * 1024 + 8)),
-    # 32 x 16 x 8: two columns would need 238,152 bytes with f32 staged
-    (4096, (4096, 1, 32, 16, 8, 1, 8), [], 4 * (2 * 32 * 129 + 8192 + 5
-                                                + 13 * 2048 + 8)),
+    # radix 1: P = 8 in one register pass, a prime leaf of 229 points; a
+    # round of 2 columns: two leaf buffers of 2 x 3664 words, 7328 staged
+    # (f32), 10 of round constants, 13 x 916 + 8 of partials (the radix m
+    # above 1024 take the cluster body: tests/test_torch_cluster_routes.py
+    # test_radix_cluster_cut)
+    (1832, (8, 229, 8, 1, 2, 8), [229], 4 * (2 * (3664 + 3664) + 7328
+                                             + 10 + 13 * 916 + 8)),
 ])
 def test_fft_geometry_long_rays(m, cut, leaf, smem):
-    """The long-ray cut at n = 512: (P, L, P1, P2, P3, cols, blocks), the
-    leaf's radices and the fused block's shared memory with f32 staged
-    (the larger staging), all within one block's 227 KB."""
+    """The dense entries' long-ray cut at n = 512: (P, L, P1, P2, cols,
+    blocks), the leaf's radices and the fused block's shared memory with
+    f32 staged (the larger staging), all within one block's 227 KB; a
+    radix m above 1024 has no FFT-form cut."""
     g = tfull.fft_geometry(m, 512)
-    assert (g.P, g.L, g.P1, g.P2, g.P3, g.cols, g.blocks) == cut
-    assert g.P * g.L == m and g.P1 * g.P2 * g.P3 == g.P
+    assert (g.P, g.L, g.P1, g.P2, g.cols, g.blocks) == cut
+    assert g.P * g.L == m and g.P1 * g.P2 == g.P
     radices, rem = [], g.L
     while rem > 1:
         radices.append(tfull.leaf_radix(rem))
@@ -175,41 +173,41 @@ def test_fft_geometry_long_rays(m, cut, leaf, smem):
     assert radices == leaf
     assert tfull.fft_smem_bytes(m, g.cols, fused=True, elem=4) == smem
     assert smem <= tfull.MAX_SMEM_BYTES
-    with pytest.raises(ValueError, match="FFT_MAX_M = 4096"):
-        tfull.fft_geometry(4160, 512)
+    for radix_m in (1536, 2048, 4096, 4160):
+        with pytest.raises(ValueError, match="FFT_MAX_M = 4096"):
+            tfull.fft_geometry(radix_m, 512)
 
 
 def test_above_4096_routes_and_refusals():
-    """m = 4160 (radix 8, above FFT_MAX_M): no FFT tables; the matrix
-    kernel's operator (A_half as [m, m/2, 2], C order, built once); the
-    radix entry takes the matrix form's plain version (salted too, on a
-    slab); the
-    default wire decode picks "xla" and equals the planar products;
-    "fused", the wire entry, the A-stage and pallas-seq, which refused
-    here before the matrix routes, take the cluster body up to m =
-    8192: the wire entry and the A-stage equal its plain versions, "fused"
-    and pallas-seq the products of those plain versions, within 1e-5 of
-    the planar products (tests/test_torch_cluster.py holds them against
-    wrp_tpu; tests/test_torch_cluster_routes.py the matrix routes, now
-    above 8192)."""
+    """m = 4160 (radix 8, above FFT_MAX_M): no FFT tables and no A_half on
+    the host (the matrix kernel's operator is refused, naming
+    CLUSTER_MAX_M); the radix entry takes the cluster body's plain version
+    (salted too, on a slab), as "fused", the wire entry, the A-stage and
+    pallas-seq do up to m = 8192: the wire entry and the A-stage equal
+    their plain versions, "fused" and pallas-seq the products of those
+    plain versions, within 1e-5 of the planar products; the default wire
+    decode picks "xla" and equals the planar products
+    (tests/test_torch_cluster.py holds the cluster body against wrp_tpu).
+    Above 8192 (m = 8320) the radix entry's matrix route: the matrix
+    kernel's operator (A_half as [m, m/2, 2], C order, built once) and the
+    plain version with offset and salt (tests/test_torch_cluster_routes.py
+    holds the other matrix routes there)."""
     m = 4160
     cfg = tiny_config(m=m, n=N)
     plan = tfull.build_plan(_consts(m), "cpu")
-    assert plan.radix == 8 and plan.fft_t is None
-    # the matrix kernel's operator, in the C order its pointer is read in
-    op = plan.dense_operator()
-    assert op.shape == (m, m // 2, 2) and op.is_contiguous()
-    a_half = _consts(m).op_a_half
-    assert torch.equal(op[..., 0], torch.from_numpy(a_half.real.T.copy()))
-    assert torch.equal(op[..., 1], torch.from_numpy(a_half.imag.T.copy()))
-    assert plan.dense_operator() is op
+    assert plan.radix == 8 and plan.fft_t is None and plan.host_a_half is None
+    assert tfull.chain_route(m) == "cluster"
+    with pytest.raises(ValueError, match="CLUSTER_MAX_M = 8192"):
+        plan.dense_operator()
     iq = _sector(m, seed=7)
     x = torch.from_numpy(np.stack([_planar(iq)] * 2).reshape(-1, 2, m, N))
     before = (tfull.LAUNCHES, tfull.RADIX_OFFSET_LAUNCHES,
-              tfull.DENSE_MATRIX_LAUNCHES)
+              tfull.RADIX_CLUSTER_LAUNCHES, tfull.DENSE_MATRIX_LAUNCHES)
     got = tfull.fused_chain_power_radix(x, plan, offset=3, bc=3, salt=7)
-    assert torch.equal(got, tfull.fused_chain_power_reference(x[3:], plan, 7))
+    assert torch.equal(got, tfull.cluster_chain_power_reference(x[3:], plan,
+                                                                7))
     assert before == (tfull.LAUNCHES, tfull.RADIX_OFFSET_LAUNCHES,
+                      tfull.RADIX_CLUSTER_LAUNCHES,
                       tfull.DENSE_MATRIX_LAUNCHES)
 
     wire = np.frombuffer(codec.encode_iq(iq, cfg), np.uint8)[None].copy()
@@ -219,7 +217,6 @@ def test_above_4096_routes_and_refusals():
     pzdb, pzdr = SectorProcessor(cfg, method="pallas", device="cpu")(
         _planar(iq)[None])
     assert torch.equal(zdb, pzdb) and torch.equal(zdr, pzdr)
-    assert tfull.chain_route(m) == "cluster"
     gain = torch.from_numpy(_consts(m).gain)
     fused = SectorProcessor(cfg, method="pallas", device="cpu",
                             wire_input=True, wire_decode="fused")
@@ -240,3 +237,21 @@ def test_above_4096_routes_and_refusals():
     for got in ((fzdb, fzdr), (szdb, szdr)):
         for g, w in zip(got, (pzdb, pzdr)):
             assert oracle.relative_l2(w.numpy(), g.numpy()) < 1e-5
+
+    m = 8320
+    consts = _consts(m)
+    plan = tfull.build_plan(consts, "cpu")
+    assert (tfull.chain_route(m) == "matrix" and plan.cluster_t is None
+            and plan.host_a_half is not None)
+    # the matrix kernel's operator, in the C order its pointer is read in
+    op = plan.dense_operator()
+    assert op.shape == (m, m // 2, 2) and op.is_contiguous()
+    assert torch.equal(op[..., 0],
+                       torch.from_numpy(consts.op_a_half.real.T.copy()))
+    assert torch.equal(op[..., 1],
+                       torch.from_numpy(consts.op_a_half.imag.T.copy()))
+    assert plan.dense_operator() is op
+    x = torch.from_numpy(np.stack([_planar(_sector(m, seed=8))] * 2)
+                         .reshape(-1, 2, m, N))
+    got = tfull.fused_chain_power_radix(x, plan, offset=3, bc=3, salt=7)
+    assert torch.equal(got, tfull.fused_chain_power_reference(x[3:], plan, 7))

@@ -1,11 +1,12 @@
 """The routes above FFT_MAX_M = 4096 range cells on the CPU, and the refusal
 of one channel.
 
-Above 4096 the radix entry (#3/#4) takes the matrix kernel; the A-stage
-(#5) and the wire entries (#7, #8) take the cluster body
-(csrc/cluster_chain.cuh) up to 8192 and the matrix forms above it
-(csrc/fused_chain_astage_matrix.cu, the matrix form of csrc/radix_chain.cuh;
-the matrix kernel's wire source in csrc/fused_chain_dense.cu), each chosen
+Above 4096 the radix entries (#3/#4), the A-stage (#5) and the wire
+entries (#7, #8) take the cluster body (csrc/cluster_chain.cuh) up to 8192
+and the matrix forms above it (csrc/fused_chain_dense.cu's matrix kernel
+for the radix entries; csrc/fused_chain_astage_matrix.cu, the matrix form
+of csrc/radix_chain.cuh; the matrix kernel's wire source in
+csrc/fused_chain_dense.cu), each chosen
 from m alone.  Here, at m = 4160 (radix 8), 4128 (radix 4) and 4112 (radix
 2), n = 16, against wrp_tpu (Pallas in interpret mode) and the fp64
 oracle: the A-stage's matrix-form plain version on natural rows vs

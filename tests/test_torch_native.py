@@ -8,6 +8,8 @@ suite's CPU-time floor (tests/test_native_codec.py)."""
 
 import dataclasses
 import socket
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -232,3 +234,93 @@ def test_udp_ingest_native_matches_python_loop():
                       "dropped_datagrams": 1 + m // 2 + 1,
                       "dropped_sectors": 2, "timeouts": 2,
                       "duplicate_datagrams": 1, "sectors": 2}
+
+
+def test_udp_drain_holds_more_than_the_socket():
+    """The native drain moves datagrams into its ring while nobody
+    receives: 50 sectors sent in three bursts (each within the socket's
+    buffer, the drain given time to empty it between them) outnumber both
+    the socket's buffer and the ring (1 MiB: 41 sectors), and all 50 are
+    received whole afterwards; the last ones waited in the socket while
+    the ring was full.  One datagram longer than a ring slot, in the
+    first sector, is refused by its length, as from the socket."""
+    cfg = TINY
+    m, rb = cfg.num_range_cells, cfg.datagram_nbytes
+    wires = [_wire(cfg, seed=s) for s in range(4)]
+    with UdpIngest(cfg, host="127.0.0.1", port=0, timeout_s=1.0,
+                   rcvbuf_bytes=1 << 20) as ingest:
+        slots = (1 << 20) // (rb + frames.IngestHeader.SIZE)
+        assert 40 * m < slots < 50 * m
+        tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        addr = ("127.0.0.1", ingest.local_port)
+        try:
+            k = 0
+            for burst in (20, 20, 10):
+                for _ in range(burst):
+                    w = wires[k % 4]
+                    for r in range(m):
+                        tx.sendto(frames.pack_ingest_row(
+                            frames.IngestHeader(k, 0, r),
+                            w[r * rb:(r + 1) * rb]), addr)
+                        if k == 0 and r == 10:
+                            tx.sendto(frames.pack_ingest_row(
+                                frames.IngestHeader(0, 0, 11),
+                                b"\x01" * (2 * rb)), addr)
+                    k += 1
+                time.sleep(0.3)
+        finally:
+            tx.close()
+        got = []
+        for _ in range(50):
+            buf, hdr = ingest.recv_sector()
+            got.append((hdr.sector, bytes(buf) == wires[hdr.sector % 4]))
+        assert ingest.recv_sector() == (None, None)
+    assert got == [(k, True) for k in range(50)]
+    assert dataclasses.asdict(ingest.stats) == {
+        "datagrams": 50 * m + 1, "dropped_datagrams": 1, "dropped_sectors": 0,
+        "timeouts": 1, "duplicate_datagrams": 0, "sectors": 50}
+
+
+def test_udp_ingest_close_wakes_a_waiting_receive():
+    """close() stops the drain under a receive that waits without a
+    timeout: the receive raises OSError at once, as one on a closed socket
+    does, and so does every receive after it."""
+    ingest = UdpIngest(TINY, host="127.0.0.1", port=0, timeout_s=None)
+    raised = []
+
+    def receive():
+        try:
+            ingest.recv_sector()
+        except OSError as e:
+            raised.append(e)
+
+    t = threading.Thread(target=receive)
+    t.start()
+    time.sleep(0.2)
+    assert t.is_alive()
+    t0 = time.perf_counter()
+    ingest.close()
+    t.join(timeout=5.0)
+    assert not t.is_alive() and len(raised) == 1
+    assert time.perf_counter() - t0 < 2.0
+    with pytest.raises(OSError):
+        ingest.recv_sector()
+    ingest.close()
+
+
+def test_udp_drain_ab_tool(capsys):
+    """tools/udp_drain_ab.py on a short paced stream without GIL holds:
+    both receives get every sector and drop nothing."""
+    import json
+
+    from wrp_tpu_torch.tools import udp_drain_ab
+
+    assert udp_drain_ab.main(["--sectors", "3", "--hold-ms", "0",
+                              "--rcvbuf", str(1 << 24),
+                              "--turns", "drain,socket"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert [t["kind"] for t in out["turns"]] == ["drain", "socket"]
+    for t in out["turns"]:
+        assert (t["received"], t["dropped_datagrams"],
+                t["dropped_sectors"]) == (3, 0, 0)
+        assert t["receiver_cpu_ms_a_sector"] > 0

@@ -1,17 +1,19 @@
 // The cluster body: rays of 1024 < m <= 8192 range cells, each split across
 // a thread-block cluster of 8 blocks, for NVIDIA Hopper (sm_90a).  Behind
 // fused_chain_astage_cluster.cu (the pulse-sharded path's A-stage, Y
-// stored) and fused_chain_wire_cluster.cu (the wire fused chain and its
-// offset/salt entry, the Parseval epilogue fused).  It replaces, at those m,
-// the TPU kernels wrp_tpu/ops/pallas/fullchain.py::fused_chain_astage
-// (_kernel_radix_astage) and fused_chain_power_wire (_kernel_radix_wire,
-// _kernel_radix_wire_offset).
+// stored), fused_chain_radix_cluster.cu (the planar fused chain and its
+// offset/salt entry) and fused_chain_wire_cluster.cu (the wire fused chain
+// and its offset/salt entry), the last two with the Parseval epilogue
+// fused.  It replaces, at those m, the TPU kernels wrp_tpu/ops/pallas/
+// fullchain.py::fused_chain_astage (_kernel_radix_astage),
+// fused_chain_power_radix (_kernel_radix, _kernel_radix_offset) and
+// fused_chain_power_wire (_kernel_radix_wire, _kernel_radix_wire_offset).
 //
 // Per unit (one channel of one sector) and pulse column j it computes
 //
 //   Y[k, j] = sum_r W_m^(k r) (w_r c)[r] (x[r, j] + salt (1 + i)),  k < m/2
 //
-// and, for the wire chain, per row k the Parseval epilogue of
+// and, for the planar and wire chains, per row k the Parseval epilogue of
 // fft_chain.cuh (Chan's merge of each round's partials, the shift by the
 // row's first value), whose algebra ops/fullchain.merged_epilogue_reference
 // states in torch.
@@ -22,10 +24,10 @@
 // sat in shared memory, one block per SM.  Here a unit is one cluster of 8
 // blocks and every block sees every column: block b owns the range rows
 // r = 8 t + b, t < m' = m / 8, a round `cols` columns wide, as many as one
-// block's shared memory holds (ops/fullchain.cluster_geometry: for the wire
-// chain and the int16 A-stage 64 at m = 2048, 32 at 4096, 16 at 8192 and
-// near 4096 with an odd leaf; at least a row's whole 32-byte sector of
-// int16), since each round costs two cluster barriers.  With r = 8 t + b
+// block's shared memory holds (ops/fullchain.cluster_geometry: for the
+// wire and planar chains and the int16 A-stage 64 at m = 2048, 32 at 4096,
+// 16 at 8192 and near 4096 with an odd leaf; at least a row's whole
+// 32-byte sector of int16), since each round costs two cluster barriers.  With r = 8 t + b
 // and k = k1 + m' k2 (k1 < m', k2 < 8):
 //
 //   Y[k1 + m' k2] = sum_b W_8^(b k2) W_m^(b k1) F_b[k1],
@@ -47,7 +49,7 @@
 //      4-point DFTs, exact in +-1, +-i, and W_8^k2 between them.  A block
 //      thus owns the m/16 rows k1 + m' k2 of its slice through every round;
 //   3. the A-stage stores its rows of Y, `cols` contiguous floats a row and
-//      plane; the wire chain writes them to a local buffer and merges each
+//      plane; the fused chains write them to a local buffer and merge each
 //      owned row's round into its Parseval partials, held in registers for
 //      the whole unit (kRows rows a thread).  Every column of a row passes
 //      through the one block that owns it, so no merge across blocks is
@@ -55,20 +57,24 @@
 // Every twiddle comes from the plan's table (ops/fullchain.cluster_tables:
 // fp64 on the host, cast once); nothing calls sincosf.
 //
-// Overlap and barriers.  Planar input is staged with cp.async (16-byte
-// pieces where rows allow), round r + 1's copy issued right after round
-// r's first pass has read the buffer, so it runs under the rest of the
-// round.  Two cluster barriers a round, the second split: arrive once the
-// block has read its peers' F, wait at the start of the next round, whose
-// first pass rewrites F's buffer, so the epilogue and the wait for the
-// next round's samples run between them.  After the last round a block
+// Overlap and barriers.  The A-stage's planar input is staged with
+// cp.async (16-byte pieces where rows allow), round r + 1's copy issued
+// right after round r's first pass has read the buffer, so it runs under
+// the rest of the round; the planar and wire chains read pass 1's samples
+// straight from device memory, which leaves their shared memory to a
+// round's columns (twice the staged cut).  Two cluster barriers a round,
+// the second split: arrive once the block has read its peers' F, wait at
+// the start of the next round, whose first pass rewrites F's buffer, so
+// the epilogue and the wait for the next round's samples run between
+// them.  After the last round a block
 // waits until its peers are done reading it before it exits.
 //
 // What bounds it: bytes.  The A-stage reads 4 m w bytes of int16 and
-// writes 4 m w of Y a unit; the wire chain reads 4 m n and writes 2 m.  The
-// FFT's ~5 m log2 m flops a column, the combine's and the epilogue's are
-// ~16 per byte of input, under the fp32 ridge (67 TFLOP/s over 3.35 TB/s =
-// 20); fp32 on the CUDA cores throughout (the port's precision contract).
+// writes 4 m w of Y a unit; the planar chain (int16) and the wire chain
+// read 4 m n and write 2 m.  The FFT's ~5 m log2 m flops a column, the
+// combine's and the epilogue's are ~16 per byte of input, under the fp32
+// ridge (67 TFLOP/s over 3.35 TB/s = 20); fp32 on the CUDA cores
+// throughout (the port's precision contract).
 // The register DFTs hold up to 255 registers a thread
 // (__launch_bounds__(256, 1)), so one block a SM, and a round's columns
 // fill the shared memory that leaves (ops/fullchain.cluster_smem_bytes);
@@ -210,6 +216,51 @@ struct PlanarRows {
   }
 };
 
+// Planar IQ x [units, 2, m, n], int16 or float (a uniform runtime switch),
+// read straight from device memory in pass 1 (the planar fused chain):
+// rows row0 + i step of column j, both planes.  A task's 2 N loads have no
+// control flow between them, so all are in flight at once, and pass 1's
+// tasks run column fastest, so a warp reads min(cols, 32) adjacent samples
+// of a row: whole 32-byte sectors.  No staging buffer, so a round takes the
+// wire chain's columns (ops/fullchain.cluster_geometry with elem 0).
+struct PlanarDirect {
+  static constexpr bool kStaged = false;
+  const void* x;
+  int is_int16;
+  int m, n;
+
+  __host__ __device__ int words(int) const { return 0; }
+
+  template <int N>
+  __device__ __forceinline__ void load(int u, int row0, int step, int j, float (&re)[N],
+                                       float (&im)[N]) const {
+    const size_t at = (static_cast<size_t>(u) * 2 * m + row0) * n + j;
+    const size_t plane = static_cast<size_t>(m) * n;
+    const size_t stride = static_cast<size_t>(step) * n;
+    if (is_int16) {
+      const int16_t* p = static_cast<const int16_t*>(x) + at;
+      int16_t vr[N], vi[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        vr[i] = __ldg(p + i * stride);
+        vi[i] = __ldg(p + plane + i * stride);
+      }
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        re[i] = static_cast<float>(vr[i]);
+        im[i] = static_cast<float>(vi[i]);
+      }
+    } else {
+      const float* p = static_cast<const float*>(x) + at;
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        re[i] = __ldg(p + i * stride);
+        im[i] = __ldg(p + plane + i * stride);
+      }
+    }
+  }
+};
+
 // The plan's table (ops/fullchain.cluster_tables): w_r c [m]; W_P^t (re,
 // im) for t < P; the leaf's W_m'^(k r2) at (r2 P + k); the leaf's roots
 // W_L^t; the cluster's W_m^(b k1) at (b m' + k1); W_8^t, t < 8.
@@ -236,7 +287,7 @@ struct Table {
 // L > 1 at least one leaf buffer), B (L > 1: pass 2's output in the leaf's
 // layout [k][r2][column]; the Stockham passes run B -> A -> B ..., and F
 // stays in the last one's buffer, natural index k + P t at row k L + t),
-// the staged samples S, and for the wire chain the block's rows of Y
+// the staged samples S, and for the fused chains the block's rows of Y
 // [kOut span][cols + 1] and the round's epilogue constants (wd, 4 phasor
 // rows).  ops/fullchain.cluster_smem_bytes is the same arithmetic.
 struct Layout {
@@ -270,10 +321,11 @@ struct Layout {
   __host__ __device__ size_t bytes() const { return static_cast<size_t>(words) * sizeof(float); }
 };
 
-// The body.  Src: PlanarRows or fft::WireIq.  Grid (8, channels, sectors),
-// clusters of 8 along x: unit u = sector * channels + channel, block rank b
-// = blockIdx.x.  kFused: out = pow [units, m/2] (the wire chain); else out
-// = Y [units, 2, m/2, n] (the A-stage) and wd, ph, phi are unused.
+// The body.  Src: PlanarRows (the A-stage), PlanarDirect (the planar chain)
+// or fft::WireIq (the wire chain).  Grid (8, channels, sectors), clusters
+// of 8 along x: unit u = sector * channels + channel, block rank b =
+// blockIdx.x.  kFused: out = pow [units, m/2] (the planar and wire chains);
+// else out = Y [units, 2, m/2, n] (the A-stage) and wd, ph, phi are unused.
 template <class Src, int P1, int P2, bool kFused>
 __global__ void __launch_bounds__(kThreads, 1)
 cluster_chain_kernel(Src src, const float* __restrict__ tab, const float* __restrict__ phi,

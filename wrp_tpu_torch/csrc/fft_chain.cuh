@@ -3,7 +3,7 @@
 // the dense entries of fused_chain_dense.cu for every even m <= 4096),
 // fused_chain_wire{,_salted}.cu (raw wire words) and, storing Y instead of
 // running the epilogue, fused_chain_astage.cu (the pulse-sharded path's
-// A-stage); the last two for m <= 1024 only.
+// A-stage); all but the dense entries for m <= 1024 only.
 //
 // Per unit (one channel of one sector) and pulse column j it computes
 //
@@ -22,7 +22,7 @@
 // TFLOP/s over 3.35 TB/s = 20), so the kernel is bound by bytes, once per
 // sample, and tensor cores would buy nothing.
 //
-// The FFT (m = P L, P the largest power of two dividing m, 2 <= P <= 4096,
+// The FFT (m = P L, P the largest power of two dividing m, 2 <= P <= 1024,
 // L odd):
 //   pass 1  per (column, r2, n2): a P1-point DFT in registers of rows
 //           L (P2 n1 + n2) + r2, n1 < P1, loaded, converted to f32,
@@ -43,13 +43,6 @@
 // butterflies, fully unrolled.  Every twiddle comes from the plan's table
 // (fp64 on the host, cast once: ops/fullchain.fft_tables); none is
 // computed with sincosf.  Only the rows k < m/2 are kept.
-// P = 2048, 4096 (m = 2048, 4096; L = 1): P = P1 P2 P3, P3 = 8, P2 = 8 or
-// 16, three register passes in place on pass 1's slots (a 64- or
-// 128-point register DFT would spill): pass 1 as above over n2 < Q =
-// P2 P3; pass 2 per (column, k1, n3) a P2-point DFT over the n2 of slots
-// P3 n2 + n3, times W_Q^(k2 n3); pass 3 per (column, k1, k2) a P3-point
-// DFT over n3, X[k1 + P1 (k2 + P2 k3)] left in slot P3 k2 + k3, where the
-// epilogue and the A-stage's store read it (no natural copy).
 //
 // The grid: a unit's columns split into chunks of `cols` (8 at m = 1024:
 // 64 KB of complex fp32), dealt round-robin to the unit's `blocks` <= 8
@@ -86,27 +79,25 @@
 //
 // Which kernel serves which m.  This body serves m <= 1024 for every
 // entry (fft_chain_kernel, the register body).  For 1024 < m <= 4096 the
-// planar fused chain (the radix entry and its offset/salt entry, and the
-// dense entries at every even m) runs fft_chain_long_kernel below; the
-// wire chain and the A-stage run cluster_chain.cuh there and up to m =
-// 8192 (each ray split across a cluster of 8 blocks); above those the
-// matrix forms (fused_chain_dense.cu, fused_chain_astage_matrix.cu) run.
+// dense entries (radix-1 m: m % 16 != 0, so P = 2, 4 or 8) run
+// fft_chain_long_kernel below; the radix, wire and A-stage entries run
+// cluster_chain.cuh there and up to m = 8192 (each ray split across a
+// cluster of 8 blocks); above those the matrix forms
+// (fused_chain_dense.cu, fused_chain_astage_matrix.cu) run.
 // ops/fullchain.chain_route and dense_body choose from m alone.
 //
-// fft_chain_long_kernel, the planar fused chain's long-ray form, is the
-// same body with three changes.  A thread would own m/512 rows, 13 floats
-// of partials each (52-104 live floats at m = 2048-4096, beside a register
-// DFT of up to 64): they would spill.  So every row's partials live in
-// shared memory, [13][m/2] floats (53 KB at m = 2048, 106 KB at 4096),
-// read and written once per row and round, and the cluster merges them in
-// place (no exchange buffer).  P = 2048, 4096 run the three register
-// passes above.  And the leaf runs at every P <= 1024 (odd L up to 2047:
-// m = 1536 = 512 x 3, 1840 = 16 x 5 x 23, 1832 = 8 x 229), a pass of
-// radix other than 3, 5, 7 spread over the block (leaf_pass_split: one
-// thread's 229 outputs of a 229-point pass would leave 16 threads of 256
-// busy; cluster_chain.cuh's leaf uses it too).
-// Round sizes: ops/fullchain.fft_geometry (cols = 4 at m = 2048, 1 at
-// 4096: the block fits 227 KB with f32 samples staged); one block per SM
+// fft_chain_long_kernel, the dense entries' long-ray form, is the same
+// body with two changes.  A thread would own m/512 rows, 13 floats of
+// partials each (26-104 live floats at m = 1026-4094): they would spill.
+// So every row's partials live in shared memory, [13][m/2] floats (48 KB
+// at m = 1832), read and written once per row and round, and the cluster
+// merges them in place (no exchange buffer).  And the leaf runs at every
+// odd L up to 2047 (m = 1832 = 8 x 229), a pass of radix other than 3, 5,
+// 7 spread over the block (leaf_pass_split: one thread's 229 outputs of a
+// 229-point pass would leave 16 threads of 256 busy; cluster_chain.cuh's
+// leaf uses it too).
+// Round sizes: ops/fullchain.fft_geometry (cols = 2 at m = 1832: the
+// block fits 227 KB with f32 samples staged); one block per SM
 // (__launch_bounds__(256, 1): no spill).  Its kernels are instantiated in
 // fused_chain_radix_long.cu, beside the m <= 1024 ones, so that nvcc
 // builds them in parallel; the m <= 1024 instantiations are those of the
@@ -132,7 +123,6 @@ constexpr int kLongMaxM = 4096;                 // the long-ray body: partials i
 constexpr int kMaxCluster = 8;                  // the portable cluster size
 constexpr int kStat = 16;                       // floats per row exchanged (m <= 1024)
 constexpr int kPart = 13;                       // floats of a row's partials (long body)
-constexpr int kP3 = 8;                          // the third register pass at P > 1024
 
 // cp.async: a B-byte global -> shared copy that holds no register (B = 16:
 // L2 only; B = 8, 4: through L1, the only such forms); src_bytes < B fills
@@ -205,8 +195,8 @@ struct PlanarIq {
 
   // kMinB: the narrowest copy an instantiation may stage a row with: 8 for
   // the leaf's geometries (4 int16 columns a round at m = 1000), 4 for the
-  // long-ray body (2 int16 columns at m = 1536-1840, 1 f32 at 4096), 16
-  // for the others, whose code keeps the 16-byte path alone
+  // long-ray body (2 int16 columns at m = 1832), 16 for the others, whose
+  // code keeps the 16-byte path alone
   template <int kMinB>
   __device__ __forceinline__ void stage(void* buf, int u, int j0, int cols) const {
     const int e = elem();
@@ -550,27 +540,26 @@ __host__ __device__ constexpr int round4(int v) { return (v + 3) & ~3; }
 // last round, the cluster exchange.  For L > 1 the leaf's Stockham passes
 // run between B (their input [P][L][cols]) and A in turn, the last one
 // writing the natural Y to the other buffer of its input (A for an odd
-// number of passes).  P3 > 1 (L = 1): A's slots [P1][Q cols + pad] hold
-// Y at the end, no B.  The long-ray body keeps the partials [kPart][m/2]
+// number of passes).  The long-ray body keeps the partials [kPart][m/2]
 // (then the block's Phi and n_b) after the rest, for the whole launch.
 // Each part is a multiple of 16 bytes.  ops/fullchain.fft_smem_bytes is
 // the same arithmetic.
 struct Layout {
-  int sp;         // slot row pitch: P2 P3 cols + pad
+  int sp;         // slot row pitch: P2 cols + pad
   int np;         // natural Y row pitch: cols + 1
-  bool inplace;   // Y overwrites A (L = 1: cols P1 <= threads, or P3 > 1)
+  bool inplace;   // Y overwrites A (L = 1 and cols P1 <= threads)
   int size_a;     // complex values
   int size_b;
   int stage;      // words of S
   int part;       // the long body's partials, from this word
   int words;      // in all
 
-  __host__ __device__ Layout(int m, int L, int P1, int P2, int P3, int cols, bool fused,
+  __host__ __device__ Layout(int m, int L, int P1, int P2, int cols, bool fused,
                              int stage_words, bool lng) {
     const int pad = cols < 32 ? cols : 0;
-    sp = P2 * P3 * cols + pad;
+    sp = P2 * cols + pad;
     np = cols + 1;
-    inplace = L == 1 && (P3 > 1 || cols * P1 <= kThreads);
+    inplace = L == 1 && cols * P1 <= kThreads;
     const int leaf = imax(m * cols, (m / 2) * np);    // a leaf pass's buffer
     if (L == 1) {
       size_a = round4(L * P1 * sp);
@@ -649,46 +638,33 @@ __device__ __forceinline__ void merge_row(const float* yr, const float* yi, cons
   }
 }
 
-// Where row k of Y starts: k np in the natural Y; for P3 > 1,
-// X[k1 + P1 (k2 + P2 k3)] lies in slot P3 k2 + k3 of row k1 (pitch sp).
-template <int P1, int P2, int P3>
-__device__ __forceinline__ int y_row(int k, int sp, int np, int cols) {
-  if constexpr (P3 > 1) {
-    const int kq = k / P1;
-    return (k - kq * P1) * sp + ((kq % P2) * P3 + kq / P2) * cols;
-  } else {
-    return k * np;
-  }
-}
-
 // The body of both kernels below.  Src: PlanarIq or WireIq.  Grid
 // (blocks, channels, sectors): unit u = sector * channels + channel; its
 // block b = blockIdx.x owns the column chunks [q cols, min(n, (q + 1)
 // cols)), q = b, b + blocks, ...  kFused: out = pow [units, m/2], launched
 // as clusters of gridDim.x blocks; else (the A-stage) out = Y [units, 2,
 // m/2, n] and wd, ph, phi are unused.  kLong: the long-ray body (partials
-// in shared memory; P3 > 1 for P = 2048, 4096).
-template <class Src, int P1, int P2, int P3, bool kFused, bool kLong>
+// in shared memory).
+template <class Src, int P1, int P2, bool kFused, bool kLong>
 __device__ __forceinline__ void fft_chain_body(Src src, const float* __restrict__ tab,
                                                const float* __restrict__ phi,
                                                const float* __restrict__ wd,
                                                const float* __restrict__ ph,
                                                float* __restrict__ out, int m, int L, int n,
                                                int cols, float salt) {
-  constexpr int P = P1 * P2 * P3;
-  constexpr int Q = P2 * P3;                    // pass 1's n2 < Q
+  constexpr int P = P1 * P2;
+  constexpr int Q = P2;                         // pass 1's n2 < Q
   // the leaf's code exists only where it can run: an odd L > 1 fits
   // m <= kMaxM for P <= 256 (the P = 512, 1024 bodies of the register
-  // body are those of L = 1 alone); the long body runs L > 1 at every
-  // P <= 1024, and P = 2048, 4096 (P3 > 1) at L = 1 alone
-  constexpr bool kLeaf = kLong ? P3 == 1 : 3 * P <= kMaxM;
+  // body are those of L = 1 alone); the long body runs L > 1 alone
+  constexpr bool kLeaf = kLong || 3 * P <= kMaxM;
   constexpr int kStageB = kLong ? 4 : kLeaf ? 8 : 16;
   const int mh = m / 2;
   const int u = static_cast<int>(blockIdx.z * gridDim.y + blockIdx.y);
   const int K = static_cast<int>(gridDim.x);    // the unit's blocks: one cluster
   const int rank = static_cast<int>(blockIdx.x);
   const Table t(tab, m, P, L);
-  const Layout lay(m, L, P1, P2, P3, cols, kFused, src.words(cols), kLong);
+  const Layout lay(m, L, P1, P2, cols, kFused, src.words(cols), kLong);
   cg::cluster_group cluster = cg::this_cluster();
 
   extern __shared__ __align__(16) float smem[];
@@ -699,7 +675,7 @@ __device__ __forceinline__ void fft_chain_body(Src src, const float* __restrict_
   float* stage = b_im + lay.size_b;             // the staged samples of one round
   float* rc = stage + lay.stage;                // [5][cols]: wd, ph rows
   float* part = smem + lay.part;                // kLong: [kPart][mh] partials, Phi, n_b
-  // the natural Y [mh][np] (P3 > 1: A's slots)
+  // the natural Y [mh][np]
   const bool y_in_b = !kLeaf || L == 1 ? !lay.inplace : leaf_passes(L) % 2 == 0;
   float* y_re = y_in_b ? b_re : a_re;
   float* y_im = y_in_b ? b_im : a_im;
@@ -790,101 +766,46 @@ __device__ __forceinline__ void fft_chain_body(Src src, const float* __restrict_
       cp_async_commit();
     }
 
-    if constexpr (P3 == 1) {
-      // pass 2: P2-point DFT over n2 -> X_r2[k1 + P1 k2]; in place, all of a
-      // task's inputs are read before any output is written (none for P2 = 1
-      // and L > 1: pass 1 wrote the leaf's input)
-      const int pass2 = P2 == 1 && kLeaf && L > 1 ? 0 : cols * P1 * L;
-      for (int t0 = 0; t0 < pass2; t0 += kThreads) {
-        const int task = t0 + tid;
-        const bool has = task < pass2;
-        const int c = task % cols;
-        const int rest = task / cols;
-        const int k1 = rest % P1;
-        const int r2 = rest / P1;
-        float re[P2], im[P2];
-        const int base = (r2 * P1 + k1) * lay.sp + c;
-        if (has) {
-#pragma unroll
-          for (int n2 = 0; n2 < P2; ++n2) {
-            re[n2] = a_re[base + n2 * cols];
-            im[n2] = a_im[base + n2 * cols];
-          }
-        }
-        if (lay.inplace) __syncthreads();
-        if (has) {
-          dft_reg<P2>(re, im, t.tw, P);
-#pragma unroll
-          for (int k2 = 0; k2 < P2; ++k2) {
-            const int k = k1 + P1 * k2;
-            const float vr = re[brev(k2, log2i<P2>())];
-            const float vi = im[brev(k2, log2i<P2>())];
-            if (!kLeaf || L == 1) {
-              if (k < mh) {
-                y_re[k * lay.np + c] = vr;
-                y_im[k * lay.np + c] = vi;
-              }
-            } else {
-              float wr, wi;
-              const float2 w = __ldg(ltw + r2 * P + k);
-              cmul(vr, vi, w.x, w.y, wr, wi);
-              b_re[(k * L + r2) * cols + c] = wr;
-              b_im[(k * L + r2) * cols + c] = wi;
-            }
-          }
-        }
-      }
-    } else {
-      // pass 2 (P3 > 1, L = 1): per (column, k1, n3) a P2-point DFT over
-      // the n2 of slots P3 n2 + n3, times W_Q^(k2 n3) = W_P^(P1 k2 n3),
-      // back to its own slots (no other task reads them: no barrier
-      // inside).  Tasks column fastest, then k1: a warp's rows are k1 apart
-      // by the padded pitch, on distinct banks.
-      for (int task = tid; task < cols * P1 * P3; task += kThreads) {
-        const int c = task % cols;
-        const int rest = task / cols;
-        const int k1 = rest % P1;
-        const int n3 = rest / P1;
-        const int base = k1 * lay.sp + n3 * cols + c;
-        float re[P2], im[P2];
+    // pass 2: P2-point DFT over n2 -> X_r2[k1 + P1 k2]; in place, all of a
+    // task's inputs are read before any output is written (none for P2 = 1
+    // and L > 1: pass 1 wrote the leaf's input)
+    const int pass2 = P2 == 1 && kLeaf && L > 1 ? 0 : cols * P1 * L;
+    for (int t0 = 0; t0 < pass2; t0 += kThreads) {
+      const int task = t0 + tid;
+      const bool has = task < pass2;
+      const int c = task % cols;
+      const int rest = task / cols;
+      const int k1 = rest % P1;
+      const int r2 = rest / P1;
+      float re[P2], im[P2];
+      const int base = (r2 * P1 + k1) * lay.sp + c;
+      if (has) {
 #pragma unroll
         for (int n2 = 0; n2 < P2; ++n2) {
-          re[n2] = a_re[base + n2 * P3 * cols];
-          im[n2] = a_im[base + n2 * P3 * cols];
+          re[n2] = a_re[base + n2 * cols];
+          im[n2] = a_im[base + n2 * cols];
         }
+      }
+      if (lay.inplace) __syncthreads();
+      if (has) {
         dft_reg<P2>(re, im, t.tw, P);
 #pragma unroll
         for (int k2 = 0; k2 < P2; ++k2) {
-          float vr = re[brev(k2, log2i<P2>())];
-          float vi = im[brev(k2, log2i<P2>())];
-          if (k2 > 0) {                 // W^0 = 1 exactly at n3 = 0: no branch
-            const float2 w = __ldg(reinterpret_cast<const float2*>(t.tw) + (P1 * k2 * n3) % P);
-            cmul(vr, vi, w.x, w.y, vr, vi);
+          const int k = k1 + P1 * k2;
+          const float vr = re[brev(k2, log2i<P2>())];
+          const float vi = im[brev(k2, log2i<P2>())];
+          if (!kLeaf || L == 1) {
+            if (k < mh) {
+              y_re[k * lay.np + c] = vr;
+              y_im[k * lay.np + c] = vi;
+            }
+          } else {
+            float wr, wi;
+            const float2 w = __ldg(ltw + r2 * P + k);
+            cmul(vr, vi, w.x, w.y, wr, wi);
+            b_re[(k * L + r2) * cols + c] = wr;
+            b_im[(k * L + r2) * cols + c] = wi;
           }
-          a_re[base + k2 * P3 * cols] = vr;
-          a_im[base + k2 * P3 * cols] = vi;
-        }
-      }
-      __syncthreads();
-      // pass 3: per (column, k1, k2) a P3-point DFT over n3 of slots
-      // P3 k2 + n3 -> X[k1 + P1 (k2 + P2 k3)] in slot P3 k2 + k3
-      for (int task = tid; task < cols * P1 * P2; task += kThreads) {
-        const int c = task % cols;
-        const int rest = task / cols;
-        const int k1 = rest % P1;
-        const int k2 = rest / P1;
-        const int base = k1 * lay.sp + k2 * P3 * cols + c;
-        float re[P3], im[P3];
-#pragma unroll
-        for (int n3 = 0; n3 < P3; ++n3) {
-          re[n3] = a_re[base + n3 * cols];
-          im[n3] = a_im[base + n3 * cols];
-        }
-        dft_reg<P3>(re, im, t.tw, P);
-#pragma unroll
-        for (int k3 = 0; k3 < P3; ++k3) {
-          a_re[base + k3 * cols] = re[brev(k3, log2i<P3>())];
-          a_im[base + k3 * cols] = im[brev(k3, log2i<P3>())];
         }
       }
     }
@@ -929,7 +850,7 @@ __device__ __forceinline__ void fft_chain_body(Src src, const float* __restrict_
       for (int k = tid; k < mh * nr; k += kThreads) {
         const int row = k / nr;
         const int c = k - row * nr;
-        const int y = y_row<P1, P2, P3>(row, lay.sp, lay.np, cols) + c;
+        const int y = row * lay.np + c;
         yo[static_cast<size_t>(row) * n + c] = y_re[y];
         yo[static_cast<size_t>(mh + row) * n + c] = y_im[y];
       }
@@ -952,7 +873,7 @@ __device__ __forceinline__ void fft_chain_body(Src src, const float* __restrict_
           float pd[8];
 #pragma unroll
           for (int c = 0; c < 8; ++c) pd[c] = first ? 0.f : pk[(5 + c) * mh];
-          const int y = y_row<P1, P2, P3>(k, lay.sp, lay.np, cols);
+          const int y = k * lay.np;
           merge_row(y_re + y, y_im + y, rc, cols, nr, nb, f, n_a, phi_a, phi_r, first, ps_r,
                     ps_i, pmu_r, pmu_i, pe, pd);
           pk[0] = ps_r;
@@ -1153,20 +1074,18 @@ __global__ void __launch_bounds__(kThreads, 2)
 fft_chain_kernel(Src src, const float* __restrict__ tab, const float* __restrict__ phi,
                  const float* __restrict__ wd, const float* __restrict__ ph,
                  float* __restrict__ out, int m, int L, int n, int cols, float salt) {
-  fft_chain_body<Src, P1, P2, 1, kFused, false>(src, tab, phi, wd, ph, out, m, L, n, cols,
-                                                salt);
+  fft_chain_body<Src, P1, P2, kFused, false>(src, tab, phi, wd, ph, out, m, L, n, cols, salt);
 }
 
-// The long-ray body (1024 < m <= 4096): one block per SM (its shared
-// memory mostly allows no more), registers unbounded below 255, so the
-// P2 = 32 register DFT does not spill.
-template <class Src, int P1, int P2, int P3, bool kFused>
+// The long-ray body (1024 < m <= 4096, the dense entries' radix-1 m): one
+// block per SM (its shared memory mostly allows no more), registers
+// unbounded below 255.
+template <class Src, int P1, int P2, bool kFused>
 __global__ void __launch_bounds__(kThreads, 1)
 fft_chain_long_kernel(Src src, const float* __restrict__ tab, const float* __restrict__ phi,
                       const float* __restrict__ wd, const float* __restrict__ ph,
                       float* __restrict__ out, int m, int L, int n, int cols, float salt) {
-  fft_chain_body<Src, P1, P2, P3, kFused, true>(src, tab, phi, wd, ph, out, m, L, n, cols,
-                                                salt);
+  fft_chain_body<Src, P1, P2, kFused, true>(src, tab, phi, wd, ph, out, m, L, n, cols, salt);
 }
 
 // The kernel for the plan's geometry: fn(P1, P2) dispatch over P (P1 =
@@ -1194,43 +1113,30 @@ cudaError_t dispatch_p(int P, Fn&& fn) {
   }
 }
 
-// The long-ray kernels (1024 < m <= 4096): P <= 1024 with an odd L >= 3
-// (the planar fused chain takes P = 2, 4, 8 too: radix-1 m such as 1832),
-// P = 2048, 4096 at L = 1 in three register passes.
+// The long-ray kernels (1024 < m <= 4096): the dense entries' radix-1 m
+// (m % 16 != 0, so P = 2, 4, 8) with an odd L >= 129.
 template <class Src, bool kFused, class Fn>
 cudaError_t dispatch_long(int P, Fn&& fn) {
   if constexpr (Src::kStaged && kFused) {
     switch (P) {
-      case 2: return fn(fft_chain_long_kernel<Src, 2, 1, 1, kFused>);
-      case 4: return fn(fft_chain_long_kernel<Src, 4, 1, 1, kFused>);
-      case 8: return fn(fft_chain_long_kernel<Src, 8, 1, 1, kFused>);
+      case 2: return fn(fft_chain_long_kernel<Src, 2, 1, kFused>);
+      case 4: return fn(fft_chain_long_kernel<Src, 4, 1, kFused>);
+      case 8: return fn(fft_chain_long_kernel<Src, 8, 1, kFused>);
       default: break;
     }
   }
-  switch (P) {
-    case 16: return fn(fft_chain_long_kernel<Src, 16, 1, 1, kFused>);
-    case 32: return fn(fft_chain_long_kernel<Src, 32, 1, 1, kFused>);
-    case 64: return fn(fft_chain_long_kernel<Src, 32, 2, 1, kFused>);
-    case 128: return fn(fft_chain_long_kernel<Src, 32, 4, 1, kFused>);
-    case 256: return fn(fft_chain_long_kernel<Src, 32, 8, 1, kFused>);
-    case 512: return fn(fft_chain_long_kernel<Src, 32, 16, 1, kFused>);
-    case 1024: return fn(fft_chain_long_kernel<Src, 32, 32, 1, kFused>);
-    case 2048: return fn(fft_chain_long_kernel<Src, 32, 8, kP3, kFused>);
-    case 4096: return fn(fft_chain_long_kernel<Src, 32, 16, kP3, kFused>);
-    default: return cudaErrorInvalidValue;
-  }
+  return cudaErrorInvalidValue;
 }
 
 struct Geometry {
-  int P, L, P1, P2, P3;
+  int P, L, P1, P2;
   bool lng;       // the long-ray body
   bool ok;
   Geometry(int m) {
     P = m & -m;
     L = m / imax(P, 1);
     P1 = P < 32 ? P : 32;
-    P3 = P > kMaxM ? kP3 : 1;
-    P2 = P / imax(P1 * P3, 1);
+    P2 = P / imax(P1, 1);
     lng = m > kMaxM;
     ok = m >= 2 && m <= kLongMaxM && m % 2 == 0;  // P >= 2; wire and A-stage: P >= 16
   }
@@ -1239,7 +1145,7 @@ struct Geometry {
 // The smem bytes of a launch of `blocks` blocks per unit.
 template <class Src>
 size_t smem_bytes(const Src& src, const Geometry& g, int m, int cols, bool fused) {
-  return Layout(m, g.L, g.P1, g.P2, g.P3, cols, fused, src.words(cols), g.lng).bytes();
+  return Layout(m, g.L, g.P1, g.P2, cols, fused, src.words(cols), g.lng).bytes();
 }
 
 // One launch of `kernel` over units (sectors x channels), clusters of
@@ -1312,7 +1218,8 @@ cudaError_t launch_fused_as(const Src& src, const float* tab, const float* phi, 
   });
 }
 
-// m > 1024: the planar long-ray body; the wire chain's is cluster_chain.cuh
+// m > 1024: the planar long-ray body (the dense entries' radix-1 m); the
+// radix m of the planar and wire chains run cluster_chain.cuh
 // (cudaErrorInvalidValue here).
 template <class Src>
 cudaError_t launch_fused(const Src& src, const float* tab, const float* phi, const float* wd,
@@ -1384,8 +1291,8 @@ template <class Src, bool kFused>
 cudaError_t occupancy(const Src& src, int m, int cols, int blocks, int* blocks_per_sm,
                       int* clusters) {
   if (Geometry(m).lng) {
-    // the planar fused chain's long-ray body; the wire chain and the
-    // A-stage run cluster_chain.cuh above 1024
+    // the dense entries' long-ray body; the radix, wire and A-stage
+    // entries run cluster_chain.cuh above 1024
     if constexpr (kFused && Src::kStaged) {
       return occupancy_long(src, m, cols, blocks, blocks_per_sm, clusters);
     } else {

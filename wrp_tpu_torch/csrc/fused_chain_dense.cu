@@ -16,12 +16,13 @@
 //     radix chain.
 //   * any other m (m > 4096, odd m): this file's matrix kernel, the TPU
 //     kernel's own algorithm, described next.  The radix entry launches it
-//     too, with its salt, for a radix plan above 4096 (m = 4160, 8192),
-//     where wrp_tpu's radix kernel still runs: the TPU kernel
+//     too, with its salt, for a radix plan above 8192 (m = 8320), where
+//     wrp_tpu's radix kernel still runs: the TPU kernel
 //     wrp_tpu/ops/pallas/fullchain.py::fused_chain_power_radix (with
-//     offset and salt, _kernel_radix_offset) at those m.
+//     offset and salt, _kernel_radix_offset) at those m (1024 < m <= 8192
+//     run cluster_chain.cuh, fused_chain_radix_cluster.cu).
 //     Its wire source (wrp_fused_chain_dense_wire) is the wire entries'
-//     kernel above 4096: the TPU kernel fused_chain_power_wire (with
+//     kernel above 8192: the TPU kernel fused_chain_power_wire (with
 //     offset and salt, _kernel_radix_wire_offset), which wrp_tpu runs at
 //     any radix m.
 //

@@ -1,15 +1,16 @@
-// The planar fused chain's long-ray kernels, for NVIDIA Hopper (sm_90a).
+// The dense entries' long-ray kernels, for NVIDIA Hopper (sm_90a).
 //
-// The instantiations of fft_chain.cuh's long-ray body (1024 < m <= 4096:
-// every row's epilogue partials in shared memory, P = 2048, 4096 in three
-// register passes; the design and bound are described there) behind
-// fused_chain_radix.cu's entries wrp_fused_chain_radix{,_salted} and the
-// dense entries' FFT body, which reach them through fft::launch_fused for
-// m > 1024.  They replace, at those m, the TPU kernels wrp_tpu/ops/pallas/
-// fullchain.py::fused_chain_power_radix (_kernel_radix, and with offset
-// and salt _kernel_radix_offset) and fused_chain_power (_kernel: radix-1
-// m such as 1832 = 8 x 229).  A file of their own so that nvcc compiles
-// them in parallel with the m <= 1024 kernels.
+// The instantiations of fft_chain.cuh's long-ray body (1024 < m <= 4096,
+// radix-1 m, so P = 2, 4 or 8 and an odd leaf: every row's epilogue
+// partials in shared memory; the design and bound are described there)
+// behind the dense entries' FFT body (fused_chain_dense.cu's entries reach
+// them through fused_chain_radix.cu's wrp_fused_chain_radix and
+// fft::launch_fused for m > 1024).  They replace, at those m, the TPU
+// kernels wrp_tpu/ops/pallas/fullchain.py::fused_chain_power (_kernel:
+// radix-1 m such as 1832 = 8 x 229) and fused_chain_power_at.  The radix
+// entries' m above 1024 run cluster_chain.cuh
+// (fused_chain_radix_cluster.cu).  A file of their own so that nvcc
+// compiles them in parallel with the m <= 1024 kernels.
 
 #include <cuda_runtime.h>
 

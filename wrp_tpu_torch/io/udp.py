@@ -11,7 +11,9 @@ Like ``wrp_tpu.io.udp`` this fixes the reference's silent-corruption modes
 and drop accounting.  Reassembly runs in the GIL-free C++ loop
 (native/ingest.cpp, built with g++ at first use; a build failure raises)
 unless the caller passes native=False; then the Python loop runs, with the
-same results and stats.
+same results and stats.  The native loop reads a ring that a native thread
+fills from the socket, so a clamped kernel receive buffer does not turn the
+receiving thread's waits for the GIL into lost datagrams.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import logging
 import socket
 import time
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -51,7 +54,10 @@ class UdpIngest:
         native: bool = True,
     ):
         """native: reassemble in the C++ loop without the GIL
-        (native/ingest.cpp); False runs the Python loop.
+        (native/ingest.cpp), fed by a native drain thread that moves the
+        socket's datagrams into a ring of rcvbuf_bytes in user memory from
+        bind to close(), so the buffer asked for exists even where the
+        kernel clamps SO_RCVBUF; False runs the Python loop on the socket.
 
         reuse_port: bind with SO_REUSEPORT, so that the N ranks of a
         pulse-sharded fleet on one host can read ONE broadcast port
@@ -85,15 +91,25 @@ class UdpIngest:
         self._native = native
         if native:
             ingest_native.load_library()    # build now: a failure raises here
-            # the C++ loop uses SO_RCVTIMEO on a blocking socket; it treats
-            # timeout_ms <= 0 as no timeout, so a sub-ms timeout rounds up
+            # the drain thread blocks in recv (SO_RCVTIMEO bounds it), so
+            # the socket must be blocking; the C++ loop waits on the ring
+            # and treats timeout_ms <= 0 as no timeout, so a sub-ms
+            # timeout rounds up
             self._sock.setblocking(True)
             self._timeout_ms = (max(1, int(timeout_s * 1000))
                                 if timeout_s is not None else -1)
             self._nstats = np.zeros(5, np.int64)
             self._nhdr = np.zeros(3, np.int32)
+            slot = self._row_bytes + frames.IngestHeader.SIZE
+            self._drain = ingest_native.Drain(
+                self._sock.fileno(), slot, max(1, rcvbuf_bytes // slot))
         else:
             self._sock.settimeout(timeout_s)
+            self._drain = None
+        # the drain thread stops before the socket closes (its descriptor
+        # must not be reused under it), on close() or collection
+        self._close = weakref.finalize(self, _close_ingest, self._drain,
+                                       self._sock)
         # Full-datagram scratch: a right-sized buffer would make recv_into
         # silently TRUNCATE an oversized datagram to row_bytes and accept
         # it; oversized rows must fail the length check instead.
@@ -174,9 +190,8 @@ class UdpIngest:
         returns, raises and stats."""
         st = self._nstats
         before = st.copy()
-        rc = ingest_native.recv_sector(self._sock.fileno(), self._timeout_ms,
-                                       buf, m, self._row_bytes, st,
-                                       self._nhdr)
+        rc = self._drain.recv_sector(self._timeout_ms, buf, m,
+                                     self._row_bytes, st, self._nhdr)
         d = st - before
         self.stats.datagrams += int(d[0])
         self.stats.dropped_datagrams += int(d[1])
@@ -197,13 +212,19 @@ class UdpIngest:
         return buf, header
 
     def close(self):
-        self._sock.close()
+        self._close()
 
     def __enter__(self):
         return self
 
     def __exit__(self, *exc):
         self.close()
+
+
+def _close_ingest(drain, sock) -> None:
+    if drain is not None:
+        drain.close()
+    sock.close()
 
 
 class UdpEgress:

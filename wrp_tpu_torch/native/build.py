@@ -90,6 +90,13 @@ def load_library() -> ctypes.CDLL:
                 # fd, timeout_ms, out, rows, row_bytes, stats, hdr
                 "wrp_udp_recv_sector": (
                     [i32, i32, ptr, i64, i64, ptr, ptr], i32),
+                # fd, slot_bytes, nslots -> drain
+                "wrp_udp_drain_start": ([i32, i64, i64], ptr),
+                # drain, timeout_ms, out, rows, row_bytes, stats, hdr
+                "wrp_udp_drain_recv_sector": (
+                    [ptr, i32, ptr, i64, i64, ptr, ptr], i32),
+                "wrp_udp_drain_stop": ([ptr], None),
+                "wrp_udp_drain_free": ([ptr], None),
             }
             for name, (argtypes, restype) in signatures.items():
                 fn = getattr(lib, name)

@@ -147,8 +147,9 @@ def load_library() -> ctypes.CDLL:
                     ptr],                             # stream
                 "wrp_fused_chain_astage_occupancy": [
                     i32, i32, ptr],                   # m, cols, int* blocks per SM
-                # the cluster body (1024 < m <= 8192): the A-stage, the wire
-                # chain (offset and int32 salt always given), and each one's
+                # the cluster body (1024 < m <= 8192): the A-stage, the
+                # planar and wire chains (offset and int32 salt always
+                # given), and each one's
                 # blocks per SM and resident clusters (the last two, int*)
                 "wrp_fused_chain_astage_cluster": [
                     ptr, i32, ptr, ptr,               # x, x_is_int16, tab, y
@@ -158,7 +159,12 @@ def load_library() -> ctypes.CDLL:
                     ptr, ptr, ptr, ptr, ptr, ptr,     # w, tab, phi, wd, ph, out
                     i32, i32, i32, i32, i32, i64,     # bs, m, n, ch, cols, offset
                     i32, ptr],                        # salt, stream
+                "wrp_fused_chain_radix_cluster": [
+                    ptr, i32, ptr, ptr, ptr, ptr, ptr,  # x, x_is_int16, tab, phi, wd, ph, out
+                    i32, i32, i32, i32, i64,          # bc, m, n, cols, offset
+                    i32, ptr],                        # salt, stream
                 "wrp_fused_chain_astage_cluster_occupancy": [i32, i32, ptr, ptr],
+                "wrp_fused_chain_radix_cluster_occupancy": [i32, i32, ptr, ptr],
                 "wrp_fused_chain_wire_cluster_occupancy": [i32, i32, ptr, ptr],
                 "wrp_parseval_rows": [
                     ptr, ptr, ptr, ptr,               # y, wd, ph, out

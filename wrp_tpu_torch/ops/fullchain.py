@@ -7,12 +7,15 @@ Each kernel has its wrapper, plain torch version and launch counter; which
 kernel serves an m is m's alone:
 
 * radix, csrc/fused_chain_radix.cu (``wrp_tpu`` `fused_chain_power_radix`):
-  `fused_chain_power_radix`, plain `fft_chain_power_reference`,
-  `LAUNCHES`.  Planar int16/f32 IQ through the FFT-form kernel
-  (csrc/fft_chain.cuh) for m that splits (`radix_for(m) > 1`) up to
-  FFT_MAX_M = 4096: the register body up to FFT_SHORT_M = 1024, the
-  long-ray body (csrc/fused_chain_radix_long.cu) above.  Above FFT_MAX_M it
-  launches the dense entries' matrix kernel on the dense A_half
+  `fused_chain_power_radix`, `LAUNCHES`.  Planar int16/f32 IQ for m that
+  splits (`radix_for(m) > 1`), through the route `chain_route(m)` names:
+  the register body of csrc/fft_chain.cuh for m <= FFT_SHORT_M = 1024
+  (plain `fft_chain_power_reference`); the cluster body
+  (csrc/fused_chain_radix_cluster.cu, csrc/cluster_chain.cuh: each ray
+  split across a cluster of 8 blocks, plain
+  `cluster_chain_power_reference`, counted also in
+  `RADIX_CLUSTER_LAUNCHES`) for 1024 < m <= CLUSTER_MAX_M = 8192; above it
+  the dense entries' matrix kernel on the dense A_half
   (`RadixPlan.dense_operator`, built at first use; plain
   `fused_chain_power_reference`), counted also in `DENSE_MATRIX_LAUNCHES`.
 * wire, csrc/fused_chain_wire.cu (``wrp_tpu`` `fused_chain_power_wire`):
@@ -30,19 +33,19 @@ kernel serves an m is m's alone:
 * dense, csrc/fused_chain_dense.cu (``wrp_tpu`` `fused_chain_power`):
   `fused_chain_power_dense`, `DENSE_LAUNCHES`, for m that does not split
   (`radix_for(m) == 1`).  Two bodies, chosen from m alone (`dense_body`):
-  every even m <= FFT_MAX_M (m = 1000 = 8 x 125) runs the FFT-form body
-  of csrc/fft_chain.cuh (plain `fft_chain_power_reference`,
+  every even m <= FFT_MAX_M = 4096 (m = 1000 = 8 x 125) runs the FFT-form
+  body of csrc/fft_chain.cuh (plain `fft_chain_power_reference`,
   `DENSE_FFT_LAUNCHES`); any other m (m > FFT_MAX_M, odd m) the matrix
   kernel, the dense A_half [m/2, m] contraction (plain
   `fused_chain_power_reference`, its R == 1 branch,
   `DENSE_MATRIX_LAUNCHES`, which counts the radix entry's launches of it
-  above FFT_MAX_M too).
+  above CLUSTER_MAX_M too).
 
-The FFT-form body of csrc/fft_chain.cuh has two forms, chosen from m alone
-(`fft_long`): m <= 1024 keeps each thread's epilogue partials in
-registers; 1024 < m <= FFT_MAX_M (the planar chain's long-ray body) keeps
-them in shared memory, runs P = 2048 and 4096 as three register passes (32
-x 8 x 8, 32 x 16 x 8) and every odd L through the leaf.
+The FFT-form body of csrc/fft_chain.cuh (`fft_takes`) has two forms, chosen
+from m alone (`fft_long`): m <= 1024 keeps each thread's epilogue partials
+in registers; 1024 < m <= FFT_MAX_M (the dense entries' long-ray body,
+csrc/fused_chain_radix_long.cu: radix-1 m, so P = 2, 4 or 8) keeps them in
+shared memory and runs every odd L through the leaf.
 
 The benchmark (wrp_tpu_torch/bench.py) reads each step's slab of a larger
 staged array through the OFFSET entries, one per kernel, each with its own
@@ -123,6 +126,9 @@ WIRE_OFFSET_LAUNCHES = 0     # the wire offset entry (salted: fused_chain_wire_s
 #: launches of the wire chain's cluster body (fused_chain_wire_cluster.cu,
 #: 1024 < m <= 8192) from either wire entry
 WIRE_CLUSTER_LAUNCHES = 0
+#: launches of the planar chain's cluster body (fused_chain_radix_cluster.cu,
+#: 1024 < m <= 8192) from either radix entry
+RADIX_CLUSTER_LAUNCHES = 0
 DENSE_OFFSET_LAUNCHES = 0    # fused_chain_power_at (fused_chain_dense.cu)
 #: launches of each dense body, from either dense entry (a run shows which
 #: body its m took)
@@ -165,15 +171,13 @@ class FftGeometry:
 
     The range DFT of m = P L points (P the largest power of two dividing
     m, L odd) is L P-point FFTs on the decimated rows L i + r2, each in
-    four steps P = P1 Q (P1 = min(32, P): a P1-point DFT in registers, a
-    twiddle W_P^(k1 n2), a Q-point DFT), then for L > 1 an L-point leaf
-    DFT across the L sub-FFTs, a mixed-radix Stockham FFT
-    (`leaf_fft_reference`; 5 x 5 x 5 at m = 1000).  Q = P2 P3: one
-    register DFT of P2 <= 32 points (P3 = 1), or for P = 2048, 4096 two,
-    P2 then P3 = 8 points with the twiddle W_Q^(k2 n3) between them.  The
-    pulse columns split into chunks of `cols`, dealt round-robin to the
-    unit's `blocks` blocks (at most 8: one thread-block cluster): in round
-    r, block b runs chunk r blocks + b."""
+    four steps P = P1 P2 (P1 = min(32, P): a P1-point DFT in registers, a
+    twiddle W_P^(k1 n2), a P2-point register DFT, P2 <= 32), then for L > 1
+    an L-point leaf DFT across the L sub-FFTs, a mixed-radix Stockham FFT
+    (`leaf_fft_reference`; 5 x 5 x 5 at m = 1000).  The pulse columns split
+    into chunks of `cols`, dealt round-robin to the unit's `blocks` blocks
+    (at most 8: one thread-block cluster): in round r, block b runs chunk
+    r blocks + b."""
 
     P: int
     L: int
@@ -181,10 +185,10 @@ class FftGeometry:
     P2: int
     cols: int
     blocks: int
-    P3: int = 1
 
 
-#: the FFT-form kernels' limits: m <= FFT_MAX_M, at most FFT_MAX_CLUSTER
+#: the FFT-form kernels' limits: m <= FFT_SHORT_M for every entry, and up
+#: to FFT_MAX_M for the dense entries' radix-1 m; at most FFT_MAX_CLUSTER
 #: blocks per unit (the portable cluster size), FFT_THREADS threads a
 #: block.  Up to FFT_SHORT_M a thread holds its two rows' epilogue
 #: partials in registers (csrc/fft_chain.cuh kRows); above it (the
@@ -195,9 +199,6 @@ FFT_MAX_CLUSTER = 8
 FFT_THREADS = 256
 #: complex values of one round's working set (m cols): 64 KB of fp32
 FFT_ROUND_VALUES = 8192
-#: the long-ray body's register passes over P = 2048 and 4096: P3 points
-#: after P1 = 32 and P2 = P / 256
-FFT_P3 = 8
 #: floats of one row's epilogue partials (shift 2, mean 2, energy 1, the
 #: four phasor projections of re and im 8), and of the cluster exchange's
 #: row in the m <= 1024 body (padded to 16)
@@ -216,32 +217,36 @@ def leaf_radix(rem: int) -> int:
 
 
 def fft_takes(m: int) -> bool:
-    """Whether the FFT-form body takes m range rows: even m, 2 <= m <=
-    FFT_MAX_M (csrc/fft_chain.cuh Geometry::ok)."""
-    return 2 <= m <= FFT_MAX_M and m % 2 == 0
+    """Whether the FFT-form body takes m range rows: every even m, 2 <= m
+    <= FFT_SHORT_M, and above it the radix-1 even m up to FFT_MAX_M (the
+    dense entries' long-ray body, P = 2, 4 or 8: csrc/fft_chain.cuh
+    dispatch_long).  A radix m above FFT_SHORT_M takes the cluster body
+    (`chain_route`)."""
+    return (2 <= m <= FFT_MAX_M and m % 2 == 0
+            and (m <= FFT_SHORT_M or radix_for(m) == 1))
 
 
 def fft_long(m: int) -> bool:
     """Whether m takes the long-ray form of the FFT-form body (m >
-    FFT_SHORT_M: partials in shared memory, csrc/fft_chain.cuh
+    FFT_SHORT_M, radix 1: partials in shared memory, csrc/fft_chain.cuh
     fft_chain_long_kernel)."""
     return fft_takes(m) and m > FFT_SHORT_M
 
 
 def dense_body(m: int) -> str:
-    """The body the dense entries launch for m, from m alone: "fft" (the
-    FFT-form body, csrc/fft_chain.cuh) for every m it takes, else "matrix"
-    (csrc/fused_chain_dense.cu's A_half contraction: m > FFT_MAX_M, odd
-    m)."""
-    return "fft" if fft_takes(m) else "matrix"
+    """The body the dense entries launch for a radix-1 m, from m alone:
+    "fft" (the FFT-form body, csrc/fft_chain.cuh) for every even m <=
+    FFT_MAX_M, else "matrix" (csrc/fused_chain_dense.cu's A_half
+    contraction: m > FFT_MAX_M, odd m).  A radix m never reaches the dense
+    entries (`fused_chain_power_dense` refuses its plan)."""
+    return "fft" if 2 <= m <= FFT_MAX_M and m % 2 == 0 else "matrix"
 
 
 def _fft_factors(m: int):
-    """(P, L, P1, P2, P3) of m (csrc/fft_chain.cuh Geometry)."""
+    """(P, L, P1, P2) of m (csrc/fft_chain.cuh Geometry)."""
     P = m & -m
     P1 = min(32, P)
-    P3 = FFT_P3 if P > FFT_SHORT_M else 1
-    return P, m // P, P1, P // (P1 * P3), P3
+    return P, m // P, P1, P // P1
 
 
 def _round4(v: int) -> int:
@@ -254,11 +259,11 @@ def fft_smem_bytes(m: int, cols: int, fused: bool = True,
     `cols` columns a round, staging planar samples of `elem` bytes (2:
     int16, 4: f32; 0: the wire, read straight from device memory): the
     words of csrc/fft_chain.cuh Layout.  fused=False: the A-stage."""
-    P, L, P1, P2, P3 = _fft_factors(m)
+    P, L, P1, P2 = _fft_factors(m)
     pad = cols if cols < 32 else 0
-    sp = P2 * P3 * cols + pad
+    sp = P2 * cols + pad
     np_ = cols + 1
-    inplace = L == 1 and (P3 > 1 or cols * P1 <= FFT_THREADS)
+    inplace = L == 1 and cols * P1 <= FFT_THREADS
     leaf = max(m * cols, (m // 2) * np_)
     if L == 1:
         size_a = _round4(P1 * sp)
@@ -283,13 +288,16 @@ def fft_geometry(m: int, width: int) -> FftGeometry:
     more than width needs, and for L = 1 with pass 2's cols P1 tasks no
     more than the block's threads (its output then overwrites its input in
     shared memory); above m = 1024, halved until the fused block fits one
-    block's shared memory with f32 samples staged (4 at m = 2048, 1 at
-    m = 4096, 2 at m = 1536-1840); blocks: at most FFT_MAX_CLUSTER, each
-    with at least one chunk (8 blocks of 8 rounds at n = 512)."""
+    block's shared memory with f32 samples staged (2 at m = 1832); blocks:
+    at most FFT_MAX_CLUSTER, each with at least one chunk (8 blocks of 8
+    rounds at n = 512).  Refuses m the body does not take (`fft_takes`)."""
     if not fft_takes(m):
-        raise ValueError(f"the FFT-form kernels take an even m with 2 <= m "
-                         f"<= FFT_MAX_M = {FFT_MAX_M}, got m={m}")
-    P, L, P1, P2, P3 = _fft_factors(m)
+        raise ValueError(f"the FFT-form kernels take an even m <= "
+                         f"{FFT_SHORT_M} and, for the dense entries, a "
+                         f"radix-1 even m <= FFT_MAX_M = {FFT_MAX_M} (a "
+                         f"radix m above {FFT_SHORT_M} takes the cluster "
+                         f"body), got m={m}")
+    P, L, P1, P2 = _fft_factors(m)
     lng = m > FFT_SHORT_M
     # L > 1: the leaf's passes run between two m x cols buffers (the L = 1
     # chain writes pass 2 in place), so half the round keeps two blocks
@@ -301,7 +309,7 @@ def fft_geometry(m: int, width: int) -> FftGeometry:
         cols *= 2
     while lng and cols > 1 and fft_smem_bytes(m, cols, True, 4) > MAX_SMEM_BYTES:
         cols //= 2
-    return FftGeometry(P=P, L=L, P1=P1, P2=P2, P3=P3, cols=cols,
+    return FftGeometry(P=P, L=L, P1=P1, P2=P2, cols=cols,
                        blocks=min(FFT_MAX_CLUSTER, _cdiv(width, cols)))
 
 
@@ -360,13 +368,14 @@ def fft_round_phasor_sums(phasors: np.ndarray, cols: int) -> np.ndarray:
     return ph.reshape(4, -1, cols).sum(-1).T.astype(np.float32).copy()
 
 
-#: the cluster body (csrc/cluster_chain.cuh), the wire chain's (#7/#8) and
-#: the A-stage's (#5) route for FFT_SHORT_M < m <= CLUSTER_MAX_M: each ray
-#: split across a cluster of CLUSTER_SPLIT blocks, block b the rows
-#: 8 t + b, of whose 8-point DFT across blocks CLUSTER_OUT outputs are kept
-#: (k < m/2); at most CLUSTER_MAX_COLS pulse columns a round (16 int16 are
-#: a row's whole 32-byte sector; each round costs two cluster barriers, so
-#: a round takes as many columns as shared memory allows)
+#: the cluster body (csrc/cluster_chain.cuh), the planar chain's (#3/#4),
+#: the wire chain's (#7/#8) and the A-stage's (#5) route for FFT_SHORT_M <
+#: m <= CLUSTER_MAX_M: each ray split across a cluster of CLUSTER_SPLIT
+#: blocks, block b the rows 8 t + b, of whose 8-point DFT across blocks
+#: CLUSTER_OUT outputs are kept (k < m/2); at most CLUSTER_MAX_COLS pulse
+#: columns a round (16 int16 are a row's whole 32-byte sector; each round
+#: costs two cluster barriers, so a round takes as many columns as shared
+#: memory allows)
 CLUSTER_MAX_M = 8192
 CLUSTER_SPLIT = 8
 CLUSTER_OUT = 4
@@ -385,8 +394,9 @@ class ClusterGeometry:
     [b' span, min(ms, (b' + 1) span)), span = ceil(ms / 8), over the eight
     blocks: Y[k1 + ms k2] = sum_b W_8^(b k2) W_m^(b k1) F_b[k1], k2 < 4.
     Every block sees every pulse column, `cols` a round: as many as one
-    block's shared memory allows for the body (the wire chain, or the
-    A-stage at its input's sample width)."""
+    block's shared memory allows for the body (the planar and wire chains,
+    which read their samples straight from device memory, or the A-stage,
+    which stages them, at its input's sample width)."""
 
     ms: int
     P: int
@@ -404,11 +414,12 @@ def cluster_takes(m: int) -> bool:
 
 
 def chain_route(m: int) -> str:
-    """The kernel the wire chain (#7/#8) and the A-stage (#5) launch for m
-    (a radix m), from m alone: "register" (csrc/fft_chain.cuh's register
-    body, m <= FFT_SHORT_M), "cluster" (csrc/cluster_chain.cuh, up to
-    CLUSTER_MAX_M) or "matrix" (above it: csrc/fused_chain_dense.cu's wire
-    source, csrc/fused_chain_astage_matrix.cu)."""
+    """The kernel the planar chain (#3/#4), the wire chain (#7/#8) and the
+    A-stage (#5) launch for m (a radix m), from m alone: "register"
+    (csrc/fft_chain.cuh's register body, m <= FFT_SHORT_M), "cluster"
+    (csrc/cluster_chain.cuh, up to CLUSTER_MAX_M) or "matrix" (above it:
+    csrc/fused_chain_dense.cu's matrix kernel and its wire source,
+    csrc/fused_chain_astage_matrix.cu)."""
     if m <= FFT_SHORT_M and fft_takes(m):
         return "register"
     return "cluster" if cluster_takes(m) else "matrix"
@@ -426,10 +437,10 @@ def cluster_smem_bytes(m: int, cols: int, fused: bool = True,
                        elem: int = 0) -> int:
     """Dynamic shared memory of one block of the cluster body at m and
     `cols` columns a round: the words of csrc/cluster_chain.cuh Layout.
-    fused: the wire chain (the owned rows and the round's constants beside
-    the FFT's buffers); else the A-stage, staging planar samples of `elem`
-    bytes (2: int16, 4: f32; 0: the wire, read straight from device
-    memory)."""
+    fused: the planar and wire chains (the owned rows and the round's
+    constants beside the FFT's buffers); else the A-stage.  `elem`: the
+    bytes of a staged planar sample (2: int16, 4: f32; 0: none staged, the
+    samples read straight from device memory, as the fused chains do)."""
     ms, P, L, P1, P2 = _cluster_factors(m)
     pad = cols if cols < 32 else 0
     sp = P2 * cols + pad
@@ -448,10 +459,11 @@ def cluster_smem_bytes(m: int, cols: int, fused: bool = True,
 def cluster_geometry(m: int, width: int, fused: bool = True,
                      elem: int = 0) -> ClusterGeometry:
     """The cluster body's cut of m range rows and `width` pulse columns for
-    the wire chain (fused, the default) or the A-stage staging samples of
-    `elem` bytes (`cluster_smem_bytes`): cols the largest power of two <=
+    the fused chains (fused, the default: the planar and wire chains, which
+    stage nothing, elem = 0) or the A-stage staging samples of `elem` bytes
+    (`cluster_smem_bytes`): cols the largest power of two <=
     CLUSTER_MAX_COLS that width needs, halved until the block fits one
-    block's shared memory (the wire chain and the int16 A-stage 64 at m =
+    block's shared memory (the fused chains and the int16 A-stage 64 at m =
     2048, 32 at 1536, 1840 and 4096, 16 at 4112-4160 and 8192; the f32
     A-stage half that at 2048, 4096, 8192)."""
     if not cluster_takes(m):
@@ -512,9 +524,11 @@ class RadixPlan:
     fft_t: torch.Tensor | None = None   # fft_tables (every m that fft_takes)
     fft_phi: torch.Tensor | None = None  # [rounds, 4] fft_round_phasor_sums at n
     cluster_t: torch.Tensor | None = None    # cluster_tables (every m that cluster_takes)
-    cluster_phi: torch.Tensor | None = None  # [rounds, 4] at the cluster geometry's cols
-    #: a radix plan above FFT_MAX_M: the host's A_half [m/2, m] complex, from
-    #: which `dense_operator` builds the matrix kernel's operator
+    #: [rounds, 4] at the cluster geometry's cols, the one cut both fused
+    #: chains (#3/#4 and #7/#8, int16 or f32) launch at
+    cluster_phi: torch.Tensor | None = None
+    #: a radix plan above CLUSTER_MAX_M: the host's A_half [m/2, m] complex,
+    #: from which `dense_operator` builds the matrix kernel's operator
     host_a_half: np.ndarray | None = dataclasses.field(default=None,
                                                        repr=False)
     _dense_op: dict = dataclasses.field(default_factory=dict, repr=False,
@@ -527,14 +541,15 @@ class RadixPlan:
     def dense_operator(self) -> torch.Tensor:
         """The matrix kernel's operator, A_half as [m(q), m/2(t), 2] f32 on
         the plan's device: a radix-1 plan's `a_kernel`; for a radix plan
-        above FFT_MAX_M built from `host_a_half` at first use and kept (it
-        holds m^2 / 2 complex values: 277 MB at m = 8320, so only a plan
-        that launches the matrix kernel pays for it)."""
+        above CLUSTER_MAX_M built from `host_a_half` at first use and kept
+        (it holds m^2 / 2 complex values: 277 MB at m = 8320, so only a
+        plan that launches the matrix kernel pays for it)."""
         if self.radix == 1:
             return self.a_kernel
         if self.host_a_half is None:
             raise ValueError(f"m={self.m}: a radix plan takes the matrix "
-                             f"kernel only above FFT_MAX_M = {FFT_MAX_M}")
+                             f"kernel only above CLUSTER_MAX_M = "
+                             f"{CLUSTER_MAX_M}")
         if "a" not in self._dense_op:
             a = np.asarray(self.host_a_half)
             # C order: the stack of transposed views keeps their strides
@@ -550,7 +565,7 @@ class RadixPlan:
 
     @property
     def cluster(self) -> ClusterGeometry:
-        """The cluster body's cut of the plan's m x n for the wire chain
+        """The cluster body's cut of the plan's m x n for the fused chains
         (the cut `cluster_phi` is summed at)."""
         return cluster_geometry(self.m, self.n)
 
@@ -597,7 +612,7 @@ def build_plan(consts: PipelineConstants, device) -> RadixPlan:
         lanes["fft_t"] = torch.from_numpy(fft_tables(consts)).to(device)
         lanes["fft_phi"] = torch.from_numpy(fft_round_phasor_sums(
             consts.clip_phasors, fft_geometry(m, n).cols)).to(device)
-    elif radix > 1:
+    if radix > 1 and chain_route(m) == "matrix":
         lanes["host_a_half"] = consts.op_a_half
     if cluster_takes(m):
         lanes["cluster_t"] = torch.from_numpy(cluster_tables(consts)).to(device)
@@ -658,7 +673,8 @@ def _fft_plan_tables(plan: RadixPlan, name: str):
     tensors: win [m] f32, tw [P], leaf_tw [L, P], roots [L])."""
     if plan.fft_t is None:
         raise ValueError(f"{name}: the FFT-form kernels take an even m <= "
-                         f"FFT_MAX_M = {FFT_MAX_M} (m={plan.m})")
+                         f"{FFT_SHORT_M} and a radix-1 even m <= FFT_MAX_M "
+                         f"= {FFT_MAX_M} (m={plan.m})")
     g = plan.fft
     m, P, L = plan.m, g.P, g.L
     t = plan.fft_t
@@ -707,52 +723,39 @@ def fft_stage_reference(x: torch.Tensor, plan: RadixPlan,
 
     The kernels' stages, written out: the window and salt on load; per
     decimated sub-sequence r2 (rows L i + r2), the four-step P-point FFT
-    (a P1-point DFT over n1 of rows i = Q n1 + n2, Q = P2 P3, the twiddle
-    W_P^(k1 n2), a P2-point DFT over n2, X[k1 + P1 k2]; for P3 > 1 the
-    Q-point DFT is itself two: a P2-point DFT over the n2 of n2 P3 + n3,
-    the twiddle W_Q^(k2 n3), a P3-point DFT over n3, X[k1 + P1 (k2 + P2
-    k3)]); for L > 1 the leaf's twiddle W_m^(k r2) and L-point DFT
-    (`leaf_fft_reference`), Y[k + P k2]; the crop.  Every factor comes from
-    the plan's float32 tables (fft_tables)."""
+    (a P1-point DFT over n1 of rows i = P2 n1 + n2, the twiddle
+    W_P^(k1 n2), a P2-point DFT over n2, X[k1 + P1 k2]); for L > 1 the
+    leaf's twiddle W_m^(k r2) and L-point DFT (`leaf_fft_reference`),
+    Y[k + P k2]; the crop.  Every factor comes from the plan's float32
+    tables (fft_tables)."""
     g, win, tw, leaf_tw, roots = _fft_plan_tables(plan, "fft_stage_reference")
     xf = x.to(torch.float32)
     if salt is not None:
         xf = xf + float(salt)
     xw = xf * win[:, None]
     v = torch.complex(xw[:, 0], xw[:, 1])                  # [bc, m, w]
-    y = _fft_points(v, g.P1, g.P2, g.P3, tw, leaf_tw, roots)[:, : x.shape[2] // 2]
+    y = _fft_points(v, g.P1, g.P2, tw, leaf_tw, roots)[:, : x.shape[2] // 2]
     return y.real.contiguous(), y.imag.contiguous()
 
 
-def _fft_points(v: torch.Tensor, P1: int, P2: int, P3: int, tw: torch.Tensor,
+def _fft_points(v: torch.Tensor, P1: int, P2: int, tw: torch.Tensor,
                 leaf_tw: torch.Tensor, roots: torch.Tensor) -> torch.Tensor:
     """The FFT-form kernels' DFT of v [bc, m, w] complex along dim 1, m = P
-    L (P = P1 P2 P3, L = len(roots)), in natural order: the steps
+    L (P = P1 P2, L = len(roots)), in natural order: the steps
     `fft_stage_reference` writes out, on the twiddles W_P `tw`, the leaf's
     `leaf_tw` [L, P] and its roots."""
-    P, L = P1 * P2 * P3, roots.shape[0]
-    Q = P2 * P3
+    P, L = P1 * P2, roots.shape[0]
     bc, m, w = v.shape
     v = v.reshape(bc, P, L, w).permute(0, 2, 1, 3)         # [bc, L, P(i), w]
-    v = v.reshape(bc, L, P1, Q, w)                         # i = Q n1 + n2
+    v = v.reshape(bc, L, P1, P2, w)                        # i = P2 n1 + n2
     a1 = torch.arange(P1)
     a2 = torch.arange(P2)
-    aq = torch.arange(Q)
-    f1 = tw[(a1[:, None] * a1[None, :] * Q) % P]           # [k1, n1]
+    f1 = tw[(a1[:, None] * a1[None, :] * P2) % P]          # [k1, n1]
     a = torch.einsum("kn,blnqw->blkqw", f1, v)
-    a = a * tw[(a1[:, None] * aq[None, :]) % P][None, None, :, :, None]
+    a = a * tw[(a1[:, None] * a2[None, :]) % P][None, None, :, :, None]
     f2 = tw[(a2[:, None] * a2[None, :] * (P // P2)) % P]   # [k2, n2]
-    if P3 == 1:
-        xk = torch.einsum("jq,blkqw->bljkw", f2, a)        # [bc, L, k2, k1, w]
-    else:
-        a3 = torch.arange(P3)
-        a = a.reshape(bc, L, P1, P2, P3, w)                # n2 P3 + n3
-        b = torch.einsum("jq,blkqtw->blkjtw", f2, a)       # [.., k1, k2, n3, w]
-        b = b * tw[(a2[:, None] * a3[None, :] * P1) % P][None, None, None,
-                                                         :, :, None]
-        f3 = tw[(a3[:, None] * a3[None, :] * (P // P3)) % P]    # [k3, n3]
-        xk = torch.einsum("st,blkjtw->blsjkw", f3, b)      # [.., k3, k2, k1, w]
-    xk = xk.reshape(bc, L, P, w)                           # k = k1 + P1 (k2 + P2 k3)
+    xk = torch.einsum("jq,blkqw->bljkw", f2, a)            # [bc, L, k2, k1, w]
+    xk = xk.reshape(bc, L, P, w)                           # k = k1 + P1 k2
     if L > 1:
         xk = leaf_fft_reference(xk * leaf_tw[None, :, :, None],
                                 roots)                     # [bc, k2, k, w]
@@ -907,7 +910,7 @@ def cluster_stage_reference(x: torch.Tensor, plan: RadixPlan,
     xw = xf * win[:, None]
     v = torch.complex(xw[:, 0], xw[:, 1]).reshape(bc, g.ms, CLUSTER_SPLIT, w)
     v = v.transpose(1, 2).reshape(bc * CLUSTER_SPLIT, g.ms, w)   # [bc b, t, w]
-    f = _fft_points(v, g.P1, g.P2, 1, tw, leaf_tw, roots)
+    f = _fft_points(v, g.P1, g.P2, tw, leaf_tw, roots)
     f = f.reshape(bc, CLUSTER_SPLIT, g.ms, w) * ctw[None, :, :, None]
     e, o = _dft4(f[:, 0::2]), _dft4(f[:, 1::2])            # [bc, k2, k1, w]
     y = (e + o * w8[:CLUSTER_OUT, None, None]).reshape(bc, m // 2, w)
@@ -916,8 +919,10 @@ def cluster_stage_reference(x: torch.Tensor, plan: RadixPlan,
 
 def cluster_chain_power_reference(x: torch.Tensor, plan: RadixPlan,
                                   salt: int | None = None) -> torch.Tensor:
-    """Plain torch version of the cluster body's wire chain on planar
-    samples: x [bc, 2, m, n] int16/f32 -> pow [bc, m/2] f32, the range stage
+    """Plain torch version of the cluster body's fused chains (#3/#4 on
+    planar samples, #7/#8 on the decoded wire): x [bc, 2, m, n] int16/f32
+    -> pow [bc, m/2] f32, with `salt` added to every sample after its
+    conversion to f32, the range stage
     (`cluster_stage_reference`) then the epilogue of one block a row
     (`merged_epilogue_reference` with blocks = 1 at the geometry's cols:
     every column of a row passes through the block that owns it)."""
@@ -989,21 +994,28 @@ def fused_chain_power_radix(x: torch.Tensor, plan: RadixPlan, offset=None,
                             bc: int | None = None,
                             salt: int | None = None) -> torch.Tensor:
     """x [bc, 2, m, n] int16/f32, rows in natural order -> pow [bc, m/2] f32,
-    for a radix plan: through the FFT-form kernel (csrc/fft_chain.cuh) for
-    m <= FFT_MAX_M, above it through the dense entries' matrix kernel
-    (csrc/fused_chain_dense.cu on `plan.dense_operator()`, as wrp_tpu's
-    radix kernel runs m = 8192; also counted in DENSE_MATRIX_LAUNCHES).
-    The route is m's alone.
+    for a radix plan, through the route `chain_route(m)` names:
+
+    * m <= 1024: csrc/fused_chain_radix.cu (salted:
+      csrc/fused_chain_radix_salted.cu), the register body of
+      csrc/fft_chain.cuh cut by `plan.fft`;
+    * 1024 < m <= CLUSTER_MAX_M: csrc/fused_chain_radix_cluster.cu, the
+      cluster body of csrc/cluster_chain.cuh cut by `plan.cluster` (the
+      same cut for int16 and f32; also counted in RADIX_CLUSTER_LAUNCHES);
+    * above it: the dense entries' matrix kernel (csrc/fused_chain_dense.cu
+      on `plan.dense_operator()`, as wrp_tpu's radix kernel runs m = 8320;
+      also counted in DENSE_MATRIX_LAUNCHES).
 
     With `offset` (the benchmark's entry), x is a larger staged array and
     the kernel reads its `bc` channel-sectors from channel-sector `offset`
     (no copy), with the int32 `salt`, if given, added to every sample.
 
-    A CPU tensor takes the route's plain version (`fft_chain_power_reference`;
-    `fused_chain_power_reference` above FFT_MAX_M).  A CUDA tensor launches
-    the kernel on the current stream (no synchronisation) or raises; there
-    is no fallback."""
+    A CPU tensor takes the route's plain version (`fft_chain_power_reference`,
+    `cluster_chain_power_reference` or `fused_chain_power_reference`).  A
+    CUDA tensor launches the route's kernel on the current stream (no
+    synchronisation) or raises; there is no fallback."""
     global LAUNCHES, RADIX_OFFSET_LAUNCHES, DENSE_MATRIX_LAUNCHES
+    global RADIX_CLUSTER_LAUNCHES
     name = "fused_chain_power_radix"
     start, count = _slab(x.shape[0], offset, bc, salt, name, "bc")
     if x.device.type not in ("cpu", "cuda"):
@@ -1011,31 +1023,44 @@ def fused_chain_power_radix(x: torch.Tensor, plan: RadixPlan, offset=None,
     if plan.radix == 1:
         raise ValueError(f"m={plan.m} does not split into radix branches: "
                          "use fused_chain_power_dense")
-    fft = fft_takes(plan.m)
+    route = chain_route(plan.m)
     if x.device.type == "cpu":
-        plain = fft_chain_power_reference if fft else fused_chain_power_reference
+        plain = {"register": fft_chain_power_reference,
+                 "cluster": cluster_chain_power_reference,
+                 "matrix": fused_chain_power_reference}[route]
         return plain(x[start:start + count], plan, salt)
     _check_planar(x, plan, name)
     out = torch.empty((count, plan.m // 2), dtype=torch.float32, device=x.device)
     if count == 0:
         return out
-    if not fft:
+    if route == "matrix":
         _launch_matrix(x, plan, out, start, count, salt)
-        DENSE_MATRIX_LAUNCHES += 1
     else:
-        g = plan.fft
         lib = _build.load_library()
-        args = (x.data_ptr(), int(x.dtype == torch.int16), plan.fft_t.data_ptr(),
-                plan.fft_phi.data_ptr(), plan.wd.data_ptr(),
-                plan.phasors.data_ptr(), out.data_ptr(), count, plan.m, plan.n,
-                g.cols, g.blocks, start)
+        planar = (x.data_ptr(), int(x.dtype == torch.int16))
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            if salt is None:
-                rc = lib.wrp_fused_chain_radix(*args, stream)
+            if route == "cluster":
+                rc = lib.wrp_fused_chain_radix_cluster(
+                    *planar, plan.cluster_t.data_ptr(),
+                    plan.cluster_phi.data_ptr(), plan.wd.data_ptr(),
+                    plan.phasors.data_ptr(), out.data_ptr(), count, plan.m,
+                    plan.n, plan.cluster.cols, start, int(salt or 0), stream)
             else:
-                rc = lib.wrp_fused_chain_radix_salted(*args, int(salt), stream)
-        _raise_on_error(lib, rc, "fused_chain_radix")
+                g = plan.fft
+                args = (*planar, plan.fft_t.data_ptr(),
+                        plan.fft_phi.data_ptr(), plan.wd.data_ptr(),
+                        plan.phasors.data_ptr(), out.data_ptr(), count,
+                        plan.m, plan.n, g.cols, g.blocks, start)
+                if salt is None:
+                    rc = lib.wrp_fused_chain_radix(*args, stream)
+                else:
+                    rc = lib.wrp_fused_chain_radix_salted(*args, int(salt),
+                                                          stream)
+        _raise_on_error(lib, rc, "fused_chain_radix_cluster"
+                        if route == "cluster" else "fused_chain_radix")
+    DENSE_MATRIX_LAUNCHES += route == "matrix"
+    RADIX_CLUSTER_LAUNCHES += route == "cluster"
     if offset is None:
         LAUNCHES += 1
     else:
@@ -1064,11 +1089,11 @@ def fft_occupancy(plan: RadixPlan, body: str = "radix") -> dict:
     "wire" or "astage") at the plan's geometry, from
     cudaOccupancyMaxActiveBlocksPerMultiprocessor and, for the clustered
     kernels, cudaOccupancyMaxActiveClusters (clusters of `plan.fft.blocks`
-    blocks; of 8 for the cluster body, which "wire" and "astage" take for
-    1024 < m <= CLUSTER_MAX_M, each at its cut of the plan's n, the A-stage
-    with f32 staged; None for the register body's A-stage).  A radix-1 plan has
-    the planar body only ("radix": the dense entries' FFT body).  Needs
-    CUDA."""
+    blocks; of 8 for the cluster body, which every body of a radix plan
+    takes for 1024 < m <= CLUSTER_MAX_M, each at its cut of the plan's n,
+    the A-stage with f32 staged; None for the register body's A-stage).  A
+    radix-1 plan has the planar body only ("radix": the dense entries' FFT
+    body).  Needs CUDA."""
     import ctypes
 
     if plan.radix == 1 and body != "radix":
@@ -1076,9 +1101,10 @@ def fft_occupancy(plan: RadixPlan, body: str = "radix") -> dict:
                          "planar body alone ('radix')")
     lib = _build.load_library()
     bps, clusters = ctypes.c_int(0), ctypes.c_int(0)
-    if body in ("wire", "astage") and chain_route(plan.m) == "cluster":
+    if (body in ("radix", "wire", "astage") and plan.radix > 1
+            and chain_route(plan.m) == "cluster"):
         fn = getattr(lib, f"wrp_fused_chain_{body}_cluster_occupancy")
-        g = (plan.cluster if body == "wire"
+        g = (plan.cluster if body != "astage"
              else cluster_geometry(plan.m, plan.n, False, 4))
         rc = fn(plan.m, g.cols, ctypes.addressof(bps),
                 ctypes.addressof(clusters))

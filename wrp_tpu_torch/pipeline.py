@@ -40,6 +40,12 @@ torch.set_float32_matmul_precision("highest")
 
 METHODS = ("mxu", "parseval", "pallas", "fft", "radix")
 
+#: the longest ray for which the default wire decode (wire_decode=None) is
+#: "fused"; above it "xla", as ``wrp_tpu``'s natural layout decodes first.
+#: A setting of its own: which kernel body serves an m (ops/fullchain.
+#: chain_route) does not move the default.
+FUSED_WIRE_DEFAULT_MAX_M = 4096
+
 
 def resolve_device(device) -> torch.device:
     """torch.device for `device`; a CUDA request on a host without CUDA
@@ -363,7 +369,7 @@ class SectorProcessor:
         radix layout runs its fused wire kernel at any radix m; "xla" is a
         standalone decode pass (ops/device_codec.decode_wire_i16) feeding
         the planar kernel (the name is kept from ``wrp_tpu``).  None picks "fused"
-        when radix_for(m) > 1 and m <= fullchain.FFT_MAX_M, else "xla", as
+        when radix_for(m) > 1 and m <= FUSED_WIRE_DEFAULT_MAX_M, else "xla", as
         ``wrp_tpu``'s natural layout does above it.  Rows stay in natural
         order, so ``wrp_tpu``'s `layout` and `wire_order` have no
         counterpart: "fused" here is its `layout="radix"` with the fused
@@ -423,7 +429,8 @@ class SectorProcessor:
                 fused_ok = fullchain.radix_for(cfg.m) > 1
                 if wire_decode is None:
                     wire_decode = ("fused" if fused_ok
-                                   and fullchain.fft_takes(cfg.m) else "xla")
+                                   and cfg.m <= FUSED_WIRE_DEFAULT_MAX_M
+                                   else "xla")
                 elif wire_decode == "fused" and not fused_ok:
                     raise ValueError(
                         "wire_decode='fused' needs the radix kernel (an m "

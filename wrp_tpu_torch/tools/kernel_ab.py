@@ -24,11 +24,12 @@ torch.matmul bf16 (a batched matmul per step and, where the tree's
 from a CUDA graph), and the split dot's device time per call from a CUDA
 graph of 100 calls beside torch.matmul fp32's; the breakdown's four modes
 (#10) on the 48 channel-sectors at salt 7 (null for a mode the tree lacks:
-older trees have no `splits`); the long rays ("long": the A-stage, int16
-at w = 512, and the wire chain at m = 2048, 4096, 8192 per 48
-channel-sectors and at m = 4160 on 6, each through the route the tree
-takes at that m, with cuFFT over range of the windowed complex64 input
-beside the A-stage and each kernel's rel-L2 against the tree's plain
+older trees have no `splits`); the long rays ("long": the planar chain
+#3, int16 and f32, and its offset/salt entry #4 at salt 7, the A-stage,
+int16 at w = 512, and the wire chain at m = 1536, 1840, 2048, 4096, 8192
+per 48 channel-sectors and at m = 4160 on 6, each through the route the
+tree takes at that m, with cuFFT over range of the windowed complex64
+input beside the A-stage and each kernel's rel-L2 against the tree's plain
 version on one sector; with --long, these alone); the number of kernels and
 of FFMA instructions in its library.  Last, one JSON line holds every kernel
 the trees share by name whose `-Xptxas=-v` report (registers, stack,
@@ -70,6 +71,10 @@ def kernel_key(name: str) -> str:
     name = re.sub(r"\((?:unsigned |long |short )*(?:int|long|short|char|bool)\)"
                   r"(-?\d)", r"\1", name)
     name = re.sub(r"\((?:wrp::)?Body\)(\d)", r"\1", name)
+    # the FFT-form long-ray kernel's P3 argument of earlier trees (1 but at
+    # P = 2048, 4096, which the cluster body now serves)
+    name = re.sub(r"(fft_chain_long_kernel<[^,<>]+, \d+, \d+), 1, (\d)>$",
+                  r"\1, \2>", name)
     # the dense matrix kernel's unsalted instantiations under the name of
     # trees without the salted ones
     name = re.sub(r"(fused_chain_dense_kernel<[^<>]*), (?:false|0)>$", r"\1>", name)
@@ -386,15 +391,17 @@ def _breakdown(out: dict, ms, rel, x16, consts) -> None:
 
 #: (m, sectors) of the long-ray timings: 48 channel-sectors, and m = 4160
 #: on 6 as the matrix routes were first timed there
-LONG_RAYS = ((2048, 16), (4096, 16), (4160, 2), (8192, 16))
+LONG_RAYS = ((1536, 16), (1840, 16), (2048, 16), (4096, 16), (4160, 2),
+             (8192, 16))
 
 
 def _long_rays(out: dict, ms, rel) -> None:
-    """out["long"]: per (m, channel-sectors), the A-stage (#5, int16, w =
-    512) and the wire chain (#7) through the tree's route for m, cuFFT
-    beside #5, the route's name, each kernel's rel-L2 vs the tree's plain
-    version on the first sector.  A call slower than 10 ms is queued fewer
-    times."""
+    """out["long"]: per (m, channel-sectors), the planar chain (#3, int16
+    and f32; #4 at offset bc, salt 7, of a two-slab staging), the A-stage
+    (#5, int16, w = 512) and the wire chain (#7) through the tree's route
+    for m, cuFFT beside #5, the routes' names, each kernel's rel-L2 vs the
+    tree's plain version on the first sector.  A call slower than 10 ms is
+    queued fewer times."""
     import dataclasses
 
     import numpy as np
@@ -408,6 +415,20 @@ def _long_rays(out: dict, ms, rel) -> None:
         if hasattr(fullchain, "chain_route"):
             return fullchain.chain_route(m)
         return "long" if fullchain.fft_takes(m) else "matrix"
+
+    def radix_route(m):
+        """(name, plain version) of the radix entry's route: earlier trees
+        ran the FFT-form body up to 4096 and the matrix kernel above."""
+        if hasattr(fullchain, "RADIX_CLUSTER_LAUNCHES"):
+            r = fullchain.chain_route(m)
+        else:
+            r = ("register" if m <= 1024 else "long") if fullchain.fft_takes(
+                m) else "matrix"
+        return r, {"register": fullchain.fft_chain_power_reference,
+                   "long": fullchain.fft_chain_power_reference,
+                   "cluster": getattr(fullchain,
+                                      "cluster_chain_power_reference", None),
+                   "matrix": fullchain.fused_chain_power_reference}[r]
 
     def timed_ms(fn):
         fn()
@@ -428,15 +449,33 @@ def _long_rays(out: dict, ms, rel) -> None:
         plan = fullchain.build_plan(consts, "cuda")
         ch, n = c.num_channels, c.n
         bc = sectors * ch
-        x = torch.randint(-8192, 8192, (bc, 2, m, n), generator=gen,
-                          device="cuda", dtype=torch.int32).to(torch.int16)
+        xs = torch.randint(-8192, 8192, (2 * bc, 2, m, n), generator=gen,
+                           device="cuda", dtype=torch.int32).to(torch.int16)
+        x = xs[:bc]
+        x32 = x.float()
         w32 = torch.randint(-2 ** 31, 2 ** 31 - 1, (sectors, m, ch * n),
                             generator=gen, device="cuda", dtype=torch.int32)
         win = torch.from_numpy(np.ascontiguousarray(
             consts.op_a_half[0].real, np.float32)).cuda()
         xw = (torch.complex(x[:, 0].float(), x[:, 1].float())
               * win[:, None]).contiguous()
-        r = {"route": route(m), "channel_sectors": bc}
+        rr, radix_plain = radix_route(m)
+        r = {"route": route(m), "radix_route": rr, "channel_sectors": bc}
+        r["radix_ms"] = timed_ms(
+            lambda: fullchain.fused_chain_power_radix(x, plan))
+        r["radix_f32_ms"] = timed_ms(
+            lambda: fullchain.fused_chain_power_radix(x32, plan))
+        r["radix_offset_ms"] = timed_ms(
+            lambda: fullchain.fused_chain_power_radix(xs, plan, offset=bc,
+                                                      bc=bc, salt=7))
+        for key, xx in (("radix_rel", x[:ch]), ("radix_f32_rel", x32[:ch])):
+            r[key] = rel(radix_plain(xx, plan),
+                         fullchain.fused_chain_power_radix(xx.contiguous(),
+                                                           plan))
+        r["radix_offset_rel"] = rel(
+            radix_plain(xs[bc:bc + ch], plan, 7),
+            fullchain.fused_chain_power_radix(xs[:bc + ch].contiguous(), plan,
+                                              offset=bc, bc=ch, salt=7))
         r["astage_ms"] = timed_ms(lambda: fullchain.fused_chain_astage(x, plan))
         r["wire_ms"] = timed_ms(
             lambda: fullchain.fused_chain_power_wire(w32, plan, ch))
@@ -448,7 +487,7 @@ def _long_rays(out: dict, ms, rel) -> None:
             fullchain.fused_chain_power_wire_reference(w32[:1], plan, ch),
             fullchain.fused_chain_power_wire(w32[:1].contiguous(), plan, ch))
         long[f"m{m}_bc{bc}"] = r
-        del x, w32, xw, plan
+        del x, xs, x32, w32, xw, plan
         torch.cuda.empty_cache()
     out["long"] = long
 
