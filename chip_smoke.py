@@ -107,17 +107,21 @@ Phases (each prints its results; any failure raises and exits non-zero):
    (a decode pass, then the dense entry) and host decode, every launch on
    the FFT-form body;
    then rays longer than 1024 cells (`phase_long_rays`): the ptxas lines of
-   the long-ray kernels; the executor at m = 2048 x 512, 3 channels, batch
+   the long-ray and cluster kernels (and which of them spill); the executor
+   at m = 2048 x 512, 3 channels, batch
    16, 32 sectors from memory with host decode (#3) and device decode
    (#7), every launch on the cluster body and none on the matrix kernel,
    sampled sectors within 2e-4 of the oracle; on the cluster body #3
    (int16, f32), #4 (offset, salt 7), #7, #8 (offset, salt 7) and #5
    (int16 and f32 at w = 512, int16 at 128) vs their plain versions at m
-   = 1536, 1840, 2048, 4096, 4160, 8192 (<= 1e-5), with each geometry's
-   cut and occupancy; CUDA-event times of each at those m per 48
-   channel-sectors (6 at 4160) beside its plain version and bound; #1 and
-   #2 at m = 1832 (radix 1, the dense entries' long-ray body, a 229-point
-   leaf) vs plain and the oracle; `bench --range-cells 2048` at batch 32,
+   = 1536, 1840, 2048, 4096, 4112, 4160, 8192 (<= 1e-5), with each
+   geometry's cut and occupancy; CUDA-event times of each at those m per 48
+   channel-sectors (6 at 4160, and at 4112 #3, #5, #7 only) beside its
+   plain version and bound (#5 beside cuFFT); #1 and #2 at the radix-1 m =
+   1832, 1836, 2002 (8 x 229: a Bluestein leaf, 4 x 459, 2 x 1001) on the
+   cluster body vs plain and the oracle, every launch counted there, #1 at
+   1832 timed beside the matrix kernel and its bound, and #1 at m = 4094
+   on the long-ray body; `bench --range-cells 2048` at batch 32,
    int16 (#4) and wire (#8), its gate passing; a world-size-1 pallas-seq
    step (#5, #6) and the mxu method (#9) at m = 2048 vs the pallas
    processor and the oracle, and the pallas-seq step at m = 4160 (the
@@ -324,12 +328,13 @@ def chain_flops(m: int, n: int) -> float:
 
 def algorithm_note(m: int, w: int, bc: int) -> str:
     """The work of the algorithm a kernel runs, beside the bound, never as
-    it: m <= 1024 and the dense entries' radix-1 m up to 4096 run the FFT
-    form (csrc/fft_chain.cuh: radix-2 register DFTs and the leaf's
+    it: m <= 1024 and the dense entries' m = 2 x odd in (2048, 4096] run
+    the FFT form (csrc/fft_chain.cuh: radix-2 register DFTs and the leaf's
     radix-5/3/7 passes, the bound's flops up to the butterflies' constant),
-    the radix m up to 8192 the cluster body's (`cluster_note`); the dense
-    matrix kernel (radix-1 m > 4096, odd m, radix m > 8192) the TPU's
-    A_half contraction (8 flops per complex multiply-add)."""
+    every other m up to 8192 the cluster body takes the cluster body's
+    (`cluster_note`); the dense matrix kernel (odd m, radix m > 8192, the
+    radix-1 m the cluster body refuses) the TPU's A_half contraction (8
+    flops per complex multiply-add)."""
     R = fullchain.radix_for(m)
     tpu = bc * 8.0 * (m * (m // R) * w if R > 1 else (m // 2) * m * w)
     form = f"radix-{R} matrix form" if R > 1 else "dense A_half form"
@@ -346,7 +351,7 @@ def algorithm_note(m: int, w: int, bc: int) -> str:
                 f"{g.P1} x {g.P2}, L = {g.L}{leaf}; {g.cols} columns a round, "
                 f"{g.blocks} blocks a unit); the TPU's {form} would do "
                 f"{tpu / 1e9:.1f} GFLOP")
-    if R > 1 and fullchain.cluster_takes(m):
+    if fullchain.cluster_takes(m):
         return (f"the kernel runs {cluster_note(m, w)}; the TPU's {form} "
                 f"would do {tpu / 1e9:.1f} GFLOP")
     return (f"the kernel's dense contraction does {tpu / 1e9:.1f} GFLOP, "
@@ -362,6 +367,7 @@ def reset_counts() -> None:
     fullchain.DENSE_OFFSET_LAUNCHES = postprocess.STAGE2_LAUNCHES = 0
     postprocess.STAGE2_OPERATOR_LAUNCHES = 0
     fullchain.DENSE_FFT_LAUNCHES = fullchain.DENSE_MATRIX_LAUNCHES = 0
+    fullchain.DENSE_CLUSTER_LAUNCHES = 0
     probes.BREAKDOWN_LAUNCHES = probes.TC_PROBE_LAUNCHES = 0
     probes.INT_SPLIT_LAUNCHES = fullchain.PARSEVAL_ROWS_TWO_PASS_LAUNCHES = 0
 
@@ -380,6 +386,7 @@ def read_counts() -> dict:
             "wire_offset": fullchain.WIRE_OFFSET_LAUNCHES,
             "dense_offset": fullchain.DENSE_OFFSET_LAUNCHES,
             "dense_fft": fullchain.DENSE_FFT_LAUNCHES,
+            "dense_cluster": fullchain.DENSE_CLUSTER_LAUNCHES,
             "dense_matrix": fullchain.DENSE_MATRIX_LAUNCHES,
             "stage2": postprocess.STAGE2_LAUNCHES,
             "stage2_operator": postprocess.STAGE2_OPERATOR_LAUNCHES,
@@ -757,10 +764,12 @@ def phase_kernel_wire(orc: Oracle, noise, adv) -> dict:
 
 
 def dense_plain(x: torch.Tensor, plan) -> torch.Tensor:
-    """The plain version of the body the dense entries take at plan.m."""
-    if fullchain.dense_body(plan.m) == "fft":
-        return fullchain.fft_chain_power_reference(x, plan)
-    return fullchain.fused_chain_power_reference(x, plan)
+    """The plain version of the route the dense entries take at plan.m."""
+    return {"register": fullchain.fft_chain_power_reference,
+            "long": fullchain.fft_chain_power_reference,
+            "cluster": fullchain.cluster_chain_power_reference,
+            "matrix": fullchain.fused_chain_power_reference}[
+                fullchain.chain_route(plan.m)](x, plan)
 
 
 def phase_kernel_dense(orc: Oracle) -> dict:
@@ -774,7 +783,7 @@ def phase_kernel_dense(orc: Oracle) -> dict:
     consts = PipelineConstants.build(cfg)
     plan = fullchain.build_plan(consts, "cuda")
     g = plan.fft
-    check(plan.radix == 1 and fullchain.dense_body(DENSE_M) == "fft"
+    check(plan.radix == 1 and fullchain.chain_route(DENSE_M) == "register"
           and (g.P, g.L, g.cols) == (8, 125, 4),
           f"m={DENSE_M} takes the dense entries' FFT-form body (radix "
           f"{plan.radix}): {g}")
@@ -827,7 +836,7 @@ def phase_kernel_dense(orc: Oracle) -> dict:
                               sectors)}
         reset_counts()
         e, a = planar_kernel_checks(
-            f"dense m={m} n={n} ({fullchain.dense_body(m)} body, {tplan.fft})",
+            f"dense m={m} n={n} ({fullchain.chain_route(m)} body, {tplan.fft})",
             fullchain.fused_chain_power_dense, dense_plain, tplan, tcfg, tin,
             orc, torch.from_numpy(tconsts.gain).cuda(),
             {"tiny noise": KERNEL_TOL})
@@ -841,7 +850,7 @@ def phase_kernel_dense(orc: Oracle) -> dict:
     mcfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=MATRIX_M)
     mconsts = PipelineConstants.build(mcfg)
     mplan = fullchain.build_plan(mconsts, "cuda")
-    check(mplan.radix == 1 and fullchain.dense_body(MATRIX_M) == "matrix"
+    check(mplan.radix == 1 and fullchain.chain_route(MATRIX_M) == "matrix"
           and mplan.fft_t is None,
           f"m={MATRIX_M} takes the matrix kernel (tile "
           f"{fullchain.dense_tile(mplan)})")
@@ -2020,15 +2029,20 @@ def phase_dense_path() -> dict:
     return launches
 
 
-#: the long-ray slice: the planar chain (#3/#4), the wire chain (#7/#8)
-#: and the A-stage (#5) on the cluster body for 1024 < m <= CLUSTER_MAX_M,
-#: their matrix routes above it; the dense entries' radix-1 m on the
-#: FFT-form long-ray body up to FFT_MAX_M
+#: the long-ray slice: the planar chain (#3/#4), the wire chain (#7/#8),
+#: the A-stage (#5) and the dense entries (#1/#2) on the cluster body for
+#: 1024 < m <= CLUSTER_MAX_M, their matrix routes above it; the dense
+#: entries' m = 2 x odd in (2048, FFT_MAX_M] on the FFT-form long-ray body
 LONG_M = 2048             # the executor's, the bench's and the times' geometry
 #: the cluster body's kernels (#3, #4, #5, #7, #8) vs plain, and their times
-CLUSTER_CHECK_MS = (1536, 1840, 2048, 4096, 4160, 8192)
-LONG_DENSE_M = 1832       # radix 1 (8 x 229): the dense entries' long-ray body
+CLUSTER_CHECK_MS = (1536, 1840, 2048, 4096, 4112, 4160, 8192)
+#: radix 1 on the cluster body: m = S x odd, S = 8, 4, 2 (8 x 229: a
+#: Bluestein leaf; 4 x 459 = 4 x 27 x 17; 2 x 1001 = 2 x 7 x 11 x 13)
+CLUSTER_DENSE_MS = (1832, 1836, 2002)
+LONG_DENSE_M = 1832       # the dense entries' times, per 48 channel-sectors
+LONG_BODY_M = 4094        # 2 x 23 x 89: the one m the long-ray body keeps
 ODD_LEAF_M = 4160         # radix 8, 8 x 520 (a 5 x 13 leaf): timed on 6 channel-sectors
+BLUESTEIN_M = 4112        # radix 8, 8 x 514 (a 257-point Bluestein leaf): #3, #5, #7 on 6
 MATRIX_ABOVE_M = 8320     # radix 8 above CLUSTER_MAX_M: #3/#4, #5, #7, #8 on their matrix routes
 LONG_TOL = 1e-5           # a long-ray kernel vs its plain version (power rel-L2)
 LONG_BENCH = ("--range-cells", str(LONG_M), "--batch", "32", "--repeats", "4")
@@ -2081,22 +2095,23 @@ def cluster_note(m: int, w: int) -> str:
     """The cluster body's cut of m rows and w pulses (csrc/cluster_chain.cuh),
     printed beside the bound, never as it."""
     g = fullchain.cluster_geometry(m, w)
-    passes, rem = [], g.L
-    while rem > 1:
-        passes.append(fullchain.leaf_radix(rem))
-        rem //= passes[-1]
-    leaf = f", leaf passes {' x '.join(map(str, passes))}" if passes else ""
+    passes = fullchain.leaf_plan(g.L).radices
+    leaf = (f", in-place leaf passes {' x '.join(map(str, passes))}"
+            + (f" (Bluestein N = {g.bluestein})" if g.bluestein else "")
+            if passes else "")
     cuts = []
-    for what, fused, elem in (("#3/#4 and #7/#8", True, 0),
-                              ("A-stage int16", False, 2),
-                              ("A-stage f32", False, 4)):
-        cols = fullchain.cluster_geometry(m, w, fused, elem).cols
-        cuts.append(f"{what} {cols} columns a round, "
-                    f"{fullchain.cluster_smem_bytes(m, cols, fused, elem)} B")
-    return (f"the cluster body: 8 blocks a unit, each the {g.ms}-point DFT of "
-            f"rows 8 t + b (P = {g.P} = {g.P1} x {g.P2}, L = {g.L}{leaf}), "
-            f"the 4-of-8 combine over DSMEM on {g.span} k1 a block; "
-            + "; ".join(cuts))
+    bodies = (("#3/#4 and #7/#8", True, 0), ("A-stage int16", False, 2),
+              ("A-stage f32", False, 4))
+    for what, fused, elem in bodies if g.S == fullchain.CLUSTER_SPLIT else (
+            ("#1/#2", True, 0),):
+        c = fullchain.cluster_geometry(m, w, fused, elem)
+        cuts.append(f"{what} {c.cols} columns a round, "
+                    f"{fullchain.cluster_smem_bytes(m, c.cols, fused, elem)} B"
+                    + (f", {c.batch} convolutions at a time" if c.batch else ""))
+    return (f"the cluster body: {g.S} blocks a unit, each the {g.ms}-point DFT "
+            f"of rows {g.S} t + b (P = {g.P} = {g.P1} x {g.P2}, L = "
+            f"{g.L}{leaf}), the {g.S // 2}-of-{g.S} combine over DSMEM on "
+            f"{g.span} k1 a block; " + "; ".join(cuts))
 
 
 def long_ray_kernels(gen) -> dict:
@@ -2165,14 +2180,15 @@ def long_ray_kernels(gen) -> dict:
 
 
 def long_ray_times(gen, m: int = LONG_M, keys=None,
-                   sectors: int = BATCH) -> dict:
+                   sectors: int = BATCH, with_plain: bool = True) -> dict:
     """CUDA-event ms per `sectors` sectors x 3 channels x m x 512 (48
     channel-sectors by default) of #3 (int16; "radix_f32": f32, queued
     only), #4 (offset of the second slab, salt 7), #7, #8 and #5 (w = 512),
     or of those named in `keys`, each through its route at m, in turns with
-    its plain version (#5 also with cuFFT: torch.fft.fft over range of the
-    windowed complex64 input, then the crop), beside the bound (the bytes:
-    201 MB of int16 at m = 2048, 48 channel-sectors)."""
+    its plain version where `with_plain` (#5 also with cuFFT: torch.fft.fft
+    over range of the windowed complex64 input, then the crop; else the
+    kernel and cuFFT queued alone), beside the bound (the bytes: 201 MB of
+    int16 at m = 2048, 48 channel-sectors)."""
     cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=m)
     n, ch = cfg.n, cfg.num_channels
     plan = fullchain.build_plan(PipelineConstants.build(cfg), "cuda")
@@ -2214,6 +2230,8 @@ def long_ray_times(gen, m: int = LONG_M, keys=None,
     for key, (kernel, plain, in_bytes) in runs.items():
         if keys is not None and key not in keys:
             continue
+        if not with_plain:
+            plain = None
         fns = {"plain": plain, "kernel": kernel} if plain else {}
         order = ("plain", "kernel", "kernel", "plain") if plain else ()
         if key == "astage":
@@ -2221,7 +2239,9 @@ def long_ray_times(gen, m: int = LONG_M, keys=None,
             xw = (torch.complex(x16[:, 0].float(), x16[:, 1].float())
                   * win[:, None]).contiguous()     # pre-windowed, as cuFFT's input
             fns["library"] = lambda: torch.fft.fft(xw, dim=1)[:, :m // 2]
-            order = ("plain", "kernel", "library", "library", "kernel", "plain")
+            if plain:
+                order = ("plain", "kernel", "library", "library", "kernel",
+                         "plain")
         t = timed(fns, order) if order else {}
         queued = queued_ms(kernel)
         lib_queued = queued_ms(fns["library"]) if "library" in fns else None
@@ -2236,6 +2256,7 @@ def long_ray_times(gen, m: int = LONG_M, keys=None,
               + (f"{t['kernel']:.3f} ms ({queued:.3f} queued), plain "
                  f"{t['plain']:.3f} ms" if t else f"{queued:.3f} ms queued")
               + (f", cuFFT {t['library']:.3f} ms ({lib_queued:.3f} queued)"
+                 if "library" in t else f", cuFFT {lib_queued:.3f} ms queued"
                  if lib_queued is not None else "")
               + f", bound {bound_ms:.3f} ms ({bound_by})", flush=True)
         out[key] = {"ms": t.get("kernel", queued), "queued_ms": queued,
@@ -2251,65 +2272,131 @@ def long_ray_times(gen, m: int = LONG_M, keys=None,
 
 
 def long_ray_dense(orc: Oracle) -> dict:
-    """The dense entries at LONG_DENSE_M (radix 1, 8 x 229: the long-ray
-    body with a 229-point leaf), batch 16: #1 on noise sectors, int16 and
-    f32, vs its plain version (<= LONG_TOL) and the oracle; #2 on the
-    second of two slabs; every launch on the FFT-form body; #1's time per
-    48 channel-sectors beside the matrix kernel's, the body it took
-    before."""
-    m = LONG_DENSE_M
-    cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=m)
-    consts = PipelineConstants.build(cfg)
-    plan = fullchain.build_plan(consts, "cuda")
-    check(plan.radix == 1 and fullchain.dense_body(m) == "fft"
-          and fullchain.fft_long(m) and plan.fft.L == 229,
-          f"m={m} takes the dense entries' long-ray FFT body: {plan.fft}")
-    sectors = [oracle.synthetic_iq(cfg, kind="noise", seed=SEED + b)
-               for b in range(BATCH)]
-    x_np = np.stack([planar_i16(s) for s in sectors])
+    """The dense entries at the radix-1 m of CLUSTER_DENSE_MS, each on the
+    cluster body (m = S x odd: S = 8, 4, 2): #1 on noise sectors (batch 16
+    at LONG_DENSE_M, 2 otherwise), int16 and f32, vs its plain version (<=
+    LONG_TOL) and the oracle; #2 on the second half of them; every launch
+    on the cluster body, none on the FFT-form or matrix kernel.  #1's time
+    at LONG_DENSE_M per 48 channel-sectors in turns with its plain version
+    and the matrix kernel (the dense entries' route before the FFT forms), beside
+    the bound; then at LONG_BODY_M the one m left on the long-ray body (#1
+    vs plain, its launch counted there, timed on 6 channel-sectors)."""
+    out = {"rel_l2": 0.0, "max_abs_err": 0.0, "by_m": {}}
     reset_counts()
-    worst_rel, max_abs = planar_kernel_checks(
-        f"dense m={m} (long-ray FFT body)", fullchain.fused_chain_power_dense,
-        dense_plain, plan, cfg, {"noise": (x_np, sectors[:2])}, orc,
-        torch.from_numpy(consts.gain).cuda(), {"noise": LONG_TOL})
-    x16 = torch.from_numpy(x_np).cuda().reshape(-1, 2, m, cfg.n)
-    half = x16.shape[0] // 2
-    got = fullchain.fused_chain_power_at(x16, half, half, plan)
-    torch.cuda.synchronize()
-    e, a = rel_dev(dense_plain(x16[half:], plan), got)
-    check(e <= LONG_TOL, f"#2 m={m} offset {half}: kernel vs plain rel-L2 "
-                         f"{e:.3e} <= {LONG_TOL}")
+    for m in CLUSTER_DENSE_MS:
+        cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=m)
+        consts = PipelineConstants.build(cfg)
+        plan = fullchain.build_plan(consts, "cuda")
+        g = plan.cluster
+        check(plan.radix == 1 and fullchain.chain_route(m) == "cluster"
+              and g.S == m & -m and plan.fft_t is None,
+              f"m={m} takes the dense entries' cluster body: "
+              f"{cluster_note(m, cfg.n)}")
+        b = BATCH if m == LONG_DENSE_M else 2
+        sectors = [oracle.synthetic_iq(cfg, kind="noise", seed=SEED + k)
+                   for k in range(b)]
+        x_np = np.stack([planar_i16(iq) for iq in sectors])
+        worst_rel, max_abs = planar_kernel_checks(
+            f"#1 m={m} (cluster body, S = {g.S})",
+            fullchain.fused_chain_power_dense, dense_plain, plan, cfg,
+            {"noise": (x_np, sectors[:2 if m == LONG_DENSE_M else 1])}, orc,
+            torch.from_numpy(consts.gain).cuda(), {"noise": LONG_TOL})
+        x16 = torch.from_numpy(x_np).cuda().reshape(-1, 2, m, cfg.n)
+        half = x16.shape[0] // 2
+        got = fullchain.fused_chain_power_at(x16, half, half, plan)
+        torch.cuda.synchronize()
+        e, a = rel_dev(dense_plain(x16[half:], plan), got)
+        check(e <= LONG_TOL, f"#2 m={m} offset {half}: kernel vs plain rel-L2 "
+                             f"{e:.3e} <= {LONG_TOL}")
+        out["rel_l2"] = max(out["rel_l2"], worst_rel, e)
+        out["max_abs_err"] = max(out["max_abs_err"], max_abs, a)
+        out["by_m"][str(m)] = {"S": g.S, "cols": g.cols, "rel_l2": max(
+            worst_rel, e), "bluestein": g.bluestein}
+        if m == LONG_DENSE_M:
+            timing = (plan, x16, cfg)
+        del x16, plan
     counts = read_counts()
-    check(counts["dense_fft"] == counts["dense"] + counts["dense_offset"]
-          and counts["dense_offset"] == 1 and counts["dense_matrix"] == 0,
-          f"dense m={m}: every launch on the FFT-form body ({counts['dense']} "
-          f"+ {counts['dense_offset']} offset, {counts['dense_matrix']} matrix)")
-    bc = x16.shape[0]
+    check(counts["dense_cluster"] == counts["dense"] + counts["dense_offset"]
+          and counts["dense_offset"] == len(CLUSTER_DENSE_MS)
+          and counts["dense_fft"] == 0 and counts["dense_matrix"] == 0,
+          f"dense m={CLUSTER_DENSE_MS}: every launch on the cluster body "
+          f"({counts['dense']} + {counts['dense_offset']} offset == "
+          f"{counts['dense_cluster']}; FFT-form {counts['dense_fft']}, "
+          f"matrix {counts['dense_matrix']})")
+    out.update(dense=counts["dense"], dense_offset=counts["dense_offset"],
+               dense_cluster=counts["dense_cluster"])
+    out.update(dense_times(*timing))
+    del timing
+    out["long_body"] = dense_long_body()
+    return out
+
+
+def dense_times(plan, x16: torch.Tensor, cfg) -> dict:
+    """#1 at plan.m on x16 (48 channel-sectors) in turns with its plain
+    version and the matrix kernel (launched past the route: a yardstick,
+    not counted), and queued, beside the bound."""
+    m, bc = plan.m, x16.shape[0]
     out = torch.empty(bc, m // 2, device="cuda")
-    # the body this m took before: the matrix kernel on the same sectors,
-    # launched past the route (a yardstick, not counted)
     matrix = functools.partial(fullchain._launch_matrix, x16, plan, out, 0, bc,
                                None)
     matrix()
     torch.cuda.synchronize()
     e_m = rel_dev(dense_plain(x16, plan), out)[0]
-    check(e_m <= POWER_TOL, f"the matrix kernel at m={m} vs the FFT-form "
+    check(e_m <= POWER_TOL, f"the matrix kernel at m={m} vs the cluster "
                             f"plain version {e_m:.3e} <= {POWER_TOL}")
-    t = timed({"plain": lambda: dense_plain(x16, plan),
-               "kernel": lambda: fullchain.fused_chain_power_dense(x16, plan),
+
+    def kernel():
+        return fullchain.fused_chain_power_dense(x16, plan)
+
+    t = timed({"plain": lambda: dense_plain(x16, plan), "kernel": kernel,
                "matrix": matrix},
               ("plain", "matrix", "kernel", "kernel", "matrix", "plain"))
+    queued = queued_ms(kernel)
     bound_ms, bound_by = bound(bc * chain_flops(m, cfg.n),
-                               x16.numel() * 2 + plan.fft_t.numel() * 4
+                               x16.numel() * 2 + plan.cluster_t.numel() * 4
                                + bc * m // 2 * 4)
-    print(f"long rays dense m={m}, {bc} channel-sectors: {t['kernel']:.3f} ms, "
-          f"plain {t['plain']:.3f} ms, the matrix kernel (the body before) "
-          f"{t['matrix']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}); "
+    print(f"long rays dense m={m}, {bc} channel-sectors: {t['kernel']:.3f} ms "
+          f"({queued:.3f} queued), plain {t['plain']:.3f} ms, the matrix "
+          f"kernel {t['matrix']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}); "
           f"{algorithm_note(m, cfg.n, bc)}", flush=True)
-    return {"dense": counts["dense"], "dense_offset": counts["dense_offset"],
-            "rel_l2": max(worst_rel, e), "max_abs_err": max(max_abs, a),
-            "ms": t["kernel"], "plain_ms": t["plain"], "matrix_ms": t["matrix"],
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    return {"ms": t["kernel"], "queued_ms": queued, "plain_ms": t["plain"],
+            "matrix_ms": t["matrix"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "m": m}
+
+
+def dense_long_body() -> dict:
+    """#1 at LONG_BODY_M (2 x 23 x 89, the long-ray body's one m) on 2
+    sectors of seeded int16 noise: vs its plain version (<= LONG_TOL), one
+    launch on the FFT-form body, timed queued beside the bound."""
+    m = LONG_BODY_M
+    cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=m)
+    plan = fullchain.build_plan(PipelineConstants.build(cfg), "cuda")
+    check(plan.radix == 1 and fullchain.chain_route(m) == "long"
+          and plan.fft.P == 2 and plan.cluster_t is None,
+          f"m={m} takes the dense entries' long-ray body: {plan.fft}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randint(-8192, 8192, (2 * cfg.num_channels, 2, m, cfg.n),
+                      generator=gen, device="cuda",
+                      dtype=torch.int32).to(torch.int16)
+    reset_counts()
+    got = fullchain.fused_chain_power_dense(x, plan)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    e, a = rel_dev(dense_plain(x, plan), got)
+    check(e <= LONG_TOL and counts["dense_fft"] == counts["dense"] == 1,
+          f"#1 m={m} (long-ray body): kernel vs plain rel-L2 {e:.3e} <= "
+          f"{LONG_TOL}; {counts['dense_fft']} launch on the FFT-form body")
+    queued = queued_ms(lambda: fullchain.fused_chain_power_dense(x, plan), 5)
+    bc = x.shape[0]
+    bound_ms, bound_by = bound(bc * chain_flops(m, cfg.n),
+                               x.numel() * 2 + plan.fft_t.numel() * 4
+                               + bc * m // 2 * 4)
+    print(f"long rays dense m={m} (long-ray body), {bc} channel-sectors: "
+          f"{queued:.3f} ms queued, bound {bound_ms:.3f} ms ({bound_by}); "
+          f"{algorithm_note(m, cfg.n, bc)}", flush=True)
+    return {"m": m, "rel_l2": e, "max_abs_err": a, "queued_ms": queued,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "channel_sectors": bc}
 
 
 def long_ray_bench() -> dict:
@@ -2643,8 +2730,9 @@ def phase_long_rays(orc: Oracle) -> dict:
     """Rays longer than 1024 cells: the executor at m = LONG_M with host
     and device decode, each cluster-body kernel (#3, #4, #5, #7, #8) vs its
     plain version and its times at every m of CLUSTER_CHECK_MS (48
-    channel-sectors; 6 at ODD_LEAF_M; #5 beside cuFFT), the dense entries
-    at LONG_DENSE_M (the long-ray FFT-form body), the bench at LONG_M
+    channel-sectors; 6 at ODD_LEAF_M and BLUESTEIN_M, there #3, #5, #7
+    only; #5 beside cuFFT), the dense entries at CLUSTER_DENSE_MS (the
+    cluster body) and LONG_BODY_M (the long-ray body), the bench at LONG_M
     (i16, wire), a world-size-1 pallas-seq step and the mxu method at
     LONG_M and a pallas-seq step at ODD_LEAF_M, and the matrix routes of
     #3/#4, #5, #7, #8 above CLUSTER_MAX_M.  Returns each kernel's launches
@@ -2652,7 +2740,9 @@ def phase_long_rays(orc: Oracle) -> dict:
     m and its matrix route's results."""
     t0 = time.perf_counter()
     print_ptxas(r"fft_chain_long_kernel")
-    print_ptxas(r"cluster_chain_kernel")
+    spills = print_ptxas(r"cluster_(chain|leaf)_kernel")
+    print(f"ptxas: cluster kernels with a spill: {json.dumps(spills)}",
+          flush=True)
     cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=LONG_M)
     iqs = [oracle.produce_sector_iq(cfg, SEED, j) for j in range(4)]
     wires = [codec.encode_iq(iq, cfg) for iq in iqs]
@@ -2665,8 +2755,12 @@ def phase_long_rays(orc: Oracle) -> dict:
     res = long_ray_kernels(gen)
     t_checks = time.perf_counter() - t_checks
     t_times = time.perf_counter()
-    by_m = {m: long_ray_times(gen, m, None,
-                              2 if m == ODD_LEAF_M else BATCH)
+    # every kernel in turns with its plain version at m = LONG_M and 4096
+    # (the kernels line's); elsewhere #3 (int16, f32), #7 and #5 beside
+    # cuFFT, queued (tools/kernel_ab.py --long times #4 at every m)
+    by_m = {m: long_ray_times(gen, m, None if m in (LONG_M, 4096) else (
+        "radix", "wire", "astage") + (("radix_f32",) if m != BLUESTEIN_M else ()),
+        2 if m in (ODD_LEAF_M, BLUESTEIN_M) else BATCH, m in (LONG_M, 4096))
             for m in CLUSTER_CHECK_MS}
     for key, t in by_m[LONG_M].items():
         if key in res:
@@ -2689,7 +2783,8 @@ def phase_long_rays(orc: Oracle) -> dict:
           f"{MATRIX_ABOVE_M} matrix routes {t_matrix:.1f} s)", flush=True)
     keys = ("radix", "radix_f32", "radix_offset", "wire", "wire_offset",
             "astage")
-    times = {key: {str(m): t[key] for m, t in by_m.items()} for key in keys}
+    times = {key: {str(m): t[key] for m, t in by_m.items() if key in t}
+             for key in keys}
     return {"launches": launches, "res": res, "dense": dense,
             "at_4096": by_m[4096], "times": times, "matrix": matrix}
 
@@ -3015,13 +3110,18 @@ def phase_bench() -> dict:
     return launches, values[BENCH_RUNS[0][0]]
 
 
-def print_ptxas(pattern: str) -> None:
-    """The -Xptxas=-v report of the kernels whose names match `pattern`."""
+def print_ptxas(pattern: str) -> list:
+    """The -Xptxas=-v report of the kernels whose names match `pattern`;
+    returns those of them with spill stores or loads."""
     rep = kernel_ab.ptxas_report(_build.library_path().with_suffix(".log")
                                  .read_text(), Path(_build._nvcc()).parent)
+    spills = []
     for name, line in sorted(rep.items()):
         if re.search(pattern, name):
             print(f"ptxas: {name}: {line}", flush=True)
+            if " 0/0 spill" not in line:
+                spills.append(name)
+    return spills
 
 
 def probe_breakdown(orc: Oracle, noise, adv) -> dict:
@@ -4013,11 +4113,23 @@ def main() -> int:
                      "wrp_tpu_torch/csrc/fused_chain_dense.cu",
                      "wrp_tpu/ops/pallas/fullchain.py:194",
                      dense_launches["dense"], dense,
-                     body=fullchain.dense_body(DENSE_M),
+                     body=fullchain.chain_route(DENSE_M),
                      fft_body_launches=dense_launches["dense_fft"],
                      matrix_plain_ms=dense["matrix_plain_ms"],
-                     long_ray_launches=lr["dense"], long_ray=long["dense"],
-                     **occ["dense"]),
+                     long_ray_launches=lr["dense"], **occ["dense"]),
+        # the dense entries' cluster route (radix-1 m = S x odd up to 8192):
+        # launches and errors over CLUSTER_DENSE_MS (#1 and #2); ms, plain
+        # and bound per 48 channel-sectors at LONG_DENSE_M; the one m left
+        # on the long-ray body in long_ray_body
+        kernel_entry("fused_chain_power_dense (cluster body, m = S x odd)",
+                     "wrp_tpu_torch/csrc/fused_chain_radix_cluster.cu",
+                     "wrp_tpu/ops/pallas/fullchain.py:194",
+                     long["dense"]["dense_cluster"], long["dense"],
+                     m=long["dense"]["m"],
+                     queued_ms=long["dense"]["queued_ms"],
+                     matrix_kernel_ms=long["dense"]["matrix_ms"],
+                     by_m=long["dense"]["by_m"],
+                     long_ray_body=long["dense"]["long_body"]),
         kernel_entry("fused_chain_astage",
                      "wrp_tpu_torch/csrc/fused_chain_astage.cu",
                      "wrp_tpu/ops/pallas/fullchain.py:955", shard["astage"],
@@ -4043,7 +4155,7 @@ def main() -> int:
                      "wrp_tpu_torch/csrc/fused_chain_dense.cu",
                      "wrp_tpu/ops/pallas/fullchain.py:271",
                      bench_launches["dense_offset"], offsets["dense"],
-                     body=fullchain.dense_body(DENSE_M),
+                     body=fullchain.chain_route(DENSE_M),
                      long_ray_launches=lr["dense_offset"]),
         kernel_entry("fused_chain_power_radix (offset, salt)",
                      "wrp_tpu_torch/csrc/fused_chain_radix_salted.cu",

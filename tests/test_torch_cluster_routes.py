@@ -3,7 +3,8 @@ chain (#7/#8) launch for each m, and the cluster body's cut, on the CPU.
 
 `chain_route(m)` picks from m alone: the register body of csrc/fft_chain.cuh
 up to 1024 range cells, the cluster body of csrc/cluster_chain.cuh up to
-8192 (each ray split across a cluster of 8 blocks), the matrix forms above
+8192 (each ray split across a cluster of 8 blocks; the dense entries'
+radix-1 m = S x odd across S), the matrix forms above
 (csrc/fused_chain_dense.cu's matrix kernel and its wire source,
 csrc/fused_chain_astage_matrix.cu).  Here: the route, the radix entry's
 plain version and the plan's tables per m; the cluster geometry's cut and
@@ -63,11 +64,13 @@ def _hold(got, want, tol, what):
 
 def test_chain_route_by_m():
     """The register body up to 1024, the cluster body for radix m up to
-    8192, the matrix forms above; cluster_geometry refuses m outside its
-    range, naming CLUSTER_MAX_M.  The radix entry's CPU result is the
-    plain version of the route the card launches, exactly (the matrix
-    route's at m = 8320 in test_wire_and_seq_matrix_above_8192), and the
-    FFT-form body takes a radix m only up to 1024."""
+    8192, the matrix forms above; cluster_geometry refuses the m the body
+    does not take, saying why (outside its range, naming CLUSTER_MAX_M; a
+    block's sub-DFT over CLUSTER_MAX_MS; a Bluestein length over
+    BLUESTEIN_MAX_N).  The radix entry's CPU result is the plain version of
+    the route the card launches, exactly (the matrix route's at m = 8320 in
+    test_wire_and_seq_matrix_above_8192), and the FFT-form body takes a
+    radix m only up to 1024."""
     rng = np.random.default_rng(7)
     for m in (64, 960, 1024):
         assert tfull.chain_route(m) == "register", m
@@ -88,20 +91,26 @@ def test_chain_route_by_m():
             plain(x[1:3], plan, 7)), m
     for m in (8208, ABOVE, 16384):
         assert tfull.radix_for(m) > 1 and tfull.chain_route(m) == "matrix", m
-    # m = 1832 = 8 x 229 does not split: the dense entries' body, no cluster
-    assert tfull.radix_for(1832) == 1 and not tfull.cluster_takes(1832)
-    for m in (1024, 1832, ABOVE):
-        with pytest.raises(ValueError, match="CLUSTER_MAX_M = 8192"):
+    # m = 1832 = 8 x 229 does not split into radix branches: the dense
+    # entries' route, on the cluster body too (its leaf in Bluestein's form)
+    assert tfull.radix_for(1832) == 1 and tfull.cluster_takes(1832)
+    for m, why in ((1024, "CLUSTER_MAX_M = 8192"), (ABOVE, "CLUSTER_MAX_M"),
+                   (4100, "CLUSTER_MAX_MS = 1024"),
+                   (1042, "BLUESTEIN_MAX_N = 1024")):
+        assert tfull.cluster_refusal(m) is not None
+        with pytest.raises(ValueError, match=why):
             tfull.cluster_geometry(m, 512)
 
 
 def test_plan_tables_by_route():
     """A plan holds the tables its routes read: fft_t for the FFT-form body
-    (m <= 1024, and the dense entries' radix-1 m up to 4096: 1832),
+    (m <= 1024, and the dense entries' long-ray m = 2 x odd above 2048),
     cluster_t and cluster_phi for the cluster body (every chain of a radix
-    m up to 8192, the radix entry's too), A_half on the host only for the
-    matrix kernel of the radix entry above 8192."""
-    cases = {1024: (True, False, False), 1832: (True, False, False),
+    m up to 8192, the radix entry's too, and the dense entries' m = S x
+    odd: 1832), A_half on the host only for the matrix kernel of the radix
+    entry above 8192."""
+    cases = {1024: (True, False, False), 1832: (False, True, False),
+             4094: (True, False, False),
              2048: (False, True, False), 4096: (False, True, False),
              4160: (False, True, False), 8192: (False, True, False),
              ABOVE: (False, False, True)}
@@ -112,28 +121,35 @@ def test_plan_tables_by_route():
         if cluster:
             g = plan.cluster
             assert plan.cluster_phi.shape == (-(-N // g.cols), 4)
+            leaf = tfull.leaf_tables(g.L).size if g.L > 1 else 0
             assert plan.cluster_t.numel() == (m + 2 * g.P + 2 * g.L * g.P
-                                              + 2 * g.L + 16 * g.ms + 16)
+                                              + 2 * g.S * g.ms + 2 * g.S
+                                              + leaf)
 
 
-# words of one block (4 bytes each) at n = 512, worked out by hand: A and B
-# (complex, so twice their values), the staged samples (the A-stage's:
-# 2 ms cols samples of 2 or 4 bytes), the wire chain's owned rows
-# (complex, 4 span rows of pitch cols + 1) and round constants (5 cols)
+# words of one block (4 bytes each) at n = 512, worked out by hand: A
+# (complex, so twice its values: L P1 slot rows of P2 cols + pad, the pad
+# cols where pass 2 reads at cols < 32; the leaf runs in place, so no
+# second buffer), the staged samples (2 ms cols samples of 2 or 4 bytes),
+# then one region: the fused chains' owned rows (complex, S/2 span rows of
+# pitch cols + 1) or, where larger, a Bluestein leaf's convolutions
+# (complex, batch x N: 64 down to 4 of them, the most that fit), and the
+# fused chains' round constants (5 cols).
 # the planar chain (#3/#4) at n = 512: (m, its cut: the fused chains' cols
 # and shared memory with nothing staged; the staged form it was measured
 # beside, int16 then f32: cols and shared memory).  Staging adds 2 ms cols
 # samples of 2 or 4 bytes to the wire chain's words at the same cols, and
 # halves the cols where that passes 227 KB (232,448 bytes).
 @pytest.mark.parametrize("m,direct,staged16,staged32", [
-    # ms = 192 = 64 x 3: A, B 6144 each, owned rows 4 x 24 x 33, 5 x 32;
-    # staged 6144 (int16) or 12288 (f32) words more, still 32 columns
-    (1536, (32, 4 * (2 * (6144 + 6144) + 2 * 3168 + 160)),
-     (32, 4 * (2 * (6144 + 6144) + 2 * 3168 + 160 + 6144)),
-     (32, 4 * (2 * (6144 + 6144) + 2 * 3168 + 160 + 12288))),
-    (1840, (32, 4 * (2 * (7360 + 7360) + 2 * 3828 + 160)),
-     (32, 4 * (2 * (7360 + 7360) + 2 * 3828 + 160 + 7360)),
-     (32, 4 * (2 * (7360 + 7360) + 2 * 3828 + 160 + 14720))),
+    # ms = 192 = 64 x 3: A 3 x 32 x (2 x 64) = 12288, owned rows 4 x 24 x
+    # 65, 5 x 64; staged 12288 int16 words more at 64 columns, f32 at 32
+    (1536, (64, 4 * (2 * 12288 + 2 * 6240 + 320)),
+     (64, 4 * (2 * 12288 + 2 * 6240 + 320 + 12288)),
+     (32, 4 * (2 * 6144 + 2 * 3168 + 160 + 12288))),
+    # ms = 230 = 2 x 115: A 115 x 2 x 64 = 14720 (P2 = 1: no pad)
+    (1840, (64, 4 * (2 * 14720 + 2 * 7540 + 320)),
+     (32, 4 * (2 * 7360 + 2 * 3828 + 160 + 7360)),
+     (32, 4 * (2 * 7360 + 2 * 3828 + 160 + 14720))),
     # 64 columns direct; staged, 64 int16 columns would need 264,448 bytes
     (2048, (64, 4 * (2 * 16384 + 2 * 8320 + 320)),
      (32, 4 * (2 * 8192 + 2 * 4224 + 160 + 8192)),
@@ -142,16 +158,20 @@ def test_plan_tables_by_route():
     (4096, (32, 4 * (2 * 16384 + 2 * 8448 + 160)),
      (16, 4 * (2 * 32 * 272 + 2 * 4352 + 80 + 8192)),
      (16, 4 * (2 * 32 * 272 + 2 * 4352 + 80 + 16384))),
-    # the f32 staging halves the columns near 4096 with an odd leaf
-    (4112, (16, 4 * (2 * (8224 + 8224) + 2 * 4420 + 80)),
-     (16, 4 * (2 * (8224 + 8224) + 2 * 4420 + 80 + 8224)),
-     (8, 4 * (2 * (4112 + 4112) + 2 * 2340 + 40 + 8224))),
-    (4128, (16, 4 * (2 * (8256 + 8256) + 2 * 4420 + 80)),
-     (16, 4 * (2 * (8256 + 8256) + 2 * 4420 + 80 + 8256)),
-     (8, 4 * (2 * (4128 + 4128) + 2 * 2340 + 40 + 8256))),
-    (4160, (16, 4 * (2 * (8320 + 8320) + 2 * 4420 + 80)),
-     (16, 4 * (2 * (8320 + 8320) + 2 * 4420 + 80 + 8320)),
-     (8, 4 * (2 * (4160 + 4160) + 2 * 2340 + 40 + 8320))),
+    # a 257-point Bluestein leaf (N = 1024): 8 convolutions fit the owned
+    # rows' 2 x 8580 words; staged int16 only at 16 columns, with 16
+    # convolutions (32768 words); f32 with 8 (16384 words)
+    (4112, (32, 4 * (2 * 16448 + 2 * 8580 + 160)),
+     (16, 4 * (2 * 8224 + 80 + 8224 + 2 * 16 * 1024)),
+     (16, 4 * (2 * 8224 + 80 + 16448 + 2 * 8 * 1024))),
+    # 3 x 43 (N = 128): 64 convolutions, 16384 words, inside the owned
+    # rows' 2 x 8580 at 32 columns, past their 2 x 4420 at 16
+    (4128, (32, 4 * (2 * 16512 + 2 * 8580 + 160)),
+     (16, 4 * (2 * 8256 + 80 + 8256 + 2 * 64 * 128)),
+     (16, 4 * (2 * 8256 + 80 + 16512 + 2 * 64 * 128))),
+    (4160, (32, 4 * (2 * 16640 + 2 * 8580 + 160)),
+     (16, 4 * (2 * 8320 + 2 * 4420 + 80 + 8320)),
+     (16, 4 * (2 * 8320 + 2 * 4420 + 80 + 16640))),
     (8192, (16, 4 * (2 * 16896 + 2 * 8704 + 80)),
      (8, 4 * (2 * 32 * 264 + 2 * 4608 + 40 + 8192)),
      (8, 4 * (2 * 32 * 264 + 2 * 4608 + 40 + 16384))),
@@ -160,8 +180,8 @@ def test_radix_cluster_cut(m, direct, staged16, staged32):
     """The planar chain's cut on the cluster body: the fused chains' (no
     staging buffer, so int16 and f32 alike, and the cut `cluster_phi` is
     summed at), at least the staged form's columns at every m, and twice
-    them at 2048, 4096 and 8192 for int16; each within one block's 227 KB
-    with twice the columns over it."""
+    them for int16 at every m but 1536 (where the cap, 64, fits both);
+    each within one block's 227 KB with twice the columns over it."""
     for elem, (cols, smem) in ((0, direct), (2, staged16), (4, staged32)):
         g = tfull.cluster_geometry(m, 512, True, elem)
         assert g.cols == cols, elem
@@ -171,46 +191,54 @@ def test_radix_cluster_cut(m, direct, staged16, staged32):
             m, 2 * cols, True, elem) > tfull.MAX_SMEM_BYTES), elem
     assert tfull.cluster_geometry(m, 512).cols == direct[0]
     assert direct[0] >= staged16[0] >= staged32[0]
-    assert (direct[0] == 2 * staged16[0]) == (m in (2048, 4096, 8192))
+    assert (direct[0] == 2 * staged16[0]) == (m != 1536)
 
 
 @pytest.mark.parametrize("m,cut,leaf,cols,smem", [
-    # ms = 192 = 64 x 3 at 32 columns: pass 1's slots 3 x 32 x (2 x 32) =
-    # 6144 in A (no pad at 32 columns), the leaf buffer 192 x 32 in B
-    (1536, (192, 64, 3, 32, 2, 24), [3], (32, 32, 32),
-     (4 * (2 * (6144 + 6144) + 2 * 4 * 24 * 33 + 5 * 32),
-      4 * (2 * (6144 + 6144) + 6144), 4 * (2 * (6144 + 6144) + 12288))),
-    # ms = 230 = 2 x 115: P2 = 1, so pass 1 writes the leaf's layout (B);
-    # A is the other leaf buffer
-    (1840, (230, 2, 115, 2, 1, 29), [5, 23], (32, 32, 32),
-     (4 * (2 * (7360 + 7360) + 2 * 3828 + 160),
-      4 * (2 * (7360 + 7360) + 7360), 4 * (2 * (7360 + 7360) + 14720))),
+    # ms = 192 = 64 x 3 at 64 columns: pass 1's slots 3 x 32 x (2 x 64) =
+    # 12288 in A (no pad at 64 columns), the leaf's 3-point pass in place
+    (1536, (192, 64, 3, 32, 2, 24), (3,), (64, 64, 64),
+     (4 * (2 * 12288 + 2 * 4 * 24 * 65 + 5 * 64),
+      4 * (2 * 12288 + 12288), 4 * (2 * 12288 + 24576))),
+    # ms = 230 = 2 x 115: P2 = 1, so pass 1 writes the leaf's slots, its
+    # passes 5 and 23 in place; 64 columns as at 2048 but for the f32
+    # A-stage
+    (1840, (230, 2, 115, 2, 1, 29), (5, 23), (64, 64, 32),
+     (4 * (2 * 14720 + 2 * 7540 + 320),
+      4 * (2 * 14720 + 14720), 4 * (2 * 7360 + 14720))),
     # ms = 256 = 32 x 8, L = 1: A's slots 32 x (8 cols), pass 2 in place;
     # 64 columns but for the f32 A-stage (64 would need 262,144 bytes)
-    (2048, (256, 256, 1, 32, 8, 32), [], (64, 64, 32),
+    (2048, (256, 256, 1, 32, 8, 32), (), (64, 64, 32),
      (4 * (2 * 16384 + 2 * 4 * 32 * 65 + 5 * 64),
       4 * (2 * 16384 + 16384), 4 * (2 * 8192 + 16384))),
-    (4096, (512, 512, 1, 32, 16, 64), [], (32, 32, 16),
+    (4096, (512, 512, 1, 32, 16, 64), (), (32, 32, 16),
      (4 * (2 * 16384 + 2 * 4 * 64 * 33 + 5 * 32),
       4 * (2 * 16384 + 16384), 4 * (2 * 32 * (16 * 16 + 16) + 16384))),
-    # a prime leaf of 257 points (one O(L^2) pass)
-    (4112, (514, 2, 257, 2, 1, 65), [257], (16, 16, 16),
-     (4 * (2 * (8224 + 8224) + 2 * 4420 + 80),
-      4 * (2 * (8224 + 8224) + 8224), 4 * (2 * (8224 + 8224) + 16448))),
-    (4128, (516, 4, 129, 4, 1, 65), [3, 43], (16, 16, 16),
-     (4 * (2 * (8256 + 8256) + 2 * 4420 + 80),
-      4 * (2 * (8256 + 8256) + 8256), 4 * (2 * (8256 + 8256) + 16512))),
-    (4160, (520, 8, 65, 8, 1, 65), [5, 13], (16, 16, 16),
-     (4 * (2 * (8320 + 8320) + 2 * 4420 + 80),
-      4 * (2 * (8320 + 8320) + 8320), 4 * (2 * (8320 + 8320) + 16640))),
+    # a prime leaf of 257 points in Bluestein's form (N = 1024): the fused
+    # chains' 8 convolutions inside the owned rows, the int16 A-stage's 4
+    # (8192 words) beside its staging, the f32 A-stage's 8 at 16 columns
+    (4112, (514, 2, 257, 2, 1, 65), (257,), (32, 32, 16),
+     (4 * (2 * 16448 + 2 * 8580 + 160),
+      4 * (2 * 16448 + 16448 + 2 * 4 * 1024),
+      4 * (2 * 8224 + 16448 + 2 * 8 * 1024))),
+    # 3 x 43: a 3-point pass, then 43 in Bluestein's form (N = 128: the
+    # fused chains' 64 convolutions inside the owned rows; the int16
+    # A-stage's 32, 8192 words, beside its staging; the f32 A-stage's 64)
+    (4128, (516, 4, 129, 4, 1, 65), (3, 43), (32, 32, 16),
+     (4 * (2 * 16512 + 2 * 8580 + 160),
+      4 * (2 * 16512 + 16512 + 2 * 32 * 128),
+      4 * (2 * 8256 + 16512 + 2 * 64 * 128))),
+    (4160, (520, 8, 65, 8, 1, 65), (5, 13), (32, 32, 16),
+     (4 * (2 * 16640 + 2 * 8580 + 160),
+      4 * (2 * 16640 + 16640), 4 * (2 * 8320 + 16640))),
     # slots 32 x (32 x 16 + 16); the f32 A-stage at 8 columns
-    (8192, (1024, 1024, 1, 32, 32, 128), [], (16, 16, 8),
+    (8192, (1024, 1024, 1, 32, 32, 128), (), (16, 16, 8),
      (4 * (2 * 16896 + 2 * 4 * 128 * 17 + 80),
       4 * (2 * 16896 + 16384), 4 * (2 * 32 * (32 * 8 + 8) + 16384))),
 ])
 def test_cluster_geometry(m, cut, leaf, cols, smem):
     """The cluster cut at n = 512: (ms, P, L, P1, P2, span), the leaf's
-    radices, and for the wire chain, the int16 and the f32 A-stage the
+    passes, and for the wire chain, the int16 and the f32 A-stage the
     columns a round and a block's shared memory, each within one block's
     227 KB and with twice the columns over it."""
     bodies = ((True, 0), (False, 2), (False, 4))
@@ -222,27 +250,28 @@ def test_cluster_geometry(m, cut, leaf, cols, smem):
         assert want_smem <= tfull.MAX_SMEM_BYTES
         assert (g.cols == tfull.CLUSTER_MAX_COLS or tfull.cluster_smem_bytes(
             m, 2 * g.cols, *body) > tfull.MAX_SMEM_BYTES), body
-    assert g.ms * tfull.CLUSTER_SPLIT == m and g.P * g.L == g.ms
+    assert g.S * g.ms == m and g.S == tfull.CLUSTER_SPLIT and g.P * g.L == g.ms
     assert g.P1 * g.P2 == g.P and g.span * tfull.CLUSTER_SPLIT >= g.ms
-    radices, rem = [], g.L
-    while rem > 1:
-        radices.append(tfull.leaf_radix(rem))
-        rem //= radices[-1]
-    assert radices == leaf
+    assert tfull.leaf_plan(g.L).radices == leaf
     assert tfull.cluster_geometry(m, 512).cols == cols[0]     # the plan's cut
     # a narrow A-stage slab takes fewer columns a round
     assert tfull.cluster_geometry(m, 4, False, 2).cols == 4
 
 
 def test_cluster_tables_layout():
-    """m = 1040 (ms = 130 = 2 x 65): the window, W_P, the leaf's W_ms^(k r2)
-    and W_L roots, the cluster's W_m^(b k1) and W_8, each the fp64 value
-    cast once."""
+    """m = 1040 (ms = 130 = 2 x 65): the window, W_P, the leaf's W_ms^(k
+    r2), the cluster's W_m^(b k1) and W_8, each the fp64 value cast once;
+    then the leaf's plan for 65 = 5 x 13: the header (two passes: R, Lc,
+    nq, offset), perm (frequency t = s1 + 5 s2 at 13 s1 + s2), the 5-point
+    pass's first points j < 13, its cos/sin of 2 pi t / 5 and twiddles
+    W_65^(j s), the 13-point pass's first points 13 blk and cos/sin, no
+    twiddle (the last pass)."""
     m = 1040
     consts = PipelineConstants.build(tiny_config(m=m, n=N))
     g = tfull.cluster_geometry(m, N)
-    t = tfull.cluster_tables(consts).astype(np.float64)
-    assert t.dtype == np.float64 and g.P == 2 and g.L == 65
+    t32 = tfull.cluster_tables(consts)
+    t = t32.astype(np.float64)
+    assert g.P == 2 and g.L == 65 and g.S == 8
     win = np.asarray(consts.op_a_half[0]).real
     np.testing.assert_array_equal(t[:m], win.astype(np.float32))
     at = m
@@ -260,11 +289,34 @@ def test_cluster_tables_layout():
     b, k1 = np.meshgrid(np.arange(8), np.arange(g.ms), indexing="ij")
     for got, want in ((take(g.P), w(g.P, np.arange(g.P))),
                       (take(g.L * g.P), w(g.ms, k * r2).reshape(-1)),
-                      (take(g.L), w(g.L, np.arange(g.L))),
                       (take(8 * g.ms), w(m, b * k1).reshape(-1)),
                       (take(8), w(8, np.arange(8)))):
         assert np.abs(got - want).max() < 1e-7
-    assert at == t.size
+    plan = t32[at:].view(np.int32)
+    assert plan[:2].tolist() == [2, 10]        # npass, perm at 2 + 4 npass
+    (r0, lc0, nq0, off0), (r1, lc1, nq1, off1) = plan[2:6], plan[6:10]
+    assert (r0, lc0, nq0, r1, lc1, nq1) == (5, 13, 13, 13, 1, 5)
+    s1, s2 = np.meshgrid(np.arange(5), np.arange(13), indexing="ij")
+    perm = np.zeros(65, np.int64)
+    perm[(s1 + 5 * s2).reshape(-1)] = (13 * s1 + s2).reshape(-1)
+    assert plan[10:75].tolist() == perm.tolist() and off0 == 76
+    assert plan[off0:off0 + 13].tolist() == list(range(13))
+
+    def floats(lo, count):
+        return t[at + lo:at + lo + count]
+
+    ang = 2 * np.pi * np.arange(1, 3) / 5
+    cs = floats(off0 + 14, 4).reshape(2, 2)
+    assert np.abs(cs - np.stack([np.cos(ang), np.sin(ang)], -1)).max() < 1e-7
+    tw = floats(off0 + 18, 2 * 13 * 4).reshape(13, 4, 2)
+    want = w(65, np.outer(np.arange(13), np.arange(1, 5)))
+    assert np.abs(tw[..., 0] + 1j * tw[..., 1] - want).max() < 1e-7
+    assert off1 == off0 + 18 + 2 * 13 * 4
+    assert plan[off1:off1 + 5].tolist() == [0, 13, 26, 39, 52]
+    ang = 2 * np.pi * np.arange(1, 7) / 13
+    cs = floats(off1 + 6, 12).reshape(6, 2)
+    assert np.abs(cs - np.stack([np.cos(ang), np.sin(ang)], -1)).max() < 1e-7
+    assert at + off1 + 18 == t.size
 
 
 def test_cluster_stage_vs_fp64_dft():

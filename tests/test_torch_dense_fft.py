@@ -1,8 +1,8 @@
 """The dense entries' FFT route on the CPU (ops/fullchain.py): for an m
 that does not split into radix branches (`radix_for(m) == 1`, e.g. m =
-1000 = 8 x 125) the dense entries run the FFT-form body when it takes m
-(`dense_body`), whose plain version `fft_chain_power_reference` they take
-on the CPU; its geometry and tables at P = 8; the leaf's mixed-radix
+1000 = 8 x 125) the dense entries run the route `chain_route` names (the
+FFT-form body up to 1024 cells), whose plain version
+`fft_chain_power_reference` they take on the CPU; its geometry and tables at P = 8; the leaf's mixed-radix
 Stockham steps (`leaf_fft_reference`) against the L x L DFT in fp64; that
 plain version against wrp_tpu's `fused_chain_power` (Pallas interpret
 mode) and the fp64 oracle.  The CUDA kernels themselves
@@ -102,23 +102,30 @@ def test_leaf_steps_equal_the_dft(L):
 
 
 @pytest.mark.parametrize("m,body", [
-    (1000, "fft"), (40, "fft"), (24, "fft"), (8, "fft"), (2, "fft"),
-    (6, "fft"), (1024, "fft"), (1100, "fft"), (4096, "fft"),
-    (1026, "fft"), (999, "matrix"), (7, "matrix"), (4100, "matrix"),
+    (1000, "register"), (40, "register"), (24, "register"), (8, "register"),
+    (2, "register"), (6, "register"), (1024, "register"),
+    # 4 x 275 and 2 x 513: split across 4 and 2 blocks; 4096 is a radix m
+    (1100, "cluster"), (4096, "cluster"), (1026, "cluster"),
+    (999, "matrix"), (7, "matrix"), (4100, "matrix"),
+    # 2 x 1025: over CLUSTER_MAX_MS a block, the long-ray body's one form;
+    # 2 x 521: a leaf prime whose Bluestein length would be 2048
+    (2050, "long"), (4094, "long"), (1042, "matrix"),
 ])
 def test_dense_body_from_m_alone(m, body):
-    """The dense entries' body: the FFT form for every even m <= 4096
-    (the long-ray body above 1024), the matrix kernel otherwise; a plan
-    builds the FFT tables exactly for the m that take the FFT form: every
-    even m up to 1024, and above it the radix-1 m (a radix m there, 4096,
-    takes the cluster body)."""
-    fft = body == "fft" and (m <= 1024 or tfull.radix_for(m) == 1)
-    assert tfull.dense_body(m) == body
+    """The dense entries' route, m's alone (`chain_route`): the register
+    body for every even m <= 1024, the cluster body for m = S x odd up to
+    1024 S (S = 2, 4, 8), the long-ray form for m = 2 x odd in (2048,
+    4096], the matrix kernel otherwise; a plan builds the FFT tables
+    exactly for the m that take the FFT form and the cluster tables for
+    those the cluster body takes."""
+    fft = body in ("register", "long")
+    assert tfull.chain_route(m) == body
     assert tfull.fft_takes(m) == fft
-    assert tfull.fft_long(m) == (fft and m > 1024)
+    assert tfull.fft_long(m) == (body == "long")
     if m % 2 == 0 and m <= 4100 and m >= 8:
         plan = _plan(m, 16)
         assert (plan.fft_t is not None) == fft
+        assert (plan.cluster_t is not None) == (body == "cluster")
 
 
 @pytest.mark.parametrize("m,n", [(1000, 32), (40, 32), (24, 16), (8, 16)])
@@ -184,7 +191,7 @@ def test_matrix_route_at_m_over_1024_vs_oracle():
     fp64 oracle < POWER_TOL."""
     m, n = 4100, 16
     plan = _plan(m, n)
-    assert tfull.dense_body(m) == "matrix" and plan.fft_t is None
+    assert tfull.chain_route(m) == "matrix" and plan.fft_t is None
     iq = oracle.synthetic_iq(jtiny(m=m, n=n), kind="noise", seed=4)
     got = tfull.fused_chain_power_dense(torch.from_numpy(_planar(iq)),
                                         plan).numpy()

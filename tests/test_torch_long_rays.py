@@ -2,14 +2,14 @@
 m = 1536 (512 x 3), 1832 (8 x 229, radix 1), 1840 (16 x 115), 2048, 4096
 and 4160 (above the FFT-form kernels' 4096) against wrp_tpu's `pallas`
 processor (Pallas in interpret mode) and the fp64 oracle, each through the
-plain version of its route (the cluster body for the radix m, the dense
-entries' long-ray FFT body at 1832); the wire input at m = 2048; the
-A-stage and a world-size-1 `pallas-seq` step at m = 2048; the dense
-entries' long-ray cut, worked out by hand; the routes above 4096 (the
-cluster body of the radix and wire entries, the A-stage and pallas-seq;
-the radix entry's matrix route above 8192).  The CUDA kernels themselves
-(csrc/fft_chain.cuh's long-ray body, csrc/cluster_chain.cuh) are checked
-on the card by chip_smoke.py."""
+plain version of its route (the cluster body for the radix m and for the
+dense entries' 1832 = 8 x 229); the wire input at m = 2048; the A-stage
+and a world-size-1 `pallas-seq` step at m = 2048; the dense entries'
+long-ray cut at m = 4094 = 2 x 2047, the one m it keeps, worked out by
+hand; the routes above 4096 (the cluster body of the radix and wire
+entries, the A-stage and pallas-seq; the radix entry's matrix route above
+8192).  The CUDA kernels themselves (csrc/fft_chain.cuh's long-ray body,
+csrc/cluster_chain.cuh) are checked on the card by chip_smoke.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -76,12 +76,10 @@ def test_pallas_long_rays_match_jax_and_oracle(m):
     pow64 = oracle.channel_power(iq, jtiny(m=m, n=N))
     for c in range(got.shape[0]):
         assert oracle.relative_l2(pow64[c], got[c]) < POWER_TOL, c
-    # the radix m on the cluster body up to 8192, the radix-1 m on the
-    # dense entries' FFT-form body
-    plain = (tfull.cluster_chain_power_reference if plan.radix > 1
-             else tfull.fft_chain_power_reference)
-    assert plan.radix == 1 or tfull.chain_route(m) == "cluster"
-    assert torch.equal(torch.from_numpy(got), plain(x, plan))
+    # every m here on the cluster body, the radix-1 1832 = 8 x 229 too
+    assert tfull.chain_route(m) == "cluster"
+    assert torch.equal(torch.from_numpy(got),
+                       tfull.cluster_chain_power_reference(x, plan))
 
 
 @pytest.mark.parametrize("decode", [None, "fused"])
@@ -150,19 +148,22 @@ def test_pallas_seq_world_one_at_2048():
 
 
 @pytest.mark.parametrize("m,cut,leaf,smem", [
-    # radix 1: P = 8 in one register pass, a prime leaf of 229 points; a
-    # round of 2 columns: two leaf buffers of 2 x 3664 words, 7328 staged
-    # (f32), 10 of round constants, 13 x 916 + 8 of partials (the radix m
-    # above 1024 take the cluster body: tests/test_torch_cluster_routes.py
-    # test_radix_cluster_cut)
-    (1832, (8, 229, 8, 1, 2, 8), [229], 4 * (2 * (3664 + 3664) + 7328
-                                             + 10 + 13 * 916 + 8)),
+    # radix 1, m = 2 x 2047 (23 x 89): P = 2 in one register pass, the
+    # leaf's one pass of 2047 points (no factor 3, 5, 7); a round of 1
+    # column (2 x 2047 = 4094 complex values is already past the 4096 of a
+    # half round): two leaf buffers of 2 x 4096 words (4094 rounded to 16
+    # bytes), 8188 staged (f32), 5 of round constants, 13 x 2047 + 8 of
+    # partials (every other radix-1 m above 1024 that the cluster body
+    # splits takes it: tests/test_torch_cluster_leaf.py)
+    (4094, (2, 2047, 2, 1, 1, 8), [2047], 4 * (2 * (4096 + 4096) + 8188
+                                               + 5 + 13 * 2047 + 8)),
 ])
 def test_fft_geometry_long_rays(m, cut, leaf, smem):
     """The dense entries' long-ray cut at n = 512: (P, L, P1, P2, cols,
     blocks), the leaf's radices and the fused block's shared memory with
     f32 staged (the larger staging), all within one block's 227 KB; a
-    radix m above 1024 has no FFT-form cut."""
+    radix m above 1024, and a radix-1 m the cluster body splits, has no
+    FFT-form cut."""
     g = tfull.fft_geometry(m, 512)
     assert (g.P, g.L, g.P1, g.P2, g.cols, g.blocks) == cut
     assert g.P * g.L == m and g.P1 * g.P2 == g.P
@@ -173,9 +174,9 @@ def test_fft_geometry_long_rays(m, cut, leaf, smem):
     assert radices == leaf
     assert tfull.fft_smem_bytes(m, g.cols, fused=True, elem=4) == smem
     assert smem <= tfull.MAX_SMEM_BYTES
-    for radix_m in (1536, 2048, 4096, 4160):
+    for other in (1536, 2048, 4096, 4160, 1832, 2002):
         with pytest.raises(ValueError, match="FFT_MAX_M = 4096"):
-            tfull.fft_geometry(radix_m, 512)
+            tfull.fft_geometry(other, 512)
 
 
 def test_above_4096_routes_and_refusals():

@@ -1,13 +1,15 @@
 // The cluster body: rays of 1024 < m <= 8192 range cells, each split across
-// a thread-block cluster of 8 blocks, for NVIDIA Hopper (sm_90a).  Behind
+// a thread-block cluster of S blocks, for NVIDIA Hopper (sm_90a).  Behind
 // fused_chain_astage_cluster.cu (the pulse-sharded path's A-stage, Y
 // stored), fused_chain_radix_cluster.cu (the planar fused chain and its
-// offset/salt entry) and fused_chain_wire_cluster.cu (the wire fused chain
-// and its offset/salt entry), the last two with the Parseval epilogue
-// fused.  It replaces, at those m, the TPU kernels wrp_tpu/ops/pallas/
-// fullchain.py::fused_chain_astage (_kernel_radix_astage),
-// fused_chain_power_radix (_kernel_radix, _kernel_radix_offset) and
-// fused_chain_power_wire (_kernel_radix_wire, _kernel_radix_wire_offset).
+// offset/salt entry; also the dense entries' radix-1 m) and
+// fused_chain_wire_cluster.cu (the wire fused chain and its offset/salt
+// entry), the last two with the Parseval epilogue fused.  It replaces, at
+// those m, the TPU kernels wrp_tpu/ops/pallas/fullchain.py::
+// fused_chain_astage (_kernel_radix_astage), fused_chain_power_radix
+// (_kernel_radix, _kernel_radix_offset), fused_chain_power_wire
+// (_kernel_radix_wire, _kernel_radix_wire_offset) and fused_chain_power /
+// fused_chain_power_at (_kernel, _kernel_offset) at radix-1 m.
 //
 // Per unit (one channel of one sector) and pulse column j it computes
 //
@@ -21,41 +23,70 @@
 // Why a cluster.  The long-ray form of fft_chain.cuh gave each block every
 // range row and a chunk of pulse columns: at m = 4096 a round held one
 // column (2-4 bytes of a 32-byte sector a row) and every row's 13 partials
-// sat in shared memory, one block per SM.  Here a unit is one cluster of 8
+// sat in shared memory, one block per SM.  Here a unit is one cluster of S
 // blocks and every block sees every column: block b owns the range rows
-// r = 8 t + b, t < m' = m / 8, a round `cols` columns wide, as many as one
+// r = S t + b, t < m' = m / S, a round `cols` columns wide, as many as one
 // block's shared memory holds (ops/fullchain.cluster_geometry: for the
-// wire and planar chains and the int16 A-stage 64 at m = 2048, 32 at 4096,
-// 16 at 8192 and near 4096 with an odd leaf; at least a row's whole
-// 32-byte sector of int16), since each round costs two cluster barriers.  With r = 8 t + b
-// and k = k1 + m' k2 (k1 < m', k2 < 8):
+// fused chains 64 at m = 1536-2048, 32 at 4096-4160, 16 at 8192), since
+// each round costs two cluster barriers.  S = 8 for a radix m (m % 16 ==
+// 0); a radix-1 m = S x odd (S = 2, 4, 8: the dense entries) splits by the
+// power of two it has, so each block's m'-point DFT is the odd leaf alone.
+// With r = S t + b and k = k1 + m' k2 (k1 < m', k2 < S):
 //
-//   Y[k1 + m' k2] = sum_b W_8^(b k2) W_m^(b k1) F_b[k1],
-//   F_b[k1] = sum_t W_m'^(t k1) x_w[8 t + b],
+//   Y[k1 + m' k2] = sum_b W_S^(b k2) W_m^(b k1) F_b[k1],
+//   F_b[k1] = sum_t W_m'^(t k1) x_w[S t + b],
 //
 // so a round is
 //   1. in each block the m'-point DFT F_b of its rows, in its own shared
-//      memory, with the register body's passes: m' = P L (P the largest
-//      power of two dividing m', L odd), a P1-point register DFT over
-//      rows L (P2 n1 + n2) + r2, the twiddle W_P^(k1 n2), a P2-point
-//      register DFT (P1 P2 = P <= 1024, each <= 32; for L = 1 in place, F
-//      left in pass 1's slots), then for L > 1 the leaf's twiddle
-//      W_m'^(k r2) and its Stockham passes (radix 3, 5, 7 unrolled; any
-//      other factor in one O(L^2) pass, fft_chain.cuh leaf_pass_split);
-//   2. a cluster barrier; block b' takes the k1 of its slice (ceil(m' / 8)
-//      values) of all eight blocks' F over distributed shared memory,
-//      multiplies F_b[k1] by W_m^(b k1) and runs the 8-point DFT across
-//      the blocks for its 4 kept outputs k2 < 4 only (k < m/2): two
-//      4-point DFTs, exact in +-1, +-i, and W_8^k2 between them.  A block
-//      thus owns the m/16 rows k1 + m' k2 of its slice through every round;
+//      memory, in place in one buffer A: m' = P L (P the largest power of
+//      two dividing m', L odd), a P1-point register DFT over rows
+//      L (P2 n1 + n2) + r2, the twiddle W_P^(k1 n2), a P2-point register
+//      DFT in place (P1 P2 = P <= 1024, each <= 32), slot k2 of row
+//      (r2, k1) holding G_r2[k1 + P1 k2]; then for L > 1 the leaf's twiddle
+//      W_m'^(k r2) and the leaf (below) over r2, in the same slots;
+//   2. a cluster barrier; block b' takes the k1 of its slice (ceil(m' / S)
+//      values) of all S blocks' F over distributed shared memory,
+//      multiplies F_b[k1] by W_m^(b k1) and runs the S-point DFT across
+//      the blocks for its S / 2 kept outputs k2 < S / 2 only (k < m/2): at
+//      S = 8 two 4-point DFTs, exact in +-1, +-i, and W_8^k2 between them;
+//      at S = 4 two outputs of one, at S = 2 a sum.  A block thus owns the
+//      m / 2S rows k1 + m' k2 of its slice through every round;
 //   3. the A-stage stores its rows of Y, `cols` contiguous floats a row and
 //      plane; the fused chains write them to a local buffer and merge each
 //      owned row's round into its Parseval partials, held in registers for
 //      the whole unit (kRows rows a thread).  Every column of a row passes
 //      through the one block that owns it, so no merge across blocks is
 //      left at the end: each block writes its rows' power.
-// Every twiddle comes from the plan's table (ops/fullchain.cluster_tables:
-// fp64 on the host, cast once); nothing calls sincosf.
+//
+// The leaf (an odd L > 1; ops/fullchain.leaf_plan): one in-place
+// decimation-in-frequency pass a prime factor of L, ascending.  Pass i of
+// radix R and stride Lc (Lp = R Lc) takes, per block of Lp points and
+// j < Lc, the points j + r Lc, an R-point DFT, and writes output s times
+// W_Lp^(j s) back to j + s Lc; so each pass reads and writes the same
+// slots, no second buffer (a round takes as many columns at an odd L as
+// at L = 1), and frequency t ends at a mixed-radix digit-reversed
+// position, which the combine reads from the plan's perm.  An R <= 31 is
+// a register DFT unrolled for R (dft_odd: the H = (R - 1) / 2 sums and
+// differences of v_r, v_(R-r), then cosines on the sums and sines on the
+// differences: 4 H^2 real FMAs), its H cosines and sines held in
+// registers for the pass, its twiddles read from the pass's table at one
+// index a butterfly; a prime leaf of 3, 5 or 7 behind a P2-point pass 2
+// (m = 1536 = 8 x 64 x 3) runs inside pass 2's registers instead, a task
+// holding the L rows of its slot (pass2_leaf): no pass and no barrier of
+// its own.  A larger prime p (at most one: L <= 1023 < 37^2;
+// the last pass, so it has no twiddle) runs in Bluestein's form: the
+// chirped inputs, a cyclic convolution of length N (the power of two >=
+// 2p - 1: 512 at p = 229, m = 1832; 1024 at p = 257, m = 4112) with the
+// chirp's N-point spectrum from the table, then the chirp: a 32-point and
+// an N/32-point register DFT each way (bluestein_pass), `batch` (64 down
+// to 4) convolutions at a time in the region the owned rows use after the
+// leaf.  A task's indices come from shifts and masks of the power-of-two
+// sizes (cols, P, the batch) and the plan's first points; no division and
+// no remainder in a pass.
+//
+// Every twiddle and root comes from the plan's table
+// (ops/fullchain.cluster_tables, leaf_tables: fp64 on the host, cast
+// once); nothing calls sincosf.
 //
 // Overlap and barriers.  The A-stage's planar input is staged with
 // cp.async (16-byte pieces where rows allow), round r + 1's copy issued
@@ -66,8 +97,8 @@
 // the second split: arrive once the block has read its peers' F, wait at
 // the start of the next round, whose first pass rewrites F's buffer, so
 // the epilogue and the wait for the next round's samples run between
-// them.  After the last round a block
-// waits until its peers are done reading it before it exits.
+// them.  After the last round a block waits until its peers are done
+// reading it before it exits.
 //
 // What bounds it: bytes.  The A-stage reads 4 m w bytes of int16 and
 // writes 4 m w of Y a unit; the planar chain (int16) and the wire chain
@@ -78,7 +109,9 @@
 // The register DFTs hold up to 255 registers a thread
 // (__launch_bounds__(256, 1)), so one block a SM, and a round's columns
 // fill the shared memory that leaves (ops/fullchain.cluster_smem_bytes);
-// the grid is 8 blocks a unit, clusters of 8.
+// the grid is S blocks a unit, clusters of S.  The L = 1 kernels
+// (cluster_chain_kernel: m = 2048, 4096, 8192) carry no leaf code; every
+// odd L runs cluster_leaf_kernel.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -86,6 +119,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include "fft_chain.cuh"
 
@@ -94,12 +128,19 @@ namespace cluster {
 
 namespace cg = cooperative_groups;
 
-constexpr int kSplit = 8;       // blocks a unit (one cluster); rows decimated by 8
+constexpr int kSplit = 8;       // a radix m's blocks a unit (one cluster), the most
 constexpr int kOut = 4;         // outputs k2 < 4 of the 8-point DFT across blocks (k < m/2)
-constexpr int kRows = 2;        // epilogue rows a thread owns: m/16 <= 512
+constexpr int kRows = 2;        // epilogue rows a thread owns: m / 2S <= 512
 constexpr int kMinM = 1025;     // below: the register body (fft_chain.cuh)
-constexpr int kMaxM = 8192;     // m' = m / 8 <= 1024, P <= 1024
+constexpr int kMaxM = 8192;
+constexpr int kMaxMs = 1024;    // m' = m / S: P <= 1024, m / 2S <= kRows kThreads
 constexpr int kMaxCols = 64;
+constexpr int kMaxRadix = 31;   // the leaf's register DFTs: odd primes up to 31
+constexpr int kMaxBluestein = 1024;  // Bluestein's N: a 32-point x N/32-point DFT
+constexpr int kBluesteinN1 = 32;
+constexpr int kMaxBatch = 64;   // Bluestein convolutions a block runs at a time
+constexpr int kMinBatch = 4;
+constexpr int kMaxWords = 227 * 1024 / 4;   // one block's shared memory
 
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
@@ -261,109 +302,499 @@ struct PlanarDirect {
   }
 };
 
+
 // The plan's table (ops/fullchain.cluster_tables): w_r c [m]; W_P^t (re,
-// im) for t < P; the leaf's W_m'^(k r2) at (r2 P + k); the leaf's roots
-// W_L^t; the cluster's W_m^(b k1) at (b m' + k1); W_8^t, t < 8.
+// im) for t < P; the leaf's W_m'^(k r2) at (r2 P + k); the cluster's
+// W_m^(b k1) at (b m' + k1); W_S^t, t < S; for L > 1 the leaf's plan
+// (ops/fullchain.leaf_tables), int32 words: npass, perm's offset, then per
+// pass R, Lc, nq = L / R and its data's offset, each from the plan's start.
 struct Table {
   const float* win;
   const float* tw;
   const float2* leaf_tw;
-  const float2* leaf;
   const float2* ctw;
-  const float2* w8;
+  const float2* ws;
+  const int* plan;
 
-  __host__ __device__ Table(const float* t, int m, int ms, int P, int L)
+  __host__ __device__ Table(const float* t, int m, int ms, int P, int L, int S)
       : win(t),
         tw(t + m),
         leaf_tw(reinterpret_cast<const float2*>(t + m + 2 * P)),
-        leaf(reinterpret_cast<const float2*>(t + m + 2 * P + 2 * L * P)),
-        ctw(reinterpret_cast<const float2*>(t + m + 2 * P + 2 * L * P + 2 * L)),
-        w8(reinterpret_cast<const float2*>(t + m + 2 * P + 2 * L * P + 2 * L + 2 * kSplit * ms)) {}
+        ctw(reinterpret_cast<const float2*>(t + m + 2 * P + 2 * L * P)),
+        ws(reinterpret_cast<const float2*>(t + m + 2 * P + 2 * L * P + 2 * S * ms)),
+        plan(reinterpret_cast<const int*>(t + m + 2 * P + 2 * L * P + 2 * S * ms + 2 * S)) {}
 };
 
 // Shared memory of one block, in 32-bit words, each part a multiple of 16
-// bytes: A (pass 1's slots [r2][k1][n2][column], rows padded; for L = 1
-// pass 2 runs in place and leaves F[k1 + P1 k2] in slot k2 of row k1; for
-// L > 1 at least one leaf buffer), B (L > 1: pass 2's output in the leaf's
-// layout [k][r2][column]; the Stockham passes run B -> A -> B ..., and F
-// stays in the last one's buffer, natural index k + P t at row k L + t),
-// the staged samples S, and for the fused chains the block's rows of Y
-// [kOut span][cols + 1] and the round's epilogue constants (wd, 4 phasor
-// rows).  ops/fullchain.cluster_smem_bytes is the same arithmetic.
+// bytes: A (pass 1's slots [r2][k1][n2][column], rows padded where pass 2
+// reads them at cols < 32; pass 2 and every leaf pass run in place, so F
+// stays there: G_r2[k1 + P1 k2] in slot k2 of row (r2, k1), frequency
+// t of the leaf at row perm[t] of its sub-transform), the staged samples
+// S, then one region X: the fused chains' owned rows [S/2 span][cols + 1]
+// after the leaf, a Bluestein leaf's `batch` convolutions [N][batch]
+// during it (the largest power of two from 64 down to 4 that fits); then
+// for the fused chains
+// the round's epilogue constants (wd, 4 phasor rows).
+// ops/fullchain._cluster_layout is the same arithmetic.
 struct Layout {
   int sp;         // slot row pitch: P2 cols + pad
   int np;         // the owned rows' pitch: cols + 1
-  int span;       // k1 a block combines: ceil(m' / 8)
+  int span;       // k1 a block combines: ceil(m' / S)
   int size_a;     // complex values
-  int size_b;
   int stage;      // words of S
   int own;        // complex values of the owned rows
+  int batch;      // Bluestein convolutions at a time (0: none)
+  int xw;         // words of X
   int words;
 
-  __host__ __device__ Layout(int ms, int L, int P1, int P2, int cols, bool fused,
-                             int stage_words) {
-    const int pad = cols < 32 ? cols : 0;
+  __host__ __device__ Layout(int ms, int L, int P1, int P2, int S, int cols, bool fused,
+                             int stage_words, int nbl) {
+    const int pad = cols < 32 && P2 > 1 ? cols : 0;
     sp = P2 * cols + pad;
     np = cols + 1;
-    span = (ms + kSplit - 1) / kSplit;
-    const int leaf = ms * cols;
-    if (L == 1) {
-      size_a = fft::round4(P1 * sp);
-      size_b = 0;
-    } else {
-      size_a = fft::round4(fft::imax(P2 > 1 ? L * P1 * sp : 0, leaf));
-      size_b = fft::round4(leaf);
-    }
+    span = (ms + S - 1) / S;
+    size_a = fft::round4(L * P1 * sp);
     stage = fft::round4(stage_words);
-    own = fused ? fft::round4(kOut * span * np) : 0;
-    words = 2 * (size_a + size_b) + stage + 2 * own + (fused ? fft::round4(5 * cols) : 0);
+    own = fused ? fft::round4(S / 2 * span * np) : 0;
+    const int base = 2 * size_a + stage + (fused ? fft::round4(5 * cols) : 0);
+    batch = 0;
+    if (nbl > 0) {
+      for (int g = kMaxBatch; g >= kMinBatch; g /= 2) {
+        if (base + fft::imax(2 * own, 2 * g * nbl) <= kMaxWords) {
+          batch = g;
+          break;
+        }
+      }
+    }
+    xw = fft::imax(2 * own, 2 * batch * nbl);
+    words = base + xw;
   }
   __host__ __device__ size_t bytes() const { return static_cast<size_t>(words) * sizeof(float); }
 };
 
+__host__ __device__ constexpr int cmod(int a, int b) { return a - b * (a / b); }
+
+// Where sub-transform k's point 0 lies in A: slot row k1 = k mod P1, slot
+// k2 = k / P1 of row r2 = 0 (P, P1 powers of two).
+template <int P1>
+__device__ __forceinline__ int slot(int k, int sp, int cols) {
+  return (k & (P1 - 1)) * sp + (k >> fft::log2i<P1>()) * cols;
+}
+
+// The first point of butterfly d of a pass in A: d = c + cols (k + P jj),
+// the column c, the sub-transform k, and jj, which the pass's first points
+// `pos` map to a position (P, cols powers of two; lc = log2 cols).
+template <int P, int P1>
+__device__ __forceinline__ int first_point(int d, const int* pos, int sp, int cols, int lc) {
+  const int q = d >> lc;
+  const int k = q & (P - 1);
+  return slot<P1>(k, sp, cols) + __ldg(pos + (q >> fft::log2i<P>())) * (P1 * sp) +
+         (d & (cols - 1));
+}
+
+// The R-point DFT (R an odd prime) of x in registers, natural order in
+// and out: a_r = x_r + x_(R-r), b_r = x_r - x_(R-r) (r = 1..H), X_0 = x_0
+// + sum a_r, and for s = 1..H, C = x_0 + sum a_r cos(2 pi r s / R), T =
+// sum b_r sin(2 pi r s / R): X_s = C - i T, X_(R-s) = C + i T.  cs, sn:
+// cos and sin (2 pi t / R), t = 1..H, at t - 1; r s folds to one of them
+// at compile time.
+template <int R>
+__device__ __forceinline__ void dft_odd(float (&xr)[R], float (&xi)[R], const float (&cs)[(R - 1) / 2],
+                                        const float (&sn)[(R - 1) / 2]) {
+  constexpr int H = (R - 1) / 2;
+  float ar[H], ai[H], br[H], bi[H];
+  const float x0r = xr[0], x0i = xi[0];
+  float s0r = x0r, s0i = x0i;
+#pragma unroll
+  for (int r = 1; r <= H; ++r) {
+    ar[r - 1] = xr[r] + xr[R - r];
+    ai[r - 1] = xi[r] + xi[R - r];
+    br[r - 1] = xr[r] - xr[R - r];
+    bi[r - 1] = xi[r] - xi[R - r];
+    s0r += ar[r - 1];
+    s0i += ai[r - 1];
+  }
+  xr[0] = s0r;
+  xi[0] = s0i;
+#pragma unroll
+  for (int s = 1; s <= H; ++s) {
+    float cr = x0r, ci = x0i, tr = 0.f, ti = 0.f;
+#pragma unroll
+    for (int r = 1; r <= H; ++r) {
+      const int e = cmod(r * s, R);
+      const int f = (e <= H ? e : R - e) - 1;
+      const float c = cs[f];
+      const float sg = e <= H ? sn[f] : -sn[f];
+      cr += ar[r - 1] * c;
+      ci += ai[r - 1] * c;
+      tr += br[r - 1] * sg;
+      ti += bi[r - 1] * sg;
+    }
+    xr[s] = cr + ti;
+    xi[s] = ci - tr;
+    xr[R - s] = cr - ti;
+    xi[R - s] = ci + tr;
+  }
+}
+
+// A leaf pass of radix R <= 31 on A (im at re + fim): per butterfly d
+// (nq P cols of them) the points first + r Lc lstride, dft_odd, output s
+// times W_Lp^(j s) (Lc > 1: the table's twiddles at [jj][s - 1]) back to
+// first + s Lc lstride.  Its data: pos [nq] ints (padded to even), then
+// (cos, sin) of t = 1..H, then the twiddles.
+template <int R, int P, int P1>
+__device__ __forceinline__ void radix_pass(float* re, int fim, const int* pd, int Lc, int nq,
+                                           int sp, int cols, int lc) {
+  constexpr int H = (R - 1) / 2;
+  const auto* roots = reinterpret_cast<const float2*>(pd + nq + (nq & 1));
+  const float2* tw = roots + H;
+  float cs[H], sn[H];
+#pragma unroll
+  for (int t = 0; t < H; ++t) {
+    const float2 w = __ldg(roots + t);
+    cs[t] = w.x;
+    sn[t] = w.y;
+  }
+  const int step = Lc * P1 * sp;
+  const int tasks = (nq * P) << lc;
+  for (int d = static_cast<int>(threadIdx.x); d < tasks; d += kThreads) {
+    float* pr = re + first_point<P, P1>(d, pd, sp, cols, lc);
+    float xr[R], xi[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      xr[r] = pr[r * step];
+      xi[r] = pr[r * step + fim];
+    }
+    dft_odd<R>(xr, xi, cs, sn);
+    if (Lc > 1) {
+      const float2* w = tw + ((d >> lc) >> fft::log2i<P>()) * (R - 1);
+#pragma unroll
+      for (int s = 1; s < R; ++s) {
+        const float2 v = __ldg(w + s - 1);
+        fft::cmul(xr[s], xi[s], v.x, v.y, xr[s], xi[s]);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      pr[s * step] = xr[s];
+      pr[s * step + fim] = xi[s];
+    }
+  }
+}
+
+// One radix-2 decimation-in-frequency stage of span H over an N-point
+// register array (N <= 32), then the next: output in bit-reversed order,
+// W_N^k = w[k 32 / N] from the 16 roots W_32^t held in registers (W^0 and
+// W^(N/4) = -i exactly).
+template <int N, int H>
+__device__ __forceinline__ void dif_w32(float (&re)[N], float (&im)[N], const float2 (&w)[16]) {
+  if constexpr (H >= 1) {
+#pragma unroll
+    for (int base = 0; base < N; base += 2 * H) {
+#pragma unroll
+      for (int j = 0; j < H; ++j) {
+        const int a = base + j;
+        const int b = a + H;
+        const float tr = re[a] - re[b];
+        const float ti = im[a] - im[b];
+        re[a] += re[b];
+        im[a] += im[b];
+        const int k = j * (N / (2 * H));
+        if (k == 0) {
+          re[b] = tr;
+          im[b] = ti;
+        } else if (4 * k == N) {
+          re[b] = ti;
+          im[b] = -tr;
+        } else {
+          const float2 v = w[k * (32 / N)];
+          fft::cmul(tr, ti, v.x, v.y, re[b], im[b]);
+        }
+      }
+    }
+    dif_w32<N, H / 2>(re, im, w);
+  }
+}
+
+// The leaf's Bluestein pass (a prime p > 31, the last pass: Lc = 1, so
+// butterfly d's points are first + t lstride, t < p, and no twiddle):
+//   X_t = c_t sum_u (x_u c_u) conj(c_(t-u)),  c_t = exp(-i pi t^2 / p),
+// the sum a cyclic convolution of length N = 32 N2 >= 2p - 1, by `batch`
+// butterflies at a time in X ([k1 N2 + n2][batch], re then im):
+//   1. per (butterfly, n2): the chirped inputs t = N2 n1 + n2 (zero past
+//      p), a 32-point DFT over n1, times W_N^(k1 n2);
+//   2. per (butterfly, k1): an N2-point DFT over n2 (A[k1 + 32 k2]), times
+//      the filter's spectrum (its 1/N folded in), conjugated, an N2-point
+//      DFT over k2, times W_N^(k1 n2): in place;
+//   3. per (butterfly, n2): a 32-point DFT over k1, conjugated (the
+//      inverse transform's), times the chirp: X_t, t = n2 + N2 n1 < p,
+//      back to the butterfly's points.
+// Its data: pos [nq] ints (padded to even), the chirp [p], the spectrum
+// [N], W_N^(k1 n2) at [n2][k1], W_32^t (t < 32; the first 16 held in
+// registers).
+template <int N, int P, int P1>
+__device__ __forceinline__ void bluestein_pass(float* re, int fim, const int* pd, int p, int nq,
+                                               int sp, int cols, int lc, float* xre, int batch) {
+  constexpr int N1 = kBluesteinN1;
+  constexpr int N2 = N / N1;
+  const auto* chirp = reinterpret_cast<const float2*>(pd + nq + (nq & 1));
+  const float2* bh = chirp + p;
+  const float2* ftw = bh + N;
+  const float2* r32 = ftw + N;
+  float2 w[16];
+#pragma unroll
+  for (int t = 0; t < 16; ++t) w[t] = __ldg(r32 + t);
+  float* xim = xre + batch * N;
+  const int lgb = __ffs(batch) - 1;
+  const int lstride = P1 * sp;
+  const int nd = (nq * P) << lc;
+  const int tid = static_cast<int>(threadIdx.x);
+  for (int d0 = 0; d0 < nd; d0 += batch) {
+    for (int task = tid; task < batch * N2; task += kThreads) {
+      const int g = task & (batch - 1);
+      const int n2 = task >> lgb;
+      float vr[N1], vi[N1];
+      const bool live = d0 + g < nd;
+      const float* pr = live ? re + first_point<P, P1>(d0 + g, pd, sp, cols, lc) : re;
+#pragma unroll
+      for (int n1 = 0; n1 < N1; ++n1) {
+        const int t = N2 * n1 + n2;
+        vr[n1] = vi[n1] = 0.f;
+        if (t < p && live) {
+          const float2 c = __ldg(chirp + t);
+          fft::cmul(pr[t * lstride], pr[t * lstride + fim], c.x, c.y, vr[n1], vi[n1]);
+        }
+      }
+      dif_w32<N1, N1 / 2>(vr, vi, w);
+#pragma unroll
+      for (int k1 = 0; k1 < N1; ++k1) {
+        float ur = vr[fft::brev(k1, fft::log2i<N1>())];
+        float ui = vi[fft::brev(k1, fft::log2i<N1>())];
+        if (k1 > 0 && n2 > 0) {
+          const float2 v = __ldg(ftw + n2 * N1 + k1);
+          fft::cmul(ur, ui, v.x, v.y, ur, ui);
+        }
+        xre[(k1 * N2 + n2) * batch + g] = ur;
+        xim[(k1 * N2 + n2) * batch + g] = ui;
+      }
+    }
+    __syncthreads();
+    for (int task = tid; task < batch * N1; task += kThreads) {
+      const int g = task & (batch - 1);
+      const int k1 = task >> lgb;
+      float yr[N2], yi[N2], zr[N2], zi[N2];
+#pragma unroll
+      for (int n2 = 0; n2 < N2; ++n2) {
+        yr[n2] = xre[(k1 * N2 + n2) * batch + g];
+        yi[n2] = xim[(k1 * N2 + n2) * batch + g];
+      }
+      dif_w32<N2, N2 / 2>(yr, yi, w);
+#pragma unroll
+      for (int k2 = 0; k2 < N2; ++k2) {
+        const float2 b = __ldg(bh + k1 + N1 * k2);
+        float vr, vi;
+        fft::cmul(yr[fft::brev(k2, fft::log2i<N2>())], yi[fft::brev(k2, fft::log2i<N2>())], b.x,
+                  b.y, vr, vi);
+        zr[k2] = vr;
+        zi[k2] = -vi;
+      }
+      dif_w32<N2, N2 / 2>(zr, zi, w);
+#pragma unroll
+      for (int n2 = 0; n2 < N2; ++n2) {
+        float ur = zr[fft::brev(n2, fft::log2i<N2>())];
+        float ui = zi[fft::brev(n2, fft::log2i<N2>())];
+        if (k1 > 0 && n2 > 0) {
+          const float2 v = __ldg(ftw + n2 * N1 + k1);
+          fft::cmul(ur, ui, v.x, v.y, ur, ui);
+        }
+        xre[(k1 * N2 + n2) * batch + g] = ur;
+        xim[(k1 * N2 + n2) * batch + g] = ui;
+      }
+    }
+    __syncthreads();
+    for (int task = tid; task < batch * N2; task += kThreads) {
+      const int g = task & (batch - 1);
+      const int n2 = task >> lgb;
+      float vr[N1], vi[N1];
+#pragma unroll
+      for (int k1 = 0; k1 < N1; ++k1) {
+        vr[k1] = xre[(k1 * N2 + n2) * batch + g];
+        vi[k1] = xim[(k1 * N2 + n2) * batch + g];
+      }
+      dif_w32<N1, N1 / 2>(vr, vi, w);
+      if (d0 + g < nd) {
+        float* pr = re + first_point<P, P1>(d0 + g, pd, sp, cols, lc);
+#pragma unroll
+        for (int n1 = 0; n1 < N1; ++n1) {
+          const int t = n2 + N2 * n1;
+          if (t < p) {
+            const float2 c = __ldg(chirp + t);
+            const int at = fft::brev(n1, fft::log2i<N1>());
+            fft::cmul(vr[at], -vi[at], c.x, c.y, pr[t * lstride], pr[t * lstride + fim]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Which leaf passes an instantiation of P needs: a radix R <= L <= m' / P;
+// a Bluestein prime p >= N / 4 + 1 likewise.
+template <int R, int P>
+constexpr bool kRadixFits = R * P <= kMaxMs;
+template <int N, int P>
+constexpr bool kBluesteinFits = (N / 4 + 1) * P <= kMaxMs;
+
+template <int R, int P, int P1>
+__device__ __forceinline__ void radix_case(float* re, int fim, const int* pd, int Lc, int nq,
+                                           int sp, int cols, int lc) {
+  if constexpr (kRadixFits<R, P>) radix_pass<R, P, P1>(re, fim, pd, Lc, nq, sp, cols, lc);
+}
+
+template <int N, int P, int P1>
+__device__ __forceinline__ void bluestein_case(float* re, int fim, const int* pd, int p, int nq,
+                                               int sp, int cols, int lc, float* x, int batch) {
+  if constexpr (kBluesteinFits<N, P>) {
+    bluestein_pass<N, P, P1>(re, fim, pd, p, nq, sp, cols, lc, x, batch);
+  }
+}
+
+// Pass 2 with a prime leaf R <= 7 (L = R, one pass) in registers: a task
+// (k1, column) holds the R rows r2 of its slots, each row's P2-point DFT
+// times the leaf's twiddle W_m'^(k r2), then per k2 the R-point DFT across
+// them, written back to the same slots (one pass leaves frequency t at
+// position t).  Returns false where P cannot carry such a leaf.
+template <int R, int P1, int P2>
+__device__ __forceinline__ bool pass2_leaf(float* re, int fim, int sp, int cols, int lc,
+                                           const float* tw, const float2* leaf_tw,
+                                           const int* plan) {
+  constexpr int P = P1 * P2;
+  if constexpr (kRadixFits<R, P>) {
+    constexpr int H = (R - 1) / 2;
+    // the one pass's data: pos [1] (padded to 2 words), then its roots
+    const auto* roots = reinterpret_cast<const float2*>(plan + __ldg(plan + 5) + 2);
+    float cs[H], sn[H];
+#pragma unroll
+    for (int t = 0; t < H; ++t) {
+      const float2 w = __ldg(roots + t);
+      cs[t] = w.x;
+      sn[t] = w.y;
+    }
+    for (int task = static_cast<int>(threadIdx.x); task < cols * P1; task += kThreads) {
+      const int c = task & (cols - 1);
+      const int k1 = task >> lc;
+      float gr[P2][R], gi[P2][R];
+#pragma unroll
+      for (int r2 = 0; r2 < R; ++r2) {
+        const float* pr = re + (r2 * P1 + k1) * sp + c;
+        float xr[P2], xi[P2];
+#pragma unroll
+        for (int n2 = 0; n2 < P2; ++n2) {
+          xr[n2] = pr[n2 * cols];
+          xi[n2] = pr[n2 * cols + fim];
+        }
+        fft::dft_reg<P2>(xr, xi, tw, P);
+#pragma unroll
+        for (int k2 = 0; k2 < P2; ++k2) {
+          const float2 w = __ldg(leaf_tw + r2 * P + k1 + P1 * k2);
+          fft::cmul(xr[fft::brev(k2, fft::log2i<P2>())], xi[fft::brev(k2, fft::log2i<P2>())],
+                    w.x, w.y, gr[k2][r2], gi[k2][r2]);
+        }
+      }
+#pragma unroll
+      for (int k2 = 0; k2 < P2; ++k2) {
+        dft_odd<R>(gr[k2], gi[k2], cs, sn);
+#pragma unroll
+        for (int t = 0; t < R; ++t) {
+          re[(t * P1 + k1) * sp + k2 * cols + c] = gr[k2][t];
+          re[(t * P1 + k1) * sp + k2 * cols + c + fim] = gi[k2][t];
+        }
+      }
+    }
+    return true;
+  } else {
+    return false;
+  }
+}
+
+// The leaf: the plan's passes in order, a barrier after each (a pass reads
+// points the last one wrote in other threads).  nbl: Bluestein's N (0:
+// none); x, batch: its region and butterflies at a time.
+template <int P, int P1>
+__device__ __forceinline__ void leaf(float* re, int fim, const int* plan, int sp, int cols,
+                                     int lc, float* x, int batch, int nbl) {
+  const int npass = __ldg(plan);
+  for (int i = 0; i < npass; ++i) {
+    const int* e = plan + 2 + 4 * i;
+    const int R = __ldg(e);
+    const int Lc = __ldg(e + 1);
+    const int nq = __ldg(e + 2);
+    const int* pd = plan + __ldg(e + 3);
+    switch (R) {
+      case 3: radix_case<3, P, P1>(re, fim, pd, Lc, nq, sp, cols, lc); break;
+      case 5: radix_case<5, P, P1>(re, fim, pd, Lc, nq, sp, cols, lc); break;
+      case 7: radix_case<7, P, P1>(re, fim, pd, Lc, nq, sp, cols, lc); break;
+      case 11: radix_case<11, P, P1>(re, fim, pd, Lc, nq, sp, cols, lc); break;
+      case 13: radix_case<13, P, P1>(re, fim, pd, Lc, nq, sp, cols, lc); break;
+      case 17: radix_case<17, P, P1>(re, fim, pd, Lc, nq, sp, cols, lc); break;
+      case 19: radix_case<19, P, P1>(re, fim, pd, Lc, nq, sp, cols, lc); break;
+      case 23: radix_case<23, P, P1>(re, fim, pd, Lc, nq, sp, cols, lc); break;
+      case 29: radix_case<29, P, P1>(re, fim, pd, Lc, nq, sp, cols, lc); break;
+      case 31: radix_case<31, P, P1>(re, fim, pd, Lc, nq, sp, cols, lc); break;
+      default:
+        switch (nbl) {
+          case 128: bluestein_case<128, P, P1>(re, fim, pd, R, nq, sp, cols, lc, x, batch); break;
+          case 256: bluestein_case<256, P, P1>(re, fim, pd, R, nq, sp, cols, lc, x, batch); break;
+          case 512: bluestein_case<512, P, P1>(re, fim, pd, R, nq, sp, cols, lc, x, batch); break;
+          case 1024: bluestein_case<1024, P, P1>(re, fim, pd, R, nq, sp, cols, lc, x, batch); break;
+          default: break;
+        }
+    }
+    __syncthreads();
+  }
+}
+
 // The body.  Src: PlanarRows (the A-stage), PlanarDirect (the planar chain)
-// or fft::WireIq (the wire chain).  Grid (8, channels, sectors), clusters
-// of 8 along x: unit u = sector * channels + channel, block rank b =
+// or fft::WireIq (the wire chain).  Grid (S, channels, sectors), clusters
+// of S along x: unit u = sector * channels + channel, block rank b =
 // blockIdx.x.  kFused: out = pow [units, m/2] (the planar and wire chains);
 // else out = Y [units, 2, m/2, n] (the A-stage) and wd, ph, phi are unused.
-template <class Src, int P1, int P2, bool kFused>
-__global__ void __launch_bounds__(kThreads, 1)
-cluster_chain_kernel(Src src, const float* __restrict__ tab, const float* __restrict__ phi,
-                     const float* __restrict__ wd, const float* __restrict__ ph,
-                     float* __restrict__ out, int m, int L, int n, int cols, float salt) {
+// kOdd: L > 1, the leaf; nbl its Bluestein N (0: none).
+template <class Src, int S, int P1, int P2, bool kFused, bool kOdd>
+__device__ __forceinline__ void cluster_body(Src src, const float* __restrict__ tab,
+                                             const float* __restrict__ phi,
+                                             const float* __restrict__ wd,
+                                             const float* __restrict__ ph,
+                                             float* __restrict__ out, int m, int L, int n,
+                                             int cols, float salt, int nbl) {
   constexpr int P = P1 * P2;
   constexpr int Q = P2;                          // pass 1's n2 < Q
-  constexpr bool kLeaf = P < 1024;               // m' <= 1024: P = 1024 has L = 1
-  const int ms = m / kSplit;
+  constexpr int kKeep = S / 2;                   // outputs k2 of the S-point DFT kept
+  const int ms = m / S;
   const int mh = m / 2;
   const int u = static_cast<int>(blockIdx.z * gridDim.y + blockIdx.y);
   const int b = static_cast<int>(blockIdx.x);    // rank in the unit's cluster
   const int tid = static_cast<int>(threadIdx.x);
-  const Table t(tab, m, ms, P, L);
-  const Layout lay(ms, L, P1, P2, cols, kFused, src.words(cols));
+  const Table t(tab, m, ms, P, L, S);
+  const Layout lay(ms, L, P1, P2, S, cols, kFused, src.words(cols), kOdd ? nbl : 0);
   cg::cluster_group cluster = cg::this_cluster();
 
   extern __shared__ __align__(16) float smem[];
   float* a_re = smem;
   float* a_im = a_re + lay.size_a;
-  float* b_re = a_im + lay.size_a;
-  float* b_im = b_re + lay.size_b;
-  float* stage = b_im + lay.size_b;
-  float* o_re = stage + lay.stage;               // kFused: the owned rows [kOut span][np]
+  float* stage = a_im + lay.size_a;
+  float* o_re = stage + lay.stage;               // X: kFused, the owned rows [kKeep span][np]
   float* o_im = o_re + lay.own;
-  float* rc = o_im + lay.own;                    // kFused: [5][cols]: wd, ph rows
-  // where F lies after the sub-DFT: A's slots (L = 1), else the last leaf
-  // pass's buffer (A for an odd number of passes).  Pass 1 writes A or B,
-  // so a round starts once its peers have read the last round's F.
-  bool in_a = true;
-  if constexpr (kLeaf) in_a = L == 1 || fft::leaf_passes(L) % 2 == 1;
-  float* f_re = in_a ? a_re : b_re;
-  const int f_im = in_a ? lay.size_a : lay.size_b;   // im - re
+  float* rc = o_re + lay.xw;                     // kFused: [5][cols]: wd, ph rows
 
   const int lo = b * lay.span;                   // this block's k1 slice
   const int cnt = min(ms, lo + lay.span) - lo;
-  const float2 w8_1 = __ldg(t.w8 + 1);          // W_8^1
-  const float2 w8_3 = __ldg(t.w8 + 3);          // W_8^3
+  float2 w8_1 = {0.f, 0.f}, w8_3 = {0.f, 0.f};
+  if constexpr (S == 8) {
+    w8_1 = __ldg(t.ws + 1);                      // W_8^1
+    w8_3 = __ldg(t.ws + 3);                      // W_8^3
+  }
 
   // the epilogue's running partials of the rows this thread owns
   float s_r[kRows], s_i[kRows], mu_r[kRows], mu_i[kRows], e[kRows], d[kRows][8];
@@ -395,43 +826,90 @@ cluster_chain_kernel(Src src, const float* __restrict__ tab, const float* __rest
     }
 
     // pass 1: samples, salt, window; P1-point DFT over the rows
-    // t = L (Q n1 + n2) + r2 (global rows 8 t + b); twiddle W_P^(k1 n2)
-    for (int task = tid; task < cols * Q * L; task += kThreads) {
-      const int c = task % cols;
-      const int rest = task / cols;
-      const int n2 = rest % Q;
-      const int r2 = rest / Q;
-      const int t0 = L * n2 + r2;
-      const int tstep = L * Q;
-      // a column past n reads column j0 and is zeroed by its window
-      const float keep = c < nr ? 1.f : 0.f;
-      float re[P1], im[P1];
-      if constexpr (Src::kStaged) {
-        src.template read<P1>(stage, t0, tstep, c, cols, re, im);
-      } else {
-        src.template load<P1>(u, kSplit * t0 + b, kSplit * tstep, c < nr ? j0 + c : j0, re, im);
-      }
+    // t = L (Q n1 + n2) + r2 (global rows S t + b); twiddle W_P^(k1 n2), or
+    // for P2 = 1 and an odd L the leaf's W_m'^(k1 r2)
+    if constexpr (kOdd && P1 < 8) {
+      // P1 < 8 (so Q = 1): a task holds only 2 P1 loads, too few in flight,
+      // so a thread takes kBatch tasks at once, every load issued first
+      constexpr int kBatch = 8 / P1;
+      const int ntask = cols * L;                // task (r2, c)
+      const int lc = __ffs(cols) - 1;
+      for (int t0 = tid; t0 < ntask; t0 += kBatch * kThreads) {
+        float re[kBatch][P1], im[kBatch][P1], w[kBatch][P1];
 #pragma unroll
-      for (int n1 = 0; n1 < P1; ++n1) {
-        const float w = __ldg(t.win + kSplit * (t0 + n1 * tstep) + b) * keep;
-        re[n1] = w * (re[n1] + salt);
-        im[n1] = w * (im[n1] + salt);
-      }
-      fft::dft_reg<P1>(re, im, t.tw, P);
-#pragma unroll
-      for (int k1 = 0; k1 < P1; ++k1) {
-        float vr = re[fft::brev(k1, fft::log2i<P1>())];
-        float vi = im[fft::brev(k1, fft::log2i<P1>())];
-        if (Q == 1 && L > 1) {
-          // F_r2[k1] of the P-point DFT is final: the leaf's twiddle, its layout in B
-          if (k1 > 0) {
-            const float2 w = __ldg(t.leaf_tw + r2 * P + k1);
-            fft::cmul(vr, vi, w.x, w.y, vr, vi);
+        for (int v = 0; v < kBatch; ++v) {
+          const int task = min(t0 + v * kThreads, ntask - 1);   // past the end: not stored
+          const int c = task & (cols - 1);
+          const int r2 = task >> lc;
+          if constexpr (Src::kStaged) {
+            src.template read<P1>(stage, r2, L, c, cols, re[v], im[v]);
+          } else {
+            src.template load<P1>(u, S * r2 + b, S * L, c < nr ? j0 + c : j0, re[v], im[v]);
           }
-          b_re[(k1 * L + r2) * cols + c] = vr;
-          b_im[(k1 * L + r2) * cols + c] = vi;
+#pragma unroll
+          for (int n1 = 0; n1 < P1; ++n1) {
+            w[v][n1] = c < nr ? __ldg(t.win + S * (r2 + n1 * L) + b) : 0.f;
+          }
+        }
+#pragma unroll
+        for (int v = 0; v < kBatch; ++v) {
+          const int task = t0 + v * kThreads;
+          if (task < ntask) {
+            const int c = task & (cols - 1);
+            const int r2 = task >> lc;
+#pragma unroll
+            for (int n1 = 0; n1 < P1; ++n1) {
+              re[v][n1] = w[v][n1] * (re[v][n1] + salt);
+              im[v][n1] = w[v][n1] * (im[v][n1] + salt);
+            }
+            fft::dft_reg<P1>(re[v], im[v], t.tw, P);
+#pragma unroll
+            for (int k1 = 0; k1 < P1; ++k1) {
+              float vr = re[v][fft::brev(k1, fft::log2i<P1>())];
+              float vi = im[v][fft::brev(k1, fft::log2i<P1>())];
+              if (k1 > 0) {                       // G_r2[k1] is final: the leaf's twiddle
+                const float2 tw = __ldg(t.leaf_tw + r2 * P + k1);
+                fft::cmul(vr, vi, tw.x, tw.y, vr, vi);
+              }
+              a_re[(r2 * P1 + k1) * lay.sp + c] = vr;
+              a_im[(r2 * P1 + k1) * lay.sp + c] = vi;
+            }
+          }
+        }
+      }
+    } else {
+      for (int task = tid; task < cols * Q * L; task += kThreads) {
+        const int c = task % cols;
+        const int rest = task / cols;
+        const int n2 = rest % Q;
+        const int r2 = rest / Q;
+        const int t0 = L * n2 + r2;
+        const int tstep = L * Q;
+        // a column past n reads column j0 and is zeroed by its window
+        const float keep = c < nr ? 1.f : 0.f;
+        float re[P1], im[P1];
+        if constexpr (Src::kStaged) {
+          src.template read<P1>(stage, t0, tstep, c, cols, re, im);
         } else {
-          if (Q > 1 && k1 > 0) {                  // W^0 = 1 exactly at n2 = 0: no branch
+          src.template load<P1>(u, S * t0 + b, S * tstep, c < nr ? j0 + c : j0, re, im);
+        }
+#pragma unroll
+        for (int n1 = 0; n1 < P1; ++n1) {
+          const float w = __ldg(t.win + S * (t0 + n1 * tstep) + b) * keep;
+          re[n1] = w * (re[n1] + salt);
+          im[n1] = w * (im[n1] + salt);
+        }
+        fft::dft_reg<P1>(re, im, t.tw, P);
+#pragma unroll
+        for (int k1 = 0; k1 < P1; ++k1) {
+          float vr = re[fft::brev(k1, fft::log2i<P1>())];
+          float vi = im[fft::brev(k1, fft::log2i<P1>())];
+          if constexpr (kOdd && Q == 1) {
+            if (k1 > 0) {                           // G_r2[k1] is final: the leaf's twiddle
+              const float2 w = __ldg(t.leaf_tw + r2 * P + k1);
+              fft::cmul(vr, vi, w.x, w.y, vr, vi);
+            }
+          } else if (Q > 1 && k1 > 0) {            // W^0 = 1 exactly at n2 = 0: no branch
             const float2 w = __ldg(reinterpret_cast<const float2*>(t.tw) + (k1 * n2) % P);
             fft::cmul(vr, vi, w.x, w.y, vr, vi);
           }
@@ -446,12 +924,24 @@ cluster_chain_kernel(Src src, const float* __restrict__ tab, const float* __rest
       fft::cp_async_commit();
     }
 
+    bool leaf_done = false;                      // a leaf of 3, 5 or 7 inside pass 2
     if constexpr (Q > 1) {
-      // pass 2: P2-point DFT over n2 -> F_r2[k1 + P1 k2]: for L = 1 in place
-      // (a task reads and writes only its own slots, so no barrier inside),
-      // slot k2 of row k1; otherwise to B in the leaf's layout, with its
-      // twiddle
-      for (int task = tid; task < cols * P1 * L; task += kThreads) {
+      if constexpr (kOdd) {
+        const int lc = __ffs(cols) - 1;
+        switch (L) {
+          case 3: leaf_done = pass2_leaf<3, P1, P2>(a_re, lay.size_a, lay.sp, cols, lc, t.tw,
+                                                    t.leaf_tw, t.plan); break;
+          case 5: leaf_done = pass2_leaf<5, P1, P2>(a_re, lay.size_a, lay.sp, cols, lc, t.tw,
+                                                    t.leaf_tw, t.plan); break;
+          case 7: leaf_done = pass2_leaf<7, P1, P2>(a_re, lay.size_a, lay.sp, cols, lc, t.tw,
+                                                    t.leaf_tw, t.plan); break;
+          default: break;
+        }
+      }
+      // pass 2: P2-point DFT over n2 -> G_r2[k1 + P1 k2] in place, slot k2
+      // of row (r2, k1) (a task reads and writes only its own slots, so no
+      // barrier inside), for an odd L times the leaf's twiddle
+      for (int task = tid; !leaf_done && task < cols * P1 * L; task += kThreads) {
         const int c = task % cols;
         const int rest = task / cols;
         const int k1 = rest % P1;
@@ -466,49 +956,24 @@ cluster_chain_kernel(Src src, const float* __restrict__ tab, const float* __rest
         fft::dft_reg<P2>(re, im, t.tw, P);
 #pragma unroll
         for (int k2 = 0; k2 < P2; ++k2) {
-          const int k = k1 + P1 * k2;
           float vr = re[fft::brev(k2, fft::log2i<P2>())];
           float vi = im[fft::brev(k2, fft::log2i<P2>())];
-          if (L == 1) {
-            a_re[base + k2 * cols] = vr;
-            a_im[base + k2 * cols] = vi;
-          } else {
-            const float2 w = __ldg(t.leaf_tw + r2 * P + k);
+          if constexpr (kOdd) {
+            const float2 w = __ldg(t.leaf_tw + r2 * P + k1 + P1 * k2);
             fft::cmul(vr, vi, w.x, w.y, vr, vi);
-            b_re[(k * L + r2) * cols + c] = vr;
-            b_im[(k * L + r2) * cols + c] = vi;
           }
+          a_re[base + k2 * cols] = vr;
+          a_im[base + k2 * cols] = vi;
         }
       }
       __syncthreads();
     }
 
-    // the leaf (L > 1): F[k + P t] = sum_r2 W_L^(t r2) (W_m'^(k r2) F_r2[k]),
-    // Stockham passes B -> A -> B ..., every one in the [k][t] layout
-    if constexpr (kLeaf) {
-      if (L > 1) {
-        float *ir = b_re, *ii = b_im, *orr = a_re, *oi = a_im;
-        for (int rem = L, ns = 1; rem > 1;) {
-          const int R = fft::leaf_radix(rem);
-          if (R == 5) {
-            fft::leaf_pass<5>(ir, ii, orr, oi, t.leaf, L, P, cols, ns, R, false, 0, 0);
-          } else if (R == 3) {
-            fft::leaf_pass<3>(ir, ii, orr, oi, t.leaf, L, P, cols, ns, R, false, 0, 0);
-          } else if (R == 7) {
-            fft::leaf_pass<7>(ir, ii, orr, oi, t.leaf, L, P, cols, ns, R, false, 0, 0);
-          } else {
-            fft::leaf_pass_split(ir, ii, orr, oi, t.leaf, L, P, cols, ns, R, false, 0, 0);
-          }
-          __syncthreads();
-          float* tr = ir;
-          float* ti = ii;
-          ir = orr;
-          ii = oi;
-          orr = tr;
-          oi = ti;
-          rem /= R;
-          ns *= R;
-        }
+    // the leaf (L > 1): F[k + P t] = sum_r2 W_L^(t r2) G'_r2[k], in place
+    if constexpr (kOdd) {
+      if (!leaf_done) {
+        leaf<P, P1>(a_re, lay.size_a, t.plan, lay.sp, cols, __ffs(cols) - 1, o_re, lay.batch,
+                    nbl);
       }
     }
 
@@ -516,40 +981,38 @@ cluster_chain_kernel(Src src, const float* __restrict__ tab, const float* __rest
     cluster_arrive();
     cluster_wait();
 
-    // the combine: for each k1 of this block's slice and column c, the eight
+    // the combine: for each k1 of this block's slice and column c, the S
     // blocks' F_b[k1] over distributed shared memory, times W_m^(b k1), then
-    // Y[k1 + m' k2] = E[k2] + W_8^k2 O[k2] for k2 < 4 (E, O: the 4-point
-    // DFTs of the even and odd blocks)
-    for (int task = tid; task < cnt * cols; task += kThreads) {
-      const int c = task % cols;
-      const int i = task / cols;
-      const int k1 = lo + i;
-      int at = (k1 % P1) * lay.sp + (k1 / P1) * cols;     // L = 1: A's slots
-      if constexpr (kLeaf) {
-        if (L > 1) at = ((k1 % P) * L + k1 / P) * cols;
+    // the kept outputs k2 < S / 2 of their S-point DFT, Y[k1 + m' k2]
+    const int* perm = nullptr;
+    if constexpr (kOdd) perm = t.plan + __ldg(t.plan + 1);
+    // F_b[k1] of column c in A: slot k1 mod P1, k2 of row k1 / P1 (L = 1);
+    // for an odd L, sub-transform k1 mod P at the leaf's perm[k1 / P]
+    auto f_at = [&](int k1, int c) {
+      if constexpr (kOdd) {
+        return slot<P1>(k1 & (P - 1), lay.sp, cols) +
+               __ldg(perm + (k1 >> fft::log2i<P>())) * (P1 * lay.sp) + c;
+      } else {
+        return (k1 % P1) * lay.sp + (k1 / P1) * cols + c;     // L = 1: A's slots
       }
-      float* mine = f_re + at + c;
-      float gr[kSplit], gi[kSplit];
+    };
+    // the twiddles, the S-point DFT's kept outputs and their store
+    auto finish = [&](float (&gr)[S], float (&gi)[S], int k1, int i, int c) {
 #pragma unroll
-      for (int q = 0; q < kSplit; ++q) {
-        const float* p = cluster.map_shared_rank(mine, q);
-        gr[q] = p[0];
-        gi[q] = p[f_im];
-      }
-#pragma unroll
-      for (int q = 1; q < kSplit; ++q) {
+      for (int q = 1; q < S; ++q) {
         if (k1 > 0) {
           const float2 w = __ldg(t.ctw + q * ms + k1);
           fft::cmul(gr[q], gi[q], w.x, w.y, gr[q], gi[q]);
         }
       }
-      float er[kOut], ei[kOut], orr[kOut], oi[kOut];
-      dft4<0>(gr, gi, er, ei);                    // E: blocks 0, 2, 4, 6
-      dft4<1>(gr, gi, orr, oi);                   // O: blocks 1, 3, 5, 7
-      float yr[kOut], yi[kOut];
-      yr[0] = er[0] + orr[0];
-      yi[0] = ei[0] + oi[0];
-      {
+      float yr[kKeep], yi[kKeep];
+      if constexpr (S == 8) {
+        // E[k2] + W_8^k2 O[k2] (E, O: the 4-point DFTs of the even and odd blocks)
+        float er[kOut], ei[kOut], orr[kOut], oi[kOut];
+        dft4<0>(gr, gi, er, ei);                  // E: blocks 0, 2, 4, 6
+        dft4<1>(gr, gi, orr, oi);                 // O: blocks 1, 3, 5, 7
+        yr[0] = er[0] + orr[0];
+        yi[0] = ei[0] + oi[0];
         float vr, vi;
         fft::cmul(orr[1], oi[1], w8_1.x, w8_1.y, vr, vi);
         yr[1] = er[1] + vr;
@@ -557,12 +1020,21 @@ cluster_chain_kernel(Src src, const float* __restrict__ tab, const float* __rest
         fft::cmul(orr[3], oi[3], w8_3.x, w8_3.y, vr, vi);
         yr[3] = er[3] + vr;
         yi[3] = ei[3] + vi;
+        yr[2] = er[2] + oi[2];                    // + (-i) O
+        yi[2] = ei[2] - orr[2];
+      } else if constexpr (S == 4) {
+        // outputs 0, 1 of the 4-point DFT: (g0 + g2) + (g1 + g3), (g0 - g2) - i (g1 - g3)
+        yr[0] = (gr[0] + gr[2]) + (gr[1] + gr[3]);
+        yi[0] = (gi[0] + gi[2]) + (gi[1] + gi[3]);
+        yr[1] = (gr[0] - gr[2]) + (gi[1] - gi[3]);
+        yi[1] = (gi[0] - gi[2]) - (gr[1] - gr[3]);
+      } else {
+        yr[0] = gr[0] + gr[1];
+        yi[0] = gi[0] + gi[1];
       }
-      yr[2] = er[2] + oi[2];                      // + (-i) O
-      yi[2] = ei[2] - orr[2];
       if constexpr (kFused) {
 #pragma unroll
-        for (int k2 = 0; k2 < kOut; ++k2) {
+        for (int k2 = 0; k2 < kKeep; ++k2) {
           o_re[(k2 * cnt + i) * lay.np + c] = yr[k2];
           o_im[(k2 * cnt + i) * lay.np + c] = yi[k2];
         }
@@ -570,11 +1042,55 @@ cluster_chain_kernel(Src src, const float* __restrict__ tab, const float* __rest
         // the A-stage: Y [units, 2, mh, n], `cols` contiguous floats a row
         float* yo = out + static_cast<size_t>(u) * 2 * mh * n + j0 + c;
 #pragma unroll
-        for (int k2 = 0; k2 < kOut; ++k2) {
+        for (int k2 = 0; k2 < kKeep; ++k2) {
           const size_t row = static_cast<size_t>(k1 + ms * k2);
           yo[row * n] = yr[k2];
           yo[(mh + row) * n] = yi[k2];
         }
+      }
+    };
+    if constexpr (S < kSplit) {
+      // fewer than 8 blocks: kBatch tasks a thread at once, so that 8 reads
+      // over distributed shared memory are in flight, as at S = 8
+      constexpr int kBatch = kSplit / S;
+      const int ntask = cnt * cols;
+      for (int t0 = tid; t0 < ntask; t0 += kBatch * kThreads) {
+        float gr[kBatch][S], gi[kBatch][S];
+#pragma unroll
+        for (int v = 0; v < kBatch; ++v) {
+          const int task = min(t0 + v * kThreads, ntask - 1);   // past the end: not stored
+          const int i = task / cols;
+          float* mine = a_re + f_at(lo + i, task - i * cols);
+#pragma unroll
+          for (int q = 0; q < S; ++q) {
+            const float* p = cluster.map_shared_rank(mine, q);
+            gr[v][q] = p[0];
+            gi[v][q] = p[lay.size_a];
+          }
+        }
+#pragma unroll
+        for (int v = 0; v < kBatch; ++v) {
+          const int task = t0 + v * kThreads;
+          if (task < ntask) {
+            const int i = task / cols;
+            finish(gr[v], gi[v], lo + i, i, task - i * cols);
+          }
+        }
+      }
+    } else {
+      for (int task = tid; task < cnt * cols; task += kThreads) {
+        const int c = task % cols;
+        const int i = task / cols;
+        const int k1 = lo + i;
+        float* mine = a_re + f_at(k1, c);
+        float gr[S], gi[S];
+#pragma unroll
+        for (int q = 0; q < S; ++q) {
+          const float* p = cluster.map_shared_rank(mine, q);
+          gr[q] = p[0];
+          gi[q] = p[lay.size_a];
+        }
+        finish(gr, gi, k1, i, c);
       }
     }
     cluster_arrive();                            // this block has read its peers' F
@@ -591,7 +1107,7 @@ cluster_chain_kernel(Src src, const float* __restrict__ tab, const float* __rest
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
         const int row = tid + i * kThreads;
-        if (row < kOut * cnt) {
+        if (row < kKeep * cnt) {
           fft::merge_row(o_re + row * lay.np, o_im + row * lay.np, rc, cols, nr, nb, f, n_a,
                          phi_a, phi_r, r == 0, s_r[i], s_i[i], mu_r[i], mu_i[i], e[i], d[i]);
         }
@@ -610,7 +1126,7 @@ cluster_chain_kernel(Src src, const float* __restrict__ tab, const float* __rest
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       const int row = tid + i * kThreads;
-      if (row < kOut * cnt) {
+      if (row < kKeep * cnt) {
         const int k2 = row / cnt;
         const int k = lo + (row - k2 * cnt) + ms * k2;
         float pw = nf * e[i];
@@ -626,35 +1142,111 @@ cluster_chain_kernel(Src src, const float* __restrict__ tab, const float* __rest
   }
 }
 
-// The kernel for m' = P L: dispatch over P (P1 = min(32, P)).  A radix m
-// (m % 16 == 0) in 1024 < m <= 8192 gives 2 <= P <= 1024.
-template <class Src, bool kFused, class Fn>
-cudaError_t dispatch(int P, Fn&& fn) {
-  switch (P) {
-    case 2: return fn(cluster_chain_kernel<Src, 2, 1, kFused>);
-    case 4: return fn(cluster_chain_kernel<Src, 4, 1, kFused>);
-    case 8: return fn(cluster_chain_kernel<Src, 8, 1, kFused>);
-    case 16: return fn(cluster_chain_kernel<Src, 16, 1, kFused>);
-    case 32: return fn(cluster_chain_kernel<Src, 32, 1, kFused>);
-    case 64: return fn(cluster_chain_kernel<Src, 32, 2, kFused>);
-    case 128: return fn(cluster_chain_kernel<Src, 32, 4, kFused>);
-    case 256: return fn(cluster_chain_kernel<Src, 32, 8, kFused>);
-    case 512: return fn(cluster_chain_kernel<Src, 32, 16, kFused>);
-    case 1024: return fn(cluster_chain_kernel<Src, 32, 32, kFused>);
-    default: return cudaErrorInvalidValue;
+// L = 1 (a radix m whose m' = m / 8 is a power of two: 2048, 4096, 8192):
+// no leaf.
+template <class Src, int P1, int P2, bool kFused>
+__global__ void __launch_bounds__(kThreads, 1)
+cluster_chain_kernel(Src src, const float* __restrict__ tab, const float* __restrict__ phi,
+                     const float* __restrict__ wd, const float* __restrict__ ph,
+                     float* __restrict__ out, int m, int L, int n, int cols, float salt, int nbl) {
+  cluster_body<Src, kSplit, P1, P2, kFused, false>(src, tab, phi, wd, ph, out, m, L, n, cols,
+                                                   salt, 0);
+}
+
+// An odd L > 1 (every other m the body takes): the leaf, clusters of S.
+template <class Src, int S, int P1, int P2, bool kFused>
+__global__ void __launch_bounds__(kThreads, 1)
+cluster_leaf_kernel(Src src, const float* __restrict__ tab, const float* __restrict__ phi,
+                    const float* __restrict__ wd, const float* __restrict__ ph,
+                    float* __restrict__ out, int m, int L, int n, int cols, float salt, int nbl) {
+  cluster_body<Src, S, P1, P2, kFused, true>(src, tab, phi, wd, ph, out, m, L, n, cols, salt,
+                                             nbl);
+}
+
+// The kernels compile in parts, one source file each, so that nvcc builds
+// them in parallel: kWide (L = 1, P = 256, 512, 1024: m = 2048, 4096, 8192;
+// an odd leaf at P = 32..256) in the entry's own file; an odd leaf at P =
+// 2, 4 (kP2: fused_chain_{radix,wire,astage}_cluster_p2.cu) and at P = 8,
+// 16 (kP8: ..._cluster_p8.cu); P = 1, the dense entries' m = S x odd on
+// the planar chain alone, S = 8 (kS8: fused_chain_dense_cluster8.cu) and
+// S = 2, 4 (kS24: fused_chain_dense_cluster24.cu).
+enum class Part { kWide, kP2, kP8, kS8, kS24 };
+
+// The kernel of one part for m' = P L split S ways (a radix m: S = 8).
+template <Part kPart, class Src, bool kFused, class Fn>
+cudaError_t dispatch(int S, int P, int L, Fn&& fn) {
+  if constexpr (kPart == Part::kWide) {
+    if (S != kSplit) return cudaErrorInvalidValue;
+    if (L == 1) {
+      switch (P) {
+        case 256: return fn(cluster_chain_kernel<Src, 32, 8, kFused>);
+        case 512: return fn(cluster_chain_kernel<Src, 32, 16, kFused>);
+        case 1024: return fn(cluster_chain_kernel<Src, 32, 32, kFused>);
+        default: return cudaErrorInvalidValue;
+      }
+    }
+    switch (P) {
+      case 32: return fn(cluster_leaf_kernel<Src, kSplit, 32, 1, kFused>);
+      case 64: return fn(cluster_leaf_kernel<Src, kSplit, 32, 2, kFused>);
+      case 128: return fn(cluster_leaf_kernel<Src, kSplit, 32, 4, kFused>);
+      case 256: return fn(cluster_leaf_kernel<Src, kSplit, 32, 8, kFused>);
+      default: return cudaErrorInvalidValue;
+    }
+  } else if constexpr (kPart == Part::kP2 || kPart == Part::kP8) {
+    if (S != kSplit || L == 1) return cudaErrorInvalidValue;
+    constexpr int lo = kPart == Part::kP2 ? 2 : 8;
+    if (P == lo) return fn(cluster_leaf_kernel<Src, kSplit, lo, 1, kFused>);
+    if (P == 2 * lo) return fn(cluster_leaf_kernel<Src, kSplit, 2 * lo, 1, kFused>);
+    return cudaErrorInvalidValue;
+  } else {
+    if constexpr (std::is_same_v<Src, PlanarDirect> && kFused) {
+      if (P == 1 && L > 1) {
+        if constexpr (kPart == Part::kS8) {
+          if (S == 8) return fn(cluster_leaf_kernel<Src, 8, 1, 1, kFused>);
+        } else {
+          if (S == 2) return fn(cluster_leaf_kernel<Src, 2, 1, 1, kFused>);
+          if (S == 4) return fn(cluster_leaf_kernel<Src, 4, 1, 1, kFused>);
+        }
+      }
+    }
+    return cudaErrorInvalidValue;
   }
 }
 
+// Bluestein's N for the leaf of an odd L: 0 where every prime factor is
+// <= kMaxRadix, else the power of two >= 2p - 1 for the largest prime p
+// (ops/fullchain.leaf_plan).
+__host__ inline int bluestein_n(int L) {
+  int p = 1;
+  for (int q = 2, v = L; v > 1; ++q) {
+    while (v % q == 0) {
+      v /= q;
+      p = q;
+    }
+    if (q * q > v && v > 1) {
+      p = v;
+      break;
+    }
+  }
+  if (p <= kMaxRadix) return 0;
+  int nb = 1;
+  while (nb < 2 * p - 1) nb *= 2;
+  return nb;
+}
+
 struct Geometry {
-  int ms, P, L, P1, P2;
+  int S, ms, P, L, P1, P2, nbl;
   bool ok;
   explicit Geometry(int m) {
-    ms = m / kSplit;
+    S = m % 16 == 0 ? kSplit : (m & -m);
+    ms = m / fft::imax(S, 1);
     P = ms & -ms;
     L = ms / fft::imax(P, 1);
     P1 = P < 32 ? P : 32;
     P2 = P / fft::imax(P1, 1);
-    ok = m >= kMinM && m <= kMaxM && m % 16 == 0;
+    nbl = L > 1 ? bluestein_n(L) : 0;
+    ok = m >= kMinM && m <= kMaxM && m % 2 == 0 && S >= 2 && ms <= kMaxMs &&
+         nbl <= kMaxBluestein;
   }
 };
 
@@ -662,16 +1254,16 @@ __host__ inline bool cols_ok(int cols) {
   return cols >= 1 && cols <= kMaxCols && (cols & (cols - 1)) == 0;
 }
 
-inline cudaLaunchConfig_t launch_config(int channels, int sectors, size_t smem,
+inline cudaLaunchConfig_t launch_config(int S, int channels, int sectors, size_t smem,
                                         cudaStream_t stream, cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(kSplit), static_cast<unsigned>(channels),
+  cfg.gridDim = dim3(static_cast<unsigned>(S), static_cast<unsigned>(channels),
                      static_cast<unsigned>(sectors));
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = static_cast<unsigned>(kSplit);
+  attr[0].val.clusterDim.x = static_cast<unsigned>(S);
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -679,7 +1271,89 @@ inline cudaLaunchConfig_t launch_config(int channels, int sectors, size_t smem,
   return cfg;
 }
 
-// One launch over units u = sector * channels + channel, a cluster of 8
+// The block's layout at (m, cols), or false where the block does not fit
+// (a Bluestein leaf with no batch in one block's shared memory).
+template <class Src, bool kFused>
+bool layout_for(const Src& src, const Geometry& g, int cols, size_t* smem) {
+  const Layout lay(g.ms, g.L, g.P1, g.P2, g.S, cols, kFused, src.words(cols), g.nbl);
+  *smem = lay.bytes();
+  return lay.words <= kMaxWords && (g.nbl == 0 || lay.batch > 0);
+}
+
+// One launch of a part's kernel over units u = sector * channels +
+// channel, a cluster of S blocks each, on `stream` without synchronising,
+// at the geometry g of m and a block of `smem` bytes.
+template <Part kPart, class Src, bool kFused>
+cudaError_t launch_part(const Src& src, const float* tab, const float* phi, const float* wd,
+                        const float* ph, float* out, int sectors, int channels, int m, int n,
+                        int cols, float salt, size_t smem, cudaStream_t stream) {
+  const Geometry g(m);
+  return dispatch<kPart, Src, kFused>(g.S, g.P, g.L, [&](auto kernel) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = launch_config(g.S, channels, sectors, smem, stream, attr);
+    err = cudaLaunchKernelEx(&cfg, kernel, src, tab, phi, wd, ph, out, m, g.L, n, cols, salt,
+                             g.nbl);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+  });
+}
+
+// Resident blocks per SM and clusters of S the card holds at once
+// (cudaOccupancyMaxActiveClusters) of a part's kernel at m and a block of
+// `smem` bytes.
+template <Part kPart, class Src, bool kFused>
+cudaError_t occupancy_part(int m, size_t smem, int* blocks_per_sm, int* clusters) {
+  const Geometry g(m);
+  return dispatch<kPart, Src, kFused>(g.S, g.P, g.L, [&](auto kernel) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads, smem);
+    if (err != cudaSuccess) return err;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = launch_config(g.S, 1, 1, smem, nullptr, attr);
+    return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+  });
+}
+
+// The parts compiled in their own files: `kind` is `extern template` here,
+// `template` (the explicit instantiation) in the part's file.
+#define WRP_CLUSTER_PART(kind, kPart, Src, kFused)                                            \
+  kind cudaError_t launch_part<kPart, Src, kFused>(                                           \
+      const Src&, const float*, const float*, const float*, const float*, float*, int, int,   \
+      int, int, int, float, size_t, cudaStream_t);                                            \
+  kind cudaError_t occupancy_part<kPart, Src, kFused>(int, size_t, int*, int*);
+WRP_CLUSTER_PART(extern template, Part::kP2, PlanarDirect, true)
+WRP_CLUSTER_PART(extern template, Part::kP2, fft::WireIq, true)
+WRP_CLUSTER_PART(extern template, Part::kP2, PlanarRows, false)
+WRP_CLUSTER_PART(extern template, Part::kP8, PlanarDirect, true)
+WRP_CLUSTER_PART(extern template, Part::kP8, fft::WireIq, true)
+WRP_CLUSTER_PART(extern template, Part::kP8, PlanarRows, false)
+WRP_CLUSTER_PART(extern template, Part::kS8, PlanarDirect, true)
+WRP_CLUSTER_PART(extern template, Part::kS24, PlanarDirect, true)
+
+__host__ inline Part part_of(const Geometry& g) {
+  if (g.P == 1) return g.S == 8 ? Part::kS8 : Part::kS24;
+  if (g.L == 1 || g.P >= 32) return Part::kWide;
+  return g.P <= 4 ? Part::kP2 : Part::kP8;
+}
+
+// A part's function: fn(std::integral_constant<Part, part>) for g's part.
+template <class Fn>
+cudaError_t for_part(const Geometry& g, Fn&& fn) {
+  switch (part_of(g)) {
+    case Part::kWide: return fn(std::integral_constant<Part, Part::kWide>{});
+    case Part::kP2: return fn(std::integral_constant<Part, Part::kP2>{});
+    case Part::kP8: return fn(std::integral_constant<Part, Part::kP8>{});
+    case Part::kS8: return fn(std::integral_constant<Part, Part::kS8>{});
+    default: return fn(std::integral_constant<Part, Part::kS24>{});
+  }
+}
+
+// One launch over units u = sector * channels + channel, a cluster of S
 // blocks each, on `stream` without synchronising.  The caller validates
 // shapes, dtypes and offsets; cudaErrorInvalidValue for an m, cols or grid
 // this body does not take.
@@ -688,40 +1362,29 @@ cudaError_t launch(const Src& src, const float* tab, const float* phi, const flo
                    const float* ph, float* out, int sectors, int channels, int m, int n,
                    int cols, float salt, cudaStream_t stream) {
   const Geometry g(m);
+  size_t smem = 0;
   if (!g.ok || sectors <= 0 || sectors > 65535 || channels <= 0 || channels > 65535 || n <= 0 ||
-      !cols_ok(cols)) {
+      !cols_ok(cols) || !layout_for<Src, kFused>(src, g, cols, &smem)) {
     return cudaErrorInvalidValue;
   }
-  const size_t smem = Layout(g.ms, g.L, g.P1, g.P2, cols, kFused, src.words(cols)).bytes();
-  return dispatch<Src, kFused>(g.P, [&](auto kernel) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    cudaLaunchAttribute attr[1];
-    const cudaLaunchConfig_t cfg = launch_config(channels, sectors, smem, stream, attr);
-    err = cudaLaunchKernelEx(&cfg, kernel, src, tab, phi, wd, ph, out, m, g.L, n, cols, salt);
-    if (err != cudaSuccess) return err;
-    return cudaGetLastError();
+  return for_part(g, [&](auto part) {
+    return launch_part<decltype(part)::value, Src, kFused>(
+        src, tab, phi, wd, ph, out, sectors, channels, m, n, cols, salt, smem, stream);
   });
 }
 
-// Resident blocks per SM and clusters of 8 the card holds at once
+// Resident blocks per SM and clusters of S the card holds at once
 // (cudaOccupancyMaxActiveClusters) at (m, cols) for the source `src` (its
 // staging buffer's size).
 template <class Src, bool kFused>
 cudaError_t occupancy(const Src& src, int m, int cols, int* blocks_per_sm, int* clusters) {
   const Geometry g(m);
-  if (!g.ok || !cols_ok(cols)) return cudaErrorInvalidValue;
-  const size_t smem = Layout(g.ms, g.L, g.P1, g.P2, cols, kFused, src.words(cols)).bytes();
-  return dispatch<Src, kFused>(g.P, [&](auto kernel) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads, smem);
-    if (err != cudaSuccess) return err;
-    cudaLaunchAttribute attr[1];
-    const cudaLaunchConfig_t cfg = launch_config(1, 1, smem, nullptr, attr);
-    return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+  size_t smem = 0;
+  if (!g.ok || !cols_ok(cols) || !layout_for<Src, kFused>(src, g, cols, &smem)) {
+    return cudaErrorInvalidValue;
+  }
+  return for_part(g, [&](auto part) {
+    return occupancy_part<decltype(part)::value, Src, kFused>(m, smem, blocks_per_sm, clusters);
   });
 }
 

@@ -1,9 +1,10 @@
 // The fused chain, stages 01-08, in FFT form for NVIDIA Hopper (sm_90a):
 // one kernel body behind fused_chain_radix{,_salted}.cu (planar IQ; also
-// the dense entries of fused_chain_dense.cu for every even m <= 4096),
+// the dense entries of fused_chain_dense.cu for every even m <= 1024 and
+// m = 2 x odd in (2048, 4096]),
 // fused_chain_wire{,_salted}.cu (raw wire words) and, storing Y instead of
 // running the epilogue, fused_chain_astage.cu (the pulse-sharded path's
-// A-stage); all but the dense entries for m <= 1024 only.
+// A-stage); all for m <= 1024 only but the dense entries' long-ray form.
 //
 // Per unit (one channel of one sector) and pulse column j it computes
 //
@@ -78,27 +79,26 @@
 // ops/fullchain.merged_epilogue_reference is the same algebra in torch.
 //
 // Which kernel serves which m.  This body serves m <= 1024 for every
-// entry (fft_chain_kernel, the register body).  For 1024 < m <= 4096 the
-// dense entries (radix-1 m: m % 16 != 0, so P = 2, 4 or 8) run
-// fft_chain_long_kernel below; the radix, wire and A-stage entries run
-// cluster_chain.cuh there and up to m = 8192 (each ray split across a
-// cluster of 8 blocks); above those the matrix forms
-// (fused_chain_dense.cu, fused_chain_astage_matrix.cu) run.
-// ops/fullchain.chain_route and dense_body choose from m alone.
+// entry (fft_chain_kernel, the register body).  The dense entries' m = 2 x
+// odd in (2048, 4096] run fft_chain_long_kernel below (P = 2); every other
+// m up to 8192 that cluster_chain.cuh takes runs there (each ray split
+// across a cluster of blocks: the radix, wire and A-stage entries, and the
+// dense entries' m = S x odd); the rest the matrix forms
+// (fused_chain_dense.cu, fused_chain_astage_matrix.cu).
+// ops/fullchain.chain_route chooses from m alone.
 //
 // fft_chain_long_kernel, the dense entries' long-ray form, is the same
 // body with two changes.  A thread would own m/512 rows, 13 floats of
-// partials each (26-104 live floats at m = 1026-4094): they would spill.
-// So every row's partials live in shared memory, [13][m/2] floats (48 KB
-// at m = 1832), read and written once per row and round, and the cluster
-// merges them in place (no exchange buffer).  And the leaf runs at every
-// odd L up to 2047 (m = 1832 = 8 x 229), a pass of radix other than 3, 5,
-// 7 spread over the block (leaf_pass_split: one thread's 229 outputs of a
-// 229-point pass would leave 16 threads of 256 busy; cluster_chain.cuh's
-// leaf uses it too).
-// Round sizes: ops/fullchain.fft_geometry (cols = 2 at m = 1832: the
-// block fits 227 KB with f32 samples staged); one block per SM
-// (__launch_bounds__(256, 1): no spill).  Its kernels are instantiated in
+// partials each (more than 52 live floats above m = 2048): they would
+// spill.  So every row's partials live in shared memory, [13][m/2] floats,
+// read and written once per row and round, and the cluster merges them in
+// place (no exchange buffer).  And the leaf runs at every odd L up to 2047
+// (m = 4094: 2047 = 23 x 89 has no factor 3, 5, 7, so one 2047-point
+// pass), a pass of radix other than 3, 5, 7 spread over the block
+// (leaf_pass_split: one thread's 2047 outputs would leave 2 of 256 threads
+// busy at one column a round).
+// Round sizes: ops/fullchain.fft_geometry; one block per SM
+// (__launch_bounds__(256, 1): no spill).  Its kernel is instantiated in
 // fused_chain_radix_long.cu, beside the m <= 1024 ones, so that nvcc
 // builds them in parallel; the m <= 1024 instantiations are those of the
 // register body, unchanged.
@@ -119,7 +119,8 @@ namespace cg = cooperative_groups;
 
 constexpr int kRows = 2;                        // epilogue rows a thread owns
 constexpr int kMaxM = 2 * kRows * kThreads;     // m <= 1024: partials in registers
-constexpr int kLongMaxM = 4096;                 // the long-ray body: partials in smem
+constexpr int kLongMinM = 2050;                 // the long-ray body: m = 2 x odd, partials in smem
+constexpr int kLongMaxM = 4096;
 constexpr int kMaxCluster = 8;                  // the portable cluster size
 constexpr int kStat = 16;                       // floats per row exchanged (m <= 1024)
 constexpr int kPart = 13;                       // floats of a row's partials (long body)
@@ -195,7 +196,7 @@ struct PlanarIq {
 
   // kMinB: the narrowest copy an instantiation may stage a row with: 8 for
   // the leaf's geometries (4 int16 columns a round at m = 1000), 4 for the
-  // long-ray body (2 int16 columns at m = 1832), 16 for the others, whose
+  // long-ray body (1 or 2 int16 columns a round), 16 for the others, whose
   // code keeps the 16-byte path alone
   template <int kMinB>
   __device__ __forceinline__ void stage(void* buf, int u, int j0, int cols) const {
@@ -461,9 +462,8 @@ __device__ __forceinline__ void leaf_pass(const float* ire, const float* iim, fl
 // leaf_pass<0> spread over more threads: a task computes kLeafOuts
 // outputs s of one (j, k, column), reading each input once for all of
 // them; the root indices (r s) mod radix and the twiddle's (r kk step)
-// mod L advance by addition, no division in the loop.  A prime L = 229
-// (m = 1832) otherwise gives P cols = 16 tasks of 229 outputs each to
-// the block's 256 threads.
+// mod L advance by addition, no division in the loop.  A 2047-point pass
+// (m = 4094) otherwise gives P cols = 2 tasks 2047 outputs each.
 constexpr int kLeafOuts = 8;
 __device__ __forceinline__ void leaf_pass_split(const float* ire, const float* iim, float* ore,
                                                 float* oim, const float2* __restrict__ roots,
@@ -1077,9 +1077,9 @@ fft_chain_kernel(Src src, const float* __restrict__ tab, const float* __restrict
   fft_chain_body<Src, P1, P2, kFused, false>(src, tab, phi, wd, ph, out, m, L, n, cols, salt);
 }
 
-// The long-ray body (1024 < m <= 4096, the dense entries' radix-1 m): one
-// block per SM (its shared memory mostly allows no more), registers
-// unbounded below 255.
+// The long-ray body (the dense entries' m = 2 x odd in (2048, 4096]): one
+// block per SM (its shared memory allows no more), registers unbounded
+// below 255.
 template <class Src, int P1, int P2, bool kFused>
 __global__ void __launch_bounds__(kThreads, 1)
 fft_chain_long_kernel(Src src, const float* __restrict__ tab, const float* __restrict__ phi,
@@ -1113,17 +1113,13 @@ cudaError_t dispatch_p(int P, Fn&& fn) {
   }
 }
 
-// The long-ray kernels (1024 < m <= 4096): the dense entries' radix-1 m
-// (m % 16 != 0, so P = 2, 4, 8) with an odd L >= 129.
+// The long-ray kernel: the dense entries' m = 2 x odd in (2048, 4096]
+// (P = 2, an odd L >= 1025); the cluster body serves every other radix-1 m
+// it takes.
 template <class Src, bool kFused, class Fn>
 cudaError_t dispatch_long(int P, Fn&& fn) {
   if constexpr (Src::kStaged && kFused) {
-    switch (P) {
-      case 2: return fn(fft_chain_long_kernel<Src, 2, 1, kFused>);
-      case 4: return fn(fft_chain_long_kernel<Src, 4, 1, kFused>);
-      case 8: return fn(fft_chain_long_kernel<Src, 8, 1, kFused>);
-      default: break;
-    }
+    if (P == 2) return fn(fft_chain_long_kernel<Src, 2, 1, kFused>);
   }
   return cudaErrorInvalidValue;
 }
@@ -1138,7 +1134,8 @@ struct Geometry {
     P1 = P < 32 ? P : 32;
     P2 = P / imax(P1, 1);
     lng = m > kMaxM;
-    ok = m >= 2 && m <= kLongMaxM && m % 2 == 0;  // P >= 2; wire and A-stage: P >= 16
+    // P >= 2; wire and A-stage: P >= 16; the long-ray body: m = 2 x odd above 2048
+    ok = m >= 2 && m % 2 == 0 && (m <= kMaxM || (m >= kLongMinM && m <= kLongMaxM && P == 2));
   }
 };
 
@@ -1218,9 +1215,9 @@ cudaError_t launch_fused_as(const Src& src, const float* tab, const float* phi, 
   });
 }
 
-// m > 1024: the planar long-ray body (the dense entries' radix-1 m); the
-// radix m of the planar and wire chains run cluster_chain.cuh
-// (cudaErrorInvalidValue here).
+// m > 1024: the planar long-ray body (the dense entries' m = 2 x odd above
+// 2048); every other m above 1024 runs cluster_chain.cuh or the matrix
+// kernel (cudaErrorInvalidValue here).
 template <class Src>
 cudaError_t launch_fused(const Src& src, const float* tab, const float* phi, const float* wd,
                          const float* ph, float* out, int sectors, int channels, int m, int n,
@@ -1291,8 +1288,8 @@ template <class Src, bool kFused>
 cudaError_t occupancy(const Src& src, int m, int cols, int blocks, int* blocks_per_sm,
                       int* clusters) {
   if (Geometry(m).lng) {
-    // the dense entries' long-ray body; the radix, wire and A-stage
-    // entries run cluster_chain.cuh above 1024
+    // the dense entries' long-ray body; every other m above 1024 runs
+    // cluster_chain.cuh or the matrix kernel
     if constexpr (kFused && Src::kStaged) {
       return occupancy_long(src, m, cols, blocks, blocks_per_sm, clusters);
     } else {

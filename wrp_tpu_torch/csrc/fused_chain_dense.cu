@@ -3,18 +3,24 @@
 // Replaces the TPU kernel wrp_tpu/ops/pallas/fullchain.py::fused_chain_power
 // (body _kernel) and its offset entry fused_chain_power_at (_kernel_offset):
 // the chain for geometries whose m does not split into radix branches
-// (ops/fullchain.radix_for(m) == 1, e.g. m = 1000 = 8 x 125).  Two bodies,
-// chosen from m alone by the caller (ops/fullchain.dense_body):
+// (ops/fullchain.radix_for(m) == 1, e.g. m = 1000 = 8 x 125).  Three
+// bodies, chosen from m alone by the caller (ops/fullchain.chain_route):
 //
-//   * every even m <= 4096: the FFT-form body of fft_chain.cuh, launched
+//   * every even m <= 1024: the FFT-form body of fft_chain.cuh, launched
 //     through fused_chain_radix.cu's entry wrp_fused_chain_radix (its
 //     planar instantiation, with P = 8 register stages and a 5 x 5 x 5
-//     Stockham leaf at m = 1000; the long-ray body above 1024, a 229-point
-//     leaf at m = 1832).  The TPU's dense
-//     A_half contraction does 98.3 GFLOP per 48 channel-sectors at
-//     m = 1000; the FFT 1.6, so the bytes (0.031 ms) bound it, as the
-//     radix chain.
-//   * any other m (m > 4096, odd m): this file's matrix kernel, the TPU
+//     Stockham leaf at m = 1000), and at m = 2 x odd in (2048, 4096] its
+//     long-ray form.  The TPU's dense A_half contraction does 98.3 GFLOP
+//     per 48 channel-sectors at m = 1000; the FFT 1.6, so the bytes (0.031
+//     ms) bound it, as the radix chain.
+//   * m = S x odd up to 8192 (S = 2, 4, 8, m <= 1024 S: 1832 = 8 x 229,
+//     1836 = 4 x 459, 2002 = 2 x 1001): the cluster body of
+//     cluster_chain.cuh through fused_chain_radix_cluster.cu's entry,
+//     unsalted, each ray split across a cluster of S blocks whose
+//     m/S-point sub-DFT is the odd leaf (Bluestein's form for a prime above
+//     31: 229 at m = 1832).
+//   * any other m (odd m, m = 2 x odd or 4 x odd above those, a leaf prime
+//     above 512): this file's matrix kernel, the TPU
 //     kernel's own algorithm, described next.  The radix entry launches it
 //     too, with its salt, for a radix plan above 8192 (m = 8320), where
 //     wrp_tpu's radix kernel still runs: the TPU kernel

@@ -9,7 +9,8 @@
 // f32 by a uniform runtime switch.  Each channel-sector is a unit: one
 // thread-block cluster of `blocks` blocks (grid (blocks, 1,
 // bc)).  The radix entries take it for m <= 1024 (above,
-// fused_chain_radix_cluster.cu); the dense entries up to m = 4096.
+// fused_chain_radix_cluster.cu); the dense entries for m <= 1024 and, in
+// the long-ray form, m = 2 x odd in (2048, 4096].
 //
 // `offset` (channel-sectors) starts the launch `offset` units into a larger
 // staged array: the benchmark's unsalted offset entry (the TPU's scalar-

@@ -3,14 +3,17 @@
 //
 // Replaces, at those m, the TPU kernels wrp_tpu/ops/pallas/fullchain.py::
 // fused_chain_power_radix (body _kernel_radix) and, with offset and salt,
-// its _kernel_radix_offset.  Per channel-sector it maps planar IQ x [2, m,
-// n] (int16 or f32 by a uniform runtime switch, range rows in NATURAL
-// order) to pow [m/2] through cluster_chain.cuh's body with kFused = true:
-// one cluster of 8 blocks a channel-sector, block b reading rows 8 t + b of
-// both planes straight from device memory in pass 1 (PlanarDirect: a
-// warp's loads are adjacent columns of a row), the m/8-point DFT, the
-// 4-of-8 combine over distributed shared memory, and the Parseval epilogue
-// of the block's m/16 rows, held in registers across every round.  Without
+// its _kernel_radix_offset; unsalted, at the radix-1 m = S x odd (S = 2, 4,
+// 8, m <= 1024 S) also fused_chain_power (_kernel) and fused_chain_power_at
+// (_kernel_offset), the dense entries'.  Per channel-sector it maps planar
+// IQ x [2, m, n] (int16 or f32 by a uniform runtime switch, range rows in
+// NATURAL order) to pow [m/2] through cluster_chain.cuh's body with
+// kFused = true: one cluster of S blocks a channel-sector (S = 8 for a
+// radix m), block b reading rows S t + b of both planes straight from
+// device memory in pass 1 (PlanarDirect: a warp's loads are adjacent
+// columns of a row), the m/S-point DFT, the S/2-of-S combine over
+// distributed shared memory, and the Parseval epilogue of the block's
+// m/2S rows, held in registers across every round.  Without
 // a staging buffer a round takes the wire chain's columns (64 at m = 2048,
 // 32 at 4096, 16 at 8192), so the two chains share the plan's round
 // phasor sums.  The caller picks this entry from m alone

@@ -1,16 +1,17 @@
-// The dense entries' long-ray kernels, for NVIDIA Hopper (sm_90a).
+// The dense entries' long-ray kernel, for NVIDIA Hopper (sm_90a).
 //
-// The instantiations of fft_chain.cuh's long-ray body (1024 < m <= 4096,
-// radix-1 m, so P = 2, 4 or 8 and an odd leaf: every row's epilogue
-// partials in shared memory; the design and bound are described there)
-// behind the dense entries' FFT body (fused_chain_dense.cu's entries reach
-// them through fused_chain_radix.cu's wrp_fused_chain_radix and
-// fft::launch_fused for m > 1024).  They replace, at those m, the TPU
-// kernels wrp_tpu/ops/pallas/fullchain.py::fused_chain_power (_kernel:
-// radix-1 m such as 1832 = 8 x 229) and fused_chain_power_at.  The radix
-// entries' m above 1024 run cluster_chain.cuh
-// (fused_chain_radix_cluster.cu).  A file of their own so that nvcc
-// compiles them in parallel with the m <= 1024 kernels.
+// The instantiation of fft_chain.cuh's long-ray body (the dense entries'
+// m = 2 x odd in (2048, 4096], so P = 2 and an odd leaf of 1025-2047
+// points: every row's epilogue partials in shared memory; the design and
+// bound are described there) behind the dense entries' FFT body
+// (fused_chain_dense.cu's entries reach it through fused_chain_radix.cu's
+// wrp_fused_chain_radix and fft::launch_fused for m > 1024).  It replaces,
+// at those m, the TPU kernels wrp_tpu/ops/pallas/fullchain.py::
+// fused_chain_power (_kernel: m = 4094 = 2 x 23 x 89) and
+// fused_chain_power_at.  Every other radix-1 m above 1024 that the cluster
+// body splits (m = S x odd, m <= 1024 S) runs cluster_chain.cuh
+// (fused_chain_radix_cluster.cu).  A file of its own so that nvcc compiles
+// it in parallel with the m <= 1024 kernels.
 
 #include <cuda_runtime.h>
 

@@ -32,20 +32,28 @@ kernel serves an m is m's alone:
   `fused_chain_power_reference`), counted also in `DENSE_MATRIX_LAUNCHES`.
 * dense, csrc/fused_chain_dense.cu (``wrp_tpu`` `fused_chain_power`):
   `fused_chain_power_dense`, `DENSE_LAUNCHES`, for m that does not split
-  (`radix_for(m) == 1`).  Two bodies, chosen from m alone (`dense_body`):
-  every even m <= FFT_MAX_M = 4096 (m = 1000 = 8 x 125) runs the FFT-form
+  (`radix_for(m) == 1`), through the route `chain_route(m)` names, as the
+  radix entry's: every even m <= 1024 (m = 1000 = 8 x 125) the register
   body of csrc/fft_chain.cuh (plain `fft_chain_power_reference`,
-  `DENSE_FFT_LAUNCHES`); any other m (m > FFT_MAX_M, odd m) the matrix
-  kernel, the dense A_half [m/2, m] contraction (plain
+  `DENSE_FFT_LAUNCHES`); 1024 < m <= CLUSTER_MAX_M, m = S x odd (S = 2, 4,
+  8 and m <= 1024 S: 1832 = 8 x 229) the cluster body through the planar
+  chain's cluster entry, unsalted (a ray split across a cluster of S
+  blocks, each block's m/S-point sub-DFT the leaf alone; plain
+  `cluster_chain_power_reference`, `DENSE_CLUSTER_LAUNCHES`); m = 2 x odd
+  in (2048, FFT_MAX_M = 4096] the long-ray form of the FFT-form body
+  (csrc/fused_chain_radix_long.cu, P = 2: every row's partials in shared
+  memory, `DENSE_FFT_LAUNCHES`); any other m (odd m, m above those, a
+  leaf prime whose Bluestein length would pass 1024) the matrix kernel,
+  the dense A_half [m/2, m] contraction (plain
   `fused_chain_power_reference`, its R == 1 branch,
   `DENSE_MATRIX_LAUNCHES`, which counts the radix entry's launches of it
   above CLUSTER_MAX_M too).
 
 The FFT-form body of csrc/fft_chain.cuh (`fft_takes`) has two forms, chosen
 from m alone (`fft_long`): m <= 1024 keeps each thread's epilogue partials
-in registers; 1024 < m <= FFT_MAX_M (the dense entries' long-ray body,
-csrc/fused_chain_radix_long.cu: radix-1 m, so P = 2, 4 or 8) keeps them in
-shared memory and runs every odd L through the leaf.
+in registers; the dense entries' m = 2 x odd in (2048, FFT_MAX_M] (the
+long-ray body, csrc/fused_chain_radix_long.cu, P = 2) keeps them in shared
+memory and runs every odd L through its Stockham leaf.
 
 The benchmark (wrp_tpu_torch/bench.py) reads each step's slab of a larger
 staged array through the OFFSET entries, one per kernel, each with its own
@@ -132,7 +140,8 @@ RADIX_CLUSTER_LAUNCHES = 0
 DENSE_OFFSET_LAUNCHES = 0    # fused_chain_power_at (fused_chain_dense.cu)
 #: launches of each dense body, from either dense entry (a run shows which
 #: body its m took)
-DENSE_FFT_LAUNCHES = 0       # the FFT-form body (fft_chain.cuh)
+DENSE_FFT_LAUNCHES = 0       # the FFT-form body (fft_chain.cuh, either form)
+DENSE_CLUSTER_LAUNCHES = 0   # the cluster body (fused_chain_radix_cluster.cu)
 DENSE_MATRIX_LAUNCHES = 0    # the matrix kernel of fused_chain_dense.cu (any entry)
 
 RADIX = 8
@@ -187,12 +196,12 @@ class FftGeometry:
     blocks: int
 
 
-#: the FFT-form kernels' limits: m <= FFT_SHORT_M for every entry, and up
-#: to FFT_MAX_M for the dense entries' radix-1 m; at most FFT_MAX_CLUSTER
-#: blocks per unit (the portable cluster size), FFT_THREADS threads a
-#: block.  Up to FFT_SHORT_M a thread holds its two rows' epilogue
-#: partials in registers (csrc/fft_chain.cuh kRows); above it (the
-#: long-ray body) every row's partials live in shared memory
+#: the FFT-form kernels' limits: m <= FFT_SHORT_M for every entry, and for
+#: the dense entries' m = 2 x odd in (2048, FFT_MAX_M] the long-ray form;
+#: at most FFT_MAX_CLUSTER blocks per unit (the portable cluster size),
+#: FFT_THREADS threads a block.  Up to FFT_SHORT_M a thread holds its two
+#: rows' epilogue partials in registers (csrc/fft_chain.cuh kRows); in the
+#: long-ray form every row's partials live in shared memory
 FFT_MAX_M = 4096
 FFT_SHORT_M = 1024
 FFT_MAX_CLUSTER = 8
@@ -216,30 +225,21 @@ def leaf_radix(rem: int) -> int:
     return rem
 
 
+def fft_long(m: int) -> bool:
+    """Whether the long-ray form of the FFT-form body (partials in shared
+    memory, csrc/fft_chain.cuh fft_chain_long_kernel) takes m: the dense
+    entries' m = 2 x odd in (2048, FFT_MAX_M] (dispatch_long, P = 2), which
+    the cluster body cannot split (m / 2 > CLUSTER_MAX_MS)."""
+    return 2048 < m <= FFT_MAX_M and m % 4 == 2
+
+
 def fft_takes(m: int) -> bool:
     """Whether the FFT-form body takes m range rows: every even m, 2 <= m
-    <= FFT_SHORT_M, and above it the radix-1 even m up to FFT_MAX_M (the
-    dense entries' long-ray body, P = 2, 4 or 8: csrc/fft_chain.cuh
-    dispatch_long).  A radix m above FFT_SHORT_M takes the cluster body
+    <= FFT_SHORT_M (the register body), and the dense entries' m that
+    `fft_long` names (its long-ray form).  Every other m above
+    FFT_SHORT_M takes the cluster body or the matrix kernel
     (`chain_route`)."""
-    return (2 <= m <= FFT_MAX_M and m % 2 == 0
-            and (m <= FFT_SHORT_M or radix_for(m) == 1))
-
-
-def fft_long(m: int) -> bool:
-    """Whether m takes the long-ray form of the FFT-form body (m >
-    FFT_SHORT_M, radix 1: partials in shared memory, csrc/fft_chain.cuh
-    fft_chain_long_kernel)."""
-    return fft_takes(m) and m > FFT_SHORT_M
-
-
-def dense_body(m: int) -> str:
-    """The body the dense entries launch for a radix-1 m, from m alone:
-    "fft" (the FFT-form body, csrc/fft_chain.cuh) for every even m <=
-    FFT_MAX_M, else "matrix" (csrc/fused_chain_dense.cu's A_half
-    contraction: m > FFT_MAX_M, odd m).  A radix m never reaches the dense
-    entries (`fused_chain_power_dense` refuses its plan)."""
-    return "fft" if 2 <= m <= FFT_MAX_M and m % 2 == 0 else "matrix"
+    return (2 <= m <= FFT_SHORT_M and m % 2 == 0) or fft_long(m)
 
 
 def _fft_factors(m: int):
@@ -287,16 +287,16 @@ def fft_geometry(m: int, width: int) -> FftGeometry:
     L > 1 (4 at m = 1000 and 960), at most 64 and no
     more than width needs, and for L = 1 with pass 2's cols P1 tasks no
     more than the block's threads (its output then overwrites its input in
-    shared memory); above m = 1024, halved until the fused block fits one
-    block's shared memory with f32 samples staged (2 at m = 1832); blocks:
-    at most FFT_MAX_CLUSTER, each with at least one chunk (8 blocks of 8
-    rounds at n = 512).  Refuses m the body does not take (`fft_takes`)."""
+    shared memory); in the long-ray form, halved until the fused block
+    fits one block's shared memory with f32 samples staged; blocks: at most
+    FFT_MAX_CLUSTER, each with at least one chunk (8 blocks of 8 rounds at
+    n = 512).  Refuses m the body does not take (`fft_takes`)."""
     if not fft_takes(m):
         raise ValueError(f"the FFT-form kernels take an even m <= "
-                         f"{FFT_SHORT_M} and, for the dense entries, a "
-                         f"radix-1 even m <= FFT_MAX_M = {FFT_MAX_M} (a "
-                         f"radix m above {FFT_SHORT_M} takes the cluster "
-                         f"body), got m={m}")
+                         f"{FFT_SHORT_M} and, for the dense entries, m = 2 "
+                         f"x odd in (2048, FFT_MAX_M = {FFT_MAX_M}] (every "
+                         f"other m above {FFT_SHORT_M} takes the cluster "
+                         f"body or the matrix kernel), got m={m}")
     P, L, P1, P2 = _fft_factors(m)
     lng = m > FFT_SHORT_M
     # L > 1: the leaf's passes run between two m x cols buffers (the L = 1
@@ -368,36 +368,168 @@ def fft_round_phasor_sums(phasors: np.ndarray, cols: int) -> np.ndarray:
     return ph.reshape(4, -1, cols).sum(-1).T.astype(np.float32).copy()
 
 
-#: the cluster body (csrc/cluster_chain.cuh), the planar chain's (#3/#4),
-#: the wire chain's (#7/#8) and the A-stage's (#5) route for FFT_SHORT_M <
-#: m <= CLUSTER_MAX_M: each ray split across a cluster of CLUSTER_SPLIT
-#: blocks, block b the rows 8 t + b, of whose 8-point DFT across blocks
-#: CLUSTER_OUT outputs are kept (k < m/2); at most CLUSTER_MAX_COLS pulse
-#: columns a round (16 int16 are a row's whole 32-byte sector; each round
-#: costs two cluster barriers, so a round takes as many columns as shared
-#: memory allows)
+#: the cluster body (csrc/cluster_chain.cuh), the route of the planar chain
+#: (#3/#4), the wire chain (#7/#8), the A-stage (#5) and the dense entries
+#: (#1/#2) for FFT_SHORT_M < m <= CLUSTER_MAX_M: each ray split across a
+#: cluster of S blocks (`cluster_split`: CLUSTER_SPLIT = 8 for a radix m;
+#: S = 2, 4 or 8 for the dense entries' m = S x odd), block b the rows
+#: S t + b, of whose S-point DFT across the blocks S / 2 outputs are kept
+#: (k < m/2); a block's sub-DFT at most CLUSTER_MAX_MS points (its m / 2S
+#: owned rows, two a thread); at most CLUSTER_MAX_COLS pulse columns a
+#: round (each round costs two cluster barriers, so a round takes as many
+#: columns as shared memory allows)
 CLUSTER_MAX_M = 8192
 CLUSTER_SPLIT = 8
-CLUSTER_OUT = 4
+CLUSTER_MAX_MS = 1024
 CLUSTER_MAX_COLS = 64
+#: the cluster body's odd leaf: a register DFT pass for each odd prime
+#: factor up to LEAF_MAX_RADIX; a larger prime p in Bluestein's form, a
+#: cyclic convolution of length N, the power of two >= 2p - 1, at most
+#: BLUESTEIN_MAX_N (a BLUESTEIN_N1-point then an N / BLUESTEIN_N1-point
+#: register DFT each way), BLUESTEIN_MAX_BATCH down to BLUESTEIN_MIN_BATCH
+#: convolutions at a time in one block's shared memory
+LEAF_MAX_RADIX = 31
+BLUESTEIN_MAX_N = 1024
+BLUESTEIN_N1 = 32
+BLUESTEIN_MAX_BATCH = 64
+BLUESTEIN_MIN_BATCH = 4
+MAX_SMEM_WORDS = MAX_SMEM_BYTES // 4
+
+
+def prime_factors(v: int) -> list:
+    """The prime factors of v, ascending, with multiplicity."""
+    out, q = [], 2
+    while q * q <= v:
+        while v % q == 0:
+            out.append(q)
+            v //= q
+        q += 1
+    return out + ([v] if v > 1 else [])
+
+
+def bluestein_n(p: int) -> int:
+    """Bluestein's convolution length for a p-point DFT: the power of two
+    >= 2p - 1."""
+    n = 1
+    while n < 2 * p - 1:
+        n *= 2
+    return n
+
+
+def cluster_split(m: int) -> int:
+    """S, the blocks a unit's cluster splits an even m across: 8 for a radix
+    m (m % 16 == 0), else the power of two in m (2, 4 or 8: m = S x odd,
+    so each block's m/S-point sub-DFT is the odd leaf alone)."""
+    return CLUSTER_SPLIT if m % 16 == 0 else m & -m
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafPlan:
+    """The cluster body's odd leaf, the L-point DFT over r2 of each block's
+    sub-transforms: in-place decimation-in-frequency passes, one a prime
+    factor, ascending (a Bluestein prime, at most one, last).  Pass i of
+    radix R = radices[i] and stride Lc = strides[i] (Lp = R Lc) takes, for
+    each block of Lp points and j < Lc, the points j + r Lc (r < R), an
+    R-point DFT, and writes output s times W_Lp^(j s) back to j + s Lc.
+    Frequency t then lies at position perm[t] (t = s_1 + R_1 (s_2 + R_2
+    (...)) at sum s_i Lc_i); the combine reads it there.  bluestein: the
+    last pass's convolution length N (0: none)."""
+
+    L: int
+    radices: tuple
+    strides: tuple
+    perm: np.ndarray
+    bluestein: int
+
+
+def leaf_plan(L: int) -> LeafPlan:
+    """The leaf's passes for an odd L (see LeafPlan)."""
+    radices = tuple(prime_factors(L))
+    strides, rem = [], L
+    for r in radices:
+        rem //= r
+        strides.append(rem)
+    perm = np.zeros(L, np.int64)
+    for t in range(L):
+        pos, q = 0, t
+        for r, lc in zip(radices, strides):
+            pos += (q % r) * lc
+            q //= r
+        perm[t] = pos
+    big = radices[-1] if radices and radices[-1] > LEAF_MAX_RADIX else 0
+    return LeafPlan(L=L, radices=radices, strides=tuple(strides), perm=perm,
+                    bluestein=bluestein_n(big) if big else 0)
+
+
+def _cluster_factors(m: int):
+    """(S, ms, P, L, P1, P2) of the cluster body at m."""
+    S = cluster_split(m)
+    ms = m // S
+    P = ms & -ms
+    P1 = min(32, P)
+    return S, ms, P, ms // P, P1, P // P1
+
+
+def cluster_refusal(m: int):
+    """Why the cluster body does not take m, or None where it does: an odd
+    m, m outside (FFT_SHORT_M, CLUSTER_MAX_M], a block's sub-DFT over
+    CLUSTER_MAX_MS points (m = 4 x odd above 4096, 2 x odd above 2048), or
+    a leaf prime whose Bluestein length passes BLUESTEIN_MAX_N."""
+    if m % 2 or not FFT_SHORT_M < m <= CLUSTER_MAX_M:
+        return (f"the cluster body takes an even m with {FFT_SHORT_M} < m "
+                f"<= CLUSTER_MAX_M = {CLUSTER_MAX_M}, got m={m}")
+    S, ms, _, L, _, _ = _cluster_factors(m)
+    if ms > CLUSTER_MAX_MS:
+        return (f"m={m} = {S} x {ms}: a block's {ms}-point sub-DFT passes "
+                f"CLUSTER_MAX_MS = {CLUSTER_MAX_MS}")
+    n = leaf_plan(L).bluestein
+    if n > BLUESTEIN_MAX_N:
+        return (f"m={m}: the leaf prime {prime_factors(L)[-1]} needs a "
+                f"Bluestein length {n} > BLUESTEIN_MAX_N = {BLUESTEIN_MAX_N}")
+    return None
+
+
+def cluster_takes(m: int) -> bool:
+    """Whether the cluster body takes m (`cluster_refusal`)."""
+    return cluster_refusal(m) is None
+
+
+def chain_route(m: int) -> str:
+    """The kernel every chain launches for m, from m alone: the planar
+    chain (#3/#4), the wire chain (#7/#8) and the A-stage (#5) for a radix
+    m, the dense entries (#1/#2) for a radix-1 m: "register"
+    (csrc/fft_chain.cuh's register body, even m <= FFT_SHORT_M), "cluster"
+    (csrc/cluster_chain.cuh, up to CLUSTER_MAX_M where `cluster_refusal`
+    finds nothing), "long" (the dense entries' m = 2 x odd in (2048,
+    FFT_MAX_M]: the FFT-form body's long-ray form) or "matrix" (any other:
+    csrc/fused_chain_dense.cu's matrix kernel and its wire source,
+    csrc/fused_chain_astage_matrix.cu; `cluster_refusal` says why)."""
+    if 2 <= m <= FFT_SHORT_M and m % 2 == 0:
+        return "register"
+    if cluster_takes(m):
+        return "cluster"
+    return "long" if fft_long(m) else "matrix"
 
 
 @dataclasses.dataclass(frozen=True)
 class ClusterGeometry:
     """How the cluster body (csrc/cluster_chain.cuh) cuts m range rows.
 
-    Block b of a unit's cluster owns the rows r = 8 t + b, t < ms = m / 8,
-    and runs their ms-point DFT F_b as the register body runs its range DFT
-    (ms = P L, P the largest power of two dividing ms, L odd; P = P1 P2, a
-    P1-point then a P2-point register DFT, each <= 32; for L > 1 the
-    leaf's Stockham passes).  Then block b' combines the k1 of its slice,
-    [b' span, min(ms, (b' + 1) span)), span = ceil(ms / 8), over the eight
-    blocks: Y[k1 + ms k2] = sum_b W_8^(b k2) W_m^(b k1) F_b[k1], k2 < 4.
+    Block b of a unit's cluster of S blocks owns the rows r = S t + b,
+    t < ms = m / S, and runs their ms-point DFT F_b (ms = P L, P the largest
+    power of two dividing ms, L odd; P = P1 P2, a P1-point then a P2-point
+    register DFT, each <= 32; for L > 1 the leaf's passes, `leaf_plan`, in
+    place).  Then block b' combines the k1 of its slice,
+    [b' span, min(ms, (b' + 1) span)), span = ceil(ms / S), over the S
+    blocks: Y[k1 + ms k2] = sum_b W_S^(b k2) W_m^(b k1) F_b[k1], k2 < S / 2.
     Every block sees every pulse column, `cols` a round: as many as one
     block's shared memory allows for the body (the planar and wire chains,
     which read their samples straight from device memory, or the A-stage,
-    which stages them, at its input's sample width)."""
+    which stages them, at its input's sample width).  bluestein: the leaf's
+    convolution length N (0: none), batch: the convolutions a block runs at
+    a time at this cut."""
 
+    S: int
     ms: int
     P: int
     L: int
@@ -405,54 +537,46 @@ class ClusterGeometry:
     P2: int
     cols: int
     span: int
+    bluestein: int
+    batch: int
 
 
-def cluster_takes(m: int) -> bool:
-    """Whether the cluster body takes m: FFT_SHORT_M < m <= CLUSTER_MAX_M
-    and m splits into radix branches (so m % 16 == 0: ms = m / 8 is even)."""
-    return FFT_SHORT_M < m <= CLUSTER_MAX_M and radix_for(m) > 1
-
-
-def chain_route(m: int) -> str:
-    """The kernel the planar chain (#3/#4), the wire chain (#7/#8) and the
-    A-stage (#5) launch for m (a radix m), from m alone: "register"
-    (csrc/fft_chain.cuh's register body, m <= FFT_SHORT_M), "cluster"
-    (csrc/cluster_chain.cuh, up to CLUSTER_MAX_M) or "matrix" (above it:
-    csrc/fused_chain_dense.cu's matrix kernel and its wire source,
-    csrc/fused_chain_astage_matrix.cu)."""
-    if m <= FFT_SHORT_M and fft_takes(m):
-        return "register"
-    return "cluster" if cluster_takes(m) else "matrix"
-
-
-def _cluster_factors(m: int):
-    """(ms, P, L, P1, P2) of the cluster body at m."""
-    ms = m // CLUSTER_SPLIT
-    P = ms & -ms
-    P1 = min(32, P)
-    return ms, P, ms // P, P1, P // P1
+def _cluster_layout(m: int, cols: int, fused: bool, elem: int):
+    """(words, batch) of one block of the cluster body: csrc/cluster_chain.cuh
+    Layout.  A ([r2][k1][n2][column] slots, rows padded where pass 2 reads
+    them at cols < 32: the leaf runs in them, in place), the staged
+    samples, then one region that the fused chains' owned rows use after
+    the leaf and a Bluestein leaf's convolutions use during it (the largest
+    power-of-two batch from BLUESTEIN_MAX_BATCH down to BLUESTEIN_MIN_BATCH
+    that fits; 0 where none does),
+    then the fused chains' round constants (wd, 4 phasor rows)."""
+    S, ms, _, L, P1, P2 = _cluster_factors(m)
+    pad = cols if cols < 32 and P2 > 1 else 0
+    size_a = _round4(L * P1 * (P2 * cols + pad))
+    own = _round4(S // 2 * _cdiv(ms, S) * (cols + 1)) if fused else 0
+    base = (2 * size_a + _round4(2 * ms * cols * elem // 4)
+            + (_round4(5 * cols) if fused else 0))
+    n = leaf_plan(L).bluestein if L > 1 else 0
+    batch = 0
+    if n:
+        batch = next((g for g in (64, 32, 16, 8, 4)
+                      if BLUESTEIN_MIN_BATCH <= g <= BLUESTEIN_MAX_BATCH
+                      and base + max(2 * own, 2 * g * n) <= MAX_SMEM_WORDS), 0)
+    return base + max(2 * own, 2 * batch * n), batch
 
 
 def cluster_smem_bytes(m: int, cols: int, fused: bool = True,
                        elem: int = 0) -> int:
     """Dynamic shared memory of one block of the cluster body at m and
-    `cols` columns a round: the words of csrc/cluster_chain.cuh Layout.
-    fused: the planar and wire chains (the owned rows and the round's
-    constants beside the FFT's buffers); else the A-stage.  `elem`: the
-    bytes of a staged planar sample (2: int16, 4: f32; 0: none staged, the
-    samples read straight from device memory, as the fused chains do)."""
-    ms, P, L, P1, P2 = _cluster_factors(m)
-    pad = cols if cols < 32 else 0
-    sp = P2 * cols + pad
-    leaf = ms * cols
-    if L == 1:          # pass 2 in place: F stays in pass 1's slots
-        size_a, size_b = _round4(P1 * sp), 0
-    else:
-        size_a = _round4(max(L * P1 * sp if P2 > 1 else 0, leaf))
-        size_b = _round4(leaf)
-    own = _round4(CLUSTER_OUT * _cdiv(ms, CLUSTER_SPLIT) * (cols + 1)) if fused else 0
-    words = (2 * (size_a + size_b) + _round4(2 * ms * cols * elem // 4)
-             + 2 * own + (_round4(5 * cols) if fused else 0))
+    `cols` columns a round (`_cluster_layout`; a Bluestein leaf that no
+    batch fits reads as one byte over the block's 227 KB).  fused: the
+    planar and wire chains (the owned rows and the round's constants beside
+    the FFT's buffer); else the A-stage.  `elem`: the bytes of a staged
+    planar sample (2: int16, 4: f32; 0: none staged, the samples read
+    straight from device memory, as the fused chains do)."""
+    words, batch = _cluster_layout(m, cols, fused, elem)
+    if leaf_plan(_cluster_factors(m)[3]).bluestein and not batch:
+        return MAX_SMEM_BYTES + 1
     return 4 * words
 
 
@@ -463,21 +587,93 @@ def cluster_geometry(m: int, width: int, fused: bool = True,
     stage nothing, elem = 0) or the A-stage staging samples of `elem` bytes
     (`cluster_smem_bytes`): cols the largest power of two <=
     CLUSTER_MAX_COLS that width needs, halved until the block fits one
-    block's shared memory (the fused chains and the int16 A-stage 64 at m =
-    2048, 32 at 1536, 1840 and 4096, 16 at 4112-4160 and 8192; the f32
-    A-stage half that at 2048, 4096, 8192)."""
-    if not cluster_takes(m):
-        raise ValueError(f"the cluster body takes a radix m with "
-                         f"{FFT_SHORT_M} < m <= CLUSTER_MAX_M = "
-                         f"{CLUSTER_MAX_M}, got m={m}")
-    ms, P, L, P1, P2 = _cluster_factors(m)
+    block's shared memory.  The leaf runs in place in pass 1's slots, so an
+    odd L takes the columns L = 1 takes at the same block budget: the fused
+    chains 64 at m = 1536, 1832, 1840 and 2048, 32 at 1836, 4096 and 4112-
+    4160, 16 at 2002 and 8192.  Refuses m the body does not take, saying
+    why (`cluster_refusal`)."""
+    why = cluster_refusal(m)
+    if why is not None:
+        raise ValueError(why)
+    S, ms, P, L, P1, P2 = _cluster_factors(m)
     cols = 1
     while cols < CLUSTER_MAX_COLS and cols < width:
         cols *= 2
     while cols > 1 and cluster_smem_bytes(m, cols, fused, elem) > MAX_SMEM_BYTES:
         cols //= 2
-    return ClusterGeometry(ms=ms, P=P, L=L, P1=P1, P2=P2, cols=cols,
-                           span=_cdiv(ms, CLUSTER_SPLIT))
+    return ClusterGeometry(S=S, ms=ms, P=P, L=L, P1=P1, P2=P2, cols=cols,
+                           span=_cdiv(ms, S),
+                           bluestein=leaf_plan(L).bluestein if L > 1 else 0,
+                           batch=_cluster_layout(m, cols, fused, elem)[1])
+
+
+def _words(ints) -> np.ndarray:
+    """int32 values as the float32 words that hold their bits, padded to an
+    even count (a float2 after them stays 8-byte aligned)."""
+    v = list(ints) + [0] * (len(ints) % 2)
+    return np.asarray(v, np.int32).view(np.float32)
+
+
+def _inter32(c) -> np.ndarray:
+    """complex values as interleaved (re, im) float32"""
+    c = np.asarray(c, np.complex128).reshape(-1)
+    return np.stack([c.real, c.imag], -1).reshape(-1).astype(np.float32)
+
+
+def leaf_tables(L: int) -> np.ndarray:
+    """The leaf's plan as float32 words (int32 bits where an int):
+
+      header      npass, perm's word offset, then per pass R, Lc, nq = L /
+                  R and the word offset of its data (all from the header)
+      perm        L ints: the position of frequency t
+      per pass    pos [nq] ints: the first point of butterfly jj (block jj
+                  // Lc, j = jj % Lc: block Lp + j); then for R <=
+                  LEAF_MAX_RADIX (cos, sin)(2 pi t / R), t = 1..(R - 1)/2,
+                  and, for Lc > 1, W_Lp^(j s) at [jj][s - 1]; for a
+                  Bluestein prime p (Lc = 1): the chirp exp(-i pi (t^2 mod
+                  2p) / p), t < p; the filter's N-point spectrum
+                  FFT(conj(chirp) on (-p, p), cyclic) / N; W_N^(k1 n2) at
+                  [n2][k1] (k1 < 32); W_32^t, t < 32.
+    Every value is fp64 on the host, cast once."""
+    lp = leaf_plan(L)
+    npass = len(lp.radices)
+    head = 2 + 4 * npass + (4 * npass + 2) % 2
+    parts, at = [], head
+    perm_at = at
+    parts.append(_words(lp.perm))
+    at += parts[-1].size
+    entries = []
+    for r, lc in zip(lp.radices, lp.strides):
+        nq, lp_ = L // r, r * lc
+        jj = np.arange(nq)
+        blk, j = jj // lc, jj % lc
+        data = [_words(blk * lp_ + j)]
+        if r <= LEAF_MAX_RADIX:
+            t = np.arange(1, (r - 1) // 2 + 1)
+            data.append(np.stack([np.cos(2 * np.pi * t / r),
+                                  np.sin(2 * np.pi * t / r)], -1)
+                        .reshape(-1).astype(np.float32))
+            if lc > 1:
+                s_ = np.arange(1, r)
+                data.append(_inter32(np.exp(-2j * np.pi * np.outer(j, s_)
+                                            / lp_)))
+        else:
+            p, n = r, lp.bluestein
+            t = np.arange(p)
+            chirp = np.exp(-1j * np.pi * ((t * t) % (2 * p)) / p)
+            b = np.zeros(n, np.complex128)
+            b[t] = np.conj(chirp)
+            b[(-t[1:]) % n] = np.conj(chirp[1:])
+            n2 = n // BLUESTEIN_N1
+            k1, q2 = np.meshgrid(np.arange(BLUESTEIN_N1), np.arange(n2))
+            data += [_inter32(chirp), _inter32(np.fft.fft(b) / n),
+                     _inter32(np.exp(-2j * np.pi * k1 * q2 / n)),
+                     _inter32(_roots(BLUESTEIN_N1, BLUESTEIN_N1))]
+        entries += [r, lc, nq, at]
+        parts += data
+        at += sum(d.size for d in data)
+    header = _words([npass, perm_at] + entries)
+    return np.concatenate([header] + parts)
 
 
 def cluster_tables(consts: PipelineConstants) -> np.ndarray:
@@ -487,25 +683,22 @@ def cluster_tables(consts: PipelineConstants) -> np.ndarray:
       [0, m)                 w_r c, the real range window and scale
       [m, m + 2P)            W_P^t (re, im), t < P
       then 2 L P             W_ms^(k r2) at (r2 P + k): the leaf's twiddles
-      then 2 L               W_L^t, t < L: the leaf's roots
-      then 2 * 8 ms          W_m^(b k1) at (b ms + k1): the cluster's twiddles
-      then 2 * 8             W_8^t, t < 8: the combine across the blocks."""
+      then 2 S ms            W_m^(b k1) at (b ms + k1): the cluster's twiddles
+      then 2 S               W_S^t, t < S: the combine across the blocks
+      then (L > 1)           the leaf's plan, `leaf_tables`."""
     m = consts.op_a_half.shape[1]
-    ms, P, L, _, _ = _cluster_factors(m)
+    S, ms, P, L, _, _ = _cluster_factors(m)
     wr_c = np.asarray(consts.op_a_half[0]).astype(np.complex128).real
     k, r2 = np.meshgrid(np.arange(P), np.arange(L))          # [L, P]
     leaf_tw = _roots(ms, ms)[(k * r2) % ms]
-    b, k1 = np.meshgrid(np.arange(CLUSTER_SPLIT), np.arange(ms), indexing="ij")
-    ctw = _roots(m, m)[(b * k1) % m]                          # [8, ms]
-
-    def inter(c):
-        c = np.asarray(c).reshape(-1)
-        return np.stack([c.real, c.imag], -1).reshape(-1)
-
-    return np.concatenate([wr_c, inter(_roots(P, P)), inter(leaf_tw),
-                           inter(_roots(L, L)), inter(ctw),
-                           inter(_roots(CLUSTER_SPLIT, CLUSTER_SPLIT))]
-                          ).astype(np.float32)
+    b, k1 = np.meshgrid(np.arange(S), np.arange(ms), indexing="ij")
+    ctw = _roots(m, m)[(b * k1) % m]                          # [S, ms]
+    head = np.concatenate([wr_c.astype(np.float32), _inter32(_roots(P, P)),
+                           _inter32(leaf_tw), _inter32(ctw),
+                           _inter32(_roots(S, S))])
+    if L == 1:
+        return head
+    return np.concatenate([head, leaf_tables(L)])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -673,8 +866,8 @@ def _fft_plan_tables(plan: RadixPlan, name: str):
     tensors: win [m] f32, tw [P], leaf_tw [L, P], roots [L])."""
     if plan.fft_t is None:
         raise ValueError(f"{name}: the FFT-form kernels take an even m <= "
-                         f"{FFT_SHORT_M} and a radix-1 even m <= FFT_MAX_M "
-                         f"= {FFT_MAX_M} (m={plan.m})")
+                         f"{FFT_SHORT_M} and the dense entries' m = 2 x odd "
+                         f"in (2048, FFT_MAX_M = {FFT_MAX_M}] (m={plan.m})")
     g = plan.fft
     m, P, L = plan.m, g.P, g.L
     t = plan.fft_t
@@ -738,16 +931,16 @@ def fft_stage_reference(x: torch.Tensor, plan: RadixPlan,
     return y.real.contiguous(), y.imag.contiguous()
 
 
-def _fft_points(v: torch.Tensor, P1: int, P2: int, tw: torch.Tensor,
-                leaf_tw: torch.Tensor, roots: torch.Tensor) -> torch.Tensor:
-    """The FFT-form kernels' DFT of v [bc, m, w] complex along dim 1, m = P
-    L (P = P1 P2, L = len(roots)), in natural order: the steps
-    `fft_stage_reference` writes out, on the twiddles W_P `tw`, the leaf's
-    `leaf_tw` [L, P] and its roots."""
-    P, L = P1 * P2, roots.shape[0]
+def _pow2_points(v: torch.Tensor, P1: int, P2: int,
+                 tw: torch.Tensor) -> torch.Tensor:
+    """The four-step P-point DFTs (P = P1 P2) of v [bc, m, w] complex over
+    the decimated rows L i + r2 (L = m / P): X [bc, L(r2), P(k), w], the
+    P1-point DFT over n1 of rows i = P2 n1 + n2, the twiddle W_P^(k1 n2),
+    the P2-point DFT over n2 (k = k1 + P1 k2), on the twiddles W_P `tw`."""
+    P = P1 * P2
     bc, m, w = v.shape
-    v = v.reshape(bc, P, L, w).permute(0, 2, 1, 3)         # [bc, L, P(i), w]
-    v = v.reshape(bc, L, P1, P2, w)                        # i = P2 n1 + n2
+    v = v.reshape(bc, P, m // P, w).permute(0, 2, 1, 3)    # [bc, L, P(i), w]
+    v = v.reshape(bc, m // P, P1, P2, w)                   # i = P2 n1 + n2
     a1 = torch.arange(P1)
     a2 = torch.arange(P2)
     f1 = tw[(a1[:, None] * a1[None, :] * P2) % P]          # [k1, n1]
@@ -755,8 +948,18 @@ def _fft_points(v: torch.Tensor, P1: int, P2: int, tw: torch.Tensor,
     a = a * tw[(a1[:, None] * a2[None, :]) % P][None, None, :, :, None]
     f2 = tw[(a2[:, None] * a2[None, :] * (P // P2)) % P]   # [k2, n2]
     xk = torch.einsum("jq,blkqw->bljkw", f2, a)            # [bc, L, k2, k1, w]
-    xk = xk.reshape(bc, L, P, w)                           # k = k1 + P1 k2
-    if L > 1:
+    return xk.reshape(bc, m // P, P, w)                    # k = k1 + P1 k2
+
+
+def _fft_points(v: torch.Tensor, P1: int, P2: int, tw: torch.Tensor,
+                leaf_tw: torch.Tensor, roots: torch.Tensor) -> torch.Tensor:
+    """The FFT-form kernels' DFT of v [bc, m, w] complex along dim 1, m = P
+    L (P = P1 P2, L = len(roots)), in natural order: the steps
+    `fft_stage_reference` writes out, on the twiddles W_P `tw`, the leaf's
+    `leaf_tw` [L, P] and its roots."""
+    bc, m, w = v.shape
+    xk = _pow2_points(v, P1, P2, tw)
+    if roots.shape[0] > 1:
         xk = leaf_fft_reference(xk * leaf_tw[None, :, :, None],
                                 roots)                     # [bc, k2, k, w]
     return xk.reshape(bc, m, w)
@@ -855,16 +1058,16 @@ def merged_epilogue_reference(yr: torch.Tensor, yi: torch.Tensor,
     return pw
 
 
-def _cluster_plan_tables(plan: RadixPlan, name: str):
-    """(geometry at the plan's n, the cluster_tables split into tensors: win
-    [m] f32, tw [P], leaf_tw [L, P], roots [L], ctw [8, ms], w8 [8], the
-    complex ones complex64)."""
+def _cluster_plan_tables(plan: RadixPlan, name: str) -> dict:
+    """The cluster_tables of the plan, split into tensors on the table's
+    device: geometry (at the plan's n), win [m] f32, tw [P], leaf_tw
+    [L, P], ctw [S, ms], ws [S] (complex64), and for L > 1 the leaf's perm
+    and passes (`parse_leaf_tables`)."""
     if plan.cluster_t is None:
-        raise ValueError(f"{name}: the cluster body takes a radix m with "
-                         f"{FFT_SHORT_M} < m <= CLUSTER_MAX_M = "
-                         f"{CLUSTER_MAX_M} (m={plan.m})")
+        raise ValueError(f"{name}: " + (cluster_refusal(plan.m)
+                                         or f"m={plan.m} takes another route"))
     g = plan.cluster
-    m, P, L, ms = plan.m, g.P, g.L, g.ms
+    m, P, L, ms, S = plan.m, g.P, g.L, g.ms, g.S
     t = plan.cluster_t
     at = [m]
 
@@ -873,11 +1076,140 @@ def _cluster_plan_tables(plan: RadixPlan, name: str):
         at[0] += 2 * count
         return torch.complex(v[:, 0], v[:, 1])
 
-    tw = cplx(P)
-    leaf_tw = cplx(L * P).reshape(L, P)
-    roots = cplx(L)
-    ctw = cplx(CLUSTER_SPLIT * ms).reshape(CLUSTER_SPLIT, ms)
-    return g, t[:m], tw, leaf_tw, roots, ctw, cplx(CLUSTER_SPLIT)
+    out = {"geometry": g, "win": t[:m], "tw": cplx(P),
+           "leaf_tw": cplx(L * P).reshape(L, P),
+           "ctw": cplx(S * ms).reshape(S, ms), "ws": cplx(S), "passes": []}
+    if L > 1:
+        out.update(parse_leaf_tables(t[at[0]:], L, g.bluestein))
+    return out
+
+
+def parse_leaf_tables(t: torch.Tensor, L: int, n: int) -> dict:
+    """`leaf_tables(L)` (float32 words t, on any device) split into tensors:
+    perm [L] and `passes`, each {R, Lc, pos, cs, sn, tw} or, for a
+    Bluestein prime (convolution length n), {R, Lc, pos, n, chirp, bh,
+    ftw, r32}; complex ones complex64."""
+    words = t.view(torch.int32)
+
+    def ints(lo, count):
+        return words[lo:lo + count].long()
+
+    def cplx(lo, count):
+        v = t[lo:lo + 2 * count].reshape(count, 2)
+        return torch.complex(v[:, 0], v[:, 1])
+
+    npass, perm_at = ints(0, 2).tolist()
+    out = {"perm": ints(perm_at, L), "passes": []}
+    for i in range(npass):
+        r, lc, nq, off = ints(2 + 4 * i, 4).tolist()
+        ps = {"R": r, "Lc": lc, "pos": ints(off, nq)}
+        data = off + nq + nq % 2
+        if r <= LEAF_MAX_RADIX:
+            h = (r - 1) // 2
+            cs = t[data:data + 2 * h].reshape(h, 2)
+            ps["cs"], ps["sn"] = cs[:, 0], cs[:, 1]
+            if lc > 1:
+                ps["tw"] = cplx(data + 2 * h, nq * (r - 1)).reshape(nq, r - 1)
+        else:
+            ps.update(n=n, chirp=cplx(data, r), bh=cplx(data + 2 * r, n),
+                      ftw=cplx(data + 2 * (r + n), n).reshape(
+                          n // BLUESTEIN_N1, BLUESTEIN_N1),
+                      r32=cplx(data + 2 * (r + 2 * n), BLUESTEIN_N1))
+        out["passes"].append(ps)
+    return out
+
+
+def _odd_dft_reference(v: torch.Tensor, cs: torch.Tensor,
+                       sn: torch.Tensor) -> torch.Tensor:
+    """The leaf's register DFT of an odd prime R along dim 2 of v [b, nb,
+    R, ...] (csrc/cluster_chain.cuh dft_odd): a_r = v_r + v_(R-r), b_r =
+    v_r - v_(R-r) (r = 1..H, H = (R - 1) / 2), X_0 = v_0 + sum a_r, and
+    for s = 1..H, C = v_0 + sum a_r cos(2 pi r s / R), T = sum b_r sin(2
+    pi r s / R): X_s = C - i T, X_(R-s) = C + i T, each cos and sin one of
+    the table's H (cs, sn), folded."""
+    R = v.shape[2]
+    h = (R - 1) // 2
+    e = (torch.arange(1, h + 1)[:, None] * torch.arange(1, h + 1)[None, :]) % R
+    f = torch.where(e <= h, e, R - e) - 1                  # [s, r]
+    cm = cs.to(v.device)[f]
+    sm = torch.where(e <= h, 1.0, -1.0).to(sn.dtype).to(v.device) * sn.to(
+        v.device)[f]
+    v0, vr = v[:, :, :1], v[:, :, 1:h + 1]
+    vm = v[:, :, torch.arange(R - 1, h, -1, device=v.device)]   # v_(R-r)
+    a, b = vr + vm, vr - vm
+    c = v0 + torch.einsum("sr,bnr...->bns...", cm.to(v.dtype), a)
+    tt = torch.einsum("sr,bnr...->bns...", sm.to(v.dtype), b)
+    itt = torch.complex(-tt.imag, tt.real)                 # i T
+    return torch.cat([v0 + a.sum(2, keepdim=True), c - itt,
+                      (c + itt).flip(2)], 2)
+
+
+def _bluestein_reference(v: torch.Tensor, ps: dict) -> torch.Tensor:
+    """The leaf's p-point DFT along dim 2 of v [b, nb, p, T] in Bluestein's
+    form, the kernel's steps (csrc/cluster_chain.cuh bluestein_pass): the
+    chirped inputs, zero-padded to N = 32 N2 at t = N2 n1 + n2; a 32-point
+    DFT over n1, W_N^(k1 n2); an N2-point DFT over n2 (A[k1 + 32 k2]), times
+    the filter's spectrum; conjugated, an N2-point DFT over k2, W_N^(k1 n2);
+    a 32-point DFT over k1; conjugated (the inverse transform, 1/N in the
+    filter), times the chirp: X_t for t < p."""
+    b, nb, p, tcols = v.shape
+    n, n1 = ps["n"], BLUESTEIN_N1
+    n2 = n // n1
+    r32, chirp, bh = (ps[k].to(v.device, v.dtype) for k in ("r32", "chirp", "bh"))
+    ftw = ps["ftw"].to(v.device, v.dtype).transpose(0, 1)  # ftw [k1, n2]
+    q1 = torch.arange(n1)
+    q2 = torch.arange(n2)
+    e1 = r32[(q1[:, None] * q1[None, :]) % n1]             # W_32^(k1 n1)
+    e2 = r32[((q2[:, None] * q2[None, :]) * (n1 // n2)) % n1]
+    a = torch.zeros(b, nb, n, tcols, dtype=v.dtype, device=v.device)
+    a[:, :, :p] = v * chirp[None, None, :, None]
+    a = a.reshape(b, nb, n1, n2, tcols)                    # [n1, n2]
+    u = torch.einsum("kn,bjnqw->bjkqw", e1, a) * ftw[None, None, :, :, None]
+    y = torch.einsum("kq,bjnqw->bjnkw", e2, u)             # [k1, k2]
+    y = y * bh.reshape(n2, n1).transpose(0, 1)[None, None, :, :, None]
+    z = torch.einsum("qk,bjnkw->bjnqw", e2, y.conj())      # [k1, n2']
+    z = z * ftw[None, None, :, :, None]
+    o = torch.einsum("mk,bjkqw->bjmqw", e1, z)             # [n1', n2']
+    c = o.conj().reshape(b, nb, n, tcols)[:, :, :p]        # t = N2 n1' + n2'
+    return c * chirp[None, None, :, None]
+
+
+def cluster_leaf_reference(z: torch.Tensor, tables: dict) -> torch.Tensor:
+    """The cluster body's leaf on z [b, L, ...] (complex, natural r2 order,
+    its twiddles W_ms^(k r2) applied): the in-place passes of `leaf_plan`
+    (`_odd_dft_reference`, `_bluestein_reference`, each pass's twiddles
+    from the table), then frequency t read at position perm[t].  Returns
+    the natural-order L-point DFT along dim 1."""
+    shape = z.shape
+    L = shape[1]
+    z = z.reshape(shape[0], L, -1)
+    for ps in tables["passes"]:
+        r, lc = ps["R"], ps["Lc"]
+        v = z.reshape(z.shape[0], L // (r * lc), r, lc, -1)
+        if r > LEAF_MAX_RADIX:                             # Lc = 1: the last
+            x = _bluestein_reference(v[:, :, :, 0], ps)[:, :, :, None]
+        else:
+            x = _odd_dft_reference(v, ps["cs"], ps["sn"])
+            if lc > 1:                                     # W_Lp^(j s)
+                tw = ps["tw"].reshape(L // (r * lc), lc, r - 1)
+                x = torch.cat([x[:, :, :1], x[:, :, 1:] * tw.permute(
+                    0, 2, 1)[None, :, :, :, None]], 2)
+        z = x.reshape(z.shape)
+    return z[:, tables["perm"].to(z.device)].reshape(shape)
+
+
+def _split_dft(f: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+    """The kept outputs k2 < S / 2 of the S-point DFT along dim 1 of f [bc,
+    S, ...] (csrc/cluster_chain.cuh's combine): S = 8, E[k2] + W_8^k2 O[k2]
+    (E, O the 4-point DFTs of the even and odd blocks, exact in +-1, +-i);
+    S = 4, the 4-point DFT's outputs 0, 1; S = 2, f_0 + f_1."""
+    S = f.shape[1]
+    if S == 8:
+        e, o = _dft4(f[:, 0::2]), _dft4(f[:, 1::2])
+        return e + o * ws[:4].reshape(1, 4, *([1] * (f.dim() - 2)))
+    if S == 4:
+        return _dft4(f)[:, :2]
+    return f[:, :1] + f[:, 1:]
 
 
 def _dft4(g: torch.Tensor) -> torch.Tensor:
@@ -893,27 +1225,30 @@ def cluster_stage_reference(x: torch.Tensor, plan: RadixPlan,
                             salt: int | None = None):
     """Plain torch version of the cluster body's range stage
     (csrc/cluster_chain.cuh): x [bc, 2, m, w] int16/f32 (natural row order,
-    any w) -> (yr, yi) [bc, m/2, w] f32, the same Y as `fft_stage_reference`
-    by the kernel's steps: the window and salt on load; decimate the rows
-    by 8 (block b: rows 8 t + b, t < ms = m / 8); each block's ms-point DFT
-    F_b (`_fft_points` at the geometry's P1 x P2 and leaf); the twiddle
-    W_m^(b k1); the 4 kept outputs of the 8-point DFT across the blocks,
-    Y[k1 + ms k2] = E[k2] + W_8^k2 O[k2] (E, O the 4-point DFTs of the even
-    and odd blocks), k2 < 4.  Every factor comes from the plan's float32
-    tables (cluster_tables)."""
-    g, win, tw, leaf_tw, roots, ctw, w8 = _cluster_plan_tables(
-        plan, "cluster_stage_reference")
+    any w) -> (yr, yi) [bc, m/2, w] f32, Y[k, j] = sum_r W_m^(k r) (w_r c)[r]
+    (x[r, j] + salt (1 + i)), k < m/2, by the kernel's steps: the window and
+    salt on load; decimate the rows by S (block b: rows S t + b, t < ms =
+    m / S); each block's ms-point DFT F_b (the P-point register DFTs,
+    `_pow2_points`; for L > 1 the leaf's twiddle W_ms^(k r2) and its
+    passes, `cluster_leaf_reference`); the twiddle W_m^(b k1); the kept
+    outputs k2 < S / 2 of the S-point DFT across the blocks (`_split_dft`),
+    Y[k1 + ms k2].  Every factor comes from the plan's float32 tables
+    (cluster_tables)."""
+    tb = _cluster_plan_tables(plan, "cluster_stage_reference")
+    g = tb["geometry"]
+    S = g.S
     bc, _, m, w = x.shape
     xf = x.to(torch.float32)
     if salt is not None:
         xf = xf + float(salt)
-    xw = xf * win[:, None]
-    v = torch.complex(xw[:, 0], xw[:, 1]).reshape(bc, g.ms, CLUSTER_SPLIT, w)
-    v = v.transpose(1, 2).reshape(bc * CLUSTER_SPLIT, g.ms, w)   # [bc b, t, w]
-    f = _fft_points(v, g.P1, g.P2, tw, leaf_tw, roots)
-    f = f.reshape(bc, CLUSTER_SPLIT, g.ms, w) * ctw[None, :, :, None]
-    e, o = _dft4(f[:, 0::2]), _dft4(f[:, 1::2])            # [bc, k2, k1, w]
-    y = (e + o * w8[:CLUSTER_OUT, None, None]).reshape(bc, m // 2, w)
+    xw = xf * tb["win"][:, None]
+    v = torch.complex(xw[:, 0], xw[:, 1]).reshape(bc, g.ms, S, w)
+    v = v.transpose(1, 2).reshape(bc * S, g.ms, w)         # [bc b, t, w]
+    f = _pow2_points(v, g.P1, g.P2, tb["tw"])              # [bc b, L, P, w]
+    if g.L > 1:
+        f = cluster_leaf_reference(f * tb["leaf_tw"][None, :, :, None], tb)
+    f = f.reshape(bc, S, g.ms, w) * tb["ctw"][None, :, :, None]
+    y = _split_dft(f, tb["ws"]).reshape(bc, m // 2, w)     # [bc, k2, k1, w]
     return y.real.contiguous(), y.imag.contiguous()
 
 
@@ -1089,11 +1424,11 @@ def fft_occupancy(plan: RadixPlan, body: str = "radix") -> dict:
     "wire" or "astage") at the plan's geometry, from
     cudaOccupancyMaxActiveBlocksPerMultiprocessor and, for the clustered
     kernels, cudaOccupancyMaxActiveClusters (clusters of `plan.fft.blocks`
-    blocks; of 8 for the cluster body, which every body of a radix plan
-    takes for 1024 < m <= CLUSTER_MAX_M, each at its cut of the plan's n,
-    the A-stage with f32 staged; None for the register body's A-stage).  A
-    radix-1 plan has the planar body only ("radix": the dense entries' FFT
-    body).  Needs CUDA."""
+    blocks; of S for the cluster body, which every body takes where
+    `chain_route` says "cluster", each at its cut of the plan's n, the
+    A-stage with f32 staged; None for the register body's A-stage).  A
+    radix-1 plan has the planar body only ("radix": the dense entries'
+    FFT-form or cluster body).  Needs CUDA."""
     import ctypes
 
     if plan.radix == 1 and body != "radix":
@@ -1101,7 +1436,7 @@ def fft_occupancy(plan: RadixPlan, body: str = "radix") -> dict:
                          "planar body alone ('radix')")
     lib = _build.load_library()
     bps, clusters = ctypes.c_int(0), ctypes.c_int(0)
-    if (body in ("radix", "wire", "astage") and plan.radix > 1
+    if (body in ("radix", "wire", "astage")
             and chain_route(plan.m) == "cluster"):
         fn = getattr(lib, f"wrp_fused_chain_{body}_cluster_occupancy")
         g = (plan.cluster if body != "astage"
@@ -1128,17 +1463,21 @@ def fft_occupancy(plan: RadixPlan, body: str = "radix") -> dict:
 
 def _dense(x: torch.Tensor, plan: RadixPlan, start: int, count: int,
            name: str, counter: str) -> torch.Tensor:
-    """pow of x[start:start + count] through the body `dense_body(m)`
+    """pow of x[start:start + count] through the route `chain_route(m)`
     names: on CUDA its kernel, adding one to the module counter named
-    `counter` and to the body's (DENSE_FFT_LAUNCHES or
+    `counter` and to the route's (DENSE_FFT_LAUNCHES for the FFT-form
+    body's register and long-ray forms, DENSE_CLUSTER_LAUNCHES,
     DENSE_MATRIX_LAUNCHES) per launch; on the CPU its plain version."""
-    global DENSE_FFT_LAUNCHES, DENSE_MATRIX_LAUNCHES
+    global DENSE_FFT_LAUNCHES, DENSE_CLUSTER_LAUNCHES, DENSE_MATRIX_LAUNCHES
     if plan.radix != 1:
         raise ValueError(f"{name} needs a radix-1 plan; m={plan.m} splits "
                          f"into {plan.radix} branches")
-    fft = dense_body(plan.m) == "fft"
+    route = chain_route(plan.m)
     if x.device.type == "cpu":
-        plain = fft_chain_power_reference if fft else fused_chain_power_reference
+        plain = {"register": fft_chain_power_reference,
+                 "long": fft_chain_power_reference,
+                 "cluster": cluster_chain_power_reference,
+                 "matrix": fused_chain_power_reference}[route]
         return plain(x[start:start + count], plan)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
@@ -1146,34 +1485,46 @@ def _dense(x: torch.Tensor, plan: RadixPlan, start: int, count: int,
     out = torch.empty((count, plan.m // 2), dtype=torch.float32, device=x.device)
     if count == 0:
         return out
-    if fft:
-        g = plan.fft
+    if route == "matrix":
+        _launch_matrix(x, plan, out, start, count, None)
+    else:
         lib = _build.load_library()
+        planar = (x.data_ptr(), int(x.dtype == torch.int16))
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            # the radix entry's planar body, unsalted
-            rc = lib.wrp_fused_chain_radix(
-                x.data_ptr(), int(x.dtype == torch.int16), plan.fft_t.data_ptr(),
-                plan.fft_phi.data_ptr(), plan.wd.data_ptr(),
-                plan.phasors.data_ptr(), out.data_ptr(), count, plan.m, plan.n,
-                g.cols, g.blocks, start, stream)
-        _raise_on_error(lib, rc, "fused_chain_radix")
-    else:
-        _launch_matrix(x, plan, out, start, count, None)
+            if route == "cluster":
+                # the planar chain's cluster entry, unsalted
+                rc = lib.wrp_fused_chain_radix_cluster(
+                    *planar, plan.cluster_t.data_ptr(),
+                    plan.cluster_phi.data_ptr(), plan.wd.data_ptr(),
+                    plan.phasors.data_ptr(), out.data_ptr(), count, plan.m,
+                    plan.n, plan.cluster.cols, start, 0, stream)
+            else:
+                # the radix entry's planar FFT-form body, unsalted
+                g = plan.fft
+                rc = lib.wrp_fused_chain_radix(
+                    *planar, plan.fft_t.data_ptr(), plan.fft_phi.data_ptr(),
+                    plan.wd.data_ptr(), plan.phasors.data_ptr(),
+                    out.data_ptr(), count, plan.m, plan.n, g.cols, g.blocks,
+                    start, stream)
+        _raise_on_error(lib, rc, "fused_chain_radix_cluster"
+                        if route == "cluster" else "fused_chain_radix")
     globals()[counter] += 1
-    if fft:
-        DENSE_FFT_LAUNCHES += 1
-    else:
-        DENSE_MATRIX_LAUNCHES += 1
+    DENSE_FFT_LAUNCHES += route in ("register", "long")
+    DENSE_CLUSTER_LAUNCHES += route == "cluster"
+    DENSE_MATRIX_LAUNCHES += route == "matrix"
     return out
 
 
 def fused_chain_power_dense(x: torch.Tensor, plan: RadixPlan) -> torch.Tensor:
     """x [bc, 2, m, n] int16/f32 -> pow [bc, m/2] f32, for a plan with
-    radix 1, through the body `dense_body(m)` names: the FFT form for every
-    even m <= FFT_MAX_M, else the dense A_half.  A CPU tensor takes that
-    body's plain version (`fft_chain_power_reference`, or the R == 1 branch
-    of `fused_chain_power_reference`); a CUDA tensor launches its kernel
+    radix 1, through the route `chain_route(m)` names: the FFT-form body
+    for every even m <= 1024 (and its long-ray form at m = 2 x odd in
+    (2048, FFT_MAX_M]), the cluster body for m = S x odd up to
+    CLUSTER_MAX_M, else the dense A_half.  A CPU tensor takes that route's
+    plain version (`fft_chain_power_reference`,
+    `cluster_chain_power_reference`, or the R == 1 branch of
+    `fused_chain_power_reference`); a CUDA tensor launches its kernel
     (csrc/fused_chain_dense.cu's entries) or raises: there is no
     fallback."""
     return _dense(x, plan, 0, x.shape[0], "fused_chain_power_dense",
@@ -1185,9 +1536,9 @@ def fused_chain_power_at(x_all: torch.Tensor, offset, bc: int,
     """The dense entry on `bc` channel-sectors of the staged x_all [BC, 2,
     m, n] from channel-sector `offset` (no copy; ``wrp_tpu``'s
     `fused_chain_power_at`, the benchmark's entry for m that does not split)
-    -> pow [bc, m/2] f32, through the body `dense_body(m)` names.  No salt,
-    as there.  A CPU tensor takes that body's plain version on the slab; a
-    CUDA tensor launches its kernel or raises."""
+    -> pow [bc, m/2] f32, through the route `chain_route(m)` names.  No
+    salt, as there.  A CPU tensor takes that route's plain version on the
+    slab; a CUDA tensor launches its kernel or raises."""
     start, count = _slab(x_all.shape[0], offset, bc, None,
                          "fused_chain_power_at", "bc")
     return _dense(x_all, plan, start, count, "fused_chain_power_at",

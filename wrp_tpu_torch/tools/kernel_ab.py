@@ -27,10 +27,11 @@ graph of 100 calls beside torch.matmul fp32's; the breakdown's four modes
 older trees have no `splits`); the long rays ("long": the planar chain
 #3, int16 and f32, and its offset/salt entry #4 at salt 7, the A-stage,
 int16 at w = 512, and the wire chain at m = 1536, 1840, 2048, 4096, 8192
-per 48 channel-sectors and at m = 4160 on 6, each through the route the
-tree takes at that m, with cuFFT over range of the windowed complex64
-input beside the A-stage and each kernel's rel-L2 against the tree's plain
-version on one sector; with --long, these alone); the number of kernels and
+per 48 channel-sectors and at m = 4112 and 4160 on 6, each through the
+route the tree takes at that m, with cuFFT over range of the windowed
+complex64 input beside the A-stage and each kernel's rel-L2 against the
+tree's plain version on one sector; the dense entry #1 at m = 1832,
+1836, 2002 per 48; with --long, these alone); the number of kernels and
 of FFMA instructions in its library.  Last, one JSON line holds every kernel
 the trees share by name whose `-Xptxas=-v` report (registers, stack,
 spills, shared memory) or SASS FFMA count differs from the first tree's
@@ -229,8 +230,12 @@ def _measure(tree: str, long_only: bool = False) -> dict:
     dcfg = dataclasses.replace(cfg, num_range_cells=1000)
     dplan = fullchain.build_plan(PipelineConstants.build(dcfg), "cuda")
     _, d16 = sectors(dcfg)
-    body = getattr(fullchain, "dense_body", lambda m: "matrix")(1000)
-    dplain = (fullchain.fft_chain_power_reference if body == "fft"
+    if hasattr(fullchain, "DENSE_CLUSTER_LAUNCHES"):
+        body = fullchain.chain_route(1000)
+    else:
+        body = getattr(fullchain, "dense_body", lambda m: "matrix")(1000)
+    dplain = (fullchain.fft_chain_power_reference
+              if body in ("fft", "register")
               else fullchain.fused_chain_power_reference)
     out["dense_body"] = body
     out["dense_ms"] = ms(lambda: fullchain.fused_chain_power_dense(d16, dplan))
@@ -389,10 +394,12 @@ def _breakdown(out: dict, ms, rel, x16, consts) -> None:
             x16, plan, mode, 0, x16.shape[0], 7), run())
 
 
-#: (m, sectors) of the long-ray timings: 48 channel-sectors, and m = 4160
-#: on 6 as the matrix routes were first timed there
-LONG_RAYS = ((1536, 16), (1840, 16), (2048, 16), (4096, 16), (4160, 2),
-             (8192, 16))
+#: (m, sectors) of the long-ray timings: 48 channel-sectors, and m = 4112
+#: and 4160 on 6 as the matrix routes were first timed there; at the
+#: radix-1 m = 1832 (8 x 229), 1836 (4 x 459), 2002 (2 x 1001) the dense
+#: entry (#1) alone
+LONG_RAYS = ((1536, 16), (1832, 16), (1836, 16), (1840, 16), (2002, 16),
+             (2048, 16), (4096, 16), (4112, 2), (4160, 2), (8192, 16))
 
 
 def _long_rays(out: dict, ms, rel) -> None:
@@ -400,8 +407,9 @@ def _long_rays(out: dict, ms, rel) -> None:
     and f32; #4 at offset bc, salt 7, of a two-slab staging), the A-stage
     (#5, int16, w = 512) and the wire chain (#7) through the tree's route
     for m, cuFFT beside #5, the routes' names, each kernel's rel-L2 vs the
-    tree's plain version on the first sector.  A call slower than 10 ms is
-    queued fewer times."""
+    tree's plain version on the first sector; at a radix-1 m the dense
+    entry (#1, int16) alone.  A call slower than 10 ms is queued fewer
+    times."""
     import dataclasses
 
     import numpy as np
@@ -430,6 +438,11 @@ def _long_rays(out: dict, ms, rel) -> None:
                                       "cluster_chain_power_reference", None),
                    "matrix": fullchain.fused_chain_power_reference}[r]
 
+    def dense_plain(xx):
+        """the dense entry's CPU result on xx: the plain version of its
+        route in either tree"""
+        return fullchain.fused_chain_power_dense(xx.cpu(), cpu_plan).cuda()
+
     def timed_ms(fn):
         fn()
         torch.cuda.synchronize()
@@ -447,6 +460,7 @@ def _long_rays(out: dict, ms, rel) -> None:
         c = dataclasses.replace(cfg, num_range_cells=m)
         consts = PipelineConstants.build(c)
         plan = fullchain.build_plan(consts, "cuda")
+        cpu_plan = fullchain.build_plan(consts, "cpu") if plan.radix == 1 else None
         ch, n = c.num_channels, c.n
         bc = sectors * ch
         xs = torch.randint(-8192, 8192, (2 * bc, 2, m, n), generator=gen,
@@ -459,6 +473,16 @@ def _long_rays(out: dict, ms, rel) -> None:
             consts.op_a_half[0].real, np.float32)).cuda()
         xw = (torch.complex(x[:, 0].float(), x[:, 1].float())
               * win[:, None]).contiguous()
+        if plan.radix == 1:
+            r = {"route": route(m), "channel_sectors": bc,
+                 "dense_ms": timed_ms(
+                     lambda: fullchain.fused_chain_power_dense(x, plan))}
+            r["dense_rel"] = rel(dense_plain(x[:ch]), fullchain.fused_chain_power_dense(
+                x[:ch].contiguous(), plan))
+            long[f"m{m}_bc{bc}"] = r
+            del x, xs, x32, w32, xw, plan
+            torch.cuda.empty_cache()
+            continue
         rr, radix_plain = radix_route(m)
         r = {"route": route(m), "radix_route": rr, "channel_sectors": bc}
         r["radix_ms"] = timed_ms(
