@@ -125,14 +125,24 @@ Phases (each prints its results; any failure raises and exits non-zero):
    int16 (#4) and wire (#8), its gate passing; a world-size-1 pallas-seq
    step (#5, #6) and the mxu method (#9) at m = 2048 vs the pallas
    processor and the oracle, and the pallas-seq step at m = 4160 (the
-   cluster A-stage) from host planar int16 and from wire bytes; m = 8320
-   (radix 8 above 8192) through the radix entry's matrix route, with and
-   without salt, vs its plain version and the oracle, and through the
-   matrix routes of #5 (csrc/fused_chain_astage_matrix.cu, int16 and f32,
-   then #6 on its Y) and #7/#8 (the matrix kernel's wire source, offset
-   and salt 7) vs their plain versions and the oracle, every launch
-   counted, each timed in turns with its plain version beside its bound
-   and the matrix form's FMAs;
+   cluster A-stage) from host planar int16 and from wire bytes; the
+   cluster of 16 (8192 < m <= 16384) at m = 8320 and 16384: the ptxas
+   lines of its kernels (no spill) and the clusters of 16 the card holds,
+   the slice's main path (the pallas processor, #3; at 8320 `bench
+   --range-cells 8320` at batch 2, #4; a world-size-1 pallas-seq step, #5
+   then #6) on two noise sectors, every launch on the cluster body, the
+   products within 2e-4 of the oracle; #3 (int16, f32), #4 (offset, salt
+   7) and #5 (int16 and f32 at w = 512, int16 at 128) vs their plain
+   versions (<= 1e-5) and the oracle, each timed on 6 channel-sectors in
+   turns with its plain version beside its bound (#5 beside cuFFT); m =
+   8208 (16 x 513, radix 2, which the cluster body refuses) through the
+   radix entry's matrix route, with and without salt, vs its plain version
+   and the oracle, and through the matrix route of #5
+   (csrc/fused_chain_astage_matrix.cu, int16 and f32, then #6 on its Y),
+   and m = 8320 through the wire chain's (#7/#8, the matrix kernel's wire
+   source, offset and salt 7), each vs its plain version and the oracle,
+   every launch counted, each timed in turns with its plain version beside
+   its bound and the matrix form's FMAs;
 10. the A-stage kernel (the pulse-sharded path's first half) on the noise
    and clip-bin sectors, int16 and f32, on every rank's pulse slab of 1, 2
    and 4 ranks (w = 512, 256, 128): Y vs its plain version (rel-L2 <=
@@ -238,6 +248,7 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -331,10 +342,10 @@ def algorithm_note(m: int, w: int, bc: int) -> str:
     it: m <= 1024 and the dense entries' m = 2 x odd in (2048, 4096] run
     the FFT form (csrc/fft_chain.cuh: radix-2 register DFTs and the leaf's
     radix-5/3/7 passes, the bound's flops up to the butterflies' constant),
-    every other m up to 8192 the cluster body takes the cluster body's
-    (`cluster_note`); the dense matrix kernel (odd m, radix m > 8192, the
-    radix-1 m the cluster body refuses) the TPU's A_half contraction (8
-    flops per complex multiply-add)."""
+    every other m up to 16384 the cluster body takes the cluster body's
+    (`cluster_note`); the dense matrix kernel (odd m, the m the cluster
+    body refuses) the TPU's A_half contraction (8 flops per complex
+    multiply-add)."""
     R = fullchain.radix_for(m)
     tpu = bc * 8.0 * (m * (m // R) * w if R > 1 else (m // 2) * m * w)
     form = f"radix-{R} matrix form" if R > 1 else "dense A_half form"
@@ -472,6 +483,12 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return float(np.median(times))
 
 
+def cuda_ms3(fn) -> float:
+    """`cuda_ms` over 3 warm runs: for the matrix routes' calls of tens to
+    hundreds of ms."""
+    return cuda_ms(fn, 3)
+
+
 def queued_ms(fn, reps: int = 20) -> float:
     """ms per call of `reps` calls queued back to back between two CUDA
     events: the card's time, the host's work for each call hidden under
@@ -530,22 +547,31 @@ def timed(fns: dict, order, clock=cuda_ms) -> dict:
     times = {name: [] for name in fns}
     for name in order:
         times[name].append(clock(fns[name]))
-    how = ("median of 10 per turn" if clock is cuda_ms
-           else "20 calls queued per turn")
+    how = {cuda_ms: "median of 10 per turn",
+           cuda_ms3: "median of 3 per turn"}.get(clock,
+                                                 "20 calls queued per turn")
     print(f"timings ({how}, order " + "/".join(order) + "): "
           + json.dumps(times), flush=True)
     return {name: min(v) for name, v in times.items()}
 
 
 class Oracle:
-    """fp64 oracle power of each input sector, computed once."""
+    """fp64 oracle power of each input sector, computed once (or in a
+    thread, where `prefetch` queued it)."""
 
     def __init__(self):
         self._pow = {}
 
+    def prefetch(self, key, future) -> None:
+        """Take key's power from `future`, a thread's: numpy's FFTs and
+        ufuncs release the GIL, so the oracle runs beside the card's work."""
+        self._pow.setdefault(key, future)
+
     def power(self, key, iq, cfg) -> np.ndarray:
         if key not in self._pow:
             self._pow[key] = oracle.channel_power(iq, cfg)
+        if not isinstance(self._pow[key], np.ndarray):
+            self._pow[key] = self._pow[key].result()
         return self._pow[key][: cfg.num_channels]
 
 
@@ -2043,7 +2069,19 @@ LONG_DENSE_M = 1832       # the dense entries' times, per 48 channel-sectors
 LONG_BODY_M = 4094        # 2 x 23 x 89: the one m the long-ray body keeps
 ODD_LEAF_M = 4160         # radix 8, 8 x 520 (a 5 x 13 leaf): timed on 6 channel-sectors
 BLUESTEIN_M = 4112        # radix 8, 8 x 514 (a 257-point Bluestein leaf): #3, #5, #7 on 6
-MATRIX_ABOVE_M = 8320     # radix 8 above CLUSTER_MAX_M: #3/#4, #5, #7, #8 on their matrix routes
+#: the cluster of 16 (8192 < m <= 16384): #3/#4 and #5 checked and timed on
+#: 6 channel-sectors at 16 x 8 x 65 (a 5 x 13 leaf) and 16 x 1024 (L = 1)
+CLUSTER16_MS = (8320, 16384)
+#: one m for each kernel of the cluster of 16, P = 2, 4, 8, 16, 32, 64, 128,
+#: 256 (an odd leaf L: m = 16 P L) and 1024 (L = 1): their resident clusters
+CLUSTER16_KERNEL_MS = (8224, 8640, 8320, 8448, 8704, 9216, 10240, 12288, 16384)
+CLUSTER16_BENCH = ("--range-cells", "8320", "--batch", "2", "--repeats", "2")
+#: the kernel part files of the cluster of 16, by entry
+CLUSTER16_SOURCES = {
+    chain: [f"wrp_tpu_torch/csrc/fused_chain_{chain}_cluster16{part}.cu"
+            for part in ("_p8", "", "_p2")] for chain in ("radix", "astage")}
+MATRIX_ABOVE_M = 8320     # radix 8 above 8192: #7/#8 on their matrix routes
+MATRIX_REFUSED_M = 8208   # 16 x 513, radix 2, refused by the cluster body: #3/#4, #5 on their matrix routes
 LONG_TOL = 1e-5           # a long-ray kernel vs its plain version (power rel-L2)
 LONG_BENCH = ("--range-cells", str(LONG_M), "--batch", "32", "--repeats", "4")
 
@@ -2100,9 +2138,11 @@ def cluster_note(m: int, w: int) -> str:
             + (f" (Bluestein N = {g.bluestein})" if g.bluestein else "")
             if passes else "")
     cuts = []
-    bodies = (("#3/#4 and #7/#8", True, 0), ("A-stage int16", False, 2),
+    fused_what = ("#3/#4 and #7/#8" if g.S == fullchain.CLUSTER_SPLIT
+                  else "#3/#4")
+    bodies = ((fused_what, True, 0), ("A-stage int16", False, 2),
               ("A-stage f32", False, 4))
-    for what, fused, elem in bodies if g.S == fullchain.CLUSTER_SPLIT else (
+    for what, fused, elem in bodies if fullchain.radix_for(m) > 1 else (
             ("#1/#2", True, 0),):
         c = fullchain.cluster_geometry(m, w, fused, elem)
         cuts.append(f"{what} {c.cols} columns a round, "
@@ -2180,7 +2220,8 @@ def long_ray_kernels(gen) -> dict:
 
 
 def long_ray_times(gen, m: int = LONG_M, keys=None,
-                   sectors: int = BATCH, with_plain: bool = True) -> dict:
+                   sectors: int = BATCH, with_plain: bool = True,
+                   plan=None) -> dict:
     """CUDA-event ms per `sectors` sectors x 3 channels x m x 512 (48
     channel-sectors by default) of #3 (int16; "radix_f32": f32, queued
     only), #4 (offset of the second slab, salt 7), #7, #8 and #5 (w = 512),
@@ -2188,10 +2229,12 @@ def long_ray_times(gen, m: int = LONG_M, keys=None,
     its plain version where `with_plain` (#5 also with cuFFT: torch.fft.fft
     over range of the windowed complex64 input, then the crop; else the
     kernel and cuFFT queued alone), beside the bound (the bytes: 201 MB of
-    int16 at m = 2048, 48 channel-sectors)."""
+    int16 at m = 2048, 48 channel-sectors).  `plan`: m's plan on the card,
+    if built already."""
     cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=m)
     n, ch = cfg.n, cfg.num_channels
-    plan = fullchain.build_plan(PipelineConstants.build(cfg), "cuda")
+    if plan is None:
+        plan = fullchain.build_plan(PipelineConstants.build(cfg), "cuda")
     bc = sectors * ch
     x = torch.randint(-8192, 8192, (2 * bc, 2, m, n), generator=gen,
                       device="cuda", dtype=torch.int32).to(torch.int16)
@@ -2399,37 +2442,42 @@ def dense_long_body() -> dict:
             "channel_sectors": bc}
 
 
+def cluster_bench(argv, label: str, counter: str) -> int:
+    """`bench.run(argv)` on a cluster-body m: the parity gate passes, the
+    offset counter equals (warm + timed passes) x steps + 2, and every
+    launch of the entry runs on the cluster body, none on the matrix
+    kernel.  Returns the offset counter."""
+    reset_counts()
+    r = bench.run(list(argv))
+    counts = read_counts()
+    torch.cuda.empty_cache()
+    m = argv[list(argv).index("--range-cells") + 1]
+    print(f"bench m={m} {label}: " + json.dumps(r), flush=True)
+    e0, e1 = r["parity_rel_l2"]
+    want = (1 + len(r["timed_runs_s"])) * r["steps"] + 2
+    # the gate's unsalted processor launches #3 besides
+    others = {k: counts[k] for k in OFFSET_COUNTERS + ("dense_matrix",)
+              if k != counter}
+    entry = counter.split("_")[0]
+    cluster = counts[f"{entry}_cluster"]
+    check(e0 < BENCH_GATE[0] and e1 < BENCH_GATE[1] and r["value"] > 0
+          and counts[counter] == want and not any(others.values())
+          and cluster == counts[entry] + counts[counter],
+          f"bench m={m} {label}: parity {e0:.3e}, {e1:.3e} under "
+          f"{BENCH_GATE}; {r['value']} sectors/s; {counter} launches "
+          f"{counts[counter]} == {want}, no other offset entry, no "
+          f"matrix kernel; {cluster} on the cluster body == "
+          f"{counts[entry]} + {counts[counter]}")
+    return counts[counter]
+
+
 def long_ray_bench() -> dict:
     """`bench.run` at --range-cells LONG_M (batch 32, 4 repeats), int16
-    (#4) and --in-dtype wire (#8): the parity gate passes, the offset
-    counter equals (warm + timed passes) x steps + 2, and every launch of
-    the entry runs on the cluster body."""
-    out = {}
-    for label, extra, counter in (("i16", [], "radix_offset"),
-                                  ("wire", ["--in-dtype", "wire"],
-                                   "wire_offset")):
-        reset_counts()
-        r = bench.run(list(LONG_BENCH) + extra)
-        counts = read_counts()
-        torch.cuda.empty_cache()
-        print(f"bench m={LONG_M} {label}: " + json.dumps(r), flush=True)
-        e0, e1 = r["parity_rel_l2"]
-        want = (1 + len(r["timed_runs_s"])) * r["steps"] + 2
-        # the gate's unsalted processor launches #3 besides
-        others = {k: counts[k] for k in OFFSET_COUNTERS + ("dense_matrix",)
-                  if k != counter}
-        entry = counter.split("_")[0]
-        cluster = counts[f"{entry}_cluster"]
-        check(e0 < BENCH_GATE[0] and e1 < BENCH_GATE[1] and r["value"] > 0
-              and counts[counter] == want and not any(others.values())
-              and cluster == counts[entry] + counts[counter],
-              f"bench m={LONG_M} {label}: parity {e0:.3e}, {e1:.3e} under "
-              f"{BENCH_GATE}; {r['value']} sectors/s; {counter} launches "
-              f"{counts[counter]} == {want}, no other offset entry, no "
-              f"matrix kernel; {cluster} on the cluster body == "
-              f"{counts[entry]} + {counts[counter]}")
-        out[counter] = counts[counter]
-    return out
+    (#4) and --in-dtype wire (#8), each through `cluster_bench`."""
+    return {counter: cluster_bench(list(LONG_BENCH) + extra, label, counter)
+            for label, extra, counter in (
+                ("i16", [], "radix_offset"),
+                ("wire", ["--in-dtype", "wire"], "wire_offset"))}
 
 
 def long_ray_seq_matrix() -> dict:
@@ -2535,29 +2583,249 @@ def matrix_fma(m: int, w: int, bc: int) -> float:
     return bc * 4.0 * m * (m // fullchain.radix_for(m)) * w
 
 
-def long_ray_matrix(orc: Oracle) -> dict:
-    """m = MATRIX_ABOVE_M (radix 8, above CLUSTER_MAX_M) on two noise
-    sectors (6 channel-sectors): the radix entry plain and with offset and
-    salt 7 on the matrix kernel (the dense A_half, built at first use) vs
+def oracle_products(orc: Oracle, key, iq, cfg):
+    """The fp64 oracle's (zdb, zdr) of one sector, from its cached power."""
+    pow64 = orc.power(key, iq, cfg)
+    return oracle.stage09_10_products(pow64[0], pow64[1], cfg)
+
+
+def long_ray_inputs(orc: Oracle, pool) -> dict:
+    """{m: (cfg, constants, two noise sectors)} at each m of CLUSTER16_MS
+    and MATRIX_REFUSED_M (seeds SEED, SEED + 1), all made in the threads of
+    `pool`, with the sectors' fp64 oracle powers (at CLUSTER16_MS also
+    those of the sectors salted by 7 (1 + i), #4's) queued there behind
+    them (`Oracle.prefetch`): the host's set-up and oracle run beside the
+    card's work.  Returns futures where the work is not done."""
+    out = {}
+    for m in CLUSTER16_MS + (MATRIX_REFUSED_M,):
+        cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=m)
+        out[m] = (cfg, pool.submit(PipelineConstants.build, cfg),
+                  [pool.submit(oracle.synthetic_iq, cfg, kind="noise",
+                               seed=SEED + b) for b in range(2)])
+    for m, (cfg, _, iqs) in out.items():
+        for k, iq in enumerate(iqs):
+            for label, salt in (("noise", 0), ("salted", 7)):
+                if salt and m not in CLUSTER16_MS:
+                    continue
+                orc.prefetch((m, cfg.n, label, k), pool.submit(
+                    lambda iq=iq, salt=salt, cfg=cfg: oracle.channel_power(
+                        iq.result() + salt * (1 + 1j), cfg)))
+    return out
+
+
+def cluster16_path(cfg, consts, iqs, orc: Oracle) -> dict:
+    """The slice's main path at m = cfg.m on the cluster of 16, from host
+    memory on the noise sectors `iqs`, each run between a reset and a read
+    of the counts: the pallas processor (#3), a world-size-1 pallas-seq
+    step (#5 then #6) and, at CLUSTER16_BENCH's m, the bench (#4, offsets
+    and salts, its parity gate; `cluster_bench`).  Every launch on the
+    cluster body, none on a matrix route; the products within PRODUCT_TOL
+    of the oracle, pallas-seq within 1e-5 of pallas.  Returns {"radix",
+    "radix_offset", "astage", "rows": launches}."""
+    m, n = cfg.m, cfg.n
+    planar = np.stack([planar_i16(iq) for iq in iqs])
+    reset_counts()
+    zdb_p, zdr_p = (t.cpu().numpy() for t in SectorProcessor(
+        cfg, method="pallas", device="cuda", consts=consts)(planar))
+    c = read_counts()
+    others = {k: v for k, v in c.items() if k not in ("radix", "radix_cluster")}
+    check(c["radix"] == c["radix_cluster"] == 1 and not any(others.values()),
+          f"pallas processor at m={m} (cluster of 16): #3 {c['radix']}, on "
+          f"the cluster body {c['radix_cluster']}, no other: "
+          f"{json.dumps(others)}")
+    out = {"radix": c["radix"], "radix_offset": 0}
+    step = build_sharded_processor(cfg, make_mesh(device="cuda"),
+                                   method="pallas-seq", device="cuda",
+                                   consts=consts)
+    reset_counts()
+    zdb, zdr = (t.cpu().numpy() for t in step(planar))
+    c = read_counts()
+    e = max(rel(zdb_p, zdb), rel(zdr_p, zdr))
+    others = {k: v for k, v in c.items()
+              if k not in ("astage", "astage_cluster", "rows")}
+    check(e <= 1e-5 and c["astage"] == c["astage_cluster"] == 1
+          and c["rows"] == 1 and not any(others.values()),
+          f"pallas-seq world 1 at m={m} (cluster of 16): vs the pallas "
+          f"processor {e:.3e} <= 1e-5; A-stage {c['astage']} (cluster body "
+          f"{c['astage_cluster']}), row epilogue {c['rows']}, no other")
+    out["astage"], out["rows"] = c["astage"], c["rows"]
+    for k, iq in enumerate(iqs):
+        zdb64, zdr64 = oracle_products(orc, (m, n, "noise", k), iq, cfg)
+        for what, a, b in (("pallas", zdb_p, zdr_p), ("pallas-seq", zdb, zdr)):
+            ezdb, ezdr = rel(zdb64, a[k]), rel(zdr64, b[k])
+            check(ezdb <= PRODUCT_TOL and ezdr <= PRODUCT_TOL,
+                  f"{what} m={m} sector {k} vs fp64 oracle: zdb {ezdb:.3e}, "
+                  f"zdr {ezdr:.3e}")
+    if str(m) == CLUSTER16_BENCH[1]:
+        out["radix_offset"] = cluster_bench(CLUSTER16_BENCH, "i16",
+                                            "radix_offset")
+    return out
+
+
+def cluster16_checks(cfg, consts, plan, iqs, orc: Oracle) -> dict:
+    """#3 (int16, f32), #4 (offset 6 of a two-slab staging, salt 7) and #5
+    (int16 and f32 at w = n, then #6 on its Y; int16 at n/4) at m = cfg.m
+    on the cluster of 16, on the noise sectors `iqs` (6 channel-sectors):
+    each vs its plain version (<= LONG_TOL) and the oracle (#4 the salted
+    sectors'; the w = n/4 slab's Y the float64 FFT of its windowed
+    columns), every launch on the cluster body.  Returns {kernel:
+    {rel_l2, max_abs_err}}."""
+    m, n, ch = cfg.m, cfg.n, cfg.num_channels
+    gain = torch.from_numpy(consts.gain).cuda()
+    x = torch.from_numpy(np.stack([planar_i16(iq) for iq in iqs])).cuda()
+    x = x.reshape(-1, 2, m, n)
+    bc = x.shape[0]
+    res = {k: {"rel_l2": 0.0, "max_abs_err": 0.0}
+           for k in ("radix", "radix_offset", "astage")}
+
+    def hold(key, what, ref, got):
+        torch.cuda.synchronize()
+        e, a = rel_dev(ref, got)
+        check(e <= LONG_TOL, f"{what}: kernel vs plain rel-L2 {e:.3e} <= "
+                             f"{LONG_TOL}")
+        res[key]["rel_l2"] = max(res[key]["rel_l2"], e)
+        res[key]["max_abs_err"] = max(res[key]["max_abs_err"], a)
+
+    def vs_oracle(what, pw, label, salt=0):
+        p = pw.reshape(len(iqs), ch, m // 2).cpu().numpy()
+        for k, iq in enumerate(iqs):
+            check_vs_oracle(f"{what} sector {k}", p[k], orc.power(
+                (m, n, label, k), iq + salt * (1 + 1j), cfg), cfg, gain)
+
+    reset_counts()
+    for xx in (x, x.float()):
+        got = fullchain.fused_chain_power_radix(xx, plan)
+        hold("radix", f"#3 m={m} {xx.dtype} (cluster of 16)",
+             fullchain.cluster_chain_power_reference(xx, plan), got)
+        vs_oracle(f"#3 m={m} {xx.dtype}", got, "noise")
+    x_all = torch.cat([x, x])
+    got = fullchain.fused_chain_power_radix(x_all, plan, offset=bc, bc=bc,
+                                            salt=7)
+    hold("radix_offset", f"#4 m={m} offset {bc} salt 7 (cluster of 16)",
+         fullchain.cluster_chain_power_reference(x, plan, 7), got)
+    vs_oracle(f"#4 m={m} salt 7", got, "salted", 7)
+    for xx in (x, x.float()):
+        y = fullchain.fused_chain_astage(xx, plan)
+        hold("astage", f"#5 m={m} {xx.dtype} w={n} (cluster of 16)",
+             fullchain.fused_chain_astage_reference(xx, plan), y)
+        vs_oracle(f"#5 + #6 m={m} {xx.dtype}",
+                  fullchain.parseval_rows_power(y, plan), "noise")
+    xs = x[..., :n // 4].contiguous()
+    y = fullchain.fused_chain_astage(xs, plan)
+    hold("astage", f"#5 m={m} int16 w={n // 4} (cluster of 16)",
+         fullchain.fused_chain_astage_reference(xs, plan), y)
+    wr, _, c = hamming_factors(cfg)
+    z = (torch.complex(xs[:, 0].double(), xs[:, 1].double())
+         * torch.from_numpy(wr * c).cuda()[:, None])
+    z = torch.fft.fft(z, dim=1)[:, :m // 2]
+    e = rel_dev(torch.stack([z.real, z.imag], 1), y)[0]
+    check(e <= LONG_TOL, f"#5 m={m} w={n // 4}: Y vs the float64 FFT of the "
+                         f"windowed slab {e:.3e} <= {LONG_TOL}")
+    cnt = read_counts()
+    others = {k: v for k, v in cnt.items() if k not in (
+        "radix", "radix_offset", "radix_cluster", "astage", "astage_cluster",
+        "rows")}
+    check(cnt["radix"] == 2 and cnt["radix_offset"] == 1
+          and cnt["radix_cluster"] == 3
+          and cnt["astage"] == cnt["astage_cluster"] == 3
+          and cnt["rows"] == 2 and not any(others.values()),
+          f"m={m} checks: #3 {cnt['radix']} + #4 {cnt['radix_offset']} on "
+          f"the cluster body {cnt['radix_cluster']}, #5 {cnt['astage']} "
+          f"(cluster body {cnt['astage_cluster']}), #6 {cnt['rows']}, none "
+          f"on a matrix route: {json.dumps(others)}")
+    del x, x_all, xs, z, y
+    return res
+
+
+def long_ray_cluster16(orc: Oracle, gen, spills, inputs) -> dict:
+    """The cluster of 16 at each m of CLUSTER16_MS: its kernels' ptxas
+    (`spills`: the cluster kernels with a spill; none of S = 16 may), the
+    clusters of 16 the card holds for each S = 16 kernel of #3/#4 and #5
+    (at CLUSTER16_KERNEL_MS), the cut and the occupancy at each m; the
+    main path (`cluster16_path`, on the two noise sectors of `inputs`, as
+    `long_ray_inputs` makes them), the checks
+    (`cluster16_checks`) and the times of #3 (int16, f32 queued), #4 and
+    #5 (beside cuFFT) on 6 channel-sectors in turns with their plain
+    versions (`long_ray_times`).  Returns {"launches", "res", "times",
+    "occ", "resident", "wire_case": MATRIX_ABOVE_M's (cfg, consts, plan,
+    sectors, x) for the wire chain's matrix route}."""
+    s16 = [k for k in spills if re.search(
+        r"cluster_chain16_kernel|cluster_leaf_kernel<[^,]+, 16,", k)]
+    check(not s16, f"ptxas: no kernel of the cluster of 16 spills: "
+                   f"{json.dumps(s16)}")
+    resident = {m: {body: fullchain.cluster_occupancy(m, DEFAULT_CONFIG.n, body)
+                    ["clusters"] for body in ("radix", "astage")}
+                for m in CLUSTER16_KERNEL_MS}
+    check(all(v > 0 for r in resident.values() for v in r.values()),
+          f"clusters of 16 the card holds at once, by the m of each S = 16 "
+          f"kernel (#3/#4's at no staging, #5's with f32 staged): "
+          f"{json.dumps(resident)}")
+    out = {"launches": dict.fromkeys(("radix", "radix_offset", "astage",
+                                      "rows"), 0),
+           "res": {k: {"rel_l2": 0.0, "max_abs_err": 0.0}
+                   for k in ("radix", "radix_offset", "astage")},
+           "times": {}, "occ": {}, "resident": resident}
+    for m in CLUSTER16_MS:
+        t0 = time.perf_counter()
+        cfg, consts, iqs = inputs[m]
+        consts, iqs = consts.result(), [iq.result() for iq in iqs]
+        plan = fullchain.build_plan(consts, "cuda")
+        setup_s = time.perf_counter() - t0
+        occ = {body: fullchain.fft_occupancy(plan, body)
+               for body in ("radix", "astage")}
+        g = plan.cluster
+        print(f"cluster of 16 at m={m} (constants and plan {setup_s:.1f} s):"
+              f" {cluster_note(m, cfg.n)}; resident clusters of 16 "
+              f"{json.dumps(occ)}", flush=True)
+        check(plan.radix > 1 and g.S == 16
+              and fullchain.chain_route(m) == "cluster"
+              and fullchain.chain_route(m, wire=True) == "matrix"
+              and plan.fft_t is None
+              and all(v["blocks_per_sm"] >= 1 and v["clusters"] > 0
+                      for v in occ.values()),
+              f"m={m} takes the cluster of 16 for #3/#4 and #5 (the wire "
+              f"the matrix kernel), resident: {json.dumps(occ)}")
+        out["occ"][m] = occ
+        for key, v in cluster16_path(cfg, consts, iqs, orc).items():
+            out["launches"][key] += v
+        for key, r in cluster16_checks(cfg, consts, plan, iqs, orc).items():
+            for k in ("rel_l2", "max_abs_err"):
+                out["res"][key][k] = max(out["res"][key][k], r[k])
+        out["times"][m] = long_ray_times(
+            gen, m, ("radix", "radix_f32", "radix_offset", "astage"), 2,
+            True, plan)
+        if m == MATRIX_ABOVE_M:
+            x = torch.from_numpy(np.stack([planar_i16(iq) for iq in iqs]))
+            out["wire_case"] = (cfg, consts, plan, iqs,
+                                x.cuda().reshape(-1, 2, m, cfg.n))
+        del plan
+        torch.cuda.empty_cache()
+    return out
+
+
+def long_ray_matrix(orc: Oracle, wire_case, inputs) -> dict:
+    """The matrix routes left above 8192: at m = MATRIX_REFUSED_M (16 x 513,
+    radix 2, which the cluster body refuses) on two noise sectors (6
+    channel-sectors) the radix entry plain and with offset and salt 7 on
+    the matrix kernel (the dense A_half, built at first use) vs
     fused_chain_power_reference (<= POWER_TOL) and the oracle, each check's
-    launch counts equal to its calls; then the radix entry timed beside #5
-    then #6 (both on their matrix routes at this m) on the same sectors.
-    Then the matrix routes of #5, #7 and #8 on the same plan and sectors
-    (`long_ray_matrix_above`).  Returns {"counts": the radix checks'
-    launches, "radix_ms", "astage_rows_ms", and "astage", "wire",
-    "wire_offset": each matrix route's launches, errors and times}."""
-    m = MATRIX_ABOVE_M
-    cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=m)
-    consts = PipelineConstants.build(cfg)
+    launch counts equal to its calls, then the radix entry timed beside #5
+    then #6 (both on their matrix routes) on the same sectors, and #5's
+    matrix route (`matrix_astage`), on the inputs of `long_ray_inputs`; at
+    m = MATRIX_ABOVE_M (radix 8) the wire chain's (`matrix_wire`, on
+    `wire_case`: the cluster of 16's plan and sectors there).  Returns {"counts": the radix checks' launches,
+    "radix_ms", "astage_rows_ms", and "astage", "wire", "wire_offset":
+    each matrix route's launches, errors and times}."""
+    m = MATRIX_REFUSED_M
+    cfg, consts, sectors = inputs[m]
+    consts, sectors = consts.result(), [iq.result() for iq in sectors]
     plan = fullchain.build_plan(consts, "cuda")
-    check(plan.radix == 8 and fullchain.chain_route(m) == "matrix"
+    check(plan.radix == 2 and fullchain.chain_route(m) == "matrix"
           and plan.fft_t is None and plan.cluster_t is None
           and plan.host_a_half is not None,
-          f"m={m}: radix {plan.radix}, above CLUSTER_MAX_M = "
-          f"{fullchain.CLUSTER_MAX_M}: the radix entry on the matrix kernel "
-          f"(tile {fullchain.dense_tile(plan)})")
-    sectors = [oracle.synthetic_iq(cfg, kind="noise", seed=SEED + b)
-               for b in range(2)]
+          f"m={m}: radix {plan.radix}, {fullchain.cluster_refusal(m)}: the "
+          f"radix entry on the matrix kernel (tile "
+          f"{fullchain.dense_tile(plan)})")
     gain = torch.from_numpy(consts.gain).cuda()
     reset_counts()
     planar_kernel_checks(f"radix m={m} (matrix route)",
@@ -2586,126 +2854,31 @@ def long_ray_matrix(orc: Oracle) -> dict:
                "astage_rows": lambda: fullchain.parseval_rows_power(
                    fullchain.fused_chain_astage(x, plan), plan)},
               ("plain", "kernel", "astage_rows", "astage_rows", "kernel",
-               "plain"))
+               "plain"), cuda_ms3)
     print(f"radix m={m} on the matrix kernel, {bc} channel-sectors: "
           f"{t['kernel']:.3f} ms, plain {t['plain']:.3f} ms; the matrix "
           f"A-stage then #6 on the same sectors {t['astage_rows']:.3f} ms; "
           f"{algorithm_note(m, n, bc)}", flush=True)
-    res = long_ray_matrix_above(orc, cfg, consts, plan, sectors, x)
+    res = matrix_astage(orc, cfg, consts, plan, sectors, x)
+    res.update(matrix_wire(orc, *wire_case))
     res["radix_ms"], res["astage_rows_ms"] = t["kernel"], t["astage_rows"]
     res["counts"] = counts
     return res
 
 
-def long_ray_matrix_above(orc: Oracle, cfg, consts, plan, sectors,
-                          x) -> dict:
-    """m = MATRIX_ABOVE_M (radix 8, above CLUSTER_MAX_M) on the two noise
-    sectors of `long_ray_matrix` (its config, constants, plan and planar
-    int16 x, 6 channel-sectors): the A-stage's matrix route (#5,
-    csrc/fused_chain_astage_matrix.cu; int16 and f32) vs its plain version
-    (Y <= LONG_TOL), then #6 on its Y vs the matrix form's power (<=
-    POWER_TOL) and the oracle; the wire entry's matrix route (#7, and #8 at
-    offset 2 salt 7 on a 4-sector staging) vs its plain version (<=
-    POWER_TOL) and the oracle.  The launch counts equal the calls.  Then
-    each route timed in turns with its plain version (kernel, plain, plain,
-    kernel; #5 with cuFFT too) beside its bound and the matrix form's FMAs.
-    Returns {"astage", "wire", "wire_offset": each route's launches,
-    errors and times}."""
-    m = cfg.m
-    tile = fullchain.astage_tile(plan)
-    check(tile == 8, f"m={m}: the matrix A-stage's tile {tile}")
-    gain = torch.from_numpy(consts.gain).cuda()
-    ch, n = cfg.num_channels, cfg.n
-    bc = x.shape[0]
-    res = {k: {"rel_l2": 0.0, "max_abs_err": 0.0}
-           for k in ("astage", "wire", "wire_offset")}
-
-    def hold(key, what, ref, out, tol):
-        torch.cuda.synchronize()
-        e, a = rel_dev(ref, out)
-        check(e <= tol, f"{what}: kernel vs plain rel-L2 {e:.3e} <= {tol}")
-        res[key]["rel_l2"] = max(res[key]["rel_l2"], e)
-        res[key]["max_abs_err"] = max(res[key]["max_abs_err"], a)
-
-    def vs_oracle(what, pw):
-        p = pw.reshape(len(sectors), ch, m // 2).cpu().numpy()
-        for k, iq in enumerate(sectors):
-            check_vs_oracle(f"{what} sector {k}", p[k],
-                            orc.power((m, n, "noise", k), iq, cfg), cfg, gain)
-
-    reset_counts()
-    for xx in (x, x.float()):
-        y = fullchain.fused_chain_astage(xx, plan)
-        hold("astage", f"#5 m={m} {xx.dtype} (matrix route)",
-             fullchain.fused_chain_astage_reference(xx, plan), y, LONG_TOL)
-        pw = fullchain.parseval_rows_power(y, plan)
-        torch.cuda.synchronize()
-        e = rel_dev(fullchain.fused_chain_power_reference(xx, plan), pw)[0]
-        check(e <= POWER_TOL, f"#6 on the matrix A-stage's Y at m={m} "
-                              f"{xx.dtype}: vs the matrix form's power "
-                              f"{e:.3e} <= {POWER_TOL}")
-        vs_oracle(f"#5 + #6 m={m} {xx.dtype}", pw)
-    w32 = wire_words_on_card(x, cfg)
-    got = fullchain.fused_chain_power_wire(w32, plan, ch)
-    hold("wire", f"#7 m={m} (matrix route)",
-         fullchain.fused_chain_power_wire_reference(w32, plan, ch), got,
-         POWER_TOL)
-    vs_oracle(f"#7 m={m}", got)
-    w_all = torch.cat([w32.flip(0), w32]).contiguous()   # sectors 1, 0, 0, 1
-    ns = w32.shape[0]
-
-    def salted():
-        return fullchain.fused_chain_power_wire(w_all, plan, ch, offset=ns,
-                                                bs=ns, salt=7)
-
-    def salted_plain():
-        return fullchain.fused_chain_power_wire_reference(w_all[ns:], plan,
-                                                          ch, 7)
-
-    hold("wire_offset", f"#8 m={m} offset {ns} salt 7 (matrix route)",
-         salted_plain(), salted(), POWER_TOL)
-    mc = read_counts()
-    others = {k: v for k, v in mc.items() if k not in (
-        "astage", "astage_matrix", "rows", "wire", "wire_offset",
-        "dense_matrix")}
-    check(mc["astage"] == mc["astage_matrix"] == 2 and mc["rows"] == 2
-          and mc["wire"] == 1 and mc["wire_offset"] == 1
-          and mc["dense_matrix"] == 2 and not any(others.values()),
-          f"m={m} matrix routes: A-stage {mc['astage']} (matrix "
-          f"{mc['astage_matrix']}) == 2, rows {mc['rows']} == 2 (register "
-          f"form), wire {mc['wire']} + offset {mc['wire_offset']} == matrix "
-          f"kernel {mc['dense_matrix']} == 2, no other: {json.dumps(others)}")
-    res["astage"]["launches"] = mc["astage_matrix"]
-    res["wire"]["launches"] = mc["wire"]
-    res["wire_offset"]["launches"] = mc["wire_offset"]
-
-    win = torch.from_numpy(np.ascontiguousarray(
-        consts.op_a_half[0].real, np.float32)).cuda()
-    xw = (torch.complex(x[:, 0].float(), x[:, 1].float())
-          * win[:, None]).contiguous()       # pre-windowed, as cuFFT's input
-    out_b = bc * m // 2 * 4
-    routes = {
-        "astage": ("wrp_tpu_torch/csrc/fused_chain_astage_matrix.cu",
-                   lambda: fullchain.fused_chain_astage(x, plan),
-                   lambda: fullchain.fused_chain_astage_reference(x, plan),
-                   bc * astage_flops(m, n),
-                   x.numel() * 2 + m * 4 + bc * 2 * (m // 2) * n * 4),
-        "wire": ("wrp_tpu_torch/csrc/fused_chain_dense.cu",
-                 lambda: fullchain.fused_chain_power_wire(w32, plan, ch),
-                 lambda: fullchain.fused_chain_power_wire_reference(
-                     w32, plan, ch),
-                 bc * chain_flops(m, n), w32.numel() * 4 + m * 4 + out_b),
-        "wire_offset": ("wrp_tpu_torch/csrc/fused_chain_dense.cu", salted,
-                        salted_plain, bc * chain_flops(m, n),
-                        w32.numel() * 4 + m * 4 + out_b),
-    }
+def matrix_route_times(res: dict, m: int, bc: int, n: int, routes: dict,
+                       library=None) -> None:
+    """Each of `routes` ({key: (source, kernel, plain, flops, bytes)}) timed
+    in turns with its plain version (kernel, plain, plain, kernel, 3 warm
+    calls a turn; with `library` for the A-stage, cuFFT between them)
+    beside its bound and the matrix form's FMAs, into res[key]."""
     for key, (source, kernel, plain, flops, nbytes) in routes.items():
         fns = {"kernel": kernel, "plain": plain}
-        if key == "astage":
-            fns["library"] = lambda: torch.fft.fft(xw, dim=1)[:, :m // 2]
+        if key == "astage" and library is not None:
+            fns["library"] = library
         t = timed(fns, ("kernel", "plain") + (("library",) * 2
-                                              if key == "astage" else ())
-                  + ("plain", "kernel"))
+                                              if "library" in fns else ())
+                  + ("plain", "kernel"), cuda_ms3)
         bound_ms, bound_by = bound(flops, nbytes)
         fma = matrix_fma(m, n, bc) if key == "astage" else (
             bc * 4.0 * (m // 2) * m * n)
@@ -2721,7 +2894,133 @@ def long_ray_matrix_above(orc: Oracle, cfg, consts, plan, sectors,
         res[key].update(source=source, m=m, ms=t["kernel"],
                         plain_ms=t["plain"], library_ms=t.get("library"),
                         bound_ms=bound_ms, bound_by=bound_by, matrix_fma=fma)
-    del x, xw, w32, w_all
+
+
+def matrix_astage(orc: Oracle, cfg, consts, plan, sectors, x) -> dict:
+    """The A-stage's matrix route (#5, csrc/fused_chain_astage_matrix.cu)
+    at m = cfg.m on the two noise sectors of `long_ray_matrix` (planar
+    int16 x, 6 channel-sectors): int16 and f32 vs its plain version (Y <=
+    LONG_TOL), then #6 on its Y vs the matrix form's power (<= POWER_TOL)
+    and the oracle; two launches, both on the matrix route; then timed in
+    turns with its plain version and cuFFT.  Returns {"astage": launches,
+    errors and times}."""
+    m = cfg.m
+    tile = fullchain.astage_tile(plan)
+    check(tile == 4, f"m={m}: the matrix A-stage's tile {tile} (T = 8 "
+                     f"needs {2 * 8 * (m // plan.radix) * 4} bytes)")
+    gain = torch.from_numpy(consts.gain).cuda()
+    ch, n = cfg.num_channels, cfg.n
+    bc = x.shape[0]
+    res = {"astage": {"rel_l2": 0.0, "max_abs_err": 0.0}}
+    reset_counts()
+    for xx in (x, x.float()):
+        y = fullchain.fused_chain_astage(xx, plan)
+        torch.cuda.synchronize()
+        e, a = rel_dev(fullchain.fused_chain_astage_reference(xx, plan), y)
+        check(e <= LONG_TOL, f"#5 m={m} {xx.dtype} (matrix route): kernel "
+                             f"vs plain rel-L2 {e:.3e} <= {LONG_TOL}")
+        res["astage"]["rel_l2"] = max(res["astage"]["rel_l2"], e)
+        res["astage"]["max_abs_err"] = max(res["astage"]["max_abs_err"], a)
+        pw = fullchain.parseval_rows_power(y, plan)
+        torch.cuda.synchronize()
+        e = rel_dev(fullchain.fused_chain_power_reference(xx, plan), pw)[0]
+        check(e <= POWER_TOL, f"#6 on the matrix A-stage's Y at m={m} "
+                              f"{xx.dtype}: vs the matrix form's power "
+                              f"{e:.3e} <= {POWER_TOL}")
+        p = pw.reshape(len(sectors), ch, m // 2).cpu().numpy()
+        for k, iq in enumerate(sectors):
+            check_vs_oracle(f"#5 + #6 m={m} {xx.dtype} sector {k}", p[k],
+                            orc.power((m, n, "noise", k), iq, cfg), cfg, gain)
+    mc = read_counts()
+    others = {k: v for k, v in mc.items()
+              if k not in ("astage", "astage_matrix", "rows")}
+    check(mc["astage"] == mc["astage_matrix"] == 2 and mc["rows"] == 2
+          and not any(others.values()),
+          f"m={m} matrix A-stage: {mc['astage']} (matrix "
+          f"{mc['astage_matrix']}) == 2, rows {mc['rows']} == 2, no other: "
+          f"{json.dumps(others)}")
+    res["astage"]["launches"] = mc["astage_matrix"]
+    win = torch.from_numpy(np.ascontiguousarray(
+        consts.op_a_half[0].real, np.float32)).cuda()
+    xw = (torch.complex(x[:, 0].float(), x[:, 1].float())
+          * win[:, None]).contiguous()       # pre-windowed, as cuFFT's input
+    matrix_route_times(res, m, bc, n, {"astage": (
+        "wrp_tpu_torch/csrc/fused_chain_astage_matrix.cu",
+        lambda: fullchain.fused_chain_astage(x, plan),
+        lambda: fullchain.fused_chain_astage_reference(x, plan),
+        bc * astage_flops(m, n),
+        x.numel() * 2 + m * 4 + bc * 2 * (m // 2) * n * 4)},
+        library=lambda: torch.fft.fft(xw, dim=1)[:, :m // 2])
+    del xw
+    torch.cuda.empty_cache()
+    return res
+
+
+def matrix_wire(orc: Oracle, cfg, consts, plan, sectors, x) -> dict:
+    """The wire chain's matrix route at m = cfg.m (radix 8 above 8192, where
+    the wire has no cluster of 16), on the noise sectors `sectors` (planar
+    int16 x, 6 channel-sectors): #7 and #8 at offset 2 salt 7 on a
+    4-sector staging vs their plain versions (<= POWER_TOL) and the
+    oracle, one launch each, both on the matrix kernel; then each timed in
+    turns with its plain version.  Returns {"wire", "wire_offset":
+    launches, errors and times}."""
+    m = cfg.m
+    gain = torch.from_numpy(consts.gain).cuda()
+    ch, n = cfg.num_channels, cfg.n
+    bc = x.shape[0]
+    res = {k: {"rel_l2": 0.0, "max_abs_err": 0.0}
+           for k in ("wire", "wire_offset")}
+
+    def hold(key, what, ref, out):
+        torch.cuda.synchronize()
+        e, a = rel_dev(ref, out)
+        check(e <= POWER_TOL, f"{what}: kernel vs plain rel-L2 {e:.3e} <= "
+                              f"{POWER_TOL}")
+        res[key]["rel_l2"] = max(res[key]["rel_l2"], e)
+        res[key]["max_abs_err"] = max(res[key]["max_abs_err"], a)
+
+    reset_counts()
+    w32 = wire_words_on_card(x, cfg)
+    got = fullchain.fused_chain_power_wire(w32, plan, ch)
+    hold("wire", f"#7 m={m} (matrix route)",
+         fullchain.fused_chain_power_wire_reference(w32, plan, ch), got)
+    p = got.reshape(len(sectors), ch, m // 2).cpu().numpy()
+    for k, iq in enumerate(sectors):
+        check_vs_oracle(f"#7 m={m} sector {k}", p[k],
+                        orc.power((m, n, "noise", k), iq, cfg), cfg, gain)
+    w_all = torch.cat([w32.flip(0), w32]).contiguous()   # sectors 1, 0, 0, 1
+    ns = w32.shape[0]
+
+    def salted():
+        return fullchain.fused_chain_power_wire(w_all, plan, ch, offset=ns,
+                                                bs=ns, salt=7)
+
+    def salted_plain():
+        return fullchain.fused_chain_power_wire_reference(w_all[ns:], plan,
+                                                          ch, 7)
+
+    hold("wire_offset", f"#8 m={m} offset {ns} salt 7 (matrix route)",
+         salted_plain(), salted())
+    mc = read_counts()
+    others = {k: v for k, v in mc.items()
+              if k not in ("wire", "wire_offset", "dense_matrix")}
+    check(mc["wire"] == 1 and mc["wire_offset"] == 1
+          and mc["dense_matrix"] == 2 and not any(others.values()),
+          f"m={m} the wire's matrix route: wire {mc['wire']} + offset "
+          f"{mc['wire_offset']} == matrix kernel {mc['dense_matrix']} == 2, "
+          f"none on the cluster body: {json.dumps(others)}")
+    res["wire"]["launches"] = mc["wire"]
+    res["wire_offset"]["launches"] = mc["wire_offset"]
+    out_b = bc * m // 2 * 4
+    src = "wrp_tpu_torch/csrc/fused_chain_dense.cu"
+    matrix_route_times(res, m, bc, n, {
+        "wire": (src, lambda: fullchain.fused_chain_power_wire(w32, plan, ch),
+                 lambda: fullchain.fused_chain_power_wire_reference(
+                     w32, plan, ch),
+                 bc * chain_flops(m, n), w32.numel() * 4 + m * 4 + out_b),
+        "wire_offset": (src, salted, salted_plain, bc * chain_flops(m, n),
+                        w32.numel() * 4 + m * 4 + out_b)})
+    del w32, w_all
     torch.cuda.empty_cache()
     return res
 
@@ -2734,13 +3033,14 @@ def phase_long_rays(orc: Oracle) -> dict:
     only; #5 beside cuFFT), the dense entries at CLUSTER_DENSE_MS (the
     cluster body) and LONG_BODY_M (the long-ray body), the bench at LONG_M
     (i16, wire), a world-size-1 pallas-seq step and the mxu method at
-    LONG_M and a pallas-seq step at ODD_LEAF_M, and the matrix routes of
-    #3/#4, #5, #7, #8 above CLUSTER_MAX_M.  Returns each kernel's launches
-    on the slice's paths (`long_ray_launches`), its results, its times by
-    m and its matrix route's results."""
+    LONG_M and a pallas-seq step at ODD_LEAF_M, the cluster of 16 at
+    CLUSTER16_MS (`long_ray_cluster16`), and the matrix routes left above
+    8192 (`long_ray_matrix`).  Returns each kernel's launches on the
+    slice's paths (`long_ray_launches`), its results, its times by m, the
+    cluster of 16's and the matrix routes' results."""
     t0 = time.perf_counter()
     print_ptxas(r"fft_chain_long_kernel")
-    spills = print_ptxas(r"cluster_(chain|leaf)_kernel")
+    spills = print_ptxas(r"cluster_(chain|chain16|leaf)_kernel")
     print(f"ptxas: cluster kernels with a spill: {json.dumps(spills)}",
           flush=True)
     cfg = dataclasses.replace(DEFAULT_CONFIG, num_range_cells=LONG_M)
@@ -2773,20 +3073,28 @@ def phase_long_rays(orc: Oracle) -> dict:
     t_seq = time.perf_counter()
     launches.update(long_ray_seq_and_mxu(cfg, iqs))
     t_seq = time.perf_counter() - t_seq
-    t_matrix = time.perf_counter()
-    matrix = long_ray_matrix(orc)
-    t_matrix = time.perf_counter() - t_matrix
-    print(f"long rays: launches {json.dumps(launches)}; radix matrix route "
+    with ThreadPoolExecutor(4) as pool:
+        inputs = long_ray_inputs(orc, pool)
+        t_c16 = time.perf_counter()
+        c16 = long_ray_cluster16(orc, gen, spills, inputs)
+        t_c16 = time.perf_counter() - t_c16
+        t_matrix = time.perf_counter()
+        matrix = long_ray_matrix(orc, c16.pop("wire_case"), inputs)
+        t_matrix = time.perf_counter() - t_matrix
+    print(f"long rays: launches {json.dumps(launches)}; cluster of 16 "
+          f"{json.dumps(c16['launches'])}; radix matrix route "
           f"{matrix['counts']['dense_matrix']}; phase "
           f"{time.perf_counter() - t0:.1f} s (checks {t_checks:.1f} s, times "
-          f"{t_times:.1f} s, pallas-seq and mxu {t_seq:.1f} s, m="
-          f"{MATRIX_ABOVE_M} matrix routes {t_matrix:.1f} s)", flush=True)
+          f"{t_times:.1f} s, pallas-seq and mxu {t_seq:.1f} s, the cluster "
+          f"of 16 {t_c16:.1f} s, matrix routes at m={MATRIX_REFUSED_M} and "
+          f"{MATRIX_ABOVE_M} {t_matrix:.1f} s)", flush=True)
     keys = ("radix", "radix_f32", "radix_offset", "wire", "wire_offset",
             "astage")
     times = {key: {str(m): t[key] for m, t in by_m.items() if key in t}
              for key in keys}
     return {"launches": launches, "res": res, "dense": dense,
-            "at_4096": by_m[4096], "times": times, "matrix": matrix}
+            "at_4096": by_m[4096], "times": times, "matrix": matrix,
+            "cluster16": c16}
 
 
 def offset_entry_checks(name, units, count, call, on_slab, plain, zdb_of,
@@ -4035,6 +4343,7 @@ def main() -> int:
     dense_launches = phase_dense_path()
     long = phase_long_rays(orc)
     lr = long["launches"]
+    c16 = long["cluster16"]
     shard = phase_pulse_shard(orc, noise)
     phase_halo_ranks()
     tools = phase_cli_tools()
@@ -4054,7 +4363,7 @@ def main() -> int:
                      multihost_bench_launches=last["multihost"],
                      ab_sweep_gate_launches=last["ab_sweep"]["launches"]["radix"],
                      hw_demo_launches=demo["radix"],
-                     matrix_route_m=MATRIX_ABOVE_M,
+                     matrix_route_m=MATRIX_REFUSED_M,
                      matrix_route_ms=long["matrix"]["radix_ms"],
                      matrix_astage_rows_ms=long["matrix"]["astage_rows_ms"],
                      **occ["radix"]),
@@ -4076,6 +4385,43 @@ def main() -> int:
                      {**long["res"]["radix_offset"],
                       **long["at_4096"]["radix_offset"]},
                      m=4096, times_by_m=long["times"]["radix_offset"]),
+        # the cluster of 16 (8192 < m <= 16384): launches on the slice's
+        # main path at m = 8320 and 16384 (the pallas processor; #4: the
+        # bench at 8320; #5: the pallas-seq steps); errors over the checks
+        # at both m; ms, plain and bound on 6 channel-sectors at m = 8320,
+        # both m's in times_by_m; its kernels in the three part files of
+        # `sources` (8320's first, 16384's second)
+        kernel_entry("fused_chain_power_radix (cluster of 16, 8192 < m <= 16384)",
+                     CLUSTER16_SOURCES["radix"][0],
+                     "wrp_tpu/ops/pallas/fullchain.py:809",
+                     c16["launches"]["radix"],
+                     {**c16["res"]["radix"], **c16["times"][8320]["radix"]},
+                     m=8320, sources=CLUSTER16_SOURCES["radix"],
+                     times_by_m={str(m): t["radix"]
+                                 for m, t in c16["times"].items()},
+                     f32_times_by_m={str(m): t["radix_f32"]
+                                     for m, t in c16["times"].items()},
+                     resident_clusters={str(m): r["radix"] for m, r
+                                        in c16["resident"].items()}),
+        kernel_entry("fused_chain_power_radix (offset, salt; cluster of 16)",
+                     CLUSTER16_SOURCES["radix"][0],
+                     "wrp_tpu/ops/pallas/fullchain.py:840",
+                     c16["launches"]["radix_offset"],
+                     {**c16["res"]["radix_offset"],
+                      **c16["times"][8320]["radix_offset"]},
+                     m=8320, sources=CLUSTER16_SOURCES["radix"],
+                     times_by_m={str(m): t["radix_offset"]
+                                 for m, t in c16["times"].items()}),
+        kernel_entry("fused_chain_astage (cluster of 16, 8192 < m <= 16384)",
+                     CLUSTER16_SOURCES["astage"][0],
+                     "wrp_tpu/ops/pallas/fullchain.py:955",
+                     c16["launches"]["astage"],
+                     {**c16["res"]["astage"], **c16["times"][8320]["astage"]},
+                     m=8320, sources=CLUSTER16_SOURCES["astage"],
+                     times_by_m={str(m): t["astage"]
+                                 for m, t in c16["times"].items()},
+                     resident_clusters={str(m): r["astage"] for m, r
+                                        in c16["resident"].items()}),
         kernel_entry("fused_chain_power_wire",
                      "wrp_tpu_torch/csrc/fused_chain_wire.cu",
                      "wrp_tpu/ops/pallas/fullchain.py:1170", dev["wire"],

@@ -120,21 +120,21 @@ def test_chain_route_by_m():
     1001, 8184 = 8 x 1023), m = 2 x odd above 2048 on the long-ray body
     (4094), the matrix kernel where the cluster body refuses and says why
     (4100 = 4 x 1025: a block's 1025-point sub-DFT; 1042 = 2 x 521: a
-    Bluestein length of 2048; 8320: above CLUSTER_MAX_M); the radix m as
-    before."""
+    Bluestein length of 2048; 16416: above CLUSTER_MAX_M); the radix m as
+    before, 8320 on a cluster of 16."""
     for m, route, split in ((1832, "cluster", 8), (1836, "cluster", 4),
                             (2002, "cluster", 2), (8184, "cluster", 8),
                             (1840, "cluster", 8), (4112, "cluster", 8),
                             (4094, "long", 2), (2050, "long", 2),
                             (4100, "matrix", 4), (1042, "matrix", 2),
-                            (8320, "matrix", 8), (1001, "matrix", 1),
+                            (8320, "cluster", 16), (1001, "matrix", 1),
                             (1000, "register", 8)):
         assert tfull.chain_route(m) == route, m
         assert tfull.cluster_split(m) == split, m
         assert (tfull.cluster_refusal(m) is None) == (route == "cluster"), m
     assert "CLUSTER_MAX_MS" in tfull.cluster_refusal(4100)
     assert "2048 > BLUESTEIN_MAX_N" in tfull.cluster_refusal(1042)
-    assert "CLUSTER_MAX_M" in tfull.cluster_refusal(8320)
+    assert "CLUSTER_MAX_M = 16384" in tfull.cluster_refusal(16416)
     assert tfull.cluster_geometry(1832, 512).S == 8
     assert tfull.cluster_geometry(2002, 512).span == 501
 

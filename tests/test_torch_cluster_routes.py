@@ -3,10 +3,12 @@ chain (#7/#8) launch for each m, and the cluster body's cut, on the CPU.
 
 `chain_route(m)` picks from m alone: the register body of csrc/fft_chain.cuh
 up to 1024 range cells, the cluster body of csrc/cluster_chain.cuh up to
-8192 (each ray split across a cluster of 8 blocks; the dense entries'
-radix-1 m = S x odd across S), the matrix forms above
-(csrc/fused_chain_dense.cu's matrix kernel and its wire source,
-csrc/fused_chain_astage_matrix.cu).  Here: the route, the radix entry's
+16384 for the planar chain and the A-stage, 8192 for the wire (each ray
+split across a cluster of 8 blocks, 16 above 8192; the dense entries'
+radix-1 m = S x odd across S), the matrix forms where the cluster body
+refuses m or the wire passes 8192 (csrc/fused_chain_dense.cu's matrix
+kernel and its wire source, csrc/fused_chain_astage_matrix.cu).  Here: the
+route, the radix entry's
 plain version and the plan's tables per m; the cluster geometry's cut and
 shared memory at each m the slice names, worked out by hand, for the
 A-stage, the wire chain and the planar chain (which reads its samples
@@ -14,12 +16,13 @@ straight from device memory, against the staged form it was measured
 beside); the layout of
 `cluster_tables`; the cluster stage against the fp64 DFT at its smallest m;
 the `pallas-seq` and fused-wire processors' products against the oracle at
-m = 1840 and 8192; and the matrix routes, which now start above 8192, at
-m = 8320 (radix 8): the A-stage's matrix plain version against wrp_tpu's,
-the fused wire decode and `pallas-seq` equal to the planar products, #8's
-plain version with offset and salt."""
+m = 1840 and 8192; and the matrix routes above 8192: the A-stage's matrix
+plain version at m = 8208 (16 x 513, radix 2, which the cluster body
+refuses) against a float64 FFT, and at m = 8320 (radix 8) the fused wire
+decode on the wire's matrix route, `pallas-seq` on the A-stage's cluster
+of 16, #8's plain version with offset and salt.  tests/test_torch_cluster16.py
+holds the cluster of 16 itself."""
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -27,7 +30,6 @@ import torch
 from wrp_tpu import oracle
 from wrp_tpu.config import tiny_config as jtiny
 from wrp_tpu.constants import PipelineConstants as JConsts
-from wrp_tpu.ops.pallas import fullchain as jfull
 from wrp_tpu_torch.config import tiny_config
 from wrp_tpu_torch.constants import PipelineConstants
 from wrp_tpu_torch.io import codec
@@ -43,7 +45,8 @@ N = 16
 SAME_TOL = 1e-5       # two forms of the same chain (fp32 reassociation)
 PRODUCT_TOL = 2e-4    # zdb, zdr vs the fp64 oracle
 ASTAGE_TOL = 1e-5     # Y vs wrp_tpu's A-stage (bf16 hi/lo splits there)
-ABOVE = 8320          # radix 8 above CLUSTER_MAX_M: the matrix routes
+ABOVE = 8320          # radix 8 above 8192: the wire's matrix route, a cluster of 16 else
+REFUSED = 8208        # 16 x 513 (radix 2): the cluster body refuses it (P = 1 at S = 16)
 
 
 def _planar(iq):
@@ -64,13 +67,14 @@ def _hold(got, want, tol, what):
 
 def test_chain_route_by_m():
     """The register body up to 1024, the cluster body for radix m up to
-    8192, the matrix forms above; cluster_geometry refuses the m the body
-    does not take, saying why (outside its range, naming CLUSTER_MAX_M; a
-    block's sub-DFT over CLUSTER_MAX_MS; a Bluestein length over
-    BLUESTEIN_MAX_N).  The radix entry's CPU result is the plain version of
-    the route the card launches, exactly (the matrix route's at m = 8320 in
-    test_wire_and_seq_matrix_above_8192), and the FFT-form body takes a
-    radix m only up to 1024."""
+    16384 (the wire's up to 8192), the matrix forms above and where the
+    cluster body refuses m; cluster_geometry refuses the m the body does
+    not take, saying why (outside its range, naming CLUSTER_MAX_M = 16384;
+    P = 1 at S = 16; a block's sub-DFT over CLUSTER_MAX_MS; a Bluestein
+    length over BLUESTEIN_MAX_N).  The radix entry's CPU result is the
+    plain version of the route the card launches, exactly (the cluster
+    route's at m = 8320 in test_wire_and_seq_matrix_above_8192), and the
+    FFT-form body takes a radix m only up to 1024."""
     rng = np.random.default_rng(7)
     for m in (64, 960, 1024):
         assert tfull.chain_route(m) == "register", m
@@ -89,12 +93,18 @@ def test_chain_route_by_m():
         assert torch.equal(
             tfull.fused_chain_power_radix(x, plan, offset=1, bc=2, salt=7),
             plain(x[1:3], plan, 7)), m
-    for m in (8208, ABOVE, 16384):
-        assert tfull.radix_for(m) > 1 and tfull.chain_route(m) == "matrix", m
+    for m in (ABOVE, 16384):
+        assert tfull.radix_for(m) > 1 and tfull.chain_route(m) == "cluster"
+        assert tfull.chain_route(m, wire=True) == "matrix", m
+    for m in (REFUSED, 16416):
+        assert tfull.radix_for(m) > 1, m
+        assert tfull.chain_route(m) == tfull.chain_route(m, wire=True) == "matrix"
     # m = 1832 = 8 x 229 does not split into radix branches: the dense
     # entries' route, on the cluster body too (its leaf in Bluestein's form)
     assert tfull.radix_for(1832) == 1 and tfull.cluster_takes(1832)
-    for m, why in ((1024, "CLUSTER_MAX_M = 8192"), (ABOVE, "CLUSTER_MAX_M"),
+    for m, why in ((1024, "CLUSTER_MAX_M = 16384"),
+                   (16416, "CLUSTER_MAX_M = 16384"),
+                   (REFUSED, "P = 1 at S = 16"),
                    (4100, "CLUSTER_MAX_MS = 1024"),
                    (1042, "BLUESTEIN_MAX_N = 1024")):
         assert tfull.cluster_refusal(m) is not None
@@ -106,14 +116,14 @@ def test_plan_tables_by_route():
     """A plan holds the tables its routes read: fft_t for the FFT-form body
     (m <= 1024, and the dense entries' long-ray m = 2 x odd above 2048),
     cluster_t and cluster_phi for the cluster body (every chain of a radix
-    m up to 8192, the radix entry's too, and the dense entries' m = S x
-    odd: 1832), A_half on the host only for the matrix kernel of the radix
-    entry above 8192."""
+    m up to 8192, the planar chain and the A-stage up to 16384, and the
+    dense entries' m = S x odd: 1832), A_half on the host only for a radix
+    plan's matrix kernel (the wire's above 8192)."""
     cases = {1024: (True, False, False), 1832: (False, True, False),
              4094: (True, False, False),
              2048: (False, True, False), 4096: (False, True, False),
              4160: (False, True, False), 8192: (False, True, False),
-             ABOVE: (False, False, True)}
+             ABOVE: (False, True, True)}
     for m, (fft, cluster, host) in cases.items():
         plan = _plan(m)
         assert (plan.fft_t is not None, plan.cluster_t is not None,
@@ -362,36 +372,43 @@ def test_cluster_processors_vs_oracle(m):
 
 
 def test_astage_matrix_above_8192_vs_jax():
-    """m = 8320 (radix 8, M = 1040): the A-stage takes the matrix form's
-    plain version, within 1e-5 of wrp_tpu's A-stage on the same slab in
-    radix row order at w = n and n/2; no cluster tables; no launch
-    counted."""
-    m = ABOVE
-    plan = _plan(m)
-    assert plan.radix == 8 and plan.cluster_t is None
+    """m = 8208 (16 x 513, radix 2, M = 4104), which the cluster body
+    refuses (P = 1 at S = 16): the A-stage takes the matrix form's plain
+    version, within 1e-5 of the float64 FFT of the windowed slab at w = n
+    and n/2 (wrp_tpu's radix-2 operator there would be a 540 MB
+    interpret-mode contraction); no cluster tables; no launch counted.
+    The A-stage's cluster of 16 is held against wrp_tpu at m = 8320 in
+    tests/test_torch_cluster16.py."""
+    m = REFUSED
+    consts = PipelineConstants.build(tiny_config(m=m, n=N))
+    plan = tfull.build_plan(consts, "cpu")
+    assert (plan.radix == 2 and plan.cluster_t is None
+            and tfull.chain_route(m) == "matrix")
     x = _planar(oracle.synthetic_iq(jtiny(m=m, n=N), kind="noise", seed=m))
-    a_np, fac = jfull.radix_plan_host(JConsts.build(jtiny(m=m, n=N)), 8)
-    order = jfull.radix_row_order(m, 8)
+    win = np.asarray(consts.op_a_half[0]).astype(np.complex128).real
     before = (tfull.ASTAGE_LAUNCHES, tfull.ASTAGE_MATRIX_LAUNCHES)
     for w in (N, N // 2):
         slab = torch.from_numpy(np.ascontiguousarray(x[..., :w]))
         got = tfull.fused_chain_astage(slab, plan)
         assert torch.equal(got, torch.stack(
             tfull._contract_reference(slab, plan), dim=1))
-        want = np.asarray(jfull.fused_chain_astage(
-            jnp.asarray(slab.numpy()[:, :, order, :]), jnp.asarray(a_np), fac,
-            interpret=True))
+        z = (slab[:, 0].double().numpy() + 1j * slab[:, 1].double().numpy()
+             ) * win[None, :, None]
+        y = np.fft.fft(z, axis=1)[:, : m // 2]
+        want = np.stack([y.real, y.imag], 1)
         assert oracle.relative_l2(want, got.numpy()) <= ASTAGE_TOL, w
     assert before == (tfull.ASTAGE_LAUNCHES, tfull.ASTAGE_MATRIX_LAUNCHES)
 
 
 def test_wire_and_seq_matrix_above_8192():
-    """m = 8320: the fused wire decode and a world-size-1 pallas-seq step
-    take the matrix routes and give the planar products exactly (one
-    matrix-form plain version, which the radix entry's CPU result equals),
-    within 2e-4 of the oracle; #8's plain
-    version with offset 1 and salt 7 equals fused_chain_power_reference on
-    the decoded, salted slab."""
+    """m = 8320: the fused wire decode takes the wire's matrix route (its
+    power equal to the matrix form's plain version on the decoded samples,
+    exactly) and a world-size-1 pallas-seq step the A-stage's cluster of
+    16; the planar products are the cluster form's (the radix entry's CPU
+    result equals cluster_chain_power_reference), so both are held to the
+    two-form bound of 1e-5 of them and 2e-4 of the oracle; #8's plain
+    version with offset 1 and salt 7 equals fused_chain_power_reference on the
+    decoded, salted slab."""
     m = ABOVE
     cfg = tiny_config(m=m, n=N)
     iqs = [oracle.synthetic_iq(jtiny(m=m, n=N), kind="noise", seed=s)
@@ -405,16 +422,19 @@ def test_wire_and_seq_matrix_above_8192():
     step = build_sharded_processor(cfg, make_mesh(device="cpu"),
                                    method="pallas-seq", device="cpu")
     for got in (fused(wires.view("<i4")), step(planar)):
-        assert torch.equal(got[0], pzdb) and torch.equal(got[1], pzdr)
+        _hold(got, (pzdb, pzdr), SAME_TOL, "vs pallas")
         for b, iq in enumerate(iqs):
             _hold((got[0][b], got[1][b]), oracle.process_sector(
                 iq, jtiny(m=m, n=N)), PRODUCT_TOL, b)
     plan = fused._wire_plan
-    # the radix entry's CPU result is the matrix route's plain version
+    # the radix entry's CPU result is the cluster route's plain version,
+    # the wire entry's the matrix route's on the decoded samples
     x = torch.from_numpy(planar.reshape(-1, 2, m, N))
     assert torch.equal(tfull.fused_chain_power_radix(x, plan),
-                       tfull.fused_chain_power_reference(x, plan))
+                       tfull.cluster_chain_power_reference(x, plan))
     w32 = torch.from_numpy(wires.view("<i4").reshape(2, m, -1).copy())
+    assert torch.equal(tfull.fused_chain_power_wire(w32, plan, 3).reshape(6, -1),
+                       tfull.fused_chain_power_reference(x.float(), plan))
     got = tfull.fused_chain_power_wire(w32, plan, 3, offset=1, bs=1, salt=7)
     want = tfull.fused_chain_power_reference(
         torch.from_numpy(planar[1]).float(), plan, 7)

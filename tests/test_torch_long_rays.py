@@ -189,16 +189,17 @@ def test_above_4096_routes_and_refusals():
     plain versions, within 1e-5 of the planar products; the default wire
     decode picks "xla" and equals the planar products
     (tests/test_torch_cluster.py holds the cluster body against wrp_tpu).
-    Above 8192 (m = 8320) the radix entry's matrix route: the matrix
-    kernel's operator (A_half as [m, m/2, 2], C order, built once) and the
-    plain version with offset and salt (tests/test_torch_cluster_routes.py
-    holds the other matrix routes there)."""
+    Above 8192, where the cluster body refuses m (m = 8208 = 16 x 513,
+    radix 2), the radix entry's matrix route: the matrix kernel's operator
+    (A_half as [m, m/2, 2], C order, built once) and the plain version
+    with offset and salt (tests/test_torch_cluster_routes.py holds the
+    other matrix routes there)."""
     m = 4160
     cfg = tiny_config(m=m, n=N)
     plan = tfull.build_plan(_consts(m), "cpu")
     assert plan.radix == 8 and plan.fft_t is None and plan.host_a_half is None
     assert tfull.chain_route(m) == "cluster"
-    with pytest.raises(ValueError, match="CLUSTER_MAX_M = 8192"):
+    with pytest.raises(ValueError, match="CLUSTER_MAX_M8 = 8192"):
         plan.dense_operator()
     iq = _sector(m, seed=7)
     x = torch.from_numpy(np.stack([_planar(iq)] * 2).reshape(-1, 2, m, N))
@@ -239,11 +240,11 @@ def test_above_4096_routes_and_refusals():
         for g, w in zip(got, (pzdb, pzdr)):
             assert oracle.relative_l2(w.numpy(), g.numpy()) < 1e-5
 
-    m = 8320
+    m = 8208
     consts = _consts(m)
     plan = tfull.build_plan(consts, "cpu")
     assert (tfull.chain_route(m) == "matrix" and plan.cluster_t is None
-            and plan.host_a_half is not None)
+            and plan.radix == 2 and plan.host_a_half is not None)
     # the matrix kernel's operator, in the C order its pointer is read in
     op = plan.dense_operator()
     assert op.shape == (m, m // 2, 2) and op.is_contiguous()

@@ -73,11 +73,15 @@ def range_gain(cfg: RadarConfig) -> np.ndarray:
     return (i * cfg.range_resolution) ** 2 * cfg.calibration
 
 
-def dft_matrix(length: int, inverse: bool = False) -> np.ndarray:
-    """Unnormalised DFT matrix F[j, k] = exp(-2 pi i j k / L) (conj if inverse)."""
+def dft_matrix(length: int, inverse: bool = False,
+               rows: int | None = None) -> np.ndarray:
+    """Unnormalised DFT matrix F[j, k] = exp(-2 pi i j k / L) (conj if
+    inverse); `rows`: its first rows only, each value as in the full
+    matrix."""
     j = np.arange(length)
     sign = 2.0j if inverse else -2.0j
-    return np.exp(sign * np.pi * np.outer(j, j) / length)
+    r = j if rows is None else j[:rows]
+    return np.exp(sign * np.pi * np.outer(r, j) / length)
 
 
 def stage1_operators(cfg: RadarConfig, half: bool = False):
@@ -88,9 +92,9 @@ def stage1_operators(cfg: RadarConfig, half: bool = False):
     m, n = cfg.num_range_cells, cfg.num_pulses
     wr, wd, c = hamming_factors(cfg)
 
-    A = dft_matrix(m) * (wr * c)[None, :]          # F_m @ diag(wr*c)
-    if half:
-        A = A[: m // 2]
+    # F_m @ diag(wr*c); half: its first m/2 rows alone (2.1 GB of fp64 at
+    # m = 16384, not twice that)
+    A = dft_matrix(m, rows=m // 2 if half else None) * (wr * c)[None, :]
 
     mean_sub = np.eye(n) - np.full((n, n), 1.0 / n)
     B = (wd[:, None] * mean_sub) @ np.conj(dft_matrix(n))

@@ -1,7 +1,7 @@
-// The cluster body: rays of 1024 < m <= 8192 range cells, each split across
-// a thread-block cluster of S blocks, for NVIDIA Hopper (sm_90a).  Behind
-// fused_chain_astage_cluster.cu (the pulse-sharded path's A-stage, Y
-// stored), fused_chain_radix_cluster.cu (the planar fused chain and its
+// The cluster body: rays of 1024 < m <= 16384 range cells, each split
+// across a thread-block cluster of S blocks, for NVIDIA Hopper (sm_90a).
+// Behind fused_chain_astage_cluster.cu (the pulse-sharded path's A-stage,
+// Y stored), fused_chain_radix_cluster.cu (the planar fused chain and its
 // offset/salt entry; also the dense entries' radix-1 m) and
 // fused_chain_wire_cluster.cu (the wire fused chain and its offset/salt
 // entry), the last two with the Parseval epilogue fused.  It replaces, at
@@ -27,10 +27,13 @@
 // blocks and every block sees every column: block b owns the range rows
 // r = S t + b, t < m' = m / S, a round `cols` columns wide, as many as one
 // block's shared memory holds (ops/fullchain.cluster_geometry: for the
-// fused chains 64 at m = 1536-2048, 32 at 4096-4160, 16 at 8192), since
-// each round costs two cluster barriers.  S = 8 for a radix m (m % 16 ==
-// 0); a radix-1 m = S x odd (S = 2, 4, 8: the dense entries) splits by the
-// power of two it has, so each block's m'-point DFT is the odd leaf alone.
+// fused chains 64 at m = 1536-2048, 32 at 4096-4160 and 8224-9216, 16 at
+// 8192, 12288 and 16384), since each round costs two cluster barriers.  S =
+// 8 for a radix m (m % 16 == 0) up to 8192; above it S = 16 (a
+// non-portable cluster size; m % 32 == 0, so m' = m / 16 <= 1024 keeps P
+// >= 2), for the planar chain and the A-stage alone; a radix-1 m = S x odd
+// (S = 2, 4, 8: the dense entries) splits by the power of two it has, so
+// each block's m'-point DFT is the odd leaf alone.
 // With r = S t + b and k = k1 + m' k2 (k1 < m', k2 < S):
 //
 //   Y[k1 + m' k2] = sum_b W_S^(b k2) W_m^(b k1) F_b[k1],
@@ -49,8 +52,10 @@
 //      multiplies F_b[k1] by W_m^(b k1) and runs the S-point DFT across
 //      the blocks for its S / 2 kept outputs k2 < S / 2 only (k < m/2): at
 //      S = 8 two 4-point DFTs, exact in +-1, +-i, and W_8^k2 between them;
-//      at S = 4 two outputs of one, at S = 2 a sum.  A block thus owns the
-//      m / 2S rows k1 + m' k2 of its slice through every round;
+//      at S = 16 two 8-point DFTs (each two 4-point DFTs joined by W_8)
+//      and W_16^k2 between them; at S = 4 two outputs of one, at S = 2 a
+//      sum.  A block thus owns the m / 2S rows k1 + m' k2 of its slice
+//      through every round;
 //   3. the A-stage stores its rows of Y, `cols` contiguous floats a row and
 //      plane; the fused chains write them to a local buffer and merge each
 //      owned row's round into its Parseval partials, held in registers for
@@ -110,8 +115,11 @@
 // (__launch_bounds__(256, 1)), so one block a SM, and a round's columns
 // fill the shared memory that leaves (ops/fullchain.cluster_smem_bytes);
 // the grid is S blocks a unit, clusters of S.  The L = 1 kernels
-// (cluster_chain_kernel: m = 2048, 4096, 8192) carry no leaf code; every
-// odd L runs cluster_leaf_kernel.
+// (cluster_chain_kernel: m = 2048, 4096, 8192; cluster_chain16_kernel: m
+// = 16384) carry no leaf code; every odd L runs cluster_leaf_kernel.  A
+// cluster of 16 at one block an SM needs 16 free SMs of one GPC; how many
+// the card holds at once is cudaOccupancyMaxActiveClusters' answer
+// (`occupancy`).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -128,11 +136,13 @@ namespace cluster {
 
 namespace cg = cooperative_groups;
 
-constexpr int kSplit = 8;       // a radix m's blocks a unit (one cluster), the most
-constexpr int kOut = 4;         // outputs k2 < 4 of the 8-point DFT across blocks (k < m/2)
+constexpr int kSplit = 8;       // a radix m's blocks a unit (one cluster) up to kMaxM8
+constexpr int kSplitLong = 16;  // above kMaxM8: a cluster of 16 (a non-portable size)
+constexpr int kOut = 4;         // outputs of a 4-point DFT across blocks
 constexpr int kRows = 2;        // epilogue rows a thread owns: m / 2S <= 512
 constexpr int kMinM = 1025;     // below: the register body (fft_chain.cuh)
-constexpr int kMaxM = 8192;
+constexpr int kMaxM8 = 8192;    // the longest ray split 8 ways
+constexpr int kMaxM = 16384;
 constexpr int kMaxMs = 1024;    // m' = m / S: P <= 1024, m / 2S <= kRows kThreads
 constexpr int kMaxCols = 64;
 constexpr int kMaxRadix = 31;   // the leaf's register DFTs: odd primes up to 31
@@ -149,15 +159,15 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
-// The 4-point DFT (W_4 = -i, exact) of the blocks h, h + 2, h + 4, h + 6:
-// x[k] = sum_j W_4^(j k) g[h + 2 j].
-template <int h>
-__device__ __forceinline__ void dft4(const float (&gr)[kSplit], const float (&gi)[kSplit],
+// The 4-point DFT (W_4 = -i, exact) of the blocks h, h + st, h + 2 st,
+// h + 3 st: x[k] = sum_j W_4^(j k) g[h + st j].
+template <int h, int st, int N>
+__device__ __forceinline__ void dft4(const float (&gr)[N], const float (&gi)[N],
                                      float (&xr)[kOut], float (&xi)[kOut]) {
-  const float sr = gr[h] + gr[h + 4], si = gi[h] + gi[h + 4];
-  const float ar = gr[h] - gr[h + 4], ai = gi[h] - gi[h + 4];
-  const float tr = gr[h + 2] + gr[h + 6], ti = gi[h + 2] + gi[h + 6];
-  const float dr = gr[h + 2] - gr[h + 6], di = gi[h + 2] - gi[h + 6];
+  const float sr = gr[h] + gr[h + 2 * st], si = gi[h] + gi[h + 2 * st];
+  const float ar = gr[h] - gr[h + 2 * st], ai = gi[h] - gi[h + 2 * st];
+  const float tr = gr[h + st] + gr[h + 3 * st], ti = gi[h + st] + gi[h + 3 * st];
+  const float dr = gr[h + st] - gr[h + 3 * st], di = gi[h + st] - gi[h + 3 * st];
   xr[0] = sr + tr;
   xi[0] = si + ti;
   xr[1] = ar + di;                              // a - i d
@@ -168,8 +178,30 @@ __device__ __forceinline__ void dft4(const float (&gr)[kSplit], const float (&gi
   xi[3] = ai + dr;
 }
 
+// The 8-point DFT from the 4-point DFTs a (even blocks) and c (odd):
+// x[k] = a[k] + W_8^k c[k], x[k + 4] = a[k] - W_8^k c[k] (W_8^2 = -i
+// exact; w1, w3: W_8^1, W_8^3).
+__device__ __forceinline__ void join8(const float (&ar)[kOut], const float (&ai)[kOut],
+                                      const float (&cr)[kOut], const float (&ci)[kOut],
+                                      float2 w1, float2 w3, float (&xr)[8], float (&xi)[8]) {
+  float vr[kOut], vi[kOut];
+  vr[0] = cr[0];
+  vi[0] = ci[0];
+  fft::cmul(cr[1], ci[1], w1.x, w1.y, vr[1], vi[1]);
+  vr[2] = ci[2];                                // -i c
+  vi[2] = -cr[2];
+  fft::cmul(cr[3], ci[3], w3.x, w3.y, vr[3], vi[3]);
+#pragma unroll
+  for (int k = 0; k < kOut; ++k) {
+    xr[k] = ar[k] + vr[k];
+    xi[k] = ai[k] + vi[k];
+    xr[k + kOut] = ar[k] - vr[k];
+    xi[k + kOut] = ai[k] - vi[k];
+  }
+}
+
 // Planar IQ x [units, 2, m, n], int16 or float (a uniform runtime switch):
-// the block stages its rows r = 8 t + b of both planes, `cols` columns a
+// the block stages its rows r = S t + b of both planes, `cols` columns a
 // round, as [plane][t][cols] in shared memory.
 struct PlanarRows {
   static constexpr bool kStaged = true;
@@ -178,16 +210,17 @@ struct PlanarRows {
   int m, n;
 
   __host__ __device__ int elem() const { return is_int16 ? 2 : 4; }
-  // the staging buffer in 32-bit words (a multiple of 4: m' is even)
-  __host__ __device__ int words(int cols) const {
-    return 2 * (m / kSplit) * cols * elem() / 4;
+  // the staging buffer at S blocks a unit in 32-bit words (a multiple of
+  // 4: m' is even)
+  __host__ __device__ int words(int cols, int S) const {
+    return 2 * (m / S) * cols * elem() / 4;
   }
 
-  template <int B>
+  template <int S, int B>
   __device__ __forceinline__ void stage_pieces(char* buf, size_t unit, int b, int j0, int nr,
                                                int cols) const {
     const int e = elem();
-    const int ms = m / kSplit;
+    const int ms = m / S;
     const int per_row = cols * e / B;           // a power of two
     const int piece = static_cast<int>(threadIdx.x) % per_row;
     const int col = piece * B / e;
@@ -197,25 +230,26 @@ struct PlanarRows {
     for (int row = static_cast<int>(threadIdx.x) / per_row; row < 2 * ms; row += rstep) {
       const int plane = row >= ms;
       const int t = row - plane * ms;
-      const size_t src = static_cast<size_t>(plane * m + kSplit * t + b) * n;
+      const size_t src = static_cast<size_t>(plane * m + S * t + b) * n;
       fft::cp_async<B>(buf + (static_cast<size_t>(row) * cols + col) * e, base + src * e, valid);
     }
   }
 
-  // rows 8 t + b (t < m'), columns [j0, j0 + cols) of unit u; zeros past n
+  // rows S t + b (t < m'), columns [j0, j0 + cols) of unit u; zeros past n
+  template <int S>
   __device__ __forceinline__ void stage(void* buf, int u, int b, int j0, int cols) const {
     const int e = elem();
-    const int ms = m / kSplit;
+    const int ms = m / S;
     const int nr = min(cols, n - j0);
     const size_t unit = static_cast<size_t>(u) * 2 * m * n;
     char* bb = static_cast<char*>(buf);
     const uintptr_t at = reinterpret_cast<uintptr_t>(x);
     if ((cols * e) % 16 == 0 && (n * e) % 16 == 0 && at % 16 == 0) {
-      stage_pieces<16>(bb, unit, b, j0, nr, cols);
+      stage_pieces<S, 16>(bb, unit, b, j0, nr, cols);
     } else if ((cols * e) % 8 == 0 && (n * e) % 8 == 0 && at % 8 == 0) {
-      stage_pieces<8>(bb, unit, b, j0, nr, cols);
+      stage_pieces<S, 8>(bb, unit, b, j0, nr, cols);
     } else if ((cols * e) % 4 == 0 && (n * e) % 4 == 0 && at % 4 == 0) {
-      stage_pieces<4>(bb, unit, b, j0, nr, cols);
+      stage_pieces<S, 4>(bb, unit, b, j0, nr, cols);
     } else {
       // rows too narrow or not aligned: element by element through registers
       for (int k = threadIdx.x; k < 2 * ms * cols; k += kThreads) {
@@ -223,7 +257,7 @@ struct PlanarRows {
         const int c = k - row * cols;
         const int plane = row >= ms;
         const int t = row - plane * ms;
-        const size_t src = unit + static_cast<size_t>(plane * m + kSplit * t + b) * n + j0 + c;
+        const size_t src = unit + static_cast<size_t>(plane * m + S * t + b) * n + j0 + c;
         if (is_int16) {
           reinterpret_cast<int16_t*>(bb)[k] =
               c < nr ? __ldg(static_cast<const int16_t*>(x) + src) : static_cast<int16_t>(0);
@@ -235,10 +269,10 @@ struct PlanarRows {
   }
 
   // staged rows t0 + i step (i < N) of column c
-  template <int N>
+  template <int S, int N>
   __device__ __forceinline__ void read(const void* buf, int t0, int step, int c, int cols,
                                        float (&re)[N], float (&im)[N]) const {
-    const int plane = (m / kSplit) * cols;
+    const int plane = (m / S) * cols;
     if (is_int16) {
       const auto* p = static_cast<const int16_t*>(buf) + t0 * cols + c;
 #pragma unroll
@@ -270,8 +304,6 @@ struct PlanarDirect {
   int is_int16;
   int m, n;
 
-  __host__ __device__ int words(int) const { return 0; }
-
   template <int N>
   __device__ __forceinline__ void load(int u, int row0, int step, int j, float (&re)[N],
                                        float (&im)[N]) const {
@@ -302,6 +334,17 @@ struct PlanarDirect {
   }
 };
 
+
+// The words of a source's staging buffer at S blocks a unit (0: the
+// source reads device memory in pass 1).
+template <class Src>
+__host__ __device__ int stage_words(const Src& src, int cols, int S) {
+  if constexpr (Src::kStaged) {
+    return src.words(cols, S);
+  } else {
+    return 0;
+  }
+}
 
 // The plan's table (ops/fullchain.cluster_tables): w_r c [m]; W_P^t (re,
 // im) for t < P; the leaf's W_m'^(k r2) at (r2 P + k); the cluster's
@@ -777,7 +820,7 @@ __device__ __forceinline__ void cluster_body(Src src, const float* __restrict__ 
   const int b = static_cast<int>(blockIdx.x);    // rank in the unit's cluster
   const int tid = static_cast<int>(threadIdx.x);
   const Table t(tab, m, ms, P, L, S);
-  const Layout lay(ms, L, P1, P2, S, cols, kFused, src.words(cols), kOdd ? nbl : 0);
+  const Layout lay(ms, L, P1, P2, S, cols, kFused, stage_words(src, cols, S), kOdd ? nbl : 0);
   cg::cluster_group cluster = cg::this_cluster();
 
   extern __shared__ __align__(16) float smem[];
@@ -791,9 +834,13 @@ __device__ __forceinline__ void cluster_body(Src src, const float* __restrict__ 
   const int lo = b * lay.span;                   // this block's k1 slice
   const int cnt = min(ms, lo + lay.span) - lo;
   float2 w8_1 = {0.f, 0.f}, w8_3 = {0.f, 0.f};
+  float2 w16[8];                                 // S = 16: W_16^k, k < 8
   if constexpr (S == 8) {
     w8_1 = __ldg(t.ws + 1);                      // W_8^1
     w8_3 = __ldg(t.ws + 3);                      // W_8^3
+  } else if constexpr (S == 16) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) w16[k] = __ldg(t.ws + k);
   }
 
   // the epilogue's running partials of the rows this thread owns
@@ -808,7 +855,7 @@ __device__ __forceinline__ void cluster_body(Src src, const float* __restrict__ 
   float n_a = 0.f;
 
   if constexpr (Src::kStaged) {
-    src.stage(stage, u, b, 0, cols);
+    src.template stage<S>(stage, u, b, 0, cols);
     fft::cp_async_commit();
   }
   for (int r = 0; r * cols < n; ++r) {
@@ -842,7 +889,7 @@ __device__ __forceinline__ void cluster_body(Src src, const float* __restrict__ 
           const int c = task & (cols - 1);
           const int r2 = task >> lc;
           if constexpr (Src::kStaged) {
-            src.template read<P1>(stage, r2, L, c, cols, re[v], im[v]);
+            src.template read<S, P1>(stage, r2, L, c, cols, re[v], im[v]);
           } else {
             src.template load<P1>(u, S * r2 + b, S * L, c < nr ? j0 + c : j0, re[v], im[v]);
           }
@@ -889,7 +936,7 @@ __device__ __forceinline__ void cluster_body(Src src, const float* __restrict__ 
         const float keep = c < nr ? 1.f : 0.f;
         float re[P1], im[P1];
         if constexpr (Src::kStaged) {
-          src.template read<P1>(stage, t0, tstep, c, cols, re, im);
+          src.template read<S, P1>(stage, t0, tstep, c, cols, re, im);
         } else {
           src.template load<P1>(u, S * t0 + b, S * tstep, c < nr ? j0 + c : j0, re, im);
         }
@@ -920,7 +967,7 @@ __device__ __forceinline__ void cluster_body(Src src, const float* __restrict__ 
     }
     __syncthreads();                             // A holds pass 1; S is free
     if constexpr (Src::kStaged) {
-      if (j0 + cols < n) src.stage(stage, u, b, j0 + cols, cols);   // under the rest of the round
+      if (j0 + cols < n) src.template stage<S>(stage, u, b, j0 + cols, cols);   // under the round
       fft::cp_async_commit();
     }
 
@@ -1009,8 +1056,8 @@ __device__ __forceinline__ void cluster_body(Src src, const float* __restrict__ 
       if constexpr (S == 8) {
         // E[k2] + W_8^k2 O[k2] (E, O: the 4-point DFTs of the even and odd blocks)
         float er[kOut], ei[kOut], orr[kOut], oi[kOut];
-        dft4<0>(gr, gi, er, ei);                  // E: blocks 0, 2, 4, 6
-        dft4<1>(gr, gi, orr, oi);                 // O: blocks 1, 3, 5, 7
+        dft4<0, 2>(gr, gi, er, ei);               // E: blocks 0, 2, 4, 6
+        dft4<1, 2>(gr, gi, orr, oi);              // O: blocks 1, 3, 5, 7
         yr[0] = er[0] + orr[0];
         yi[0] = ei[0] + oi[0];
         float vr, vi;
@@ -1022,6 +1069,32 @@ __device__ __forceinline__ void cluster_body(Src src, const float* __restrict__ 
         yi[3] = ei[3] + vi;
         yr[2] = er[2] + oi[2];                    // + (-i) O
         yi[2] = ei[2] - orr[2];
+      } else if constexpr (S == 16) {
+        // E[k2] + W_16^k2 O[k2], E and O the 8-point DFTs of the even and
+        // odd blocks, each two 4-point DFTs joined by W_8 (join8)
+        float er[8], ei[8], orr[8], oi[8];
+        {
+          float ar[kOut], ai[kOut], cr[kOut], ci[kOut];
+          dft4<0, 4>(gr, gi, ar, ai);             // blocks 0, 4, 8, 12
+          dft4<2, 4>(gr, gi, cr, ci);             // blocks 2, 6, 10, 14
+          join8(ar, ai, cr, ci, w16[2], w16[6], er, ei);
+          dft4<1, 4>(gr, gi, ar, ai);             // blocks 1, 5, 9, 13
+          dft4<3, 4>(gr, gi, cr, ci);             // blocks 3, 7, 11, 15
+          join8(ar, ai, cr, ci, w16[2], w16[6], orr, oi);
+        }
+        yr[0] = er[0] + orr[0];
+        yi[0] = ei[0] + oi[0];
+        yr[4] = er[4] + oi[4];                    // + (-i) O
+        yi[4] = ei[4] - orr[4];
+#pragma unroll
+        for (int k2 = 1; k2 < 8; ++k2) {
+          if (k2 != 4) {
+            float vr, vi;
+            fft::cmul(orr[k2], oi[k2], w16[k2].x, w16[k2].y, vr, vi);
+            yr[k2] = er[k2] + vr;
+            yi[k2] = ei[k2] + vi;
+          }
+        }
       } else if constexpr (S == 4) {
         // outputs 0, 1 of the 4-point DFT: (g0 + g2) + (g1 + g3), (g0 - g2) - i (g1 - g3)
         yr[0] = (gr[0] + gr[2]) + (gr[1] + gr[3]);
@@ -1153,6 +1226,17 @@ cluster_chain_kernel(Src src, const float* __restrict__ tab, const float* __rest
                                                    salt, 0);
 }
 
+// L = 1 at a cluster of 16 (m = 16384, m' = 1024): no leaf.
+template <class Src, int P1, int P2, bool kFused>
+__global__ void __launch_bounds__(kThreads, 1)
+cluster_chain16_kernel(Src src, const float* __restrict__ tab, const float* __restrict__ phi,
+                       const float* __restrict__ wd, const float* __restrict__ ph,
+                       float* __restrict__ out, int m, int L, int n, int cols, float salt,
+                       int nbl) {
+  cluster_body<Src, kSplitLong, P1, P2, kFused, false>(src, tab, phi, wd, ph, out, m, L, n,
+                                                       cols, salt, 0);
+}
+
 // An odd L > 1 (every other m the body takes): the leaf, clusters of S.
 template <class Src, int S, int P1, int P2, bool kFused>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -1164,39 +1248,59 @@ cluster_leaf_kernel(Src src, const float* __restrict__ tab, const float* __restr
 }
 
 // The kernels compile in parts, one source file each, so that nvcc builds
-// them in parallel: kWide (L = 1, P = 256, 512, 1024: m = 2048, 4096, 8192;
-// an odd leaf at P = 32..256) in the entry's own file; an odd leaf at P =
-// 2, 4 (kP2: fused_chain_{radix,wire,astage}_cluster_p2.cu) and at P = 8,
-// 16 (kP8: ..._cluster_p8.cu); P = 1, the dense entries' m = S x odd on
-// the planar chain alone, S = 8 (kS8: fused_chain_dense_cluster8.cu) and
-// S = 2, 4 (kS24: fused_chain_dense_cluster24.cu).
-enum class Part { kWide, kP2, kP8, kS8, kS24 };
+// them in parallel: at S = 8, kWide (L = 1, P = 256, 512, 1024: m = 2048,
+// 4096, 8192; an odd leaf at P = 32..256) in the entry's own file; an odd
+// leaf at P = 2, 4 (kP2: fused_chain_{radix,wire,astage}_cluster_p2.cu) and
+// at P = 8, 16 (kP8: ..._cluster_p8.cu); at S = 16 (8192 < m <= 16384, the
+// planar chain and the A-stage alone) the same three cuts, kWide16 (L = 1
+// at P = 1024: m = 16384; a leaf at P = 32..256) in
+// fused_chain_{radix,astage}_cluster16.cu, kP2S16 and kP8S16 in
+// ..._cluster16_p2.cu and ..._cluster16_p8.cu; P = 1, the dense entries'
+// m = S x odd on the planar chain alone, S = 8 (kS8:
+// fused_chain_dense_cluster8.cu) and S = 2, 4 (kS24:
+// fused_chain_dense_cluster24.cu).
+enum class Part { kWide, kP2, kP8, kS8, kS24, kWide16, kP2S16, kP8S16 };
 
-// The kernel of one part for m' = P L split S ways (a radix m: S = 8).
+template <Part kPart>
+constexpr bool kPartS16 =
+    kPart == Part::kWide16 || kPart == Part::kP2S16 || kPart == Part::kP8S16;
+
+// The kernel of one part for m' = P L split S ways (a radix m: S = 8, or
+// 16 above kMaxM8).
 template <Part kPart, class Src, bool kFused, class Fn>
 cudaError_t dispatch(int S, int P, int L, Fn&& fn) {
-  if constexpr (kPart == Part::kWide) {
-    if (S != kSplit) return cudaErrorInvalidValue;
+  if constexpr (kPartS16<kPart> && std::is_same_v<Src, fft::WireIq>) {
+    return cudaErrorInvalidValue;                // the wire chain: S <= 8
+  } else if constexpr (kPart == Part::kWide || kPart == Part::kWide16) {
+    constexpr int kS = kPart == Part::kWide ? kSplit : kSplitLong;
+    if (S != kS) return cudaErrorInvalidValue;
     if (L == 1) {
-      switch (P) {
-        case 256: return fn(cluster_chain_kernel<Src, 32, 8, kFused>);
-        case 512: return fn(cluster_chain_kernel<Src, 32, 16, kFused>);
-        case 1024: return fn(cluster_chain_kernel<Src, 32, 32, kFused>);
-        default: return cudaErrorInvalidValue;
+      if constexpr (kS == kSplit) {
+        switch (P) {
+          case 256: return fn(cluster_chain_kernel<Src, 32, 8, kFused>);
+          case 512: return fn(cluster_chain_kernel<Src, 32, 16, kFused>);
+          case 1024: return fn(cluster_chain_kernel<Src, 32, 32, kFused>);
+          default: return cudaErrorInvalidValue;
+        }
+      } else {
+        if (P == 1024) return fn(cluster_chain16_kernel<Src, 32, 32, kFused>);
+        return cudaErrorInvalidValue;
       }
     }
     switch (P) {
-      case 32: return fn(cluster_leaf_kernel<Src, kSplit, 32, 1, kFused>);
-      case 64: return fn(cluster_leaf_kernel<Src, kSplit, 32, 2, kFused>);
-      case 128: return fn(cluster_leaf_kernel<Src, kSplit, 32, 4, kFused>);
-      case 256: return fn(cluster_leaf_kernel<Src, kSplit, 32, 8, kFused>);
+      case 32: return fn(cluster_leaf_kernel<Src, kS, 32, 1, kFused>);
+      case 64: return fn(cluster_leaf_kernel<Src, kS, 32, 2, kFused>);
+      case 128: return fn(cluster_leaf_kernel<Src, kS, 32, 4, kFused>);
+      case 256: return fn(cluster_leaf_kernel<Src, kS, 32, 8, kFused>);
       default: return cudaErrorInvalidValue;
     }
-  } else if constexpr (kPart == Part::kP2 || kPart == Part::kP8) {
-    if (S != kSplit || L == 1) return cudaErrorInvalidValue;
-    constexpr int lo = kPart == Part::kP2 ? 2 : 8;
-    if (P == lo) return fn(cluster_leaf_kernel<Src, kSplit, lo, 1, kFused>);
-    if (P == 2 * lo) return fn(cluster_leaf_kernel<Src, kSplit, 2 * lo, 1, kFused>);
+  } else if constexpr (kPart == Part::kP2 || kPart == Part::kP8 || kPart == Part::kP2S16 ||
+                       kPart == Part::kP8S16) {
+    constexpr int kS = kPartS16<kPart> ? kSplitLong : kSplit;
+    if (S != kS || L == 1) return cudaErrorInvalidValue;
+    constexpr int lo = kPart == Part::kP2 || kPart == Part::kP2S16 ? 2 : 8;
+    if (P == lo) return fn(cluster_leaf_kernel<Src, kS, lo, 1, kFused>);
+    if (P == 2 * lo) return fn(cluster_leaf_kernel<Src, kS, 2 * lo, 1, kFused>);
     return cudaErrorInvalidValue;
   } else {
     if constexpr (std::is_same_v<Src, PlanarDirect> && kFused) {
@@ -1234,11 +1338,13 @@ __host__ inline int bluestein_n(int L) {
   return nb;
 }
 
+// S = 8 for a radix m up to kMaxM8, 16 above it (P >= 2 there: m % 32 ==
+// 0); the power of two in a radix-1 m = S x odd.
 struct Geometry {
   int S, ms, P, L, P1, P2, nbl;
   bool ok;
   explicit Geometry(int m) {
-    S = m % 16 == 0 ? kSplit : (m & -m);
+    S = m % 16 != 0 ? (m & -m) : m > kMaxM8 ? kSplitLong : kSplit;
     ms = m / fft::imax(S, 1);
     P = ms & -ms;
     L = ms / fft::imax(P, 1);
@@ -1246,7 +1352,7 @@ struct Geometry {
     P2 = P / fft::imax(P1, 1);
     nbl = L > 1 ? bluestein_n(L) : 0;
     ok = m >= kMinM && m <= kMaxM && m % 2 == 0 && S >= 2 && ms <= kMaxMs &&
-         nbl <= kMaxBluestein;
+         nbl <= kMaxBluestein && (S < kSplitLong || P >= 2);
   }
 };
 
@@ -1271,11 +1377,21 @@ inline cudaLaunchConfig_t launch_config(int S, int channels, int sectors, size_t
   return cfg;
 }
 
+// A kernel's attributes before its launch or occupancy query: a block of
+// `smem` bytes; at S = 16 the non-portable cluster size.
+template <class Kernel>
+cudaError_t set_attributes(Kernel kernel, int S, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess || S <= kSplit) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
 // The block's layout at (m, cols), or false where the block does not fit
 // (a Bluestein leaf with no batch in one block's shared memory).
 template <class Src, bool kFused>
 bool layout_for(const Src& src, const Geometry& g, int cols, size_t* smem) {
-  const Layout lay(g.ms, g.L, g.P1, g.P2, g.S, cols, kFused, src.words(cols), g.nbl);
+  const Layout lay(g.ms, g.L, g.P1, g.P2, g.S, cols, kFused, stage_words(src, cols, g.S), g.nbl);
   *smem = lay.bytes();
   return lay.words <= kMaxWords && (g.nbl == 0 || lay.batch > 0);
 }
@@ -1289,8 +1405,7 @@ cudaError_t launch_part(const Src& src, const float* tab, const float* phi, cons
                         int cols, float salt, size_t smem, cudaStream_t stream) {
   const Geometry g(m);
   return dispatch<kPart, Src, kFused>(g.S, g.P, g.L, [&](auto kernel) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
+    cudaError_t err = set_attributes(kernel, g.S, smem);
     if (err != cudaSuccess) return err;
     cudaLaunchAttribute attr[1];
     const cudaLaunchConfig_t cfg = launch_config(g.S, channels, sectors, smem, stream, attr);
@@ -1308,8 +1423,7 @@ template <Part kPart, class Src, bool kFused>
 cudaError_t occupancy_part(int m, size_t smem, int* blocks_per_sm, int* clusters) {
   const Geometry g(m);
   return dispatch<kPart, Src, kFused>(g.S, g.P, g.L, [&](auto kernel) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
+    cudaError_t err = set_attributes(kernel, g.S, smem);
     if (err != cudaSuccess) return err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads, smem);
     if (err != cudaSuccess) return err;
@@ -1334,11 +1448,19 @@ WRP_CLUSTER_PART(extern template, Part::kP8, fft::WireIq, true)
 WRP_CLUSTER_PART(extern template, Part::kP8, PlanarRows, false)
 WRP_CLUSTER_PART(extern template, Part::kS8, PlanarDirect, true)
 WRP_CLUSTER_PART(extern template, Part::kS24, PlanarDirect, true)
+WRP_CLUSTER_PART(extern template, Part::kWide16, PlanarDirect, true)
+WRP_CLUSTER_PART(extern template, Part::kWide16, PlanarRows, false)
+WRP_CLUSTER_PART(extern template, Part::kP2S16, PlanarDirect, true)
+WRP_CLUSTER_PART(extern template, Part::kP2S16, PlanarRows, false)
+WRP_CLUSTER_PART(extern template, Part::kP8S16, PlanarDirect, true)
+WRP_CLUSTER_PART(extern template, Part::kP8S16, PlanarRows, false)
 
 __host__ inline Part part_of(const Geometry& g) {
   if (g.P == 1) return g.S == 8 ? Part::kS8 : Part::kS24;
-  if (g.L == 1 || g.P >= 32) return Part::kWide;
-  return g.P <= 4 ? Part::kP2 : Part::kP8;
+  const bool s16 = g.S == kSplitLong;
+  if (g.L == 1 || g.P >= 32) return s16 ? Part::kWide16 : Part::kWide;
+  if (g.P <= 4) return s16 ? Part::kP2S16 : Part::kP2;
+  return s16 ? Part::kP8S16 : Part::kP8;
 }
 
 // A part's function: fn(std::integral_constant<Part, part>) for g's part.
@@ -1349,6 +1471,9 @@ cudaError_t for_part(const Geometry& g, Fn&& fn) {
     case Part::kP2: return fn(std::integral_constant<Part, Part::kP2>{});
     case Part::kP8: return fn(std::integral_constant<Part, Part::kP8>{});
     case Part::kS8: return fn(std::integral_constant<Part, Part::kS8>{});
+    case Part::kWide16: return fn(std::integral_constant<Part, Part::kWide16>{});
+    case Part::kP2S16: return fn(std::integral_constant<Part, Part::kP2S16>{});
+    case Part::kP8S16: return fn(std::integral_constant<Part, Part::kP8S16>{});
     default: return fn(std::integral_constant<Part, Part::kS24>{});
   }
 }

@@ -1,4 +1,4 @@
-// The planar fused chain for rays of 1024 < m <= 8192 range cells, and its
+// The planar fused chain for rays of 1024 < m <= 16384 range cells, and its
 // offset/salt entry, for NVIDIA Hopper (sm_90a).
 //
 // Replaces, at those m, the TPU kernels wrp_tpu/ops/pallas/fullchain.py::
@@ -9,7 +9,7 @@
 // IQ x [2, m, n] (int16 or f32 by a uniform runtime switch, range rows in
 // NATURAL order) to pow [m/2] through cluster_chain.cuh's body with
 // kFused = true: one cluster of S blocks a channel-sector (S = 8 for a
-// radix m), block b reading rows S t + b of both planes straight from
+// radix m up to 8192, 16 above it), block b reading rows S t + b of both planes straight from
 // device memory in pass 1 (PlanarDirect: a warp's loads are adjacent
 // columns of a row), the m/S-point DFT, the S/2-of-S combine over
 // distributed shared memory, and the Parseval epilogue of the block's
@@ -17,8 +17,10 @@
 // a staging buffer a round takes the wire chain's columns (64 at m = 2048,
 // 32 at 4096, 16 at 8192), so the two chains share the plan's round
 // phasor sums.  The caller picks this entry from m alone
-// (ops/fullchain.chain_route): m <= 1024 runs fused_chain_radix.cu, m >
-// 8192 fused_chain_dense.cu's matrix kernel.
+// (ops/fullchain.chain_route): m <= 1024 runs fused_chain_radix.cu, an m
+// the cluster body refuses (16 x odd above 8192, above 16384)
+// fused_chain_dense.cu's matrix kernel.  The kernels of S = 16 are in
+// fused_chain_radix_cluster16{,_p2,_p8}.cu.
 //
 // `offset` (channel-sectors) starts the launch `offset` units into a larger
 // staged array (pointer arithmetic, no copy); the int32 `salt` is added to
@@ -58,8 +60,8 @@ int wrp_fused_chain_radix_cluster(const void* x, int x_is_int16, const void* tab
       static_cast<float>(salt), static_cast<cudaStream_t>(stream)));
 }
 
-// Resident blocks per SM and clusters of 8 the card holds at once of the
-// cluster planar chain at (m, cols).
+// Resident blocks per SM and clusters of S (8, or 16 above m = 8192) the
+// card holds at once of the cluster planar chain at (m, cols).
 int wrp_fused_chain_radix_cluster_occupancy(int m, int cols, int* blocks_per_sm,
                                             int* clusters) {
   return static_cast<int>(wrp::cluster::occupancy<wrp::cluster::PlanarDirect, true>(

@@ -12,22 +12,23 @@ kernel serves an m is m's alone:
   the register body of csrc/fft_chain.cuh for m <= FFT_SHORT_M = 1024
   (plain `fft_chain_power_reference`); the cluster body
   (csrc/fused_chain_radix_cluster.cu, csrc/cluster_chain.cuh: each ray
-  split across a cluster of 8 blocks, plain
-  `cluster_chain_power_reference`, counted also in
-  `RADIX_CLUSTER_LAUNCHES`) for 1024 < m <= CLUSTER_MAX_M = 8192; above it
-  the dense entries' matrix kernel on the dense A_half
+  split across a cluster of 8 blocks, 16 above CLUSTER_MAX_M8 = 8192;
+  plain `cluster_chain_power_reference`, counted also in
+  `RADIX_CLUSTER_LAUNCHES`) for 1024 < m <= CLUSTER_MAX_M = 16384; where
+  the cluster body refuses m (16 x odd above 8192, above 16384) the dense
+  entries' matrix kernel on the dense A_half
   (`RadixPlan.dense_operator`, built at first use; plain
   `fused_chain_power_reference`), counted also in `DENSE_MATRIX_LAUNCHES`.
 * wire, csrc/fused_chain_wire.cu (``wrp_tpu`` `fused_chain_power_wire`):
   `fused_chain_power_wire`, plain `fused_chain_power_wire_reference`,
   `WIRE_LAUNCHES`.  Raw wire words [bs, m, ch*n] int32, decoded in
-  registers, one channel a cluster, through the route `chain_route(m)`
-  names: the register body of csrc/fft_chain.cuh for m <= 1024; the
-  cluster body (csrc/fused_chain_wire_cluster.cu, csrc/cluster_chain.cuh:
-  each ray split across a cluster of 8 blocks, plain
-  `cluster_chain_power_reference`, counted also in
-  `WIRE_CLUSTER_LAUNCHES`) for 1024 < m <= CLUSTER_MAX_M = 8192; above it
-  the matrix kernel's wire source (csrc/fused_chain_dense.cu
+  registers, one channel a cluster, through the route `chain_route(m,
+  wire=True)` names: the register body of csrc/fft_chain.cuh for m <=
+  1024; the cluster body (csrc/fused_chain_wire_cluster.cu,
+  csrc/cluster_chain.cuh: each ray split across a cluster of 8 blocks,
+  plain `cluster_chain_power_reference`, counted also in
+  `WIRE_CLUSTER_LAUNCHES`) for 1024 < m <= CLUSTER_MAX_M8 = 8192 (no
+  cluster of 16 for the wire yet); above it the matrix kernel's wire source (csrc/fused_chain_dense.cu
   `wrp_fused_chain_dense_wire`, on `RadixPlan.dense_operator`, plain
   `fused_chain_power_reference`), counted also in `DENSE_MATRIX_LAUNCHES`.
 * dense, csrc/fused_chain_dense.cu (``wrp_tpu`` `fused_chain_power`):
@@ -46,8 +47,8 @@ kernel serves an m is m's alone:
   leaf prime whose Bluestein length would pass 1024) the matrix kernel,
   the dense A_half [m/2, m] contraction (plain
   `fused_chain_power_reference`, its R == 1 branch,
-  `DENSE_MATRIX_LAUNCHES`, which counts the radix entry's launches of it
-  above CLUSTER_MAX_M too).
+  `DENSE_MATRIX_LAUNCHES`, which counts the radix and wire entries'
+  launches of it too).
 
 The FFT-form body of csrc/fft_chain.cuh (`fft_takes`) has two forms, chosen
 from m alone (`fft_long`): m <= 1024 keeps each thread's epilogue partials
@@ -79,10 +80,10 @@ radix chain at its one communication point, with a kernel on each side:
   names: the FFT stage of csrc/fft_chain.cuh (csrc/fused_chain_astage.cu)
   for m <= 1024; the cluster body (csrc/fused_chain_astage_cluster.cu,
   plain `cluster_stage_reference`, counted also in
-  `ASTAGE_CLUSTER_LAUNCHES`) for 1024 < m <= CLUSTER_MAX_M; above it the
-  matrix form of csrc/radix_chain.cuh through
-  csrc/fused_chain_astage_matrix.cu (int16 and f32, any radix and w),
-  counted also in `ASTAGE_MATRIX_LAUNCHES`.
+  `ASTAGE_CLUSTER_LAUNCHES`) for 1024 < m <= CLUSTER_MAX_M, a cluster of
+  16 above 8192; where the cluster body refuses m the matrix form of
+  csrc/radix_chain.cuh through csrc/fused_chain_astage_matrix.cu (int16
+  and f32, any radix and w), counted also in `ASTAGE_MATRIX_LAUNCHES`.
 * row epilogue, csrc/parseval_rows.cu (``wrp_tpu`` `parseval_rows_power`):
   `parseval_rows_power`, plain `parseval_rows_power_reference`,
   `PARSEVAL_ROWS_LAUNCHES`.  The Parseval epilogue on full-pulse rows
@@ -92,8 +93,8 @@ radix chain at its one communication point, with a kernel on each side:
 
 The host plan (`build_plan`) holds the FFT forms' tables (`fft_tables`:
 the range window w_r c, the twiddles W_P, the leaf's factors; for the
-cluster body `cluster_tables`, the same for the m/8-point sub-DFT and the
-cluster's twiddles W_m^(b k1) and W_8; each fp64, cast once;
+cluster body `cluster_tables`, the same for the m/S-point sub-DFT and the
+cluster's twiddles W_m^(b k1) and W_S; each fp64, cast once;
 `fft_round_phasor_sums`) beside the TPU algorithm's matrix form
 (`radix_plan`: the branch operators A_p = F_M diag(w_r c)[p::R] diag(T_p)
 and the combine factors fac[s][p] = exp(-2 pi i p s / R); R == 1: A_half
@@ -125,8 +126,8 @@ LAUNCHES = 0            # fused_chain_radix.cu
 WIRE_LAUNCHES = 0       # fused_chain_wire.cu
 DENSE_LAUNCHES = 0      # fused_chain_dense.cu
 ASTAGE_LAUNCHES = 0     # fused_chain_astage (any route)
-ASTAGE_CLUSTER_LAUNCHES = 0  # of those, fused_chain_astage_cluster.cu (1024 < m <= 8192)
-ASTAGE_MATRIX_LAUNCHES = 0   # of those, fused_chain_astage_matrix.cu (m > 8192)
+ASTAGE_CLUSTER_LAUNCHES = 0  # of those, fused_chain_astage_cluster.cu (1024 < m <= 16384)
+ASTAGE_MATRIX_LAUNCHES = 0   # of those, fused_chain_astage_matrix.cu (m the cluster refuses)
 PARSEVAL_ROWS_LAUNCHES = 0   # parseval_rows.cu (either form)
 PARSEVAL_ROWS_TWO_PASS_LAUNCHES = 0  # of those, its two-pass form
 RADIX_OFFSET_LAUNCHES = 0    # the radix offset entry (salted: fused_chain_radix_salted.cu)
@@ -135,7 +136,7 @@ WIRE_OFFSET_LAUNCHES = 0     # the wire offset entry (salted: fused_chain_wire_s
 #: 1024 < m <= 8192) from either wire entry
 WIRE_CLUSTER_LAUNCHES = 0
 #: launches of the planar chain's cluster body (fused_chain_radix_cluster.cu,
-#: 1024 < m <= 8192) from either radix entry
+#: 1024 < m <= 16384) from either radix entry
 RADIX_CLUSTER_LAUNCHES = 0
 DENSE_OFFSET_LAUNCHES = 0    # fused_chain_power_at (fused_chain_dense.cu)
 #: launches of each dense body, from either dense entry (a run shows which
@@ -147,8 +148,8 @@ DENSE_MATRIX_LAUNCHES = 0    # the matrix kernel of fused_chain_dense.cu (any en
 RADIX = 8
 
 #: tile heights (sub-DFT rows per block) the matrix-form A-stage
-#: (csrc/radix_chain.cuh: the A-stage above CLUSTER_MAX_M and the in-kernel
-#: time breakdown's) is instantiated for
+#: (csrc/radix_chain.cuh: the A-stage where the cluster body refuses m and
+#: the in-kernel time breakdown's) is instantiated for
 KERNEL_TILES = (8, 4, 2)
 
 #: tile heights (rows of Y per block) the dense kernel is instantiated for,
@@ -369,17 +370,21 @@ def fft_round_phasor_sums(phasors: np.ndarray, cols: int) -> np.ndarray:
 
 
 #: the cluster body (csrc/cluster_chain.cuh), the route of the planar chain
-#: (#3/#4), the wire chain (#7/#8), the A-stage (#5) and the dense entries
-#: (#1/#2) for FFT_SHORT_M < m <= CLUSTER_MAX_M: each ray split across a
-#: cluster of S blocks (`cluster_split`: CLUSTER_SPLIT = 8 for a radix m;
-#: S = 2, 4 or 8 for the dense entries' m = S x odd), block b the rows
-#: S t + b, of whose S-point DFT across the blocks S / 2 outputs are kept
-#: (k < m/2); a block's sub-DFT at most CLUSTER_MAX_MS points (its m / 2S
-#: owned rows, two a thread); at most CLUSTER_MAX_COLS pulse columns a
-#: round (each round costs two cluster barriers, so a round takes as many
-#: columns as shared memory allows)
-CLUSTER_MAX_M = 8192
+#: (#3/#4) and the A-stage (#5) for FFT_SHORT_M < m <= CLUSTER_MAX_M, of
+#: the wire chain (#7/#8) and the dense entries (#1/#2) up to
+#: CLUSTER_MAX_M8: each ray split across a cluster of S blocks
+#: (`cluster_split`: CLUSTER_SPLIT = 8 for a radix m up to CLUSTER_MAX_M8,
+#: CLUSTER_SPLIT_LONG = 16, a non-portable cluster size, above it; S = 2,
+#: 4 or 8 for the dense entries' m = S x odd), block b the rows S t + b, of
+#: whose S-point DFT across the blocks S / 2 outputs are kept (k < m/2); a
+#: block's sub-DFT at most CLUSTER_MAX_MS points (its m / 2S owned rows,
+#: two a thread); at most CLUSTER_MAX_COLS pulse columns a round (each
+#: round costs two cluster barriers, so a round takes as many columns as
+#: shared memory allows)
+CLUSTER_MAX_M = 16384
+CLUSTER_MAX_M8 = 8192
 CLUSTER_SPLIT = 8
+CLUSTER_SPLIT_LONG = 16
 CLUSTER_MAX_MS = 1024
 CLUSTER_MAX_COLS = 64
 #: the cluster body's odd leaf: a register DFT pass for each odd prime
@@ -417,10 +422,13 @@ def bluestein_n(p: int) -> int:
 
 
 def cluster_split(m: int) -> int:
-    """S, the blocks a unit's cluster splits an even m across: 8 for a radix
-    m (m % 16 == 0), else the power of two in m (2, 4 or 8: m = S x odd,
-    so each block's m/S-point sub-DFT is the odd leaf alone)."""
-    return CLUSTER_SPLIT if m % 16 == 0 else m & -m
+    """S, the blocks a unit's cluster splits an even m across: for a radix
+    m (m % 16 == 0) 8 up to CLUSTER_MAX_M8 and 16 above it, else the power
+    of two in m (2, 4 or 8: m = S x odd, so each block's m/S-point sub-DFT
+    is the odd leaf alone)."""
+    if m % 16:
+        return m & -m
+    return CLUSTER_SPLIT_LONG if m > CLUSTER_MAX_M8 else CLUSTER_SPLIT
 
 
 @dataclasses.dataclass(frozen=True)
@@ -472,13 +480,18 @@ def _cluster_factors(m: int):
 
 def cluster_refusal(m: int):
     """Why the cluster body does not take m, or None where it does: an odd
-    m, m outside (FFT_SHORT_M, CLUSTER_MAX_M], a block's sub-DFT over
-    CLUSTER_MAX_MS points (m = 4 x odd above 4096, 2 x odd above 2048), or
-    a leaf prime whose Bluestein length passes BLUESTEIN_MAX_N."""
+    m, m outside (FFT_SHORT_M, CLUSTER_MAX_M], m = 16 x odd above
+    CLUSTER_MAX_M8 (P = 1 at S = 16: the cluster of 16 has no kernel for a
+    sub-DFT without a power of two), a block's sub-DFT over CLUSTER_MAX_MS
+    points (m = 8 x odd above 8192, 4 x odd above 4096, 2 x odd above
+    2048), or a leaf prime whose Bluestein length passes BLUESTEIN_MAX_N."""
     if m % 2 or not FFT_SHORT_M < m <= CLUSTER_MAX_M:
         return (f"the cluster body takes an even m with {FFT_SHORT_M} < m "
                 f"<= CLUSTER_MAX_M = {CLUSTER_MAX_M}, got m={m}")
-    S, ms, _, L, _, _ = _cluster_factors(m)
+    S, ms, P, L, _, _ = _cluster_factors(m)
+    if S == CLUSTER_SPLIT_LONG and P == 1:
+        return (f"m={m} = {S} x {ms}: P = 1 at S = {S} (a block's {ms}-point "
+                f"sub-DFT is odd; the cluster of {S} takes m % 32 == 0)")
     if ms > CLUSTER_MAX_MS:
         return (f"m={m} = {S} x {ms}: a block's {ms}-point sub-DFT passes "
                 f"CLUSTER_MAX_MS = {CLUSTER_MAX_MS}")
@@ -494,19 +507,21 @@ def cluster_takes(m: int) -> bool:
     return cluster_refusal(m) is None
 
 
-def chain_route(m: int) -> str:
-    """The kernel every chain launches for m, from m alone: the planar
-    chain (#3/#4), the wire chain (#7/#8) and the A-stage (#5) for a radix
-    m, the dense entries (#1/#2) for a radix-1 m: "register"
-    (csrc/fft_chain.cuh's register body, even m <= FFT_SHORT_M), "cluster"
-    (csrc/cluster_chain.cuh, up to CLUSTER_MAX_M where `cluster_refusal`
+def chain_route(m: int, wire: bool = False) -> str:
+    """The kernel a chain launches for m, from m alone: the planar chain
+    (#3/#4) and the A-stage (#5) for a radix m, the dense entries (#1/#2)
+    for a radix-1 m, and with `wire` the wire chain (#7/#8), which has no
+    cluster of 16 yet: "register" (csrc/fft_chain.cuh's register body,
+    even m <= FFT_SHORT_M), "cluster" (csrc/cluster_chain.cuh, up to
+    CLUSTER_MAX_M, the wire's up to CLUSTER_MAX_M8, where `cluster_refusal`
     finds nothing), "long" (the dense entries' m = 2 x odd in (2048,
     FFT_MAX_M]: the FFT-form body's long-ray form) or "matrix" (any other:
     csrc/fused_chain_dense.cu's matrix kernel and its wire source,
-    csrc/fused_chain_astage_matrix.cu; `cluster_refusal` says why)."""
+    csrc/fused_chain_astage_matrix.cu; `cluster_refusal` says why, or for
+    the wire m > CLUSTER_MAX_M8)."""
     if 2 <= m <= FFT_SHORT_M and m % 2 == 0:
         return "register"
-    if cluster_takes(m):
+    if cluster_takes(m) and not (wire and m > CLUSTER_MAX_M8):
         return "cluster"
     return "long" if fft_long(m) else "matrix"
 
@@ -589,9 +604,9 @@ def cluster_geometry(m: int, width: int, fused: bool = True,
     CLUSTER_MAX_COLS that width needs, halved until the block fits one
     block's shared memory.  The leaf runs in place in pass 1's slots, so an
     odd L takes the columns L = 1 takes at the same block budget: the fused
-    chains 64 at m = 1536, 1832, 1840 and 2048, 32 at 1836, 4096 and 4112-
-    4160, 16 at 2002 and 8192.  Refuses m the body does not take, saying
-    why (`cluster_refusal`)."""
+    chains 64 at m = 1536, 1832, 1840 and 2048, 32 at 1836, 4096, 4112-
+    4160 and 8224-9216 (S = 16), 16 at 2002, 8192, 12288 and 16384.
+    Refuses m the body does not take, saying why (`cluster_refusal`)."""
     why = cluster_refusal(m)
     if why is not None:
         raise ValueError(why)
@@ -720,8 +735,9 @@ class RadixPlan:
     #: [rounds, 4] at the cluster geometry's cols, the one cut both fused
     #: chains (#3/#4 and #7/#8, int16 or f32) launch at
     cluster_phi: torch.Tensor | None = None
-    #: a radix plan above CLUSTER_MAX_M: the host's A_half [m/2, m] complex,
-    #: from which `dense_operator` builds the matrix kernel's operator
+    #: a radix plan whose wire chain takes the matrix kernel (above
+    #: CLUSTER_MAX_M8, or an m the cluster body refuses): the host's A_half
+    #: [m/2, m] complex, from which `dense_operator` builds its operator
     host_a_half: np.ndarray | None = dataclasses.field(default=None,
                                                        repr=False)
     _dense_op: dict = dataclasses.field(default_factory=dict, repr=False,
@@ -734,15 +750,18 @@ class RadixPlan:
     def dense_operator(self) -> torch.Tensor:
         """The matrix kernel's operator, A_half as [m(q), m/2(t), 2] f32 on
         the plan's device: a radix-1 plan's `a_kernel`; for a radix plan
-        above CLUSTER_MAX_M built from `host_a_half` at first use and kept
-        (it holds m^2 / 2 complex values: 277 MB at m = 8320, so only a
-        plan that launches the matrix kernel pays for it)."""
+        whose wire chain takes the matrix kernel built from `host_a_half`
+        at first use and kept (it holds m^2 / 2 complex values: 277 MB at
+        m = 8320, so only a plan that launches the matrix kernel pays for
+        it; the planar chain at 8320 does not)."""
         if self.radix == 1:
             return self.a_kernel
         if self.host_a_half is None:
             raise ValueError(f"m={self.m}: a radix plan takes the matrix "
-                             f"kernel only above CLUSTER_MAX_M = "
-                             f"{CLUSTER_MAX_M}")
+                             f"kernel only where `chain_route(m, wire=True)`"
+                             f" names it (above CLUSTER_MAX_M8 = "
+                             f"{CLUSTER_MAX_M8}, or an m the cluster body "
+                             f"refuses)")
         if "a" not in self._dense_op:
             a = np.asarray(self.host_a_half)
             # C order: the stack of transposed views keeps their strides
@@ -805,7 +824,7 @@ def build_plan(consts: PipelineConstants, device) -> RadixPlan:
         lanes["fft_t"] = torch.from_numpy(fft_tables(consts)).to(device)
         lanes["fft_phi"] = torch.from_numpy(fft_round_phasor_sums(
             consts.clip_phasors, fft_geometry(m, n).cols)).to(device)
-    if radix > 1 and chain_route(m) == "matrix":
+    if radix > 1 and chain_route(m, wire=True) == "matrix":
         lanes["host_a_half"] = consts.op_a_half
     if cluster_takes(m):
         lanes["cluster_t"] = torch.from_numpy(cluster_tables(consts)).to(device)
@@ -1200,16 +1219,32 @@ def cluster_leaf_reference(z: torch.Tensor, tables: dict) -> torch.Tensor:
 
 def _split_dft(f: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
     """The kept outputs k2 < S / 2 of the S-point DFT along dim 1 of f [bc,
-    S, ...] (csrc/cluster_chain.cuh's combine): S = 8, E[k2] + W_8^k2 O[k2]
-    (E, O the 4-point DFTs of the even and odd blocks, exact in +-1, +-i);
-    S = 4, the 4-point DFT's outputs 0, 1; S = 2, f_0 + f_1."""
+    S, ...] (csrc/cluster_chain.cuh's combine), ws = W_S^t, t < S: S = 16,
+    E[k2] + W_16^k2 O[k2] (E, O the 8-point DFTs of the even and odd
+    blocks, `_dft8`); S = 8, E[k2] + W_8^k2 O[k2] (E, O the 4-point DFTs
+    of the even and odd blocks, exact in +-1, +-i); S = 4, the 4-point
+    DFT's outputs 0, 1; S = 2, f_0 + f_1."""
     S = f.shape[1]
+    if S == 16:
+        w8 = ws[0:8:2]                                     # W_8^t, t < 4
+        e, o = _dft8(f[:, 0::2], w8), _dft8(f[:, 1::2], w8)
+        return e + o * ws[:8].reshape(1, 8, *([1] * (f.dim() - 2)))
     if S == 8:
         e, o = _dft4(f[:, 0::2]), _dft4(f[:, 1::2])
         return e + o * ws[:4].reshape(1, 4, *([1] * (f.dim() - 2)))
     if S == 4:
         return _dft4(f)[:, :2]
     return f[:, :1] + f[:, 1:]
+
+
+def _dft8(g: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """The 8-point DFT along dim 1 of g [bc, 8, ...] in the kernel's order
+    (csrc/cluster_chain.cuh join8): a, c the 4-point DFTs of the even and
+    odd points, then a[k] + W_8^k c[k] and a[k] - W_8^k c[k], k < 4 (w8 =
+    W_8^k)."""
+    a, c = _dft4(g[:, 0::2]), _dft4(g[:, 1::2])
+    v = c * w8.reshape(1, 4, *([1] * (g.dim() - 2)))
+    return torch.cat([a + v, a - v], 1)
 
 
 def _dft4(g: torch.Tensor) -> torch.Tensor:
@@ -1336,9 +1371,11 @@ def fused_chain_power_radix(x: torch.Tensor, plan: RadixPlan, offset=None,
       csrc/fft_chain.cuh cut by `plan.fft`;
     * 1024 < m <= CLUSTER_MAX_M: csrc/fused_chain_radix_cluster.cu, the
       cluster body of csrc/cluster_chain.cuh cut by `plan.cluster` (the
-      same cut for int16 and f32; also counted in RADIX_CLUSTER_LAUNCHES);
-    * above it: the dense entries' matrix kernel (csrc/fused_chain_dense.cu
-      on `plan.dense_operator()`, as wrp_tpu's radix kernel runs m = 8320;
+      same cut for int16 and f32; a cluster of 16 above CLUSTER_MAX_M8;
+      also counted in RADIX_CLUSTER_LAUNCHES);
+    * an m the cluster body refuses (16 x odd above 8192, above 16384):
+      the dense entries' matrix kernel (csrc/fused_chain_dense.cu on
+      `plan.dense_operator()`, as wrp_tpu's radix kernel runs such an m;
       also counted in DENSE_MATRIX_LAUNCHES).
 
     With `offset` (the benchmark's entry), x is a larger staged array and
@@ -1424,9 +1461,9 @@ def fft_occupancy(plan: RadixPlan, body: str = "radix") -> dict:
     "wire" or "astage") at the plan's geometry, from
     cudaOccupancyMaxActiveBlocksPerMultiprocessor and, for the clustered
     kernels, cudaOccupancyMaxActiveClusters (clusters of `plan.fft.blocks`
-    blocks; of S for the cluster body, which every body takes where
-    `chain_route` says "cluster", each at its cut of the plan's n, the
-    A-stage with f32 staged; None for the register body's A-stage).  A
+    blocks; of S for the cluster body, which a body takes where
+    `chain_route` says "cluster" for it, each at its cut of the plan's n,
+    the A-stage with f32 staged; None for the register body's A-stage).  A
     radix-1 plan has the planar body only ("radix": the dense entries'
     FFT-form or cluster body).  Needs CUDA."""
     import ctypes
@@ -1434,17 +1471,11 @@ def fft_occupancy(plan: RadixPlan, body: str = "radix") -> dict:
     if plan.radix == 1 and body != "radix":
         raise ValueError(f"fft_occupancy: a radix-1 plan (m={plan.m}) has the "
                          "planar body alone ('radix')")
+    if (body in ("radix", "wire", "astage")
+            and chain_route(plan.m, wire=body == "wire") == "cluster"):
+        return cluster_occupancy(plan.m, plan.n, body)
     lib = _build.load_library()
     bps, clusters = ctypes.c_int(0), ctypes.c_int(0)
-    if (body in ("radix", "wire", "astage")
-            and chain_route(plan.m) == "cluster"):
-        fn = getattr(lib, f"wrp_fused_chain_{body}_cluster_occupancy")
-        g = (plan.cluster if body != "astage"
-             else cluster_geometry(plan.m, plan.n, False, 4))
-        rc = fn(plan.m, g.cols, ctypes.addressof(bps),
-                ctypes.addressof(clusters))
-        _raise_on_error(lib, rc, f"fft_occupancy ({body}, cluster body)")
-        return {"blocks_per_sm": bps.value, "clusters": clusters.value}
     _fft_plan_tables(plan, "fft_occupancy")
     g = plan.fft
     if body == "astage":
@@ -1459,6 +1490,25 @@ def fft_occupancy(plan: RadixPlan, body: str = "radix") -> dict:
     _raise_on_error(lib, rc, f"fft_occupancy ({body})")
     return {"blocks_per_sm": bps.value,
             "clusters": clusters.value if body != "astage" else None}
+
+
+def cluster_occupancy(m: int, n: int, body: str = "radix") -> dict:
+    """{blocks_per_sm, clusters}: the cluster body's kernel for `body`
+    ("radix", "wire" or "astage") at m and its cut of n pulses (the
+    A-stage's with f32 staged), from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor and
+    cudaOccupancyMaxActiveClusters (clusters of S); no plan needed.  Needs
+    CUDA; raises where the C entry refuses m."""
+    import ctypes
+
+    lib = _build.load_library()
+    bps, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    g = (cluster_geometry(m, n) if body != "astage"
+         else cluster_geometry(m, n, False, 4))
+    rc = getattr(lib, f"wrp_fused_chain_{body}_cluster_occupancy")(
+        m, g.cols, ctypes.addressof(bps), ctypes.addressof(clusters))
+    _raise_on_error(lib, rc, f"cluster_occupancy ({body}, m={m})")
+    return {"blocks_per_sm": bps.value, "clusters": clusters.value}
 
 
 def _dense(x: torch.Tensor, plan: RadixPlan, start: int, count: int,
@@ -1562,8 +1612,8 @@ def fused_chain_power_wire_reference(w32: torch.Tensor, plan: RadixPlan,
                                      ch: int, salt: int | None = None) -> torch.Tensor:
     """Plain torch version of the wire kernels: w32 [bs, m, ch*n] int32 ->
     pow [bs, ch, m/2] f32.  Decode the words, deinterleave the channels,
-    then the planar plain version of the route `chain_route(m)` names on the
-    planar sectors (`fft_chain_power_reference`,
+    then the planar plain version of the route `chain_route(m, wire=True)`
+    names on the planar sectors (`fft_chain_power_reference`,
     `cluster_chain_power_reference` or `fused_chain_power_reference`), with
     `salt` added to every decoded sample (the salted kernels)."""
     bs, m, lanes = w32.shape
@@ -1572,7 +1622,7 @@ def fused_chain_power_wire_reference(w32: torch.Tensor, plan: RadixPlan,
     planar = planar.permute(0, 4, 1, 2, 3).reshape(bs * ch, 2, m, lanes // ch)
     plain = {"register": fft_chain_power_reference,
              "cluster": cluster_chain_power_reference,
-             "matrix": fused_chain_power_reference}[chain_route(m)]
+             "matrix": fused_chain_power_reference}[chain_route(m, wire=True)]
     return plain(planar.to(torch.float32), plan, salt).reshape(bs, ch, m // 2)
 
 
@@ -1587,11 +1637,12 @@ def fused_chain_power_wire(w32: torch.Tensor, plan: RadixPlan, ch: int,
     the kernel reads its `bs` sectors from SECTOR `offset` (no copy), with
     the int32 `salt`, if given, added to every decoded sample.
 
-    The route is m's alone (`chain_route`): m <= 1024 launches
-    csrc/fused_chain_wire.cu (salted: csrc/fused_chain_wire_salted.cu), the
-    register body; 1024 < m <= CLUSTER_MAX_M csrc/fused_chain_wire_cluster.cu,
-    the cluster body (also counted in WIRE_CLUSTER_LAUNCHES); above it the
-    matrix kernel's wire source (csrc/fused_chain_dense.cu
+    The route is m's alone (`chain_route(m, wire=True)`): m <= 1024
+    launches csrc/fused_chain_wire.cu (salted:
+    csrc/fused_chain_wire_salted.cu), the register body; 1024 < m <=
+    CLUSTER_MAX_M8 csrc/fused_chain_wire_cluster.cu, the cluster body
+    (also counted in WIRE_CLUSTER_LAUNCHES); above it the matrix kernel's
+    wire source (csrc/fused_chain_dense.cu
     `wrp_fused_chain_dense_wire`, on `plan.dense_operator()`, also counted
     in DENSE_MATRIX_LAUNCHES).  A CPU tensor takes the plain version.  A
     CUDA tensor launches the route's kernel on the current stream or
@@ -1623,7 +1674,7 @@ def fused_chain_power_wire(w32: torch.Tensor, plan: RadixPlan, ch: int,
                       device=w32.device)
     if count == 0:
         return out
-    route = chain_route(plan.m)
+    route = chain_route(plan.m, wire=True)
     lib = _build.load_library()
     with torch.cuda.device(w32.device):
         stream = torch.cuda.current_stream(w32.device).cuda_stream
@@ -1663,8 +1714,8 @@ def fused_chain_power_wire(w32: torch.Tensor, plan: RadixPlan, ch: int,
 
 def astage_tile(plan: RadixPlan) -> int:
     """Tallest tile T in KERNEL_TILES of the matrix-form A-stage
-    (csrc/radix_chain.cuh: the A-stage above CLUSTER_MAX_M and the in-kernel
-    time breakdown's) that divides M = m / R and whose operator slice
+    (csrc/radix_chain.cuh: the A-stage where the cluster body refuses m and
+    the in-kernel time breakdown's) that divides M = m / R and whose operator slice
     [M, T] complex, 2 T M 4 bytes, fits one block's shared memory (8 KB at
     T = 8, M = 128; 131,584 bytes at m = 4112, M = 2056; at m = 7280, M =
     3640, T = 8 would need 232,960, so T = 4).  T = 8 measured fastest at
@@ -1703,8 +1754,10 @@ def fused_chain_astage(x: torch.Tensor, plan: RadixPlan) -> torch.Tensor:
       csrc/fft_chain.cuh cut by `fft_geometry(m, w)`;
     * 1024 < m <= CLUSTER_MAX_M: csrc/fused_chain_astage_cluster.cu, the
       cluster body of csrc/cluster_chain.cuh cut by `cluster_geometry(m,
-      w, False, x.element_size())` (also counted in ASTAGE_CLUSTER_LAUNCHES);
-    * above it: csrc/fused_chain_astage_matrix.cu, the matrix form of
+      w, False, x.element_size())` (a cluster of 16 above CLUSTER_MAX_M8;
+      also counted in ASTAGE_CLUSTER_LAUNCHES);
+    * an m the cluster body refuses (16 x odd above 8192, above 16384):
+      csrc/fused_chain_astage_matrix.cu, the matrix form of
       csrc/radix_chain.cuh on the plan's branch operators and combine
       factors at the tile `astage_tile` picks (also counted in
       ASTAGE_MATRIX_LAUNCHES).

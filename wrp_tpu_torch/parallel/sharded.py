@@ -104,7 +104,9 @@ def _shard_body(iq: torch.Tensor, consts: PipelineConstants, dc,
 def build_sharded_processor(cfg: RadarConfig = DEFAULT_CONFIG,
                             mesh: Mesh | None = None, method: str = "mxu",
                             wire_input: bool = False,
-                            device=None) -> Callable:
+                            device=None,
+                            consts: PipelineConstants | None = None
+                            ) -> Callable:
     """This rank's step: `step(x_local) -> (zdb, zdr)` [b, m/2] tensors on
     its device, the device work enqueued.
 
@@ -122,7 +124,8 @@ def build_sharded_processor(cfg: RadarConfig = DEFAULT_CONFIG,
     n and m/2 must divide by seq.  device defaults to the mesh's.  The step
     names the input layout it takes as `step.layout`: "data" (pallas),
     "mesh" (the others), "wire" (pallas-seq with wire_input); `shard_batch`
-    cuts the first two from a host batch."""
+    cuts the first two from a host batch.  consts: the chain's constants
+    (default: built from cfg, as SectorProcessor's)."""
     cfg.validate()
     if mesh is None:
         mesh = make_mesh(device=device or "cuda")
@@ -133,7 +136,7 @@ def build_sharded_processor(cfg: RadarConfig = DEFAULT_CONFIG,
                          f"method {method!r} takes planar input")
     dev = pipeline.resolve_device(device if device is not None
                                   else mesh.device)
-    consts = PipelineConstants.build(cfg)
+    consts = consts if consts is not None else PipelineConstants.build(cfg)
     m, n = cfg.num_range_cells, cfg.num_pulses
     mh = m // 2
     if method == "pallas":
@@ -211,7 +214,8 @@ def host_share(iq, mesh: Mesh, layout: str = "mesh") -> np.ndarray:
 def _build_pallas_seq(cfg, consts, mesh, dev, wire_input):
     """The fused chain seq-sharded over pulses: A-stage kernel per pulse
     slab (the register body up to 1024 range cells, the cluster body up to
-    8192, the matrix form above it: m's route, `fullchain.chain_route`),
+    16384, the matrix form where it refuses m: m's route,
+    `fullchain.chain_route`),
     all_to_all, row-epilogue kernel per row shard, all_gather of the
     powers.  The same range DFT and epilogue
     as the fused kernel, so the products agree with it to fp32

@@ -27,11 +27,14 @@ graph of 100 calls beside torch.matmul fp32's; the breakdown's four modes
 older trees have no `splits`); the long rays ("long": the planar chain
 #3, int16 and f32, and its offset/salt entry #4 at salt 7, the A-stage,
 int16 at w = 512, and the wire chain at m = 1536, 1840, 2048, 4096, 8192
-per 48 channel-sectors and at m = 4112 and 4160 on 6, each through the
-route the tree takes at that m, with cuFFT over range of the windowed
-complex64 input beside the A-stage and each kernel's rel-L2 against the
-tree's plain version on one sector; the dense entry #1 at m = 1832,
-1836, 2002 per 48; with --long, these alone); the number of kernels and
+per 48 channel-sectors and at m = 4112 and 4160 on 6, #3/#4 and the
+A-stage also at 8320 on 6 and, in a tree that takes the cluster of 16
+there, at 16384 on 6 (an older tree's dense A_half at 16384 is 2 GB of
+fp64 on the host), each through the route the tree takes at that m, with
+cuFFT over range of the windowed complex64 input beside the A-stage and
+each kernel's rel-L2 against the tree's plain version on one sector; the
+dense entry #1 at m = 1832, 1836, 2002 per 48; with --long, these
+alone); the number of kernels and
 of FFMA instructions in its library.  Last, one JSON line holds every kernel
 the trees share by name whose `-Xptxas=-v` report (registers, stack,
 spills, shared memory) or SASS FFMA count differs from the first tree's
@@ -394,12 +397,14 @@ def _breakdown(out: dict, ms, rel, x16, consts) -> None:
             x16, plan, mode, 0, x16.shape[0], 7), run())
 
 
-#: (m, sectors) of the long-ray timings: 48 channel-sectors, and m = 4112
-#: and 4160 on 6 as the matrix routes were first timed there; at the
-#: radix-1 m = 1832 (8 x 229), 1836 (4 x 459), 2002 (2 x 1001) the dense
-#: entry (#1) alone
+#: (m, sectors) of the long-ray timings: 48 channel-sectors, and m = 4112,
+#: 4160, 8320 and 16384 on 6 as the matrix routes were first timed there;
+#: at the radix-1 m = 1832 (8 x 229), 1836 (4 x 459), 2002 (2 x 1001) the
+#: dense entry (#1) alone; above 8192 no wire chain (its matrix route) and
+#: 16384 only where the tree takes the cluster of 16
 LONG_RAYS = ((1536, 16), (1832, 16), (1836, 16), (1840, 16), (2002, 16),
-             (2048, 16), (4096, 16), (4112, 2), (4160, 2), (8192, 16))
+             (2048, 16), (4096, 16), (4112, 2), (4160, 2), (8192, 16),
+             (8320, 2), (16384, 2))
 
 
 def _long_rays(out: dict, ms, rel) -> None:
@@ -457,6 +462,8 @@ def _long_rays(out: dict, ms, rel) -> None:
     gen = torch.Generator(device="cuda").manual_seed(2024)
     long = {}
     for m, sectors in LONG_RAYS:
+        if m == 16384 and route(m) != "cluster":
+            continue
         c = dataclasses.replace(cfg, num_range_cells=m)
         consts = PipelineConstants.build(c)
         plan = fullchain.build_plan(consts, "cuda")
@@ -501,15 +508,17 @@ def _long_rays(out: dict, ms, rel) -> None:
             fullchain.fused_chain_power_radix(xs[:bc + ch].contiguous(), plan,
                                               offset=bc, bc=ch, salt=7))
         r["astage_ms"] = timed_ms(lambda: fullchain.fused_chain_astage(x, plan))
-        r["wire_ms"] = timed_ms(
-            lambda: fullchain.fused_chain_power_wire(w32, plan, ch))
         r["cufft_ms"] = timed_ms(lambda: torch.fft.fft(xw, dim=1)[:, :m // 2])
         r["astage_rel"] = rel(
             fullchain.fused_chain_astage_reference(x[:ch], plan),
             fullchain.fused_chain_astage(x[:ch].contiguous(), plan))
-        r["wire_rel"] = rel(
-            fullchain.fused_chain_power_wire_reference(w32[:1], plan, ch),
-            fullchain.fused_chain_power_wire(w32[:1].contiguous(), plan, ch))
+        if m <= 8192:
+            r["wire_ms"] = timed_ms(
+                lambda: fullchain.fused_chain_power_wire(w32, plan, ch))
+            r["wire_rel"] = rel(
+                fullchain.fused_chain_power_wire_reference(w32[:1], plan, ch),
+                fullchain.fused_chain_power_wire(w32[:1].contiguous(), plan,
+                                                 ch))
         long[f"m{m}_bc{bc}"] = r
         del x, xs, x32, w32, xw, plan
         torch.cuda.empty_cache()
