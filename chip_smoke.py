@@ -126,23 +126,27 @@ Phases (each prints its results; any failure raises and exits non-zero):
    step (#5, #6) and the mxu method (#9) at m = 2048 vs the pallas
    processor and the oracle, and the pallas-seq step at m = 4160 (the
    cluster A-stage) from host planar int16 and from wire bytes; the
-   cluster of 16 (8192 < m <= 16384) at m = 8320 and 16384: the ptxas
-   lines of its kernels (no spill) and the clusters of 16 the card holds,
-   the slice's main path (the pallas processor, #3; at 8320 `bench
-   --range-cells 8320` at batch 2, #4; a world-size-1 pallas-seq step, #5
-   then #6) on two noise sectors, every launch on the cluster body, the
-   products within 2e-4 of the oracle; #3 (int16, f32), #4 (offset, salt
-   7) and #5 (int16 and f32 at w = 512, int16 at 128) vs their plain
-   versions (<= 1e-5) and the oracle, each timed on 6 channel-sectors in
-   turns with its plain version beside its bound (#5 beside cuFFT); m =
-   8208 (16 x 513, radix 2, which the cluster body refuses) through the
-   radix entry's matrix route, with and without salt, vs its plain version
-   and the oracle, and through the matrix route of #5
-   (csrc/fused_chain_astage_matrix.cu, int16 and f32, then #6 on its Y),
-   and m = 8320 through the wire chain's (#7/#8, the matrix kernel's wire
-   source, offset and salt 7), each vs its plain version and the oracle,
-   every launch counted, each timed in turns with its plain version beside
-   its bound and the matrix form's FMAs;
+   cluster of 16 (8192 < m <= 16384) at m = 8320, 16384 and, at P = 1
+   (m = 16 x odd: each block's sub-DFT the odd leaf alone), 8208, 8240
+   and 16368: the ptxas lines of its kernels (no spill; both P = 1
+   kernels built) and the clusters of 16 the card holds, at 8320, 16384
+   and 8208 the slice's main path (the pallas processor, #3; at 8320
+   `bench --range-cells 8320` at batch 2, #4; a world-size-1 pallas-seq
+   step, #5 then #6) on two noise sectors, every launch on the cluster
+   body, the products within 2e-4 of the oracle; at every one of those m
+   #3 (int16, f32), #4 (offset, salt 7) and #5 (int16 and f32 at w = 512,
+   int16 at 128) vs their plain versions (<= 1e-5) and the oracle, every
+   launch on the cluster body; at 8320, 16384, 8208 and 16368 each timed
+   on 6 channel-sectors in turns with its plain version beside its bound
+   (#5 beside cuFFT); m = 8336 (16 x 521, radix 2, which the cluster body
+   refuses: a Bluestein length of 2048) through the radix entry's matrix
+   route, with and without salt, and the matrix route of #5
+   (csrc/fused_chain_astage_matrix.cu, then #6 on its Y), one checking
+   call each vs its plain version and the oracle, not timed, and m = 8320
+   through the wire chain's (#7/#8, the matrix kernel's wire source,
+   offset and salt 7), each vs its plain version and the oracle, every
+   launch counted, timed in turns with its plain version beside its bound
+   and the matrix form's FMAs;
 10. the A-stage kernel (the pulse-sharded path's first half) on the noise
    and clip-bin sectors, int16 and f32, on every rank's pulse slab of 1, 2
    and 4 ranks (w = 512, 256, 128): Y vs its plain version (rel-L2 <=
@@ -2069,19 +2073,28 @@ LONG_DENSE_M = 1832       # the dense entries' times, per 48 channel-sectors
 LONG_BODY_M = 4094        # 2 x 23 x 89: the one m the long-ray body keeps
 ODD_LEAF_M = 4160         # radix 8, 8 x 520 (a 5 x 13 leaf): timed on 6 channel-sectors
 BLUESTEIN_M = 4112        # radix 8, 8 x 514 (a 257-point Bluestein leaf): #3, #5, #7 on 6
-#: the cluster of 16 (8192 < m <= 16384): #3/#4 and #5 checked and timed on
-#: 6 channel-sectors at 16 x 8 x 65 (a 5 x 13 leaf) and 16 x 1024 (L = 1)
-CLUSTER16_MS = (8320, 16384)
+#: the cluster of 16 (8192 < m <= 16384): #3/#4 and #5 checked on 6
+#: channel-sectors at 16 x 8 x 65 (a 5 x 13 leaf), 16 x 1024 (L = 1) and,
+#: at P = 1 (m = 16 x odd: the odd leaf alone), 16 x 513 (3^3 x 19), 16 x
+#: 515 (5 x 103, Bluestein N = 256) and 16 x 1023 (3 x 11 x 31, span 64)
+CLUSTER16_MS = (8320, 16384, 8208, 8240, 16368)
+#: of those, the m the slice's main path runs at, and the m timed
+CLUSTER16_PATH_MS = (8320, 16384, 8208)
+CLUSTER16_TIMED_MS = (8320, 16384, 8208, 16368)
 #: one m for each kernel of the cluster of 16, P = 2, 4, 8, 16, 32, 64, 128,
-#: 256 (an odd leaf L: m = 16 P L) and 1024 (L = 1): their resident clusters
-CLUSTER16_KERNEL_MS = (8224, 8640, 8320, 8448, 8704, 9216, 10240, 12288, 16384)
+#: 256 (an odd leaf L: m = 16 P L), 1024 (L = 1) and P = 1 (8208, 8240,
+#: 16368: one kernel at three cuts): their resident clusters
+CLUSTER16_KERNEL_MS = (8224, 8640, 8320, 8448, 8704, 9216, 10240, 12288, 16384,
+                       8208, 8240, 16368)
 CLUSTER16_BENCH = ("--range-cells", "8320", "--batch", "2", "--repeats", "2")
 #: the kernel part files of the cluster of 16, by entry
 CLUSTER16_SOURCES = {
     chain: [f"wrp_tpu_torch/csrc/fused_chain_{chain}_cluster16{part}.cu"
-            for part in ("_p8", "", "_p2")] for chain in ("radix", "astage")}
+            for part in ("_p8", "", "_p1", "_p2")] for chain in ("radix", "astage")}
 MATRIX_ABOVE_M = 8320     # radix 8 above 8192: #7/#8 on their matrix routes
-MATRIX_REFUSED_M = 8208   # 16 x 513, radix 2, refused by the cluster body: #3/#4, #5 on their matrix routes
+#: 16 x 521, radix 2, refused by the cluster body (a Bluestein length of
+#: 2048): #3/#4, #5 on their matrix routes
+MATRIX_REFUSED_M = 8336
 LONG_TOL = 1e-5           # a long-ray kernel vs its plain version (power rel-L2)
 LONG_BENCH = ("--range-cells", str(LONG_M), "--batch", "32", "--repeats", "4")
 
@@ -2576,13 +2589,6 @@ def long_ray_seq_and_mxu(cfg, iqs) -> dict:
             "rows": seq["rows"] + above["rows"], "stage2": mxu["stage2"]}
 
 
-def matrix_fma(m: int, w: int, bc: int) -> float:
-    """Real FMAs of the matrix-form A-stage (csrc/radix_chain.cuh) on bc
-    units of w pulses, 4 m M w a unit (M = m / R): the work of the
-    algorithm the route runs, printed beside the bound, never as it."""
-    return bc * 4.0 * m * (m // fullchain.radix_for(m)) * w
-
-
 def oracle_products(orc: Oracle, key, iq, cfg):
     """The fp64 oracle's (zdb, zdr) of one sector, from its cached power."""
     pow64 = orc.power(key, iq, cfg)
@@ -2739,20 +2745,28 @@ def cluster16_checks(cfg, consts, plan, iqs, orc: Oracle) -> dict:
 
 def long_ray_cluster16(orc: Oracle, gen, spills, inputs) -> dict:
     """The cluster of 16 at each m of CLUSTER16_MS: its kernels' ptxas
-    (`spills`: the cluster kernels with a spill; none of S = 16 may), the
-    clusters of 16 the card holds for each S = 16 kernel of #3/#4 and #5
-    (at CLUSTER16_KERNEL_MS), the cut and the occupancy at each m; the
-    main path (`cluster16_path`, on the two noise sectors of `inputs`, as
-    `long_ray_inputs` makes them), the checks
-    (`cluster16_checks`) and the times of #3 (int16, f32 queued), #4 and
-    #5 (beside cuFFT) on 6 channel-sectors in turns with their plain
-    versions (`long_ray_times`).  Returns {"launches", "res", "times",
-    "occ", "resident", "wire_case": MATRIX_ABOVE_M's (cfg, consts, plan,
-    sectors, x) for the wire chain's matrix route}."""
+    (`spills`: the cluster kernels with a spill; none of S = 16 may; the
+    two P = 1 kernels, #3/#4's and #5's, built), the clusters of 16 the
+    card holds for each S = 16 kernel of #3/#4 and #5 (at
+    CLUSTER16_KERNEL_MS), the cut and the occupancy at each m; the main
+    path (`cluster16_path`, at CLUSTER16_PATH_MS), the checks
+    (`cluster16_checks`), each on the two noise sectors of `inputs`, as
+    `long_ray_inputs` makes them, and at CLUSTER16_TIMED_MS the times of
+    #3 (int16, f32 queued), #4 and #5 (beside cuFFT) on 6 channel-sectors
+    in turns with their plain versions (`long_ray_times`).  Returns
+    {"launches", "res", "times", "occ", "resident", "wire_case":
+    MATRIX_ABOVE_M's (cfg, consts, plan, sectors, x) for the wire chain's
+    matrix route}."""
     s16 = [k for k in spills if re.search(
         r"cluster_chain16_kernel|cluster_leaf_kernel<[^,]+, 16,", k)]
     check(not s16, f"ptxas: no kernel of the cluster of 16 spills: "
                    f"{json.dumps(s16)}")
+    rep = kernel_ab.ptxas_report(_build.library_path().with_suffix(".log")
+                                 .read_text(), Path(_build._nvcc()).parent)
+    p1 = {k: v for k, v in rep.items()
+          if re.search(r"cluster_leaf_kernel<[^,]+, 16, 1, 1,", k)}
+    check(len(p1) == 2, f"ptxas: the cluster of 16's P = 1 kernels, #3/#4's "
+                        f"and #5's: {json.dumps(p1)}")
     resident = {m: {body: fullchain.cluster_occupancy(m, DEFAULT_CONFIG.n, body)
                     ["clusters"] for body in ("radix", "astage")}
                 for m in CLUSTER16_KERNEL_MS}
@@ -2786,14 +2800,16 @@ def long_ray_cluster16(orc: Oracle, gen, spills, inputs) -> dict:
               f"m={m} takes the cluster of 16 for #3/#4 and #5 (the wire "
               f"the matrix kernel), resident: {json.dumps(occ)}")
         out["occ"][m] = occ
-        for key, v in cluster16_path(cfg, consts, iqs, orc).items():
-            out["launches"][key] += v
+        if m in CLUSTER16_PATH_MS:
+            for key, v in cluster16_path(cfg, consts, iqs, orc).items():
+                out["launches"][key] += v
         for key, r in cluster16_checks(cfg, consts, plan, iqs, orc).items():
             for k in ("rel_l2", "max_abs_err"):
                 out["res"][key][k] = max(out["res"][key][k], r[k])
-        out["times"][m] = long_ray_times(
-            gen, m, ("radix", "radix_f32", "radix_offset", "astage"), 2,
-            True, plan)
+        if m in CLUSTER16_TIMED_MS:
+            out["times"][m] = long_ray_times(
+                gen, m, ("radix", "radix_f32", "radix_offset", "astage"), 2,
+                True, plan)
         if m == MATRIX_ABOVE_M:
             x = torch.from_numpy(np.stack([planar_i16(iq) for iq in iqs]))
             out["wire_case"] = (cfg, consts, plan, iqs,
@@ -2804,18 +2820,19 @@ def long_ray_cluster16(orc: Oracle, gen, spills, inputs) -> dict:
 
 
 def long_ray_matrix(orc: Oracle, wire_case, inputs) -> dict:
-    """The matrix routes left above 8192: at m = MATRIX_REFUSED_M (16 x 513,
-    radix 2, which the cluster body refuses) on two noise sectors (6
-    channel-sectors) the radix entry plain and with offset and salt 7 on
-    the matrix kernel (the dense A_half, built at first use) vs
-    fused_chain_power_reference (<= POWER_TOL) and the oracle, each check's
-    launch counts equal to its calls, then the radix entry timed beside #5
-    then #6 (both on their matrix routes) on the same sectors, and #5's
-    matrix route (`matrix_astage`), on the inputs of `long_ray_inputs`; at
+    """The matrix routes left above 8192: at m = MATRIX_REFUSED_M (16 x 521,
+    radix 2, which the cluster body refuses: the leaf prime 521 needs a
+    Bluestein length of 2048) on two noise sectors (6 channel-sectors) one
+    checking call each of the radix entry on the matrix kernel (the dense
+    A_half, built at first use) int16, and with offset and salt 7, vs
+    fused_chain_power_reference (<= POWER_TOL) and the oracle, each
+    check's launch counts equal to its calls, and of #5's matrix route
+    (`matrix_astage`), on the inputs of `long_ray_inputs`, none timed; at
     m = MATRIX_ABOVE_M (radix 8) the wire chain's (`matrix_wire`, on
-    `wire_case`: the cluster of 16's plan and sectors there).  Returns {"counts": the radix checks' launches,
-    "radix_ms", "astage_rows_ms", and "astage", "wire", "wire_offset":
-    each matrix route's launches, errors and times}."""
+    `wire_case`: the cluster of 16's plan and sectors there), timed.
+    Returns {"radix", "radix_offset", "astage", "wire", "wire_offset":
+    each matrix route's launches and errors (the wire's with its times),
+    "counts": the radix checks' launches}."""
     m = MATRIX_REFUSED_M
     cfg, consts, sectors = inputs[m]
     consts, sectors = consts.result(), [iq.result() for iq in sectors]
@@ -2827,131 +2844,108 @@ def long_ray_matrix(orc: Oracle, wire_case, inputs) -> dict:
           f"radix entry on the matrix kernel (tile "
           f"{fullchain.dense_tile(plan)})")
     gain = torch.from_numpy(consts.gain).cuda()
-    reset_counts()
-    planar_kernel_checks(f"radix m={m} (matrix route)",
-                         fullchain.fused_chain_power_radix,
-                         fullchain.fused_chain_power_reference, plan, cfg,
-                         {"noise": (np.stack([planar_i16(s) for s in sectors]),
-                                    sectors)},
-                         orc, gain)
-    x = torch.from_numpy(np.stack([planar_i16(s) for s in sectors])).cuda()
-    x = x.reshape(-1, 2, m, cfg.n)
     ch, n = cfg.num_channels, cfg.n
-    bc = x.shape[0]
+    x = torch.from_numpy(np.stack([planar_i16(s) for s in sectors])).cuda()
+    x = x.reshape(-1, 2, m, n)
+    res = {k: {"m": m, "rel_l2": 0.0, "max_abs_err": 0.0}
+           for k in ("radix", "radix_offset")}
+    reset_counts()
+    got = fullchain.fused_chain_power_radix(x, plan)
+    torch.cuda.synchronize()
+    e, a = rel_dev(fullchain.fused_chain_power_reference(x, plan), got)
+    check(e <= POWER_TOL, f"radix m={m} int16 (matrix route): kernel vs "
+                          f"plain rel-L2 {e:.3e} <= {POWER_TOL}")
+    res["radix"].update(rel_l2=e, max_abs_err=a)
+    p = got.reshape(len(sectors), ch, m // 2).cpu().numpy()
+    for k, iq in enumerate(sectors):
+        check_vs_oracle(f"radix m={m} int16 (matrix route) sector {k}", p[k],
+                        orc.power((m, n, "noise", k), iq, cfg), cfg, gain)
     got = fullchain.fused_chain_power_radix(x, plan, offset=ch, bc=ch, salt=7)
     torch.cuda.synchronize()
-    e, _ = rel_dev(fullchain.fused_chain_power_reference(x[ch:], plan, 7), got)
+    e, a = rel_dev(fullchain.fused_chain_power_reference(x[ch:], plan, 7), got)
     counts = read_counts()
     check(e <= POWER_TOL and counts["dense_matrix"] == counts["radix"]
-          + counts["radix_offset"] == 3 and counts["dense_fft"] == 0
+          + counts["radix_offset"] == 2 and counts["dense_fft"] == 0
           and counts["radix_cluster"] == 0,
           f"radix m={m} offset {ch} salt 7 on the matrix kernel vs plain "
           f"{e:.3e} <= {POWER_TOL}; matrix launches {counts['dense_matrix']}"
           f" == radix {counts['radix']} + offset {counts['radix_offset']}, "
           f"none on the cluster body")
-    t = timed({"plain": lambda: fullchain.fused_chain_power_reference(x, plan),
-               "kernel": lambda: fullchain.fused_chain_power_radix(x, plan),
-               "astage_rows": lambda: fullchain.parseval_rows_power(
-                   fullchain.fused_chain_astage(x, plan), plan)},
-              ("plain", "kernel", "astage_rows", "astage_rows", "kernel",
-               "plain"), cuda_ms3)
-    print(f"radix m={m} on the matrix kernel, {bc} channel-sectors: "
-          f"{t['kernel']:.3f} ms, plain {t['plain']:.3f} ms; the matrix "
-          f"A-stage then #6 on the same sectors {t['astage_rows']:.3f} ms; "
-          f"{algorithm_note(m, n, bc)}", flush=True)
-    res = matrix_astage(orc, cfg, consts, plan, sectors, x)
+    res["radix_offset"].update(rel_l2=e, max_abs_err=a)
+    res["radix"]["launches"] = counts["radix"]
+    res["radix_offset"]["launches"] = counts["radix_offset"]
+    print(f"radix m={m} on the matrix kernel, {x.shape[0]} channel-sectors: "
+          f"checked, not timed; "
+          f"{algorithm_note(m, n, x.shape[0])}", flush=True)
+    res.update(matrix_astage(orc, cfg, consts, plan, sectors, x))
     res.update(matrix_wire(orc, *wire_case))
-    res["radix_ms"], res["astage_rows_ms"] = t["kernel"], t["astage_rows"]
     res["counts"] = counts
     return res
 
 
-def matrix_route_times(res: dict, m: int, bc: int, n: int, routes: dict,
-                       library=None) -> None:
+def matrix_route_times(res: dict, m: int, bc: int, n: int,
+                       routes: dict) -> None:
     """Each of `routes` ({key: (source, kernel, plain, flops, bytes)}) timed
     in turns with its plain version (kernel, plain, plain, kernel, 3 warm
-    calls a turn; with `library` for the A-stage, cuFFT between them)
-    beside its bound and the matrix form's FMAs, into res[key]."""
+    calls a turn) beside its bound and the matrix form's FMAs, into
+    res[key]."""
     for key, (source, kernel, plain, flops, nbytes) in routes.items():
-        fns = {"kernel": kernel, "plain": plain}
-        if key == "astage" and library is not None:
-            fns["library"] = library
-        t = timed(fns, ("kernel", "plain") + (("library",) * 2
-                                              if "library" in fns else ())
-                  + ("plain", "kernel"), cuda_ms3)
+        t = timed({"kernel": kernel, "plain": plain},
+                  ("kernel", "plain", "plain", "kernel"), cuda_ms3)
         bound_ms, bound_by = bound(flops, nbytes)
-        fma = matrix_fma(m, n, bc) if key == "astage" else (
-            bc * 4.0 * (m // 2) * m * n)
+        fma = bc * 4.0 * (m // 2) * m * n
         print(f"{key} at m={m} on its matrix route ({source}), {bc} "
               f"channel-sectors x {n} pulses: {t['kernel']:.3f} ms, plain "
-              f"{t['plain']:.3f} ms"
-              + (f", library (cuFFT over range of the windowed complex64 "
-                 f"input, then the crop) {t['library']:.3f} ms"
-                 if "library" in t else "")
-              + f", bound {bound_ms:.3f} ms ({bound_by}); the matrix form "
-              f"does {fma / 1e9:.2f} G real FMAs, "
+              f"{t['plain']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}); "
+              f"the matrix form does {fma / 1e9:.2f} G real FMAs, "
               f"{2e3 * fma / PEAK_FP32:.3f} ms at the fp32 peak", flush=True)
         res[key].update(source=source, m=m, ms=t["kernel"],
-                        plain_ms=t["plain"], library_ms=t.get("library"),
-                        bound_ms=bound_ms, bound_by=bound_by, matrix_fma=fma)
+                        plain_ms=t["plain"], bound_ms=bound_ms,
+                        bound_by=bound_by, matrix_fma=fma)
 
 
 def matrix_astage(orc: Oracle, cfg, consts, plan, sectors, x) -> dict:
     """The A-stage's matrix route (#5, csrc/fused_chain_astage_matrix.cu)
     at m = cfg.m on the two noise sectors of `long_ray_matrix` (planar
-    int16 x, 6 channel-sectors): int16 and f32 vs its plain version (Y <=
-    LONG_TOL), then #6 on its Y vs the matrix form's power (<= POWER_TOL)
-    and the oracle; two launches, both on the matrix route; then timed in
-    turns with its plain version and cuFFT.  Returns {"astage": launches,
-    errors and times}."""
+    int16 x, 6 channel-sectors): one checking call, vs its plain version
+    (Y <= LONG_TOL), then #6 on its Y vs the matrix form's power (<=
+    POWER_TOL) and the oracle; one launch of each, the A-stage's on the
+    matrix route; not timed (a call takes ~280 ms).  Returns {"astage":
+    launches and errors}."""
     m = cfg.m
     tile = fullchain.astage_tile(plan)
     check(tile == 4, f"m={m}: the matrix A-stage's tile {tile} (T = 8 "
                      f"needs {2 * 8 * (m // plan.radix) * 4} bytes)")
     gain = torch.from_numpy(consts.gain).cuda()
     ch, n = cfg.num_channels, cfg.n
-    bc = x.shape[0]
-    res = {"astage": {"rel_l2": 0.0, "max_abs_err": 0.0}}
+    res = {"astage": {"m": m}}
     reset_counts()
-    for xx in (x, x.float()):
-        y = fullchain.fused_chain_astage(xx, plan)
-        torch.cuda.synchronize()
-        e, a = rel_dev(fullchain.fused_chain_astage_reference(xx, plan), y)
-        check(e <= LONG_TOL, f"#5 m={m} {xx.dtype} (matrix route): kernel "
-                             f"vs plain rel-L2 {e:.3e} <= {LONG_TOL}")
-        res["astage"]["rel_l2"] = max(res["astage"]["rel_l2"], e)
-        res["astage"]["max_abs_err"] = max(res["astage"]["max_abs_err"], a)
-        pw = fullchain.parseval_rows_power(y, plan)
-        torch.cuda.synchronize()
-        e = rel_dev(fullchain.fused_chain_power_reference(xx, plan), pw)[0]
-        check(e <= POWER_TOL, f"#6 on the matrix A-stage's Y at m={m} "
-                              f"{xx.dtype}: vs the matrix form's power "
-                              f"{e:.3e} <= {POWER_TOL}")
-        p = pw.reshape(len(sectors), ch, m // 2).cpu().numpy()
-        for k, iq in enumerate(sectors):
-            check_vs_oracle(f"#5 + #6 m={m} {xx.dtype} sector {k}", p[k],
-                            orc.power((m, n, "noise", k), iq, cfg), cfg, gain)
+    y = fullchain.fused_chain_astage(x, plan)
+    torch.cuda.synchronize()
+    e, a = rel_dev(fullchain.fused_chain_astage_reference(x, plan), y)
+    check(e <= LONG_TOL, f"#5 m={m} {x.dtype} (matrix route): kernel vs "
+                         f"plain rel-L2 {e:.3e} <= {LONG_TOL}")
+    res["astage"].update(rel_l2=e, max_abs_err=a)
+    pw = fullchain.parseval_rows_power(y, plan)
+    torch.cuda.synchronize()
+    e = rel_dev(fullchain.fused_chain_power_reference(x, plan), pw)[0]
+    check(e <= POWER_TOL, f"#6 on the matrix A-stage's Y at m={m} "
+                          f"{x.dtype}: vs the matrix form's power "
+                          f"{e:.3e} <= {POWER_TOL}")
+    p = pw.reshape(len(sectors), ch, m // 2).cpu().numpy()
+    for k, iq in enumerate(sectors):
+        check_vs_oracle(f"#5 + #6 m={m} {x.dtype} sector {k}", p[k],
+                        orc.power((m, n, "noise", k), iq, cfg), cfg, gain)
     mc = read_counts()
     others = {k: v for k, v in mc.items()
               if k not in ("astage", "astage_matrix", "rows")}
-    check(mc["astage"] == mc["astage_matrix"] == 2 and mc["rows"] == 2
+    check(mc["astage"] == mc["astage_matrix"] == 1 and mc["rows"] == 1
           and not any(others.values()),
           f"m={m} matrix A-stage: {mc['astage']} (matrix "
-          f"{mc['astage_matrix']}) == 2, rows {mc['rows']} == 2, no other: "
+          f"{mc['astage_matrix']}) == 1, rows {mc['rows']} == 1, no other: "
           f"{json.dumps(others)}")
     res["astage"]["launches"] = mc["astage_matrix"]
-    win = torch.from_numpy(np.ascontiguousarray(
-        consts.op_a_half[0].real, np.float32)).cuda()
-    xw = (torch.complex(x[:, 0].float(), x[:, 1].float())
-          * win[:, None]).contiguous()       # pre-windowed, as cuFFT's input
-    matrix_route_times(res, m, bc, n, {"astage": (
-        "wrp_tpu_torch/csrc/fused_chain_astage_matrix.cu",
-        lambda: fullchain.fused_chain_astage(x, plan),
-        lambda: fullchain.fused_chain_astage_reference(x, plan),
-        bc * astage_flops(m, n),
-        x.numel() * 2 + m * 4 + bc * 2 * (m // 2) * n * 4)},
-        library=lambda: torch.fft.fft(xw, dim=1)[:, :m // 2])
-    del xw
+    del y, pw
     torch.cuda.empty_cache()
     return res
 
@@ -3570,13 +3564,15 @@ def probe_breakdown(orc: Oracle, noise, adv) -> dict:
 @functools.lru_cache(maxsize=None)
 def _tensor_core_sass() -> dict:
     return kernel_ab.sass_opcode_counts(
-        _build.library_path(), Path(_build._nvcc()).parent, ("HGMMA", "HMMA"))
+        _build.library_path(), Path(_build._nvcc()).parent, ("HGMMA", "HMMA"),
+        only=("tc_dot_kernel", "int_split_kernel"))
 
 
 def sass_counts(pattern: str) -> dict:
-    """{kernel: {"HGMMA": n, "HMMA": n}} of the built library's kernels whose
-    names match `pattern` (warpgroup and warp-level tensor-core
-    instructions in the SASS; one dump of the library serves every call)."""
+    """{kernel: {"HGMMA": n, "HMMA": n}} of the built library's probe
+    kernels (tc_dot_kernel, int_split_kernel) whose names match `pattern`
+    (warpgroup and warp-level tensor-core instructions in the SASS; one
+    dump of the library serves every call)."""
     return {k: v for k, v in _tensor_core_sass().items()
             if re.search(pattern, k)}
 
@@ -4363,9 +4359,8 @@ def main() -> int:
                      multihost_bench_launches=last["multihost"],
                      ab_sweep_gate_launches=last["ab_sweep"]["launches"]["radix"],
                      hw_demo_launches=demo["radix"],
-                     matrix_route_m=MATRIX_REFUSED_M,
-                     matrix_route_ms=long["matrix"]["radix_ms"],
-                     matrix_astage_rows_ms=long["matrix"]["astage_rows_ms"],
+                     matrix_route=long["matrix"]["radix"],
+                     matrix_offset_route=long["matrix"]["radix_offset"],
                      **occ["radix"]),
         # the cluster body (1024 < m <= 8192): launches on the long-ray
         # executor's host-decode run (#3) and the bench at m = 2048 (#4);
@@ -4386,11 +4381,12 @@ def main() -> int:
                       **long["at_4096"]["radix_offset"]},
                      m=4096, times_by_m=long["times"]["radix_offset"]),
         # the cluster of 16 (8192 < m <= 16384): launches on the slice's
-        # main path at m = 8320 and 16384 (the pallas processor; #4: the
-        # bench at 8320; #5: the pallas-seq steps); errors over the checks
-        # at both m; ms, plain and bound on 6 channel-sectors at m = 8320,
-        # both m's in times_by_m; its kernels in the three part files of
-        # `sources` (8320's first, 16384's second)
+        # main path at m = 8320, 16384 and 8208 (the pallas processor; #4:
+        # the bench at 8320; #5: the pallas-seq steps); errors over the
+        # checks at every m of CLUSTER16_MS; ms, plain and bound on 6
+        # channel-sectors at m = 8320, every timed m's in times_by_m; its
+        # kernels in the four part files of `sources` (8320's first,
+        # 16384's second, P = 1's third)
         kernel_entry("fused_chain_power_radix (cluster of 16, 8192 < m <= 16384)",
                      CLUSTER16_SOURCES["radix"][0],
                      "wrp_tpu/ops/pallas/fullchain.py:809",

@@ -79,7 +79,8 @@ def _counts():
 def test_route_by_chain(m, cut):
     """A radix m % 32 == 0 in (8192, 16384] takes the cluster of 16 for
     the planar chain and the A-stage (ms = m / 16 = P L, P >= 2) and the
-    matrix kernel for the wire chain, which has no cluster of 16."""
+    matrix kernel for the wire chain, which has no cluster of 16 (m = 16 x
+    odd, P = 1, in tests/test_torch_cluster16_p1.py)."""
     assert tfull.radix_for(m) > 1 and tfull.cluster_split(m) == 16
     assert tfull.cluster_refusal(m) is None
     assert tfull.chain_route(m) == "cluster"
@@ -89,13 +90,14 @@ def test_route_by_chain(m, cut):
 
 
 @pytest.mark.parametrize("m,split,why", [
-    (8208, 16, "m=8208 = 16 x 513: P = 1 at S = 16"),
+    (8336, 16, "m=8336: the leaf prime 521 needs a Bluestein length 2048"),
     (16416, 16, "CLUSTER_MAX_M = 16384, got m=16416"),
     (8200, 8, "m=8200 = 8 x 1025: a block's 1025-point sub-DFT passes "
               "CLUSTER_MAX_MS = 1024")])
 def test_refusals_above_8192(m, split, why):
-    """m = 16 x odd above 8192 (P = 1 at S = 16), m above CLUSTER_MAX_M
-    and m = 8 x odd above 8192 (S = 8, a sub-DFT over CLUSTER_MAX_MS) are
+    """m = 16 x p above 8192, p a prime in (512, 1023] (its leaf's
+    Bluestein length passes BLUESTEIN_MAX_N), m above CLUSTER_MAX_M and m
+    = 8 x odd above 8192 (S = 8, a sub-DFT over CLUSTER_MAX_MS) are
     refused, saying why, and every chain takes the matrix kernel."""
     assert tfull.cluster_split(m) == split
     assert why in tfull.cluster_refusal(m)

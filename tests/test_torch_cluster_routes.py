@@ -17,8 +17,9 @@ beside); the layout of
 `cluster_tables`; the cluster stage against the fp64 DFT at its smallest m;
 the `pallas-seq` and fused-wire processors' products against the oracle at
 m = 1840 and 8192; and the matrix routes above 8192: the A-stage's matrix
-plain version at m = 8208 (16 x 513, radix 2, which the cluster body
-refuses) against a float64 FFT, and at m = 8320 (radix 8) the fused wire
+plain version at m = 8336 (16 x 521, radix 2, which the cluster body
+refuses: its leaf prime 521 needs a Bluestein length of 2048) against a
+float64 FFT, and at m = 8320 (radix 8) the fused wire
 decode on the wire's matrix route, `pallas-seq` on the A-stage's cluster
 of 16, #8's plain version with offset and salt.  tests/test_torch_cluster16.py
 holds the cluster of 16 itself."""
@@ -46,7 +47,7 @@ SAME_TOL = 1e-5       # two forms of the same chain (fp32 reassociation)
 PRODUCT_TOL = 2e-4    # zdb, zdr vs the fp64 oracle
 ASTAGE_TOL = 1e-5     # Y vs wrp_tpu's A-stage (bf16 hi/lo splits there)
 ABOVE = 8320          # radix 8 above 8192: the wire's matrix route, a cluster of 16 else
-REFUSED = 8208        # 16 x 513 (radix 2): the cluster body refuses it (P = 1 at S = 16)
+REFUSED = 8336        # 16 x 521 (radix 2): the cluster body refuses it (Bluestein N = 2048)
 
 
 def _planar(iq):
@@ -70,8 +71,8 @@ def test_chain_route_by_m():
     16384 (the wire's up to 8192), the matrix forms above and where the
     cluster body refuses m; cluster_geometry refuses the m the body does
     not take, saying why (outside its range, naming CLUSTER_MAX_M = 16384;
-    P = 1 at S = 16; a block's sub-DFT over CLUSTER_MAX_MS; a Bluestein
-    length over BLUESTEIN_MAX_N).  The radix entry's CPU result is the
+    a block's sub-DFT over CLUSTER_MAX_MS; a Bluestein length over
+    BLUESTEIN_MAX_N, at 1042 and at 8336 = 16 x 521).  The radix entry's CPU result is the
     plain version of the route the card launches, exactly (the cluster
     route's at m = 8320 in test_wire_and_seq_matrix_above_8192), and the
     FFT-form body takes a radix m only up to 1024."""
@@ -104,7 +105,7 @@ def test_chain_route_by_m():
     assert tfull.radix_for(1832) == 1 and tfull.cluster_takes(1832)
     for m, why in ((1024, "CLUSTER_MAX_M = 16384"),
                    (16416, "CLUSTER_MAX_M = 16384"),
-                   (REFUSED, "P = 1 at S = 16"),
+                   (REFUSED, "the leaf prime 521 needs a Bluestein length 2048"),
                    (4100, "CLUSTER_MAX_MS = 1024"),
                    (1042, "BLUESTEIN_MAX_N = 1024")):
         assert tfull.cluster_refusal(m) is not None
@@ -372,8 +373,9 @@ def test_cluster_processors_vs_oracle(m):
 
 
 def test_astage_matrix_above_8192_vs_jax():
-    """m = 8208 (16 x 513, radix 2, M = 4104), which the cluster body
-    refuses (P = 1 at S = 16): the A-stage takes the matrix form's plain
+    """m = 8336 (16 x 521, radix 2, M = 4168), which the cluster body
+    refuses (its leaf prime 521 needs a Bluestein length of 2048 >
+    BLUESTEIN_MAX_N): the A-stage takes the matrix form's plain
     version, within 1e-5 of the float64 FFT of the windowed slab at w = n
     and n/2 (wrp_tpu's radix-2 operator there would be a 540 MB
     interpret-mode contraction); no cluster tables; no launch counted.

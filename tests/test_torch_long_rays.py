@@ -189,8 +189,9 @@ def test_above_4096_routes_and_refusals():
     plain versions, within 1e-5 of the planar products; the default wire
     decode picks "xla" and equals the planar products
     (tests/test_torch_cluster.py holds the cluster body against wrp_tpu).
-    Above 8192, where the cluster body refuses m (m = 8208 = 16 x 513,
-    radix 2), the radix entry's matrix route: the matrix kernel's operator
+    Above 8192, where the cluster body refuses m (m = 8336 = 16 x 521,
+    radix 2: the leaf prime 521 needs a Bluestein length of 2048), the
+    radix entry's matrix route: the matrix kernel's operator
     (A_half as [m, m/2, 2], C order, built once) and the plain version
     with offset and salt (tests/test_torch_cluster_routes.py holds the
     other matrix routes there)."""
@@ -240,7 +241,7 @@ def test_above_4096_routes_and_refusals():
         for g, w in zip(got, (pzdb, pzdr)):
             assert oracle.relative_l2(w.numpy(), g.numpy()) < 1e-5
 
-    m = 8208
+    m = 8336
     consts = _consts(m)
     plan = tfull.build_plan(consts, "cpu")
     assert (tfull.chain_route(m) == "matrix" and plan.cluster_t is None

@@ -30,10 +30,11 @@
 // fused chains 64 at m = 1536-2048, 32 at 4096-4160 and 8224-9216, 16 at
 // 8192, 12288 and 16384), since each round costs two cluster barriers.  S =
 // 8 for a radix m (m % 16 == 0) up to 8192; above it S = 16 (a
-// non-portable cluster size; m % 32 == 0, so m' = m / 16 <= 1024 keeps P
-// >= 2), for the planar chain and the A-stage alone; a radix-1 m = S x odd
-// (S = 2, 4, 8: the dense entries) splits by the power of two it has, so
-// each block's m'-point DFT is the odd leaf alone.
+// non-portable cluster size, m' = m / 16 <= 1024), for the planar chain
+// and the A-stage alone; at m = 16 x odd (8208 = 16 x 513) P = 1 there,
+// so each block's m'-point DFT is the odd leaf alone, as at a radix-1 m =
+// S x odd (S = 2, 4, 8: the dense entries), which splits by the power of
+// two it has.
 // With r = S t + b and k = k1 + m' k2 (k1 < m', k2 < S):
 //
 //   Y[k1 + m' k2] = sum_b W_S^(b k2) W_m^(b k1) F_b[k1],
@@ -1252,18 +1253,19 @@ cluster_leaf_kernel(Src src, const float* __restrict__ tab, const float* __restr
 // 4096, 8192; an odd leaf at P = 32..256) in the entry's own file; an odd
 // leaf at P = 2, 4 (kP2: fused_chain_{radix,wire,astage}_cluster_p2.cu) and
 // at P = 8, 16 (kP8: ..._cluster_p8.cu); at S = 16 (8192 < m <= 16384, the
-// planar chain and the A-stage alone) the same three cuts, kWide16 (L = 1
-// at P = 1024: m = 16384; a leaf at P = 32..256) in
+// planar chain and the A-stage alone) the same three cuts and a fourth,
+// kWide16 (L = 1 at P = 1024: m = 16384; a leaf at P = 32..256) in
 // fused_chain_{radix,astage}_cluster16.cu, kP2S16 and kP8S16 in
-// ..._cluster16_p2.cu and ..._cluster16_p8.cu; P = 1, the dense entries'
-// m = S x odd on the planar chain alone, S = 8 (kS8:
-// fused_chain_dense_cluster8.cu) and S = 2, 4 (kS24:
-// fused_chain_dense_cluster24.cu).
-enum class Part { kWide, kP2, kP8, kS8, kS24, kWide16, kP2S16, kP8S16 };
+// ..._cluster16_p2.cu and ..._cluster16_p8.cu, and P = 1 (m = 16 x odd:
+// the odd leaf alone, then the 8-of-16 combine) kP1S16 in
+// ..._cluster16_p1.cu; P = 1 at S <= 8, the dense entries' m = S x odd on
+// the planar chain alone, S = 8 (kS8: fused_chain_dense_cluster8.cu) and
+// S = 2, 4 (kS24: fused_chain_dense_cluster24.cu).
+enum class Part { kWide, kP2, kP8, kS8, kS24, kWide16, kP2S16, kP8S16, kP1S16 };
 
 template <Part kPart>
-constexpr bool kPartS16 =
-    kPart == Part::kWide16 || kPart == Part::kP2S16 || kPart == Part::kP8S16;
+constexpr bool kPartS16 = kPart == Part::kWide16 || kPart == Part::kP2S16 ||
+                          kPart == Part::kP8S16 || kPart == Part::kP1S16;
 
 // The kernel of one part for m' = P L split S ways (a radix m: S = 8, or
 // 16 above kMaxM8).
@@ -1302,6 +1304,12 @@ cudaError_t dispatch(int S, int P, int L, Fn&& fn) {
     if (P == lo) return fn(cluster_leaf_kernel<Src, kS, lo, 1, kFused>);
     if (P == 2 * lo) return fn(cluster_leaf_kernel<Src, kS, 2 * lo, 1, kFused>);
     return cudaErrorInvalidValue;
+  } else if constexpr (kPart == Part::kP1S16) {
+    // the planar chain (PlanarDirect, fused) and the A-stage (PlanarRows)
+    if (S == kSplitLong && P == 1 && L > 1) {
+      return fn(cluster_leaf_kernel<Src, kSplitLong, 1, 1, kFused>);
+    }
+    return cudaErrorInvalidValue;
   } else {
     if constexpr (std::is_same_v<Src, PlanarDirect> && kFused) {
       if (P == 1 && L > 1) {
@@ -1338,8 +1346,8 @@ __host__ inline int bluestein_n(int L) {
   return nb;
 }
 
-// S = 8 for a radix m up to kMaxM8, 16 above it (P >= 2 there: m % 32 ==
-// 0); the power of two in a radix-1 m = S x odd.
+// S = 8 for a radix m up to kMaxM8, 16 above it (P = 1 at m = 16 x odd);
+// the power of two in a radix-1 m = S x odd.
 struct Geometry {
   int S, ms, P, L, P1, P2, nbl;
   bool ok;
@@ -1352,7 +1360,7 @@ struct Geometry {
     P2 = P / fft::imax(P1, 1);
     nbl = L > 1 ? bluestein_n(L) : 0;
     ok = m >= kMinM && m <= kMaxM && m % 2 == 0 && S >= 2 && ms <= kMaxMs &&
-         nbl <= kMaxBluestein && (S < kSplitLong || P >= 2);
+         nbl <= kMaxBluestein;
   }
 };
 
@@ -1454,10 +1462,12 @@ WRP_CLUSTER_PART(extern template, Part::kP2S16, PlanarDirect, true)
 WRP_CLUSTER_PART(extern template, Part::kP2S16, PlanarRows, false)
 WRP_CLUSTER_PART(extern template, Part::kP8S16, PlanarDirect, true)
 WRP_CLUSTER_PART(extern template, Part::kP8S16, PlanarRows, false)
+WRP_CLUSTER_PART(extern template, Part::kP1S16, PlanarDirect, true)
+WRP_CLUSTER_PART(extern template, Part::kP1S16, PlanarRows, false)
 
 __host__ inline Part part_of(const Geometry& g) {
-  if (g.P == 1) return g.S == 8 ? Part::kS8 : Part::kS24;
   const bool s16 = g.S == kSplitLong;
+  if (g.P == 1) return s16 ? Part::kP1S16 : g.S == kSplit ? Part::kS8 : Part::kS24;
   if (g.L == 1 || g.P >= 32) return s16 ? Part::kWide16 : Part::kWide;
   if (g.P <= 4) return s16 ? Part::kP2S16 : Part::kP2;
   return s16 ? Part::kP8S16 : Part::kP8;
@@ -1474,6 +1484,7 @@ cudaError_t for_part(const Geometry& g, Fn&& fn) {
     case Part::kWide16: return fn(std::integral_constant<Part, Part::kWide16>{});
     case Part::kP2S16: return fn(std::integral_constant<Part, Part::kP2S16>{});
     case Part::kP8S16: return fn(std::integral_constant<Part, Part::kP8S16>{});
+    case Part::kP1S16: return fn(std::integral_constant<Part, Part::kP1S16>{});
     default: return fn(std::integral_constant<Part, Part::kS24>{});
   }
 }

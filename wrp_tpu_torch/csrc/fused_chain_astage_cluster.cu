@@ -7,13 +7,13 @@
 // NATURAL order, any w) to the windowed half-spectrum range DFT
 // Y [2, m/2, w] f32 through cluster_chain.cuh's body with kFused = false:
 // each unit one cluster of S blocks (S = 8 up to m = 8192, 16 above it;
-// the S = 16 kernels in fused_chain_astage_cluster16{,_p2,_p8}.cu), block
+// the S = 16 kernels in fused_chain_astage_cluster16{,_p1,_p2,_p8}.cu), block
 // b the m/S-point DFT of rows S t + b, the S/2-of-S combine over
 // distributed shared memory, its m/2S rows of Y stored `cols` contiguous
 // floats a row and plane.  The caller picks this entry from m alone
 // (ops/fullchain.chain_route); m <= 1024 runs fused_chain_astage.cu, an m
-// the cluster body refuses (16 x odd above 8192, above 16384)
-// fused_chain_astage_matrix.cu.
+// the cluster body refuses (16 x p above 8192, p a prime whose Bluestein
+// length passes 1024; above 16384) fused_chain_astage_matrix.cu.
 //
 // What bounds it: bytes.  4 m w bytes of int16 in and 4 m w of Y out a
 // unit; the FFT's ~5 m log2 m flops a column are ~10 per byte, under the

@@ -18,9 +18,9 @@
 // 32 at 4096, 16 at 8192), so the two chains share the plan's round
 // phasor sums.  The caller picks this entry from m alone
 // (ops/fullchain.chain_route): m <= 1024 runs fused_chain_radix.cu, an m
-// the cluster body refuses (16 x odd above 8192, above 16384)
-// fused_chain_dense.cu's matrix kernel.  The kernels of S = 16 are in
-// fused_chain_radix_cluster16{,_p2,_p8}.cu.
+// the cluster body refuses (16 x p above 8192, p a prime whose Bluestein
+// length passes 1024; above 16384) fused_chain_dense.cu's matrix kernel.
+// The kernels of S = 16 are in fused_chain_radix_cluster16{,_p1,_p2,_p8}.cu.
 //
 // `offset` (channel-sectors) starts the launch `offset` units into a larger
 // staged array (pointer arithmetic, no copy); the int32 `salt` is added to

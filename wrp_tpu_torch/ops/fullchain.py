@@ -15,8 +15,9 @@ kernel serves an m is m's alone:
   split across a cluster of 8 blocks, 16 above CLUSTER_MAX_M8 = 8192;
   plain `cluster_chain_power_reference`, counted also in
   `RADIX_CLUSTER_LAUNCHES`) for 1024 < m <= CLUSTER_MAX_M = 16384; where
-  the cluster body refuses m (16 x odd above 8192, above 16384) the dense
-  entries' matrix kernel on the dense A_half
+  the cluster body refuses m (16 x p above 8192, p a prime whose Bluestein
+  length passes BLUESTEIN_MAX_N; above 16384) the dense entries' matrix
+  kernel on the dense A_half
   (`RadixPlan.dense_operator`, built at first use; plain
   `fused_chain_power_reference`), counted also in `DENSE_MATRIX_LAUNCHES`.
 * wire, csrc/fused_chain_wire.cu (``wrp_tpu`` `fused_chain_power_wire`):
@@ -112,6 +113,7 @@ held equal to ``wrp_tpu``'s by the tests).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -450,8 +452,12 @@ class LeafPlan:
     bluestein: int
 
 
+@functools.lru_cache(maxsize=None)
 def leaf_plan(L: int) -> LeafPlan:
-    """The leaf's passes for an odd L (see LeafPlan)."""
+    """The leaf's passes for an odd L (see LeafPlan).  Kept per L (perm
+    read-only): every launch asks for its m's route and cut, and working
+    out perm in Python at an L of several hundred takes longer than the
+    kernel runs."""
     radices = tuple(prime_factors(L))
     strides, rem = [], L
     for r in radices:
@@ -464,6 +470,7 @@ def leaf_plan(L: int) -> LeafPlan:
             pos += (q % r) * lc
             q //= r
         perm[t] = pos
+    perm.setflags(write=False)
     big = radices[-1] if radices and radices[-1] > LEAF_MAX_RADIX else 0
     return LeafPlan(L=L, radices=radices, strides=tuple(strides), perm=perm,
                     bluestein=bluestein_n(big) if big else 0)
@@ -480,18 +487,16 @@ def _cluster_factors(m: int):
 
 def cluster_refusal(m: int):
     """Why the cluster body does not take m, or None where it does: an odd
-    m, m outside (FFT_SHORT_M, CLUSTER_MAX_M], m = 16 x odd above
-    CLUSTER_MAX_M8 (P = 1 at S = 16: the cluster of 16 has no kernel for a
-    sub-DFT without a power of two), a block's sub-DFT over CLUSTER_MAX_MS
-    points (m = 8 x odd above 8192, 4 x odd above 4096, 2 x odd above
-    2048), or a leaf prime whose Bluestein length passes BLUESTEIN_MAX_N."""
+    m, m outside (FFT_SHORT_M, CLUSTER_MAX_M], a block's sub-DFT over
+    CLUSTER_MAX_MS points (m = 8 x odd above 8192, 4 x odd above 4096, 2 x
+    odd above 2048), or a leaf prime whose Bluestein length passes
+    BLUESTEIN_MAX_N (above 8192 the radix m = 16 x p, p a prime in (512,
+    1023]: N = 2048).  A radix m = 16 x odd above CLUSTER_MAX_M8 is taken
+    at P = 1, each block's m/16-point sub-DFT the odd leaf alone."""
     if m % 2 or not FFT_SHORT_M < m <= CLUSTER_MAX_M:
         return (f"the cluster body takes an even m with {FFT_SHORT_M} < m "
                 f"<= CLUSTER_MAX_M = {CLUSTER_MAX_M}, got m={m}")
     S, ms, P, L, _, _ = _cluster_factors(m)
-    if S == CLUSTER_SPLIT_LONG and P == 1:
-        return (f"m={m} = {S} x {ms}: P = 1 at S = {S} (a block's {ms}-point "
-                f"sub-DFT is odd; the cluster of {S} takes m % 32 == 0)")
     if ms > CLUSTER_MAX_MS:
         return (f"m={m} = {S} x {ms}: a block's {ms}-point sub-DFT passes "
                 f"CLUSTER_MAX_MS = {CLUSTER_MAX_MS}")
@@ -1373,8 +1378,9 @@ def fused_chain_power_radix(x: torch.Tensor, plan: RadixPlan, offset=None,
       cluster body of csrc/cluster_chain.cuh cut by `plan.cluster` (the
       same cut for int16 and f32; a cluster of 16 above CLUSTER_MAX_M8;
       also counted in RADIX_CLUSTER_LAUNCHES);
-    * an m the cluster body refuses (16 x odd above 8192, above 16384):
-      the dense entries' matrix kernel (csrc/fused_chain_dense.cu on
+    * an m the cluster body refuses (16 x p above 8192, p a prime in (512,
+      1023], by its Bluestein length; above 16384): the dense entries'
+      matrix kernel (csrc/fused_chain_dense.cu on
       `plan.dense_operator()`, as wrp_tpu's radix kernel runs such an m;
       also counted in DENSE_MATRIX_LAUNCHES).
 
@@ -1756,7 +1762,8 @@ def fused_chain_astage(x: torch.Tensor, plan: RadixPlan) -> torch.Tensor:
       cluster body of csrc/cluster_chain.cuh cut by `cluster_geometry(m,
       w, False, x.element_size())` (a cluster of 16 above CLUSTER_MAX_M8;
       also counted in ASTAGE_CLUSTER_LAUNCHES);
-    * an m the cluster body refuses (16 x odd above 8192, above 16384):
+    * an m the cluster body refuses (16 x p above 8192, p a prime in (512,
+      1023], by its Bluestein length; above 16384):
       csrc/fused_chain_astage_matrix.cu, the matrix form of
       csrc/radix_chain.cuh on the plan's branch operators and combine
       factors at the tile `astage_tile` picks (also counted in

@@ -7,7 +7,8 @@ Each TREE is the root of a checkout (e.g. the parent commit unpacked with
 `git archive` into a git-ignored directory); each runs in its own process,
 in the order given, so list them in turns (parent, change, change, parent)
 to separate a code change from drift.  For each it builds the tree's kernel
-library and prints one JSON line: the card, the CUDA-event ms per call of
+library and prints one JSON line: the card (and nvidia-smi's name and
+power limit), the CUDA-event ms per call of
 the radix kernel (int16 and f32 input) and the wire kernel at 16 sectors
 of 3 x 1024 x 512, the radix kernel at m = 960 (an L = 15 leaf), the
 salted radix offset entry on those 48 channel-sectors at salt 7 (what the
@@ -28,9 +29,10 @@ older trees have no `splits`); the long rays ("long": the planar chain
 #3, int16 and f32, and its offset/salt entry #4 at salt 7, the A-stage,
 int16 at w = 512, and the wire chain at m = 1536, 1840, 2048, 4096, 8192
 per 48 channel-sectors and at m = 4112 and 4160 on 6, #3/#4 and the
-A-stage also at 8320 on 6 and, in a tree that takes the cluster of 16
-there, at 16384 on 6 (an older tree's dense A_half at 16384 is 2 GB of
-fp64 on the host), each through the route the tree takes at that m, with
+A-stage also at 8208 and 8320 on 6 and, in a tree that takes the cluster
+of 16 there, at 16368 and 16384 on 6 (an older tree's dense A_half there
+is 2 GB of fp64 on the host), each through the route the tree takes at
+that m, with
 cuFFT over range of the windowed complex64 input beside the A-stage and
 each kernel's rel-L2 against the tree's plain version on one sector; the
 dense entry #1 at m = 1832, 1836, 2002 per 48; with --long, these
@@ -126,13 +128,26 @@ def ptxas_report(log_text: str, tool_dir: Path) -> dict:
             for k, v in rep.items()}
 
 
-def sass_opcode_counts(so: Path, tool_dir: Path, opcodes=("FFMA",)) -> dict:
+def sass_opcode_counts(so: Path, tool_dir: Path, opcodes=("FFMA",),
+                       only=None) -> dict:
     """{kernel: {opcode: instructions of it in the kernel's SASS}} for every
-    kernel in the built library `so` (cuobjdump --dump-sass); an opcode
-    counts with any modifiers (LDS counts LDS.128), and "all" counts every
+    kernel in the built library `so` (cuobjdump --dump-sass), or with
+    `only` (substrings of mangled names) for the kernels whose mangled name
+    holds one of them, dumped alone (`--function`, their names from the
+    build log beside `so`): a dump of the whole library, where the cluster
+    body's kernels dominate, takes tens of seconds; an opcode counts with
+    any modifiers (LDS counts LDS.128), and "all" counts every
     instruction."""
-    done = subprocess.run([str(tool_dir / "cuobjdump"), "--dump-sass", str(so)],
-                          capture_output=True, text=True, check=True,
+    cmd = [str(tool_dir / "cuobjdump"), "--dump-sass", str(so)]
+    if only is not None:
+        log = so.with_suffix(".log").read_text()
+        names = sorted({m.group(1) for m in re.finditer(
+            r"Compiling entry function '(\S+)'", log)
+            if any(k in m.group(1) for k in only)})
+        if not names:
+            return {}
+        cmd[1:1] = ["--function", ",".join(names)]
+    done = subprocess.run(cmd, capture_output=True, text=True, check=True,
                           timeout=300)
     counts, cur = {}, None
     # an instruction line: /*0a10*/  [@!P0] OPCODE.MODIFIERS operands ;
@@ -200,7 +215,13 @@ def _measure(tree: str, long_only: bool = False) -> dict:
     def rel(ref, got):
         return float((got.double() - ref.double()).norm() / ref.double().norm())
 
-    out = {"tree": tree, "device": torch.cuda.get_device_name(0)}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    out = {"tree": tree, "device": torch.cuda.get_device_name(0),
+           # the card's name and power limit, as nvidia-smi reports them
+           "card": smi.stdout.strip().splitlines()[0] if smi.returncode == 0
+           else None}
     if long_only:
         _long_rays(out, ms, rel)
         return _compiled(out, _build)
@@ -398,13 +419,14 @@ def _breakdown(out: dict, ms, rel, x16, consts) -> None:
 
 
 #: (m, sectors) of the long-ray timings: 48 channel-sectors, and m = 4112,
-#: 4160, 8320 and 16384 on 6 as the matrix routes were first timed there;
-#: at the radix-1 m = 1832 (8 x 229), 1836 (4 x 459), 2002 (2 x 1001) the
-#: dense entry (#1) alone; above 8192 no wire chain (its matrix route) and
-#: 16384 only where the tree takes the cluster of 16
+#: 4160, 8208, 8320, 16368 and 16384 on 6 as the matrix routes were first
+#: timed there; at the radix-1 m = 1832 (8 x 229), 1836 (4 x 459), 2002 (2
+#: x 1001) the dense entry (#1) alone; above 8192 no wire chain (its matrix
+#: route), and 16368 (16 x 1023) and 16384 only where the tree takes the
+#: cluster of 16
 LONG_RAYS = ((1536, 16), (1832, 16), (1836, 16), (1840, 16), (2002, 16),
              (2048, 16), (4096, 16), (4112, 2), (4160, 2), (8192, 16),
-             (8320, 2), (16384, 2))
+             (8208, 2), (8320, 2), (16368, 2), (16384, 2))
 
 
 def _long_rays(out: dict, ms, rel) -> None:
@@ -462,7 +484,7 @@ def _long_rays(out: dict, ms, rel) -> None:
     gen = torch.Generator(device="cuda").manual_seed(2024)
     long = {}
     for m, sectors in LONG_RAYS:
-        if m == 16384 and route(m) != "cluster":
+        if m in (16368, 16384) and route(m) != "cluster":
             continue
         c = dataclasses.replace(cfg, num_range_cells=m)
         consts = PipelineConstants.build(c)

@@ -90,7 +90,8 @@ def sass_counts(plan) -> dict:
     from .kernel_ab import sass_opcode_counts
 
     counts = sass_opcode_counts(_build.library_path(),
-                                Path(_build._nvcc()).parent, SASS_OPCODES)
+                                Path(_build._nvcc()).parent, SASS_OPCODES,
+                                only=("breakdown_kernel", "radix_chain_kernel"))
     S, Ta = plan.radix // 2, fullchain.astage_tile(plan)
     want = {mode: rf"breakdown_kernel<{v}>$" for mode, v in probes._MODE.items()}
     want["astage"] = (rf"radix_chain_kernel<wrp::PlanarSource<short>\s*,\s*{S}"
