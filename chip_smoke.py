@@ -128,25 +128,24 @@ Phases (each prints its results; any failure raises and exits non-zero):
    cluster A-stage) from host planar int16 and from wire bytes; the
    cluster of 16 (8192 < m <= 16384) at m = 8320, 16384 and, at P = 1
    (m = 16 x odd: each block's sub-DFT the odd leaf alone), 8208, 8240
-   and 16368: the ptxas lines of its kernels (no spill; both P = 1
+   and 16368: the ptxas lines of its kernels (no spill; the three P = 1
    kernels built) and the clusters of 16 the card holds, at 8320, 16384
-   and 8208 the slice's main path (the pallas processor, #3; at 8320
-   `bench --range-cells 8320` at batch 2, #4; a world-size-1 pallas-seq
-   step, #5 then #6) on two noise sectors, every launch on the cluster
-   body, the products within 2e-4 of the oracle; at every one of those m
-   #3 (int16, f32), #4 (offset, salt 7) and #5 (int16 and f32 at w = 512,
-   int16 at 128) vs their plain versions (<= 1e-5) and the oracle, every
-   launch on the cluster body; at 8320, 16384, 8208 and 16368 each timed
-   on 6 channel-sectors in turns with its plain version beside its bound
-   (#5 beside cuFFT); m = 8336 (16 x 521, radix 2, which the cluster body
-   refuses: a Bluestein length of 2048) through the radix entry's matrix
-   route, with and without salt, and the matrix route of #5
+   and 8208 the slice's main path (the pallas processor, #3; the fused
+   wire processor, #7; at 8320 `bench --range-cells 8320` at batch 2,
+   int16, #4, and wire, #8; a world-size-1 pallas-seq step, #5 then #6) on
+   two noise sectors, every launch on the cluster body, the products
+   within 2e-4 of the oracle; at every one of those m #3 (int16, f32), #4
+   (offset, salt 7), #7, #8 (offset 1, salt 7) and #5 (int16 and f32 at w
+   = 512, int16 at 128) vs their plain versions (<= 1e-5) and the oracle,
+   every launch on the cluster body; at 8320, 16384, 8208 and 16368 each
+   timed on 6 channel-sectors in turns with its plain version beside its
+   bound (#5 beside cuFFT); m = 8336 (16 x 521, radix 2, which the
+   cluster body refuses: a Bluestein length of 2048) through the matrix
+   routes of the radix entry and the wire entry (the matrix kernel's wire
+   source), each with and without offset and salt, and of #5
    (csrc/fused_chain_astage_matrix.cu, then #6 on its Y), one checking
-   call each vs its plain version and the oracle, not timed, and m = 8320
-   through the wire chain's (#7/#8, the matrix kernel's wire source,
-   offset and salt 7), each vs its plain version and the oracle, every
-   launch counted, timed in turns with its plain version beside its bound
-   and the matrix form's FMAs;
+   call each vs its plain version and the oracle, not timed, every launch
+   counted;
 10. the A-stage kernel (the pulse-sharded path's first half) on the noise
    and clip-bin sectors, int16 and f32, on every rank's pulse slab of 1, 2
    and 4 ranks (w = 512, 256, 128): Y vs its plain version (rel-L2 <=
@@ -487,12 +486,6 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return float(np.median(times))
 
 
-def cuda_ms3(fn) -> float:
-    """`cuda_ms` over 3 warm runs: for the matrix routes' calls of tens to
-    hundreds of ms."""
-    return cuda_ms(fn, 3)
-
-
 def queued_ms(fn, reps: int = 20) -> float:
     """ms per call of `reps` calls queued back to back between two CUDA
     events: the card's time, the host's work for each call hidden under
@@ -551,9 +544,8 @@ def timed(fns: dict, order, clock=cuda_ms) -> dict:
     times = {name: [] for name in fns}
     for name in order:
         times[name].append(clock(fns[name]))
-    how = {cuda_ms: "median of 10 per turn",
-           cuda_ms3: "median of 3 per turn"}.get(clock,
-                                                 "20 calls queued per turn")
+    how = ("median of 10 per turn" if clock is cuda_ms
+           else "20 calls queued per turn")
     print(f"timings ({how}, order " + "/".join(order) + "): "
           + json.dumps(times), flush=True)
     return {name: min(v) for name, v in times.items()}
@@ -2073,7 +2065,7 @@ LONG_DENSE_M = 1832       # the dense entries' times, per 48 channel-sectors
 LONG_BODY_M = 4094        # 2 x 23 x 89: the one m the long-ray body keeps
 ODD_LEAF_M = 4160         # radix 8, 8 x 520 (a 5 x 13 leaf): timed on 6 channel-sectors
 BLUESTEIN_M = 4112        # radix 8, 8 x 514 (a 257-point Bluestein leaf): #3, #5, #7 on 6
-#: the cluster of 16 (8192 < m <= 16384): #3/#4 and #5 checked on 6
+#: the cluster of 16 (8192 < m <= 16384): #3/#4, #7/#8 and #5 checked on 6
 #: channel-sectors at 16 x 8 x 65 (a 5 x 13 leaf), 16 x 1024 (L = 1) and,
 #: at P = 1 (m = 16 x odd: the odd leaf alone), 16 x 513 (3^3 x 19), 16 x
 #: 515 (5 x 103, Bluestein N = 256) and 16 x 1023 (3 x 11 x 31, span 64)
@@ -2090,10 +2082,10 @@ CLUSTER16_BENCH = ("--range-cells", "8320", "--batch", "2", "--repeats", "2")
 #: the kernel part files of the cluster of 16, by entry
 CLUSTER16_SOURCES = {
     chain: [f"wrp_tpu_torch/csrc/fused_chain_{chain}_cluster16{part}.cu"
-            for part in ("_p8", "", "_p1", "_p2")] for chain in ("radix", "astage")}
-MATRIX_ABOVE_M = 8320     # radix 8 above 8192: #7/#8 on their matrix routes
+            for part in ("_p8", "", "_p1", "_p2")]
+    for chain in ("radix", "wire", "astage")}
 #: 16 x 521, radix 2, refused by the cluster body (a Bluestein length of
-#: 2048): #3/#4, #5 on their matrix routes
+#: 2048): #3/#4, #7/#8, #5 on their matrix routes
 MATRIX_REFUSED_M = 8336
 LONG_TOL = 1e-5           # a long-ray kernel vs its plain version (power rel-L2)
 LONG_BENCH = ("--range-cells", str(LONG_M), "--batch", "32", "--repeats", "4")
@@ -2151,9 +2143,7 @@ def cluster_note(m: int, w: int) -> str:
             + (f" (Bluestein N = {g.bluestein})" if g.bluestein else "")
             if passes else "")
     cuts = []
-    fused_what = ("#3/#4 and #7/#8" if g.S == fullchain.CLUSTER_SPLIT
-                  else "#3/#4")
-    bodies = ((fused_what, True, 0), ("A-stage int16", False, 2),
+    bodies = (("#3/#4 and #7/#8", True, 0), ("A-stage int16", False, 2),
               ("A-stage f32", False, 4))
     for what, fused, elem in bodies if fullchain.radix_for(m) > 1 else (
             ("#1/#2", True, 0),):
@@ -2622,14 +2612,18 @@ def long_ray_inputs(orc: Oracle, pool) -> dict:
 def cluster16_path(cfg, consts, iqs, orc: Oracle) -> dict:
     """The slice's main path at m = cfg.m on the cluster of 16, from host
     memory on the noise sectors `iqs`, each run between a reset and a read
-    of the counts: the pallas processor (#3), a world-size-1 pallas-seq
-    step (#5 then #6) and, at CLUSTER16_BENCH's m, the bench (#4, offsets
-    and salts, its parity gate; `cluster_bench`).  Every launch on the
-    cluster body, none on a matrix route; the products within PRODUCT_TOL
-    of the oracle, pallas-seq within 1e-5 of pallas.  Returns {"radix",
-    "radix_offset", "astage", "rows": launches}."""
+    of the counts: the pallas processor (#3), the fused wire processor on
+    the sectors' wire bytes viewed as int32 words (#7), a world-size-1
+    pallas-seq step (#5 then #6) and, at CLUSTER16_BENCH's m, the bench
+    int16 and wire (#4 and #8, offsets and salts, its parity gate;
+    `cluster_bench`).  Every launch on the cluster body, none on a matrix
+    route; the products within PRODUCT_TOL of the oracle, the fused wire
+    and pallas-seq within 1e-5 of pallas.  Returns {"radix",
+    "radix_offset", "wire", "wire_offset", "astage", "rows": launches}."""
     m, n = cfg.m, cfg.n
     planar = np.stack([planar_i16(iq) for iq in iqs])
+    words = np.stack([np.frombuffer(codec.encode_iq(iq, cfg), "<i4")
+                      for iq in iqs])
     reset_counts()
     zdb_p, zdr_p = (t.cpu().numpy() for t in SectorProcessor(
         cfg, method="pallas", device="cuda", consts=consts)(planar))
@@ -2639,7 +2633,22 @@ def cluster16_path(cfg, consts, iqs, orc: Oracle) -> dict:
           f"pallas processor at m={m} (cluster of 16): #3 {c['radix']}, on "
           f"the cluster body {c['radix_cluster']}, no other: "
           f"{json.dumps(others)}")
-    out = {"radix": c["radix"], "radix_offset": 0}
+    out = {"radix": c["radix"], "radix_offset": 0, "wire_offset": 0}
+    fused = SectorProcessor(cfg, method="pallas", device="cuda",
+                            consts=consts, wire_input=True,
+                            wire_decode="fused")
+    reset_counts()
+    zdb_w, zdr_w = (t.cpu().numpy() for t in fused(words))
+    c = read_counts()
+    e = max(rel(zdb_p, zdb_w), rel(zdr_p, zdr_w))
+    others = {k: v for k, v in c.items() if k not in ("wire", "wire_cluster")}
+    check(e <= 1e-5 and c["wire"] == c["wire_cluster"] == 1
+          and not any(others.values()),
+          f"fused wire processor at m={m} (cluster of 16): vs the pallas "
+          f"processor {e:.3e} <= 1e-5; #7 {c['wire']}, on the cluster body "
+          f"{c['wire_cluster']}, no other: {json.dumps(others)}")
+    out["wire"] = c["wire"]
+    del fused
     step = build_sharded_processor(cfg, make_mesh(device="cuda"),
                                    method="pallas-seq", device="cuda",
                                    consts=consts)
@@ -2657,7 +2666,9 @@ def cluster16_path(cfg, consts, iqs, orc: Oracle) -> dict:
     out["astage"], out["rows"] = c["astage"], c["rows"]
     for k, iq in enumerate(iqs):
         zdb64, zdr64 = oracle_products(orc, (m, n, "noise", k), iq, cfg)
-        for what, a, b in (("pallas", zdb_p, zdr_p), ("pallas-seq", zdb, zdr)):
+        for what, a, b in (("pallas", zdb_p, zdr_p),
+                           ("fused wire", zdb_w, zdr_w),
+                           ("pallas-seq", zdb, zdr)):
             ezdb, ezdr = rel(zdb64, a[k]), rel(zdr64, b[k])
             check(ezdb <= PRODUCT_TOL and ezdr <= PRODUCT_TOL,
                   f"{what} m={m} sector {k} vs fp64 oracle: zdb {ezdb:.3e}, "
@@ -2665,24 +2676,27 @@ def cluster16_path(cfg, consts, iqs, orc: Oracle) -> dict:
     if str(m) == CLUSTER16_BENCH[1]:
         out["radix_offset"] = cluster_bench(CLUSTER16_BENCH, "i16",
                                             "radix_offset")
+        out["wire_offset"] = cluster_bench(
+            CLUSTER16_BENCH + ("--in-dtype", "wire"), "wire", "wire_offset")
     return out
 
 
 def cluster16_checks(cfg, consts, plan, iqs, orc: Oracle) -> dict:
-    """#3 (int16, f32), #4 (offset 6 of a two-slab staging, salt 7) and #5
-    (int16 and f32 at w = n, then #6 on its Y; int16 at n/4) at m = cfg.m
-    on the cluster of 16, on the noise sectors `iqs` (6 channel-sectors):
-    each vs its plain version (<= LONG_TOL) and the oracle (#4 the salted
-    sectors'; the w = n/4 slab's Y the float64 FFT of its windowed
-    columns), every launch on the cluster body.  Returns {kernel:
-    {rel_l2, max_abs_err}}."""
+    """#3 (int16, f32), #4 (offset 6 of a two-slab staging, salt 7), #7
+    (the sectors' int16 wire words), #8 (offset 1 of that two-sector
+    staging, salt 7) and #5 (int16 and f32 at w = n, then #6 on its Y;
+    int16 at n/4) at m = cfg.m on the cluster of 16, on the noise sectors
+    `iqs` (6 channel-sectors): each vs its plain version (<= LONG_TOL) and
+    the oracle (#4 and #8 the salted sectors'; the w = n/4 slab's Y the
+    float64 FFT of its windowed columns), every launch on the cluster
+    body.  Returns {kernel: {rel_l2, max_abs_err}}."""
     m, n, ch = cfg.m, cfg.n, cfg.num_channels
     gain = torch.from_numpy(consts.gain).cuda()
     x = torch.from_numpy(np.stack([planar_i16(iq) for iq in iqs])).cuda()
     x = x.reshape(-1, 2, m, n)
     bc = x.shape[0]
     res = {k: {"rel_l2": 0.0, "max_abs_err": 0.0}
-           for k in ("radix", "radix_offset", "astage")}
+           for k in ("radix", "radix_offset", "wire", "wire_offset", "astage")}
 
     def hold(key, what, ref, got):
         torch.cuda.synchronize()
@@ -2692,10 +2706,10 @@ def cluster16_checks(cfg, consts, plan, iqs, orc: Oracle) -> dict:
         res[key]["rel_l2"] = max(res[key]["rel_l2"], e)
         res[key]["max_abs_err"] = max(res[key]["max_abs_err"], a)
 
-    def vs_oracle(what, pw, label, salt=0):
-        p = pw.reshape(len(iqs), ch, m // 2).cpu().numpy()
-        for k, iq in enumerate(iqs):
-            check_vs_oracle(f"{what} sector {k}", p[k], orc.power(
+    def vs_oracle(what, pw, label, salt=0, first=0):
+        p = pw.reshape(-1, ch, m // 2).cpu().numpy()
+        for k, iq in enumerate(iqs[first:first + len(p)], first):
+            check_vs_oracle(f"{what} sector {k}", p[k - first], orc.power(
                 (m, n, label, k), iq + salt * (1 + 1j), cfg), cfg, gain)
 
     reset_counts()
@@ -2710,6 +2724,17 @@ def cluster16_checks(cfg, consts, plan, iqs, orc: Oracle) -> dict:
     hold("radix_offset", f"#4 m={m} offset {bc} salt 7 (cluster of 16)",
          fullchain.cluster_chain_power_reference(x, plan, 7), got)
     vs_oracle(f"#4 m={m} salt 7", got, "salted", 7)
+    w32 = wire_words_on_card(x, cfg)
+    got = fullchain.fused_chain_power_wire(w32, plan, ch)
+    hold("wire", f"#7 m={m} (cluster of 16)",
+         fullchain.fused_chain_power_wire_reference(w32, plan, ch), got)
+    vs_oracle(f"#7 m={m}", got, "noise")
+    got = fullchain.fused_chain_power_wire(w32, plan, ch, offset=1, bs=1,
+                                           salt=7)
+    hold("wire_offset", f"#8 m={m} offset 1 salt 7 (cluster of 16)",
+         fullchain.fused_chain_power_wire_reference(w32[1:], plan, ch, 7),
+         got)
+    vs_oracle(f"#8 m={m} salt 7", got, "salted", 7, first=1)
     for xx in (x, x.float()):
         y = fullchain.fused_chain_astage(xx, plan)
         hold("astage", f"#5 m={m} {xx.dtype} w={n} (cluster of 16)",
@@ -2729,34 +2754,36 @@ def cluster16_checks(cfg, consts, plan, iqs, orc: Oracle) -> dict:
                          f"windowed slab {e:.3e} <= {LONG_TOL}")
     cnt = read_counts()
     others = {k: v for k, v in cnt.items() if k not in (
-        "radix", "radix_offset", "radix_cluster", "astage", "astage_cluster",
-        "rows")}
+        "radix", "radix_offset", "radix_cluster", "wire", "wire_offset",
+        "wire_cluster", "astage", "astage_cluster", "rows")}
     check(cnt["radix"] == 2 and cnt["radix_offset"] == 1
           and cnt["radix_cluster"] == 3
+          and cnt["wire"] == cnt["wire_offset"] == 1
+          and cnt["wire_cluster"] == 2
           and cnt["astage"] == cnt["astage_cluster"] == 3
           and cnt["rows"] == 2 and not any(others.values()),
           f"m={m} checks: #3 {cnt['radix']} + #4 {cnt['radix_offset']} on "
-          f"the cluster body {cnt['radix_cluster']}, #5 {cnt['astage']} "
-          f"(cluster body {cnt['astage_cluster']}), #6 {cnt['rows']}, none "
-          f"on a matrix route: {json.dumps(others)}")
-    del x, x_all, xs, z, y
+          f"the cluster body {cnt['radix_cluster']}, #7 {cnt['wire']} + #8 "
+          f"{cnt['wire_offset']} on the cluster body {cnt['wire_cluster']}, "
+          f"#5 {cnt['astage']} (cluster body {cnt['astage_cluster']}), #6 "
+          f"{cnt['rows']}, none on a matrix route: {json.dumps(others)}")
+    del x, x_all, xs, z, y, w32
     return res
 
 
 def long_ray_cluster16(orc: Oracle, gen, spills, inputs) -> dict:
     """The cluster of 16 at each m of CLUSTER16_MS: its kernels' ptxas
     (`spills`: the cluster kernels with a spill; none of S = 16 may; the
-    two P = 1 kernels, #3/#4's and #5's, built), the clusters of 16 the
-    card holds for each S = 16 kernel of #3/#4 and #5 (at
+    three P = 1 kernels, #3/#4's, #7/#8's and #5's, built), the clusters
+    of 16 the card holds for each S = 16 kernel of #3/#4, #7/#8 and #5 (at
     CLUSTER16_KERNEL_MS), the cut and the occupancy at each m; the main
     path (`cluster16_path`, at CLUSTER16_PATH_MS), the checks
     (`cluster16_checks`), each on the two noise sectors of `inputs`, as
     `long_ray_inputs` makes them, and at CLUSTER16_TIMED_MS the times of
-    #3 (int16, f32 queued), #4 and #5 (beside cuFFT) on 6 channel-sectors
-    in turns with their plain versions (`long_ray_times`).  Returns
-    {"launches", "res", "times", "occ", "resident", "wire_case":
-    MATRIX_ABOVE_M's (cfg, consts, plan, sectors, x) for the wire chain's
-    matrix route}."""
+    #3 (int16, f32 queued), #4, #7, #8 and #5 (beside cuFFT) on 6
+    channel-sectors in turns with their plain versions
+    (`long_ray_times`).  Returns {"launches", "res", "times", "occ",
+    "resident"}."""
     s16 = [k for k in spills if re.search(
         r"cluster_chain16_kernel|cluster_leaf_kernel<[^,]+, 16,", k)]
     check(not s16, f"ptxas: no kernel of the cluster of 16 spills: "
@@ -2765,19 +2792,26 @@ def long_ray_cluster16(orc: Oracle, gen, spills, inputs) -> dict:
                                  .read_text(), Path(_build._nvcc()).parent)
     p1 = {k: v for k, v in rep.items()
           if re.search(r"cluster_leaf_kernel<[^,]+, 16, 1, 1,", k)}
-    check(len(p1) == 2, f"ptxas: the cluster of 16's P = 1 kernels, #3/#4's "
-                        f"and #5's: {json.dumps(p1)}")
+    check(len(p1) == 3, f"ptxas: the cluster of 16's P = 1 kernels, #3/#4's, "
+                        f"#7/#8's and #5's: {json.dumps(p1)}")
+    wire16 = {k: v for k, v in rep.items() if re.search(
+        r"cluster_(chain16_kernel<wrp::fft::WireIq|leaf_kernel<wrp::fft::"
+        r"WireIq, 16,)", k)}
+    print(f"ptxas: the wire chain's kernels at S = 16: "
+          f"{json.dumps(wire16)}", flush=True)
+    check(len(wire16) == 10, f"ptxas: the wire chain's ten kernels at S = "
+                             f"16 (kWide16 5, kP2S16 2, kP8S16 2, kP1S16 "
+                             f"1): {len(wire16)}")
     resident = {m: {body: fullchain.cluster_occupancy(m, DEFAULT_CONFIG.n, body)
-                    ["clusters"] for body in ("radix", "astage")}
+                    ["clusters"] for body in ("radix", "wire", "astage")}
                 for m in CLUSTER16_KERNEL_MS}
     check(all(v > 0 for r in resident.values() for v in r.values()),
           f"clusters of 16 the card holds at once, by the m of each S = 16 "
-          f"kernel (#3/#4's at no staging, #5's with f32 staged): "
-          f"{json.dumps(resident)}")
-    out = {"launches": dict.fromkeys(("radix", "radix_offset", "astage",
-                                      "rows"), 0),
-           "res": {k: {"rel_l2": 0.0, "max_abs_err": 0.0}
-                   for k in ("radix", "radix_offset", "astage")},
+          f"kernel (#3/#4's and #7/#8's at no staging, #5's with f32 "
+          f"staged): {json.dumps(resident)}")
+    keys = ("radix", "radix_offset", "wire", "wire_offset", "astage")
+    out = {"launches": dict.fromkeys(keys + ("rows",), 0),
+           "res": {k: {"rel_l2": 0.0, "max_abs_err": 0.0} for k in keys},
            "times": {}, "occ": {}, "resident": resident}
     for m in CLUSTER16_MS:
         t0 = time.perf_counter()
@@ -2786,19 +2820,18 @@ def long_ray_cluster16(orc: Oracle, gen, spills, inputs) -> dict:
         plan = fullchain.build_plan(consts, "cuda")
         setup_s = time.perf_counter() - t0
         occ = {body: fullchain.fft_occupancy(plan, body)
-               for body in ("radix", "astage")}
+               for body in ("radix", "wire", "astage")}
         g = plan.cluster
         print(f"cluster of 16 at m={m} (constants and plan {setup_s:.1f} s):"
               f" {cluster_note(m, cfg.n)}; resident clusters of 16 "
               f"{json.dumps(occ)}", flush=True)
         check(plan.radix > 1 and g.S == 16
               and fullchain.chain_route(m) == "cluster"
-              and fullchain.chain_route(m, wire=True) == "matrix"
-              and plan.fft_t is None
+              and plan.fft_t is None and plan.host_a_half is None
               and all(v["blocks_per_sm"] >= 1 and v["clusters"] > 0
                       for v in occ.values()),
-              f"m={m} takes the cluster of 16 for #3/#4 and #5 (the wire "
-              f"the matrix kernel), resident: {json.dumps(occ)}")
+              f"m={m} takes the cluster of 16 for #3/#4, #7/#8 and #5 (no "
+              f"host A_half), resident: {json.dumps(occ)}")
         out["occ"][m] = occ
         if m in CLUSTER16_PATH_MS:
             for key, v in cluster16_path(cfg, consts, iqs, orc).items():
@@ -2808,31 +2841,25 @@ def long_ray_cluster16(orc: Oracle, gen, spills, inputs) -> dict:
                 out["res"][key][k] = max(out["res"][key][k], r[k])
         if m in CLUSTER16_TIMED_MS:
             out["times"][m] = long_ray_times(
-                gen, m, ("radix", "radix_f32", "radix_offset", "astage"), 2,
-                True, plan)
-        if m == MATRIX_ABOVE_M:
-            x = torch.from_numpy(np.stack([planar_i16(iq) for iq in iqs]))
-            out["wire_case"] = (cfg, consts, plan, iqs,
-                                x.cuda().reshape(-1, 2, m, cfg.n))
+                gen, m, ("radix", "radix_f32", "radix_offset", "wire",
+                         "wire_offset", "astage"), 2, True, plan)
         del plan
         torch.cuda.empty_cache()
     return out
 
 
-def long_ray_matrix(orc: Oracle, wire_case, inputs) -> dict:
-    """The matrix routes left above 8192: at m = MATRIX_REFUSED_M (16 x 521,
-    radix 2, which the cluster body refuses: the leaf prime 521 needs a
-    Bluestein length of 2048) on two noise sectors (6 channel-sectors) one
-    checking call each of the radix entry on the matrix kernel (the dense
-    A_half, built at first use) int16, and with offset and salt 7, vs
-    fused_chain_power_reference (<= POWER_TOL) and the oracle, each
-    check's launch counts equal to its calls, and of #5's matrix route
-    (`matrix_astage`), on the inputs of `long_ray_inputs`, none timed; at
-    m = MATRIX_ABOVE_M (radix 8) the wire chain's (`matrix_wire`, on
-    `wire_case`: the cluster of 16's plan and sectors there), timed.
-    Returns {"radix", "radix_offset", "astage", "wire", "wire_offset":
-    each matrix route's launches and errors (the wire's with its times),
-    "counts": the radix checks' launches}."""
+def long_ray_matrix(orc: Oracle, inputs) -> dict:
+    """The matrix routes left above 8192, at m = MATRIX_REFUSED_M (16 x
+    521, radix 2, which the cluster body refuses: the leaf prime 521 needs
+    a Bluestein length of 2048) on two noise sectors (6 channel-sectors)
+    of `long_ray_inputs`: one checking call each of the radix entry on the
+    matrix kernel (the dense A_half, built at first use) int16, and with
+    offset and salt 7, vs fused_chain_power_reference (<= POWER_TOL) and
+    the oracle, each check's launch counts equal to its calls, of #5's
+    matrix route (`matrix_astage`) and of the wire chain's
+    (`matrix_wire`), none timed.  Returns {"radix", "radix_offset",
+    "astage", "wire", "wire_offset": each matrix route's launches and
+    errors, "counts": the radix checks' launches}."""
     m = MATRIX_REFUSED_M
     cfg, consts, sectors = inputs[m]
     consts, sectors = consts.result(), [iq.result() for iq in sectors]
@@ -2878,30 +2905,9 @@ def long_ray_matrix(orc: Oracle, wire_case, inputs) -> dict:
           f"checked, not timed; "
           f"{algorithm_note(m, n, x.shape[0])}", flush=True)
     res.update(matrix_astage(orc, cfg, consts, plan, sectors, x))
-    res.update(matrix_wire(orc, *wire_case))
+    res.update(matrix_wire(orc, cfg, consts, plan, sectors, x))
     res["counts"] = counts
     return res
-
-
-def matrix_route_times(res: dict, m: int, bc: int, n: int,
-                       routes: dict) -> None:
-    """Each of `routes` ({key: (source, kernel, plain, flops, bytes)}) timed
-    in turns with its plain version (kernel, plain, plain, kernel, 3 warm
-    calls a turn) beside its bound and the matrix form's FMAs, into
-    res[key]."""
-    for key, (source, kernel, plain, flops, nbytes) in routes.items():
-        t = timed({"kernel": kernel, "plain": plain},
-                  ("kernel", "plain", "plain", "kernel"), cuda_ms3)
-        bound_ms, bound_by = bound(flops, nbytes)
-        fma = bc * 4.0 * (m // 2) * m * n
-        print(f"{key} at m={m} on its matrix route ({source}), {bc} "
-              f"channel-sectors x {n} pulses: {t['kernel']:.3f} ms, plain "
-              f"{t['plain']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}); "
-              f"the matrix form does {fma / 1e9:.2f} G real FMAs, "
-              f"{2e3 * fma / PEAK_FP32:.3f} ms at the fp32 peak", flush=True)
-        res[key].update(source=source, m=m, ms=t["kernel"],
-                        plain_ms=t["plain"], bound_ms=bound_ms,
-                        bound_by=bound_by, matrix_fma=fma)
 
 
 def matrix_astage(orc: Oracle, cfg, consts, plan, sectors, x) -> dict:
@@ -2951,18 +2957,19 @@ def matrix_astage(orc: Oracle, cfg, consts, plan, sectors, x) -> dict:
 
 
 def matrix_wire(orc: Oracle, cfg, consts, plan, sectors, x) -> dict:
-    """The wire chain's matrix route at m = cfg.m (radix 8 above 8192, where
-    the wire has no cluster of 16), on the noise sectors `sectors` (planar
-    int16 x, 6 channel-sectors): #7 and #8 at offset 2 salt 7 on a
-    4-sector staging vs their plain versions (<= POWER_TOL) and the
-    oracle, one launch each, both on the matrix kernel; then each timed in
-    turns with its plain version.  Returns {"wire", "wire_offset":
-    launches, errors and times}."""
+    """The wire chain's matrix route (the matrix kernel's wire source,
+    csrc/fused_chain_dense.cu) at m = cfg.m, which the cluster body
+    refuses, on the noise sectors `sectors` of `long_ray_matrix` (planar
+    int16 x, 6 channel-sectors): one checking call each of #7 and of #8 at
+    offset 1 of that two-sector staging, salt 7, vs their plain versions
+    (fused_chain_power_reference on the decoded words: the route's,
+    fused_chain_power_wire_reference; <= POWER_TOL), #7
+    also vs the oracle; one launch each, both on the matrix kernel; not
+    timed.  Returns {"wire", "wire_offset": launches and errors}."""
     m = cfg.m
     gain = torch.from_numpy(consts.gain).cuda()
     ch, n = cfg.num_channels, cfg.n
-    bc = x.shape[0]
-    res = {k: {"rel_l2": 0.0, "max_abs_err": 0.0}
+    res = {k: {"m": m, "rel_l2": 0.0, "max_abs_err": 0.0}
            for k in ("wire", "wire_offset")}
 
     def hold(key, what, ref, out):
@@ -2970,8 +2977,7 @@ def matrix_wire(orc: Oracle, cfg, consts, plan, sectors, x) -> dict:
         e, a = rel_dev(ref, out)
         check(e <= POWER_TOL, f"{what}: kernel vs plain rel-L2 {e:.3e} <= "
                               f"{POWER_TOL}")
-        res[key]["rel_l2"] = max(res[key]["rel_l2"], e)
-        res[key]["max_abs_err"] = max(res[key]["max_abs_err"], a)
+        res[key].update(rel_l2=e, max_abs_err=a)
 
     reset_counts()
     w32 = wire_words_on_card(x, cfg)
@@ -2982,19 +2988,11 @@ def matrix_wire(orc: Oracle, cfg, consts, plan, sectors, x) -> dict:
     for k, iq in enumerate(sectors):
         check_vs_oracle(f"#7 m={m} sector {k}", p[k],
                         orc.power((m, n, "noise", k), iq, cfg), cfg, gain)
-    w_all = torch.cat([w32.flip(0), w32]).contiguous()   # sectors 1, 0, 0, 1
-    ns = w32.shape[0]
-
-    def salted():
-        return fullchain.fused_chain_power_wire(w_all, plan, ch, offset=ns,
-                                                bs=ns, salt=7)
-
-    def salted_plain():
-        return fullchain.fused_chain_power_wire_reference(w_all[ns:], plan,
-                                                          ch, 7)
-
-    hold("wire_offset", f"#8 m={m} offset {ns} salt 7 (matrix route)",
-         salted_plain(), salted())
+    got = fullchain.fused_chain_power_wire(w32, plan, ch, offset=1, bs=1,
+                                           salt=7)
+    hold("wire_offset", f"#8 m={m} offset 1 salt 7 (matrix route)",
+         fullchain.fused_chain_power_wire_reference(w32[1:], plan, ch, 7),
+         got)
     mc = read_counts()
     others = {k: v for k, v in mc.items()
               if k not in ("wire", "wire_offset", "dense_matrix")}
@@ -3005,16 +3003,9 @@ def matrix_wire(orc: Oracle, cfg, consts, plan, sectors, x) -> dict:
           f"none on the cluster body: {json.dumps(others)}")
     res["wire"]["launches"] = mc["wire"]
     res["wire_offset"]["launches"] = mc["wire_offset"]
-    out_b = bc * m // 2 * 4
-    src = "wrp_tpu_torch/csrc/fused_chain_dense.cu"
-    matrix_route_times(res, m, bc, n, {
-        "wire": (src, lambda: fullchain.fused_chain_power_wire(w32, plan, ch),
-                 lambda: fullchain.fused_chain_power_wire_reference(
-                     w32, plan, ch),
-                 bc * chain_flops(m, n), w32.numel() * 4 + m * 4 + out_b),
-        "wire_offset": (src, salted, salted_plain, bc * chain_flops(m, n),
-                        w32.numel() * 4 + m * 4 + out_b)})
-    del w32, w_all
+    print(f"wire m={m} on the matrix kernel's wire source, {x.shape[0]} "
+          f"channel-sectors: #7 and #8 checked, not timed", flush=True)
+    del w32
     torch.cuda.empty_cache()
     return res
 
@@ -3073,15 +3064,15 @@ def phase_long_rays(orc: Oracle) -> dict:
         c16 = long_ray_cluster16(orc, gen, spills, inputs)
         t_c16 = time.perf_counter() - t_c16
         t_matrix = time.perf_counter()
-        matrix = long_ray_matrix(orc, c16.pop("wire_case"), inputs)
+        matrix = long_ray_matrix(orc, inputs)
         t_matrix = time.perf_counter() - t_matrix
     print(f"long rays: launches {json.dumps(launches)}; cluster of 16 "
           f"{json.dumps(c16['launches'])}; radix matrix route "
           f"{matrix['counts']['dense_matrix']}; phase "
           f"{time.perf_counter() - t0:.1f} s (checks {t_checks:.1f} s, times "
           f"{t_times:.1f} s, pallas-seq and mxu {t_seq:.1f} s, the cluster "
-          f"of 16 {t_c16:.1f} s, matrix routes at m={MATRIX_REFUSED_M} and "
-          f"{MATRIX_ABOVE_M} {t_matrix:.1f} s)", flush=True)
+          f"of 16 {t_c16:.1f} s, matrix routes at m={MATRIX_REFUSED_M} "
+          f"{t_matrix:.1f} s)", flush=True)
     keys = ("radix", "radix_f32", "radix_offset", "wire", "wire_offset",
             "astage")
     times = {key: {str(m): t[key] for m, t in by_m.items() if key in t}
@@ -4309,6 +4300,7 @@ def zmq_on_this_machine() -> bool:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     phase_environment()
     has_zmq = zmq_on_this_machine()
     phase_build()
@@ -4345,6 +4337,8 @@ def main() -> int:
     tools = phase_cli_tools()
     last = phase_last_tools(bench_value)
     demo = phase_hw_demo()
+    print(f"chip_smoke.py: every phase in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": [
         kernel_entry("fused_chain_power_radix",
                      "wrp_tpu_torch/csrc/fused_chain_radix.cu",
@@ -4446,6 +4440,31 @@ def main() -> int:
                      {**long["res"]["wire_offset"],
                       **long["at_4096"]["wire_offset"]},
                      m=4096, times_by_m=long["times"]["wire_offset"]),
+        # the cluster of 16 for the wire chain: launches on the slice's
+        # main path at m = 8320, 16384 and 8208 (the fused wire processor;
+        # #8: the wire bench at 8320); errors over the checks at every m
+        # of CLUSTER16_MS; ms, plain and bound on 6 channel-sectors at m =
+        # 8320, every timed m's in times_by_m; its kernels in the four
+        # part files of `sources`
+        kernel_entry("fused_chain_power_wire (cluster of 16, 8192 < m <= 16384)",
+                     CLUSTER16_SOURCES["wire"][0],
+                     "wrp_tpu/ops/pallas/fullchain.py:1170",
+                     c16["launches"]["wire"],
+                     {**c16["res"]["wire"], **c16["times"][8320]["wire"]},
+                     m=8320, sources=CLUSTER16_SOURCES["wire"],
+                     times_by_m={str(m): t["wire"]
+                                 for m, t in c16["times"].items()},
+                     resident_clusters={str(m): r["wire"] for m, r
+                                        in c16["resident"].items()}),
+        kernel_entry("fused_chain_power_wire (offset, salt; cluster of 16)",
+                     CLUSTER16_SOURCES["wire"][0],
+                     "wrp_tpu/ops/pallas/fullchain.py:1210",
+                     c16["launches"]["wire_offset"],
+                     {**c16["res"]["wire_offset"],
+                      **c16["times"][8320]["wire_offset"]},
+                     m=8320, sources=CLUSTER16_SOURCES["wire"],
+                     times_by_m={str(m): t["wire_offset"]
+                                 for m, t in c16["times"].items()}),
         kernel_entry("fused_chain_astage (cluster body, 1024 < m <= 8192)",
                      "wrp_tpu_torch/csrc/fused_chain_astage_cluster.cu",
                      "wrp_tpu/ops/pallas/fullchain.py:955", lr["astage"],

@@ -1,11 +1,12 @@
 """The cluster body at a cluster of 16 blocks (csrc/cluster_chain.cuh, S =
 16) on the CPU: the route the planar chain (#3, and #4 with offset and
-salt) and the A-stage (#5) take for 8192 < m <= 16384, each ray split
-across 16 blocks, block b the m/16-point DFT of rows 16 t + b and the
-8-of-16 combine (two 8-point DFTs joined by W_16) over distributed shared
-memory.  The wire chain (#7/#8) keeps its matrix route there.
+salt), the wire chain (#7/#8) and the A-stage (#5) take for 8192 < m <=
+16384, each ray split across 16 blocks, block b the m/16-point DFT of
+rows 16 t + b and the 8-of-16 combine (two 8-point DFTs joined by W_16)
+over distributed shared memory (the wire chain on it in
+tests/test_torch_cluster16_wire.py).
 
-Here: `chain_route` and `cluster_refusal` by m and chain; the cut at m =
+Here: `chain_route` and `cluster_refusal` by m; the cut at m =
 8320 and 16384, worked out by hand; the range stage's plain version
 (`cluster_stage_reference`) against a float64 FFT at m = 8224 (a 257-point
 Bluestein leaf) and 8320 (a 5 x 13 leaf); the A-stage's and #3's plain
@@ -77,14 +78,13 @@ def _counts():
     (8224, (514, 2, 257)), (8320, (520, 8, 65)), (9216, (576, 64, 9)),
     (12288, (768, 256, 3)), (16384, (1024, 1024, 1))])
 def test_route_by_chain(m, cut):
-    """A radix m % 32 == 0 in (8192, 16384] takes the cluster of 16 for
-    the planar chain and the A-stage (ms = m / 16 = P L, P >= 2) and the
-    matrix kernel for the wire chain, which has no cluster of 16 (m = 16 x
-    odd, P = 1, in tests/test_torch_cluster16_p1.py)."""
+    """A radix m % 32 == 0 in (8192, 16384] takes the cluster of 16 (ms =
+    m / 16 = P L, P >= 2) for every chain: `chain_route` names one route
+    for the planar chain, the wire chain and the A-stage (m = 16 x odd,
+    P = 1, in tests/test_torch_cluster16_p1.py)."""
     assert tfull.radix_for(m) > 1 and tfull.cluster_split(m) == 16
     assert tfull.cluster_refusal(m) is None
     assert tfull.chain_route(m) == "cluster"
-    assert tfull.chain_route(m, wire=True) == "matrix"
     g = tfull.cluster_geometry(m, 512)
     assert (g.S, (g.ms, g.P, g.L)) == (tfull.CLUSTER_SPLIT_LONG, cut)
 
@@ -103,7 +103,7 @@ def test_refusals_above_8192(m, split, why):
     assert why in tfull.cluster_refusal(m)
     with pytest.raises(ValueError, match=why):
         tfull.cluster_geometry(m, 512)
-    assert tfull.chain_route(m) == tfull.chain_route(m, wire=True) == "matrix"
+    assert tfull.chain_route(m) == "matrix"
 
 
 # words of one block (4 bytes each) at n = 512, worked out by hand as in

@@ -88,12 +88,11 @@ def test_routes_of_every_16_x_odd():
     fits BLUESTEIN_MAX_N take the cluster of 16 at P = 1 for the planar
     chain and the A-stage; the 75 m = 16 x p (p a prime in (512, 1023])
     are refused by their Bluestein length of 2048 and every chain takes
-    the matrix kernel there; the wire chain keeps the matrix kernel at
-    every one of them."""
+    the matrix kernel there; the wire chain takes the route the others
+    take (`chain_route` has one route for all three chains)."""
     taken, refused = [], []
     for m in ODD16:
         assert tfull.radix_for(m) == 2 and tfull.cluster_split(m) == 16, m
-        assert tfull.chain_route(m, wire=True) == "matrix", m
         (refused if _is_prime(m // 16) else taken).append(m)
     assert (len(ODD16), len(taken), len(refused)) == (256, 181, 75)
     for m in taken:
@@ -154,11 +153,11 @@ def test_cut(m, leaf, bluestein, cols, batch, span):
 
 def test_plan_tables(case):
     """The plan holds the cluster tables (the leaf's plan after the head,
-    no W_P beyond W_1) and the host's A_half for the wire's matrix
-    kernel; no FFT-form tables."""
+    no W_P beyond W_1) and neither the FFT-form tables nor the host's
+    A_half (the wire chain takes the cluster of 16 here too)."""
     g = case.plan.cluster
     assert case.plan.radix == 2 and case.plan.fft_t is None
-    assert case.plan.host_a_half is not None
+    assert case.plan.host_a_half is None
     assert case.plan.cluster_t.numel() == (
         case.m + 2 + 2 * g.L + 2 * 16 * g.ms + 2 * 16
         + tfull.leaf_tables(g.L).size)

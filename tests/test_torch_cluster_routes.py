@@ -1,13 +1,13 @@
 """Which kernel the planar chain (#3/#4), the A-stage (#5) and the wire
 chain (#7/#8) launch for each m, and the cluster body's cut, on the CPU.
 
-`chain_route(m)` picks from m alone: the register body of csrc/fft_chain.cuh
-up to 1024 range cells, the cluster body of csrc/cluster_chain.cuh up to
-16384 for the planar chain and the A-stage, 8192 for the wire (each ray
-split across a cluster of 8 blocks, 16 above 8192; the dense entries'
-radix-1 m = S x odd across S), the matrix forms where the cluster body
-refuses m or the wire passes 8192 (csrc/fused_chain_dense.cu's matrix
-kernel and its wire source, csrc/fused_chain_astage_matrix.cu).  Here: the
+`chain_route(m)` picks from m alone, one route for all three chains: the
+register body of csrc/fft_chain.cuh up to 1024 range cells, the cluster
+body of csrc/cluster_chain.cuh up to 16384 (each ray split across a
+cluster of 8 blocks, 16 above 8192; the dense entries' radix-1 m = S x
+odd across S), the matrix forms where the cluster body refuses m
+(csrc/fused_chain_dense.cu's matrix kernel and its wire source,
+csrc/fused_chain_astage_matrix.cu).  Here: the
 route, the radix entry's
 plain version and the plan's tables per m; the cluster geometry's cut and
 shared memory at each m the slice names, worked out by hand, for the
@@ -19,10 +19,10 @@ the `pallas-seq` and fused-wire processors' products against the oracle at
 m = 1840 and 8192; and the matrix routes above 8192: the A-stage's matrix
 plain version at m = 8336 (16 x 521, radix 2, which the cluster body
 refuses: its leaf prime 521 needs a Bluestein length of 2048) against a
-float64 FFT, and at m = 8320 (radix 8) the fused wire
-decode on the wire's matrix route, `pallas-seq` on the A-stage's cluster
-of 16, #8's plain version with offset and salt.  tests/test_torch_cluster16.py
-holds the cluster of 16 itself."""
+float64 FFT; at m = 8320 (radix 8) the fused wire decode and `pallas-seq`
+on the cluster of 16, #8's plain version with offset and salt; at 8336
+the wire's matrix route.  tests/test_torch_cluster16.py and
+tests/test_torch_cluster16_wire.py hold the cluster of 16 itself."""
 
 import numpy as np
 import pytest
@@ -46,7 +46,7 @@ N = 16
 SAME_TOL = 1e-5       # two forms of the same chain (fp32 reassociation)
 PRODUCT_TOL = 2e-4    # zdb, zdr vs the fp64 oracle
 ASTAGE_TOL = 1e-5     # Y vs wrp_tpu's A-stage (bf16 hi/lo splits there)
-ABOVE = 8320          # radix 8 above 8192: the wire's matrix route, a cluster of 16 else
+ABOVE = 8320          # radix 8 above 8192: every chain on the cluster of 16
 REFUSED = 8336        # 16 x 521 (radix 2): the cluster body refuses it (Bluestein N = 2048)
 
 
@@ -68,7 +68,7 @@ def _hold(got, want, tol, what):
 
 def test_chain_route_by_m():
     """The register body up to 1024, the cluster body for radix m up to
-    16384 (the wire's up to 8192), the matrix forms above and where the
+    16384 (for every chain), the matrix forms above and where the
     cluster body refuses m; cluster_geometry refuses the m the body does
     not take, saying why (outside its range, naming CLUSTER_MAX_M = 16384;
     a block's sub-DFT over CLUSTER_MAX_MS; a Bluestein length over
@@ -96,10 +96,10 @@ def test_chain_route_by_m():
             plain(x[1:3], plan, 7)), m
     for m in (ABOVE, 16384):
         assert tfull.radix_for(m) > 1 and tfull.chain_route(m) == "cluster"
-        assert tfull.chain_route(m, wire=True) == "matrix", m
+        assert tfull.cluster_split(m) == 16, m
     for m in (REFUSED, 16416):
         assert tfull.radix_for(m) > 1, m
-        assert tfull.chain_route(m) == tfull.chain_route(m, wire=True) == "matrix"
+        assert tfull.chain_route(m) == "matrix", m
     # m = 1832 = 8 x 229 does not split into radix branches: the dense
     # entries' route, on the cluster body too (its leaf in Bluestein's form)
     assert tfull.radix_for(1832) == 1 and tfull.cluster_takes(1832)
@@ -117,14 +117,14 @@ def test_plan_tables_by_route():
     """A plan holds the tables its routes read: fft_t for the FFT-form body
     (m <= 1024, and the dense entries' long-ray m = 2 x odd above 2048),
     cluster_t and cluster_phi for the cluster body (every chain of a radix
-    m up to 8192, the planar chain and the A-stage up to 16384, and the
-    dense entries' m = S x odd: 1832), A_half on the host only for a radix
-    plan's matrix kernel (the wire's above 8192)."""
+    m up to 16384, and the dense entries' m = S x odd: 1832), A_half on
+    the host only for a radix plan's matrix kernel (an m the cluster body
+    refuses: 8336, not 8320)."""
     cases = {1024: (True, False, False), 1832: (False, True, False),
              4094: (True, False, False),
              2048: (False, True, False), 4096: (False, True, False),
              4160: (False, True, False), 8192: (False, True, False),
-             ABOVE: (False, True, True)}
+             ABOVE: (False, True, False), REFUSED: (False, False, True)}
     for m, (fft, cluster, host) in cases.items():
         plan = _plan(m)
         assert (plan.fft_t is not None, plan.cluster_t is not None,
@@ -403,14 +403,15 @@ def test_astage_matrix_above_8192_vs_jax():
 
 
 def test_wire_and_seq_matrix_above_8192():
-    """m = 8320: the fused wire decode takes the wire's matrix route (its
-    power equal to the matrix form's plain version on the decoded samples,
-    exactly) and a world-size-1 pallas-seq step the A-stage's cluster of
-    16; the planar products are the cluster form's (the radix entry's CPU
-    result equals cluster_chain_power_reference), so both are held to the
-    two-form bound of 1e-5 of them and 2e-4 of the oracle; #8's plain
-    version with offset 1 and salt 7 equals fused_chain_power_reference on the
-    decoded, salted slab."""
+    """m = 8320: the fused wire decode and a world-size-1 pallas-seq step
+    take the cluster of 16, as the planar products do (the radix and wire
+    entries' CPU results equal cluster_chain_power_reference, the wire's on
+    the decoded samples, exactly), so both are held to the two-form bound
+    of 1e-5 of them and 2e-4 of the oracle; #8's plain version with offset
+    1 and salt 7 equals cluster_chain_power_reference on the decoded,
+    salted slab.  m = 8336, which the cluster body refuses: the wire's
+    matrix route, #7 and #8 (offset 1, salt 7) equal to
+    fused_chain_power_reference on the decoded samples, exactly."""
     m = ABOVE
     cfg = tiny_config(m=m, n=N)
     iqs = [oracle.synthetic_iq(jtiny(m=m, n=N), kind="noise", seed=s)
@@ -429,15 +430,32 @@ def test_wire_and_seq_matrix_above_8192():
             _hold((got[0][b], got[1][b]), oracle.process_sector(
                 iq, jtiny(m=m, n=N)), PRODUCT_TOL, b)
     plan = fused._wire_plan
-    # the radix entry's CPU result is the cluster route's plain version,
-    # the wire entry's the matrix route's on the decoded samples
+    # the radix and wire entries' CPU results are the cluster route's
+    # plain version, the wire's on the decoded samples
     x = torch.from_numpy(planar.reshape(-1, 2, m, N))
     assert torch.equal(tfull.fused_chain_power_radix(x, plan),
                        tfull.cluster_chain_power_reference(x, plan))
     w32 = torch.from_numpy(wires.view("<i4").reshape(2, m, -1).copy())
     assert torch.equal(tfull.fused_chain_power_wire(w32, plan, 3).reshape(6, -1),
-                       tfull.fused_chain_power_reference(x.float(), plan))
+                       tfull.cluster_chain_power_reference(x.float(), plan))
     got = tfull.fused_chain_power_wire(w32, plan, 3, offset=1, bs=1, salt=7)
-    want = tfull.fused_chain_power_reference(
+    want = tfull.cluster_chain_power_reference(
         torch.from_numpy(planar[1]).float(), plan, 7)
     assert torch.equal(got.reshape(3, -1), want)
+
+    m = REFUSED
+    cfg = tiny_config(m=m, n=N)
+    plan = _plan(m)
+    assert tfull.chain_route(m) == "matrix" and plan.host_a_half is not None
+    iqs = [oracle.synthetic_iq(jtiny(m=m, n=N), kind="noise", seed=s)
+           for s in (23, 24)]
+    planar = np.stack([_planar(iq) for iq in iqs])
+    wires = np.stack([np.frombuffer(codec.encode_iq(iq, cfg), np.uint8)
+                      for iq in iqs])
+    x = torch.from_numpy(planar.reshape(-1, 2, m, N)).float()
+    w32 = torch.from_numpy(wires.view("<i4").reshape(2, m, -1).copy())
+    assert torch.equal(tfull.fused_chain_power_wire(w32, plan, 3).reshape(6, -1),
+                       tfull.fused_chain_power_reference(x, plan))
+    got = tfull.fused_chain_power_wire(w32, plan, 3, offset=1, bs=1, salt=7)
+    assert torch.equal(got.reshape(3, -1),
+                       tfull.fused_chain_power_reference(x[3:], plan, 7))

@@ -36,7 +36,7 @@ def test_port_imports_without_jax():
             "wrp_tpu_torch.tools.decode_ab, wrp_tpu_torch.tools.ab_sweep, "
             "wrp_tpu_torch.tools.multihost_bench, "
             "wrp_tpu_torch.tools.consolidation_soak, "
-            "wrp_tpu_torch.tools.hw_demo; "
+            "wrp_tpu_torch.tools.hw_demo, wrp_tpu_torch.tools.build_ab; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'wrp_tpu.')) or m == 'wrp_tpu'); "
             "assert not bad, bad; "

@@ -181,10 +181,10 @@ def test_fft_geometry_long_rays(m, cut, leaf, smem):
 
 def test_above_4096_routes_and_refusals():
     """m = 4160 (radix 8, above FFT_MAX_M): no FFT tables and no A_half on
-    the host (the matrix kernel's operator is refused, naming
-    CLUSTER_MAX_M); the radix entry takes the cluster body's plain version
+    the host (the matrix kernel's operator is refused, naming the m it
+    serves); the radix entry takes the cluster body's plain version
     (salted too, on a slab), as "fused", the wire entry, the A-stage and
-    pallas-seq do up to m = 8192: the wire entry and the A-stage equal
+    pallas-seq do up to m = 16384: the wire entry and the A-stage equal
     their plain versions, "fused" and pallas-seq the products of those
     plain versions, within 1e-5 of the planar products; the default wire
     decode picks "xla" and equals the planar products
@@ -200,7 +200,7 @@ def test_above_4096_routes_and_refusals():
     plan = tfull.build_plan(_consts(m), "cpu")
     assert plan.radix == 8 and plan.fft_t is None and plan.host_a_half is None
     assert tfull.chain_route(m) == "cluster"
-    with pytest.raises(ValueError, match="CLUSTER_MAX_M8 = 8192"):
+    with pytest.raises(ValueError, match="an m the cluster body refuses"):
         plan.dense_operator()
     iq = _sector(m, seed=7)
     x = torch.from_numpy(np.stack([_planar(iq)] * 2).reshape(-1, 2, m, N))

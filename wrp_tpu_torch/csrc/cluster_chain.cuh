@@ -30,8 +30,8 @@
 // fused chains 64 at m = 1536-2048, 32 at 4096-4160 and 8224-9216, 16 at
 // 8192, 12288 and 16384), since each round costs two cluster barriers.  S =
 // 8 for a radix m (m % 16 == 0) up to 8192; above it S = 16 (a
-// non-portable cluster size, m' = m / 16 <= 1024), for the planar chain
-// and the A-stage alone; at m = 16 x odd (8208 = 16 x 513) P = 1 there,
+// non-portable cluster size, m' = m / 16 <= 1024), for all three chains;
+// at m = 16 x odd (8208 = 16 x 513) P = 1 there,
 // so each block's m'-point DFT is the odd leaf alone, as at a radix-1 m =
 // S x odd (S = 2, 4, 8: the dense entries), which splits by the power of
 // two it has.
@@ -1252,10 +1252,10 @@ cluster_leaf_kernel(Src src, const float* __restrict__ tab, const float* __restr
 // them in parallel: at S = 8, kWide (L = 1, P = 256, 512, 1024: m = 2048,
 // 4096, 8192; an odd leaf at P = 32..256) in the entry's own file; an odd
 // leaf at P = 2, 4 (kP2: fused_chain_{radix,wire,astage}_cluster_p2.cu) and
-// at P = 8, 16 (kP8: ..._cluster_p8.cu); at S = 16 (8192 < m <= 16384, the
-// planar chain and the A-stage alone) the same three cuts and a fourth,
+// at P = 8, 16 (kP8: ..._cluster_p8.cu); at S = 16 (8192 < m <= 16384,
+// every chain) the same three cuts and a fourth,
 // kWide16 (L = 1 at P = 1024: m = 16384; a leaf at P = 32..256) in
-// fused_chain_{radix,astage}_cluster16.cu, kP2S16 and kP8S16 in
+// fused_chain_{radix,wire,astage}_cluster16.cu, kP2S16 and kP8S16 in
 // ..._cluster16_p2.cu and ..._cluster16_p8.cu, and P = 1 (m = 16 x odd:
 // the odd leaf alone, then the 8-of-16 combine) kP1S16 in
 // ..._cluster16_p1.cu; P = 1 at S <= 8, the dense entries' m = S x odd on
@@ -1271,9 +1271,7 @@ constexpr bool kPartS16 = kPart == Part::kWide16 || kPart == Part::kP2S16 ||
 // 16 above kMaxM8).
 template <Part kPart, class Src, bool kFused, class Fn>
 cudaError_t dispatch(int S, int P, int L, Fn&& fn) {
-  if constexpr (kPartS16<kPart> && std::is_same_v<Src, fft::WireIq>) {
-    return cudaErrorInvalidValue;                // the wire chain: S <= 8
-  } else if constexpr (kPart == Part::kWide || kPart == Part::kWide16) {
+  if constexpr (kPart == Part::kWide || kPart == Part::kWide16) {
     constexpr int kS = kPart == Part::kWide ? kSplit : kSplitLong;
     if (S != kS) return cudaErrorInvalidValue;
     if (L == 1) {
@@ -1305,7 +1303,8 @@ cudaError_t dispatch(int S, int P, int L, Fn&& fn) {
     if (P == 2 * lo) return fn(cluster_leaf_kernel<Src, kS, 2 * lo, 1, kFused>);
     return cudaErrorInvalidValue;
   } else if constexpr (kPart == Part::kP1S16) {
-    // the planar chain (PlanarDirect, fused) and the A-stage (PlanarRows)
+    // the planar and wire chains (PlanarDirect, fft::WireIq; fused) and
+    // the A-stage (PlanarRows)
     if (S == kSplitLong && P == 1 && L > 1) {
       return fn(cluster_leaf_kernel<Src, kSplitLong, 1, 1, kFused>);
     }
@@ -1457,12 +1456,16 @@ WRP_CLUSTER_PART(extern template, Part::kP8, PlanarRows, false)
 WRP_CLUSTER_PART(extern template, Part::kS8, PlanarDirect, true)
 WRP_CLUSTER_PART(extern template, Part::kS24, PlanarDirect, true)
 WRP_CLUSTER_PART(extern template, Part::kWide16, PlanarDirect, true)
+WRP_CLUSTER_PART(extern template, Part::kWide16, fft::WireIq, true)
 WRP_CLUSTER_PART(extern template, Part::kWide16, PlanarRows, false)
 WRP_CLUSTER_PART(extern template, Part::kP2S16, PlanarDirect, true)
+WRP_CLUSTER_PART(extern template, Part::kP2S16, fft::WireIq, true)
 WRP_CLUSTER_PART(extern template, Part::kP2S16, PlanarRows, false)
 WRP_CLUSTER_PART(extern template, Part::kP8S16, PlanarDirect, true)
+WRP_CLUSTER_PART(extern template, Part::kP8S16, fft::WireIq, true)
 WRP_CLUSTER_PART(extern template, Part::kP8S16, PlanarRows, false)
 WRP_CLUSTER_PART(extern template, Part::kP1S16, PlanarDirect, true)
+WRP_CLUSTER_PART(extern template, Part::kP1S16, fft::WireIq, true)
 WRP_CLUSTER_PART(extern template, Part::kP1S16, PlanarRows, false)
 
 __host__ inline Part part_of(const Geometry& g) {

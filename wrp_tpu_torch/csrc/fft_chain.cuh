@@ -81,7 +81,7 @@
 // Which kernel serves which m.  This body serves m <= 1024 for every
 // entry (fft_chain_kernel, the register body).  The dense entries' m = 2 x
 // odd in (2048, 4096] run fft_chain_long_kernel below (P = 2); every other
-// m up to 8192 that cluster_chain.cuh takes runs there (each ray split
+// m up to 16384 that cluster_chain.cuh takes runs there (each ray split
 // across a cluster of blocks: the radix, wire and A-stage entries, and the
 // dense entries' m = S x odd); the rest the matrix forms
 // (fused_chain_dense.cu, fused_chain_astage_matrix.cu).

@@ -22,13 +22,14 @@
 //   * any other m (odd m, m = 2 x odd or 4 x odd above those, a leaf prime
 //     above 512): this file's matrix kernel, the TPU
 //     kernel's own algorithm, described next.  The radix entry launches it
-//     too, with its salt, for a radix plan above 8192 (m = 8320), where
-//     wrp_tpu's radix kernel still runs: the TPU kernel
+//     too, with its salt, for a radix m the cluster body refuses (16 x p
+//     above 8192, p a prime whose Bluestein length passes 1024: m = 8336;
+//     above 16384): the TPU kernel
 //     wrp_tpu/ops/pallas/fullchain.py::fused_chain_power_radix (with
-//     offset and salt, _kernel_radix_offset) at those m (1024 < m <= 8192
-//     run cluster_chain.cuh, fused_chain_radix_cluster.cu).
+//     offset and salt, _kernel_radix_offset) at those m (1024 < m <= 16384
+//     otherwise run cluster_chain.cuh, fused_chain_radix_cluster.cu).
 //     Its wire source (wrp_fused_chain_dense_wire) is the wire entries'
-//     kernel above 8192: the TPU kernel fused_chain_power_wire (with
+//     kernel at the same m: the TPU kernel fused_chain_power_wire (with
 //     offset and salt, _kernel_radix_wire_offset), which wrp_tpu runs at
 //     any radix m.
 //

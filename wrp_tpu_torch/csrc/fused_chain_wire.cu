@@ -2,8 +2,9 @@
 //
 // Replaces the TPU kernel wrp_tpu/ops/pallas/fullchain.py::
 // fused_chain_power_wire (body _kernel_radix_wire, decode decode_words_iq)
-// for m <= 1024 (1024 < m <= 8192: fused_chain_wire_cluster.cu; above:
-// fused_chain_dense.cu's wire source; ops/fullchain.chain_route picks).
+// for m <= 1024 (1024 < m <= 16384: fused_chain_wire_cluster.cu; an m
+// the cluster body refuses: fused_chain_dense.cu's wire source;
+// ops/fullchain.chain_route picks).
 // Per sector it maps the wire words w [m, L] (int32, L = ch n, rows in
 // NATURAL order; word ch j + c of a row is channel c, pulse j) to the
 // matched-filter power pow [ch, m/2] through the FFT-form kernel of

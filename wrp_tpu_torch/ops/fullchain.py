@@ -23,15 +23,16 @@ kernel serves an m is m's alone:
 * wire, csrc/fused_chain_wire.cu (``wrp_tpu`` `fused_chain_power_wire`):
   `fused_chain_power_wire`, plain `fused_chain_power_wire_reference`,
   `WIRE_LAUNCHES`.  Raw wire words [bs, m, ch*n] int32, decoded in
-  registers, one channel a cluster, through the route `chain_route(m,
-  wire=True)` names: the register body of csrc/fft_chain.cuh for m <=
-  1024; the cluster body (csrc/fused_chain_wire_cluster.cu,
-  csrc/cluster_chain.cuh: each ray split across a cluster of 8 blocks,
-  plain `cluster_chain_power_reference`, counted also in
-  `WIRE_CLUSTER_LAUNCHES`) for 1024 < m <= CLUSTER_MAX_M8 = 8192 (no
-  cluster of 16 for the wire yet); above it the matrix kernel's wire source (csrc/fused_chain_dense.cu
-  `wrp_fused_chain_dense_wire`, on `RadixPlan.dense_operator`, plain
-  `fused_chain_power_reference`), counted also in `DENSE_MATRIX_LAUNCHES`.
+  registers, one channel a cluster, through the route `chain_route(m)`
+  names, as the radix entry's: the register body of csrc/fft_chain.cuh for
+  m <= 1024; the cluster body (csrc/fused_chain_wire_cluster.cu,
+  csrc/cluster_chain.cuh: each ray split across a cluster of 8 blocks, 16
+  above CLUSTER_MAX_M8; plain `cluster_chain_power_reference`, counted
+  also in `WIRE_CLUSTER_LAUNCHES`) for 1024 < m <= CLUSTER_MAX_M; where
+  the cluster body refuses m the matrix kernel's wire source
+  (csrc/fused_chain_dense.cu `wrp_fused_chain_dense_wire`, on
+  `RadixPlan.dense_operator`, plain `fused_chain_power_reference`),
+  counted also in `DENSE_MATRIX_LAUNCHES`.
 * dense, csrc/fused_chain_dense.cu (``wrp_tpu`` `fused_chain_power`):
   `fused_chain_power_dense`, `DENSE_LAUNCHES`, for m that does not split
   (`radix_for(m) == 1`), through the route `chain_route(m)` names, as the
@@ -135,7 +136,7 @@ PARSEVAL_ROWS_TWO_PASS_LAUNCHES = 0  # of those, its two-pass form
 RADIX_OFFSET_LAUNCHES = 0    # the radix offset entry (salted: fused_chain_radix_salted.cu)
 WIRE_OFFSET_LAUNCHES = 0     # the wire offset entry (salted: fused_chain_wire_salted.cu)
 #: launches of the wire chain's cluster body (fused_chain_wire_cluster.cu,
-#: 1024 < m <= 8192) from either wire entry
+#: 1024 < m <= 16384) from either wire entry
 WIRE_CLUSTER_LAUNCHES = 0
 #: launches of the planar chain's cluster body (fused_chain_radix_cluster.cu,
 #: 1024 < m <= 16384) from either radix entry
@@ -372,9 +373,9 @@ def fft_round_phasor_sums(phasors: np.ndarray, cols: int) -> np.ndarray:
 
 
 #: the cluster body (csrc/cluster_chain.cuh), the route of the planar chain
-#: (#3/#4) and the A-stage (#5) for FFT_SHORT_M < m <= CLUSTER_MAX_M, of
-#: the wire chain (#7/#8) and the dense entries (#1/#2) up to
-#: CLUSTER_MAX_M8: each ray split across a cluster of S blocks
+#: (#3/#4), the wire chain (#7/#8) and the A-stage (#5) for FFT_SHORT_M <
+#: m <= CLUSTER_MAX_M, of the dense entries (#1/#2) up to CLUSTER_MAX_M8:
+#: each ray split across a cluster of S blocks
 #: (`cluster_split`: CLUSTER_SPLIT = 8 for a radix m up to CLUSTER_MAX_M8,
 #: CLUSTER_SPLIT_LONG = 16, a non-portable cluster size, above it; S = 2,
 #: 4 or 8 for the dense entries' m = S x odd), block b the rows S t + b, of
@@ -512,21 +513,20 @@ def cluster_takes(m: int) -> bool:
     return cluster_refusal(m) is None
 
 
-def chain_route(m: int, wire: bool = False) -> str:
-    """The kernel a chain launches for m, from m alone: the planar chain
-    (#3/#4) and the A-stage (#5) for a radix m, the dense entries (#1/#2)
-    for a radix-1 m, and with `wire` the wire chain (#7/#8), which has no
-    cluster of 16 yet: "register" (csrc/fft_chain.cuh's register body,
-    even m <= FFT_SHORT_M), "cluster" (csrc/cluster_chain.cuh, up to
-    CLUSTER_MAX_M, the wire's up to CLUSTER_MAX_M8, where `cluster_refusal`
-    finds nothing), "long" (the dense entries' m = 2 x odd in (2048,
-    FFT_MAX_M]: the FFT-form body's long-ray form) or "matrix" (any other:
-    csrc/fused_chain_dense.cu's matrix kernel and its wire source,
-    csrc/fused_chain_astage_matrix.cu; `cluster_refusal` says why, or for
-    the wire m > CLUSTER_MAX_M8)."""
+def chain_route(m: int) -> str:
+    """The kernel a chain launches for m, from m alone, the same for every
+    chain: the planar chain (#3/#4), the wire chain (#7/#8) and the A-stage
+    (#5) for a radix m, the dense entries (#1/#2) for a radix-1 m:
+    "register" (csrc/fft_chain.cuh's register body, even m <=
+    FFT_SHORT_M), "cluster" (csrc/cluster_chain.cuh, up to CLUSTER_MAX_M,
+    where `cluster_refusal` finds nothing), "long" (the dense entries' m =
+    2 x odd in (2048, FFT_MAX_M]: the FFT-form body's long-ray form) or
+    "matrix" (any other: csrc/fused_chain_dense.cu's matrix kernel and its
+    wire source, csrc/fused_chain_astage_matrix.cu; `cluster_refusal` says
+    why)."""
     if 2 <= m <= FFT_SHORT_M and m % 2 == 0:
         return "register"
-    if cluster_takes(m) and not (wire and m > CLUSTER_MAX_M8):
+    if cluster_takes(m):
         return "cluster"
     return "long" if fft_long(m) else "matrix"
 
@@ -740,9 +740,11 @@ class RadixPlan:
     #: [rounds, 4] at the cluster geometry's cols, the one cut both fused
     #: chains (#3/#4 and #7/#8, int16 or f32) launch at
     cluster_phi: torch.Tensor | None = None
-    #: a radix plan whose wire chain takes the matrix kernel (above
-    #: CLUSTER_MAX_M8, or an m the cluster body refuses): the host's A_half
-    #: [m/2, m] complex, from which `dense_operator` builds its operator
+    #: a radix plan whose chains take the matrix kernel (an m the cluster
+    #: body refuses: 16 x p above CLUSTER_MAX_M8, p a prime whose Bluestein
+    #: length passes BLUESTEIN_MAX_N; above CLUSTER_MAX_M): the host's
+    #: A_half [m/2, m] complex, from which `dense_operator` builds its
+    #: operator
     host_a_half: np.ndarray | None = dataclasses.field(default=None,
                                                        repr=False)
     _dense_op: dict = dataclasses.field(default_factory=dict, repr=False,
@@ -755,18 +757,20 @@ class RadixPlan:
     def dense_operator(self) -> torch.Tensor:
         """The matrix kernel's operator, A_half as [m(q), m/2(t), 2] f32 on
         the plan's device: a radix-1 plan's `a_kernel`; for a radix plan
-        whose wire chain takes the matrix kernel built from `host_a_half`
-        at first use and kept (it holds m^2 / 2 complex values: 277 MB at
-        m = 8320, so only a plan that launches the matrix kernel pays for
-        it; the planar chain at 8320 does not)."""
+        whose chains take the matrix kernel built from `host_a_half` at
+        first use and kept (it holds m^2 / 2 complex values: 278 MB at m =
+        8336, so only a plan that launches the matrix kernel pays for it;
+        the chains at 8320 do not)."""
         if self.radix == 1:
             return self.a_kernel
         if self.host_a_half is None:
-            raise ValueError(f"m={self.m}: a radix plan takes the matrix "
-                             f"kernel only where `chain_route(m, wire=True)`"
-                             f" names it (above CLUSTER_MAX_M8 = "
-                             f"{CLUSTER_MAX_M8}, or an m the cluster body "
-                             f"refuses)")
+            raise ValueError(
+                f"m={self.m}: a radix plan takes the matrix kernel only at an "
+                f"m the cluster body refuses (16 x p above CLUSTER_MAX_M8 = "
+                f"{CLUSTER_MAX_M8}, p a prime whose Bluestein length passes "
+                f"BLUESTEIN_MAX_N = {BLUESTEIN_MAX_N}; above CLUSTER_MAX_M = "
+                f"{CLUSTER_MAX_M}); chain_route({self.m}) is "
+                f"{chain_route(self.m)!r}")
         if "a" not in self._dense_op:
             a = np.asarray(self.host_a_half)
             # C order: the stack of transposed views keeps their strides
@@ -829,7 +833,7 @@ def build_plan(consts: PipelineConstants, device) -> RadixPlan:
         lanes["fft_t"] = torch.from_numpy(fft_tables(consts)).to(device)
         lanes["fft_phi"] = torch.from_numpy(fft_round_phasor_sums(
             consts.clip_phasors, fft_geometry(m, n).cols)).to(device)
-    if radix > 1 and chain_route(m, wire=True) == "matrix":
+    if radix > 1 and chain_route(m) == "matrix":
         lanes["host_a_half"] = consts.op_a_half
     if cluster_takes(m):
         lanes["cluster_t"] = torch.from_numpy(cluster_tables(consts)).to(device)
@@ -1477,8 +1481,7 @@ def fft_occupancy(plan: RadixPlan, body: str = "radix") -> dict:
     if plan.radix == 1 and body != "radix":
         raise ValueError(f"fft_occupancy: a radix-1 plan (m={plan.m}) has the "
                          "planar body alone ('radix')")
-    if (body in ("radix", "wire", "astage")
-            and chain_route(plan.m, wire=body == "wire") == "cluster"):
+    if body in ("radix", "wire", "astage") and chain_route(plan.m) == "cluster":
         return cluster_occupancy(plan.m, plan.n, body)
     lib = _build.load_library()
     bps, clusters = ctypes.c_int(0), ctypes.c_int(0)
@@ -1618,7 +1621,7 @@ def fused_chain_power_wire_reference(w32: torch.Tensor, plan: RadixPlan,
                                      ch: int, salt: int | None = None) -> torch.Tensor:
     """Plain torch version of the wire kernels: w32 [bs, m, ch*n] int32 ->
     pow [bs, ch, m/2] f32.  Decode the words, deinterleave the channels,
-    then the planar plain version of the route `chain_route(m, wire=True)`
+    then the planar plain version of the route `chain_route(m)`
     names on the planar sectors (`fft_chain_power_reference`,
     `cluster_chain_power_reference` or `fused_chain_power_reference`), with
     `salt` added to every decoded sample (the salted kernels)."""
@@ -1628,7 +1631,7 @@ def fused_chain_power_wire_reference(w32: torch.Tensor, plan: RadixPlan,
     planar = planar.permute(0, 4, 1, 2, 3).reshape(bs * ch, 2, m, lanes // ch)
     plain = {"register": fft_chain_power_reference,
              "cluster": cluster_chain_power_reference,
-             "matrix": fused_chain_power_reference}[chain_route(m, wire=True)]
+             "matrix": fused_chain_power_reference}[chain_route(m)]
     return plain(planar.to(torch.float32), plan, salt).reshape(bs, ch, m // 2)
 
 
@@ -1643,12 +1646,14 @@ def fused_chain_power_wire(w32: torch.Tensor, plan: RadixPlan, ch: int,
     the kernel reads its `bs` sectors from SECTOR `offset` (no copy), with
     the int32 `salt`, if given, added to every decoded sample.
 
-    The route is m's alone (`chain_route(m, wire=True)`): m <= 1024
-    launches csrc/fused_chain_wire.cu (salted:
+    The route is m's alone (`chain_route(m)`, the planar chain's): m <=
+    1024 launches csrc/fused_chain_wire.cu (salted:
     csrc/fused_chain_wire_salted.cu), the register body; 1024 < m <=
-    CLUSTER_MAX_M8 csrc/fused_chain_wire_cluster.cu, the cluster body
-    (also counted in WIRE_CLUSTER_LAUNCHES); above it the matrix kernel's
-    wire source (csrc/fused_chain_dense.cu
+    CLUSTER_MAX_M csrc/fused_chain_wire_cluster.cu, the cluster body cut by
+    `plan.cluster` (a cluster of 16 above CLUSTER_MAX_M8; also counted in
+    WIRE_CLUSTER_LAUNCHES); an m the cluster body refuses (16 x p above
+    8192, p a prime in (512, 1023], by its Bluestein length; above 16384)
+    the matrix kernel's wire source (csrc/fused_chain_dense.cu
     `wrp_fused_chain_dense_wire`, on `plan.dense_operator()`, also counted
     in DENSE_MATRIX_LAUNCHES).  A CPU tensor takes the plain version.  A
     CUDA tensor launches the route's kernel on the current stream or
@@ -1680,7 +1685,7 @@ def fused_chain_power_wire(w32: torch.Tensor, plan: RadixPlan, ch: int,
                       device=w32.device)
     if count == 0:
         return out
-    route = chain_route(plan.m, wire=True)
+    route = chain_route(plan.m)
     lib = _build.load_library()
     with torch.cuda.device(w32.device):
         stream = torch.cuda.current_stream(w32.device).cuda_stream

@@ -362,10 +362,11 @@ class SectorProcessor:
 
         wire_decode (with wire_input): "fused" decodes inside the wire
         kernel (the channel deinterleave never happens; needs m that
-        splits into radix branches): the route `fullchain.chain_route(m,
-        wire=True)` names (csrc/fused_chain_wire.cu up to 1024 range
-        cells, csrc/fused_chain_wire_cluster.cu up to 8192, the matrix
-        kernel's wire source, csrc/fused_chain_dense.cu, above), as
+        splits into radix branches): the route `fullchain.chain_route(m)`
+        names (csrc/fused_chain_wire.cu up to 1024 range cells,
+        csrc/fused_chain_wire_cluster.cu, the cluster body, up to 16384 (a
+        cluster of 16 above 8192), the matrix kernel's wire source,
+        csrc/fused_chain_dense.cu, where the cluster body refuses m), as
         ``wrp_tpu``'s radix layout runs its fused wire kernel at any radix m; "xla" is a
         standalone decode pass (ops/device_codec.decode_wire_i16) feeding
         the planar kernel (the name is kept from ``wrp_tpu``).  None picks "fused"

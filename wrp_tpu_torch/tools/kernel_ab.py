@@ -27,12 +27,12 @@ graph of 100 calls beside torch.matmul fp32's; the breakdown's four modes
 (#10) on the 48 channel-sectors at salt 7 (null for a mode the tree lacks:
 older trees have no `splits`); the long rays ("long": the planar chain
 #3, int16 and f32, and its offset/salt entry #4 at salt 7, the A-stage,
-int16 at w = 512, and the wire chain at m = 1536, 1840, 2048, 4096, 8192
-per 48 channel-sectors and at m = 4112 and 4160 on 6, #3/#4 and the
-A-stage also at 8208 and 8320 on 6 and, in a tree that takes the cluster
-of 16 there, at 16368 and 16384 on 6 (an older tree's dense A_half there
-is 2 GB of fp64 on the host), each through the route the tree takes at
-that m, with
+int16 at w = 512, and the wire chain #7 at m = 1536, 1840, 2048, 4096,
+8192 per 48 channel-sectors and at m = 4112 and 4160 on 6, all four also
+at 8208 and 8320 on 6 and, in a tree that takes the cluster of 16 there
+(for the wire, a tree whose wire chain does), at 16368 and 16384 on 6 (an
+older tree's dense A_half there is 2 GB of fp64 on the host), each through
+the route the tree takes at that m, with
 cuFFT over range of the windowed complex64 input beside the A-stage and
 each kernel's rel-L2 against the tree's plain version on one sector; the
 dense entry #1 at m = 1832, 1836, 2002 per 48; with --long, these
@@ -421,9 +421,10 @@ def _breakdown(out: dict, ms, rel, x16, consts) -> None:
 #: (m, sectors) of the long-ray timings: 48 channel-sectors, and m = 4112,
 #: 4160, 8208, 8320, 16368 and 16384 on 6 as the matrix routes were first
 #: timed there; at the radix-1 m = 1832 (8 x 229), 1836 (4 x 459), 2002 (2
-#: x 1001) the dense entry (#1) alone; above 8192 no wire chain (its matrix
-#: route), and 16368 (16 x 1023) and 16384 only where the tree takes the
-#: cluster of 16
+#: x 1001) the dense entry (#1) alone; 16368 (16 x 1023) and 16384 only
+#: where the tree takes the cluster of 16, and the wire chain there only
+#: where the tree's wire chain takes it (an older tree's wire matrix route
+#: at 8208 and 8320 is timed, as the comparison)
 LONG_RAYS = ((1536, 16), (1832, 16), (1836, 16), (1840, 16), (2002, 16),
              (2048, 16), (4096, 16), (4112, 2), (4160, 2), (8192, 16),
              (8208, 2), (8320, 2), (16368, 2), (16384, 2))
@@ -438,6 +439,7 @@ def _long_rays(out: dict, ms, rel) -> None:
     entry (#1, int16) alone.  A call slower than 10 ms is queued fewer
     times."""
     import dataclasses
+    import inspect
 
     import numpy as np
     import torch
@@ -450,6 +452,16 @@ def _long_rays(out: dict, ms, rel) -> None:
         if hasattr(fullchain, "chain_route"):
             return fullchain.chain_route(m)
         return "long" if fullchain.fft_takes(m) else "matrix"
+
+    def wire_route(m):
+        """the wire chain's route: the planar chain's, but in earlier trees
+        (whose chain_route took a `wire` flag) the matrix kernel wherever
+        the cluster of 16 would serve it"""
+        r = fullchain.chain_route(m)
+        if ("wire" in inspect.signature(fullchain.chain_route).parameters
+                and r == "cluster" and m > fullchain.CLUSTER_MAX_M8):
+            return "matrix"
+        return r
 
     def radix_route(m):
         """(name, plain version) of the radix entry's route: earlier trees
@@ -534,7 +546,8 @@ def _long_rays(out: dict, ms, rel) -> None:
         r["astage_rel"] = rel(
             fullchain.fused_chain_astage_reference(x[:ch], plan),
             fullchain.fused_chain_astage(x[:ch].contiguous(), plan))
-        if m <= 8192:
+        if m <= 8192 or m in (8208, 8320) or wire_route(m) == "cluster":
+            r["wire_route"] = wire_route(m)
             r["wire_ms"] = timed_ms(
                 lambda: fullchain.fused_chain_power_wire(w32, plan, ch))
             r["wire_rel"] = rel(
